@@ -1,0 +1,160 @@
+"""FedGroup / FedGrouProx — the paper's contribution (Algorithms 2 & 3),
+``repro.core.fedgroup`` on the pinned synchronous path.
+
+  * group cold start  (Alg. 3): pre-train α·m clients one ClientUpdate from
+    w0, flatten updates into ΔW, then either
+      - EDC branch:  V = truncatedSVD(ΔWᵀ, m); embed E = K(ΔW, Vᵀ) with the
+                     ``edc_cosine`` kernel; K-Means++ on E     (eq. 8)
+      - MADC branch: M = K(ΔW, ΔW); MADC proximity with the ``madc``
+                     kernel; hierarchical complete linkage     (eq. 7)
+  * client cold start (eq. 9): a newcomer takes one pre-training update
+    from the auxiliary global model and joins argmin_j of the normalized
+    cosine dissimilarity to the group's latest update direction.
+  * training round    (Alg. 2): one call of the fused round
+    (``fed.rounds``) over all m groups.
+  * ablations: RCC (random cluster centres), RAC (randomly assign cold).
+
+Group membership is static once assigned. The shift detector and the
+checkpoint hooks are not yet ported (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import cluster as cluster_lib
+from repro_torch.core import measures
+from repro_torch.core.svd import OVERSAMPLE
+from repro_torch.fed import client as client_lib
+from repro_torch.fed.engine import FedConfig, GroupedTrainer, RoundMetrics
+from repro_torch.models.modules import flatten_stacked
+
+
+class FedGroupTrainer(GroupedTrainer):
+    framework = "fedgroup"
+
+    def __init__(self, model, data, cfg: FedConfig, **kw):
+        super().__init__(model, data, cfg, **kw)
+        # group state: param dict stacked over the group axis + (m, d_w)
+        # latest flattened update direction Δw^(g)
+        self.group_params = {k: torch.stack([p] * self.m)
+                             for k, p in self.params.items()}
+        self.group_delta = None
+        # 1-epoch pre-training solver for newcomer cold start (the paper:
+        # pre-training does not occupy a whole round)
+        self.pretrain_solver = client_lib.make_batch_solver(
+            model, epochs=1, batch_size=cfg.batch_size, lr=cfg.lr, mu=0.0,
+            max_samples=self._max_samples)
+        self.cold_started = False
+        self.last_cold = 0          # newcomers cold-started last round
+
+    def _exec_spec(self) -> dict:
+        return {"n_groups": self.m, "eta_g": self.cfg.eta_g}
+
+    # ------------------------------------------------------------------
+    # Group cold start (Algorithm 3)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def group_cold_start(self):
+        cfg = self.cfg
+        n_pre = min(cfg.pretrain_scale * self.m, self.n_clients)
+        pre_idx = self.rng.choice(self.n_clients, n_pre, replace=False)
+        deltas, _, _ = self._solve(self.params, pre_idx)
+        self.comm_params += 2 * len(pre_idx) * self.model_size
+        dW = flatten_stacked(deltas)                           # (n_pre, d_w)
+
+        if cfg.rcc:                                            # ablation
+            labels = self.rng.integers(0, self.m, n_pre)
+        elif cfg.measure == "edc":
+            omega = self.draws.svd_omega(
+                n_pre, min(self.m + OVERSAMPLE, n_pre), self.device)
+            E, _ = measures.edc_embed(dW, self.m, omega=omega)
+            seeds = self.draws.kmeans_seeds(E, self.m)
+            assign, _ = cluster_lib.kmeans_pp(E, self.m, seed_idx=seeds)
+            labels = assign.cpu().numpy()
+        elif cfg.measure == "madc":
+            M = measures.cosine_similarity_matrix(dW)
+            Mp = measures.madc(M)
+            labels = cluster_lib.hierarchical(Mp.cpu().numpy(), self.m)
+        else:
+            raise ValueError(cfg.measure)
+
+        self._adopt_membership(pre_idx, labels)
+        # segment mean over pre-trained clients: W[j, i] = 1/|G_j| for
+        # members, zero rows for empty groups (they stay at w0 with Δ = 0)
+        W = np.zeros((self.m, n_pre), np.float32)
+        for j in range(self.m):
+            members = np.where(labels == j)[0]
+            if len(members):
+                W[j, members] = 1.0 / len(members)
+        Wj = torch.as_tensor(W, device=self.device)
+        mean_delta = {k: (Wj @ d.reshape(n_pre, -1)).reshape(
+            (self.m,) + tuple(d.shape[1:])) for k, d in deltas.items()}
+        self.group_params = {k: p[None] + mean_delta[k]
+                             for k, p in self.params.items()}
+        # flattening the aggregated per-leaf means equals Wj @ dW
+        self.group_delta = flatten_stacked(mean_delta)         # (m, d_w)
+        self.cold_started = True
+        return pre_idx, labels
+
+    # ------------------------------------------------------------------
+    # Client cold start (eq. 9)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def client_cold_start(self, cold_idx: np.ndarray):
+        if len(cold_idx) == 0:
+            return
+        self.counters["rounds.cold_started"] += len(cold_idx)
+        if self.cfg.rac:                                       # ablation
+            self._adopt_membership(
+                cold_idx, self.rng.integers(0, self.m, len(cold_idx)))
+            return
+        deltas, _, _ = self._solve(self.params, cold_idx,
+                                   solver=self.pretrain_solver)
+        dpre = flatten_stacked(deltas)                         # (c, d_w)
+        sim = measures.cosine_similarity_matrix(dpre, self.group_delta)
+        dis = (-sim + 1.0) / 2.0                               # (c, m)
+        self._adopt_membership(cold_idx,
+                               torch.argmin(dis, dim=1).cpu().numpy())
+
+    # ------------------------------------------------------------------
+    # Round (Algorithm 2) — one fused call over all groups
+    # ------------------------------------------------------------------
+    def round(self, t: int, idx=None) -> RoundMetrics:
+        if not self.cold_started:
+            self.group_cold_start()
+
+        if idx is None:
+            idx = self._select()
+        idx = np.asarray(idx)
+        cold = idx[self.membership[idx] < 0]
+        self.last_cold = len(cold)
+        # cold start: 1 global model down + 1 pretrain update up per newcomer
+        self.comm_params += 2 * len(cold) * self.model_size
+        self.client_cold_start(cold)
+        # per-round: 1 group model down + 1 update up per client
+        self.comm_params += 2 * len(idx) * self.model_size
+
+        x, y, n = self._client_batch(idx)
+        ex = self._round_executor()
+        bidx = self._batch_indices(n, ex.max_steps)
+        out = ex(self.group_params,
+                 torch.as_tensor(self.membership[idx], device=self.device),
+                 x, y, n, bidx)
+        self.group_params = out.group_params
+        self.group_delta = out.group_delta_flat
+        # auxiliary global model: unweighted average of group models
+        self.params = out.global_params
+        return self._add_round(t, self._round_eval(t), out)
+
+
+class FedGrouProxTrainer(FedGroupTrainer):
+    """FedGroup + FedProx local solver (the paper's FedGrouProx)."""
+    framework = "fedgrouprox"
+
+    def __init__(self, model, data, cfg: FedConfig, **kw):
+        if cfg.mu <= 0:
+            cfg = dataclasses.replace(cfg, mu=0.01)
+        super().__init__(model, data, cfg, **kw)

@@ -1,0 +1,356 @@
+"""Round-based federated training engines: FedAvg / FedProx base trainer
+and the grouped-trainer machinery (``repro.fed.engine``), on the pinned,
+per-round, synchronous path.
+
+The padded per-client train/eval stacks are placed on the device once at
+init and selection is a device gather. Cohort *selection* draws from a
+dedicated numpy stream ``default_rng([seed, 0x5E1EC7])`` and the cold-start
+/ ablation draws from ``default_rng(seed)``, exactly as the reference does,
+so cohorts match it. Every other random draw goes through a draws object
+(``repro_torch.draws``) that a parity test can replace.
+
+Not yet ported, and refused with ``NotImplementedError`` (``ROADMAP.md``):
+round blocks (``block_size > 1``), the async runtime (``async_depth > 0``),
+checkpoints, streamed populations (``population=``), a device mesh, the
+shift detector (``shift_threshold``) and telemetry (``telemetry_dir``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections import Counter
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.data.federated import FederatedData
+from repro_torch.draws import TorchDraws
+from repro_torch.fed import client as client_lib
+from repro_torch.fed import rounds as rounds_lib
+from repro_torch.fed import server as server_lib
+from repro_torch.models.modules import param_count
+from repro_torch.models.paper_models import ModelSpec
+
+# seed-derivation tag of the cohort-selection stream (``repro.fed.store``)
+SELECT_STREAM = 0x5E1EC7
+
+
+@dataclass
+class FedConfig:
+    n_rounds: int = 50
+    clients_per_round: int = 20          # K
+    local_epochs: int = 20               # E
+    batch_size: int = 10                 # B
+    lr: float = 0.03
+    mu: float = 0.0                      # FedProx proximal weight (0 = FedAvg)
+    seed: int = 0
+    # CFL knobs
+    n_groups: int = 3                    # m
+    pretrain_scale: int = 20             # alpha (pre-train alpha*m clients)
+    eta_g: float = 0.0                   # inter-group aggregation lr
+    measure: str = "edc"                 # edc | madc
+    rcc: bool = False                    # ablation: random cluster centers
+    rac: bool = False                    # ablation: randomly assign cold clients
+    svd_iters: int = 4
+    dropout_rate: float = 0.0            # per-round client drop probability
+                                         # (network jitter, paper §3.3)
+    eval_every: int = 1                  # evaluate every e-th round (1 =
+                                         # every round, the paper's tables)
+    block_size: int = 1                  # rounds fused per dispatch
+                                         # (only 1 is ported)
+    # in-program update quarantine: screen non-finite / norm-outlier client
+    # updates into the zero-weight path (fed.rounds); counts surface in
+    # RoundMetrics.quarantined
+    quarantine: bool = False
+    quarantine_mult: float = 10.0        # outlier threshold: mult x median
+                                         # cohort update norm
+    # checkpoint/restore (not yet ported: non-default values raise)
+    checkpoint_every: int = 0
+    checkpoint_dir: str | None = None
+    checkpoint_keep: int = 0
+    # asynchronous runtime (not yet ported: async_depth > 0 raises)
+    async_depth: int = 0
+    async_alpha: float = 1.0
+    async_beta: float = 0.0
+    async_lease_timeout: float = 30.0
+    async_max_retries: int = 3
+    async_backoff: float = 0.05
+    async_backoff_cap: float = 1.0
+    # distribution-shift migration (not yet ported: a threshold raises)
+    shift_threshold: float | None = None
+    shift_check_every: int = 1
+    # strategy-zoo knobs (FedClust / LCFL, not yet ported)
+    fedclust_frac: float = 0.25
+    lcfl_margin: float = 0.1
+    # telemetry (not yet ported: a directory raises)
+    telemetry_dir: str | None = None
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(
+        f"{what} is not yet ported to repro_torch (see ROADMAP.md, "
+        "queue 1); use the JAX package repro for it")
+
+
+def _check_ported(cfg: FedConfig, mesh, population):
+    if cfg.block_size > 1:
+        _not_ported("round blocks (block_size > 1)")
+    if cfg.async_depth > 0:
+        _not_ported("the async runtime (async_depth > 0)")
+    if cfg.checkpoint_every or cfg.checkpoint_dir:
+        _not_ported("checkpointing")
+    if population is not None:
+        _not_ported("streamed populations (population=)")
+    if mesh is not None:
+        _not_ported("a device mesh")
+    if cfg.shift_threshold is not None:
+        _not_ported("the shift detector (shift_threshold)")
+    if cfg.telemetry_dir:
+        _not_ported("telemetry (telemetry_dir)")
+
+
+@dataclass
+class RoundMetrics:
+    round: int
+    weighted_acc: float
+    mean_loss: float
+    discrepancy: float
+    quarantined: int = 0        # clients screened out by the update
+                                # quarantine this round (0 when off)
+
+
+@dataclass
+class History:
+    """Per-round metrics. Rounds skipped by the ``eval_every`` cadence
+    record ``weighted_acc = nan``; the aggregates below ignore them."""
+
+    rounds: list = field(default_factory=list)
+
+    def add(self, m: RoundMetrics):
+        self.rounds.append(m)
+
+    @property
+    def max_acc(self) -> float:
+        return max((r.weighted_acc for r in self.rounds
+                    if not math.isnan(r.weighted_acc)), default=0.0)
+
+    @property
+    def total_quarantined(self) -> int:
+        return sum(r.quarantined for r in self.rounds)
+
+    def rounds_to_reach(self, target: float):
+        for r in self.rounds:
+            if r.weighted_acc >= target:
+                return r.round
+        return None
+
+
+class FedAvgTrainer:
+    """FedAvg (mu=0) / FedProx (mu>0) with a consensus global model.
+
+    ``init_params`` replaces ``model.init`` (parity tests carry the JAX
+    package's params over); ``draws`` replaces the default
+    ``TorchDraws(cfg.seed)``. ``counters`` counts the reference's registry
+    events (cold starts, migrations, completed rounds)."""
+
+    framework = "fedavg"
+
+    def __init__(self, model: ModelSpec, data: FederatedData,
+                 cfg: FedConfig, device="cuda", mesh=None, population=None,
+                 init_params=None, draws=None):
+        _check_ported(cfg, mesh, population)
+        if data is None:
+            raise ValueError("pass data=")
+        self.device = resolve_device(device)
+        self.model, self.cfg, self.data = model, cfg, data
+        self.rng = np.random.default_rng(cfg.seed)
+        self.select_rng = np.random.default_rng([cfg.seed, SELECT_STREAM])
+        self.draws = TorchDraws(cfg.seed) if draws is None else draws
+        self.n_clients = data.n_clients
+        self._max_samples = data.x_train.shape[1]
+        self.solver = client_lib.make_batch_solver(
+            model, epochs=cfg.local_epochs, batch_size=cfg.batch_size,
+            lr=cfg.lr, mu=cfg.mu, max_samples=self._max_samples)
+        if init_params is None:
+            init_params = model.init(
+                torch.Generator().manual_seed(cfg.seed + 1), self.device)
+        self.params = {k: v.to(self.device, torch.float32)
+                       for k, v in init_params.items()}
+        self.history = History()
+        self.counters = Counter()
+        self.model_size = param_count(self.params)
+        self.comm_params = 0        # cumulative parameters transferred
+        self._round_exec = None     # lazily-built fused round
+        self._grouped_eval = client_lib.grouped_eval_correct(model)
+        # pin the padded per-client stacks on the device once — selection
+        # is a device gather, not a fresh upload every round
+        dev = self.device
+        self._train_stack = (torch.as_tensor(data.x_train, device=dev),
+                             torch.as_tensor(data.y_train, device=dev).long(),
+                             torch.as_tensor(data.n_train, device=dev).long())
+        self._test_stack = (torch.as_tensor(data.x_test, device=dev),
+                            torch.as_tensor(data.y_test, device=dev).long(),
+                            torch.as_tensor(data.n_test, device=dev).long())
+        self._eval_zero_mem = torch.zeros(self.n_clients, dtype=torch.long,
+                                          device=dev)
+
+    # -- fused round executor ----------------------------------------------
+    def _exec_spec(self) -> dict:
+        """Executor grouping: one group for the consensus trainers;
+        FedGroup overrides with m + η_G."""
+        return {"n_groups": 1, "eta_g": 0.0}
+
+    def _round_executor(self):
+        if self._round_exec is None:
+            cfg = self.cfg
+            self._round_exec = rounds_lib.make_round_executor(
+                self.model, epochs=cfg.local_epochs,
+                batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
+                max_samples=self._max_samples, quarantine=cfg.quarantine,
+                quarantine_mult=cfg.quarantine_mult, **self._exec_spec())
+        return self._round_exec
+
+    # -- helpers -----------------------------------------------------------
+    def _select(self):
+        idx = self.select_rng.choice(self.n_clients,
+                                     min(self.cfg.clients_per_round,
+                                         self.n_clients), replace=False)
+        if self.cfg.dropout_rate > 0.0:
+            # stragglers drop out before completing the round (the server
+            # aggregates whoever finished within the time budget, Alg. 1)
+            alive = self.select_rng.random(len(idx)) >= self.cfg.dropout_rate
+            if not alive.any():
+                alive[self.select_rng.integers(len(idx))] = True
+            idx = idx[alive]
+        return idx
+
+    def _client_batch(self, idx):
+        sel = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        x, y, n = self._train_stack
+        return x[sel], y[sel], n[sel]
+
+    def _batch_indices(self, n, max_steps: int):
+        return self.draws.batch_indices(n, max_steps, self.cfg.batch_size)
+
+    @torch.no_grad()
+    def _solve(self, params, idx, solver=None):
+        solver = self.solver if solver is None else solver
+        x, y, n = self._client_batch(idx)
+        bidx = self._batch_indices(n, solver.max_steps)
+        deltas, finals = solver(params, x, y, n, bidx)
+        return deltas, finals, n
+
+    def _should_eval(self, t: int) -> bool:
+        e = self.cfg.eval_every
+        return e <= 1 or (t + 1) % e == 0
+
+    @torch.no_grad()
+    def _fused_eval_acc(self, group_params, membership) -> float:
+        """Weighted accuracy in one pass regardless of m: integer
+        correct/total counts, divided on the host."""
+        xt, yt, nt = self._test_stack
+        c, tot = self._grouped_eval(group_params, membership, xt, yt, nt)
+        return int(c) / max(int(tot), 1)
+
+    def _round_eval(self, t: int) -> float:
+        if not self._should_eval(t):
+            return float("nan")
+        return self._fused_eval_acc({k: p[None] for k, p in
+                                     self.params.items()},
+                                    self._eval_zero_mem)
+
+    @torch.no_grad()
+    def evaluate(self, params=None, client_idx=None) -> float:
+        params = self.params if params is None else params
+        xt, yt, nt = self._test_stack
+        if client_idx is None:
+            idx = np.arange(self.n_clients)
+        else:
+            idx = np.asarray(client_idx)
+            if len(idx) == 0:
+                return 0.0
+            sel = torch.as_tensor(idx.astype(np.int64), device=self.device)
+            xt, yt, nt = xt[sel], yt[sel], nt[sel]
+        correct = client_lib.make_eval_fn(self.model)(params, xt, yt, nt)
+        total = self.data.n_test[idx].sum()
+        return float(int(torch.sum(correct)) / max(total, 1))
+
+    def _add_round(self, t, acc, out) -> RoundMetrics:
+        m = RoundMetrics(t, acc, float(out.mean_loss),
+                         float(out.discrepancy), int(out.n_quarantined))
+        self.history.add(m)
+        self.counters["rounds.completed"] += 1
+        if m.quarantined:
+            self.counters["rounds.quarantined"] += m.quarantined
+        return m
+
+    # -- main loop ---------------------------------------------------------
+    def round(self, t: int, idx=None) -> RoundMetrics:
+        if idx is None:
+            idx = self._select()
+        x, y, n = self._client_batch(idx)
+        ex = self._round_executor()
+        bidx = self._batch_indices(n, ex.max_steps)
+        # downlink: 1 model per client; uplink: 1 update per client
+        self.comm_params += 2 * len(idx) * self.model_size
+        out = ex({k: p[None] for k, p in self.params.items()},
+                 torch.zeros(len(idx), dtype=torch.long, device=self.device),
+                 x, y, n, bidx)
+        self.params = out.global_params
+        return self._add_round(t, self._round_eval(t), out)
+
+    def run(self, n_rounds=None) -> History:
+        """Runs ``n_rounds`` MORE rounds, labelled from the current history
+        length, on the per-round path."""
+        t0 = len(self.history.rounds)
+        for t in range(t0, t0 + (n_rounds or self.cfg.n_rounds)):
+            self.round(t)
+        return self.history
+
+
+class FedProxTrainer(FedAvgTrainer):
+    framework = "fedprox"
+
+    def __init__(self, model, data, cfg: FedConfig, **kw):
+        if cfg.mu <= 0:
+            cfg = dataclasses.replace(cfg, mu=0.01)
+        super().__init__(model, data, cfg, **kw)
+
+
+class GroupedTrainer(FedAvgTrainer):
+    """Shared machinery for the clustered trainers: m group models kept as
+    an m-stacked param dict, per-client membership bookkeeping, and
+    group-wise weighted-accuracy evaluation."""
+
+    def __init__(self, model, data, cfg: FedConfig, **kw):
+        super().__init__(model, data, cfg, **kw)
+        self.m = cfg.n_groups
+        self.membership = np.full(self.n_clients, -1, np.int64)
+
+    def _adopt_membership(self, idx, new):
+        """Write a cohort's new group assignments, counting migrations
+        (previously-assigned clients switching groups)."""
+        new = np.asarray(new)
+        old = self.membership[idx]
+        mig = int(np.sum((old >= 0) & (old != new)))
+        if mig:
+            self.counters["rounds.migrations"] += mig
+        self.membership[idx] = new
+
+    def group_param(self, j: int) -> dict:
+        """The j-th group's parameters (views into the stacked state)."""
+        return server_lib.tree_index(self.group_params, j)
+
+    def evaluate_groups(self) -> float:
+        """Weighted accuracy: each group model on the test data of all
+        clients assigned to it (paper §5.1 metric), in one fused pass."""
+        return self._fused_eval_acc(
+            self.group_params,
+            torch.as_tensor(self.membership, device=self.device))
+
+    def _round_eval(self, t: int) -> float:
+        if not self._should_eval(t):
+            return float("nan")
+        return self.evaluate_groups()

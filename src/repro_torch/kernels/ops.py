@@ -1,0 +1,22 @@
+"""The hand-written kernels' launch counts, read and reset together.
+
+Each kernel module (``kernels.edc_cosine``, ``kernels.madc``) dispatches on
+its own: a CPU tensor goes to the plain version; a CUDA tensor goes to the
+kernel or the call raises. There is no crossover and no fallback.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import edc_cosine as _edc
+from repro_torch.kernels import madc as _madc
+
+KERNELS = {"edc_cosine": _edc, "madc": _madc}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for mod in KERNELS.values():
+        mod.launches = 0
