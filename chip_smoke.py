@@ -10,10 +10,14 @@ with no final ``ok`` line):
                 (nvidia-smi) and build the kernels from ``src/repro_torch/
                 csrc`` (nvcc, one process per source).
   2. kernels  — each hand-written kernel against its plain PyTorch version
-                on the same inputs at the main path's shapes and ragged ones:
-                max abs error (tolerance 3e-5, fp32 sums in another order),
-                kernel / plain / library-call time (CUDA events, warmed,
-                many launches), the least time the card could take.
+                on the same inputs at the main paths' shapes and ragged ones:
+                max abs error (within atol + rtol·|plain|, elementwise:
+                3e-5 for edc_cosine / madc / swa_attention, 2e-4 for
+                ssd_intra_chunk; fp32 sums in another order from the same
+                inputs), kernel / plain / library-call time (CUDA events,
+                warmed, many launches), the least time the card could take
+                (bytes over 3.35 TB/s or FLOPs over the peak of the input
+                type: 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32).
   3. reference — a tiny run on the CPU (plain versions) and on the card
                 (kernels) with the same draws must agree; it is also the
                 warm-up of the card's libraries.
@@ -27,7 +31,19 @@ with no final ``ok`` line):
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
                 torch.profiler for the device's busy share.
-  6. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+  6. zamba2   — Zamba2-1.2B at full width (1,170,473,856 params, random
+                from seed 0): prefill ``forward`` at B=4, S=2048 in bf16,
+                with and without a 512 window — ms (CUDA events, warmed),
+                finite logits, peak memory, kernel launches per forward
+                (38 ssd_intra_chunk, 6 swa_attention); one forward and one
+                decode step under torch.profiler (the kernels' share of
+                device time, launches per decode step); fp32 B=1, S=256
+                ``forward`` (both kernels) against 256 ``serve_step`` calls
+                (no kernel), within 2e-3, with and without a 64 window and
+                a 64-slot ring cache; then ``python -m
+                repro_torch.launch.serve --arch zamba2-1.2b --batch 4
+                --prompt-len 32 --gen 32`` in a child process.
+  7. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -43,19 +59,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 TOL = 3e-5                     # kernel vs plain: fp32 sums in another order
+SSD_TOL = 2e-4                 # SSD outputs are sums of ~Q products of ~N
 ROUNDS = 3
+ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
+CONSIST_S, CONSIST_TOL = 256, 2e-3
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / FP32_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def allclose_err(torch, got, want, atol, rtol):
+    """(max abs error, whether |got - want| <= atol + rtol·|want| holds
+    everywhere, and every value of got is finite)."""
+    diff = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (diff <= atol + rtol * want.abs()).all())
+    return float(diff.max()), ok
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -125,7 +154,11 @@ def check_kernels(torch):
                "dtype": "float32", "max_abs_err": err, "tol": TOL,
                "ms": cuda_ms(torch, lambda: madc_mod.madc(M), 20),
                "plain_ms": cuda_ms(torch, lambda: ref.madc_ref(M), 5),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+               # Σ_z |M_iz − M_jz| over all z; MADC drops z = i, j from it
+               "library_ms": cuda_ms(torch,
+                                     lambda: torch.cdist(M, M, p=1), 20),
+               "library_call": "torch.cdist(M, M, p=1)",
+               "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         if not err <= TOL:
             raise AssertionError(f"madc {label}: max abs err {err}")
@@ -139,6 +172,157 @@ def check_kernels(torch):
     madc_case(257, "ragged")
     madc_case(1024, "large")
     madc_case(3, "tiny")
+    return rows
+
+
+def kept_pairs(Sq: int, Sk: int, window, causal: bool) -> int:
+    """(query, key) pairs the mask keeps: the work the attention needs."""
+    n = 0
+    for i in range(Sq):
+        qpos = i + Sk - Sq
+        hi = min(Sk, qpos + 1) if causal else Sk
+        lo = max(0, qpos - window + 1) if window else 0
+        n += max(hi - lo, 0)
+    return n
+
+
+def check_zoo_kernels(torch):
+    """Phase 2, the zoo's kernels: swa_attention and ssd_intra_chunk against
+    their plain versions at Zamba2's prefill shapes and unaligned ones."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd_mod
+    from repro_torch.kernels import swa_attention as swa_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = {}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def swa_case(B, Sq, Sk, H, hd, window, causal, dtype, label):
+        q = randn((B, Sq, H, hd), dtype)
+        k, v = randn((B, Sk, H, hd), dtype), randn((B, Sk, H, hd), dtype)
+        got = swa_mod.swa_attention(q, k, v, window=window, causal=causal)
+        want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+        torch.cuda.synchronize()
+        err, ok = allclose_err(torch, got, want, TOL, TOL)
+        del want
+        es = q.element_size()
+        pairs = kept_pairs(Sq, Sk, window, causal)
+        bf16 = dtype == torch.bfloat16
+        b_ms, b_by = bound_ms(
+            (B * Sq * H * hd + 2 * B * Sk * H * hd) * es + B * Sq * H * hd * 4,
+            4.0 * B * H * hd * pairs, BF16_OPS_PER_S if bf16 else
+            FP32_OPS_PER_S)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if causal and not window and Sq == Sk:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True)
+        else:
+            qpos = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+            kpos = torch.arange(Sk, device="cuda")[None, :]
+            keep = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+            if causal:
+                keep &= kpos <= qpos
+            if window:
+                keep &= kpos > qpos - window
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=keep)
+        row = {"phase": "kernel", "name": "swa_attention", "case": label,
+               "B": B, "Sq": Sq, "Sk": Sk, "H": H, "hd": hd,
+               "window": window, "causal": causal,
+               "dtype": str(dtype).split(".")[-1], "kept_pairs": pairs,
+               "max_abs_err": err, "tol": TOL,
+               "ms": cuda_ms(torch, lambda: swa_mod.swa_attention(
+                   q, k, v, window=window, causal=causal), 10),
+               "plain_ms": cuda_ms(torch, lambda: ref.swa_attention_ref(
+                   q, k, v, window=window, causal=causal), 3, warmup=1),
+               "library_ms": cuda_ms(torch, lib, 10),
+               "library_call": "F.scaled_dot_product_attention",
+               "bound_ms": b_ms, "bound_by": b_by,
+               "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"swa_attention {label}: max abs err {err}")
+        return row
+
+    def ssd_case(args, dtype, label):
+        """args: (Xc, A_cs, Bc, Cc) in the model's chunked layout."""
+        Xc, A_cs, Bc, Cc = args
+        b, c, Q, h, p = Xc.shape
+        n = Bc.shape[-1]
+        Y, S = ssd_mod.ssd_intra_chunk(*args)
+        Yr, Sr = ref.ssd_intra_chunk_ref(*args)
+        torch.cuda.synchronize()
+        ey, oky = allclose_err(torch, Y, Yr, SSD_TOL, SSD_TOL)
+        es, oks = allclose_err(torch, S, Sr, SSD_TOL, SSD_TOL)
+        del Yr, Sr
+        # bytes each input holds (a stride-0 head expansion is read once
+        # per group), outputs fp32; FLOPs of the causal lower triangle
+        uniq = lambda t: t.untyped_storage().nbytes()  # noqa: E731
+        tri = Q * (Q + 1) / 2
+        bf16 = dtype == torch.bfloat16
+        b_ms, b_by = bound_ms(
+            sum(uniq(t) for t in args) + (Y.numel() + S.numel()) * 4,
+            b * c * h * (2 * tri * n + 2 * tri * p + 2 * Q * n * p),
+            BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        row = {"phase": "kernel", "name": "ssd_intra_chunk", "case": label,
+               "b": b, "chunks": c, "Q": Q, "h": h, "P": p, "N": n,
+               "bc_head_stride": Bc.stride(3),
+               "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": max(ey, es), "tol": SSD_TOL,
+               "ms": cuda_ms(torch, lambda: ssd_mod.ssd_intra_chunk(*args),
+                             10),
+               "plain_ms": cuda_ms(torch,
+                                   lambda: ref.ssd_intra_chunk_ref(*args), 3,
+                                   warmup=1),
+               "library_ms": None,
+               "library_call": "none: no one PyTorch call computes Y_diag "
+                               "and the chunk states",
+               "bound_ms": b_ms, "bound_by": b_by,
+               "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
+        emit(row)
+        if not (oky and oks):
+            raise AssertionError(f"ssd_intra_chunk {label}: max abs err "
+                                 f"{max(ey, es)}")
+        return row
+
+    def ssd_model_args(b, c, Q, h, p, n, dtype):
+        """As ``ssd_chunked`` passes them: X (b, l, h, p) split into chunks
+        by a view, B/C one group expanded over the heads with stride 0."""
+        X = randn((b, c * Q, h, p), dtype).reshape(b, c, Q, h, p)
+        dtA = -F.softplus(randn((b, h, c, Q), torch.float32))
+        Bg, Cg = randn((b, c * Q, 1, n), dtype), randn((b, c * Q, 1, n), dtype)
+        ex = lambda g: g.expand(b, c * Q, h, n).reshape(  # noqa: E731
+            b, c, Q, h, n)
+        return X, torch.cumsum(dtA, -1), ex(Bg), ex(Cg)
+
+    def ssd_cells_args(BH, NC, Q, P, N, dtype):
+        """The Pallas kernel's (BH, NC, Q, ·) layout, B/C head-expanded."""
+        X = randn((BH, NC, Q, P), dtype)
+        dtA = -F.softplus(randn((BH, NC, Q), torch.float32))
+        Bm, Cm = randn((BH, NC, Q, N), dtype), randn((BH, NC, Q, N), dtype)
+        return (X[:, :, :, None], torch.cumsum(dtA, -1)[:, None],
+                Bm[:, :, :, None], Cm[:, :, :, None])
+
+    bf, f32 = torch.bfloat16, torch.float32
+    B, S = ZAMBA_B, ZAMBA_S
+    rows["swa_attention"] = swa_case(B, S, S, 32, 64, None, True, bf,
+                                     "zamba2-prefill")
+    swa_case(B, S, S, 32, 64, 512, True, bf, "zamba2-prefill-w512")
+    swa_case(B, 1, S, 32, 64, None, True, bf, "decode-tail")
+    swa_case(2, 33, 65, 2, 40, 16, True, f32, "unaligned-fp32")
+    swa_case(1, 96, 96, 2, 80, None, False, f32, "bidirectional-fp32")
+    rows["ssd_intra_chunk"] = ssd_case(
+        ssd_model_args(B, S // 128, 128, 64, 64, 64, bf), bf,
+        "zamba2-prefill")
+    ssd_case(ssd_cells_args(B * 64, S // 128, 128, 64, 64, bf), bf,
+             "zamba2-cells-bf16")
+    ssd_case(ssd_cells_args(B * 64, S // 128, 128, 64, 64, f32), f32,
+             "zamba2-cells-fp32")
+    ssd_case(ssd_cells_args(6, 3, 37, 23, 11, f32), f32, "unaligned-fp32")
     return rows
 
 
@@ -282,6 +466,238 @@ def reference_check(torch):
             raise AssertionError(f"{measure}: card run disagrees with CPU")
 
 
+def zamba2_params(torch):
+    """Phase 6: Zamba2-1.2B at its published widths, random from seed 0."""
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import param_count
+
+    cfg = registry.get("zamba2-1.2b")
+    t0 = time.perf_counter()
+    params = zoo.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    torch.cuda.synchronize()
+    n = param_count(params)
+    emit({"phase": "zamba2_config", "arch": cfg.name, "source": cfg.source,
+          "params": n, "param_dtype": cfg.param_dtype,
+          "act_dtype": cfg.dtype, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "shared_attn_period":
+          cfg.shared_attn_period, "init_s": time.perf_counter() - t0,
+          "note": "weights random from seed 0 (no checkpoint in the repo); "
+                  "no depth or width cut"})
+    if n != 1_170_473_856:
+        raise AssertionError(f"Zamba2-1.2B has {n} params, not 1,170,473,856")
+    return cfg, params
+
+
+def expected_launches(cfg) -> dict:
+    """One Zamba2 forward: an SSD launch per Mamba2 layer, a SWA launch per
+    application of the shared block."""
+    return {"edc_cosine": 0, "madc": 0, "ssd_intra_chunk": cfg.n_layers,
+            "swa_attention": cfg.n_layers // cfg.shared_attn_period}
+
+
+def zamba2_prefill(torch, cfg, params):
+    """Phase 6: the prefill ``forward`` at B=4, S=2048, bf16, with and
+    without a 512 window. Returns the launches of the counted forwards."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    tok = torch.randint(0, cfg.vocab_size, (ZAMBA_B, ZAMBA_S),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            2), device="cuda")
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for label, c in (("full", cfg), ("window512", cfg.with_window(512))):
+        with torch.inference_mode():
+            def fwd():
+                return zoo.forward(params, c, {"tokens": tok})[0]
+            fwd()                                       # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            logits = fwd()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            finite = bool(torch.isfinite(logits).all())
+            shape = list(logits.shape)
+            del logits
+            ms = cuda_ms(torch, fwd, 3, warmup=0)
+        emit({"phase": "zamba2_prefill", "case": label, "B": ZAMBA_B,
+              "S": ZAMBA_S, "window": c.window, "dtype": c.dtype,
+              "forward_ms": ms, "tokens_per_s": ZAMBA_B * ZAMBA_S / ms * 1e3,
+              "logits_shape": shape, "finite": finite,
+              "peak_device_bytes": peak, "launches": counts})
+        if not finite:
+            raise AssertionError(f"zamba2 prefill {label}: non-finite logits")
+        if counts != expected_launches(c):
+            raise AssertionError(f"zamba2 prefill {label}: launches {counts},"
+                                 f" expected {expected_launches(c)}")
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def device_summary(torch, prof, wall_ms: float) -> dict:
+    """Device time by kernel from a torch.profiler run: busy share, the two
+    zoo kernels' share, launches, the top kernels, and the host ops with
+    the most self CPU time. None where the profiler saw no device activity
+    (not measured)."""
+    from torch.autograd import DeviceType
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return {"wall_ms": wall_ms, "device_busy_ms": None}
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+
+    def share(*names):
+        t = sum(e.self_device_time_total for e in kern
+                if any(n in e.key for n in names)) / 1e3
+        return t, t / busy
+
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    swa_ms, swa_share = share("swa_kernel")
+    ssd_ms, ssd_share = share("ssd_kernel")
+    gemm_ms, gemm_share = share("gemm", "Gemm", "nvjet", "sm90_xmma",
+                                "cutlass")
+    copy_ms, copy_share = share("copy", "Copy")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "kernel_launches": sum(e.count for e in kern),
+            "swa_ms": swa_ms, "swa_share": swa_share,
+            "ssd_ms": ssd_ms, "ssd_share": ssd_share,
+            "gemm_ms": gemm_ms, "gemm_share": gemm_share,
+            "copy_cast_ms": copy_ms, "copy_cast_share": copy_share,
+            "top_kernels": [[e.key[:90], e.count,
+                             e.self_device_time_total / 1e3] for e in top],
+            "top_host_ops": [[e.key[:60], e.count,
+                              e.self_cpu_time_total / 1e3] for e in host]}
+
+
+def zamba2_profile(torch, cfg, params):
+    """Phase 6: where the time goes — one prefill forward and one decode
+    step (B=4, after a 32-token prompt) under torch.profiler; decode ms per
+    step on the host clock over 16 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import zoo
+
+    tok = torch.randint(0, cfg.vocab_size, (ZAMBA_B, ZAMBA_S),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            3), device="cuda")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            zoo.forward(params, cfg, {"tokens": tok})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "zamba2_profile", "what": "prefill forward B=4 "
+              "S=2048 bf16", **device_summary(torch, prof, wall)})
+
+        cache = zoo.init_cache(cfg, ZAMBA_B, 64, device="cuda")
+        step = 0
+
+        def decode():
+            nonlocal cache, step
+            pos = torch.full((ZAMBA_B,), step, device="cuda")
+            lg, cache = zoo.serve_step(params, cfg, cache,
+                                       tok[:, step:step + 1], pos)
+            step += 1
+            return lg
+        for _ in range(32):                              # the prompt
+            decode()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            decode()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 16
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "zamba2_profile", "what": "one decode step B=4 bf16",
+              "decode_step_ms": step_ms, **device_summary(torch, prof, wall)})
+
+
+def zamba2_consistency(torch, cfg, params):
+    """Phase 6: fp32, B=1, S=256 (two SSD chunks): ``forward`` through both
+    kernels against 256 ``serve_step`` calls (recurrent Mamba2, cached
+    attention, no kernel), within 2e-3, with and without a 64 window."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    c32 = cfg.replace(dtype="float32")
+    S = CONSIST_S
+    tok = torch.randint(0, cfg.vocab_size, (1, S),
+                        generator=torch.Generator(device="cuda").manual_seed(
+                            4), device="cuda")
+    for window in (None, 64):
+        c = c32 if window is None else c32.with_window(window)
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            full = zoo.forward(params, c, {"tokens": tok})[0]
+            torch.cuda.synchronize()
+            fwd_counts = ops.launch_counts()
+            cache = zoo.init_cache(c, 1, window or S, device="cuda")
+            outs = []
+            t0 = time.perf_counter()
+            for t in range(S):
+                lg, cache = zoo.serve_step(
+                    params, c, cache, tok[:, t:t + 1],
+                    torch.full((1,), t, device="cuda"))
+                outs.append(lg)
+            dec = torch.stack(outs, 1)
+            torch.cuda.synchronize()
+            serve_ms = (time.perf_counter() - t0) * 1e3
+            serve_counts = ops.launch_counts()
+        err, ok = allclose_err(torch, dec, full, CONSIST_TOL, CONSIST_TOL)
+        emit({"phase": "zamba2_consistency", "B": 1, "S": S,
+              "window": window, "cache_slots": window or S,
+              "dtype": "float32", "max_abs_err": err, "tol": CONSIST_TOL,
+              "max_abs_logit": float(full.abs().max()), "ok": ok,
+              "forward_launches": fwd_counts,
+              "serve_launches_added": {k: serve_counts[k] - fwd_counts[k]
+                                       for k in fwd_counts},
+              "serve_steps_ms": serve_ms})
+        if not ok:
+            raise AssertionError(f"zamba2 consistency window={window}: "
+                                 f"max abs err {err}")
+        if fwd_counts != expected_launches(c) or serve_counts != fwd_counts:
+            raise AssertionError(f"zamba2 consistency window={window}: "
+                                 f"launches {fwd_counts} / {serve_counts}")
+
+
+def zamba2_serve():
+    """Phase 6: the serving CLI at full width, in a child process."""
+    import os
+    import re
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "zamba2-1.2b", "--batch", "4", "--prompt-len", "32", "--gen",
+           "32"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    m = re.search(r"prefill ([\d.]+)ms\s+decode ([\d.]+)ms \(([\d.]+) tok/s\)",
+                  proc.stdout)
+    emit({"phase": "zamba2_serve", "cmd": " ".join(cmd[1:]),
+          "rc": proc.returncode, "stdout": proc.stdout.splitlines(),
+          "prefill_ms": float(m.group(1)) if m else None,
+          "decode_ms": float(m.group(2)) if m else None,
+          "decode_tok_s": float(m.group(3)) if m else None})
+    if proc.returncode != 0 or m is None:
+        raise AssertionError(f"serve CLI failed:\n{proc.stdout}\n"
+                             f"{proc.stderr[-4000:]}")
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -340,15 +756,33 @@ def main() -> int:
     # phase 5: where the time goes
     breakdown(torch, tr_edc, pre_idx)
     round_profile(torch, tr_edc)
+    del tr_edc, data, model
+    torch.cuda.empty_cache()
 
-    # phase 6: the kernels line and the result
+    # phase 6: Zamba2-1.2B prefill and serving, the zoo's two kernels
+    rows.update(check_zoo_kernels(torch))
+    cfg, params = zamba2_params(torch)
+    counts_zoo = zamba2_prefill(torch, cfg, params)
+    zamba2_profile(torch, cfg, params)
+    zamba2_consistency(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    zamba2_serve()
+
+    # phase 7: the kernels line and the result
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"],
-                "madc": counts_edc["madc"] + counts_madc["madc"]}
+                "madc": counts_edc["madc"] + counts_madc["madc"],
+                "swa_attention": counts_zoo["swa_attention"],
+                "ssd_intra_chunk": counts_zoo["ssd_intra_chunk"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",
                              "src/repro/kernels/edc_cosine.py:49"),
               "madc": ("src/repro_torch/csrc/madc.cu",
-                       "src/repro/kernels/madc.py:78")}
+                       "src/repro/kernels/madc.py:78"),
+              "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
+                                "src/repro/kernels/swa_attention.py:73"),
+              "ssd_intra_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
+                                  "src/repro/kernels/ssd_chunk.py:49")}
     kernels = []
     for name in ops.KERNELS:
         row = rows[name]

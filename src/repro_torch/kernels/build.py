@@ -103,6 +103,13 @@ def _declare(lib):
     lib.edc_cosine_scratch.restype = ctypes.c_longlong
     lib.madc_launch.argtypes = [vp, vp, i, vp]
     lib.madc_launch.restype = i
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.swa_attention_launch.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i,
+                                         i, i, i, ctypes.c_float, i, i, vp]
+    lib.swa_attention_launch.restype = i
+    lib.ssd_intra_chunk_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i,
+                                           i, i, i, i, i, vp]
+    lib.ssd_intra_chunk_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -115,6 +122,13 @@ def library():
         if _lib is None:
             _lib = _declare(ctypes.CDLL(str(build())))
         return _lib
+
+
+def strides(*groups) -> ctypes.Array:
+    """Groups of element strides, concatenated into a C long long array
+    (the launch functions' ``st`` argument)."""
+    flat = [int(x) for g in groups for x in g]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def check(err: int, what: str):

@@ -1,15 +1,19 @@
 """The hand-written kernels' launch counts, read and reset together.
 
-Each kernel module (``kernels.edc_cosine``, ``kernels.madc``) dispatches on
-its own: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel or the call raises. There is no crossover and no fallback.
+Each kernel module (``kernels.edc_cosine``, ``kernels.madc``,
+``kernels.swa_attention``, ``kernels.ssd_chunk``) dispatches on its own: a
+CPU tensor goes to the plain version; a CUDA tensor goes to the kernel or
+the call raises. There is no crossover and no fallback.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import edc_cosine as _edc
 from repro_torch.kernels import madc as _madc
+from repro_torch.kernels import ssd_chunk as _ssd
+from repro_torch.kernels import swa_attention as _swa
 
-KERNELS = {"edc_cosine": _edc, "madc": _madc}
+KERNELS = {"edc_cosine": _edc, "madc": _madc, "swa_attention": _swa,
+           "ssd_intra_chunk": _ssd}
 
 
 def launch_counts() -> dict:

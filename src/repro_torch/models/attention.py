@@ -1,0 +1,172 @@
+"""Attention blocks (``repro.models.attention``): MHA/GQA/MQA with RoPE,
+sliding window and decode caches.
+
+Shapes
+  x            (B, S, D)
+  q            (B, S, H, hd)
+  k/v          (B, S, KV, hd)
+  cache k/v    (B, Smax, KV, hd)   — ring buffer when windowed
+
+``attention_fwd``'s core, from the RoPE'd q/k/v to the ``wo`` product, is
+the sliding-window flash kernel (``kernels.swa_attention``): on CUDA it
+launches, on the CPU its plain version runs. ``attention_decode`` attends
+over a ring-buffer cache, which is not the kernel's contiguous layout, and
+stays plain PyTorch (``sdpa`` with an additive −1e30 bias), as the JAX
+package computes it outside any kernel too. MLA is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.swa_attention import swa_attention
+from repro_torch.models.modules import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_attention(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+                   dtype=torch.float32, qkv_bias: bool = False, device="cpu"):
+    p = {
+        "wq": dense_init(gen, d_model, n_heads * head_dim, dtype, device),
+        "wk": dense_init(gen, d_model, n_kv * head_dim, dtype, device),
+        "wv": dense_init(gen, d_model, n_kv * head_dim, dtype, device),
+        "wo": dense_init(gen, n_heads * head_dim, d_model, dtype, device),
+    }
+    if qkv_bias:
+        p["bq"] = torch.zeros((n_heads * head_dim,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((n_kv * head_dim,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((n_kv * head_dim,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Core scaled-dot-product with GQA head repetition
+# ---------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, H, hd) by repeating each kv head."""
+    kv = k.shape[2]
+    if kv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // kv, dim=2)
+
+
+def sdpa(q, k, v, mask_bias, softmax_scale: float) -> torch.Tensor:
+    """q:(B,Sq,H,hd) k,v:(B,Sk,H,hd) mask_bias:(Sq,Sk) or (B,1,Sq,Sk).
+    Scores in fp32; the probabilities are cast to q's dtype before P·V,
+    as in the JAX package."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          k.float()) * softmax_scale
+    scores = scores + mask_bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def make_mask_bias(sq: int, sk: int, *, causal: bool, window: int | None,
+                   q_offset: int = 0, device="cpu") -> torch.Tensor:
+    """Additive bias (sq, sk). q position i maps to absolute i + q_offset."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence (training / prefill) attention
+# ---------------------------------------------------------------------------
+
+def _project_qkv(params, x, n_heads, n_kv, head_dim):
+    B, S, _ = x.shape
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, n_heads, head_dim)
+    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
+    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype).reshape(n_heads, head_dim)
+        k = k + params["bk"].to(x.dtype).reshape(n_kv, head_dim)
+        v = v + params["bv"].to(x.dtype).reshape(n_kv, head_dim)
+    return q, k, v
+
+
+def attention_fwd(params, x, *, n_heads: int, n_kv: int, head_dim: int,
+                  rope_theta: float | None, causal: bool = True,
+                  window: int | None = None, positions=None) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D). The kernel reads k/v with KV heads
+    directly (head h reads kv head h // (H/KV)): no repeated copy."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    out = swa_attention(q, k, v, window=window, causal=causal).to(x.dtype)
+    return out.reshape(B, S, n_heads * head_dim) @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode-step attention with (optionally ring-buffer) KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int, dtype,
+                  device="cpu"):
+    shape = (batch, max_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(params, cache, x, pos, *, n_heads: int, n_kv: int,
+                     head_dim: int, rope_theta: float | None,
+                     window: int | None = None):
+    """One-token decode. x:(B,1,D), pos:(B,) absolute position of the new
+    token. Returns (y (B,1,D), new cache); the old cache is not changed.
+
+    Cache holds ``max_len`` slots. If ``window`` is set the cache is a ring
+    buffer of size max_len (== window) indexed by pos % max_len; otherwise
+    the cache is positional (slot == pos)."""
+    B = x.shape[0]
+    max_len = cache["k"].shape[1]
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
+    if rope_theta is not None:
+        q = apply_rope(q, pos[:, None], rope_theta)
+        k = apply_rope(k, pos[:, None], rope_theta)
+
+    slot = pos % max_len if window is not None else pos
+    bidx = torch.arange(B, device=x.device)
+    new_k = cache["k"].clone()
+    new_v = cache["v"].clone()
+    new_k[bidx, slot] = k[:, 0]
+    new_v[bidx, slot] = v[:, 0]
+
+    kk = _repeat_kv(new_k, n_heads)
+    vv = _repeat_kv(new_v, n_heads)
+    # validity of each cache slot relative to the current position
+    slots = torch.arange(max_len, device=x.device)[None, :]     # (1, Smax)
+    if window is not None:
+        # slot s holds the most recent position p <= pos with
+        # p % max_len == s; valid iff p > pos - window and p >= 0
+        delta = (slot[:, None] - slots) % max_len              # age of slot
+        abs_pos = pos[:, None] - delta
+        valid = (abs_pos >= 0) & (abs_pos > pos[:, None] - window)
+    else:
+        valid = slots <= pos[:, None]
+    bias = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
+    out = sdpa(q, kk, vv, bias, 1.0 / head_dim ** 0.5)
+    y = out.reshape(B, 1, n_heads * head_dim) @ params["wo"].to(x.dtype)
+    return y, {"k": new_k, "v": new_v}
+
+
+def init_mla(*args, **kw):
+    raise NotImplementedError(
+        "MLA (DeepSeek-V3) is not yet ported to repro_torch: ROADMAP.md "
+        "queue 1, item 17c (MoE/MLA)")
+
+
+mla_fwd = mla_decode = init_mla_cache = init_mla

@@ -4,18 +4,23 @@ the card. Marked ``gpu``: without a card every test skips (decided in the
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance 3e-5: the kernels sum in fp32 in another order than the plain
-versions (and tests/test_kernels.py holds the Pallas kernels to 3e-5)."""
+Tolerance 3e-5 (SSD 2e-4, whose outputs are sums of ~Q products of size
+~N): the kernels sum in fp32 in another order than the plain versions,
+from the same inputs (tests/test_kernels.py holds the Pallas kernels to
+the same tolerances)."""
 import pytest
 import torch
 
 from repro_torch.core.measures import cosine_similarity_matrix
 from repro_torch.kernels import edc_cosine as edc_mod
 from repro_torch.kernels import madc as madc_mod
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_chunk as ssd_mod
+from repro_torch.kernels import swa_attention as swa_mod
 
 pytestmark = pytest.mark.gpu
 TOL = 3e-5
+SSD_TOL = 2e-4
 
 
 @pytest.fixture
@@ -69,3 +74,117 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         edc_mod.edc_cosine(dW, V.cpu())
     with pytest.raises(TypeError):
         madc_mod.madc(torch.eye(4, device="cuda", dtype=torch.float64))
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,window,causal,dtype", [
+    (4, 2048, 2048, 32, 32, 64, None, True, torch.bfloat16),  # Zamba2 prefill
+    (4, 2048, 2048, 32, 32, 64, 512, True, torch.bfloat16),
+    (4, 1, 2048, 32, 32, 64, None, True, torch.bfloat16),     # decode tail
+    (2, 33, 65, 2, 2, 40, 16, True, torch.float32),           # unaligned
+    (1, 96, 96, 2, 2, 80, None, False, torch.float32),        # bidirectional
+    (2, 70, 70, 4, 2, 256, 20, True, torch.float32),          # GQA, hd 256
+    (1, 5, 300, 3, 1, 128, 7, False, torch.bfloat16),
+])
+def test_swa_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, hd, window, causal,
+                                  dtype):
+    q = torch.randn((B, Sq, H, hd), generator=cuda, device="cuda").to(dtype)
+    k = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(dtype)
+    v = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(dtype)
+    before = swa_mod.launches
+    got = swa_mod.swa_attention(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert swa_mod.launches == before + 1
+    want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+def _ssd_cells(gen, BH, NC, Q, P, N, dtype):
+    X = torch.randn((BH, NC, Q, P), generator=gen, device="cuda").to(dtype)
+    dtA = -torch.nn.functional.softplus(
+        torch.randn((BH, NC, Q), generator=gen, device="cuda"))
+    B = torch.randn((BH, NC, Q, N), generator=gen, device="cuda").to(dtype)
+    C = torch.randn((BH, NC, Q, N), generator=gen, device="cuda").to(dtype)
+    return X, torch.cumsum(dtA, -1), B, C
+
+
+@pytest.mark.parametrize("BH,NC,Q,P,N,dtype", [
+    (256, 16, 128, 64, 64, torch.bfloat16),    # Zamba2 prefill, B = 4
+    (256, 16, 128, 64, 64, torch.float32),
+    (6, 3, 37, 23, 11, torch.float32),         # unaligned
+    (2, 2, 16, 8, 128, torch.bfloat16),
+])
+def test_ssd_kernel_matches_plain(cuda, BH, NC, Q, P, N, dtype):
+    X, A_cs, B, C = _ssd_cells(cuda, BH, NC, Q, P, N, dtype)
+    before = ssd_mod.launches
+    Y, S = ssd_mod.ssd_intra_chunk_cells(X, A_cs, B, C)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == before + 1
+    Yr, Sr = ref.ssd_intra_chunk_ref(X[:, :, :, None], A_cs[:, None],
+                                     B[:, :, :, None], C[:, :, :, None])
+    torch.testing.assert_close(Y, Yr[:, :, :, 0], atol=SSD_TOL, rtol=SSD_TOL)
+    torch.testing.assert_close(S, Sr[:, :, 0].transpose(-1, -2),
+                               atol=SSD_TOL, rtol=SSD_TOL)
+
+
+def test_ssd_kernel_reads_the_models_layout(cuda):
+    """(b, l, h, p) X and stride-0 head-expanded B/C, as ``ssd_chunked``
+    passes them."""
+    b, c, Q, h, p, n = 2, 3, 128, 8, 64, 64
+    X = torch.randn((b, c * Q, h, p), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    Bg = torch.randn((b, c * Q, 1, n), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    Cg = torch.randn((b, c * Q, 1, n), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    dtA = -torch.nn.functional.softplus(
+        torch.randn((b, h, c, Q), generator=cuda, device="cuda"))
+    args = (X.reshape(b, c, Q, h, p), torch.cumsum(dtA, -1),
+            Bg.expand(b, c * Q, h, n).reshape(b, c, Q, h, n),
+            Cg.expand(b, c * Q, h, n).reshape(b, c, Q, h, n))
+    assert args[2].stride(3) == 0
+    Y, S = ssd_mod.ssd_intra_chunk(*args)
+    Yr, Sr = ref.ssd_intra_chunk_ref(*args)
+    torch.testing.assert_close(Y, Yr, atol=SSD_TOL, rtol=SSD_TOL)
+    torch.testing.assert_close(S, Sr, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_zamba2_smoke_forward_on_card_matches_cpu(cuda, window):
+    """One smoke forward through both kernels against the same forward on
+    the CPU (plain versions), fp32: 38-layer launch counts scale down to
+    the smoke's 2 Mamba2 layers and 1 shared-block application."""
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import tree_map
+    cfg = registry.smoke_variant(registry.get("zamba2-1.2b"))
+    if window:
+        cfg = cfg.with_window(window)
+    params = zoo.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 48),
+                        generator=torch.Generator().manual_seed(1))
+    want, _ = zoo.forward(params, cfg, {"tokens": tok})
+    ops.reset_launch_counts()
+    got, _ = zoo.forward(tree_map(lambda t: t.cuda(), params), cfg,
+                         {"tokens": tok.cuda()})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["ssd_intra_chunk"] == 2 and counts["swa_attention"] == 1
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_zoo_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.randn((1, 8, 2, 64), generator=cuda, device="cuda")
+    with pytest.raises(TypeError):
+        swa_mod.swa_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="range"):
+        big = torch.zeros((1, 8, 2, 264), device="cuda")
+        swa_mod.swa_attention(big, big, big)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        swa_mod.swa_attention(q, q.cpu(), q.cpu())
+    X, A_cs, B, C = _ssd_cells(cuda, 2, 1, 256, 8, 8, torch.float32)
+    with pytest.raises(ValueError, match="range"):
+        ssd_mod.ssd_intra_chunk_cells(X, A_cs, B, C)
+    X, A_cs, B, C = _ssd_cells(cuda, 2, 1, 16, 8, 8, torch.float32)
+    with pytest.raises(TypeError):
+        ssd_mod.ssd_intra_chunk_cells(X, A_cs.double(), B, C)

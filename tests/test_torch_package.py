@@ -30,6 +30,10 @@ SLICE_MODULES = [
     "repro_torch.kernels.ops", "repro_torch.core.svd",
     "repro_torch.core.measures", "repro_torch.core.cluster",
     "repro_torch.core.fedgroup", "repro_torch.launch.train",
+    "repro_torch.kernels.swa_attention", "repro_torch.kernels.ssd_chunk",
+    "repro_torch.models.attention", "repro_torch.models.ssm",
+    "repro_torch.models.zoo", "repro_torch.configs.registry",
+    "repro_torch.configs.zamba2_1p2b", "repro_torch.launch.serve",
 ]
 
 
@@ -63,6 +67,13 @@ def test_cuda_without_a_card_raises(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
     tr = FedAvgTrainer(mclr(60, 10), data, FedConfig(), device="cpu")
     assert tr.params["w"].device.type == "cpu"
+
+
+def test_serve_on_cuda_without_a_card_raises(monkeypatch):
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--smoke", "--device", "cuda"])
 
 
 @pytest.mark.parametrize("field,value", [
