@@ -8,16 +8,22 @@ with no final ``ok`` line):
 
   1. device   — fail without CUDA; print the card's name and power limit
                 (nvidia-smi) and build the kernels from ``src/repro_torch/
-                csrc`` (nvcc, one process per source).
+                csrc`` (nvcc, one process per source); one line of ptxas's
+                registers, shared memory and spills of swa_tc_kernel.
   2. kernels  — each hand-written kernel against its plain PyTorch version
                 on the same inputs at the main paths' shapes and ragged ones:
                 max abs error (within atol + rtol·|plain|, elementwise:
-                3e-5 for edc_cosine / madc / swa_attention, 2e-4 for
-                ssd_intra_chunk; fp32 sums in another order from the same
-                inputs), kernel / plain / library-call time (CUDA events,
-                warmed, many launches), the least time the card could take
-                (bytes over 3.35 TB/s or FLOPs over the peak of the input
-                type: 989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32).
+                3e-5 for edc_cosine / madc / swa_attention's fp32 route,
+                2e-4 for ssd_intra_chunk — fp32 sums in another order from
+                the same inputs; 1e-2 for swa_attention's tensor-core
+                route, which rounds P to bf16 before P·V), kernel / plain /
+                library-call time (CUDA events, warmed, many launches), the
+                least time the card could take (bytes over 3.35 TB/s or
+                FLOPs over the peak of the input type: 989 TFLOP/s bf16
+                tensor cores, 67 TFLOP/s fp32); at each main-path shape
+                also the device time from torch.profiler and the wrapper's
+                host time per call (1,000 calls, no synchronise); madc's
+                device time at each tile edge over a sweep of n.
   3. reference — a tiny run on the CPU (plain versions) and on the card
                 (kernels) with the same draws must agree; it is also the
                 warm-up of the card's libraries.
@@ -35,15 +41,20 @@ with no final ``ok`` line):
                 from seed 0): prefill ``forward`` at B=4, S=2048 in bf16,
                 with and without a 512 window — ms (CUDA events, warmed),
                 finite logits, peak memory, kernel launches per forward
-                (38 ssd_intra_chunk, 6 swa_attention); one forward and one
-                decode step under torch.profiler (the kernels' share of
-                device time, launches per decode step); fp32 B=1, S=256
-                ``forward`` (both kernels) against 256 ``serve_step`` calls
-                (no kernel), within 2e-3, with and without a 64 window and
-                a 64-slot ring cache; then ``python -m
-                repro_torch.launch.serve --arch zamba2-1.2b --batch 4
-                --prompt-len 32 --gen 32`` in a child process.
-  7. the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+                (38 ssd_intra_chunk, 6 swa_attention on the tensor-core
+                route; fewer than 12 such launches in the two counted
+                forwards fail the run); one forward and one decode step
+                under torch.profiler (the kernels' share of device time,
+                swa_attention's by route, launches per decode step); fp32
+                B=1, S=256 ``forward`` (both kernels, swa_attention on its
+                fp32 route) against 256 ``serve_step`` calls (no kernel),
+                within 2e-3, with and without a 64 window and a 64-slot
+                ring cache; then ``python -m repro_torch.launch.serve
+                --arch zamba2-1.2b --batch 4 --prompt-len 32 --gen 32`` in
+                a child process.
+  7. the ``{"kernels": [...]}`` line (swa_attention's two routes as two
+     rows, ``swa_attention.tc`` and ``swa_attention.fp32``), then the
+     ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +73,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 TOL = 3e-5                     # kernel vs plain: fp32 sums in another order
+SWA_TC_TOL = 1e-2              # P rounded to bf16: 2^-9 per p, over |v| <~ 4
 SSD_TOL = 2e-4                 # SSD outputs are sums of ~Q products of ~N
 ROUNDS = 3
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
@@ -101,6 +114,86 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_ms(torch, fn, match: str, iters: int = 20):
+    """Device time of one call from torch.profiler: the kernels whose name
+    holds ``match``, summed over ``iters`` warmed calls, over iters. None
+    where the profiler saw no such kernel (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and match in e.key]
+    if not ev:
+        return None
+    return sum(e.self_device_time_total for e in ev) / 1e3 / iters
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """The host's time per call over ``calls`` calls with no synchronise
+    between them (where the card is slower, the queue fills and this reads
+    the card's pace)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def call_times(torch, fn, match: str) -> dict:
+    return {"device_ms": profiled_ms(torch, fn, match),
+            "host_us_per_call": host_us(torch, fn)}
+
+
+def ptxas_report(log: str) -> dict:
+    """swa_tc_kernel's registers, spills and shared memory from ptxas -v,
+    and any warning about its source."""
+    from repro_torch.kernels import build
+
+    inst, cur, warn = [], False, []
+    section = log.split("== swa_attention_tc.cu")[-1].split("\n== ")[0]
+    for line in section.splitlines():
+        if "Compiling entry function" in line:
+            cur = "swa_tc_kernel" in line
+            if cur:
+                inst.append({"function": line.split("'")[1]})
+            continue
+        if "warning" in line.lower():
+            warn.append(line.strip())
+        if not (cur and inst):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            inst[-1]["spill_stores"] = int(m[1])
+            inst[-1]["spill_loads"] = int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            inst[-1]["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", line)
+        inst[-1].setdefault("static_smem", 0)
+        if m:
+            inst[-1]["static_smem"] = int(m[1])
+    if not inst:
+        raise AssertionError("no ptxas report of swa_tc_kernel in the build "
+                             "log")
+    lib = build.library()
+    return {"phase": "ptxas", "kernel": "swa_tc_kernel", "instances": inst,
+            "dynamic_smem": {hd: lib.swa_attention_tc_smem(hd)
+                             for hd in (64, 128)},
+            "warnings": warn,
+            "note": "registers at entry (launch bound 384 threads); "
+                    "setmaxnreg gives the consumers 240 and the producer 24"}
+
+
 def check_kernels(torch):
     """Phase 2: every kernel against its plain version, on the card."""
     import torch.nn.functional as F
@@ -113,7 +206,7 @@ def check_kernels(torch):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
 
-    def edc_case(n, d, m, dtype, label):
+    def edc_case(n, d, m, dtype, label, main=False):
         dW = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
         V = torch.randn((d, m), generator=gen, device="cuda").to(dtype)
         got = edc_mod.edc_cosine(dW, V)
@@ -133,25 +226,30 @@ def check_kernels(torch):
                    dW[:, :, None].float(), V[None].float(), dim=1), 3,
                    warmup=1),
                "bound_ms": b_ms, "bound_by": b_by}
+        if main:
+            row.update(call_times(torch, lambda: edc_mod.edc_cosine(dW, V),
+                                  "edc_"))
         emit(row)
         if not err <= TOL:
             raise AssertionError(f"edc_cosine {label}: max abs err {err}")
         return row
 
-    def madc_case(n, label):
+    def madc_case(n, label, main=False):
         x = torch.randn((n, 64), generator=gen, device="cuda")
         M = cosine_similarity_matrix(x).contiguous()
         got = madc_mod.madc(M)
         want = ref.madc_ref(M)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        symmetric = bool(torch.equal(got, got.T))
         # MADC(i, j) = MADC(j, i): the function needs the n(n-1)/2 distinct
         # pairs, each a select, a subtract, an abs-add over n-2 z's; M read
         # once, the (n, n) result written once
         b_ms, b_by = bound_ms(2.0 * n * n * 4,
                               3.0 * n * (n - 1) * max(n - 2, 0) / 2)
         row = {"phase": "kernel", "name": "madc", "case": label, "n": n,
-               "dtype": "float32", "max_abs_err": err, "tol": TOL,
+               "tile": madc_mod.madc_tiles(n), "dtype": "float32",
+               "max_abs_err": err, "tol": TOL, "symmetric": symmetric,
                "ms": cuda_ms(torch, lambda: madc_mod.madc(M), 20),
                "plain_ms": cuda_ms(torch, lambda: ref.madc_ref(M), 5),
                # Σ_z |M_iz − M_jz| over all z; MADC drops z = i, j from it
@@ -159,19 +257,41 @@ def check_kernels(torch):
                                      lambda: torch.cdist(M, M, p=1), 20),
                "library_call": "torch.cdist(M, M, p=1)",
                "bound_ms": b_ms, "bound_by": b_by}
+        if main:
+            row.update(call_times(torch, lambda: madc_mod.madc(M),
+                                  "madc_kernel"))
         emit(row)
-        if not err <= TOL:
-            raise AssertionError(f"madc {label}: max abs err {err}")
+        if not (err <= TOL and symmetric):
+            raise AssertionError(f"madc {label}: max abs err {err}, "
+                                 f"symmetric {symmetric}")
         return row
 
-    rows["edc_cosine"] = edc_case(100, 415_258, 5, torch.float32, "main")
+    def madc_tile_sweep():
+        """Device time of each tile edge (torch.profiler): the numbers
+        behind ``madc_tiles``."""
+        for n in (100, 257, 512, 768, 1024, 1280, 1536, 2048):
+            M = cosine_similarity_matrix(torch.randn(
+                (n, 64), generator=gen, device="cuda")).contiguous()
+            row = {"phase": "madc_tiles", "n": n,
+                   "picked": madc_mod.madc_tiles(n)}
+            for tile in madc_mod.TILES:
+                row[f"device_ms_tile{tile}"] = profiled_ms(
+                    torch, lambda: madc_mod.madc(M, tile=tile),
+                    "madc_kernel")
+            row["cdist_ms"] = cuda_ms(torch, lambda: torch.cdist(M, M, p=1),
+                                      20)
+            emit(row)
+
+    rows["edc_cosine"] = edc_case(100, 415_258, 5, torch.float32, "main",
+                                  main=True)
     edc_case(37, 100_003, 3, torch.bfloat16, "ragged-bf16")
     edc_case(130, 4_097, 16, torch.float32, "ragged-m16")
     edc_case(9, 333, 11, torch.bfloat16, "ragged-small-bf16")
-    rows["madc"] = madc_case(100, "main")
+    rows["madc"] = madc_case(100, "main", main=True)
     madc_case(257, "ragged")
     madc_case(1024, "large")
     madc_case(3, "tiny")
+    madc_tile_sweep()
     return rows
 
 
@@ -201,13 +321,20 @@ def check_zoo_kernels(torch):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    def swa_case(B, Sq, Sk, H, hd, window, causal, dtype, label):
+    def swa_case(B, Sq, Sk, H, hd, window, causal, dtype, label,
+                 main=False):
         q = randn((B, Sq, H, hd), dtype)
         k, v = randn((B, Sk, H, hd), dtype), randn((B, Sk, H, hd), dtype)
+        route = swa_mod._route(dtype, dtype, hd)
+        before = swa_mod.launches_by_route[route]
         got = swa_mod.swa_attention(q, k, v, window=window, causal=causal)
         want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
         torch.cuda.synchronize()
-        err, ok = allclose_err(torch, got, want, TOL, TOL)
+        if swa_mod.launches_by_route[route] != before + 1:
+            raise AssertionError(f"swa_attention {label}: not launched on "
+                                 f"the {route} route")
+        tol = SWA_TC_TOL if route == "tc" else TOL
+        err, ok = allclose_err(torch, got, want, tol, tol)
         del want
         es = q.element_size()
         pairs = kept_pairs(Sq, Sk, window, causal)
@@ -231,10 +358,10 @@ def check_zoo_kernels(torch):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=keep)
         row = {"phase": "kernel", "name": "swa_attention", "case": label,
-               "B": B, "Sq": Sq, "Sk": Sk, "H": H, "hd": hd,
+               "route": route, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "hd": hd,
                "window": window, "causal": causal,
                "dtype": str(dtype).split(".")[-1], "kept_pairs": pairs,
-               "max_abs_err": err, "tol": TOL,
+               "max_abs_err": err, "tol": tol,
                "ms": cuda_ms(torch, lambda: swa_mod.swa_attention(
                    q, k, v, window=window, causal=causal), 10),
                "plain_ms": cuda_ms(torch, lambda: ref.swa_attention_ref(
@@ -243,12 +370,16 @@ def check_zoo_kernels(torch):
                "library_call": "F.scaled_dot_product_attention",
                "bound_ms": b_ms, "bound_by": b_by,
                "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
+        if main:
+            row.update(call_times(torch, lambda: swa_mod.swa_attention(
+                q, k, v, window=window, causal=causal),
+                "swa_tc_kernel" if route == "tc" else "swa_kernel"))
         emit(row)
         if not ok:
             raise AssertionError(f"swa_attention {label}: max abs err {err}")
         return row
 
-    def ssd_case(args, dtype, label):
+    def ssd_case(args, dtype, label, main=False):
         """args: (Xc, A_cs, Bc, Cc) in the model's chunked layout."""
         Xc, A_cs, Bc, Cc = args
         b, c, Q, h, p = Xc.shape
@@ -283,6 +414,9 @@ def check_zoo_kernels(torch):
                                "and the chunk states",
                "bound_ms": b_ms, "bound_by": b_by,
                "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
+        if main:
+            row.update(call_times(
+                torch, lambda: ssd_mod.ssd_intra_chunk(*args), "ssd_kernel"))
         emit(row)
         if not (oky and oks):
             raise AssertionError(f"ssd_intra_chunk {label}: max abs err "
@@ -309,15 +443,22 @@ def check_zoo_kernels(torch):
 
     bf, f32 = torch.bfloat16, torch.float32
     B, S = ZAMBA_B, ZAMBA_S
-    rows["swa_attention"] = swa_case(B, S, S, 32, 64, None, True, bf,
-                                     "zamba2-prefill")
+    # the tensor-core route at Zamba2's bf16 prefill; the fp32 route at its
+    # fp32 forward (phase 6's consistency check, B=1, S=256)
+    rows["swa_attention.tc"] = swa_case(B, S, S, 32, 64, None, True, bf,
+                                        "zamba2-prefill", main=True)
     swa_case(B, S, S, 32, 64, 512, True, bf, "zamba2-prefill-w512")
     swa_case(B, 1, S, 32, 64, None, True, bf, "decode-tail")
+    swa_case(2, 1000, 1000, 8, 128, None, True, bf, "hd128-bf16")
+    rows["swa_attention.fp32"] = swa_case(
+        1, CONSIST_S, CONSIST_S, 32, 64, None, True, f32, "zamba2-fp32",
+        main=True)
+    swa_case(B, S, S, 32, 64, None, True, f32, "zamba2-prefill-fp32")
     swa_case(2, 33, 65, 2, 40, 16, True, f32, "unaligned-fp32")
     swa_case(1, 96, 96, 2, 80, None, False, f32, "bidirectional-fp32")
     rows["ssd_intra_chunk"] = ssd_case(
         ssd_model_args(B, S // 128, 128, 64, 64, 64, bf), bf,
-        "zamba2-prefill")
+        "zamba2-prefill", main=True)
     ssd_case(ssd_cells_args(B * 64, S // 128, 128, 64, 64, bf), bf,
              "zamba2-cells-bf16")
     ssd_case(ssd_cells_args(B * 64, S // 128, 128, 64, 64, f32), f32,
@@ -490,11 +631,19 @@ def zamba2_params(torch):
     return cfg, params
 
 
-def expected_launches(cfg) -> dict:
+def expected_launches(torch, cfg) -> dict:
     """One Zamba2 forward: an SSD launch per Mamba2 layer, a SWA launch per
-    application of the shared block."""
+    application of the shared block, on the route of the config's dtype
+    (bf16: the tensor cores; fp32: the CUDA cores)."""
+    from repro_torch.kernels import swa_attention as swa_mod
+
+    dt = getattr(torch, cfg.dtype)
+    n_swa = cfg.n_layers // cfg.shared_attn_period
+    route = swa_mod._route(dt, dt, cfg.head_dim)
     return {"edc_cosine": 0, "madc": 0, "ssd_intra_chunk": cfg.n_layers,
-            "swa_attention": cfg.n_layers // cfg.shared_attn_period}
+            "swa_attention": n_swa,
+            "swa_attention.tc": n_swa if route == "tc" else 0,
+            "swa_attention.fp32": n_swa if route == "fp32" else 0}
 
 
 def zamba2_prefill(torch, cfg, params):
@@ -506,7 +655,7 @@ def zamba2_prefill(torch, cfg, params):
     tok = torch.randint(0, cfg.vocab_size, (ZAMBA_B, ZAMBA_S),
                         generator=torch.Generator(device="cuda").manual_seed(
                             2), device="cuda")
-    total = dict.fromkeys(ops.KERNELS, 0)
+    total = {}
     for label, c in (("full", cfg), ("window512", cfg.with_window(512))):
         with torch.inference_mode():
             def fwd():
@@ -530,11 +679,15 @@ def zamba2_prefill(torch, cfg, params):
               "peak_device_bytes": peak, "launches": counts})
         if not finite:
             raise AssertionError(f"zamba2 prefill {label}: non-finite logits")
-        if counts != expected_launches(c):
+        if counts != expected_launches(torch, c):
             raise AssertionError(f"zamba2 prefill {label}: launches {counts},"
-                                 f" expected {expected_launches(c)}")
+                                 f" expected {expected_launches(torch, c)}")
         for k, v in counts.items():
-            total[k] += v
+            total[k] = total.get(k, 0) + v
+    if total["swa_attention.tc"] < 12:
+        raise AssertionError("the counted bf16 prefills launched the "
+                             "tensor-core swa_attention route "
+                             f"{total['swa_attention.tc']} times, not >= 12")
     return total
 
 
@@ -560,7 +713,8 @@ def device_summary(torch, prof, wall_ms: float) -> dict:
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:6]
-    swa_ms, swa_share = share("swa_kernel")
+    swa_tc_ms, swa_tc_share = share("swa_tc_kernel")
+    swa_f32_ms, swa_f32_share = share("swa_kernel")
     ssd_ms, ssd_share = share("ssd_kernel")
     gemm_ms, gemm_share = share("gemm", "Gemm", "nvjet", "sm90_xmma",
                                 "cutlass")
@@ -568,7 +722,10 @@ def device_summary(torch, prof, wall_ms: float) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_busy_share": busy / wall_ms,
             "kernel_launches": sum(e.count for e in kern),
-            "swa_ms": swa_ms, "swa_share": swa_share,
+            "swa_ms": swa_tc_ms + swa_f32_ms,
+            "swa_share": swa_tc_share + swa_f32_share,
+            "swa_ms_by_route": {"tc": swa_tc_ms, "fp32": swa_f32_ms},
+            "swa_share_by_route": {"tc": swa_tc_share, "fp32": swa_f32_share},
             "ssd_ms": ssd_ms, "ssd_share": ssd_share,
             "gemm_ms": gemm_ms, "gemm_share": gemm_share,
             "copy_cast_ms": copy_ms, "copy_cast_share": copy_share,
@@ -636,6 +793,7 @@ def zamba2_consistency(torch, cfg, params):
 
     c32 = cfg.replace(dtype="float32")
     S = CONSIST_S
+    total = {}
     tok = torch.randint(0, cfg.vocab_size, (1, S),
                         generator=torch.Generator(device="cuda").manual_seed(
                             4), device="cuda")
@@ -670,9 +828,13 @@ def zamba2_consistency(torch, cfg, params):
         if not ok:
             raise AssertionError(f"zamba2 consistency window={window}: "
                                  f"max abs err {err}")
-        if fwd_counts != expected_launches(c) or serve_counts != fwd_counts:
+        if (fwd_counts != expected_launches(torch, c)
+                or serve_counts != fwd_counts):
             raise AssertionError(f"zamba2 consistency window={window}: "
                                  f"launches {fwd_counts} / {serve_counts}")
+        for k, v in fwd_counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def zamba2_serve():
@@ -718,13 +880,14 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     import repro_torch  # noqa: F401  (sets the fp32 matmul policy)
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
     lib = build.build(verbose=True)
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0, "library": lib.name})
+    emit(ptxas_report(build.build_log()))
 
     # phase 2: kernels against their plain versions
     rows = check_kernels(torch)
@@ -764,32 +927,37 @@ def main() -> int:
     cfg, params = zamba2_params(torch)
     counts_zoo = zamba2_prefill(torch, cfg, params)
     zamba2_profile(torch, cfg, params)
-    zamba2_consistency(torch, cfg, params)
+    counts_f32 = zamba2_consistency(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
     zamba2_serve()
 
-    # phase 7: the kernels line and the result
+    # phase 7: the kernels line and the result. Launches: FedGroup's EDC
+    # and MADC runs; Zamba2's two counted bf16 prefills (tensor-core SWA
+    # route, SSD) and its two fp32 consistency forwards (fp32 SWA route)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
-                "swa_attention": counts_zoo["swa_attention"],
+                "swa_attention.tc": counts_zoo["swa_attention.tc"],
+                "swa_attention.fp32": counts_f32["swa_attention.fp32"],
                 "ssd_intra_chunk": counts_zoo["ssd_intra_chunk"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",
                              "src/repro/kernels/edc_cosine.py:49"),
               "madc": ("src/repro_torch/csrc/madc.cu",
                        "src/repro/kernels/madc.py:78"),
-              "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
-                                "src/repro/kernels/swa_attention.py:73"),
+              "swa_attention.tc": ("src/repro_torch/csrc/swa_attention_tc.cu",
+                                   "src/repro/kernels/swa_attention.py:73"),
+              "swa_attention.fp32": ("src/repro_torch/csrc/swa_attention.cu",
+                                     "src/repro/kernels/swa_attention.py:73"),
               "ssd_intra_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
                                   "src/repro/kernels/ssd_chunk.py:49")}
     kernels = []
-    for name in ops.KERNELS:
+    for name, (source, replaces) in src_of.items():
         row = rows[name]
-        kernels.append({"name": name, "route": "cuda",
-                        "source": src_of[name][0],
-                        "replaces": src_of[name][1],
-                        "launches": launches[name],
+        if launches[name] < 1:
+            raise AssertionError(f"{name}: no launch on its path")
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

@@ -5,8 +5,10 @@ The build runs at first use, from the sources in the checkout only, into
 ``build/repro_torch/`` at the checkout's root (listed in ``.gitignore``).
 Each source compiles in its own ``nvcc`` process, all started together;
 the objects are then linked. The library's name carries a hash of the
-sources and flags, so an edited source rebuilds. A failed build raises with
-nvcc's output: there is no fallback.
+sources and flags, so an edited source rebuilds. ptxas's report of each
+kernel's registers, shared memory and spills is kept beside the library
+(``build_log()``). A failed build raises with nvcc's output: there is no
+fallback.
 """
 from __future__ import annotations
 
@@ -19,10 +21,13 @@ import sys
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+         "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -59,27 +64,37 @@ def _run(cmd, what):
     return proc.stdout + proc.stderr
 
 
+def _lib_path() -> Path:
+    return BUILD_DIR / f"libreprotorch_{source_hash()}.so"
+
+
+def build_log() -> str:
+    """nvcc's and ptxas's output from the build of the current sources
+    (empty if the library was not built from this checkout's sources)."""
+    log = _lib_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
 def build(verbose: bool = False) -> Path:
     """Compile (if the hashed library is missing) and return its path;
-    ``verbose`` adds ptxas's register/shared-memory report."""
+    ``verbose`` also prints nvcc's and ptxas's report to stderr."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libreprotorch_{source_hash()}.so"
+    lib = _lib_path()
     if lib.exists():
         return lib
     nvcc = _nvcc()
-    ptxas = ["-Xptxas", "-v"] if verbose else []
     tag = f"{os.getpid()}"
     procs = []
     for src in _sources():
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *ARCH, *FLAGS, *ptxas, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *ARCH, *FLAGS, "-c", str(src), "-o", str(obj)]
         procs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     logs, failed = [], []
     for cmd, obj, proc in procs:
         out, _ = proc.communicate()
-        logs.append(out)
+        logs.append(f"== {obj.name.split('.')[0]}.cu\n{out}")
         if proc.returncode != 0:
             failed.append(f"$ {' '.join(cmd)}\n{out}")
     if failed:
@@ -89,8 +104,11 @@ def build(verbose: bool = False) -> Path:
           *[str(o) for _, o, _ in procs]], "link")
     for _, obj, _ in procs:
         obj.unlink(missing_ok=True)
+    log = BUILD_DIR / f"{lib.stem}.log.{tag}.tmp"
+    log.write_text("".join(logs))
+    os.replace(log, lib.with_suffix(".log"))
     os.replace(tmp, lib)                  # atomic: a reader never sees half
-    if verbose:                           # nvcc/ptxas report, to stderr
+    if verbose:
         print("".join(logs), file=sys.stderr)
     return lib
 
@@ -101,12 +119,17 @@ def _declare(lib):
     lib.edc_cosine_launch.restype = i
     lib.edc_cosine_scratch.argtypes = [i, i, i]
     lib.edc_cosine_scratch.restype = ctypes.c_longlong
-    lib.madc_launch.argtypes = [vp, vp, i, vp]
+    lib.madc_launch.argtypes = [vp, vp, i, i, vp]
     lib.madc_launch.restype = i
     ll = ctypes.POINTER(ctypes.c_longlong)
     lib.swa_attention_launch.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i,
                                          i, i, i, ctypes.c_float, i, i, vp]
     lib.swa_attention_launch.restype = i
+    lib.swa_attention_tc_launch.argtypes = [vp, vp, vp, vp, ll, i, i, i, i,
+                                            i, i, i, i, ctypes.c_float, vp]
+    lib.swa_attention_tc_launch.restype = i
+    lib.swa_attention_tc_smem.argtypes = [i]
+    lib.swa_attention_tc_smem.restype = i
     lib.ssd_intra_chunk_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i,
                                            i, i, i, i, i, vp]
     lib.ssd_intra_chunk_launch.restype = i
@@ -116,12 +139,28 @@ def _declare(lib):
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the lock is taken
+    only until it is loaded)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             _lib = _declare(ctypes.CDLL(str(build())))
         return _lib
+
+
+def launch(t: torch.Tensor, fn, *args) -> int:
+    """``fn(*args, stream)`` on t's device and its current stream: a
+    launch function of the library, whose CUDA error code it returns. The
+    stream's raw handle comes without building a Stream object (PyTorch's
+    own fast path, as Triton's launcher takes it); the current device is
+    switched only when t lies on another one."""
+    index = t.device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def strides(*groups) -> ctypes.Array:

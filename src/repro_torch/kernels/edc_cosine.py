@@ -41,12 +41,10 @@ def edc_cosine(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, m), dtype=torch.float32, device=dW.device)
     scratch = torch.empty(lib.edc_cosine_scratch(n, d, m),
                           dtype=torch.float32, device=dW.device)
-    with torch.cuda.device(dW.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.edc_cosine_launch(
-            dW.data_ptr(), V.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            n, d, m, int(dW.dtype == torch.bfloat16),
-            int(V.dtype == torch.bfloat16), stream)
+    err = build.launch(dW, lib.edc_cosine_launch, dW.data_ptr(),
+                       V.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d,
+                       m, int(dW.dtype == torch.bfloat16),
+                       int(V.dtype == torch.bfloat16))
     build.check(err, "edc_cosine launch")
     global launches
     launches += 1

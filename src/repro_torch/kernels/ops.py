@@ -17,10 +17,17 @@ KERNELS = {"edc_cosine": _edc, "madc": _madc, "swa_attention": _swa,
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}."""
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    """{kernel name: launches since the last reset}, and the launches of
+    each ``swa_attention`` route as ``swa_attention.tc`` and
+    ``swa_attention.fp32``."""
+    counts = {name: mod.launches for name, mod in KERNELS.items()}
+    for route, n in _swa.launches_by_route.items():
+        counts[f"swa_attention.{route}"] = n
+    return counts
 
 
 def reset_launch_counts():
     for mod in KERNELS.values():
         mod.launches = 0
+    for route in _swa.launches_by_route:
+        _swa.launches_by_route[route] = 0

@@ -60,12 +60,10 @@ def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
     S = torch.empty((b, c, h, p, n), dtype=torch.float32, device=Xc.device)
     st = build.strides(Xc.stride()[:4], A_cs.stride(), Bc.stride()[:4],
                        Cc.stride()[:4], Y.stride()[:4], S.stride())
-    with torch.cuda.device(Xc.device):
-        err = lib.ssd_intra_chunk_launch(
-            Xc.data_ptr(), A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-            Y.data_ptr(), S.data_ptr(), st, b, c, Q, h, p, n,
-            int(Xc.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+    err = build.launch(Xc, lib.ssd_intra_chunk_launch, Xc.data_ptr(),
+                       A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                       Y.data_ptr(), S.data_ptr(), st, b, c, Q, h, p, n,
+                       int(Xc.dtype == torch.bfloat16))
     build.check(err, "ssd_intra_chunk launch")
     global launches
     launches += 1

@@ -1,20 +1,63 @@
-"""Sliding-window flash attention, forward: the wrapper around the Hopper
-kernel ``csrc/swa_attention.cu``, which replaces the Pallas kernel
-``repro.kernels.swa_attention.swa_attention``.
+"""Sliding-window flash attention, forward: the wrapper around two Hopper
+kernels that replace the Pallas kernel
+``repro.kernels.swa_attention.swa_attention``:
 
-A CPU tensor runs the plain version (``kernels.ref.swa_attention_ref``); a
-CUDA tensor launches the kernel or raises. ``launches`` counts the kernel's
-launches.
+- route ``tc``, ``csrc/swa_attention_tc.cu``: q, k, v all bf16 with head
+  dim 64 or 128 (Zamba2's prefill). Tensor cores (``wgmma``) fed by TMA;
+  P is rounded to bf16 before P·V, as the JAX zoo's ``sdpa`` does, so it
+  agrees with the plain version within 1e-2.
+- route ``fp32``, ``csrc/swa_attention.cu``: every other input (fp32, or
+  another head dim up to 256). CUDA cores, all in fp32; within 3e-5.
+
+The route depends on dtype and head dim only (``_route``). On the ``tc``
+route an input that breaks TMA's rules raises; it never switches route. A
+CPU tensor runs the plain version (``kernels.ref.swa_attention_ref``); a
+CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
+``launches_by_route`` each route's.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.kernels import build, ref
 
 launches = 0
+launches_by_route = {"tc": 0, "fp32": 0}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (64, 128)
+
+
+def _route(dtype_q, dtype_kv, hd: int) -> str:
+    """``"tc"`` for bf16 q and k/v with hd 64 or 128, else ``"fp32"``."""
+    if (dtype_q == torch.bfloat16 and dtype_kv == torch.bfloat16
+            and hd in TC_HEAD_DIMS):
+        return "tc"
+    return "fp32"
+
+
+def _tma_strides(name: str, t: torch.Tensor) -> tuple:
+    """t's (b, s, h) element strides for a tensor map. TMA wants a 16-byte
+    aligned base and strides that are multiples of 16 bytes; a dim of size
+    1 is never stepped, so it gets its contiguous stride."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"swa_attention: {name}'s data pointer is not "
+                         "16-byte aligned, which the bf16 route's TMA loads "
+                         "need")
+    out = []
+    for dim in range(3):
+        if t.shape[dim] == 1:
+            out.append(math.prod(t.shape[dim + 1:]))
+            continue
+        st = t.stride(dim)
+        if st <= 0 or (st * t.element_size()) % 16:
+            raise ValueError(f"swa_attention: {name}'s stride {st} of dim "
+                             f"{dim} is not a positive multiple of 16 bytes, "
+                             "which the bf16 route's TMA loads need")
+        out.append(st)
+    return tuple(out)
 
 
 def _check_shapes(q, k, v, window):
@@ -61,16 +104,31 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("swa_attention: the head dim of q, k, v must be "
                          "contiguous")
+    route = _route(q.dtype, k.dtype, hd)
+    if route == "tc":
+        tma = [_tma_strides(name, t) for name, t in (("q", q), ("k", k),
+                                                      ("v", v))]
     lib = build.library()
     out = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
-    st = build.strides(*(t.stride()[:3] for t in (q, k, v, out)))
-    with torch.cuda.device(q.device):
-        err = lib.swa_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
-            B, Sq, Sk, H, KV, hd, window or 0, int(causal), 1.0 / hd ** 0.5,
-            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "swa_attention launch")
+    scale = 1.0 / hd ** 0.5
+    if route == "tc":
+        st = build.strides(*tma, out.stride()[:3])
+        err = build.launch(q, lib.swa_attention_tc_launch, q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), out.data_ptr(), st, B,
+                           Sq, Sk, H, KV, hd, window or 0, int(causal),
+                           scale)
+        if err < 0:
+            raise RuntimeError("swa_attention: cuTensorMapEncodeTiled "
+                               f"refused a tensor map (CUresult {-err})")
+    else:
+        st = build.strides(*(t.stride()[:3] for t in (q, k, v, out)))
+        err = build.launch(q, lib.swa_attention_launch, q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), out.data_ptr(), st, B,
+                           Sq, Sk, H, KV, hd, window or 0, int(causal), scale,
+                           int(q.dtype == torch.bfloat16),
+                           int(k.dtype == torch.bfloat16))
+    build.check(err, f"swa_attention launch ({route} route)")
     global launches
     launches += 1
+    launches_by_route[route] += 1
     return out

@@ -7,7 +7,11 @@ the card. Marked ``gpu``: without a card every test skips (decided in the
 Tolerance 3e-5 (SSD 2e-4, whose outputs are sums of ~Q products of size
 ~N): the kernels sum in fp32 in another order than the plain versions,
 from the same inputs (tests/test_kernels.py holds the Pallas kernels to
-the same tolerances)."""
+the same tolerances). ``swa_attention``'s tensor-core route (bf16 q, k, v,
+hd 64 or 128) rounds P to bf16 before P·V, as the JAX zoo's ``sdpa`` does,
+while the plain version keeps P in fp32: 1e-2 there (2⁻⁹ relative per
+probability, over |v| ≲ 4; tests/test_torch_kernel_routes.py emulates the
+route on the CPU against the same bound)."""
 import pytest
 import torch
 
@@ -21,6 +25,7 @@ from repro_torch.kernels import swa_attention as swa_mod
 pytestmark = pytest.mark.gpu
 TOL = 3e-5
 SSD_TOL = 2e-4
+SWA_TOL = {"tc": 1e-2, "fp32": TOL}
 
 
 @pytest.fixture
@@ -50,7 +55,8 @@ def test_edc_cosine_kernel_matches_plain(cuda, n, d, m, dtype):
     assert torch.equal(got, again)               # deterministic reduction
 
 
-@pytest.mark.parametrize("n", [3, 100, 257, 1024])
+@pytest.mark.parametrize("n", [1, 2, 3, 15, 16, 17, 63, 64, 65, 100, 257,
+                               1024])
 def test_madc_kernel_matches_plain(cuda, n):
     M = cosine_similarity_matrix(
         torch.randn((n, 64), generator=cuda, device="cuda")).contiguous()
@@ -59,6 +65,17 @@ def test_madc_kernel_matches_plain(cuda, n):
     torch.cuda.synchronize()
     assert madc_mod.launches == before + 1
     assert (got - ref.madc_ref(M)).abs().max().item() <= TOL
+    assert torch.equal(got, got.T)               # only one triangle computed
+    assert (got.diagonal() == 0).all()
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_madc_every_tile_edge_gives_the_same_result(cuda, tile):
+    M = cosine_similarity_matrix(
+        torch.randn((200, 64), generator=cuda, device="cuda")).contiguous()
+    got = madc_mod.madc(M, tile=tile)
+    assert (got - ref.madc_ref(M)).abs().max().item() <= TOL
+    assert torch.equal(got, got.T)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -84,19 +101,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     (1, 96, 96, 2, 2, 80, None, False, torch.float32),        # bidirectional
     (2, 70, 70, 4, 2, 256, 20, True, torch.float32),          # GQA, hd 256
     (1, 5, 300, 3, 1, 128, 7, False, torch.bfloat16),
+    # the tensor-core route
+    (2, 256, 256, 4, 4, 128, None, True, torch.bfloat16),     # hd 128
+    (2, 300, 300, 8, 2, 64, None, True, torch.bfloat16),      # GQA, KV < H
+    (1, 200, 333, 4, 4, 64, None, True, torch.bfloat16),      # Sk % 128 != 0
+    (2, 100, 700, 4, 4, 64, None, True, torch.bfloat16),      # Sq < Sk
+    (1, 1024, 1024, 4, 4, 64, 512, True, torch.bfloat16),     # row's first
+    (1, 512, 512, 4, 4, 64, 40, True, torch.bfloat16),        # tile masked
+    (1, 300, 300, 2, 2, 64, None, False, torch.bfloat16),     # non-causal
+    (1, 300, 300, 2, 1, 128, 64, False, torch.bfloat16),
+    # the fp32 route: Zamba2's fp32 forward, bf16 at another head dim
+    (1, 256, 256, 32, 32, 64, None, True, torch.float32),
+    (1, 130, 130, 2, 2, 80, 32, True, torch.bfloat16),
 ])
 def test_swa_kernel_matches_plain(cuda, B, Sq, Sk, H, KV, hd, window, causal,
                                   dtype):
     q = torch.randn((B, Sq, H, hd), generator=cuda, device="cuda").to(dtype)
     k = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(dtype)
     v = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(dtype)
-    before = swa_mod.launches
+    route = swa_mod._route(dtype, dtype, hd)
+    before, by_route = swa_mod.launches, dict(swa_mod.launches_by_route)
     got = swa_mod.swa_attention(q, k, v, window=window, causal=causal)
     torch.cuda.synchronize()
     assert swa_mod.launches == before + 1
+    assert swa_mod.launches_by_route[route] == by_route[route] + 1
     want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
     assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    tol = SWA_TOL[route]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window,causal", [(None, True), (512, True),
+                                           (None, False)])
+def test_swa_routes_agree(cuda, window, causal):
+    """The same bf16 inputs on the tensor-core route, and upcast to fp32 on
+    the CUDA-core route."""
+    q, k, v = (torch.randn((2, 1024, 8, 64), generator=cuda,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    tc = swa_mod.swa_attention(q, k, v, window=window, causal=causal)
+    before = swa_mod.launches_by_route["fp32"]
+    f32 = swa_mod.swa_attention(q.float(), k.float(), v.float(),
+                                window=window, causal=causal)
+    assert swa_mod.launches_by_route["fp32"] == before + 1
+    torch.testing.assert_close(tc, f32, atol=1e-2, rtol=1e-2)
+
+
+def test_swa_tc_route_raises_on_what_tma_cannot_load(cuda):
+    q = torch.randn((1, 128, 2, 68), generator=cuda, device="cuda").to(
+        torch.bfloat16)[..., :64]                 # head stride 136 bytes
+    k = torch.randn((1, 128, 2, 64), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    before = dict(swa_mod.launches_by_route)
+    with pytest.raises(ValueError, match="16 bytes"):
+        swa_mod.swa_attention(q, k, k)
+    flat = torch.randn(1 + 128 * 2 * 64, generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    shifted = flat[1:].view(1, 128, 2, 64)        # 2 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        swa_mod.swa_attention(shifted, k, k)
+    assert swa_mod.launches_by_route == before    # never another route
 
 
 def _ssd_cells(gen, BH, NC, Q, P, N, dtype):
@@ -170,6 +234,7 @@ def test_zamba2_smoke_forward_on_card_matches_cpu(cuda, window):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["ssd_intra_chunk"] == 2 and counts["swa_attention"] == 1
+    assert counts["swa_attention.fp32"] == 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 

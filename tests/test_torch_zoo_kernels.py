@@ -208,4 +208,6 @@ def test_cpu_tensors_launch_no_kernel():
     X, _, A_cs, B, C = _ssd_inputs(np.random.default_rng(0), 2, 1, 8, 4, 4)
     ssd_intra_chunk_cells(*(torch.as_tensor(a) for a in (X, A_cs, B, C)))
     assert ops.launch_counts() == {"edc_cosine": 0, "madc": 0,
-                                   "swa_attention": 0, "ssd_intra_chunk": 0}
+                                   "swa_attention": 0, "ssd_intra_chunk": 0,
+                                   "swa_attention.tc": 0,
+                                   "swa_attention.fp32": 0}
