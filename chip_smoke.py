@@ -8,14 +8,18 @@ with no final ``ok`` line):
 
   1. device   — fail without CUDA; print the card's name and power limit
                 (nvidia-smi) and build the kernels from ``src/repro_torch/
-                csrc`` (nvcc, one process per source); one line of ptxas's
-                registers, shared memory and spills of swa_tc_kernel.
+                csrc`` (nvcc, one process per source); a line each of
+                ptxas's registers, shared memory, spills and performance
+                warnings for the two tensor-core kernels, swa_tc_kernel and
+                ssd_tc_kernel.
   2. kernels  — each hand-written kernel against its plain PyTorch version
                 on the same inputs at the main paths' shapes and ragged ones:
                 max abs error (within atol + rtol·|plain|, elementwise:
                 3e-5 for edc_cosine / madc / swa_attention's fp32 route,
-                2e-4 for ssd_intra_chunk — fp32 sums in another order from
-                the same inputs; 1e-2 for swa_attention's tensor-core
+                2e-4 for both ssd_intra_chunk routes — fp32 sums in another
+                order from the same inputs (the tensor-core route splits its
+                fp32 operands into three bf16 terms, in two decay regimes);
+                1e-2 for swa_attention's tensor-core
                 route, which rounds P to bf16 before P·V), kernel / plain /
                 library-call time (CUDA events, warmed, many launches), the
                 least time the card could take (bytes over 3.35 TB/s or
@@ -41,20 +45,20 @@ with no final ``ok`` line):
                 from seed 0): prefill ``forward`` at B=4, S=2048 in bf16,
                 with and without a 512 window — ms (CUDA events, warmed),
                 finite logits, peak memory, kernel launches per forward
-                (38 ssd_intra_chunk, 6 swa_attention on the tensor-core
-                route; fewer than 12 such launches in the two counted
-                forwards fail the run); one forward and one decode step
-                under torch.profiler (the kernels' share of device time,
-                swa_attention's by route, launches per decode step); fp32
-                B=1, S=256 ``forward`` (both kernels, swa_attention on its
-                fp32 route) against 256 ``serve_step`` calls (no kernel),
+                (38 ssd_intra_chunk and 6 swa_attention, both on their
+                tensor-core routes; the two counted forwards fail the run
+                unless they launch 76 and 12 such); one forward and one
+                decode step under torch.profiler (the kernels' share of
+                device time by route, launches per decode step); fp32
+                B=1, S=256 ``forward`` (both kernels on their fp32 routes)
+                against 256 ``serve_step`` calls (no kernel),
                 within 2e-3, with and without a 64 window and a 64-slot
                 ring cache; then ``python -m repro_torch.launch.serve
                 --arch zamba2-1.2b --batch 4 --prompt-len 32 --gen 32`` in
                 a child process.
-  7. the ``{"kernels": [...]}`` line (swa_attention's two routes as two
-     rows, ``swa_attention.tc`` and ``swa_attention.fp32``), then the
-     ``{"ok": true, ...}`` line.
+  7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
+     of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
+     ``<name>.fp32``), then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -78,6 +82,7 @@ SSD_TOL = 2e-4                 # SSD outputs are sums of ~Q products of ~N
 ROUNDS = 3
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
+SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -s · softplus(randn)
 
 
 def emit(obj):
@@ -153,20 +158,19 @@ def call_times(torch, fn, match: str) -> dict:
             "host_us_per_call": host_us(torch, fn)}
 
 
-def ptxas_report(log: str) -> dict:
-    """swa_tc_kernel's registers, spills and shared memory from ptxas -v,
-    and any warning about its source."""
-    from repro_torch.kernels import build
-
+def ptxas_report(log: str, source: str, kernel: str) -> dict:
+    """A kernel's registers, spills and shared memory from ptxas -v, and any
+    warning or performance note (C7511: wgmma serialized) about its
+    source."""
     inst, cur, warn = [], False, []
-    section = log.split("== swa_attention_tc.cu")[-1].split("\n== ")[0]
+    section = log.split(f"== {source}")[-1].split("\n== ")[0]
     for line in section.splitlines():
         if "Compiling entry function" in line:
-            cur = "swa_tc_kernel" in line
+            cur = kernel in line
             if cur:
                 inst.append({"function": line.split("'")[1]})
             continue
-        if "warning" in line.lower():
+        if "warning" in line.lower() or "Performance Loss" in line:
             warn.append(line.strip())
         if not (cur and inst):
             continue
@@ -183,12 +187,8 @@ def ptxas_report(log: str) -> dict:
         if m:
             inst[-1]["static_smem"] = int(m[1])
     if not inst:
-        raise AssertionError("no ptxas report of swa_tc_kernel in the build "
-                             "log")
-    lib = build.library()
-    return {"phase": "ptxas", "kernel": "swa_tc_kernel", "instances": inst,
-            "dynamic_smem": {hd: lib.swa_attention_tc_smem(hd)
-                             for hd in (64, 128)},
+        raise AssertionError(f"no ptxas report of {kernel} in the build log")
+    return {"phase": "ptxas", "kernel": kernel, "instances": inst,
             "warnings": warn,
             "note": "registers at entry (launch bound 384 threads); "
                     "setmaxnreg gives the consumers 240 and the producer 24"}
@@ -379,31 +379,44 @@ def check_zoo_kernels(torch):
             raise AssertionError(f"swa_attention {label}: max abs err {err}")
         return row
 
-    def ssd_case(args, dtype, label, main=False):
+    def ssd_case(args, dtype, label, main=False, decay="fast"):
         """args: (Xc, A_cs, Bc, Cc) in the model's chunked layout."""
         Xc, A_cs, Bc, Cc = args
         b, c, Q, h, p = Xc.shape
         n = Bc.shape[-1]
+        route = ssd_mod._route(Xc.dtype, Bc.dtype, Q, p, n)
+        before = ssd_mod.launches_by_route[route]
         Y, S = ssd_mod.ssd_intra_chunk(*args)
         Yr, Sr = ref.ssd_intra_chunk_ref(*args)
         torch.cuda.synchronize()
+        if ssd_mod.launches_by_route[route] != before + 1:
+            raise AssertionError(f"ssd_intra_chunk {label}: not launched on "
+                                 f"the {route} route")
         ey, oky = allclose_err(torch, Y, Yr, SSD_TOL, SSD_TOL)
         es, oks = allclose_err(torch, S, Sr, SSD_TOL, SSD_TOL)
+        # the check is elementwise, |got - want| <= tol·(1 + |want|): its
+        # worst ratio (<= 1 where it holds) beside the max abs error
+        ratio = max(float(((got - want).abs() / (SSD_TOL * (1 + want.abs())))
+                          .max()) for got, want in ((Y, Yr), (S, Sr)))
         del Yr, Sr
         # bytes each input holds (a stride-0 head expansion is read once
-        # per group), outputs fp32; FLOPs of the causal lower triangle
+        # per group), outputs fp32; FLOPs of the causal lower triangle, C·Bᵀ
+        # once per group
         uniq = lambda t: t.untyped_storage().nbytes()  # noqa: E731
         tri = Q * (Q + 1) / 2
+        groups = 1 if Bc.stride(3) == 0 and Cc.stride(3) == 0 else h
         bf16 = dtype == torch.bfloat16
         b_ms, b_by = bound_ms(
             sum(uniq(t) for t in args) + (Y.numel() + S.numel()) * 4,
-            b * c * h * (2 * tri * n + 2 * tri * p + 2 * Q * n * p),
+            b * c * (groups * 2 * tri * n + h * (2 * tri * p + 2 * Q * n * p)),
             BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
         row = {"phase": "kernel", "name": "ssd_intra_chunk", "case": label,
+               "route": route, "decay": decay,
                "b": b, "chunks": c, "Q": Q, "h": h, "P": p, "N": n,
                "bc_head_stride": Bc.stride(3),
                "dtype": str(dtype).split(".")[-1],
                "max_abs_err": max(ey, es), "tol": SSD_TOL,
+               "max_err_over_tol": ratio,
                "ms": cuda_ms(torch, lambda: ssd_mod.ssd_intra_chunk(*args),
                              10),
                "plain_ms": cuda_ms(torch,
@@ -416,18 +429,22 @@ def check_zoo_kernels(torch):
                "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
         if main:
             row.update(call_times(
-                torch, lambda: ssd_mod.ssd_intra_chunk(*args), "ssd_kernel"))
+                torch, lambda: ssd_mod.ssd_intra_chunk(*args),
+                "ssd_tc_kernel" if route == "tc" else "ssd_kernel"))
         emit(row)
         if not (oky and oks):
             raise AssertionError(f"ssd_intra_chunk {label}: max abs err "
                                  f"{max(ey, es)}")
         return row
 
-    def ssd_model_args(b, c, Q, h, p, n, dtype):
+    def ssd_model_args(b, c, Q, h, p, n, dtype, decay="fast"):
         """As ``ssd_chunked`` passes them: X (b, l, h, p) split into chunks
-        by a view, B/C one group expanded over the heads with stride 0."""
+        by a view, B/C one group expanded over the heads with stride 0.
+        dtA = −s·softplus(randn): s = 1 ("fast") or 0.01 ("slow": L ~ 1
+        across the chunk, the worst case for the tc route's rounding)."""
         X = randn((b, c * Q, h, p), dtype).reshape(b, c, Q, h, p)
-        dtA = -F.softplus(randn((b, h, c, Q), torch.float32))
+        dtA = -SSD_DECAY[decay] * F.softplus(randn((b, h, c, Q),
+                                                   torch.float32))
         Bg, Cg = randn((b, c * Q, 1, n), dtype), randn((b, c * Q, 1, n), dtype)
         ex = lambda g: g.expand(b, c * Q, h, n).reshape(  # noqa: E731
             b, c, Q, h, n)
@@ -456,11 +473,18 @@ def check_zoo_kernels(torch):
     swa_case(B, S, S, 32, 64, None, True, f32, "zamba2-prefill-fp32")
     swa_case(2, 33, 65, 2, 40, 16, True, f32, "unaligned-fp32")
     swa_case(1, 96, 96, 2, 80, None, False, f32, "bidirectional-fp32")
-    rows["ssd_intra_chunk"] = ssd_case(
+    # the tensor-core route at Zamba2's bf16 prefill, in both decay regimes;
+    # the fp32 route at its fp32 forward (B=1, S=256: two chunks)
+    rows["ssd_intra_chunk.tc"] = ssd_case(
         ssd_model_args(B, S // 128, 128, 64, 64, 64, bf), bf,
         "zamba2-prefill", main=True)
+    ssd_case(ssd_model_args(B, S // 128, 128, 64, 64, 64, bf, "slow"), bf,
+             "zamba2-prefill-slow-decay", decay="slow")
     ssd_case(ssd_cells_args(B * 64, S // 128, 128, 64, 64, bf), bf,
              "zamba2-cells-bf16")
+    rows["ssd_intra_chunk.fp32"] = ssd_case(
+        ssd_model_args(1, CONSIST_S // 128, 128, 64, 64, 64, f32), f32,
+        "zamba2-fp32", main=True)
     ssd_case(ssd_cells_args(B * 64, S // 128, 128, 64, 64, f32), f32,
              "zamba2-cells-fp32")
     ssd_case(ssd_cells_args(6, 3, 37, 23, 11, f32), f32, "unaligned-fp32")
@@ -635,15 +659,20 @@ def expected_launches(torch, cfg) -> dict:
     """One Zamba2 forward: an SSD launch per Mamba2 layer, a SWA launch per
     application of the shared block, on the route of the config's dtype
     (bf16: the tensor cores; fp32: the CUDA cores)."""
+    from repro_torch.kernels import ssd_chunk as ssd_mod
     from repro_torch.kernels import swa_attention as swa_mod
 
     dt = getattr(torch, cfg.dtype)
-    n_swa = cfg.n_layers // cfg.shared_attn_period
+    n_swa, n_ssd = cfg.n_layers // cfg.shared_attn_period, cfg.n_layers
     route = swa_mod._route(dt, dt, cfg.head_dim)
-    return {"edc_cosine": 0, "madc": 0, "ssd_intra_chunk": cfg.n_layers,
+    ssd_route = ssd_mod._route(dt, dt, cfg.ssd_chunk, cfg.ssm_head_dim,
+                               cfg.ssm_state)
+    return {"edc_cosine": 0, "madc": 0, "ssd_intra_chunk": n_ssd,
             "swa_attention": n_swa,
             "swa_attention.tc": n_swa if route == "tc" else 0,
-            "swa_attention.fp32": n_swa if route == "fp32" else 0}
+            "swa_attention.fp32": n_swa if route == "fp32" else 0,
+            "ssd_intra_chunk.tc": n_ssd if ssd_route == "tc" else 0,
+            "ssd_intra_chunk.fp32": n_ssd if ssd_route == "fp32" else 0}
 
 
 def zamba2_prefill(torch, cfg, params):
@@ -688,6 +717,10 @@ def zamba2_prefill(torch, cfg, params):
         raise AssertionError("the counted bf16 prefills launched the "
                              "tensor-core swa_attention route "
                              f"{total['swa_attention.tc']} times, not >= 12")
+    if total["ssd_intra_chunk.tc"] != 76:
+        raise AssertionError("the counted bf16 prefills launched the "
+                             "tensor-core ssd_intra_chunk route "
+                             f"{total['ssd_intra_chunk.tc']} times, not 76")
     return total
 
 
@@ -715,7 +748,8 @@ def device_summary(torch, prof, wall_ms: float) -> dict:
                   key=lambda e: -e.self_cpu_time_total)[:6]
     swa_tc_ms, swa_tc_share = share("swa_tc_kernel")
     swa_f32_ms, swa_f32_share = share("swa_kernel")
-    ssd_ms, ssd_share = share("ssd_kernel")
+    ssd_tc_ms, ssd_tc_share = share("ssd_tc_kernel")
+    ssd_f32_ms, ssd_f32_share = share("ssd_kernel")
     gemm_ms, gemm_share = share("gemm", "Gemm", "nvjet", "sm90_xmma",
                                 "cutlass")
     copy_ms, copy_share = share("copy", "Copy")
@@ -726,7 +760,9 @@ def device_summary(torch, prof, wall_ms: float) -> dict:
             "swa_share": swa_tc_share + swa_f32_share,
             "swa_ms_by_route": {"tc": swa_tc_ms, "fp32": swa_f32_ms},
             "swa_share_by_route": {"tc": swa_tc_share, "fp32": swa_f32_share},
-            "ssd_ms": ssd_ms, "ssd_share": ssd_share,
+            "ssd_ms": ssd_tc_ms + ssd_f32_ms,
+            "ssd_share": ssd_tc_share + ssd_f32_share,
+            "ssd_ms_by_route": {"tc": ssd_tc_ms, "fp32": ssd_f32_ms},
             "gemm_ms": gemm_ms, "gemm_share": gemm_share,
             "copy_cast_ms": copy_ms, "copy_cast_share": copy_share,
             "top_kernels": [[e.key[:90], e.count,
@@ -887,7 +923,18 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": time.perf_counter() - t0, "library": lib.name})
-    emit(ptxas_report(build.build_log()))
+    kernels_lib, log = build.library(), build.build_log()
+    emit({**ptxas_report(log, "swa_attention_tc.cu", "swa_tc_kernel"),
+          "dynamic_smem": {hd: kernels_lib.swa_attention_tc_smem(hd)
+                           for hd in (64, 128)}})
+    emit({**ptxas_report(log, "ssd_chunk_tc.cu", "ssd_tc_kernel"),
+          "dynamic_smem": {f"Q{q}_{'per_head' if ph else 'shared_bc'}":
+                           kernels_lib.ssd_intra_chunk_tc_smem(q, ph)
+                           for q in (64, 128) for ph in (0, 1)},
+          "heads_per_cta_zamba2_prefill":
+              kernels_lib.ssd_intra_chunk_tc_heads_per_cta(
+                  ZAMBA_B, ZAMBA_S // 128, 64,
+                  torch.cuda.get_device_properties(0).multi_processor_count)})
 
     # phase 2: kernels against their plain versions
     rows = check_kernels(torch)
@@ -933,14 +980,15 @@ def main() -> int:
     zamba2_serve()
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
-    # and MADC runs; Zamba2's two counted bf16 prefills (tensor-core SWA
-    # route, SSD) and its two fp32 consistency forwards (fp32 SWA route)
+    # and MADC runs; Zamba2's two counted bf16 prefills (the tensor-core
+    # routes) and its two fp32 consistency forwards (the fp32 routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"],
-                "ssd_intra_chunk": counts_zoo["ssd_intra_chunk"]}
+                "ssd_intra_chunk.tc": counts_zoo["ssd_intra_chunk.tc"],
+                "ssd_intra_chunk.fp32": counts_f32["ssd_intra_chunk.fp32"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",
                              "src/repro/kernels/edc_cosine.py:49"),
               "madc": ("src/repro_torch/csrc/madc.cu",
@@ -949,8 +997,10 @@ def main() -> int:
                                    "src/repro/kernels/swa_attention.py:73"),
               "swa_attention.fp32": ("src/repro_torch/csrc/swa_attention.cu",
                                      "src/repro/kernels/swa_attention.py:73"),
-              "ssd_intra_chunk": ("src/repro_torch/csrc/ssd_chunk.cu",
-                                  "src/repro/kernels/ssd_chunk.py:49")}
+              "ssd_intra_chunk.tc": ("src/repro_torch/csrc/ssd_chunk_tc.cu",
+                                     "src/repro/kernels/ssd_chunk.py:49"),
+              "ssd_intra_chunk.fp32": ("src/repro_torch/csrc/ssd_chunk.cu",
+                                       "src/repro/kernels/ssd_chunk.py:49")}
     kernels = []
     for name, (source, replaces) in src_of.items():
         row = rows[name]

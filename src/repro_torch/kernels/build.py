@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -133,6 +134,13 @@ def _declare(lib):
     lib.ssd_intra_chunk_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i,
                                            i, i, i, i, i, vp]
     lib.ssd_intra_chunk_launch.restype = i
+    lib.ssd_intra_chunk_tc_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i,
+                                              i, i, i, i, i, vp]
+    lib.ssd_intra_chunk_tc_launch.restype = i
+    lib.ssd_intra_chunk_tc_smem.argtypes = [i, i]
+    lib.ssd_intra_chunk_tc_smem.restype = i
+    lib.ssd_intra_chunk_tc_heads_per_cta.argtypes = [i, i, i, i]
+    lib.ssd_intra_chunk_tc_heads_per_cta.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -168,6 +176,35 @@ def strides(*groups) -> ctypes.Array:
     (the launch functions' ``st`` argument)."""
     flat = [int(x) for g in groups for x in g]
     return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def tma_strides(kernel: str, name: str, t: torch.Tensor, ndims: int,
+                broadcast: int | None = None) -> tuple:
+    """t's element strides of its first ``ndims`` dims for a tensor map of
+    a tensor-core route; dim ``ndims`` must be contiguous. TMA wants a
+    16-byte aligned base and strides that are multiples of 16 bytes. A dim
+    of size 1, or dim ``broadcast`` with stride 0 (an expansion the map
+    reads as one slice), is never stepped, so it gets its contiguous
+    stride. Raises ValueError naming ``kernel`` and ``name`` otherwise: the
+    routes never switch."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {name}'s data pointer is not 16-byte "
+                         "aligned, which the bf16 route's TMA loads need")
+    if t.stride(ndims) != 1:
+        raise ValueError(f"{kernel}: {name}'s dim {ndims} must be contiguous "
+                         "for the bf16 route's TMA loads")
+    out = []
+    for dim in range(ndims):
+        st = t.stride(dim)
+        if t.shape[dim] == 1 or (dim == broadcast and st == 0):
+            out.append(math.prod(t.shape[dim + 1:]))
+            continue
+        if st <= 0 or (st * t.element_size()) % 16:
+            raise ValueError(f"{kernel}: {name}'s stride {st} of dim {dim} "
+                             "is not a positive multiple of 16 bytes, which "
+                             "the bf16 route's TMA loads need")
+        out.append(st)
+    return tuple(out)
 
 
 def check(err: int, what: str):

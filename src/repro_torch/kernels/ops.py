@@ -14,20 +14,23 @@ from repro_torch.kernels import swa_attention as _swa
 
 KERNELS = {"edc_cosine": _edc, "madc": _madc, "swa_attention": _swa,
            "ssd_intra_chunk": _ssd}
+_ROUTED = {"swa_attention": _swa, "ssd_intra_chunk": _ssd}
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}, and the launches of
-    each ``swa_attention`` route as ``swa_attention.tc`` and
-    ``swa_attention.fp32``."""
+    each route of ``swa_attention`` and ``ssd_intra_chunk`` as
+    ``<name>.tc`` and ``<name>.fp32``."""
     counts = {name: mod.launches for name, mod in KERNELS.items()}
-    for route, n in _swa.launches_by_route.items():
-        counts[f"swa_attention.{route}"] = n
+    for name, mod in _ROUTED.items():
+        for route, n in mod.launches_by_route.items():
+            counts[f"{name}.{route}"] = n
     return counts
 
 
 def reset_launch_counts():
     for mod in KERNELS.values():
         mod.launches = 0
-    for route in _swa.launches_by_route:
-        _swa.launches_by_route[route] = 0
+    for mod in _ROUTED.values():
+        for route in mod.launches_by_route:
+            mod.launches_by_route[route] = 0

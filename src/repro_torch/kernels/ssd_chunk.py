@@ -1,13 +1,23 @@
-"""Mamba2 SSD intra-chunk block: the wrapper around the Hopper kernel
-``csrc/ssd_chunk.cu``, which replaces the Pallas kernel
-``repro.kernels.ssd_chunk.ssd_intra_chunk``.
+"""Mamba2 SSD intra-chunk block: the wrapper around two Hopper kernels that
+replace the Pallas kernel ``repro.kernels.ssd_chunk.ssd_intra_chunk``:
 
+- route ``tc``, ``csrc/ssd_chunk_tc.cu``: X, B, C all bf16 with Q = 64 or
+  128 and P = N = 64 (Zamba2's prefill). Tensor cores (``wgmma``) fed by
+  TMA; C·Bᵀ once per (batch, chunk) when B and C are one group expanded
+  over the heads with stride 0, only the causal triangle's tiles; the
+  fp32 operands of the two products are split into three bf16 terms, so
+  the outputs keep fp32 accuracy (within 2e-4 of the plain version).
+- route ``fp32``, ``csrc/ssd_chunk.cu``: every other input (fp32, or
+  another Q, P, N). CUDA cores, all in fp32.
+
+The route depends on dtype and shape only (``_route``). On the ``tc``
+route an input that breaks TMA's rules raises; it never switches route.
 ``ssd_intra_chunk`` takes the model's chunked layout, as
 ``repro_torch.models.ssm.ssd_chunked`` holds it; ``ssd_intra_chunk_cells``
 takes the Pallas kernel's (BH, NC, Q, ·) layout. Both reach one launch. A
 CPU tensor runs the plain version (``kernels.ref.ssd_intra_chunk_ref``); a
-CUDA tensor launches the kernel or raises. ``launches`` counts the
-kernel's launches.
+CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
+``launches_by_route`` each route's.
 """
 from __future__ import annotations
 
@@ -16,8 +26,33 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0
+launches_by_route = {"tc": 0, "fp32": 0}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q, MAX_P, MAX_N = 128, 64, 128
+TC_Q, TC_P, TC_N = (64, 128), 64, 64
+
+
+def _route(dtype_x, dtype_bc, Q: int, P: int, N: int) -> str:
+    """``"tc"`` for bf16 X and B/C with Q 64 or 128 and P = N = 64, else
+    ``"fp32"``."""
+    if (dtype_x == torch.bfloat16 and dtype_bc == torch.bfloat16
+            and Q in TC_Q and P == TC_P and N == TC_N):
+        return "tc"
+    return "fp32"
+
+
+def _tma_strides(name: str, t: torch.Tensor, ndims: int,
+                 broadcast: int | None = None) -> tuple:
+    """t's element strides of its first ``ndims`` dims for a tensor map
+    (``build.tma_strides`` checks TMA's rules; a stride-0 head expansion,
+    dim ``broadcast``, is read as one head)."""
+    return build.tma_strides("ssd_intra_chunk", name, t, ndims, broadcast)
+
+
+def _per_head(t: torch.Tensor) -> int:
+    """1 when B or C differs per head, 0 for one group expanded with
+    stride 0 (or one head)."""
+    return int(t.shape[3] > 1 and t.stride(3) != 0)
 
 
 def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
@@ -55,18 +90,37 @@ def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (Xc, Bc, Cc)):
         raise ValueError("ssd_intra_chunk: the last dim of X, B, C must be "
                          "contiguous")
+    route = _route(Xc.dtype, Bc.dtype, Q, p, n)
+    if route == "tc":
+        if h > 65535:
+            raise ValueError(f"ssd_intra_chunk: h={h} heads outside the "
+                             "bf16 route's range (<= 65535)")
+        tma = (_tma_strides("X", Xc, 4), _tma_strides("A_cs", A_cs, 3),
+               _tma_strides("B", Bc, 4, broadcast=3),
+               _tma_strides("C", Cc, 4, broadcast=3))
     lib = build.library()
     Y = torch.empty((b, c, Q, h, p), dtype=torch.float32, device=Xc.device)
     S = torch.empty((b, c, h, p, n), dtype=torch.float32, device=Xc.device)
-    st = build.strides(Xc.stride()[:4], A_cs.stride(), Bc.stride()[:4],
-                       Cc.stride()[:4], Y.stride()[:4], S.stride())
-    err = build.launch(Xc, lib.ssd_intra_chunk_launch, Xc.data_ptr(),
-                       A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-                       Y.data_ptr(), S.data_ptr(), st, b, c, Q, h, p, n,
-                       int(Xc.dtype == torch.bfloat16))
-    build.check(err, "ssd_intra_chunk launch")
+    if route == "tc":
+        st = build.strides(*tma, Y.stride()[:4], S.stride())
+        err = build.launch(Xc, lib.ssd_intra_chunk_tc_launch, Xc.data_ptr(),
+                           A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                           Y.data_ptr(), S.data_ptr(), st, b, c, Q, h,
+                           _per_head(Bc), _per_head(Cc))
+        if err < 0:
+            raise RuntimeError("ssd_intra_chunk: cuTensorMapEncodeTiled "
+                               f"refused a tensor map (CUresult {-err})")
+    else:
+        st = build.strides(Xc.stride()[:4], A_cs.stride(), Bc.stride()[:4],
+                           Cc.stride()[:4], Y.stride()[:4], S.stride())
+        err = build.launch(Xc, lib.ssd_intra_chunk_launch, Xc.data_ptr(),
+                           A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                           Y.data_ptr(), S.data_ptr(), st, b, c, Q, h, p, n,
+                           int(Xc.dtype == torch.bfloat16))
+    build.check(err, f"ssd_intra_chunk launch ({route} route)")
     global launches
     launches += 1
+    launches_by_route[route] += 1
     return Y, S
 
 

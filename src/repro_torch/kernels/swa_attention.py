@@ -17,8 +17,6 @@ CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.kernels import build, ref
@@ -39,25 +37,9 @@ def _route(dtype_q, dtype_kv, hd: int) -> str:
 
 
 def _tma_strides(name: str, t: torch.Tensor) -> tuple:
-    """t's (b, s, h) element strides for a tensor map. TMA wants a 16-byte
-    aligned base and strides that are multiples of 16 bytes; a dim of size
-    1 is never stepped, so it gets its contiguous stride."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"swa_attention: {name}'s data pointer is not "
-                         "16-byte aligned, which the bf16 route's TMA loads "
-                         "need")
-    out = []
-    for dim in range(3):
-        if t.shape[dim] == 1:
-            out.append(math.prod(t.shape[dim + 1:]))
-            continue
-        st = t.stride(dim)
-        if st <= 0 or (st * t.element_size()) % 16:
-            raise ValueError(f"swa_attention: {name}'s stride {st} of dim "
-                             f"{dim} is not a positive multiple of 16 bytes, "
-                             "which the bf16 route's TMA loads need")
-        out.append(st)
-    return tuple(out)
+    """t's (b, s, h) element strides for a tensor map (``build.tma_strides``
+    checks TMA's rules)."""
+    return build.tma_strides("swa_attention", name, t, 3)
 
 
 def _check_shapes(q, k, v, window):

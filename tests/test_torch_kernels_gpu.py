@@ -11,7 +11,11 @@ the same tolerances). ``swa_attention``'s tensor-core route (bf16 q, k, v,
 hd 64 or 128) rounds P to bf16 before P·V, as the JAX zoo's ``sdpa`` does,
 while the plain version keeps P in fp32: 1e-2 there (2⁻⁹ relative per
 probability, over |v| ≲ 4; tests/test_torch_kernel_routes.py emulates the
-route on the CPU against the same bound)."""
+route on the CPU against the same bound). ``ssd_intra_chunk``'s
+tensor-core route (bf16 X, B, C with Q 64 or 128, P = N = 64) splits its
+fp32 operands into three bf16 terms and is held to the same 2e-4 as the
+fp32 route, in both decay regimes (tests/test_torch_ssd_routes.py
+emulates it on the CPU)."""
 import pytest
 import torch
 
@@ -213,6 +217,85 @@ def test_ssd_kernel_reads_the_models_layout(cuda):
     torch.testing.assert_close(S, Sr, atol=SSD_TOL, rtol=SSD_TOL)
 
 
+SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -scale · softplus(randn)
+
+
+def _ssd_model_args(gen, b, c, Q, h, *, decay="fast", per_head=False,
+                    p=64, n=64, dtype=torch.bfloat16):
+    """As ``ssd_chunked`` passes them: X (b, l, h, p) split into chunks by a
+    view; B/C one group expanded over the heads with stride 0, or one per
+    head (``per_head``). ``decay="slow"`` keeps L ~ 1 across the chunk."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    X = randn(b, c * Q, h, p).to(dtype).reshape(b, c, Q, h, p)
+    dtA = -SSD_DECAY[decay] * torch.nn.functional.softplus(randn(b, h, c, Q))
+    if per_head:
+        Bc, Cc = (randn(b, c * Q, h, n).to(dtype).reshape(b, c, Q, h, n)
+                  for _ in range(2))
+    else:
+        Bc, Cc = (randn(b, c * Q, 1, n).to(dtype).expand(
+            b, c * Q, h, n).reshape(b, c, Q, h, n) for _ in range(2))
+    return X, torch.cumsum(dtA, -1), Bc, Cc
+
+
+@pytest.mark.parametrize("b,c,Q,h,decay,per_head", [
+    (4, 16, 128, 64, "fast", False),   # Zamba2 prefill, B = 4
+    (4, 16, 128, 64, "slow", False),
+    (2, 3, 128, 8, "fast", True),      # B/C per head
+    (2, 3, 128, 8, "slow", True),
+    (2, 4, 64, 8, "fast", False),      # Q = 64
+    (2, 4, 64, 8, "slow", True),
+    (1, 2, 128, 1, "slow", False),     # one head
+    (4, 16, 128, 13, "fast", False),   # a last head block of one head
+])
+def test_ssd_tc_route_matches_plain(cuda, b, c, Q, h, decay, per_head):
+    args = _ssd_model_args(cuda, b, c, Q, h, decay=decay, per_head=per_head)
+    if h > 1 and not per_head:
+        assert args[2].stride(3) == 0 and args[3].stride(3) == 0
+    assert ssd_mod._route(args[0].dtype, args[2].dtype, Q, 64, 64) == "tc"
+    before = dict(ssd_mod.launches_by_route)
+    Y, S = ssd_mod.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches_by_route == {"tc": before["tc"] + 1,
+                                         "fp32": before["fp32"]}
+    Yr, Sr = ref.ssd_intra_chunk_ref(*args)
+    assert torch.isfinite(Y).all() and torch.isfinite(S).all()
+    torch.testing.assert_close(Y, Yr, atol=SSD_TOL, rtol=SSD_TOL)
+    torch.testing.assert_close(S, Sr, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+def test_ssd_routes_agree(cuda, decay):
+    """The same bf16 inputs on the tensor-core route, and cast exactly to
+    fp32 on the CUDA-core route."""
+    args = _ssd_model_args(cuda, 2, 4, 128, 8, decay=decay)
+    Y, S = ssd_mod.ssd_intra_chunk(*args)
+    before = dict(ssd_mod.launches_by_route)
+    Y32, S32 = ssd_mod.ssd_intra_chunk(*(t.float() for t in args))
+    assert ssd_mod.launches_by_route == {"tc": before["tc"],
+                                         "fp32": before["fp32"] + 1}
+    torch.testing.assert_close(Y, Y32, atol=SSD_TOL, rtol=SSD_TOL)
+    torch.testing.assert_close(S, S32, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+def test_ssd_tc_route_raises_on_what_tma_cannot_load(cuda):
+    X, A_cs, Bc, Cc = _ssd_model_args(cuda, 1, 2, 128, 2)
+    before = dict(ssd_mod.launches_by_route)
+    wide = torch.randn((1, 256, 2, 68), generator=cuda, device="cuda").to(
+        torch.bfloat16)[..., :64].reshape(1, 2, 128, 2, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd_mod.ssd_intra_chunk(wide, A_cs, Bc, Cc)   # head stride 136 B
+    flat = torch.randn(1 + X.numel(), generator=cuda, device="cuda").to(
+        torch.bfloat16)
+    shifted = flat[1:].view(X.shape)                  # 2 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd_mod.ssd_intra_chunk(shifted, A_cs, Bc, Cc)
+    a_qmajor = A_cs.transpose(-1, -2).contiguous().transpose(-1, -2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_mod.ssd_intra_chunk(X, a_qmajor, Bc, Cc)
+    assert ssd_mod.launches_by_route == before        # never another route
+
+
 @pytest.mark.parametrize("window", [None, 8])
 def test_zamba2_smoke_forward_on_card_matches_cpu(cuda, window):
     """One smoke forward through both kernels against the same forward on
@@ -235,6 +318,7 @@ def test_zamba2_smoke_forward_on_card_matches_cpu(cuda, window):
     counts = ops.launch_counts()
     assert counts["ssd_intra_chunk"] == 2 and counts["swa_attention"] == 1
     assert counts["swa_attention.fp32"] == 1
+    assert counts["ssd_intra_chunk.fp32"] == 2
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 

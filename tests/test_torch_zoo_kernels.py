@@ -210,4 +210,6 @@ def test_cpu_tensors_launch_no_kernel():
     assert ops.launch_counts() == {"edc_cosine": 0, "madc": 0,
                                    "swa_attention": 0, "ssd_intra_chunk": 0,
                                    "swa_attention.tc": 0,
-                                   "swa_attention.fp32": 0}
+                                   "swa_attention.fp32": 0,
+                                   "ssd_intra_chunk.tc": 0,
+                                   "ssd_intra_chunk.fp32": 0}
