@@ -10,8 +10,10 @@ with no final ``ok`` line):
                 (nvidia-smi) and build the kernels from ``src/repro_torch/
                 csrc`` (nvcc, one process per source); a line each of
                 ptxas's registers, shared memory, spills and performance
-                warnings for the two tensor-core kernels, swa_tc_kernel and
-                ssd_tc_kernel.
+                warnings for the tensor-core kernels, swa_tc_kernel and
+                ssd_tc_kernel, and the fp32 routes' 3xTF32 kernels,
+                swa_kernel (with swa_combine_kernel), ssd_kernel and
+                ssd_cell_kernel.
   2. kernels  — each hand-written kernel against its plain PyTorch version
                 on the same inputs at the main paths' shapes and ragged ones:
                 max abs error (within atol + rtol·|plain|, elementwise:
@@ -24,10 +26,17 @@ with no final ``ok`` line):
                 library-call time (CUDA events, warmed, many launches), the
                 least time the card could take (bytes over 3.35 TB/s or
                 FLOPs over the peak of the input type: 989 TFLOP/s bf16
-                tensor cores, 67 TFLOP/s fp32); at each main-path shape
-                also the device time from torch.profiler and the wrapper's
-                host time per call (1,000 calls, no synchronise); madc's
-                device time at each tile edge over a sweep of n.
+                tensor cores, 67 TFLOP/s fp32; for the fp32 routes also the
+                bound of their units: three TF32 products per fp32
+                product at 495 TFLOP/s); at each main-path shape and at
+                the fp32 routes' zamba2-prefill-fp32 shapes also the
+                device time from torch.profiler and the wrapper's host
+                time per call (1,000 calls, no synchronise); madc's
+                device time at each tile edge over a sweep of n. The fp32
+                routes are checked at Zamba2's fp32 forward (B=1, S=256)
+                and prefill (B=4, S=2048) shapes, SSD in the model's
+                layout (stride-0 B/C group) in both decay regimes and in
+                the Pallas cells layout, and at unaligned shapes.
   3. reference — a tiny run on the CPU (plain versions) and on the card
                 (kernels) with the same draws must agree; it is also the
                 warm-up of the card's libraries.
@@ -76,6 +85,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 dense tensor cores
+TF32_TERMS = 3                 # the fp32 routes: 3 TF32 products a product
 TOL = 3e-5                     # kernel vs plain: fp32 sums in another order
 SWA_TC_TOL = 1e-2              # P rounded to bf16: 2^-9 per p, over |v| <~ 4
 SSD_TOL = 2e-4                 # SSD outputs are sums of ~Q products of ~N
@@ -119,10 +130,11 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(torch, fn, match: str, iters: int = 20):
+def profiled_ms(torch, fn, match, iters: int = 20):
     """Device time of one call from torch.profiler: the kernels whose name
-    holds ``match``, summed over ``iters`` warmed calls, over iters. None
-    where the profiler saw no such kernel (not measured)."""
+    holds ``match`` (a string or a tuple of them), summed over ``iters``
+    warmed calls, over iters. None where the profiler saw no such kernel
+    (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -133,8 +145,10 @@ def profiled_ms(torch, fn, match: str, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    names = (match,) if isinstance(match, str) else match
     ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and match in e.key]
+          if e.device_type == DeviceType.CUDA
+          and any(m in e.key for m in names)]
     if not ev:
         return None
     return sum(e.self_device_time_total for e in ev) / 1e3 / iters
@@ -153,12 +167,15 @@ def host_us(torch, fn, calls: int = 1000) -> float:
     return dt / calls * 1e6
 
 
-def call_times(torch, fn, match: str) -> dict:
+def call_times(torch, fn, match) -> dict:
     return {"device_ms": profiled_ms(torch, fn, match),
             "host_us_per_call": host_us(torch, fn)}
 
 
-def ptxas_report(log: str, source: str, kernel: str) -> dict:
+def ptxas_report(log: str, source: str, kernel: str,
+                 note: str = "registers at entry (launch bound 384 "
+                             "threads); setmaxnreg gives the consumers 240 "
+                             "and the producer 24") -> dict:
     """A kernel's registers, spills and shared memory from ptxas -v, and any
     warning or performance note (C7511: wgmma serialized) about its
     source."""
@@ -189,9 +206,7 @@ def ptxas_report(log: str, source: str, kernel: str) -> dict:
     if not inst:
         raise AssertionError(f"no ptxas report of {kernel} in the build log")
     return {"phase": "ptxas", "kernel": kernel, "instances": inst,
-            "warnings": warn,
-            "note": "registers at entry (launch bound 384 threads); "
-                    "setmaxnreg gives the consumers 240 and the producer 24"}
+            "warnings": warn, "note": note}
 
 
 def check_kernels(torch):
@@ -322,7 +337,7 @@ def check_zoo_kernels(torch):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     def swa_case(B, Sq, Sk, H, hd, window, causal, dtype, label,
-                 main=False):
+                 main=False, times=False):
         q = randn((B, Sq, H, hd), dtype)
         k, v = randn((B, Sk, H, hd), dtype), randn((B, Sk, H, hd), dtype)
         route = swa_mod._route(dtype, dtype, hd)
@@ -339,10 +354,11 @@ def check_zoo_kernels(torch):
         es = q.element_size()
         pairs = kept_pairs(Sq, Sk, window, causal)
         bf16 = dtype == torch.bfloat16
-        b_ms, b_by = bound_ms(
-            (B * Sq * H * hd + 2 * B * Sk * H * hd) * es + B * Sq * H * hd * 4,
-            4.0 * B * H * hd * pairs, BF16_OPS_PER_S if bf16 else
-            FP32_OPS_PER_S)
+        n_bytes = ((B * Sq * H * hd + 2 * B * Sk * H * hd) * es
+                   + B * Sq * H * hd * 4)
+        flops = 4.0 * B * H * hd * pairs
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_OPS_PER_S if bf16 else
+                              FP32_OPS_PER_S)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if causal and not window and Sq == Sk:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -363,23 +379,26 @@ def check_zoo_kernels(torch):
                "dtype": str(dtype).split(".")[-1], "kept_pairs": pairs,
                "max_abs_err": err, "tol": tol,
                "ms": cuda_ms(torch, lambda: swa_mod.swa_attention(
-                   q, k, v, window=window, causal=causal), 10),
+                   q, k, v, window=window, causal=causal), 50),
                "plain_ms": cuda_ms(torch, lambda: ref.swa_attention_ref(
                    q, k, v, window=window, causal=causal), 3, warmup=1),
-               "library_ms": cuda_ms(torch, lib, 10),
+               "library_ms": cuda_ms(torch, lib, 50),
                "library_call": "F.scaled_dot_product_attention",
                "bound_ms": b_ms, "bound_by": b_by,
                "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
-        if main:
+        if route == "fp32":
+            row.update(units_bound(n_bytes, flops, row["ms"]))
+        if main or times:
             row.update(call_times(torch, lambda: swa_mod.swa_attention(
                 q, k, v, window=window, causal=causal),
-                "swa_tc_kernel" if route == "tc" else "swa_kernel"))
+                "swa_tc_kernel" if route == "tc"
+                else ("swa_kernel", "swa_combine_kernel")))
         emit(row)
         if not ok:
             raise AssertionError(f"swa_attention {label}: max abs err {err}")
         return row
 
-    def ssd_case(args, dtype, label, main=False, decay="fast"):
+    def ssd_case(args, dtype, label, main=False, decay="fast", times=False):
         """args: (Xc, A_cs, Bc, Cc) in the model's chunked layout."""
         Xc, A_cs, Bc, Cc = args
         b, c, Q, h, p = Xc.shape
@@ -406,10 +425,11 @@ def check_zoo_kernels(torch):
         tri = Q * (Q + 1) / 2
         groups = 1 if Bc.stride(3) == 0 and Cc.stride(3) == 0 else h
         bf16 = dtype == torch.bfloat16
-        b_ms, b_by = bound_ms(
-            sum(uniq(t) for t in args) + (Y.numel() + S.numel()) * 4,
-            b * c * (groups * 2 * tri * n + h * (2 * tri * p + 2 * Q * n * p)),
-            BF16_OPS_PER_S if bf16 else FP32_OPS_PER_S)
+        n_bytes = sum(uniq(t) for t in args) + (Y.numel() + S.numel()) * 4
+        flops = b * c * (groups * 2 * tri * n
+                         + h * (2 * tri * p + 2 * Q * n * p))
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_OPS_PER_S if bf16 else
+                              FP32_OPS_PER_S)
         row = {"phase": "kernel", "name": "ssd_intra_chunk", "case": label,
                "route": route, "decay": decay,
                "b": b, "chunks": c, "Q": Q, "h": h, "P": p, "N": n,
@@ -418,7 +438,7 @@ def check_zoo_kernels(torch):
                "max_abs_err": max(ey, es), "tol": SSD_TOL,
                "max_err_over_tol": ratio,
                "ms": cuda_ms(torch, lambda: ssd_mod.ssd_intra_chunk(*args),
-                             10),
+                             50),
                "plain_ms": cuda_ms(torch,
                                    lambda: ref.ssd_intra_chunk_ref(*args), 3,
                                    warmup=1),
@@ -427,10 +447,16 @@ def check_zoo_kernels(torch):
                                "and the chunk states",
                "bound_ms": b_ms, "bound_by": b_by,
                "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
-        if main:
+        if route == "fp32":
+            row["heads_per_cta"] = ssd_mod.ssd_heads_per_cta(
+                b, c, h, groups > 1, torch.cuda.get_device_properties(
+                    0).multi_processor_count)
+            row.update(units_bound(n_bytes, flops, row["ms"]))
+        if main or times:
             row.update(call_times(
                 torch, lambda: ssd_mod.ssd_intra_chunk(*args),
-                "ssd_tc_kernel" if route == "tc" else "ssd_kernel"))
+                "ssd_tc_kernel" if route == "tc"
+                else ("ssd_kernel", "ssd_cell_kernel")))
         emit(row)
         if not (oky and oks):
             raise AssertionError(f"ssd_intra_chunk {label}: max abs err "
@@ -470,7 +496,10 @@ def check_zoo_kernels(torch):
     rows["swa_attention.fp32"] = swa_case(
         1, CONSIST_S, CONSIST_S, 32, 64, None, True, f32, "zamba2-fp32",
         main=True)
-    swa_case(B, S, S, 32, 64, None, True, f32, "zamba2-prefill-fp32")
+    swa_case(B, S, S, 32, 64, None, True, f32, "zamba2-prefill-fp32",
+             times=True)
+    swa_case(1, CONSIST_S, CONSIST_S, 32, 64, 64, True, f32,
+             "zamba2-fp32-w64")
     swa_case(2, 33, 65, 2, 40, 16, True, f32, "unaligned-fp32")
     swa_case(1, 96, 96, 2, 80, None, False, f32, "bidirectional-fp32")
     # the tensor-core route at Zamba2's bf16 prefill, in both decay regimes;
@@ -485,10 +514,44 @@ def check_zoo_kernels(torch):
     rows["ssd_intra_chunk.fp32"] = ssd_case(
         ssd_model_args(1, CONSIST_S // 128, 128, 64, 64, 64, f32), f32,
         "zamba2-fp32", main=True)
+    ssd_case(ssd_model_args(B, S // 128, 128, 64, 64, 64, f32), f32,
+             "zamba2-prefill-fp32", times=True)
+    ssd_case(ssd_model_args(B, S // 128, 128, 64, 64, 64, f32, "slow"), f32,
+             "zamba2-prefill-fp32-slow-decay", decay="slow")
     ssd_case(ssd_cells_args(B * 64, S // 128, 128, 64, 64, f32), f32,
              "zamba2-cells-fp32")
     ssd_case(ssd_cells_args(6, 3, 37, 23, 11, f32), f32, "unaligned-fp32")
+    ssd_heads_sweep(torch, ssd_mod, ssd_model_args(B, S // 128, 128, 64, 64,
+                                                   64, f32))
     return rows
+
+
+def ssd_heads_sweep(torch, ssd_mod, args):
+    """Device time of the fp32 SSD route at Zamba2's fp32 prefill for each
+    power-of-two head block (torch.profiler): the numbers behind
+    ``ssd_heads_per_cta``."""
+    b, c, _, h, _ = args[0].shape
+    row = {"phase": "ssd_heads", "b": b, "chunks": c, "h": h,
+           "picked": ssd_mod.ssd_heads_per_cta(
+               b, c, h, False,
+               torch.cuda.get_device_properties(0).multi_processor_count)}
+    for hb in (1, 2, 4, 8, 16, 32):
+        row[f"device_ms_hb{hb}"] = profiled_ms(
+            torch, lambda: ssd_mod.ssd_intra_chunk(*args, heads_per_cta=hb),
+            ("ssd_kernel", "ssd_cell_kernel"))
+    emit(row)
+
+
+def units_bound(n_bytes: float, flops: float, ms: float) -> dict:
+    """The fp32 routes run each fp32 product as three TF32 tensor-core
+    products: their bound at those units (bytes over 3.35 TB/s, or 3·FLOPs
+    over 495 TFLOP/s), and the kernel's share of it and of the fp32 bound
+    (67 TFLOP/s, ``bound_ms``)."""
+    tc_ms, tc_by = bound_ms(n_bytes, TF32_TERMS * flops, TF32_OPS_PER_S)
+    fp32_ms, _ = bound_ms(n_bytes, flops, FP32_OPS_PER_S)
+    return {"bound_3xtf32_ms": tc_ms, "bound_3xtf32_by": tc_by,
+            "share_of_fp32_bound": fp32_ms / ms,
+            "share_of_3xtf32_bound": tc_ms / ms}
 
 
 def fedgroup_run(torch, data, model, measure: str):
@@ -747,9 +810,9 @@ def device_summary(torch, prof, wall_ms: float) -> dict:
                    if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:6]
     swa_tc_ms, swa_tc_share = share("swa_tc_kernel")
-    swa_f32_ms, swa_f32_share = share("swa_kernel")
+    swa_f32_ms, swa_f32_share = share("swa_kernel", "swa_combine_kernel")
     ssd_tc_ms, ssd_tc_share = share("ssd_tc_kernel")
-    ssd_f32_ms, ssd_f32_share = share("ssd_kernel")
+    ssd_f32_ms, ssd_f32_share = share("ssd_kernel", "ssd_cell_kernel")
     gemm_ms, gemm_share = share("gemm", "Gemm", "nvjet", "sm90_xmma",
                                 "cutlass")
     copy_ms, copy_share = share("copy", "Copy")
@@ -935,6 +998,15 @@ def main() -> int:
               kernels_lib.ssd_intra_chunk_tc_heads_per_cta(
                   ZAMBA_B, ZAMBA_S // 128, 64,
                   torch.cuda.get_device_properties(0).multi_processor_count)})
+    fp32_note = ("registers at entry (launch bound 128 threads); 3xTF32 "
+                 "mma.sync, operands split in registers")
+    emit(ptxas_report(log, "swa_attention.cu", "swa_kernel", fp32_note))
+    emit(ptxas_report(log, "swa_attention.cu", "swa_combine_kernel",
+                      "registers at entry (256 threads)"))
+    emit(ptxas_report(log, "ssd_chunk.cu", "ssd_kernel", fp32_note))
+    emit(ptxas_report(log, "ssd_chunk.cu", "ssd_cell_kernel",
+                      "registers at entry (launch bound 256 threads, two "
+                      "CTAs an SM); 3xTF32 mma.sync"))
 
     # phase 2: kernels against their plain versions
     rows = check_kernels(torch)

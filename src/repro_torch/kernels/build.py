@@ -13,6 +13,7 @@ fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -50,8 +51,9 @@ def _sources() -> list:
 
 
 def source_hash() -> str:
+    """A hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -123,16 +125,16 @@ def _declare(lib):
     lib.madc_launch.argtypes = [vp, vp, i, i, vp]
     lib.madc_launch.restype = i
     ll = ctypes.POINTER(ctypes.c_longlong)
-    lib.swa_attention_launch.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, i,
-                                         i, i, i, ctypes.c_float, i, i, vp]
+    lib.swa_attention_launch.argtypes = [vp, vp, vp, vp, vp, ll, vp]
     lib.swa_attention_launch.restype = i
+    lib.swa_attention_part_floats.argtypes = [i, i, i, i, i]
+    lib.swa_attention_part_floats.restype = ctypes.c_longlong
     lib.swa_attention_tc_launch.argtypes = [vp, vp, vp, vp, ll, i, i, i, i,
                                             i, i, i, i, ctypes.c_float, vp]
     lib.swa_attention_tc_launch.restype = i
     lib.swa_attention_tc_smem.argtypes = [i]
     lib.swa_attention_tc_smem.restype = i
-    lib.ssd_intra_chunk_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i, i,
-                                           i, i, i, i, i, vp]
+    lib.ssd_intra_chunk_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, vp]
     lib.ssd_intra_chunk_launch.restype = i
     lib.ssd_intra_chunk_tc_launch.argtypes = [vp, vp, vp, vp, vp, vp, ll, i,
                                               i, i, i, i, i, vp]
@@ -156,6 +158,12 @@ def library():
         if _lib is None:
             _lib = _declare(ctypes.CDLL(str(build())))
         return _lib
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index`` (the fp32 routes size grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(t: torch.Tensor, fn, *args) -> int:

@@ -8,7 +8,11 @@ replace the Pallas kernel ``repro.kernels.ssd_chunk.ssd_intra_chunk``:
   fp32 operands of the two products are split into three bf16 terms, so
   the outputs keep fp32 accuracy (within 2e-4 of the plain version).
 - route ``fp32``, ``csrc/ssd_chunk.cu``: every other input (fp32, or
-  another Q, P, N). CUDA cores, all in fp32.
+  another Q, P, N). Tensor cores at fp32 accuracy: each fp32 product is
+  three TF32 products (``mma.sync``); C·Bᵀ once per CTA for a block of
+  heads that share one B/C group (``ssd_heads_per_cta``), only the causal
+  triangle's tiles; with one head a CTA, a kernel of its own that builds
+  C·Bᵀ and the state in parallel warps.
 
 The route depends on dtype and shape only (``_route``). On the ``tc``
 route an input that breaks TMA's rules raises; it never switches route.
@@ -41,6 +45,22 @@ def _route(dtype_x, dtype_bc, Q: int, P: int, N: int) -> str:
     return "fp32"
 
 
+def ssd_heads_per_cta(b: int, c: int, h: int, per_head: bool,
+                      n_sm: int) -> int:
+    """Heads per CTA of the fp32 route, which share one C·Bᵀ: 1 when B or C
+    differ per head; else the largest power of two (at most h) whose grid
+    of b·c·⌈h/hb⌉ CTAs still gives every SM one: 16 at Zamba2's fp32
+    prefill (b·c = 64, 64 heads), fewer C·Bᵀ and one wave of CTAs, faster
+    there than 8 or 4 on the H100 (PERF.md, from ``chip_smoke.py``'s
+    sweep)."""
+    if per_head:
+        return 1
+    hb = 1
+    while 2 * hb <= h and b * c * -(-h // (2 * hb)) >= n_sm:
+        hb *= 2
+    return hb
+
+
 def _tma_strides(name: str, t: torch.Tensor, ndims: int,
                  broadcast: int | None = None) -> tuple:
     """t's element strides of its first ``ndims`` dims for a tensor map
@@ -55,12 +75,10 @@ def _per_head(t: torch.Tensor) -> int:
     return int(t.shape[3] > 1 and t.stride(3) != 0)
 
 
-def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
-                    Cc: torch.Tensor):
-    """Xc (b, c, Q, h, p); A_cs (b, h, c, Q) fp32, the inclusive cumsum of
-    dt·A within each chunk; Bc, Cc (b, c, Q, h, n). Any strides with the
-    last dim contiguous (a head expansion may be a stride-0 view).
-    Returns (Y_diag (b, c, Q, h, p) fp32, states (b, c, h, p, n) fp32)."""
+def _plan(Xc, A_cs, Bc, Cc, heads_per_cta) -> tuple:
+    """Checks a call's signature and returns what every call with it
+    launches: ``("cpu",)``; ``("tc",)``; or ``("fp32", params, Y shape,
+    S shape)``, params the C launcher's constant arguments."""
     b, c, Q, h, p = Xc.shape
     n = Bc.shape[-1]
     if (Bc.shape != (b, c, Q, h, n) or Cc.shape != Bc.shape
@@ -69,10 +87,9 @@ def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
                          f"{tuple(A_cs.shape)}, B {tuple(Bc.shape)}, C "
                          f"{tuple(Cc.shape)}; want X (b, c, Q, h, p), A_cs "
                          "(b, h, c, Q), B and C (b, c, Q, h, n)")
-    tensors = (Xc, A_cs, Bc, Cc)
-    devs = {t.device for t in tensors}
+    devs = {t.device for t in (Xc, A_cs, Bc, Cc)}
     if devs == {torch.device("cpu")}:
-        return ref.ssd_intra_chunk_ref(Xc, A_cs, Bc, Cc)
+        return ("cpu",)
     if len(devs) != 1 or Xc.device.type != "cuda":
         raise ValueError(f"ssd_intra_chunk: inputs on "
                          f"{sorted(map(str, devs))}; all must be on one CUDA "
@@ -90,18 +107,74 @@ def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (Xc, Bc, Cc)):
         raise ValueError("ssd_intra_chunk: the last dim of X, B, C must be "
                          "contiguous")
-    route = _route(Xc.dtype, Bc.dtype, Q, p, n)
-    if route == "tc":
+    if _route(Xc.dtype, Bc.dtype, Q, p, n) == "tc":
         if h > 65535:
             raise ValueError(f"ssd_intra_chunk: h={h} heads outside the "
                              "bf16 route's range (<= 65535)")
+        return ("tc",)
+    per_head = bool(_per_head(Bc) or _per_head(Cc))
+    if heads_per_cta is None:
+        hb = ssd_heads_per_cta(b, c, h, per_head,
+                               build.sm_count(Xc.device.index))
+    elif 0 < heads_per_cta <= h and (heads_per_cta == 1 or not per_head):
+        hb = heads_per_cta
+    else:
+        raise ValueError(f"ssd_intra_chunk: heads_per_cta={heads_per_cta} "
+                         f"with h={h}, B/C per head {per_head} (1 <= it <= "
+                         "h, and 1 when B or C differ per head)")
+    y_st = (c * Q * h * p, Q * h * p, h * p, p)       # Y, S contiguous
+    s_st = (c * h * p * n, h * p * n, p * n, n, 1)
+    prm = build.strides(Xc.stride()[:4], A_cs.stride(), Bc.stride()[:4],
+                        Cc.stride()[:4], y_st, s_st,
+                        (b, c, Q, h, p, n, int(Xc.dtype == torch.bfloat16),
+                         hb))
+    return ("fp32", prm, (b, c, Q, h, p), (b, c, h, p, n))
+
+
+_plans: dict = {}
+
+
+def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
+                    Cc: torch.Tensor, heads_per_cta: int | None = None):
+    """Xc (b, c, Q, h, p); A_cs (b, h, c, Q) fp32, the inclusive cumsum of
+    dt·A within each chunk; Bc, Cc (b, c, Q, h, n). Any strides with the
+    last dim contiguous (a head expansion may be a stride-0 view).
+    Returns (Y_diag (b, c, Q, h, p) fp32, states (b, c, h, p, n) fp32).
+    ``heads_per_cta`` overrides ``ssd_heads_per_cta`` on the fp32 route
+    (the sweep in ``chip_smoke.py`` that sets it). A signature (shapes,
+    strides, dtypes, devices) is checked and planned once; later calls
+    with it only allocate and launch."""
+    key = (Xc.shape, Bc.shape, Cc.shape, A_cs.shape, Xc.stride(),
+           A_cs.stride(), Bc.stride(), Cc.stride(), Xc.dtype, Bc.dtype,
+           Cc.dtype, A_cs.dtype, Xc.device, A_cs.device, Bc.device,
+           Cc.device, heads_per_cta)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plan(Xc, A_cs, Bc, Cc, heads_per_cta)
+        if len(_plans) >= 512:
+            _plans.clear()
+        _plans[key] = plan
+    route = plan[0]
+    if route == "cpu":
+        return ref.ssd_intra_chunk_ref(Xc, A_cs, Bc, Cc)
+    lib = build.library()
+    if route == "fp32":
+        _, prm, y_shape, s_shape = plan
+        Y = torch.empty(y_shape, dtype=torch.float32, device=Xc.device)
+        S = torch.empty(s_shape, dtype=torch.float32, device=Xc.device)
+        err = build.launch(Xc, lib.ssd_intra_chunk_launch, Xc.data_ptr(),
+                           A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                           Y.data_ptr(), S.data_ptr(), prm)
+    else:
+        b, c, Q, h, p = Xc.shape
+        n = Bc.shape[-1]
         tma = (_tma_strides("X", Xc, 4), _tma_strides("A_cs", A_cs, 3),
                _tma_strides("B", Bc, 4, broadcast=3),
                _tma_strides("C", Cc, 4, broadcast=3))
-    lib = build.library()
-    Y = torch.empty((b, c, Q, h, p), dtype=torch.float32, device=Xc.device)
-    S = torch.empty((b, c, h, p, n), dtype=torch.float32, device=Xc.device)
-    if route == "tc":
+        Y = torch.empty((b, c, Q, h, p), dtype=torch.float32,
+                        device=Xc.device)
+        S = torch.empty((b, c, h, p, n), dtype=torch.float32,
+                        device=Xc.device)
         st = build.strides(*tma, Y.stride()[:4], S.stride())
         err = build.launch(Xc, lib.ssd_intra_chunk_tc_launch, Xc.data_ptr(),
                            A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
@@ -110,13 +183,6 @@ def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
         if err < 0:
             raise RuntimeError("ssd_intra_chunk: cuTensorMapEncodeTiled "
                                f"refused a tensor map (CUresult {-err})")
-    else:
-        st = build.strides(Xc.stride()[:4], A_cs.stride(), Bc.stride()[:4],
-                           Cc.stride()[:4], Y.stride()[:4], S.stride())
-        err = build.launch(Xc, lib.ssd_intra_chunk_launch, Xc.data_ptr(),
-                           A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-                           Y.data_ptr(), S.data_ptr(), st, b, c, Q, h, p, n,
-                           int(Xc.dtype == torch.bfloat16))
     build.check(err, f"ssd_intra_chunk launch ({route} route)")
     global launches
     launches += 1

@@ -6,8 +6,14 @@ kernels that replace the Pallas kernel
   dim 64 or 128 (Zamba2's prefill). Tensor cores (``wgmma``) fed by TMA;
   P is rounded to bf16 before P·V, as the JAX zoo's ``sdpa`` does, so it
   agrees with the plain version within 1e-2.
-- route ``fp32``, ``csrc/swa_attention.cu``: every other input (fp32, or
-  another head dim up to 256). CUDA cores, all in fp32; within 3e-5.
+- route ``fp32``, ``csrc/swa_attention.cu``: every other input (fp32,
+  mixed fp32/bf16 q vs k/v, or another head dim up to 256). Tensor cores
+  at fp32 accuracy: each fp32 product is three TF32 products (``mma.sync``,
+  big·big + big·small + small·big); within 3e-5. Where the grid of
+  (128-row query tile, batch·head) CTAs would not fill the card, the key
+  range of a query tile is split over CTAs (``swa_plan``) and a second
+  kernel combines the partials, which live in a workspace kept per device
+  and stream (``_workspace``).
 
 The route depends on dtype and head dim only (``_route``). On the ``tc``
 route an input that breaks TMA's rules raises; it never switches route. A
@@ -16,6 +22,8 @@ CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
 ``launches_by_route`` each route's.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,6 +34,45 @@ launches_by_route = {"tc": 0, "fp32": 0}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128)
+BLOCK_Q = 128           # fp32 route: query rows per CTA (8 warps of 16)
+MAX_SPLIT = 64          # fp32 route: the most chunks of one query tile
+
+
+def block_k(hd: int) -> int:
+    """The fp32 route's key tile: 64 keys at hd <= 64, 32 to 192, else 16
+    (the kernel's ``block_k`` of the padded head dim 64·⌈hd/64⌉)."""
+    return 64 if hd <= 64 else 32 if hd <= 192 else 16
+
+
+def key_tiles(qt: int, Sq: int, Sk: int, bk: int, window, causal) -> tuple:
+    """Key tiles [lo, hi) that hold a kept key for some row of query tile
+    qt, as the kernel's ``tile_range`` computes them (at least one)."""
+    off, q0 = Sk - Sq, qt * BLOCK_Q
+    pmin, pmax = q0 + off, min(q0 + BLOCK_Q, Sq) - 1 + off
+    k_lo = max(0, pmin - window + 1) if window else 0
+    k_hi = min(Sk, pmax + 1) if causal else Sk
+    lo = k_lo // bk
+    return lo, max(lo + 1, -(-k_hi // bk))
+
+
+@functools.lru_cache(maxsize=256)
+def swa_plan(BH: int, Sq: int, Sk: int, hd: int, window, causal: bool,
+             n_sm: int) -> tuple:
+    """(chunk, nsplit) for the fp32 route: each CTA walks at most ``chunk``
+    key tiles of its query tile; ``nsplit`` is the most chunks of any query
+    tile (1: no split, no combine). The grid of whole query tiles is kept
+    when it holds two CTAs per SM; otherwise the chunk is halved, from the
+    longest tile range down, until it does (or is one tile, or a query
+    tile would have more than ``MAX_SPLIT`` chunks), so the tile on the
+    diagonal no longer sets the time."""
+    bk = block_k(hd)
+    spans = [hi - lo for lo, hi in (key_tiles(qt, Sq, Sk, bk, window, causal)
+                                    for qt in range(-(-Sq // BLOCK_Q)))]
+    chunk, target = max(spans), 2 * n_sm
+    while (chunk > 1 and BH * sum(-(-n // chunk) for n in spans) < target
+           and -(-max(spans) // -(-chunk // 2)) <= MAX_SPLIT):
+        chunk = -(-chunk // 2)
+    return chunk, max(-(-n // chunk) for n in spans)
 
 
 def _route(dtype_q, dtype_kv, hd: int) -> str:
@@ -61,16 +108,15 @@ def _check_shapes(q, k, v, window):
         raise ValueError(f"swa_attention: window={window} keeps no key")
 
 
-def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int | None = None,
-                  causal: bool = True) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), fp32 or bf16 ->
-    (B, Sq, H, hd) fp32. Query i sits at absolute position i + (Sk − Sq);
-    the window keeps keys with kpos > qpos − window."""
+def _plan(q, k, v, window, causal) -> tuple:
+    """Checks a call's signature and returns what every call with it
+    launches: ``("cpu",)``; ``("tc",)``; or ``("fp32", params, partial
+    floats, out shape)``, params the C launcher's constant arguments (no
+    partials without a split)."""
     _check_shapes(q, k, v, window)
     devs = {q.device, k.device, v.device}
     if devs == {torch.device("cpu")}:
-        return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+        return ("cpu",)
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"swa_attention: q, k, v on {sorted(map(str, devs))}"
                          "; all must be on one CUDA device (or the CPU)")
@@ -88,27 +134,80 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "contiguous")
     route = _route(q.dtype, k.dtype, hd)
     if route == "tc":
+        return ("tc",)
+    chunk, nsplit = swa_plan(B * H, Sq, Sk, hd, window, bool(causal),
+                             build.sm_count(q.device.index))
+    nfloats = 0
+    if nsplit > 1:
+        nfloats = build.library().swa_attention_part_floats(B, H, Sq, hd,
+                                                            nsplit)
+    prm = build.strides(q.stride()[:3], k.stride()[:3], v.stride()[:3],
+                        (Sq * H * hd, H * hd, hd),
+                        (B, Sq, Sk, H, KV, hd, window or 0, int(causal),
+                         int(q.dtype == torch.bfloat16),
+                         int(k.dtype == torch.bfloat16), chunk, nsplit))
+    return ("fp32", prm, nfloats, (B, Sq, H, hd))
+
+
+_plans: dict = {}
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, floats: int) -> int:
+    """The partials of a split launch: one buffer per device and stream,
+    grown when a plan needs more (the launches of one stream use it in
+    order; the caching allocator keeps a freed one until they are done)."""
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+        _workspaces[key] = ws
+    return ws.data_ptr()
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int | None = None,
+                  causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), fp32 or bf16 ->
+    (B, Sq, H, hd) fp32. Query i sits at absolute position i + (Sk − Sq);
+    the window keeps keys with kpos > qpos − window. A signature (shapes,
+    strides, dtypes, devices, window, causal) is checked and planned once;
+    later calls with it only allocate and launch."""
+    key = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+           q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, window,
+           causal)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plan(q, k, v, window, causal)
+        if len(_plans) >= 512:
+            _plans.clear()
+        _plans[key] = plan
+    route = plan[0]
+    if route == "cpu":
+        return ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    lib = build.library()
+    if route == "fp32":
+        _, prm, nfloats, shape = plan
+        out = torch.empty(shape, dtype=torch.float32, device=q.device)
+        part = _workspace(q.device, nfloats) if nfloats else None
+        err = build.launch(q, lib.swa_attention_launch, q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), out.data_ptr(), part,
+                           prm)
+    else:
+        B, Sq, H, hd = q.shape
+        Sk, KV = k.shape[1], k.shape[2]
         tma = [_tma_strides(name, t) for name, t in (("q", q), ("k", k),
                                                       ("v", v))]
-    lib = build.library()
-    out = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=q.device)
-    scale = 1.0 / hd ** 0.5
-    if route == "tc":
+        out = torch.empty((B, Sq, H, hd), dtype=torch.float32,
+                          device=q.device)
         st = build.strides(*tma, out.stride()[:3])
         err = build.launch(q, lib.swa_attention_tc_launch, q.data_ptr(),
                            k.data_ptr(), v.data_ptr(), out.data_ptr(), st, B,
                            Sq, Sk, H, KV, hd, window or 0, int(causal),
-                           scale)
+                           1.0 / hd ** 0.5)
         if err < 0:
             raise RuntimeError("swa_attention: cuTensorMapEncodeTiled "
                                f"refused a tensor map (CUresult {-err})")
-    else:
-        st = build.strides(*(t.stride()[:3] for t in (q, k, v, out)))
-        err = build.launch(q, lib.swa_attention_launch, q.data_ptr(),
-                           k.data_ptr(), v.data_ptr(), out.data_ptr(), st, B,
-                           Sq, Sk, H, KV, hd, window or 0, int(causal), scale,
-                           int(q.dtype == torch.bfloat16),
-                           int(k.dtype == torch.bfloat16))
     build.check(err, f"swa_attention launch ({route} route)")
     global launches
     launches += 1

@@ -22,7 +22,7 @@ import torch
 from repro_torch.core.measures import cosine_similarity_matrix
 from repro_torch.kernels import edc_cosine as edc_mod
 from repro_torch.kernels import madc as madc_mod
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import ssd_chunk as ssd_mod
 from repro_torch.kernels import swa_attention as swa_mod
 
@@ -337,3 +337,105 @@ def test_zoo_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     X, A_cs, B, C = _ssd_cells(cuda, 2, 1, 16, 8, 8, torch.float32)
     with pytest.raises(TypeError):
         ssd_mod.ssd_intra_chunk_cells(X, A_cs.double(), B, C)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 routes (3xTF32 tensor-core kernels), every input they take
+# ---------------------------------------------------------------------------
+
+f32, bf = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,window,causal,dq,dkv", [
+    (1, 256, 256, 32, 32, 64, None, True, f32, f32),    # Zamba2 fp32: split
+    (1, 256, 256, 32, 32, 64, 64, True, f32, f32),
+    (4, 2048, 2048, 32, 32, 64, None, True, f32, f32),  # fp32 prefill
+    (2, 33, 65, 2, 2, 40, 16, True, f32, f32),          # hd 40, Sq < Sk
+    (1, 96, 96, 2, 2, 80, None, False, f32, f32),       # hd 80
+    (2, 70, 70, 4, 2, 256, 20, True, f32, f32),         # hd 256, GQA
+    (1, 300, 300, 2, 2, 192, None, True, f32, f32),     # hd 192
+    (2, 100, 700, 4, 4, 64, None, True, bf, f32),       # mixed dtypes
+    (2, 100, 700, 4, 1, 64, 50, True, f32, bf),
+    (1, 130, 130, 2, 2, 80, 32, True, bf, bf),          # bf16, hd 80
+    (1, 77, 77, 3, 3, 37, None, False, bf, bf),         # odd hd: no vector
+    (1, 1, 2048, 8, 8, 64, None, True, f32, f32),       # decode tail
+])
+def test_swa_fp32_route_matches_plain(cuda, B, Sq, Sk, H, KV, hd, window,
+                                      causal, dq, dkv):
+    q = torch.randn((B, Sq, H, hd), generator=cuda, device="cuda").to(dq)
+    k = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(dkv)
+    v = torch.randn((B, Sk, KV, hd), generator=cuda, device="cuda").to(dkv)
+    assert swa_mod._route(dq, dkv, hd) == "fp32"
+    before = swa_mod.launches_by_route["fp32"]
+    got = swa_mod.swa_attention(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert swa_mod.launches_by_route["fp32"] == before + 1
+    want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    again = swa_mod.swa_attention(q, k, v, window=window, causal=causal)
+    assert torch.equal(got, again)             # the cached plan, same result
+
+
+@pytest.mark.parametrize("b,c,Q,h,p,n,decay,per_head,dtype", [
+    (1, 2, 128, 64, 64, 64, "fast", False, f32),   # Zamba2's fp32 forward
+    (1, 2, 128, 64, 64, 64, "slow", False, f32),
+    (4, 16, 128, 64, 64, 64, "fast", False, f32),  # its fp32 prefill
+    (4, 16, 128, 64, 64, 64, "slow", False, f32),
+    (2, 3, 128, 8, 64, 64, "slow", True, f32),     # B/C per head
+    (2, 3, 37, 5, 23, 11, "slow", True, f32),      # unaligned
+    (2, 3, 37, 5, 23, 11, "fast", False, bf),
+    (2, 3, 100, 4, 64, 128, "slow", False, f32),   # N = 128
+    (2, 4, 64, 6, 33, 100, "fast", True, bf),
+    (1, 2, 96, 13, 64, 64, "fast", False, bf),     # bf16, Q = 96
+])
+def test_ssd_fp32_route_matches_plain(cuda, b, c, Q, h, p, n, decay,
+                                      per_head, dtype):
+    args = _ssd_model_args(cuda, b, c, Q, h, decay=decay, per_head=per_head,
+                           p=p, n=n, dtype=dtype)
+    assert ssd_mod._route(args[0].dtype, args[2].dtype, Q, p, n) == "fp32"
+    before = dict(ssd_mod.launches_by_route)
+    Y, S = ssd_mod.ssd_intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches_by_route == {"tc": before["tc"],
+                                         "fp32": before["fp32"] + 1}
+    Yr, Sr = ref.ssd_intra_chunk_ref(*args)
+    assert torch.isfinite(Y).all() and torch.isfinite(S).all()
+    torch.testing.assert_close(Y, Yr, atol=SSD_TOL, rtol=SSD_TOL)
+    torch.testing.assert_close(S, Sr, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+def test_fp32_routes_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.randn((1, 8, 2, 48), generator=cuda, device="cuda")
+    kt = torch.randn((1, 8, 2, 48), generator=cuda,
+                     device="cuda").transpose(1, 3).contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        swa_mod.swa_attention(q, kt.transpose(1, 3), q)
+    with pytest.raises(TypeError):
+        swa_mod.swa_attention(q, q, q.to(torch.bfloat16))
+    for p, n, Q in ((65, 8, 16), (8, 129, 16)):
+        X, A_cs, B, C = _ssd_cells(cuda, 2, 1, Q, p, n, torch.float32)
+        for _ in range(2):                     # a refusal is never cached
+            with pytest.raises(ValueError, match="range"):
+                ssd_mod.ssd_intra_chunk_cells(X, A_cs, B, C)
+    X, A_cs, B, C = _ssd_cells(cuda, 2, 1, 16, 8, 8, torch.float32)
+    with pytest.raises(TypeError):
+        ssd_mod.ssd_intra_chunk_cells(X, A_cs, B.to(torch.bfloat16), C)
+
+
+def test_swa_split_workspace_is_shared_in_order(cuda):
+    """Split-KV launches of different plans, one after another on one
+    stream, share the partials' workspace: each result still matches its
+    plain version, also after the workspace has grown."""
+    shapes = [(1, 256, 256, 32, 64), (1, 1, 2048, 8, 64),
+              (1, 256, 256, 32, 64), (2, 200, 900, 8, 80),
+              (1, 1, 2048, 8, 64)]
+    for B, Sq, Sk, H, hd in shapes:
+        q = torch.randn((B, Sq, H, hd), generator=cuda, device="cuda")
+        k = torch.randn((B, Sk, H, hd), generator=cuda, device="cuda")
+        v = torch.randn((B, Sk, H, hd), generator=cuda, device="cuda")
+        assert swa_mod.swa_plan(B * H, Sq, Sk, hd, None, True,
+                                build.sm_count(0))[1] > 1
+        got = swa_mod.swa_attention(q, k, v)
+        want = ref.swa_attention_ref(q, k, v, window=None, causal=True)
+        torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
