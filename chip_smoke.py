@@ -12,8 +12,8 @@ with no final ``ok`` line):
                 ptxas's registers, shared memory, spills and performance
                 warnings for the tensor-core kernels, swa_tc_kernel and
                 ssd_tc_kernel, and the fp32 routes' 3xTF32 kernels,
-                swa_kernel (with swa_combine_kernel), ssd_kernel and
-                ssd_cell_kernel.
+                swa_kernel (with swa_combine_kernel), ssd_kernel,
+                ssd_cell_kernel and edc_part_kernel.
   2. kernels  — each hand-written kernel against its plain PyTorch version
                 on the same inputs at the main paths' shapes and ragged ones:
                 max abs error (within atol + rtol·|plain|, elementwise:
@@ -31,7 +31,14 @@ with no final ``ok`` line):
                 product at 495 TFLOP/s); at each main-path shape and at
                 the fp32 routes' zamba2-prefill-fp32 shapes also the
                 device time from torch.profiler and the wrapper's host
-                time per call (1,000 calls, no synchronise); madc's
+                time per call (1,000 calls, no synchronise); for every
+                edc_cosine case (m = 5 at the main shape, m = 17 and 32
+                at n = 200, m = 100 in bf16, ragged ones) the device time,
+                the host time (median of 5 bursts of 100 calls, below the
+                launch queue's depth), bit-repeatability,
+                F.cosine_similarity's time where its (n, d, m) broadcast
+                fits in 8 GB (else null, with the bytes it needs), and
+                the time of dW.sum(), a pass that only reads ΔW; madc's
                 device time at each tile edge over a sweep of n. The fp32
                 routes are checked at Zamba2's fp32 forward (B=1, S=256)
                 and prefill (B=4, S=2048) shapes, SSD in the model's
@@ -45,7 +52,10 @@ with no final ``ok`` line):
                 with measure=madc; per-round metrics, cold-start and round
                 time (host clock around work ending in synchronize()), peak
                 device memory, and the kernels' launch counts (reset just
-                before each run, read just after).
+                before each run, read just after); then the EDC group cold
+                start alone with 20 groups (n_pre = 200, m > 16: two
+                column tiles): the kernel launched, labels in [0, 20), E
+                within 3e-5 of the plain version on the same ΔW and V.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -90,6 +100,8 @@ TF32_TERMS = 3                 # the fp32 routes: 3 TF32 products a product
 TOL = 3e-5                     # kernel vs plain: fp32 sums in another order
 SWA_TC_TOL = 1e-2              # P rounded to bf16: 2^-9 per p, over |v| <~ 4
 SSD_TOL = 2e-4                 # SSD outputs are sums of ~Q products of ~N
+EDC_LIBRARY_BYTES = 8e9        # F.cosine_similarity's broadcast, at most
+EDC_GROUPS = 20                # the cold start with m > 16 column tiles
 ROUNDS = 3
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
@@ -172,6 +184,22 @@ def call_times(torch, fn, match) -> dict:
             "host_us_per_call": host_us(torch, fn)}
 
 
+def host_us_bursts(torch, fn, bursts: int = 5, calls: int = 100) -> float:
+    """The host's time per call, the median of ``bursts`` bursts of
+    ``calls`` calls each, synchronised between bursts: short enough that
+    the launch queue never fills, so it reads the host even where the
+    card is slower."""
+    times = []
+    for _ in range(bursts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
+
+
 def ptxas_report(log: str, source: str, kernel: str,
                  note: str = "registers at entry (launch bound 384 "
                              "threads); setmaxnreg gives the consumers 240 "
@@ -215,38 +243,51 @@ def check_kernels(torch):
 
     from repro_torch.core.measures import cosine_similarity_matrix
     from repro_torch.kernels import edc_cosine as edc_mod
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import madc as madc_mod
-    from repro_torch.kernels import ref
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
 
-    def edc_case(n, d, m, dtype, label, main=False):
+    def edc_case(n, d, m, dtype, label):
         dW = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
         V = torch.randn((d, m), generator=gen, device="cuda").to(dtype)
         got = edc_mod.edc_cosine(dW, V)
         want = ref.cosine_block_ref(dW, V)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        repeat = bool(torch.equal(got, edc_mod.edc_cosine(dW, V)))
         es = dW.element_size()
         b_ms, b_by = bound_ms(n * d * es + d * m * V.element_size()
                               + n * m * 4, 2.0 * n * d * (m + 1))
+        # F.cosine_similarity broadcasts (n, d, m) fp32; timed where that
+        # fits in EDC_LIBRARY_BYTES, else null with the size it needs
+        bcast = 4 * n * d * m
+        fn = lambda: edc_mod.edc_cosine(dW, V)  # noqa: E731
         row = {"phase": "kernel", "name": "edc_cosine", "case": label,
                "n": n, "d": d, "m": m, "dtype": str(dtype).split(".")[-1],
-               "max_abs_err": err, "tol": TOL,
-               "ms": cuda_ms(torch, lambda: edc_mod.edc_cosine(dW, V), 20),
+               "plan": edc_mod.plan(n, d, m, build.sm_count(0))._asdict(),
+               "max_abs_err": err, "tol": TOL, "bit_repeatable": repeat,
+               "ms": cuda_ms(torch, fn, 20),
+               "device_ms": profiled_ms(torch, fn, "edc_"),
+               "host_us_per_call": host_us_bursts(torch, fn),
                "plain_ms": cuda_ms(torch,
                                    lambda: ref.cosine_block_ref(dW, V), 10),
                "library_ms": cuda_ms(torch, lambda: F.cosine_similarity(
                    dW[:, :, None].float(), V[None].float(), dim=1), 3,
-                   warmup=1),
+                   warmup=1) if bcast <= EDC_LIBRARY_BYTES else None,
+               "library_broadcast_bytes": bcast,
+               # one pass that only reads ΔW (a yardstick of the card's
+               # read rate for these bytes, not the same function)
+               "read_dW_ms": cuda_ms(torch, lambda: dW.sum(), 20),
                "bound_ms": b_ms, "bound_by": b_by}
-        if main:
-            row.update(call_times(torch, lambda: edc_mod.edc_cosine(dW, V),
-                                  "edc_"))
+        if row["device_ms"]:
+            row["share_of_bound_device"] = b_ms / row["device_ms"]
+        row["share_of_bound_events"] = b_ms / row["ms"]
         emit(row)
-        if not err <= TOL:
-            raise AssertionError(f"edc_cosine {label}: max abs err {err}")
+        if not (err <= TOL and repeat):
+            raise AssertionError(f"edc_cosine {label}: max abs err {err}, "
+                                 f"bit-repeatable {repeat}")
         return row
 
     def madc_case(n, label, main=False):
@@ -297,8 +338,10 @@ def check_kernels(torch):
                                       20)
             emit(row)
 
-    rows["edc_cosine"] = edc_case(100, 415_258, 5, torch.float32, "main",
-                                  main=True)
+    rows["edc_cosine"] = edc_case(100, 415_258, 5, torch.float32, "main")
+    edc_case(200, 415_258, 17, torch.float32, "m17")
+    edc_case(200, 415_258, 32, torch.float32, "m32")
+    edc_case(130, 4_097, 100, torch.bfloat16, "m100-bf16")
     edc_case(37, 100_003, 3, torch.bfloat16, "ragged-bf16")
     edc_case(130, 4_097, 16, torch.float32, "ragged-m16")
     edc_case(9, 333, 11, torch.bfloat16, "ragged-small-bf16")
@@ -596,6 +639,57 @@ def fedgroup_run(torch, data, model, measure: str):
           "cold_ms": cold_ms, "round_ms": round_ms,
           "peak_device_bytes": peak})
     return tr, pre_idx, counts
+
+
+def edc_cold_start_many_groups(torch, data, model):
+    """Phase 4b: FedGroup's EDC group cold start with EDC_GROUPS groups
+    (n_pre = min(20·20, 200) = 200 clients, m > 16: two column tiles of
+    the kernel), on the main path's data: the kernel launched, every label
+    in [0, EDC_GROUPS), and the E it gave within TOL of the plain version
+    on the same ΔW and V (captured from ``edc_embed``)."""
+    from repro_torch.core import measures
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.kernels import ops, ref
+
+    cfg = FedConfig(n_rounds=1, clients_per_round=20, local_epochs=2,
+                    batch_size=10, lr=0.03, n_groups=EDC_GROUPS,
+                    pretrain_scale=20, measure="edc", seed=0)
+    tr = FedGroupTrainer(model, data, cfg, device="cuda")
+    seen = {}
+    embed = measures.edc_embed
+
+    def capture(dW, m, omega):
+        E, V = embed(dW, m, omega)
+        seen.update(dW=dW, E=E, V=V)
+        return E, V
+
+    measures.edc_embed = capture
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        pre_idx, labels = tr.group_cold_start()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+    finally:
+        measures.edc_embed = embed
+    labels = [int(x) for x in labels]
+    err = float((seen["E"] - ref.cosine_block_ref(
+        seen["dW"].contiguous(), seen["V"].contiguous())).abs().max())
+    emit({"phase": "cold_start_many_groups", "n_groups": EDC_GROUPS,
+          "n_pre": len(pre_idx), "d_w": tr.model_size,
+          "launches": counts, "cold_ms": cold_ms, "max_abs_err": err,
+          "tol": TOL, "group_sizes": [labels.count(j)
+                                      for j in range(EDC_GROUPS)]})
+    if counts["edc_cosine"] < 1:
+        raise AssertionError("20-group cold start launched no edc_cosine")
+    if not all(0 <= x < EDC_GROUPS for x in labels):
+        raise AssertionError(f"20-group cold start: labels {labels}")
+    if not err <= TOL:
+        raise AssertionError(f"20-group cold start: E max abs err {err}")
+    return counts
 
 
 def breakdown(torch, tr, pre_idx):
@@ -1007,6 +1101,10 @@ def main() -> int:
     emit(ptxas_report(log, "ssd_chunk.cu", "ssd_cell_kernel",
                       "registers at entry (launch bound 256 threads, two "
                       "CTAs an SM); 3xTF32 mma.sync"))
+    emit(ptxas_report(log, "edc_cosine.cu", "edc_part_kernel",
+                      "registers at entry (launch bound 256 threads, two "
+                      "CTAs an SM); one instance per dtype pair and column "
+                      "tile width 4, 8, 12, 16"))
 
     # phase 2: kernels against their plain versions
     rows = check_kernels(torch)
@@ -1030,6 +1128,7 @@ def main() -> int:
                   "limit; weights random from seed 0"})
     tr_edc, pre_idx, counts_edc = fedgroup_run(torch, data, model, "edc")
     _, _, counts_madc = fedgroup_run(torch, data, model, "madc")
+    counts_many = edc_cold_start_many_groups(torch, data, model)
     if counts_edc["edc_cosine"] < 1:
         raise AssertionError("EDC run launched no edc_cosine kernel")
     if counts_madc["madc"] < 1:
@@ -1052,10 +1151,10 @@ def main() -> int:
     zamba2_serve()
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
-    # and MADC runs; Zamba2's two counted bf16 prefills (the tensor-core
+    # and MADC runs and the 20-group EDC cold start; Zamba2's two counted bf16 prefills (the tensor-core
     # routes) and its two fp32 consistency forwards (the fp32 routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
-                + counts_madc["edc_cosine"],
+                + counts_madc["edc_cosine"] + counts_many["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"],

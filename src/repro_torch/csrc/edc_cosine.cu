@@ -4,44 +4,61 @@
 // edc_cosine.py:49, body `_kernel` :27):
 //   E[i, j] = <ΔW_i, V_:,j> / max(||ΔW_i|| * max(||V_:,j||, eps), eps).
 //
-// What bounds it on this card: memory. ΔW is tall and thin (n = α·m rows,
-// tens to hundreds; d = d_w columns, up to ~4e5 for MLP-512; m <= 16), so
-// the kernel does ~2(m+1) flops per ΔW element it reads — far below the
-// ~20 flops/byte where fp32 CUDA cores, not HBM, would be the limit. The
-// least time is the ΔW bytes over 3.35 TB/s.
+// What bounds it on this card: memory, up to m ~ 38. ΔW is tall and thin
+// (n = α·m rows, tens to hundreds; d = d_w columns, ~4e5 for MLP-512), so
+// the kernel does 2(m+1) flops per 4-byte ΔW element against the ~20
+// flops a byte where fp32 CUDA cores, not HBM, would set the pace. The
+// least time is ΔW's and V's bytes over 3.35 TB/s.
 //
-// Design: a split-d reduction in two passes, no float atomics, so repeated
-// runs agree bit for bit.
-//   pass 1  one block per d-chunk of C columns. It stages V[chunk, :m]
-//           in shared memory, transposed (vs[k][c], so a warp reading
-//           consecutive columns hits consecutive banks), then each warp
-//           streams whole rows of ΔW over the chunk, coalesced, keeping
-//           m dot products and one sum of squares in registers, and
-//           reduces them across the warp with a fixed shuffle tree. ΔW is
-//           read exactly once and V exactly once. The block also writes
-//           the chunk's sums of squares of V's columns.
-//   pass 2  one block per row sums the per-chunk partials in a fixed
-//           order (strided per thread, then a shared-memory tree), and
-//           normalises with the reference's two eps clamps
-//           (edc_cosine.py:63-64 and :43-44).
-// ΔW and V may each be fp32 or bf16; all arithmetic is fp32. m is padded
-// to a compile-time M in {4, 8, 16}; padded columns are zeros and never
+// Design: a split-d reduction in two kernels, no float atomics, so
+// repeated runs agree bit for bit. The plan (slice length, row blocks,
+// column tiles) comes from the wrapper (kernels/edc_cosine.py, `plan`),
+// which sizes the slices from the card's SM count so that the grid is a
+// whole number of waves of two CTAs an SM, every CTA the same work; this
+// file checks it.
+//   edc_part_kernel   one CTA of 8 warps per (d-slice, block of up to 256
+//       rows, column tile of MB <= 16 of V's columns). V is read once per
+//       CTA: its tile is staged by cp.async into shared memory as
+//       vs[c][k] with a row stride S ≡ 4 (mod 8), so the float4 reads of
+//       a quarter warp hit 32 banks. A step is 4 rows × kStep columns; a
+//       row group's steps follow each other, and the CTA's steps are split
+//       evenly over the warps, so no warp idles while another finishes a
+//       row group. In a step a lane loads ΔW at columns lane + 32u
+//       (coalesced) of the 4 rows, the next step's loads in flight while
+//       it uses this one's; every V value read from shared memory feeds
+//       4 FMAs, every ΔW value MB + 1 (the tile's dots and the sum of
+//       squares). The first step's loads are issued before V is staged.
+//       At the end of a row group (or of its steps) a warp reduces its
+//       sums across lanes with a fixed shuffle tree and writes them; a
+//       row group split between two warps is summed head + tail after a
+//       barrier. The CTAs of row block 0 also write the slice's column
+//       sums of squares of V. For m > 16 the column tiles of one slice
+//       and row block are consecutive CTAs, so ΔW comes from HBM once
+//       and from L2 for the other tiles.
+//   edc_finalize_kernel  one CTA per row, a warp per column of V, sums
+//       the per-slice partials in a fixed order (lanes strided over the
+//       slices, then a shuffle tree) and normalises with the reference's
+//       two eps clamps (edc_cosine.py:63-64 and :43-44). Launched with
+//       programmatic dependent launch, so its launch overlaps the partial
+//       kernel's tail.
+// ΔW and V may each be fp32 or bf16; all arithmetic is fp32. Rows past n
+// and columns past d or m are read as zeros (or clamped) and never
 // written. The TPU kernel's 128-lane padding of m and its VMEM scratch
 // carried across grid steps have no counterpart here.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFinThreads = 128;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kR = 4;                       // rows per warp and step
+constexpr int kRowsMax = 256;               // rows per CTA
+constexpr int kSmemMax = 113 * 1024;        // two CTAs an SM
 constexpr float kEps = 1e-12f;
-
-template <int M>
-struct Chunk {
-  static constexpr int value = (M <= 8) ? 1024 : 512;   // M*C*4 B <= 32 KB
-};
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -55,145 +72,287 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename TW, typename TV, int M>
-__global__ void __launch_bounds__(kThreads)
-edc_partial_kernel(const TW* __restrict__ dW, const TV* __restrict__ V,
-                   float* __restrict__ part, float* __restrict__ vpart,
-                   int n, int d, int m) {
-  constexpr int C = Chunk<M>::value;
-  __shared__ float vs[M * C];                 // vs[k * C + c]
-  const int ch = blockIdx.x;
-  const long long c0 = (long long)ch * C;
-  const int cw = (int)min((long long)C, (long long)d - c0);
+// A column tile of MB of V's columns: vs's row stride S ≡ 4 (mod 8)
+// floats, so the float4 reads of 8 consecutive columns by a quarter warp
+// hit 32 banks; U ΔW loads per lane and row a step (kStep columns: 8
+// loads measured slower, their registers spill beside the MB·4 sums); NV
+// sums a warp keeps (a row's MB dots and its sum of squares, 4 rows).
+template <int MB>
+struct Tile {
+  static constexpr int S = (MB % 8 == 4) ? MB : MB + 4;
+  static constexpr int Q = MB / 4;
+  static constexpr int U = MB <= 12 ? 4 : 2;
+  static constexpr int kStep = 32 * U;
+  static constexpr int NV = kR * (MB + 1);
+};
+
+struct Args {
+  int n, d, m, slice, ns, nrb, rows, ncb;
+};
+
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// Floats of shared memory: V's tile (the slice rounded up to whole steps)
+// and the pieces of the row groups two warps share.
+template <int MB>
+long long smem_floats(int slice) {
+  using T = Tile<MB>;
+  return cdiv(slice, T::kStep) * T::kStep * T::S + 2LL * kWarps * T::NV;
+}
+
+// part[(r * (m + 1) + j) * ns + s]: slice s's dot of row r with V's column
+// j (j < m) or its sum of squares (j = m); then vpart[k * ns + s].
+template <typename TW, typename TV, int MB>
+__global__ void __launch_bounds__(kThreads, 2)
+edc_part_kernel(const TW* __restrict__ dW, const TV* __restrict__ V,
+                float* __restrict__ part, Args a) {
+  using T = Tile<MB>;
+  constexpr int S = T::S, Q = T::Q, U = T::U, kStep = T::kStep, NV = T::NV;
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.x % a.ncb;
+  const int rb = (blockIdx.x / a.ncb) % a.nrb;
+  const int s = blockIdx.x / (a.ncb * a.nrb);
+  const long long c0 = (long long)s * a.slice;
+  const int cw = (int)min((long long)a.slice, (long long)a.d - c0);
+  const int nb = (cw + kStep - 1) / kStep;    // steps a row group
+  const int lp = ((a.slice + kStep - 1) / kStep) * kStep;
+  float* vs = reinterpret_cast<float*>(smem4);         // vs[c * S + k]
+  float* head = vs + (long long)lp * S;                 // [warp][NV]
+  float* tail = head + kWarps * NV;
+  const int kb = b * MB, m = a.m, ns = a.ns;
+  const int row0 = rb * a.rows;
+  const int rows = min(a.rows, a.n - row0);
+  const int G = (rows + kR - 1) / kR;         // row groups of this CTA
+  const int steps = G * nb;                   // split over the warps
+  const int aw = min(kWarps, G);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  auto first = [&](int w) { return (int)((long long)w * steps / aw); };
+  const int t0 = warp < aw ? first(warp) : 0;
+  const int t1 = warp < aw ? first(warp + 1) : 0;
 
-  for (int e = threadIdx.x; e < C * M; e += kThreads) {
-    const int c = e / M, k = e % M;
-    float v = 0.f;
-    if (c < cw && k < m) v = to_f(V[(c0 + c) * m + k]);
-    vs[k * C + c] = v;
+  // a segment: the steps [ja, jb) of row group g that this warp owns
+  // (whole row groups, or a head or a tail piece of one)
+  int g = t0 / nb, ja = t0 - g * nb;
+  const TW* rp[kR];
+  auto set_rows = [&]() {
+#pragma unroll
+    for (int i = 0; i < kR; ++i)
+      rp[i] = dW + c0 + (long long)(row0 + min(kR * g + i, rows - 1)) * a.d;
+  };
+  float wa[kR][U], wb[kR][U];
+  auto load = [&](float (&w)[kR][U], int j) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = j * kStep + lane + 32 * u;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) w[i][u] = c < cw ? to_f(rp[i][c]) : 0.f;
+    }
+  };
+  set_rows();
+  if (t0 < t1) load(wa, ja);                  // in flight while V stages
+
+  // stage V[c0 : c0 + lp, kb : kb + MB], zeros past d and m, element by
+  // element in V's row-major order (runs of MB consecutive floats): fp32
+  // by cp.async (no registers), bf16 through registers (converted)
+#pragma unroll 4
+  for (int e = threadIdx.x; e < lp * MB; e += kThreads) {
+    const int c = e / MB, k = e % MB;
+    const bool ok = c < cw && kb + k < m;
+    if constexpr (std::is_same<TV, float>::value) {
+      const float* src = ok ? V + (c0 + c) * m + kb + k : V;
+      const unsigned dst =
+          (unsigned)__cvta_generic_to_shared(vs + c * S + k);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                   :: "r"(dst), "l"(src), "r"(ok ? 4 : 0));
+    } else {
+      vs[c * S + k] = ok ? to_f(V[(c0 + c) * m + kb + k]) : 0.f;
+    }
+  }
+  if constexpr (std::is_same<TV, float>::value)
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  if (rb == 0) {                              // V's column sums of squares
+    float* vpart = part + (long long)a.n * (m + 1) * ns;
+    for (int k = warp; k < MB && kb + k < m; k += kWarps) {
+      float q = 0.f;
+      for (int c = lane; c < cw; c += 32)
+        q = fmaf(vs[c * S + k], vs[c * S + k], q);
+      q = warp_sum(q);
+      if (lane == 0) vpart[(long long)(kb + k) * ns + s] = q;
+    }
+  }
+
+  float acc[kR][MB], sq[kR];
+  auto zero = [&]() {
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      sq[i] = 0.f;
+#pragma unroll
+      for (int k = 0; k < MB; ++k) acc[i][k] = 0.f;
+    }
+  };
+  zero();
+  auto fma_step = [&](const float (&w)[kR][U], int j) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float4* vr = smem4 + ((j * kStep + lane + 32 * u) * S) / 4;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) sq[i] = fmaf(w[i][u], w[i][u], sq[i]);
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4 v = vr[q];
+#pragma unroll
+        for (int i = 0; i < kR; ++i) {
+          acc[i][4 * q] = fmaf(w[i][u], v.x, acc[i][4 * q]);
+          acc[i][4 * q + 1] = fmaf(w[i][u], v.y, acc[i][4 * q + 1]);
+          acc[i][4 * q + 2] = fmaf(w[i][u], v.z, acc[i][4 * q + 2]);
+          acc[i][4 * q + 3] = fmaf(w[i][u], v.w, acc[i][4 * q + 3]);
+        }
+      }
+    }
+  };
+  // each segment: its steps with the next one's loads in flight, then
+  // its sums reduced across lanes; a whole row group is written, a piece
+  // of one kept for the combine below (a head: the group's first steps,
+  // the warp's last segment; a tail: the rest, the next warp's first)
+#pragma unroll 1
+  for (int t = t0; t < t1;) {
+    const int jb = min(nb, ja + (t1 - t));
+    if (t != t0) {
+      set_rows();
+      load(wa, ja);
+    }
+#pragma unroll 1
+    for (int j = ja; j < jb; j += 2) {
+      if (j + 1 < jb) load(wb, j + 1);
+      fma_step(wa, j);
+      if (j + 1 >= jb) break;
+      if (j + 2 < jb) load(wa, j + 2);
+      fma_step(wb, j + 1);
+    }
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+#pragma unroll
+      for (int k = 0; k < MB; ++k) acc[i][k] = warp_sum(acc[i][k]);
+      sq[i] = warp_sum(sq[i]);
+    }
+    if (lane == 0 && ja == 0 && jb == nb) {
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        if (kR * g + i >= rows) break;
+        float* p = part + (long long)(row0 + kR * g + i) * (m + 1) * ns + s;
+#pragma unroll
+        for (int k = 0; k < MB; ++k)
+          if (kb + k < m) p[(long long)(kb + k) * ns] = acc[i][k];
+        if (b == 0) p[(long long)m * ns] = sq[i];
+      }
+    } else if (lane == 0) {
+      float* piece = (ja == 0 ? head : tail) + warp * NV;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+#pragma unroll
+        for (int k = 0; k < MB; ++k) piece[i * (MB + 1) + k] = acc[i][k];
+        piece[i * (MB + 1) + MB] = sq[i];
+      }
+    }
+    zero();
+    t += jb - ja;
+    ++g;
+    ja = 0;
   }
   __syncthreads();
 
-  // column sums of squares of this chunk of V: one warp per column
-  for (int k = warp; k < M; k += kWarps) {
-    float s = 0.f;
-    for (int c = lane; c < cw; c += 32) s = fmaf(vs[k * C + c], vs[k * C + c], s);
-    s = warp_sum(s);
-    if (lane == 0) vpart[(long long)ch * M + k] = s;
+  // a row group split between warps w - 1 and w: head + tail, in order;
+  // value v = i * (MB + 1) + k of the group (k = MB: the squares)
+  for (int x = threadIdx.x; x < (aw - 1) * NV; x += kThreads) {
+    const int w = 1 + x / NV, v = x % NV;
+    const int tw = first(w);
+    const int gs = tw / nb, i = v / (MB + 1), k = v % (MB + 1);
+    if (tw % nb == 0 || kR * gs + i >= rows) continue;
+    float* p = part + (long long)(row0 + kR * gs + i) * (m + 1) * ns + s;
+    const float sum = head[(w - 1) * NV + v] + tail[w * NV + v];
+    if (k < MB && kb + k < m) p[(long long)(kb + k) * ns] = sum;
+    else if (k == MB && b == 0) p[(long long)m * ns] = sum;
   }
+}
 
-  // one warp per row of ΔW, streaming the chunk
-  for (int r = warp; r < n; r += kWarps) {
-    const TW* row = dW + (long long)r * d + c0;
-    float acc[M];
-#pragma unroll
-    for (int k = 0; k < M; ++k) acc[k] = 0.f;
-    float sq = 0.f;
+__global__ void __launch_bounds__(kThreads)
+edc_finalize_kernel(const float* __restrict__ part, float* __restrict__ out,
+                    int n, int m, int ns) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int r = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float* p = part + (long long)r * (m + 1) * ns;
+  const float* psq = p + (long long)m * ns;
+  const float* vpart = part + (long long)n * (m + 1) * ns;
+  // a warp per column k sums its dot, the row's squares (every warp, in
+  // the same order) and V's column squares together: three loads in
+  // flight per lane and step
+  for (int k = warp; k < m; k += kWarps) {
+    const float* pd = p + (long long)k * ns;
+    const float* pv = vpart + (long long)k * ns;
+    float dot = 0.f, sq = 0.f, vq = 0.f;
 #pragma unroll 8
-    for (int c = lane; c < cw; c += 32) {
-      const float w = to_f(row[c]);
-      sq = fmaf(w, w, sq);
-#pragma unroll
-      for (int k = 0; k < M; ++k) acc[k] = fmaf(w, vs[k * C + c], acc[k]);
+    for (int x = lane; x < ns; x += 32) {
+      dot += pd[x];
+      sq += psq[x];
+      vq += pv[x];
     }
-#pragma unroll
-    for (int k = 0; k < M; ++k) acc[k] = warp_sum(acc[k]);
+    dot = warp_sum(dot);
     sq = warp_sum(sq);
-    if (lane == 0) {
-      float* p = part + ((long long)ch * n + r) * (M + 1);
-#pragma unroll
-      for (int k = 0; k < M; ++k) p[k] = acc[k];
-      p[M] = sq;
-    }
+    vq = warp_sum(vq);
+    const float vn = fmaxf(sqrtf(vq), kEps);
+    if (lane == 0)
+      out[(long long)r * m + k] = dot / fmaxf(sqrtf(sq) * vn, kEps);
   }
 }
 
-template <int M>
-__global__ void __launch_bounds__(kFinThreads)
-edc_finalize_kernel(const float* __restrict__ part,
-                    const float* __restrict__ vpart, float* __restrict__ out,
-                    int n, int m, int nch) {
-  __shared__ float red[kFinThreads][M + 1];   // dots, then the row's sq
-  __shared__ float vred[kFinThreads][M + 1];  // V column sums of squares
-  const int r = blockIdx.x, t = threadIdx.x;
-  float a[M + 1], v[M];
-#pragma unroll
-  for (int k = 0; k <= M; ++k) a[k] = 0.f;
-#pragma unroll
-  for (int k = 0; k < M; ++k) v[k] = 0.f;
-  for (int ch = t; ch < nch; ch += kFinThreads) {
-    const float* p = part + ((long long)ch * n + r) * (M + 1);
-#pragma unroll
-    for (int k = 0; k <= M; ++k) a[k] += p[k];
-#pragma unroll
-    for (int k = 0; k < M; ++k) v[k] += vpart[(long long)ch * M + k];
-  }
-#pragma unroll
-  for (int k = 0; k <= M; ++k) red[t][k] = a[k];
-#pragma unroll
-  for (int k = 0; k < M; ++k) vred[t][k] = v[k];
-  __syncthreads();
-  for (int s = kFinThreads / 2; s > 0; s >>= 1) {
-    if (t < s) {
-#pragma unroll
-      for (int k = 0; k <= M; ++k) red[t][k] += red[t + s][k];
-#pragma unroll
-      for (int k = 0; k < M; ++k) vred[t][k] += vred[t + s][k];
-    }
-    __syncthreads();
-  }
-  if (t < m) {
-    const float rn = sqrtf(red[0][M]);
-    const float vn = fmaxf(sqrtf(vred[0][t]), kEps);
-    out[(long long)r * m + t] = red[0][t] / fmaxf(rn * vn, kEps);
-  }
-}
-
-int padded_m(int m) {
-  if (m <= 4) return 4;
-  if (m <= 8) return 8;
-  if (m <= 16) return 16;
-  return -1;
-}
-
-template <int M>
-long long chunks(int d) {
-  constexpr int C = Chunk<M>::value;
-  return (d + (long long)C - 1) / C;
-}
-
-long long chunks_for(int d, int M) {
-  switch (M) {
-    case 4: return chunks<4>(d);
-    case 8: return chunks<8>(d);
-    default: return chunks<16>(d);
-  }
-}
-
-template <typename TW, typename TV, int M>
-cudaError_t run(const void* dW, const void* V, float* out, float* scratch,
-                int n, int d, int m, cudaStream_t s) {
-  const long long nch = chunks<M>(d);
-  float* part = scratch;
-  float* vpart = scratch + nch * n * (M + 1);
-  edc_partial_kernel<TW, TV, M><<<(unsigned)nch, kThreads, 0, s>>>(
-      static_cast<const TW*>(dW), static_cast<const TV*>(V), part, vpart,
-      n, d, m);
-  cudaError_t e = cudaGetLastError();
+template <typename TW, typename TV, int MB>
+cudaError_t run(const void* dW, const void* V, float* out, float* part,
+                const Args& a, cudaStream_t st) {
+  const long long smem = smem_floats<MB>(a.slice) * (long long)sizeof(float);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  auto kern = edc_part_kernel<TW, TV, MB>;
+  static bool attr[kMaxDevices] = {};        // once per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  edc_finalize_kernel<M><<<n, kFinThreads, 0, s>>>(part, vpart, out, n, m,
-                                                   (int)nch);
-  return cudaGetLastError();
+  if (dev >= kMaxDevices || !attr[dev]) {
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemMax);
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) attr[dev] = true;
+  }
+  kern<<<(unsigned)((long long)a.ns * a.nrb * a.ncb), kThreads, (size_t)smem,
+         st>>>(static_cast<const TW*>(dW), static_cast<const TV*>(V), part,
+               a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)a.n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, edc_finalize_kernel,
+                            static_cast<const float*>(part), out, a.n, a.m,
+                            a.ns);
 }
 
 template <typename TW, typename TV>
-cudaError_t run_m(const void* dW, const void* V, float* out, float* scratch,
-                  int n, int d, int m, cudaStream_t s) {
-  switch (padded_m(m)) {
-    case 4: return run<TW, TV, 4>(dW, V, out, scratch, n, d, m, s);
-    case 8: return run<TW, TV, 8>(dW, V, out, scratch, n, d, m, s);
-    case 16: return run<TW, TV, 16>(dW, V, out, scratch, n, d, m, s);
+cudaError_t run_mb(int MB, const void* dW, const void* V, float* out,
+                   float* part, const Args& a, cudaStream_t st) {
+  switch (MB) {
+    case 4: return run<TW, TV, 4>(dW, V, out, part, a, st);
+    case 8: return run<TW, TV, 8>(dW, V, out, part, a, st);
+    case 12: return run<TW, TV, 12>(dW, V, out, part, a, st);
+    case 16: return run<TW, TV, 16>(dW, V, out, part, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -202,32 +361,37 @@ cudaError_t run_m(const void* dW, const void* V, float* out, float* scratch,
 
 extern "C" {
 
-// Floats of scratch the launch needs (per-chunk partials), -1 if m > 16.
-long long edc_cosine_scratch(int n, int d, int m) {
-  const int M = padded_m(m);
-  if (M < 0) return -1;
-  const long long nch = chunks_for(d, M);
-  return nch * n * (M + 1) + nch * M;
+// Floats of scratch a launch with this plan writes (per-slice partials of
+// the n·(m+1) row sums and of V's m column sums of squares).
+long long edc_cosine_scratch(int n, int m, int ns) {
+  return ((long long)n * (m + 1) + m) * ns;
 }
 
-// dW (n, d) and V (d, m), row-major; *_bf16 = 1 for bf16, 0 for fp32.
-// out (n, m) fp32. Returns cudaGetLastError() after the launches.
+// dW (n, d) and V (d, m), row-major; out (n, m) fp32. prm = {n, d, m,
+// dw_bf16, v_bf16, slice, ns, rows per CTA, nrb, MB, ncb}: the wrapper's
+// plan, checked here. Returns cudaGetLastError() after the launches.
 int edc_cosine_launch(const void* dW, const void* V, void* out,
-                      void* scratch, int n, int d, int m, int dw_bf16,
-                      int v_bf16, void* stream) {
-  if (n <= 0 || d <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                      void* scratch, const long long* prm, void* stream) {
+  const Args a = {(int)prm[0], (int)prm[1], (int)prm[2], (int)prm[5],
+                  (int)prm[6], (int)prm[8], (int)prm[7], (int)prm[10]};
+  const int dw_bf16 = (int)prm[3], v_bf16 = (int)prm[4], MB = (int)prm[9];
+  if (a.n <= 0 || a.d <= 0 || a.m <= 0 || a.slice <= 0 || a.slice % 32 ||
+      a.ns != cdiv(a.d, a.slice) || a.rows <= 0 || a.rows % kR ||
+      a.rows > kRowsMax || a.nrb != cdiv(a.n, a.rows) ||
+      (long long)a.ncb * MB < a.m || (long long)(a.ncb - 1) * MB >= a.m)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  float* sc = static_cast<float*>(scratch);
+  float* p = static_cast<float*>(scratch);
   cudaError_t e;
   if (dw_bf16 && v_bf16)
-    e = run_m<__nv_bfloat16, __nv_bfloat16>(dW, V, o, sc, n, d, m, s);
+    e = run_mb<__nv_bfloat16, __nv_bfloat16>(MB, dW, V, o, p, a, st);
   else if (dw_bf16)
-    e = run_m<__nv_bfloat16, float>(dW, V, o, sc, n, d, m, s);
+    e = run_mb<__nv_bfloat16, float>(MB, dW, V, o, p, a, st);
   else if (v_bf16)
-    e = run_m<float, __nv_bfloat16>(dW, V, o, sc, n, d, m, s);
+    e = run_mb<float, __nv_bfloat16>(MB, dW, V, o, p, a, st);
   else
-    e = run_m<float, float>(dW, V, o, sc, n, d, m, s);
+    e = run_mb<float, float>(MB, dW, V, o, p, a, st);
   return (int)e;
 }
 

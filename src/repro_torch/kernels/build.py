@@ -118,13 +118,13 @@ def build(verbose: bool = False) -> Path:
 
 def _declare(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.edc_cosine_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    lib.edc_cosine_launch.argtypes = [vp, vp, vp, vp, ll, vp]
     lib.edc_cosine_launch.restype = i
     lib.edc_cosine_scratch.argtypes = [i, i, i]
     lib.edc_cosine_scratch.restype = ctypes.c_longlong
     lib.madc_launch.argtypes = [vp, vp, i, i, vp]
     lib.madc_launch.restype = i
-    ll = ctypes.POINTER(ctypes.c_longlong)
     lib.swa_attention_launch.argtypes = [vp, vp, vp, vp, vp, ll, vp]
     lib.swa_attention_launch.restype = i
     lib.swa_attention_part_floats.argtypes = [i, i, i, i, i]

@@ -17,11 +17,9 @@ import os
 import sys
 import time
 
-import numpy as np
-
 
 def run_fed(args) -> int:
-    from repro_torch.convert import params_to_numpy
+    from repro_torch.checkpoint import save_pytree
     from repro_torch.core.fedgroup import FedGrouProxTrainer, FedGroupTrainer
     from repro_torch.data import generators as gen
     from repro_torch.fed.engine import (FedAvgTrainer, FedConfig,
@@ -86,8 +84,9 @@ def run_fed(args) -> int:
         os.makedirs(args.out, exist_ok=True)
         params = (tree_index(tr.group_params, 0)
                   if hasattr(tr, "group_params") else tr.params)
-        np.savez(os.path.join(args.out, "model.npz"),
-                 **params_to_numpy(params))
+        save_pytree(os.path.join(args.out, "model.npz"), params,
+                    {"framework": args.framework, "dataset": args.dataset,
+                     "max_acc": tr.history.max_acc})
         with open(os.path.join(args.out, "history.json"), "w") as f:
             json.dump([r.__dict__ for r in tr.history.rounds], f, indent=1)
         print(f"saved to {args.out}")

@@ -42,11 +42,13 @@ def cuda():
 
 @pytest.mark.parametrize("n,d,m,dtype", [
     (100, 415_258, 5, torch.float32),     # main path: FEMNIST MLP-512
+    (200, 415_258, 20, torch.float32),    # 20 groups: two column tiles
     (37, 100_003, 3, torch.bfloat16),
     (130, 4_097, 16, torch.float32),
     (9, 333, 11, torch.bfloat16),
     (1, 1, 1, torch.float32),
-])
+] + [(70, 5_000, m, dt) for m in (1, 5, 16, 17, 32, 100)
+     for dt in (torch.float32, torch.bfloat16)])
 def test_edc_cosine_kernel_matches_plain(cuda, n, d, m, dtype):
     dW = torch.randn((n, d), generator=cuda, device="cuda").to(dtype)
     V = torch.randn((d, m), generator=cuda, device="cuda").to(dtype)
@@ -57,6 +59,23 @@ def test_edc_cosine_kernel_matches_plain(cuda, n, d, m, dtype):
     assert (got - ref.cosine_block_ref(dW, V)).abs().max().item() <= TOL
     again = edc_mod.edc_cosine(dW, V)
     assert torch.equal(got, again)               # deterministic reduction
+
+
+@pytest.mark.parametrize("m", [5, 32])
+def test_edc_cosine_is_bit_repeatable(cuda, m):
+    """Runs with other plans between them, sharing the partials'
+    workspace, give the same bits (no float atomics)."""
+    dW = torch.randn((200, 415_258), generator=cuda, device="cuda")
+    V = torch.randn((415_258, m), generator=cuda, device="cuda")
+    first = edc_mod.edc_cosine(dW, V)
+    small = torch.randn((9, 333), generator=cuda, device="cuda")
+    for _ in range(3):
+        edc_mod.edc_cosine(small, torch.randn((333, 100), generator=cuda,
+                                              device="cuda"))
+        assert torch.equal(edc_mod.edc_cosine(dW, V), first)
+    lib = build.library()
+    p = edc_mod.plan(200, 415_258, m, build.sm_count(0))
+    assert lib.edc_cosine_scratch(200, m, p.ns) == p.scratch_floats
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 15, 16, 17, 63, 64, 65, 100, 257,
@@ -90,7 +109,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         edc_mod.edc_cosine(dW.half(), V)
     with pytest.raises(ValueError, match="range"):
-        edc_mod.edc_cosine(dW, torch.randn((64, 17), device="cuda"))
+        edc_mod.edc_cosine(dW, torch.randn((64, 0), device="cuda"))
     with pytest.raises(ValueError, match="one CUDA device"):
         edc_mod.edc_cosine(dW, V.cpu())
     with pytest.raises(TypeError):
