@@ -45,8 +45,11 @@ with no final ``ok`` line):
                 layout (stride-0 B/C group) in both decay regimes and in
                 the Pallas cells layout, and at unaligned shapes.
   3. reference — a tiny run on the CPU (plain versions) and on the card
-                (kernels) with the same draws must agree; it is also the
-                warm-up of the card's libraries.
+                (kernels) with the same draws must agree: FedGroup with
+                each measure, then IFCA, FeSEM, FedClust, LCFL and FedGroup
+                with the shift detector at threshold 0.0 (membership equal
+                every round; the shift run must probe and re-route on both
+                devices); it is also the warm-up of the card's libraries.
   4. main     — FedGroup on the paper's FEMNIST MLP-512 (d_w = 415,258):
                 Alg. 3 cold start + 3 fused rounds with measure=edc, then
                 with measure=madc; per-round metrics, cold-start and round
@@ -56,6 +59,16 @@ with no final ``ok`` line):
                 start alone with 20 groups (n_pre = 200, m > 16: two
                 column tiles): the kernel launched, labels in [0, 20), E
                 within 3e-5 of the plain version on the same ΔW and V.
+     4c         the dynamic-assignment strategies IFCA, FeSEM, FedClust
+                and LCFL (``strategies.make_trainer``) and FedGroup with
+                the shift detector (threshold 0.35, a probe every round),
+                same data, model and knobs, ROUNDS rounds each: per-round
+                metrics and round time (the shift run's first round holds
+                its cold start), membership changes and migrations, probes,
+                comm_params, peak memory, FeSEM / FedClust's (N, d_w)
+                ``local_flat`` bytes and device; fails on a non-finite
+                metric, a label outside [0, m), a ``local_flat`` off the
+                card or a shift run that probes nobody.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -77,7 +90,8 @@ with no final ``ok`` line):
                 a child process.
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
-     ``<name>.fp32``), then the ``{"ok": true, ...}`` line.
+     ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
+     20-group and shift runs), then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -91,6 +105,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -102,6 +118,7 @@ SWA_TC_TOL = 1e-2              # P rounded to bf16: 2^-9 per p, over |v| <~ 4
 SSD_TOL = 2e-4                 # SSD outputs are sums of ~Q products of ~N
 EDC_LIBRARY_BYTES = 8e9        # F.cosine_similarity's broadcast, at most
 EDC_GROUPS = 20                # the cold start with m > 16 column tiles
+STRATEGIES = ("ifca", "fesem", "fedclust", "lcfl")
 ROUNDS = 3
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
@@ -692,6 +709,75 @@ def edc_cold_start_many_groups(torch, data, model):
     return counts
 
 
+def strategy_run(torch, data, model, name: str):
+    """Phase 4c: one dynamic-assignment strategy (``strategies
+    .make_trainer``), or FedGroup with the shift detector at the reference
+    tests' threshold 0.35 (``name == "shift"``), at full width for ROUNDS
+    rounds. Fails on a non-finite metric, a label outside [0, m), a
+    FeSEM / FedClust ``local_flat`` off the card, or a shift run that
+    probes nobody. Returns the run's kernel launch counts."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed import strategies
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.kernels import ops
+
+    shift = name == "shift"
+    cfg = FedConfig(n_rounds=ROUNDS, clients_per_round=20, local_epochs=2,
+                    batch_size=10, lr=0.03, n_groups=5, pretrain_scale=20,
+                    seed=0, shift_threshold=0.35 if shift else None,
+                    shift_check_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tr = (FedGroupTrainer(model, data, cfg, device="cuda") if shift else
+          strategies.make_trainer(name, model, data, cfg, device="cuda"))
+    rec = {"phase": "strategy", "strategy": name, "rounds": []}
+    for t in range(ROUNDS):
+        before = tr.membership.copy()
+        mig0 = tr.counters["rounds.migrations"]
+        t1 = time.perf_counter()
+        m = tr.round(t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        row = {"t": t, "acc": m.weighted_acc, "loss": m.mean_loss,
+               "disc": m.discrepancy, "round_ms": ms,
+               "changed": int(np.sum((before >= 0)
+                                     & (before != tr.membership))),
+               "newly_assigned": int(np.sum((before < 0)
+                                            & (tr.membership >= 0))),
+               "migrations": tr.counters["rounds.migrations"] - mig0}
+        if shift:
+            row["probed"], row["shifted"] = tr._shift_last
+        rec["rounds"].append(row)
+        for k in ("acc", "loss", "disc"):
+            if not math.isfinite(row[k]):
+                raise AssertionError(f"{name} round {t}: {k} = {row[k]}")
+    counts = ops.launch_counts()
+    labels = tr.membership[tr.membership >= 0]
+    rec.update(migrations=tr.counters["rounds.migrations"],
+               comm_params=tr.comm_params,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               group_sizes=[int(v) for v in np.bincount(labels,
+                                                        minlength=tr.m)],
+               launches=counts)
+    if shift:
+        rec["shift_checks"] = tr.counters["rounds.shift_checks"]
+        rec["cached_dirs"] = len(tr._pin_dirs)
+    if hasattr(tr, "local_flat"):
+        lf = tr.local_flat
+        rec["local_flat"] = {"shape": list(lf.shape),
+                             "bytes": lf.numel() * lf.element_size(),
+                             "device": str(lf.device)}
+    emit(rec)
+    if not ((labels >= 0) & (labels < tr.m)).all():
+        raise AssertionError(f"{name}: labels outside [0, {tr.m})")
+    if "local_flat" in rec and tr.local_flat.device.type != "cuda":
+        raise AssertionError(f"{name}: local_flat is not on the card")
+    if shift and rec["shift_checks"] < 1:
+        raise AssertionError("the shift run probed nobody")
+    return counts
+
+
 def breakdown(torch, tr, pre_idx):
     """Phase 5: the cold start's two parts, timed apart on the same
     pre-training cohort, and a round's local solve alone (host clock
@@ -786,6 +872,56 @@ def reference_check(torch):
                        for r in hg.rounds]})
         if not ok:
             raise AssertionError(f"{measure}: card run disagrees with CPU")
+    for name in STRATEGIES + ("shift",):
+        reference_check_strategy(torch, data, name)
+
+
+def reference_check_strategy(torch, data, name: str):
+    """Phase 3, the dynamic-assignment strategies and FedGroup's shift
+    detector at threshold 0.0 (every probed client re-routed, so the
+    invalidate, cache and eq.-9 steps all run): the same tiny run on the
+    CPU and on the card with the same draws and group inits (both drawn
+    on the CPU), 2 rounds. Membership equal after every round, loss and
+    discrepancy within rtol 1e-3, accuracy within 0.01; the shift run must
+    probe and re-route somebody on both devices."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed import strategies
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.models.paper_models import mlp
+
+    cfg = FedConfig(n_rounds=2, clients_per_round=8, local_epochs=2,
+                    batch_size=10, lr=0.05, n_groups=3, pretrain_scale=4,
+                    seed=0, shift_threshold=0.0 if name == "shift" else None)
+    trainers = {dev: (FedGroupTrainer(mlp(32, 16, 10), data, cfg, device=dev)
+                      if name == "shift" else
+                      strategies.make_trainer(name, mlp(32, 16, 10), data,
+                                              cfg, device=dev))
+                for dev in ("cpu", "cuda")}
+    ok, rounds, shifted = True, {"cpu": [], "cuda": []}, {}
+    for t in range(cfg.n_rounds):
+        for dev, tr in trainers.items():
+            r = tr.round(t)
+            rounds[dev].append([r.weighted_acc, r.mean_loss, r.discrepancy])
+            if name == "shift":
+                shifted.setdefault(dev, []).append(len(tr._last_shifted))
+        c, g = trainers["cpu"], trainers["cuda"]
+        (ac, lc, dc), (ag, lg, dg) = rounds["cpu"][-1], rounds["cuda"][-1]
+        ok &= bool((c.membership == g.membership).all())
+        ok &= math.isclose(lc, lg, rel_tol=1e-3)
+        ok &= math.isclose(dc, dg, rel_tol=1e-3)
+        ok &= abs(ac - ag) <= 0.01
+    rec = {"phase": "reference", "strategy": name, "ok": ok, **rounds}
+    if name == "shift":
+        rec["shift_checks"] = {dev: tr.counters["rounds.shift_checks"]
+                               for dev, tr in trainers.items()}
+        rec["shifted_per_round"] = shifted
+        ok &= all(rec["shift_checks"][d] > 0 and sum(shifted[d]) > 0
+                  for d in trainers)
+        rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"{name}: card run disagrees with CPU, or the "
+                             "shift run re-routed nobody")
 
 
 def zamba2_params(torch):
@@ -1129,6 +1265,12 @@ def main() -> int:
     tr_edc, pre_idx, counts_edc = fedgroup_run(torch, data, model, "edc")
     _, _, counts_madc = fedgroup_run(torch, data, model, "madc")
     counts_many = edc_cold_start_many_groups(torch, data, model)
+    # phase 4c: the dynamic-assignment strategies and the shift detector
+    for name in STRATEGIES:
+        strategy_run(torch, data, model, name)
+    counts_shift = strategy_run(torch, data, model, "shift")
+    if counts_shift["edc_cosine"] < 1:
+        raise AssertionError("shift run launched no edc_cosine kernel")
     if counts_edc["edc_cosine"] < 1:
         raise AssertionError("EDC run launched no edc_cosine kernel")
     if counts_madc["madc"] < 1:
@@ -1151,10 +1293,12 @@ def main() -> int:
     zamba2_serve()
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
-    # and MADC runs and the 20-group EDC cold start; Zamba2's two counted bf16 prefills (the tensor-core
-    # routes) and its two fp32 consistency forwards (the fp32 routes)
+    # and MADC runs, the 20-group EDC cold start and the shift run;
+    # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
+    # two fp32 consistency forwards (the fp32 routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
-                + counts_madc["edc_cosine"] + counts_many["edc_cosine"],
+                + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
+                + counts_shift["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"],

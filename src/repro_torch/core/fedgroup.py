@@ -14,8 +14,14 @@
     (``fed.rounds``) over all m groups.
   * ablations: RCC (random cluster centres), RAC (randomly assign cold).
 
-Group membership is static once assigned. The shift detector and the
-checkpoint hooks are not yet ported (``ROADMAP.md``).
+Group membership is static once assigned, unless
+``FedConfig.shift_threshold`` turns on the shift detector: every
+``shift_check_every``-th round, each assigned cohort client with a cached
+eq.-9 direction is probed with one pre-training pass from the auxiliary
+global model; a client whose fresh direction drifted past the threshold
+(``(1 - cos)/2``) has its cached row invalidated, the fresh one cached, and
+is re-routed by eq. 9 against the groups' update directions (a migration).
+The checkpoint hooks are not yet ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -29,7 +35,16 @@ from repro_torch.core import measures
 from repro_torch.core.svd import OVERSAMPLE
 from repro_torch.fed import client as client_lib
 from repro_torch.fed.engine import FedConfig, GroupedTrainer, RoundMetrics
+from repro_torch.fed.store import _LazyRows
 from repro_torch.models.modules import flatten_stacked
+
+
+def shift_drift(fresh: torch.Tensor, cached: torch.Tensor) -> torch.Tensor:
+    """(c,) normalised cosine dissimilarity (1 − cos)/2 between each
+    client's fresh and cached update direction, 1e-12-guarded."""
+    dot = torch.sum(fresh * cached, dim=1)
+    den = torch.linalg.norm(fresh, dim=1) * torch.linalg.norm(cached, dim=1)
+    return (1.0 - dot / torch.clamp(den, min=1e-12)) / 2.0
 
 
 class FedGroupTrainer(GroupedTrainer):
@@ -49,9 +64,40 @@ class FedGroupTrainer(GroupedTrainer):
             max_samples=self._max_samples)
         self.cold_started = False
         self.last_cold = 0          # newcomers cold-started last round
+        # shift detector (FedConfig.shift_threshold): the direction cache
+        # (made at its first write), the check-cadence clock, and the last
+        # check's (probed, migrated) and migrated ids
+        self._pin_dirs = None
+        self._shift_tick = 0
+        self._shift_last = (0, 0)
+        self._last_shifted = np.empty(0, np.int64)
 
     def _exec_spec(self) -> dict:
         return {"n_groups": self.m, "eta_g": self.cfg.eta_g}
+
+    # ------------------------------------------------------------------
+    # Cached eq.-9 directions (pinned mode: a trainer-owned lazy table on
+    # the trainer's device, made only when the detector is on)
+    # ------------------------------------------------------------------
+    def _shift_enabled(self) -> bool:
+        return self.cfg.shift_threshold is not None
+
+    def _set_dirs(self, idx, rows: torch.Tensor):
+        if self._pin_dirs is None:
+            self._pin_dirs = _LazyRows(rows.new_zeros(rows.shape[-1]))
+        self._pin_dirs.scatter(idx, rows)
+
+    def _has_dirs(self, idx) -> np.ndarray:
+        if self._pin_dirs is None:
+            return np.zeros(len(np.asarray(idx)), bool)
+        return self._pin_dirs.has(idx)
+
+    def _get_dirs(self, idx) -> torch.Tensor:
+        return self._pin_dirs.gather(idx)
+
+    def _invalidate_dirs(self, idx):
+        if self._pin_dirs is not None:
+            self._pin_dirs.delete(idx)
 
     # ------------------------------------------------------------------
     # Group cold start (Algorithm 3)
@@ -96,6 +142,9 @@ class FedGroupTrainer(GroupedTrainer):
                              for k, p in self.params.items()}
         # flattening the aggregated per-leaf means equals Wj @ dW
         self.group_delta = flatten_stacked(mean_delta)         # (m, d_w)
+        if self._shift_enabled():
+            # the Alg.-3 founders are as shift-detectable as newcomers
+            self._set_dirs(pre_idx, dW)
         self.cold_started = True
         return pre_idx, labels
 
@@ -114,10 +163,66 @@ class FedGroupTrainer(GroupedTrainer):
         deltas, _, _ = self._solve(self.params, cold_idx,
                                    solver=self.pretrain_solver)
         dpre = flatten_stacked(deltas)                         # (c, d_w)
+        if self._shift_enabled():
+            self._set_dirs(cold_idx, dpre)
         sim = measures.cosine_similarity_matrix(dpre, self.group_delta)
         dis = (-sim + 1.0) / 2.0                               # (c, m)
         self._adopt_membership(cold_idx,
                                torch.argmin(dis, dim=1).cpu().numpy())
+
+    # ------------------------------------------------------------------
+    # Shift detection + migration (FedConfig.shift_threshold)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _maybe_shift(self, idx) -> np.ndarray:
+        """Probe the cohort's assigned, direction-cached clients for
+        distribution shift and migrate the drifted ones through eq. 9.
+
+        One pre-training pass from the auxiliary global model per probed
+        client (1 model down + 1 update up). A drifted client's stale row
+        is invalidated first, then the fresh direction cached, then the
+        client re-assigned against the groups' update directions through
+        ``_adopt_membership`` (which counts migrations). Only every
+        ``shift_check_every``-th tick probes; the others ask ``draws`` for
+        nothing. Returns the migrated client ids."""
+        cfg = self.cfg
+        none = np.empty(0, np.int64)
+        self._last_shifted = none
+        if not self._shift_enabled() or not self.cold_started \
+                or self.group_delta is None:
+            return none
+        tick = self._shift_tick
+        self._shift_tick += 1
+        if tick % max(int(cfg.shift_check_every), 1) != 0:
+            return none
+        idx = np.asarray(idx)
+        assigned = idx[self.membership[idx] >= 0]
+        checked = assigned[self._has_dirs(assigned)]
+        self._shift_last = (len(checked), 0)
+        if len(checked) == 0:
+            return none
+        self.counters["rounds.shift_checks"] += len(checked)
+        self.comm_params += 2 * len(checked) * self.model_size
+        deltas, _, _ = self._solve(self.params, checked,
+                                   solver=self.pretrain_solver)
+        fresh = flatten_stacked(deltas)                        # (c, d_w)
+        drift = shift_drift(fresh, self._get_dirs(checked))
+        moved = (drift > float(cfg.shift_threshold)).cpu().numpy()
+        shifted = checked[moved].astype(np.int64)
+        self._shift_last = (len(checked), len(shifted))
+        if len(shifted) == 0:
+            return none
+        fresh_moved = fresh[torch.as_tensor(np.flatnonzero(moved),
+                                            device=fresh.device)]
+        self._invalidate_dirs(shifted)
+        self._set_dirs(shifted, fresh_moved)
+        sim = measures.cosine_similarity_matrix(fresh_moved,
+                                                self.group_delta)
+        dis = (-sim + 1.0) / 2.0
+        self._adopt_membership(shifted,
+                               torch.argmin(dis, dim=1).cpu().numpy())
+        self._last_shifted = shifted
+        return shifted
 
     # ------------------------------------------------------------------
     # Round (Algorithm 2) — one fused call over all groups
@@ -129,6 +234,7 @@ class FedGroupTrainer(GroupedTrainer):
         if idx is None:
             idx = self._select()
         idx = np.asarray(idx)
+        self._maybe_shift(idx)
         cold = idx[self.membership[idx] < 0]
         self.last_cold = len(cold)
         # cold start: 1 global model down + 1 pretrain update up per newcomer

@@ -146,7 +146,8 @@ def grouped_eval_correct(model: ModelSpec):
 
 def client_mean_loss(model: ModelSpec):
     """Per-client mean CE loss (params, x, y, n_valid) -> scalar, for one
-    client (vmap it over the client axis)."""
+    client (vmap it over the client axis): the round's mean loss and the
+    IFCA / LCFL assignment stages' score."""
     def one(params, x, y, n_valid):
         logits = model.apply(params, x)
         logp = torch.log_softmax(logits.float(), -1)
@@ -155,3 +156,10 @@ def client_mean_loss(model: ModelSpec):
         mask = (rows < n_valid).to(ce.dtype)
         return torch.sum(ce * mask) / torch.clamp(n_valid, min=1)
     return one
+
+
+def make_loss_eval_fn(model: ModelSpec):
+    """loss(params, X (K, max_n, ...), Y, n) -> (K,) mean train loss per
+    client under one shared params (IFCA's cluster-identity score, the
+    serial oracles')."""
+    return vmap(client_mean_loss(model), in_dims=(None, 0, 0, 0))

@@ -11,8 +11,8 @@ so cohorts match it. Every other random draw goes through a draws object
 
 Not yet ported, and refused with ``NotImplementedError`` (``ROADMAP.md``):
 round blocks (``block_size > 1``), the async runtime (``async_depth > 0``),
-checkpoints, streamed populations (``population=``), a device mesh, the
-shift detector (``shift_threshold``) and telemetry (``telemetry_dir``).
+checkpoints, streamed populations (``population=``), a device mesh and
+telemetry (``telemetry_dir``).
 """
 from __future__ import annotations
 
@@ -78,10 +78,13 @@ class FedConfig:
     async_max_retries: int = 3
     async_backoff: float = 0.05
     async_backoff_cap: float = 1.0
-    # distribution-shift migration (not yet ported: a threshold raises)
+    # distribution-shift migration (core.fedgroup, FedGroup trainers): None
+    # = off; else probe every shift_check_every-th round and migrate the
+    # clients whose drift (1 - cos)/2 exceeds the threshold
     shift_threshold: float | None = None
     shift_check_every: int = 1
-    # strategy-zoo knobs (FedClust / LCFL, not yet ported)
+    # strategy-zoo knobs (fed.strategies): FedClust's trailing-head share
+    # of the flattened weights, LCFL's hysteresis margin
     fedclust_frac: float = 0.25
     lcfl_margin: float = 0.1
     # telemetry (not yet ported: a directory raises)
@@ -105,8 +108,6 @@ def _check_ported(cfg: FedConfig, mesh, population):
         _not_ported("streamed populations (population=)")
     if mesh is not None:
         _not_ported("a device mesh")
-    if cfg.shift_threshold is not None:
-        _not_ported("the shift detector (shift_threshold)")
     if cfg.telemetry_dir:
         _not_ported("telemetry (telemetry_dir)")
 
@@ -328,6 +329,18 @@ class GroupedTrainer(FedAvgTrainer):
         super().__init__(model, data, cfg, **kw)
         self.m = cfg.n_groups
         self.membership = np.full(self.n_clients, -1, np.int64)
+
+    def _random_groups(self, offset: int, given=None) -> dict:
+        """m-stacked group params for the trainers that start from m random
+        centres (IFCA, FeSEM, LCFL): ``given`` when passed (parity tests
+        carry the JAX trainer's over — ``jax.random`` draws cannot be
+        reproduced), else m successive ``model.init`` draws from one CPU
+        generator seeded ``cfg.seed + offset``, the reference's offset."""
+        if given is None:
+            gen = torch.Generator().manual_seed(self.cfg.seed + offset)
+            given = rounds_lib.stack_trees(
+                [self.model.init(gen, "cpu") for _ in range(self.m)])
+        return {k: v.to(self.device, torch.float32) for k, v in given.items()}
 
     def _adopt_membership(self, idx, new):
         """Write a cohort's new group assignments, counting migrations

@@ -8,20 +8,31 @@ auxiliary global model, the flattened per-group update directions and the
 eq.-4 discrepancy are computed in the same function, so
 
   * ``FedAvgTrainer`` / ``FedProxTrainer`` run it with m=1,
-  * ``FedGroupTrainer`` / ``FedGrouProxTrainer`` with m=n_groups.
+  * ``FedGroupTrainer`` / ``FedGrouProxTrainer`` with m=n_groups,
+  * the dynamic-assignment trainers (``fed.ifca``, ``fed.fesem``,
+    ``fed.strategies``) with m=n_groups plus an *assignment stage*
+    (``assign_fn``) that picks each client's group inside the round, and an
+    optional ``state_update_fn`` that keeps per-client state (FeSEM's
+    ``local_flat``) on the device.
 
-The block, async and staleness executors and the dynamic-assignment stage
-(IFCA/FeSEM) are not yet ported (``ROADMAP.md``).
+``serial_reference_round`` / ``serial_ifca_round`` / ``serial_fesem_round``
+keep the per-group loop as the oracles the fused round is tested against.
+
+The block, async and staleness executors are not yet ported
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.func import vmap
 
 from repro_torch.fed import client as client_lib
-from repro_torch.models.modules import flatten_stacked, leaf_keys
+from repro_torch.fed import server as server_lib
+from repro_torch.models.modules import (flatten_stacked, flatten_updates,
+                                        leaf_keys)
 
 
 class RoundOutput(NamedTuple):
@@ -31,10 +42,17 @@ class RoundOutput(NamedTuple):
     group_delta_flat: object  # (m, d_w) flattened w_g^{t+1} − w_g^t
     discrepancy: object       # scalar: mean_i ||w_i^final − w̃_{g(i)}||
     membership: object        # (K,) int64 group id used this round
+    assign_state: object      # updated assignment-stage state (None if
+                              # static)
     mean_loss: object = 0.0   # scalar: n_i-weighted mean local train loss
                               # of the clients' final local models
     n_quarantined: object = 0  # scalar: alive clients whose updates were
                                # screened out this round
+
+
+def stack_trees(trees: list) -> dict:
+    """List of param dicts -> one dict with a new leading axis."""
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
 def _bcast(v, t):
@@ -49,12 +67,19 @@ def _row_sq(tree: dict, K: int) -> torch.Tensor:
 
 def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
                      mu: float, n_groups: int, max_samples: int,
-                     eta_g: float = 0.0, quarantine: bool = False,
+                     eta_g: float = 0.0, assign_fn=None,
+                     state_update_fn=None, quarantine: bool = False,
                      quarantine_mult: float = 10.0):
     """The fused round as a function with an explicit per-client ``alive``
     weight. A client with ``alive == 0`` still runs the batched solver but
     contributes nothing to the aggregation, the mean loss, or the
     discrepancy.
+
+    With ``assign_fn`` the second argument is the assignment state and
+    the membership is ``assign_fn(group_params, X, Y, n, state)``;
+    ``state_update_fn(state, membership, deltas, finals)`` then runs after
+    the quarantine screen, so a screened client hands on its group's
+    round-start parameters.
 
     ``quarantine`` screens a client whose local delta is non-finite or
     whose delta norm exceeds ``quarantine_mult`` × the cohort median into
@@ -69,6 +94,10 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
     loss_many = vmap(client_lib.client_mean_loss(model))
 
     def core(group_params, membership, X, Y, n, idx, alive) -> RoundOutput:
+        state = None
+        if assign_fn is not None:
+            state = membership
+            membership = assign_fn(group_params, X, Y, n, state)
         membership = membership.long()
         # each client trains from ITS group's parameters (one gather)
         my_params = {k: g[membership] for k, g in group_params.items()}
@@ -140,8 +169,10 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
                          for k, g in new_groups.items()}
         group_delta_flat = flatten_stacked(
             {k: new_groups[k] - group_params[k] for k in new_groups})
+        if assign_fn is not None and state_update_fn is not None:
+            state = state_update_fn(state, membership, deltas, finals)
         return RoundOutput(new_groups, global_params, agg_delta,
-                           group_delta_flat, discrepancy, membership,
+                           group_delta_flat, discrepancy, membership, state,
                            mean_loss, n_quarantined)
 
     core.max_steps = solve.max_steps
@@ -150,7 +181,8 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
 
 def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
                         mu: float, n_groups: int, max_samples: int,
-                        eta_g: float = 0.0, quarantine: bool = False,
+                        eta_g: float = 0.0, assign_fn=None,
+                        state_update_fn=None, quarantine: bool = False,
                         quarantine_mult: float = 10.0):
     """Returns round_fn(group_params, membership, X, Y, n, idx) ->
     RoundOutput.
@@ -158,11 +190,21 @@ def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
     group_params: dict with leading axis m; membership: (K,) group id per
     selected client; X: (K, max_n, ...); Y: (K, max_n); n: (K,); idx:
     (K, max_steps, B) minibatch rows (``round_fn.max_steps``).
+
+    Dynamic assignment (IFCA, FeSEM, ``fed.strategies``): pass
+      assign_fn(group_params, X, Y, n, state) -> (K,) group ids
+    and the second argument of round_fn becomes the assignment *state*
+    instead of a membership vector. An optional
+      state_update_fn(state, membership, deltas, finals) -> new state
+    keeps per-client state on the device across rounds; the new state is
+    ``RoundOutput.assign_state``.
+
     ``quarantine=True`` screens non-finite / norm-outlier client updates
     into the zero-weight path (see ``_make_round_core``)."""
     core = _make_round_core(
         model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
         n_groups=n_groups, max_samples=max_samples, eta_g=eta_g,
+        assign_fn=assign_fn, state_update_fn=state_update_fn,
         quarantine=quarantine, quarantine_mult=quarantine_mult)
 
     @torch.no_grad()
@@ -172,3 +214,92 @@ def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
 
     round_fn.max_steps = core.max_steps
     return round_fn
+
+
+def serial_reference_round(batch_solver, group_params_list, membership,
+                           X, Y, n, idx, *, eta_g: float = 0.0):
+    """The per-group round loop: one solver call per non-empty group plus
+    host-side aggregation — the oracle of the fused round.
+
+    batch_solver: ``client.make_batch_solver`` product; group_params_list:
+    list of m param dicts; membership: (K,) numpy int array; idx: the
+    (K, max_steps, B) minibatch rows, shared with the fused round so both
+    train on the same batches. Returns (new group list, global params,
+    (m, d_w) group deltas, discrepancy)."""
+    m = len(group_params_list)
+    tilde, disc, _ = _serial_group_update(
+        batch_solver, group_params_list, membership, X, Y, n, idx)
+    new_list = server_lib.inter_group_aggregate(tilde, eta_g)
+    group_delta = torch.stack([
+        flatten_updates(server_lib.tree_sub(new_list[j],
+                                            group_params_list[j]))
+        for j in range(m)])
+    return new_list, server_lib.tree_mean(new_list), group_delta, disc
+
+
+@torch.no_grad()
+def _serial_group_update(batch_solver, group_params_list, membership,
+                         X, Y, n, idx, collect_finals: bool = False):
+    """Shared tail of the per-group rounds: one solver call per non-empty
+    group, weighted intra-group aggregation, host discrepancy.
+    ``collect_finals`` also flattens each member's final local model
+    (FeSEM's host-side ``local_flat`` rebuild) into {client row: (d_w,)}."""
+    m = len(group_params_list)
+    new_list = list(group_params_list)
+    disc_sum, disc_n = 0.0, 0
+    finals_by_client = {}
+    membership = np.asarray(membership)
+    for j in range(m):
+        members = np.where(membership == j)[0]
+        if len(members) == 0:
+            continue
+        sel = torch.as_tensor(members, device=X.device)
+        deltas, finals = batch_solver(group_params_list[j], X[sel], Y[sel],
+                                      n[sel], idx[sel])
+        new_list[j] = server_lib.apply_delta(
+            group_params_list[j], server_lib.weighted_delta(deltas, n[sel]))
+        diffs = vmap(lambda f: server_lib.tree_norm(
+            server_lib.tree_sub(f, new_list[j])))(finals)
+        disc_sum += float(torch.sum(diffs))
+        disc_n += len(members)
+        if collect_finals:
+            flats = flatten_stacked(finals)
+            for r, i in enumerate(members):
+                finals_by_client[int(i)] = flats[r]
+    return new_list, disc_sum / max(disc_n, 1), finals_by_client
+
+
+@torch.no_grad()
+def serial_ifca_round(batch_solver, loss_fn, group_params_list,
+                      X, Y, n, idx):
+    """IFCA estimate-then-loop: one loss call per group on the host side,
+    argmin, then ``_serial_group_update`` — the oracle of the fused IFCA
+    round. loss_fn: ``client.make_loss_eval_fn`` product. Returns (new
+    group list, membership (K,) numpy, discrepancy)."""
+    losses = torch.stack([loss_fn(p, X, Y, n) for p in group_params_list])
+    membership = torch.argmin(losses, dim=0).cpu().numpy()
+    new_list, disc, _ = _serial_group_update(
+        batch_solver, group_params_list, membership, X, Y, n, idx)
+    return new_list, membership, disc
+
+
+@torch.no_grad()
+def serial_fesem_round(batch_solver, group_params_list, local_flat,
+                       X, Y, n, idx):
+    """FeSEM with the per-group loop: ℓ2 E-step over flattened centres,
+    per-group M-step (centre = weighted average of the members' final local models),
+    rebuild of the per-client flattened-model matrix — the oracle of the
+    fused FeSEM round.
+
+    local_flat: (K, d_w) flattened local models of the selected clients.
+    Returns (new group list, membership, new local_flat, discrepancy)."""
+    centers = torch.stack([flatten_updates(p) for p in group_params_list])
+    d2 = torch.sum(torch.square(local_flat[:, None, :] - centers[None]), -1)
+    membership = torch.argmin(d2, dim=1).cpu().numpy()
+    new_list, disc, finals_by_client = _serial_group_update(
+        batch_solver, group_params_list, membership, X, Y, n, idx,
+        collect_finals=True)
+    new_local = local_flat.clone()
+    for i, row in finals_by_client.items():
+        new_local[i] = row
+    return new_list, membership, new_local, disc

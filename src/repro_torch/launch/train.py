@@ -5,9 +5,9 @@ fed flags and datasets, plus ``--device``).
   PYTHONPATH=src python -m repro_torch.launch.train --mode fed \
       --framework fedgroup --dataset femnist --rounds 30
 
-Runs on ``cuda`` unless ``--device cpu``. Not yet ported (they raise):
-``--mode lm``, the ``ifca``/``fesem`` frameworks, ``--async-depth`` and
-``--telemetry-dir``.
+Frameworks: fedavg, fedprox, fedgroup, fedgrouprox, ifca, fesem. Runs on
+``cuda`` unless ``--device cpu``. Not yet ported (they raise):
+``--mode lm``, ``--async-depth`` and ``--telemetry-dir``.
 """
 from __future__ import annotations
 
@@ -24,12 +24,11 @@ def run_fed(args) -> int:
     from repro_torch.data import generators as gen
     from repro_torch.fed.engine import (FedAvgTrainer, FedConfig,
                                         FedProxTrainer)
+    from repro_torch.fed.fesem import FeSEMTrainer
+    from repro_torch.fed.ifca import IFCATrainer
     from repro_torch.fed.server import tree_index
     from repro_torch.models.paper_models import lstm_classifier, mclr, mlp
 
-    if args.framework in ("ifca", "fesem"):
-        raise NotImplementedError(f"framework {args.framework!r} is not yet "
-                                  "ported to repro_torch (ROADMAP.md)")
     if args.async_depth:
         raise NotImplementedError("--async-depth: the async runtime is not "
                                   "yet ported to repro_torch (ROADMAP.md)")
@@ -61,7 +60,8 @@ def run_fed(args) -> int:
     }
     frameworks = {"fedavg": FedAvgTrainer, "fedprox": FedProxTrainer,
                   "fedgroup": FedGroupTrainer,
-                  "fedgrouprox": FedGrouProxTrainer}
+                  "fedgrouprox": FedGrouProxTrainer,
+                  "ifca": IFCATrainer, "fesem": FeSEMTrainer}
     if args.framework not in frameworks:
         raise ValueError(f"unknown framework {args.framework!r}")
     data, model = datasets[args.dataset]()

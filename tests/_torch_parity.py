@@ -9,15 +9,16 @@ minibatch indices, SVD test matrix and K-Means++ seeds.
 """
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 
-def replay_batch_indices(keys, n, max_steps: int, batch_size: int):
-    """(K, max_steps, B) int64: the rows ``repro.fed.client``'s solver
-    draws for each client key — a ``split`` then ``randint`` per step."""
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _replay(keys, n, max_steps: int, batch_size: int):
     def one(key, nv):
         nv = jnp.maximum(nv, 1)
 
@@ -28,7 +29,16 @@ def replay_batch_indices(keys, n, max_steps: int, batch_size: int):
         _, idx = jax.lax.scan(body, key, None, length=max_steps)
         return idx
 
-    idx = jax.vmap(one)(jnp.asarray(keys), jnp.asarray(n, jnp.int32))
+    return jax.vmap(one)(keys, n)
+
+
+def replay_batch_indices(keys, n, max_steps: int, batch_size: int):
+    """(K, max_steps, B) int64: the rows ``repro.fed.client``'s solver
+    draws for each client key — a ``split`` then ``randint`` per step
+    (compiled once per shape: the draws are integer ops, the same bits
+    as op by op)."""
+    idx = _replay(jnp.asarray(keys), jnp.asarray(n, jnp.int32),
+                  int(max_steps), int(batch_size))
     return torch.as_tensor(np.asarray(idx).astype(np.int64))
 
 

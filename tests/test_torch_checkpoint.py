@@ -77,3 +77,25 @@ def test_train_cli_writes_the_reference_format(tmp_path, capsys):
     params = ckpt.load_pytree(str(out / "model.npz"))
     assert sorted(params) == ["b", "w"]          # mclr(60, 10)
     assert params["w"].shape == (60, 10)
+
+
+@pytest.mark.parametrize("framework", ["ifca", "fesem"])
+def test_train_cli_dynamic_assignment_writes_group_zero(framework, tmp_path,
+                                                        capsys):
+    out = tmp_path / framework
+    rc = train_cli.main(["--mode", "fed", "--device", "cpu",
+                         "--framework", framework, "--dataset", "synthetic",
+                         "--rounds", "2", "--k", "4", "--epochs", "1",
+                         "--groups", "2", "--clients", "12",
+                         "--out", str(out)])
+    assert rc == 0
+    printed = capsys.readouterr().out
+    assert printed.count(" acc=") == 2
+    meta = ref_io.load_metadata(str(out / "model.npz"))
+    assert meta["framework"] == framework
+    assert f"max_acc={meta['max_acc']:.4f}" in printed
+    params = ref_io.load_pytree(str(out / "model.npz"),
+                                {"b": np.zeros(10, np.float32),
+                                 "w": np.zeros((60, 10), np.float32)})
+    assert params["w"].shape == (60, 10)          # group 0 of mclr(60, 10)
+    assert np.isfinite(params["w"]).all()

@@ -34,6 +34,8 @@ SLICE_MODULES = [
     "repro_torch.models.attention", "repro_torch.models.ssm",
     "repro_torch.models.zoo", "repro_torch.configs.registry",
     "repro_torch.configs.zamba2_1p2b", "repro_torch.launch.serve",
+    "repro_torch.fed.store", "repro_torch.fed.ifca", "repro_torch.fed.fesem",
+    "repro_torch.fed.strategies", "repro_torch.core.gating",
 ]
 
 
@@ -78,7 +80,7 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("block_size", 2), ("async_depth", 1), ("checkpoint_every", 1),
-    ("shift_threshold", 0.1), ("telemetry_dir", "/nonexistent"),
+    ("telemetry_dir", "/nonexistent"),
 ])
 def test_unported_options_raise(field, value):
     data = tgen.synthetic(seed=0, n_clients=4)
