@@ -36,8 +36,10 @@ with no final ``ok`` line):
                 at n = 200, m = 100 in bf16, ragged ones) the device time,
                 the host time (median of 5 bursts of 100 calls, below the
                 launch queue's depth), bit-repeatability,
-                F.cosine_similarity's time where its (n, d, m) broadcast
-                fits in 8 GB (else null, with the bytes it needs), and
+                F.cosine_similarity's time (where its (n, d, m) broadcast
+                passes 8 GB, the sum of its times over column chunks of V
+                that fit, with the chunks and the whole broadcast's
+                bytes), and
                 the time of dW.sum(), a pass that only reads ΔW; madc's
                 device time at each tile edge over a sweep of n. The fp32
                 routes are checked at Zamba2's fp32 forward (B=1, S=256)
@@ -49,7 +51,10 @@ with no final ``ok`` line):
                 each measure, then IFCA, FeSEM, FedClust, LCFL and FedGroup
                 with the shift detector at threshold 0.0 (membership equal
                 every round; the shift run must probe and re-route on both
-                devices); it is also the warm-up of the card's libraries.
+                devices), then all six trainers in round blocks
+                (block_size 4, 6 rounds: the eager block on the CPU, the
+                captured graphs on the card; membership equal, rtol
+                1e-3); it is also the warm-up of the card's libraries.
   4. main     — FedGroup on the paper's FEMNIST MLP-512 (d_w = 415,258):
                 Alg. 3 cold start + 3 fused rounds with measure=edc, then
                 with measure=madc; per-round metrics, cold-start and round
@@ -69,6 +74,19 @@ with no final ``ok`` line):
                 ``local_flat`` bytes and device; fails on a non-finite
                 metric, a label outside [0, m), a ``local_flat`` off the
                 card or a shift run that probes nobody.
+     4d         round blocks (``fed/graphs.py``: one fused round captured
+                as a CUDA graph, replayed per round): FedAvg, FedGroup
+                (EDC) at α = 40 (all 200 clients founders) and at α = 20,
+                IFCA, FeSEM, FedClust and LCFL, BLOCK_ROUNDS rounds once
+                per round (eager) and once in blocks of BLOCK_SIZE, same
+                seed: membership equal wherever the blocked run shows it,
+                loss / discrepancy / accuracy within 1e-5 relative, graph
+                replays equal to the blocked rounds (else the run fails);
+                host-clock ms of every eager round, every block and the
+                staging, the capture's ms, peak memory of both runs, one
+                eager round and one more block under torch.profiler
+                (busy share, device ops, host launch calls), and how many
+                of FedGroup α = 20's rounds went through blocks.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -91,7 +109,8 @@ with no final ``ok`` line):
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
      ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
-     20-group and shift runs), then the ``{"ok": true, ...}`` line.
+     20-group and shift runs and phase 4d's FedGroup runs), then the
+     ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -120,6 +139,13 @@ EDC_LIBRARY_BYTES = 8e9        # F.cosine_similarity's broadcast, at most
 EDC_GROUPS = 20                # the cold start with m > 16 column tiles
 STRATEGIES = ("ifca", "fesem", "fedclust", "lcfl")
 ROUNDS = 3
+BLOCK_ROUNDS, BLOCK_SIZE = 8, 4  # phase 4d: 8 rounds, blocks of 4
+BLOCK_RTOL = 1e-5              # graph vs eager round: cuBLAS may pick other
+                               # algorithms under capture
+# phase 4d's trainers and α: FedGroup at α = 40 has all 200 clients as
+# founders (no newcomer breaks a block), at phase 4's α = 20 half of them
+BLOCK_RUNS = (("fedavg", 20), ("fedgroup", 40), ("fedgroup", 20),
+              ("ifca", 20), ("fesem", 20), ("fedclust", 20), ("lcfl", 20))
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
 SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -s · softplus(randn)
@@ -277,9 +303,11 @@ def check_kernels(torch):
         es = dW.element_size()
         b_ms, b_by = bound_ms(n * d * es + d * m * V.element_size()
                               + n * m * 4, 2.0 * n * d * (m + 1))
-        # F.cosine_similarity broadcasts (n, d, m) fp32; timed where that
-        # fits in EDC_LIBRARY_BYTES, else null with the size it needs
+        # F.cosine_similarity broadcasts (n, d, m) fp32: timed over column
+        # chunks of V whose broadcast fits in EDC_LIBRARY_BYTES, summed
         bcast = 4 * n * d * m
+        step = max(1, min(m, int(EDC_LIBRARY_BYTES // (4 * n * d))))
+        chunks = [(j, min(j + step, m)) for j in range(0, m, step)]
         fn = lambda: edc_mod.edc_cosine(dW, V)  # noqa: E731
         row = {"phase": "kernel", "name": "edc_cosine", "case": label,
                "n": n, "d": d, "m": m, "dtype": str(dtype).split(".")[-1],
@@ -290,9 +318,11 @@ def check_kernels(torch):
                "host_us_per_call": host_us_bursts(torch, fn),
                "plain_ms": cuda_ms(torch,
                                    lambda: ref.cosine_block_ref(dW, V), 10),
-               "library_ms": cuda_ms(torch, lambda: F.cosine_similarity(
-                   dW[:, :, None].float(), V[None].float(), dim=1), 3,
-                   warmup=1) if bcast <= EDC_LIBRARY_BYTES else None,
+               "library_ms": sum(cuda_ms(
+                   torch, lambda j0=j0, j1=j1: F.cosine_similarity(
+                       dW[:, :, None].float(), V[None, :, j0:j1].float(),
+                       dim=1), 3, warmup=1) for j0, j1 in chunks),
+               "library_column_chunks": chunks,
                "library_broadcast_bytes": bcast,
                # one pass that only reads ΔW (a yardstick of the card's
                # read rate for these bytes, not the same function)
@@ -874,6 +904,58 @@ def reference_check(torch):
             raise AssertionError(f"{measure}: card run disagrees with CPU")
     for name in STRATEGIES + ("shift",):
         reference_check_strategy(torch, data, name)
+    reference_check_block(torch, data)
+
+
+def make_block_trainer(model, data, name: str, block_size: int, **kw):
+    """FedAvg, FedGroup or a registered strategy with ``block_size``."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed import strategies
+    from repro_torch.fed.engine import FedAvgTrainer, FedConfig
+
+    device = kw.pop("device", "cuda")
+    cfg = FedConfig(block_size=block_size, **kw)
+    if name == "fedavg":
+        return FedAvgTrainer(model, data, cfg, device=device)
+    if name == "fedgroup":
+        return FedGroupTrainer(model, data, cfg, device=device)
+    return strategies.make_trainer(name, model, data, cfg, device=device)
+
+
+def reference_check_block(torch, data):
+    """Phase 3, round blocks: the same tiny run with ``block_size=4`` over
+    6 rounds on the CPU (the eager block) and on the card (the captured
+    graphs), for all six trainers: membership equal, loss and discrepancy
+    within rtol 1e-3, accuracy within 0.01, and the card's blocked rounds
+    all replays."""
+    from repro_torch.models.paper_models import mlp
+
+    for name in ("fedavg", "fedgroup") + STRATEGIES:
+        kw = dict(n_rounds=6, clients_per_round=8, local_epochs=2,
+                  batch_size=10, lr=0.05, n_groups=3, pretrain_scale=8,
+                  seed=0)
+        trs = {dev: make_block_trainer(mlp(32, 16, 10), data, name, 4,
+                                       device=dev, **kw)
+               for dev in ("cpu", "cuda")}
+        hist = {dev: tr.run() for dev, tr in trs.items()}
+        ex = trs["cuda"]._block_exec
+        ok = ex.replays >= 1 and ex.captures == 1
+        if name != "fedavg":
+            ok &= bool((trs["cpu"].membership
+                        == trs["cuda"].membership).all())
+        for rc, rg in zip(hist["cpu"].rounds, hist["cuda"].rounds):
+            ok &= math.isclose(rc.mean_loss, rg.mean_loss, rel_tol=1e-3)
+            ok &= math.isclose(rc.discrepancy, rg.discrepancy, rel_tol=1e-3)
+            ok &= abs(rc.weighted_acc - rg.weighted_acc) <= 0.01
+        emit({"phase": "reference", "block": name, "ok": ok,
+              "replays": ex.replays,
+              "cpu": [[r.weighted_acc, r.mean_loss, r.discrepancy]
+                      for r in hist["cpu"].rounds],
+              "cuda": [[r.weighted_acc, r.mean_loss, r.discrepancy]
+                       for r in hist["cuda"].rounds]})
+        if not ok:
+            raise AssertionError(f"block {name}: card run disagrees with "
+                                 "CPU, or no round was replayed")
 
 
 def reference_check_strategy(torch, data, name: str):
@@ -922,6 +1004,162 @@ def reference_check_strategy(torch, data, name: str):
     if not ok:
         raise AssertionError(f"{name}: card run disagrees with CPU, or the "
                              "shift run re-routed nobody")
+
+
+def profile_window(torch, fn) -> dict:
+    """``fn`` under torch.profiler: wall ms (host clock, ended by
+    synchronize), the device's busy ms and share (kernels and copies), the
+    device kernels, and the host's launch calls (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, copies). None where the profiler recorded no
+    device activity (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    host = [e for e in ev if e.device_type == DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    calls = lambda *keys: sum(e.count for e in host  # noqa: E731
+                              if any(k in e.key for k in keys))
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": busy if dev else None,
+            "device_busy_share": busy / wall_ms if dev else None,
+            "device_ops": sum(e.count for e in dev) if dev else None,
+            "host_kernel_launches": calls("LaunchKernel"),
+            "host_graph_launches": calls("GraphLaunch"),
+            "host_copies": calls("Memcpy")}
+
+
+def block_run(torch, data, model, name: str, alpha: int):
+    """Phase 4d: one trainer at full width, BLOCK_ROUNDS rounds per round
+    (eager) and in blocks of BLOCK_SIZE (captured graphs), from the same
+    seed. Host-clock ms (ended by synchronize) of every eager round, of
+    every block and of the staging; the capture's ms; one eager round and
+    one block under torch.profiler; peak memory of each run. Fails unless
+    membership is equal wherever the blocked run shows it (after each
+    per-round round and each block), every round's loss, discrepancy and
+    accuracy agree within BLOCK_RTOL, and the graph replays equal the
+    blocked rounds."""
+    kw = dict(n_rounds=BLOCK_ROUNDS, clients_per_round=20, local_epochs=2,
+              batch_size=10, lr=0.03, n_groups=5, pretrain_scale=alpha,
+              seed=0)
+    grouped = name != "fedavg"
+    membership = lambda tr: tr.membership.copy() if grouped else None  # noqa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = make_block_trainer(model, data, name, 1, **kw)
+    eager_ms, mem_a = [], []
+    for _ in range(BLOCK_ROUNDS):
+        t0 = time.perf_counter()
+        a.run(1)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        mem_a.append(membership(a))
+    eager_peak = torch.cuda.max_memory_allocated()
+    eager_rounds = list(a.history.rounds)
+    eager_prof = profile_window(torch, lambda: a.run(1))
+    del a
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = make_block_trainer(model, data, name, BLOCK_SIZE, **kw)
+    ex = b._block_executor()
+    stage_ms, block_ms, block_len, seen = [], [], [], {}
+    stage_block, run_block, one_round = b._stage_block, b._run_block, b.round
+
+    def timed_stage(t0, max_b):
+        t1 = time.perf_counter()
+        out = stage_block(t0, max_b)
+        stage_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    def timed_block(t0, staged):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        run_block(t0, staged)
+        torch.cuda.synchronize()
+        block_ms.append((time.perf_counter() - t1) * 1e3)
+        block_len.append(len(staged))
+        seen[t0 + len(staged) - 1] = membership(b)
+
+    def seen_round(t, idx=None):
+        out = one_round(t, idx)
+        seen[t] = membership(b)
+        return out
+
+    b._stage_block, b._run_block, b.round = (timed_stage, timed_block,
+                                             seen_round)
+    t0 = time.perf_counter()
+    b.run(BLOCK_ROUNDS)
+    torch.cuda.synchronize()
+    blocked_total_ms = (time.perf_counter() - t0) * 1e3
+    blocked_peak = torch.cuda.max_memory_allocated()
+    blocked = sum(block_len)
+
+    dev = {"acc": 0.0, "loss": 0.0, "disc": 0.0}
+    for ra, rb in zip(eager_rounds, b.history.rounds, strict=True):
+        for k, f in (("acc", "weighted_acc"), ("loss", "mean_loss"),
+                     ("disc", "discrepancy")):
+            x, y = getattr(ra, f), getattr(rb, f)
+            dev[k] = max(dev[k], abs(y - x) / max(abs(x), 1e-30))
+    mem_ok = all(m is None or bool((m == mem_a[t]).all())
+                 for t, m in seen.items())
+    # the first block holds the capture; later blocks are steady replays
+    steady = [(ms, n) for ms, n in zip(block_ms[1:], block_len[1:])]
+    rec = {"phase": "block", "trainer": name, "alpha": alpha,
+           "rounds": BLOCK_ROUNDS, "block_size": BLOCK_SIZE,
+           "blocks": list(block_len), "rounds_in_blocks": blocked,
+           "graph_replays": ex.replays, "eval_replays": ex.eval_replays,
+           "captures": ex.captures, "capture_ms": ex.capture_ms,
+           "membership_equal": mem_ok, "membership_checked_at": sorted(seen),
+           "max_rel_dev": dev, "rtol": BLOCK_RTOL,
+           "eager_round_ms": eager_ms, "block_ms": list(block_ms),
+           "blocked_round_ms_steady": (sum(ms for ms, _ in steady)
+                                       / sum(n for _, n in steady)
+                                       if steady else None),
+           "stage_ms": stage_ms,
+           "stage_ms_per_round": (sum(stage_ms) / blocked if blocked
+                                  else None),
+           "eager_total_ms": sum(eager_ms),
+           "blocked_total_ms": blocked_total_ms,
+           "eager_peak_device_bytes": eager_peak,
+           "blocked_peak_device_bytes": blocked_peak,
+           "eager_round_profile": eager_prof,
+           "acc": [r.weighted_acc for r in b.history.rounds]}
+    rec["eager_host_launches_per_round"] = (
+        eager_prof["host_kernel_launches"] + eager_prof["host_copies"])
+    if (name, alpha) != ("fedgroup", 20):
+        # one more block of BLOCK_SIZE rounds, profiled
+        r0 = ex.replays
+        prof = profile_window(torch, lambda: b.run(BLOCK_SIZE))
+        rec["block_profile"] = {**prof, "replays": ex.replays - r0}
+        rec["blocked_host_launches_per_round"] = (
+            prof["host_kernel_launches"] + prof["host_graph_launches"]
+            + prof["host_copies"]) / BLOCK_SIZE
+        if ex.replays - r0 != BLOCK_SIZE:
+            raise AssertionError(f"block {name}: the profiled block "
+                                 f"replayed {ex.replays - r0} rounds")
+    emit(rec)
+    if ex.replays != sum(block_len) or (blocked and ex.captures != 1):
+        raise AssertionError(f"block {name}: {ex.replays} graph replays "
+                             f"for {sum(block_len)} blocked rounds")
+    if blocked == 0 and (name, alpha) != ("fedgroup", 20):
+        raise AssertionError(f"block {name}: no round ran in a block")
+    if not mem_ok:
+        raise AssertionError(f"block {name}: membership differs from the "
+                             "eager run")
+    if max(dev.values()) > BLOCK_RTOL:
+        raise AssertionError(f"block {name}: metrics deviate {dev}")
+    return rec
 
 
 def zamba2_params(torch):
@@ -1252,6 +1490,7 @@ def main() -> int:
 
     # phase 4: the main path at full width (FEMNIST MLP-512, paper Table 2)
     from repro_torch.data.generators import femnist_like
+    from repro_torch.kernels import ops
     from repro_torch.models.paper_models import mlp
     t0 = time.perf_counter()
     data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
@@ -1269,6 +1508,15 @@ def main() -> int:
     for name in STRATEGIES:
         strategy_run(torch, data, model, name)
     counts_shift = strategy_run(torch, data, model, "shift")
+    # phase 4d: round blocks, each fused round a replayed CUDA graph
+    ops.reset_launch_counts()
+    for name, alpha in BLOCK_RUNS:
+        block_run(torch, data, model, name, alpha)
+        torch.cuda.empty_cache()
+    counts_block = ops.launch_counts()
+    if counts_block["edc_cosine"] < 2:
+        raise AssertionError("the block phase's FedGroup runs launched "
+                             "no edc_cosine kernel")
     if counts_shift["edc_cosine"] < 1:
         raise AssertionError("shift run launched no edc_cosine kernel")
     if counts_edc["edc_cosine"] < 1:
@@ -1293,12 +1541,13 @@ def main() -> int:
     zamba2_serve()
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
-    # and MADC runs, the 20-group EDC cold start and the shift run;
+    # and MADC runs, the 20-group EDC cold start, the shift run and the
+    # block phase's FedGroup runs;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
-                + counts_shift["edc_cosine"],
+                + counts_shift["edc_cosine"] + counts_block["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"],

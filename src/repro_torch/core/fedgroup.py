@@ -21,7 +21,11 @@ eq.-9 direction is probed with one pre-training pass from the auxiliary
 global model; a client whose fresh direction drifted past the threshold
 (``(1 - cos)/2``) has its cached row invalidated, the fresh one cached, and
 is re-routed by eq. 9 against the groups' update directions (a migration).
-The checkpoint hooks are not yet ported (``ROADMAP.md``).
+
+Round blocks (``block_size > 1``) break on host events: the Alg. 3 cold
+start before the first round, a cohort with cold newcomers (eq. 9), and
+every round while the shift detector is on, which pins the trainer to the
+per-round path. The checkpoint hooks are not yet ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -223,6 +227,26 @@ class FedGroupTrainer(GroupedTrainer):
                                torch.argmin(dis, dim=1).cpu().numpy())
         self._last_shifted = shifted
         return shifted
+
+    # ------------------------------------------------------------------
+    # Round-block staging: blocks break on host events (Alg. 3 cold start,
+    # eq.-9 newcomers in a staged cohort); membership is static otherwise
+    # ------------------------------------------------------------------
+    def _host_round_pre(self) -> bool:
+        # shift detection is host work between every round, so an enabled
+        # detector pins the trainer to the per-round path (no blocks)
+        return not self.cold_started or self._shift_enabled()
+
+    def _needs_host(self, idx) -> bool:
+        return bool((self.membership[np.asarray(idx)] < 0).any())
+
+    def _carry_group_delta(self):
+        # set by group_cold_start, which _host_round_pre runs first
+        return self.group_delta
+
+    def _carry_refs(self, carry: dict):
+        super()._carry_refs(carry)
+        self.group_delta = carry["group_delta"]
 
     # ------------------------------------------------------------------
     # Round (Algorithm 2) — one fused call over all groups

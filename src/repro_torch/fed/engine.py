@@ -1,6 +1,6 @@
 """Round-based federated training engines: FedAvg / FedProx base trainer
 and the grouped-trainer machinery (``repro.fed.engine``), on the pinned,
-per-round, synchronous path.
+synchronous path: per round, or in round blocks (``block_size > 1``).
 
 The padded per-client train/eval stacks are placed on the device once at
 init and selection is a device gather. Cohort *selection* draws from a
@@ -9,10 +9,19 @@ dedicated numpy stream ``default_rng([seed, 0x5E1EC7])`` and the cold-start
 so cohorts match it. Every other random draw goes through a draws object
 (``repro_torch.draws``) that a parity test can replace.
 
+Round blocks: ``run`` stages up to ``block_size`` upcoming rounds on the
+host (selection and draws never depend on device results) and runs them
+through ``fed.rounds.make_block_executor`` — eagerly on the CPU, as
+replays of one captured CUDA graph on the card (``fed.graphs``) — with one
+device fetch per block. A round that needs host work first (FedGroup's
+group cold start, cold newcomers in a cohort, an enabled shift detector)
+breaks back to the per-round path; a cohort already drawn for it is
+carried over as ``pending``, so every random stream matches a per-round
+run.
+
 Not yet ported, and refused with ``NotImplementedError`` (``ROADMAP.md``):
-round blocks (``block_size > 1``), the async runtime (``async_depth > 0``),
-checkpoints, streamed populations (``population=``), a device mesh and
-telemetry (``telemetry_dir``).
+the async runtime (``async_depth > 0``), checkpoints, streamed populations
+(``population=``), a device mesh and telemetry (``telemetry_dir``).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ from repro_torch import resolve_device
 from repro_torch.data.federated import FederatedData
 from repro_torch.draws import TorchDraws
 from repro_torch.fed import client as client_lib
+from repro_torch.fed import graphs as graphs_lib
 from repro_torch.fed import rounds as rounds_lib
 from repro_torch.fed import server as server_lib
 from repro_torch.models.modules import param_count
@@ -59,7 +69,6 @@ class FedConfig:
     eval_every: int = 1                  # evaluate every e-th round (1 =
                                          # every round, the paper's tables)
     block_size: int = 1                  # rounds fused per dispatch
-                                         # (only 1 is ported)
     # in-program update quarantine: screen non-finite / norm-outlier client
     # updates into the zero-weight path (fed.rounds); counts surface in
     # RoundMetrics.quarantined
@@ -98,8 +107,6 @@ def _not_ported(what: str):
 
 
 def _check_ported(cfg: FedConfig, mesh, population):
-    if cfg.block_size > 1:
-        _not_ported("round blocks (block_size > 1)")
     if cfg.async_depth > 0:
         _not_ported("the async runtime (async_depth > 0)")
     if cfg.checkpoint_every or cfg.checkpoint_dir:
@@ -184,6 +191,7 @@ class FedAvgTrainer:
         self.model_size = param_count(self.params)
         self.comm_params = 0        # cumulative parameters transferred
         self._round_exec = None     # lazily-built fused round
+        self._block_exec = None     # lazily-built round-block executor
         self._grouped_eval = client_lib.grouped_eval_correct(model)
         # pin the padded per-client stacks on the device once — selection
         # is a device gather, not a fresh upload every round
@@ -212,6 +220,126 @@ class FedAvgTrainer:
                 max_samples=self._max_samples, quarantine=cfg.quarantine,
                 quarantine_mult=cfg.quarantine_mult, **self._exec_spec())
         return self._round_exec
+
+    # -- round blocks ------------------------------------------------------
+    def _block_kwargs(self) -> dict:
+        """make_block_executor extras: the executor grouping plus the
+        framework's carry <-> assignment-state adapters (FeSEM, LCFL
+        override)."""
+        return dict(self._exec_spec())
+
+    def _block_executor(self):
+        if self._block_exec is None:
+            cfg = self.cfg
+            fn = rounds_lib.make_block_executor(
+                self.model, epochs=cfg.local_epochs,
+                batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
+                max_samples=self._max_samples, quarantine=cfg.quarantine,
+                quarantine_mult=cfg.quarantine_mult, **self._block_kwargs())
+            self._block_exec = graphs_lib.GraphBlockExecutor(fn)
+        return self._block_exec
+
+    def _host_round_pre(self) -> bool:
+        """True when the NEXT round must run on the per-round path for
+        host work that precedes selection (FedGroup: group cold start)."""
+        return False
+
+    def _needs_host(self, idx) -> bool:
+        """True when the selected cohort needs host work before the round
+        (FedGroup: cold newcomers routed through eq. 9)."""
+        return False
+
+    def _stage_comm(self, k: int):
+        """Per-staged-round communication accounting (k = alive clients)."""
+        self.comm_params += 2 * k * self.model_size
+
+    def _stage_round(self, t: int, idx):
+        """One staged round: cohort ids padded to K, the minibatch rows
+        (drawn for the alive prefix only — exactly the per-round draw —
+        with zero rows for the padding), the zero-weight alive mask, and
+        the eval-cadence flag."""
+        K = min(self.cfg.clients_per_round, self.n_clients)
+        idx = np.asarray(idx, np.int64)
+        k = len(idx)
+        n = torch.as_tensor(self.data.n_train[idx]).long()
+        bidx = self._batch_indices(n, self.solver.max_steps).cpu()
+        if k < K:
+            idx = np.concatenate([idx, np.full(K - k, idx[0], np.int64)])
+            bidx = torch.cat([bidx, bidx.new_zeros(
+                (K - k,) + tuple(bidx.shape[1:]))])
+        alive = np.zeros(K, np.float32)
+        alive[:k] = 1.0
+        self._stage_comm(k)
+        return idx, bidx, alive, self._should_eval(t)
+
+    def _stage_block(self, t0: int, max_b: int):
+        """Stage up to ``max_b`` upcoming rounds. Stops at the first round
+        that needs the host; a cohort already drawn for that round is
+        returned as ``pending`` so the per-round path consumes it without
+        drawing again."""
+        staged, pending = [], None
+        for b in range(max_b):
+            if self._host_round_pre():
+                break
+            idx = self._select()
+            if self._needs_host(idx):
+                pending = idx
+                break
+            staged.append(self._stage_round(t0 + b, idx))
+        return staged, pending
+
+    # carry construction / teardown — overridden down the trainer hierarchy
+    def _membership_host(self):
+        return np.zeros(self.n_clients, np.int64)    # consensus: one group
+
+    def _stacked_group_params(self):
+        return {k: p[None] for k, p in self.params.items()}
+
+    def _carry_group_delta(self):
+        m = self._exec_spec()["n_groups"]
+        return torch.zeros((m, self.model_size), device=self.device)
+
+    def _carry_aux(self):
+        return None
+
+    def _carry_in(self) -> dict:
+        """The block's carry: the model state on the device, the (N+1,)
+        membership column (row N: the trash row) as a host tensor."""
+        mem = np.append(self._membership_host(), -1).astype(np.int64)
+        return dict(group_params=self._stacked_group_params(),
+                    global_params=self.params,
+                    group_delta=self._carry_group_delta(),
+                    membership=torch.as_tensor(mem), aux=self._carry_aux())
+
+    def _carry_refs(self, carry: dict):
+        """Point the trainer's model state at the carry (no host fetch)."""
+        self.params = carry["global_params"]
+
+    def _carry_out(self, carry: dict, membership: np.ndarray):
+        """``_carry_refs`` plus the fetched (N,) membership column.
+        Membership written here counts no migrations, as the
+        reference's block path."""
+        self._carry_refs(carry)
+
+    def _run_block(self, t0: int, staged):
+        idx = torch.as_tensor(np.stack([s[0] for s in staged]))
+        bidx = torch.stack([s[1] for s in staged])
+        alive = torch.as_tensor(np.stack([s[2] for s in staged]))
+        do_eval = [s[3] for s in staged]
+        carry, ys = self._block_executor()(
+            self._carry_in(), self._train_stack, self._test_stack, idx, bidx,
+            alive, do_eval)
+        # ONE device fetch for the block's stacked metrics and membership
+        B = len(staged)
+        host = torch.cat([ys.reshape(-1),
+                          carry["membership"].double()]).cpu().numpy()
+        ys = host[:5 * B].reshape(B, 5)
+        self._carry_out(carry, host[5 * B:-1].astype(np.int64))
+        for b in range(B):
+            loss, disc, correct, total, n_quar = ys[b]
+            acc = (int(correct) / max(int(total), 1) if do_eval[b]
+                   else float("nan"))
+            self._record(t0 + b, acc, float(loss), float(disc), int(n_quar))
 
     # -- helpers -----------------------------------------------------------
     def _select(self):
@@ -279,8 +407,11 @@ class FedAvgTrainer:
         return float(int(torch.sum(correct)) / max(total, 1))
 
     def _add_round(self, t, acc, out) -> RoundMetrics:
-        m = RoundMetrics(t, acc, float(out.mean_loss),
-                         float(out.discrepancy), int(out.n_quarantined))
+        return self._record(t, acc, float(out.mean_loss),
+                            float(out.discrepancy), int(out.n_quarantined))
+
+    def _record(self, t, acc, loss, disc, n_quar) -> RoundMetrics:
+        m = RoundMetrics(t, acc, loss, disc, n_quar)
         self.history.add(m)
         self.counters["rounds.completed"] += 1
         if m.quarantined:
@@ -304,10 +435,31 @@ class FedAvgTrainer:
 
     def run(self, n_rounds=None) -> History:
         """Runs ``n_rounds`` MORE rounds, labelled from the current history
-        length, on the per-round path."""
-        t0 = len(self.history.rounds)
-        for t in range(t0, t0 + (n_rounds or self.cfg.n_rounds)):
-            self.round(t)
+        length. With ``block_size > 1`` upcoming rounds are staged on the
+        host and run as one block; a round that needs the host breaks back
+        to the per-round path (its cohort, if already drawn, is carried
+        over as ``pending``), as does a lone last round."""
+        t = len(self.history.rounds)
+        total = t + (n_rounds or self.cfg.n_rounds)
+        blocks = self.cfg.block_size > 1
+        pending = None
+        while t < total:
+            if pending is not None:
+                self.round(t, idx=pending)
+                pending = None
+                t += 1
+            elif not blocks or total - t < 2:
+                self.round(t)
+                t += 1
+            else:
+                staged, pending = self._stage_block(
+                    t, min(self.cfg.block_size, total - t))
+                if staged:
+                    self._run_block(t, staged)
+                    t += len(staged)
+                elif pending is None:
+                    self.round(t)
+                    t += 1
         return self.history
 
 
@@ -367,3 +519,18 @@ class GroupedTrainer(FedAvgTrainer):
         if not self._should_eval(t):
             return float("nan")
         return self.evaluate_groups()
+
+    # -- round-block carry: m-stacked groups + membership ------------------
+    def _membership_host(self):
+        return self.membership
+
+    def _stacked_group_params(self):
+        return self.group_params
+
+    def _carry_refs(self, carry: dict):
+        super()._carry_refs(carry)
+        self.group_params = carry["group_params"]
+
+    def _carry_out(self, carry: dict, membership: np.ndarray):
+        self._carry_refs(carry)
+        self.membership[:] = membership

@@ -9,7 +9,10 @@ members' local models (M-step ≡ the round's intra-group FedAvg).
 Both halves run inside one call of the fused round: the E-step is the
 assignment stage (``make_fesem_assign``), and the per-client flattened
 local models ``local_flat`` are an (N, d_w) device tensor that the round
-updates in place (``fesem_state_update``) — no host round trip.
+updates in place (``fesem_state_update``) — no host round trip. It is
+allocated once with the round blocks' trash row, as (N+1, d_w), and
+``local_flat`` is the view of its first N rows: a block carries the whole
+buffer without copying it, and a captured graph keeps its address.
 """
 from __future__ import annotations
 
@@ -60,14 +63,36 @@ class FeSEMTrainer(GroupedTrainer):
         super().__init__(model, data, cfg, **kw)
         self.group_params = self._random_groups(INIT_OFFSET,
                                                 init_group_params)
-        # each client's last local model, all starting at centre 0
+        # each client's last local model, all starting at centre 0, plus
+        # the zero trash row of the round blocks' padded lanes
         flat0 = flatten_updates(self.group_param(0))
-        self.local_flat = flat0[None].repeat(self.n_clients, 1)
+        self._local_flat_rows = flat0[None].repeat(self.n_clients + 1, 1)
+        self._local_flat_rows[-1] = 0.0
+        self.local_flat = self._local_flat_rows[:-1]
 
     def _exec_spec(self) -> dict:
         return {"n_groups": self.m, "eta_g": 0.0,
                 "assign_fn": make_fesem_assign(),
                 "state_update_fn": fesem_state_update}
+
+    # -- round-block carry: the (N+1, d_w) local-model buffer rides along
+    def _block_kwargs(self) -> dict:
+        kw = dict(self._exec_spec())
+        # a round's E-step state from the carried buffer (idx already
+        # redirected to the trash row for padded lanes), and the buffer
+        # back out of the M-step scatter
+        kw["make_state"] = lambda aux, idx, mem: {"local_flat": aux,
+                                                  "idx": idx}
+        kw["state_to_aux"] = lambda st: st["local_flat"]
+        return kw
+
+    def _carry_aux(self):
+        return self._local_flat_rows
+
+    def _carry_refs(self, carry: dict):
+        super()._carry_refs(carry)
+        self._local_flat_rows = carry["aux"]
+        self.local_flat = carry["aux"][:-1]
 
     def round(self, t: int, idx=None) -> RoundMetrics:
         if idx is None:

@@ -1,0 +1,203 @@
+"""Round blocks on the card: one fused round captured once as a CUDA graph
+and replayed B times, the counterpart of
+``repro.fed.parallel.make_sharded_block_executor`` with ``mesh=None``.
+
+The reference fuses B rounds into one ``lax.scan`` dispatch with a donated
+carry. Here ``GraphBlockExecutor(block_fn)`` (``block_fn`` from
+``fed.rounds.make_block_executor``) captures ``block_fn.step``, one fused
+round, as a ``torch.cuda.CUDAGraph`` on static carry buffers, and
+``block_fn.evaluate``, the fused grouped eval, as a second graph in the
+same memory pool. A block then
+
+  1. packs the carry's host membership column and the B staged rounds
+     (cohort ids, alive masks, minibatch rows) into one pinned int64
+     buffer and copies it to the card in ONE host-to-device copy;
+  2. for each round b: a device-to-device copy fills the round graph's
+     static input from slot b, the round graph replays (it writes the new
+     state back into the static carry in place), the eval graph replays
+     where ``do_eval[b]`` is set, and a device-to-device copy files the
+     round's metrics as row b of a (B, 5) device buffer;
+  3. returns the static carry and that buffer without waiting on the card:
+     the caller fetches both once, at block end.
+
+K is static (``dropout_rate`` cohorts are padded with zero-weight lanes),
+so one capture serves every block of a trainer, a partial tail block and
+any eval cadence included.
+
+Capture needs eager warm-up iterations on a side stream, and those train:
+warm-up and capture run on a scratch copy of the carry (FeSEM's state
+update also writes ``local_flat`` in place), and the caller's carry is
+copied into the static buffers afterwards, before the first replay. The
+static buffers then are the carry: the trainer points its state at them,
+and a later block copies in only the tensors that changed in between.
+
+On CPU tensors the executor runs ``block_fn`` eagerly (the plain version).
+On the card it replays graphs or raises: a capture failure is raised, and
+nothing runs eagerly on the card in its place.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+WARMUP = 2          # eager iterations on a side stream before the capture
+
+
+def _leaves(carry: dict) -> list:
+    """The carry's tensors in a fixed order (aux may be None)."""
+    out = [carry["group_params"][k] for k in sorted(carry["group_params"])]
+    out += [carry["global_params"][k] for k in sorted(carry["global_params"])]
+    out += [carry["group_delta"]]
+    if carry["aux"] is not None:
+        out.append(carry["aux"])
+    return out
+
+
+class GraphBlockExecutor:
+    """``executor(carry, train_stack, test_stack, idx, bidx, alive,
+    do_eval) -> (carry, metrics)`` with ``block_fn``'s arguments and
+    results (``fed.rounds.make_block_executor``): the staged idx, bidx and
+    alive and the carry's membership as host tensors, do_eval as host
+    bools. ``replays`` / ``eval_replays`` count the graphs' replays,
+    ``captures`` the captures and ``capture_ms`` the host time of the
+    one-time warm-up and capture (warm-up included)."""
+
+    def __init__(self, block_fn):
+        self.block_fn = block_fn
+        self.captures = 0
+        self.replays = 0
+        self.eval_replays = 0
+        self.capture_ms = None
+        self._graphs = None
+
+    def __call__(self, carry, train_stack, test_stack, idx, bidx, alive,
+                 do_eval):
+        if train_stack[0].device.type != "cuda":
+            return self.block_fn(carry, train_stack, test_stack, idx, bidx,
+                                 alive, do_eval)
+        with torch.cuda.device(train_stack[0].device):
+            return self._replay_block(carry, train_stack, test_stack, idx,
+                                      bidx, alive, do_eval)
+
+    # -- one block -----------------------------------------------------------
+    def _replay_block(self, carry, train_stack, test_stack, idx, bidx,
+                      alive, do_eval):
+        B, K = idx.shape
+        shape = (K, tuple(bidx.shape[2:]), carry["membership"].shape[0])
+        if self._graphs is None:
+            self._graphs = {"shape": shape}
+        g = self._graphs
+        if shape != g["shape"]:
+            raise ValueError(f"block of shape {shape} (K, rows, N + 1) "
+                             f"differs from the captured {g['shape']}")
+        n_mem, slot = shape[2], 2 * K + bidx[0].numel()
+        device = train_stack[0].device
+        if "metrics" not in g or B > g["metrics"].shape[0]:
+            self._allocate(B, n_mem + B * slot, device)
+        # the previous block's copy out of the pinned buffer has finished
+        g["h2d_done"].synchronize()
+        host = g["host"][:n_mem + B * slot]
+        host[:n_mem].copy_(carry["membership"])
+        slots = host[n_mem:].view(B, slot)
+        slots[:, :K].copy_(idx)
+        slots[:, K:2 * K].copy_(alive)
+        slots[:, 2 * K:].copy_(bidx.reshape(B, -1))
+        dev = g["dev"][:n_mem + B * slot]
+        dev.copy_(host, non_blocking=True)                      # ONE H2D
+        g["h2d_done"].record()
+        inputs = dev[n_mem:].view(B, slot)
+        if "round" not in g:
+            self._capture(carry, train_stack, test_stack, inputs[0])
+        static = g["carry"]
+        for dst, src in zip(_leaves(static), _leaves(carry)):
+            if dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        static["membership"].copy_(dev[:n_mem])
+        metrics = g["metrics"]
+        for b in range(B):
+            g["input"].copy_(inputs[b])
+            g["round"].replay()
+            self.replays += 1
+            if do_eval[b]:
+                g["eval"].replay()
+                self.eval_replays += 1
+            metrics[b].copy_(g["output"])
+        out = dict(static)
+        out["group_params"] = dict(static["group_params"])
+        out["global_params"] = dict(static["global_params"])
+        return out, metrics[:B]
+
+    def _allocate(self, B, n, device):
+        """The staging buffers (n int64: the membership column and up to
+        B staged rounds, pinned on the host and on the card) and the (B, 5)
+        metrics."""
+        g = self._graphs
+        g["host"] = torch.empty(n, dtype=torch.int64, pin_memory=True)
+        g["dev"] = torch.empty(n, dtype=torch.int64, device=device)
+        g["metrics"] = torch.zeros((B, 5), dtype=torch.float64,
+                                   device=device)
+        g["h2d_done"] = torch.cuda.Event()
+
+    # -- the one-time capture ------------------------------------------------
+    def _capture(self, carry, train_stack, test_stack, first):
+        """Warm up and capture the round and eval graphs on a scratch copy
+        of the carry, with the block's first staged round as the input."""
+        g = self._graphs
+        K, rows, _ = g["shape"]
+        step, evaluate = self.block_fn.step, self.block_fn.evaluate
+        t0 = time.perf_counter()
+
+        def scratch(v):
+            if isinstance(v, dict):
+                return {k: t.clone() for k, t in v.items()}
+            return None if v is None else v.to(first.device, copy=True)
+
+        static = {k: scratch(v) for k, v in carry.items()}
+        s_in = first.clone()
+        s_out = torch.zeros(5, dtype=torch.float64, device=first.device)
+
+        def round_body():
+            # the slot: K cohort ids, K alive flags, then the K·S·B rows
+            bix = s_in[2 * K:].view((K,) + rows)
+            new, (loss, disc, n_quar) = step(
+                static, train_stack, s_in[:K], bix,
+                s_in[K:2 * K].to(torch.float32))
+            for dst, src in zip(_leaves(static), _leaves(new)):
+                if src is not dst:
+                    dst.copy_(src)
+            static["membership"].copy_(new["membership"])
+            s_out.zero_()
+            s_out[0] = loss
+            s_out[1] = disc
+            s_out[4] = n_quar
+
+        def eval_body():
+            correct, total = evaluate(static, test_stack)
+            s_out[2] = correct
+            s_out[3] = total
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                round_body()
+                eval_body()
+        torch.cuda.current_stream().wait_stream(side)
+        try:
+            round_graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(round_graph):
+                round_body()
+            eval_graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(eval_graph, pool=round_graph.pool()):
+                eval_body()
+        except Exception as e:
+            raise RuntimeError(
+                "CUDA graph capture of the fused round failed (a host sync "
+                "inside the round?); round blocks do not run eagerly on "
+                "the card") from e
+        torch.cuda.synchronize()
+        g.update(round=round_graph, eval=eval_graph, carry=static,
+                 input=s_in, output=s_out)
+        self.captures += 1
+        self.capture_ms = (time.perf_counter() - t0) * 1e3

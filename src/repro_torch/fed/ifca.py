@@ -53,6 +53,10 @@ class IFCATrainer(GroupedTrainer):
         return {"n_groups": self.m, "eta_g": 0.0,
                 "assign_fn": make_ifca_assign(self.model)}
 
+    def _stage_comm(self, k: int):
+        # the m× broadcast accounting is per ALIVE client, block or not
+        self.comm_params += (self.m + 1) * k * self.model_size
+
     def round(self, t: int, idx=None) -> RoundMetrics:
         if idx is None:
             idx = self._select()

@@ -15,11 +15,18 @@ eq.-4 discrepancy are computed in the same function, so
     optional ``state_update_fn`` that keeps per-client state (FeSEM's
     ``local_flat``) on the device.
 
+``make_block_executor`` runs B such rounds on a carried state from host-
+staged cohorts: cohort ids padded to K with a zero-weight ``alive`` mask,
+the alive clients' minibatch rows, and an eval-cadence flag per round;
+client batches are gathered from the pinned stacks inside the step. On CPU
+tensors its ``block_fn`` runs the step B times eagerly (the plain
+version); on the card ``fed.graphs`` captures one step as a CUDA graph and
+replays it B times.
+
 ``serial_reference_round`` / ``serial_ifca_round`` / ``serial_fesem_round``
 keep the per-group loop as the oracles the fused round is tested against.
 
-The block, async and staleness executors are not yet ported
-(``ROADMAP.md``).
+The async and staleness executors are not yet ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -214,6 +221,102 @@ def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
 
     round_fn.max_steps = core.max_steps
     return round_fn
+
+
+def make_block_executor(model, *, epochs: int, batch_size: int, lr: float,
+                        mu: float, n_groups: int, max_samples: int,
+                        eta_g: float = 0.0, assign_fn=None,
+                        state_update_fn=None, make_state=None,
+                        state_to_aux=None, quarantine: bool = False,
+                        quarantine_mult: float = 10.0):
+    """Returns block_fn(carry, train_stack, test_stack, idx, bidx, alive,
+    do_eval) -> (carry, metrics): B fused rounds, run eagerly one after
+    another (the plain version of ``fed.graphs``' replayed block).
+
+    carry (the round-to-round state):
+      ``group_params``  m-stacked param dict
+      ``global_params`` auxiliary global model (mean of groups)
+      ``group_delta``   (m, d_w) latest flattened update directions (eq. 9)
+      ``membership``    (N+1,) int64 — every client's group id (-1 = cold);
+                        row N is the scatter trash row of padded lanes
+      ``aux``           framework state (FeSEM: the (N+1, d_w) local_flat
+                        with the same trash row) or None
+
+    train_stack / test_stack: the pinned ``(x, y, n)`` stacks — a round's
+    client batches are gathered from them inside the step. idx: (B, K)
+    int64 staged cohorts; bidx: (B, K, max_steps, batch_size) minibatch
+    rows; alive: (B, K) float32 zero-weight padding mask (``dropout_rate``
+    survivors first, padding after: padded lanes aggregate with weight 0
+    and scatter to the trash row); do_eval: (B,) host bools, the eval
+    cadence (``FedConfig.eval_every``). metrics: (B, 5) float64 rows of
+    (mean_loss, discrepancy, correct, total, n_quarantined); correct and
+    total are the fused grouped eval's integer counts (0 where do_eval is
+    False), so the host's accuracy division reproduces the per-round path
+    bit for bit.
+
+    make_state(aux, idx, membership) builds a round's assignment state from
+    the carried ``aux`` and (N+1,) membership, with idx already redirected
+    to the trash row for padded lanes (FeSEM: {"local_flat": aux, "idx":
+    idx}; LCFL: ``membership[idx]``); state_to_aux takes the updated aux
+    out of ``RoundOutput.assign_state``. With ``assign_fn`` but no
+    ``make_state`` the state is None (IFCA); without ``assign_fn`` the
+    cohort's membership is gathered from the carry (static frameworks).
+
+    ``block_fn.step(carry, train_stack, idx, bidx, alive)`` -> (carry,
+    (mean_loss, discrepancy, n_quarantined)) is one round and
+    ``block_fn.evaluate(carry, test_stack)`` -> (correct, total) one
+    grouped eval: ``fed.graphs`` captures each of them once."""
+    core = _make_round_core(
+        model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
+        n_groups=n_groups, max_samples=max_samples, eta_g=eta_g,
+        assign_fn=assign_fn, state_update_fn=state_update_fn,
+        quarantine=quarantine, quarantine_mult=quarantine_mult)
+    eval_correct = client_lib.grouped_eval_correct(model)
+
+    def step(carry, train_stack, ix, bix, al):
+        X_all, Y_all, n_all = train_stack
+        x, y, n = X_all[ix], Y_all[ix], n_all[ix]
+        mem = carry["membership"]
+        trash = mem.shape[0] - 1                    # row N: padded lanes
+        ix_eff = torch.where(al > 0, ix, torch.full_like(ix, trash))
+        if assign_fn is None:
+            arg = mem[ix]
+        elif make_state is not None:
+            arg = make_state(carry["aux"], ix_eff, mem)
+        else:
+            arg = None
+        out = core(carry["group_params"], arg, x, y, n, bix, al)
+        aux = carry["aux"]
+        if state_to_aux is not None:
+            aux = state_to_aux(out.assign_state)
+        new = dict(group_params=out.group_params,
+                   global_params=out.global_params,
+                   group_delta=out.group_delta_flat,
+                   membership=mem.index_put((ix_eff,), out.membership),
+                   aux=aux)
+        return new, (out.mean_loss, out.discrepancy, out.n_quarantined)
+
+    def evaluate(carry, test_stack):
+        return eval_correct(carry["group_params"], carry["membership"][:-1],
+                            *test_stack)
+
+    @torch.no_grad()
+    def block_fn(carry, train_stack, test_stack, idx, bidx, alive, do_eval):
+        rows = []
+        for b in range(idx.shape[0]):
+            carry, (loss, disc, n_quar) = step(carry, train_stack, idx[b],
+                                               bidx[b], alive[b])
+            correct = total = loss.new_zeros((), dtype=torch.int64)
+            if do_eval[b]:
+                correct, total = evaluate(carry, test_stack)
+            rows.append(torch.stack([v.double() for v in
+                                     (loss, disc, correct, total, n_quar)]))
+        return carry, torch.stack(rows)
+
+    block_fn.step = torch.no_grad()(step)
+    block_fn.evaluate = torch.no_grad()(evaluate)
+    block_fn.max_steps = core.max_steps
+    return block_fn
 
 
 def serial_reference_round(batch_solver, group_params_list, membership,

@@ -180,6 +180,18 @@ class LCFLTrainer(GroupedTrainer):
                 "assign_fn": make_lcfl_assign(self.model,
                                               self.cfg.lcfl_margin)}
 
+    def _stage_comm(self, k: int):
+        # like IFCA: the client needs every group model to score it
+        self.comm_params += (self.m + 1) * k * self.model_size
+
+    def _block_kwargs(self) -> dict:
+        kw = dict(self._exec_spec())
+        # a round's state = the carried membership's cohort rows (padded
+        # lanes read the trash row, whose -1 means "never assigned"; they
+        # aggregate with weight 0 regardless)
+        kw["make_state"] = lambda aux, idx, mem: mem[idx]
+        return kw
+
     def round(self, t: int, idx=None) -> RoundMetrics:
         if idx is None:
             idx = self._select()

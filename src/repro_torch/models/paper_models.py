@@ -8,7 +8,7 @@ Table 2 of the paper:
   Sent140  LSTM (d_w=243,861)
 
 Each model exposes
-  init(generator, device) -> params
+  init(generator, device="cuda") -> params   (pass "cpu" off the card)
   apply(params, x) -> logits          (one client: x is (B, ...))
   loss / accuracy / correct_count(params, batch)
 ``torch.Generator`` and ``jax.random`` give different numbers from one
@@ -22,6 +22,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import resolve_device
 
 
 @dataclass(frozen=True)
@@ -57,7 +59,8 @@ def _normal(generator, shape, device, scale):
 
 def mclr(in_dim: int, n_classes: int) -> ModelSpec:
     """Multinomial logistic regression (convex)."""
-    def init(generator=None, device="cpu"):
+    def init(generator=None, device="cuda"):
+        device = resolve_device(device)
         return {"w": torch.zeros((in_dim, n_classes), device=device),
                 "b": torch.zeros((n_classes,), device=device)}
 
@@ -69,7 +72,8 @@ def mclr(in_dim: int, n_classes: int) -> ModelSpec:
 
 def mlp(in_dim: int, hidden: int, n_classes: int) -> ModelSpec:
     """One-hidden-layer perceptron (the paper's MLP-128 / MLP-512)."""
-    def init(generator=None, device="cpu"):
+    def init(generator=None, device="cuda"):
+        device = resolve_device(device)
         s1 = (2.0 / in_dim) ** 0.5
         s2 = (2.0 / hidden) ** 0.5
         return {"w1": _normal(generator, (in_dim, hidden), device, s1),
@@ -87,7 +91,8 @@ def mlp(in_dim: int, hidden: int, n_classes: int) -> ModelSpec:
 def lstm_classifier(vocab: int, embed: int, hidden: int,
                     n_classes: int = 2) -> ModelSpec:
     """LSTM sequence classifier (the paper's Sent140 model)."""
-    def init(generator=None, device="cpu"):
+    def init(generator=None, device="cuda"):
+        device = resolve_device(device)
         s = (1.0 / hidden) ** 0.5
         return {
             "emb": _normal(generator, (vocab, embed), device, 0.1),

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.modules import (dense_init, embed_init, init_mlp,
@@ -183,10 +184,11 @@ def _init_mamba_block(gen, cfg: ArchConfig, device):
 
 
 def init_params(gen: Optional[torch.Generator], cfg: ArchConfig,
-                device="cpu"):
+                device="cuda"):
     """Random params from ``gen`` (a generator on ``device``). On the
     ``meta`` device ``gen`` may be None: shapes only, for counting."""
     _check_family(cfg)
+    device = resolve_device(device)
     params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
                                   cfg.p_dtype, device)}
     params["blocks"] = tree_stack([_init_mamba_block(gen, cfg, device)
@@ -263,8 +265,9 @@ train_step = init_train_state = mtp_logits = loss_fn
 # Decode: cache init + serve_step
 # ===========================================================================
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cpu"):
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
     _check_family(cfg)
+    device = resolve_device(device)
     dt = cfg.act_dtype
     m = ssm_lib.init_mamba2_cache(batch, cfg.d_model, d_state=cfg.ssm_state,
                                   expand=cfg.ssm_expand,

@@ -85,7 +85,7 @@ def test_solver_draws_from_its_generator_without_indices():
     X, Y, n = _data()
     solve = tclient.make_batch_solver(tm, epochs=1, batch_size=4, lr=0.1,
                                       max_samples=X.shape[1])
-    args = (tm.init(), torch.as_tensor(X), torch.as_tensor(Y),
+    args = (tm.init(device="cpu"), torch.as_tensor(X), torch.as_tensor(Y),
             torch.as_tensor(n).long())
     a, _ = solve(*args, generator=torch.Generator().manual_seed(1))
     b, _ = solve(*args, generator=torch.Generator().manual_seed(1))

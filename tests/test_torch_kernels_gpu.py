@@ -326,7 +326,8 @@ def test_zamba2_smoke_forward_on_card_matches_cpu(cuda, window):
     cfg = registry.smoke_variant(registry.get("zamba2-1.2b"))
     if window:
         cfg = cfg.with_window(window)
-    params = zoo.init_params(torch.Generator().manual_seed(0), cfg)
+    params = zoo.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
     tok = torch.randint(0, cfg.vocab_size, (2, 48),
                         generator=torch.Generator().manual_seed(1))
     want, _ = zoo.forward(params, cfg, {"tokens": tok})

@@ -84,10 +84,11 @@ def test_flatten_follows_jax_leaf_order(name):
 
 
 def test_mlp_leaf_order_is_sorted():
-    tp = tpm.mlp(4, 3, 2).init(torch.Generator().manual_seed(0))
+    tp = tpm.mlp(4, 3, 2).init(torch.Generator().manual_seed(0), "cpu")
     assert tmod.leaf_keys(tp) == ["b1", "b2", "w1", "w2"]
 
 
 def test_femnist_mlp512_width_matches_paper_table2():
-    tp = tpm.mlp(784, 512, 26).init(torch.Generator().manual_seed(0))
+    tp = tpm.mlp(784, 512, 26).init(torch.Generator().manual_seed(0),
+                                     "cpu")
     assert tmod.param_count(tp) == 415_258

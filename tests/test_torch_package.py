@@ -79,8 +79,8 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("block_size", 2), ("async_depth", 1), ("checkpoint_every", 1),
-    ("telemetry_dir", "/nonexistent"),
+    ("checkpoint_dir", "/nonexistent"), ("async_depth", 1),
+    ("checkpoint_every", 1), ("telemetry_dir", "/nonexistent"),
 ])
 def test_unported_options_raise(field, value):
     data = tgen.synthetic(seed=0, n_clients=4)

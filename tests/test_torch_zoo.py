@@ -78,7 +78,8 @@ def test_full_param_count_equals_reference():
 
 def test_init_params_tree_matches_reference(zamba):
     jp, _ = zamba
-    ours = zoo.init_params(torch.Generator().manual_seed(0), _cfg())
+    ours = zoo.init_params(torch.Generator().manual_seed(0), _cfg(),
+                           device="cpu")
     theirs = jax.tree_util.tree_leaves_with_path(jp)
     mine = tmod.tree_leaves(ours)
     assert len(mine) == len(theirs)
@@ -235,7 +236,7 @@ def test_serve_steps_match_reference(zamba):
     B, S = 2, 16
     tok = _tokens(1, B, S, cfg.vocab_size)
     jc = jzoo.init_cache(jcfg, B, S)
-    tc = zoo.init_cache(cfg, B, S)
+    tc = zoo.init_cache(cfg, B, S, device="cpu")
     step = jax.jit(lambda c, tk, pos: jzoo.serve_step(jp, jcfg, c, tk, pos))
     for t in range(S):
         lj, jc = step(jc, jnp.asarray(tok[:, t:t + 1]), jnp.full((B,), t))
@@ -259,7 +260,7 @@ def test_serve_matches_forward(zamba, window):
     B, S = 2, 16
     tok = torch.as_tensor(_tokens(2, B, S, cfg.vocab_size), dtype=torch.long)
     full, _ = zoo.forward(tp, cfg, {"tokens": tok})
-    cache = zoo.init_cache(cfg, B, window or S)
+    cache = zoo.init_cache(cfg, B, window or S, device="cpu")
     outs = []
     for t in range(S):
         lg, cache = zoo.serve_step(tp, cfg, cache, tok[:, t:t + 1],
@@ -272,7 +273,7 @@ def test_serve_matches_forward(zamba, window):
 def test_serve_step_leaves_its_cache_unchanged(zamba):
     _, tp = zamba
     cfg = _cfg()
-    cache = zoo.init_cache(cfg, 1, 4)
+    cache = zoo.init_cache(cfg, 1, 4, device="cpu")
     before = tmod.tree_map(torch.clone, cache)
     zoo.serve_step(tp, cfg, cache, torch.ones((1, 1), dtype=torch.long),
                    torch.zeros(1, dtype=torch.long))
@@ -289,7 +290,7 @@ def test_unported_archs_and_families_raise():
         registry.get("gemma-2b")
     dense = _cfg().replace(family="dense")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.init_params(torch.Generator(), dense)
+        zoo.init_params(torch.Generator(), dense, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         zoo.train_step()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
