@@ -87,6 +87,30 @@ with no final ``ok`` line):
                 eager round and one more block under torch.profiler
                 (busy share, device ops, host launch calls), and how many
                 of FedGroup α = 20's rounds went through blocks.
+     4e         streamed populations (``fed/population.py``). 4e-i:
+                FedAvg, FedGroup (EDC) and FeSEM at phase 4's full width,
+                ROUNDS rounds pinned and ROUNDS through ``Population(
+                ArrayClientStore(data), PopulationConfig(prefetch=2))``,
+                same seed: membership equal every round, loss /
+                discrepancy / accuracy within 1e-5 relative (else the run
+                fails); round ms of both, the producer's stage ms and the
+                H2D bytes of each cohort, one round's eval ms on both
+                paths, peak memory of both (and what earlier phases left
+                live), one more streamed round under torch.profiler (busy
+                share; from its chrome trace, how long the copy stream's
+                H2D ran while a kernel ran), FeSEM's host ``local_flat``
+                rows (fails unless on the CPU) and one cohort's table
+                update timed inline (the state writer's saving). 4e-ii: the reference
+                population bench's setup, ``virtual_synthetic(n_clients=
+                100_000)`` with ``mclr(60, 10)``, FedGroup (EDC), K = 50,
+                E = 4, 10,000 clients active at the start, Poisson(5)
+                arrivals, eval every 5th round over 2,000 clients, 20
+                rounds, five times: ``prefetch`` 2, then 2, 0, 0, 2 (in
+                turns; the first run is reported apart); equal membership
+                and metrics within 1e-5 across the five (else fails), round
+                and stage ms, cold starts and arrivals a round (fails if
+                none), clients generated, host RSS, peak device memory,
+                labels in [0, m) and finite metrics (else fails).
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -109,8 +133,8 @@ with no final ``ok`` line):
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
      ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
-     20-group and shift runs and phase 4d's FedGroup runs), then the
-     ``{"ok": true, ...}`` line.
+     20-group and shift runs and phase 4d's and 4e's FedGroup runs), then
+     the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -119,6 +143,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import resource
 import subprocess
 import sys
 import time
@@ -146,6 +171,12 @@ BLOCK_RTOL = 1e-5              # graph vs eager round: cuBLAS may pick other
 # founders (no newcomer breaks a block), at phase 4's α = 20 half of them
 BLOCK_RUNS = (("fedavg", 20), ("fedgroup", 40), ("fedgroup", 20),
               ("ifca", 20), ("fesem", 20), ("fedclust", 20), ("lcfl", 20))
+STREAM_RTOL = 1e-5             # phase 4e: streamed vs pinned on the card
+STREAM_RUNS = ("fedavg", "fedgroup", "fesem")
+POP_ROUNDS, POP_CLIENTS = 20, 100_000   # phase 4e-ii: the reference bench's
+# phase 4e-ii: the prefetch depth of each run; the first is held apart
+# (the process's first prefetching run at this scale reads slower)
+POP_ORDER = (2, 2, 0, 0, 2)
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
 SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -s · softplus(randn)
@@ -1006,12 +1037,13 @@ def reference_check_strategy(torch, data, name: str):
                              "shift run re-routed nobody")
 
 
-def profile_window(torch, fn) -> dict:
+def profile_window(torch, fn, trace_path=None) -> dict:
     """``fn`` under torch.profiler: wall ms (host clock, ended by
     synchronize), the device's busy ms and share (kernels and copies), the
     device kernels, and the host's launch calls (``cudaLaunchKernel``,
     ``cudaGraphLaunch``, copies). None where the profiler recorded no
-    device activity (not measured)."""
+    device activity (not measured). ``trace_path``: where to write the
+    chrome trace too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1022,6 +1054,8 @@ def profile_window(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     ev = prof.key_averages()
     dev = [e for e in ev if e.device_type == DeviceType.CUDA]
     host = [e for e in ev if e.device_type == DeviceType.CPU]
@@ -1160,6 +1194,298 @@ def block_run(torch, data, model, name: str, alpha: int):
     if max(dev.values()) > BLOCK_RTOL:
         raise AssertionError(f"block {name}: metrics deviate {dev}")
     return rec
+
+
+def h2d_overlap(trace_path: Path) -> dict:
+    """From a chrome trace of torch.profiler: the host-to-device copies on
+    streams that ran no kernel (the population's copy stream), and how
+    long they ran while a kernel ran on another stream."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if "ts" in e]
+
+    def span(e):
+        return (e["ts"], e["ts"] + e.get("dur", 0),
+                e.get("args", {}).get("stream"))
+
+    kernels = [span(e) for e in events if e.get("cat") == "kernel"]
+    compute = {s for _, _, s in kernels}
+    copies = [span(e) for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    side = [c for c in copies if c[2] not in compute]
+    overlap_us = sum(max(0.0, min(a1, b1) - max(a0, b0))
+                     for a0, a1, _ in side for b0, b1, _ in kernels)
+    return {"h2d_copies": len(copies),
+            "h2d_copies_off_compute_streams": len(side),
+            "h2d_us_off_compute_streams": sum(b - a for a, b, _ in side),
+            "h2d_overlap_with_kernels_us": overlap_us,
+            "h2d_overlaps_compute": overlap_us > 0.0}
+
+
+def stream_trainer(model, data, name: str, population=None):
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed import strategies
+    from repro_torch.fed.engine import FedAvgTrainer, FedConfig
+
+    cfg = FedConfig(n_rounds=ROUNDS, clients_per_round=20, local_epochs=2,
+                    batch_size=10, lr=0.03, n_groups=5, pretrain_scale=20,
+                    seed=0)
+    kw = dict(device="cuda", population=population)
+    if name == "fedavg":
+        return FedAvgTrainer(model, data, cfg, **kw)
+    if name == "fedgroup":
+        return FedGroupTrainer(model, data, cfg, **kw)
+    return strategies.make_trainer(name, model, data, cfg, **kw)
+
+
+def eval_ms(torch, tr) -> float:
+    """Host ms of one round's evaluation (``_round_eval`` of a round on
+    the eval cadence), ended by synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr._round_eval(0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def timed_rounds(torch, tr, rounds: int, grouped: bool):
+    """``rounds`` calls of ``tr.run(1)``: host ms of each (ended by
+    synchronize), the membership after each, and the history."""
+    ms, mem = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        tr.run(1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        mem.append(tr.membership.copy() if grouped else None)
+    return ms, mem, list(tr.history.rounds)
+
+
+def max_rel_dev(a_rounds, b_rounds) -> dict:
+    """Largest relative deviation of loss, discrepancy and accuracy (NaN
+    where the round is off the eval cadence, equal in both runs)."""
+    dev = {"acc": 0.0, "loss": 0.0, "disc": 0.0}
+    for ra, rb in zip(a_rounds, b_rounds, strict=True):
+        for k, f in (("acc", "weighted_acc"), ("loss", "mean_loss"),
+                     ("disc", "discrepancy")):
+            x, y = getattr(ra, f), getattr(rb, f)
+            if math.isnan(x) and math.isnan(y):
+                continue
+            dev[k] = max(dev[k], abs(y - x) / max(abs(x), 1e-30))
+    return dev
+
+
+def stream_run(torch, data, model, name: str):
+    """Phase 4e-i: one trainer at full width for ROUNDS rounds pinned and
+    ROUNDS rounds through ``Population(ArrayClientStore(data),
+    PopulationConfig(prefetch=2))``, same seed. Fails unless membership is
+    equal every round and loss, discrepancy and accuracy agree within
+    STREAM_RTOL. Prints round ms of both, the producer's stage ms and the
+    H2D bytes per cohort, peak memory of both, one more streamed round
+    under torch.profiler (busy share; whether the copy stream's H2D ran
+    while a kernel ran) and, for FeSEM, the host ``local_flat`` and the
+    time of one cohort's table update done inline (what the state writer
+    thread saves a round)."""
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.fed.store import ArrayClientStore
+
+    grouped = name != "fedavg"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()   # earlier phases' live tensors
+    a = stream_trainer(model, data, name)
+    pin_ms, pin_mem, pin_rounds = timed_rounds(torch, a, ROUNDS, grouped)
+    pin_peak = torch.cuda.max_memory_allocated()
+    pin_eval_ms = eval_ms(torch, a)
+    del a
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pop = Population(ArrayClientStore(data), PopulationConfig(prefetch=2))
+    b = stream_trainer(model, None, name, population=pop)
+    cohorts = []
+    next_cohort = pop.next_cohort
+
+    def seen_cohort():
+        c = next_cohort()
+        cohorts.append({"t": c.t, "stage_ms": c.stage_ms, "h2d_bytes": sum(
+            v.numel() * v.element_size() for v in (c.x, c.y, c.n))})
+        return c
+
+    pop.next_cohort = seen_cohort
+    st_ms, st_mem, st_rounds = timed_rounds(torch, b, ROUNDS, grouped)
+    st_peak = torch.cuda.max_memory_allocated()
+    st_eval_ms = eval_ms(torch, b)
+    dev = max_rel_dev(pin_rounds, st_rounds)
+    mem_ok = all(x is None or bool((x == y).all())
+                 for x, y in zip(pin_mem, st_mem))
+    trace = ROOT / "build" / f"population_{name}_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof = profile_window(torch, lambda: b.run(1), trace_path=str(trace))
+    overlap = h2d_overlap(trace)
+    rec = {"phase": "stream", "trainer": name, "rounds": ROUNDS,
+           "prefetch": 2, "membership_equal": mem_ok, "max_rel_dev": dev,
+           "rtol": STREAM_RTOL, "pinned_round_ms": pin_ms,
+           "streamed_round_ms": st_ms, "cohorts": cohorts,
+           "pinned_eval_ms": pin_eval_ms, "streamed_eval_ms": st_eval_ms,
+           "device_bytes_before": before,
+           "pinned_peak_device_bytes": pin_peak,
+           "streamed_peak_device_bytes": st_peak,
+           "streamed_round_profile": {**prof, **overlap},
+           "acc": [r.weighted_acc for r in st_rounds]}
+    b.close()                   # lands every pending state-table write
+    if name == "fesem":
+        table = pop.state._local_flat
+        rec["local_flat_host"] = {
+            "rows": len(table), "d_w": b.model_size,
+            "bytes": len(table) * b.model_size * 4,
+            "device": str(table.default_row.device),
+            "rows_on_cpu": all(r.device.type == "cpu"
+                               for r in table.rows.values()),
+            "inline_scatter_ms": inline_scatter_ms(
+                pop, b.cfg.clients_per_round)}
+    emit(rec)
+    if not mem_ok:
+        raise AssertionError(f"stream {name}: membership differs from the "
+                             "pinned run")
+    if max(dev.values()) > STREAM_RTOL:
+        raise AssertionError(f"stream {name}: metrics deviate {dev}")
+    if name == "fesem" and not (rec["local_flat_host"]["rows_on_cpu"] and
+                                rec["local_flat_host"]["device"] == "cpu"):
+        raise AssertionError("stream fesem: local_flat rows off the host")
+    if cohorts and cohorts[0]["h2d_bytes"] <= 0:
+        raise AssertionError(f"stream {name}: no H2D bytes")
+    return rec
+
+
+def inline_scatter_ms(pop, k: int, reps: int = 5) -> float:
+    """Median ms of one cohort's ``local_flat`` table update run on the
+    calling thread: the work the state writer thread takes off a FeSEM
+    round. The rows are read back and written again, so the table keeps
+    its values."""
+    ids = np.fromiter(pop.state._local_flat.rows, np.int64)[:k]
+    rows = pop.state.gather_local_flat(ids)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pop.state.scatter_local_flat(ids, rows)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def host_rss_bytes() -> int:
+    """The process's resident set now (``/proc/self/statm``)."""
+    pages = int(Path("/proc/self/statm").read_text().split()[1])
+    return pages * resource.getpagesize()
+
+
+def population_run(torch, prefetch: int):
+    """Phase 4e-ii: the reference population bench's setup on the card:
+    ``virtual_synthetic(alpha=1, beta=1, seed=0, n_clients=100_000)`` (LRU
+    backend) with ``mclr(60, 10)``, FedGroup (EDC), m = 5, α = 20, K = 50,
+    E = 4, B = 10, lr = 0.05, eval every 5th round over 2,000 clients,
+    10,000 clients active at the start and Poisson(5) arrivals a round,
+    POP_ROUNDS rounds. Returns the run's record, the history and the
+    membership after each round."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.data.generators import virtual_synthetic
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.models.paper_models import mclr
+
+    rss_before = host_rss_bytes()
+    t0 = time.perf_counter()
+    store = virtual_synthetic(alpha=1, beta=1, seed=0,
+                              n_clients=POP_CLIENTS)
+    setup_s = time.perf_counter() - t0
+    pop = Population(store, PopulationConfig(
+        initial_active=10_000, arrival_rate=5.0, prefetch=prefetch,
+        eval_clients=2_000, eval_batch=512))
+    cfg = FedConfig(n_rounds=POP_ROUNDS, clients_per_round=50,
+                    local_epochs=4, batch_size=10, lr=0.05, n_groups=5,
+                    pretrain_scale=20, eval_every=5, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()   # earlier phases' live tensors
+    tr = FedGroupTrainer(mclr(60, 10), None, cfg, device="cuda",
+                         population=pop)
+    ms, mem, cold, arrivals, stage = [], [], [], [], []
+    for _ in range(POP_ROUNDS):
+        t1 = time.perf_counter()
+        tr.run(1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        mem.append(tr.membership.copy())
+        cold.append(tr.last_cold)
+        arrivals.append(pop._cohort.n_new)
+        stage.append(pop._cohort.stage_ms)
+    rounds = list(tr.history.rounds)
+    tr.close()
+    labels = tr.membership[tr.membership >= 0]
+    finite = all(math.isfinite(r.mean_loss) and math.isfinite(r.discrepancy)
+                 and (math.isfinite(r.weighted_acc)
+                      or not tr._should_eval(r.round)) for r in rounds)
+    rec = {"phase": "population", "prefetch": prefetch,
+           "store": store.name, "n_clients": POP_CLIENTS, "K": 50, "E": 4,
+           "m": 5, "alpha": 20, "d_w": tr.model_size,
+           "rounds": POP_ROUNDS, "store_setup_s": setup_s,
+           "round_ms": ms, "stage_ms": stage, "cold_started": cold,
+           "arrivals_in_cohort": arrivals,
+           "active_clients": int(pop.scheduler.active.sum()),
+           "assigned_clients": int(len(labels)),
+           "generated_clients": store.generated_clients,
+           "host_rows_touched": pop.state.touched_rows(),
+           "host_rss_bytes_before": rss_before,
+           "host_rss_bytes_after": host_rss_bytes(),
+           "peak_host_rss_bytes": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss * 1024,
+           "device_bytes_before": before,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "labels_in_range": bool(((labels >= 0) & (labels < 5)).all()),
+           "metrics_finite": finite,
+           "acc": [None if math.isnan(r.weighted_acc) else r.weighted_acc
+                   for r in rounds],
+           "loss": [r.mean_loss for r in rounds]}
+    emit(rec)
+    if not rec["labels_in_range"] or not finite:
+        raise AssertionError(f"population prefetch={prefetch}: labels or "
+                             "metrics out of range")
+    if sum(cold) == 0 or sum(arrivals) == 0:
+        raise AssertionError(f"population prefetch={prefetch}: no newcomer "
+                             "was cold-started in any round")
+    return rec, rounds, mem
+
+
+def population_phase(torch):
+    """Phase 4e-ii, once for each prefetch depth of POP_ORDER: every run
+    must give the first run's membership every round and its metrics
+    within STREAM_RTOL. Prints each run's median round ms over rounds
+    t >= 1 (round 0 holds the cold start): the first run's apart, then
+    each depth's over the runs after it, which take turns (2, 0, 0, 2) so
+    host drift between runs falls on both."""
+    runs = [population_run(torch, prefetch) for prefetch in POP_ORDER]
+    _, first_rounds, first_mem = runs[0]
+    dev = {"acc": 0.0, "loss": 0.0, "disc": 0.0}
+    mem_ok = True
+    for _, rounds, mem in runs[1:]:
+        for k, v in max_rel_dev(first_rounds, rounds).items():
+            dev[k] = max(dev[k], v)
+        mem_ok &= all(bool((x == y).all()) for x, y in zip(first_mem, mem))
+    def median(rec):
+        ms = sorted(rec["round_ms"][1:])
+        return ms[len(ms) // 2]
+
+    medians = {f"prefetch_{p}": [] for p in sorted(set(POP_ORDER[1:]))}
+    for (rec, _, _), prefetch in zip(runs[1:], POP_ORDER[1:]):
+        medians[f"prefetch_{prefetch}"].append(median(rec))
+    emit({"phase": "population_compare", "order": list(POP_ORDER),
+          "membership_equal": mem_ok, "max_rel_dev": dev,
+          "rtol": STREAM_RTOL,
+          "first_run_round_ms_median": median(runs[0][0]),
+          "round_ms_median_t_ge_1": medians})
+    if not mem_ok or max(dev.values()) > STREAM_RTOL:
+        raise AssertionError(f"population: the prefetch depths differ "
+                             f"({dev}, membership equal: {mem_ok})")
 
 
 def zamba2_params(torch):
@@ -1523,6 +1849,16 @@ def main() -> int:
         raise AssertionError("EDC run launched no edc_cosine kernel")
     if counts_madc["madc"] < 1:
         raise AssertionError("MADC run launched no madc kernel")
+    # phase 4e: streamed populations (prefetcher, state table, arrivals)
+    ops.reset_launch_counts()
+    for name in STREAM_RUNS:
+        stream_run(torch, data, model, name)
+        torch.cuda.empty_cache()
+    population_phase(torch)
+    counts_stream = ops.launch_counts()
+    if counts_stream["edc_cosine"] < 1:
+        raise AssertionError("the population phase launched no edc_cosine "
+                             "kernel")
 
     # phase 5: where the time goes
     breakdown(torch, tr_edc, pre_idx)
@@ -1541,13 +1877,14 @@ def main() -> int:
     zamba2_serve()
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
-    # and MADC runs, the 20-group EDC cold start, the shift run and the
-    # block phase's FedGroup runs;
+    # and MADC runs, the 20-group EDC cold start, the shift run, the
+    # block phase's FedGroup runs and the population phase's FedGroup runs;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
-                + counts_shift["edc_cosine"] + counts_block["edc_cosine"],
+                + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
+                + counts_stream["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"],

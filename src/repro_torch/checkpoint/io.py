@@ -22,6 +22,8 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 CKPT_FORMAT_VERSION = 4
 _MIN_READ_VERSION = 3
 _FORMAT_KEY = "__ckpt_format__"
@@ -102,10 +104,12 @@ def save_pytree(path: str, params: dict, metadata: dict | None = None):
             os.remove(tmp)
 
 
-def load_pytree(path: str, device="cpu") -> dict:
+def load_pytree(path: str, device="cuda") -> dict:
     """The archive's arrays as a nested dict of tensors on ``device`` (the
     "/"-joined keys split back into levels), each verified against its
-    checksum."""
+    checksum. ``cuda`` unless the caller asks for the CPU: asking for it
+    without a card raises (``repro_torch.resolve_device``)."""
+    device = resolve_device(device)
     data = _load_npz(path)
     crcs = _read_meta(path, data).get(_CRC_KEY)
     tree: dict = {}

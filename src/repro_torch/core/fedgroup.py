@@ -26,6 +26,12 @@ Round blocks (``block_size > 1``) break on host events: the Alg. 3 cold
 start before the first round, a cohort with cold newcomers (eq. 9), and
 every round while the shift detector is on, which pins the trainer to the
 per-round path. The checkpoint hooks are not yet ported (``ROADMAP.md``).
+
+With a streamed population (``population=``) the Alg. 3 founders are
+drawn from the scheduler's active clients only, the newcomers its arrival
+process activates are routed by eq. 9 in the round they arrive, and every
+cold-started client's pre-training direction is cached in the
+population's host state table (which the shift detector then reads).
 """
 from __future__ import annotations
 
@@ -80,27 +86,41 @@ class FedGroupTrainer(GroupedTrainer):
         return {"n_groups": self.m, "eta_g": self.cfg.eta_g}
 
     # ------------------------------------------------------------------
-    # Cached eq.-9 directions (pinned mode: a trainer-owned lazy table on
-    # the trainer's device, made only when the detector is on)
+    # Cached eq.-9 directions: the population's host state table when
+    # streaming; pinned, a trainer-owned lazy table on the trainer's
+    # device, made only when the detector is on
     # ------------------------------------------------------------------
     def _shift_enabled(self) -> bool:
         return self.cfg.shift_threshold is not None
 
+    def _caches_dirs(self) -> bool:
+        return self.population is not None or self._shift_enabled()
+
     def _set_dirs(self, idx, rows: torch.Tensor):
+        if self.population is not None:
+            self.population.state.set_pretrain_dir(idx, rows)
+            return
         if self._pin_dirs is None:
             self._pin_dirs = _LazyRows(rows.new_zeros(rows.shape[-1]))
         self._pin_dirs.scatter(idx, rows)
 
     def _has_dirs(self, idx) -> np.ndarray:
+        if self.population is not None:
+            return self.population.state.has_pretrain_dir(idx)
         if self._pin_dirs is None:
             return np.zeros(len(np.asarray(idx)), bool)
         return self._pin_dirs.has(idx)
 
     def _get_dirs(self, idx) -> torch.Tensor:
+        if self.population is not None:
+            return self.population.state.get_pretrain_dir(idx).to(
+                self.device)
         return self._pin_dirs.gather(idx)
 
     def _invalidate_dirs(self, idx):
-        if self._pin_dirs is not None:
+        if self.population is not None:
+            self.population.state.invalidate_pretrain_dir(idx)
+        elif self._pin_dirs is not None:
             self._pin_dirs.delete(idx)
 
     # ------------------------------------------------------------------
@@ -109,8 +129,15 @@ class FedGroupTrainer(GroupedTrainer):
     @torch.no_grad()
     def group_cold_start(self):
         cfg = self.cfg
-        n_pre = min(cfg.pretrain_scale * self.m, self.n_clients)
-        pre_idx = self.rng.choice(self.n_clients, n_pre, replace=False)
+        if self.population is not None:
+            # founders from the active clients only: the ones yet to arrive
+            # are routed by eq. 9, round by round, as they appear
+            pool = self.population.scheduler.active_ids()
+            n_pool = len(pool)
+        else:
+            pool = n_pool = self.n_clients
+        n_pre = min(cfg.pretrain_scale * self.m, n_pool)
+        pre_idx = self.rng.choice(pool, n_pre, replace=False)
         deltas, _, _ = self._solve(self.params, pre_idx)
         self.comm_params += 2 * len(pre_idx) * self.model_size
         dW = flatten_stacked(deltas)                           # (n_pre, d_w)
@@ -146,7 +173,7 @@ class FedGroupTrainer(GroupedTrainer):
                              for k, p in self.params.items()}
         # flattening the aggregated per-leaf means equals Wj @ dW
         self.group_delta = flatten_stacked(mean_delta)         # (m, d_w)
-        if self._shift_enabled():
+        if self._caches_dirs():
             # the Alg.-3 founders are as shift-detectable as newcomers
             self._set_dirs(pre_idx, dW)
         self.cold_started = True
@@ -167,7 +194,7 @@ class FedGroupTrainer(GroupedTrainer):
         deltas, _, _ = self._solve(self.params, cold_idx,
                                    solver=self.pretrain_solver)
         dpre = flatten_stacked(deltas)                         # (c, d_w)
-        if self._shift_enabled():
+        if self._caches_dirs():
             self._set_dirs(cold_idx, dpre)
         sim = measures.cosine_similarity_matrix(dpre, self.group_delta)
         dis = (-sim + 1.0) / 2.0                               # (c, m)

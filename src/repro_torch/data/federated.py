@@ -1,6 +1,5 @@
 """Federated dataset container + non-IID partitioners: a copy of
-``repro.data.federated`` without ``FederatedData.store`` (the streamed
-client store is not yet ported).
+``repro.data.federated``.
 
 Offline-reproduction note (repro band = data gate): MNIST/FEMNIST/Sent140
 downloads are unavailable in this environment, so the generators in
@@ -47,6 +46,12 @@ class FederatedData:
             "x_test": self.x_test[i, : self.n_test[i]],
             "y_test": self.y_test[i, : self.n_test[i]],
         }
+
+    def store(self):
+        """This population behind the host-resident ``ClientStore`` API,
+        the streamed trainers' small-N backing (``fed.store``)."""
+        from repro_torch.fed.store import ArrayClientStore
+        return ArrayClientStore(self)
 
 
 def power_law_sizes(rng: np.random.Generator, n_clients: int, total: int,

@@ -1,6 +1,5 @@
 """Synthetic federated dataset generators: a copy of
-``repro.data.generators`` (same seed, same bytes), without the virtual
-populations, which need the streamed client store (not yet ported).
+``repro.data.generators`` (same seed, same bytes).
 
   mnist_like    10-class class-conditional clusters in R^784, label-skew
                 partition with #classes/client knob (paper §3.1 / Table 1).
@@ -10,6 +9,10 @@ populations, which need the streamed client store (not yet ported).
                 generator (60-dim, 10 classes, d_w = 610 with MCLR).
   sent140_like  binary sentiment over token sequences; each client (account)
                 has a private topic mixture; positive/negative lexicons.
+  virtual_synthetic / virtual_mnist_like
+                the same structures as lazy ``fed.store.VirtualClientStore``
+                populations (10^5-10^6 clients, each generated on first
+                touch from its own seed) for the streamed trainers.
 """
 from __future__ import annotations
 
@@ -97,6 +100,85 @@ def synthetic(alpha: float = 1.0, beta: float = 1.0, seed: int = 0,
         clients.append({"x": x[n_te:], "y": y[n_te:],
                         "x_test": x[:n_te], "y_test": y[:n_te]})
     return pack_clients(f"synthetic_{alpha}_{beta}", clients, n_classes, {})
+
+
+def _virtual_sizes(seed: int, n_clients: int, mean_size: int,
+                   min_size: int, max_size: int):
+    """(n_train, n_test) per-client size vectors, power-law distributed —
+    the only O(N) arrays a virtual population materializes up front."""
+    rng = np.random.default_rng(seed)
+    total = power_law_sizes(rng, n_clients, mean_size * n_clients,
+                            min_size=min_size, max_size=max_size)
+    n_test = np.maximum(1, total // 5).astype(np.int32)
+    n_train = (total - n_test).astype(np.int32)
+    return n_train, n_test
+
+
+def virtual_synthetic(alpha: float = 1.0, beta: float = 1.0, seed: int = 0,
+                      n_clients: int = 100_000, dim: int = 60,
+                      n_classes: int = 10, mean_size: int = 40,
+                      min_size: int = 10, max_size: int = 120,
+                      memmap_dir: str | None = None, **store_kw):
+    """Shamir Synthetic(alpha, beta) as a lazy ``VirtualClientStore``.
+
+    Statistically the same population as ``synthetic`` but with per-client
+    seeding (``SeedSequence([seed, i])``), so client i's shard is a pure
+    function of i — generated on first touch, optionally persisted to
+    memory-mapped shard files, never stacked host- or device-side."""
+    from repro_torch.fed.store import VirtualClientStore
+    n_train, n_test = _virtual_sizes(seed, n_clients, mean_size,
+                                     min_size, max_size)
+    diag = np.array([(j + 1) ** -1.2 for j in range(dim)], np.float32)
+
+    def client_fn(i: int):
+        rng = np.random.default_rng([seed, 7919, i])
+        u = rng.normal(0, alpha)
+        Bv = rng.normal(0, beta)
+        v = rng.normal(Bv, 1, dim)
+        W = rng.normal(u, 1, (dim, n_classes)).astype(np.float32)
+        b = rng.normal(u, 1, n_classes).astype(np.float32)
+        tot = int(n_train[i]) + int(n_test[i])
+        x = rng.normal(v, np.sqrt(diag), (tot, dim)).astype(np.float32)
+        y = np.argmax(x @ W + b, 1).astype(np.int32)
+        n_te = int(n_test[i])
+        return {"x": x[n_te:], "y": y[n_te:],
+                "x_test": x[:n_te], "y_test": y[:n_te]}
+
+    return VirtualClientStore(
+        f"virtual_synthetic_{alpha}_{beta}_N{n_clients}", n_clients,
+        client_fn, max_train=int(n_train.max()), max_test=int(n_test.max()),
+        feat=(dim,), n_classes=n_classes, n_train=n_train, n_test=n_test,
+        memmap_dir=memmap_dir, **store_kw)
+
+
+def virtual_mnist_like(seed: int = 0, n_clients: int = 100_000,
+                       classes_per_client: int = 2, dim: int = 64,
+                       n_classes: int = 10, mean_size: int = 40,
+                       min_size: int = 10, max_size: int = 120,
+                       memmap_dir: str | None = None, **store_kw):
+    """Label-skew class-cluster population as a lazy ``VirtualClientStore``
+    (the ``mnist_like`` structure without the global sampling pool, so each
+    client is independently generable)."""
+    from repro_torch.fed.store import VirtualClientStore
+    n_train, n_test = _virtual_sizes(seed, n_clients, mean_size,
+                                     min_size, max_size)
+    protos = _class_prototypes(np.random.default_rng(seed), n_classes, dim)
+
+    def client_fn(i: int):
+        rng = np.random.default_rng([seed, 104729, i])
+        cls = rng.choice(n_classes, classes_per_client, replace=False)
+        tot = int(n_train[i]) + int(n_test[i])
+        y = rng.choice(cls, tot).astype(np.int32)
+        x = (protos[y] + rng.normal(0, 1.0, (tot, dim))).astype(np.float32)
+        n_te = int(n_test[i])
+        return {"x": x[n_te:], "y": y[n_te:],
+                "x_test": x[:n_te], "y_test": y[:n_te]}
+
+    return VirtualClientStore(
+        f"virtual_mnist_c{classes_per_client}_N{n_clients}", n_clients,
+        client_fn, max_train=int(n_train.max()), max_test=int(n_test.max()),
+        feat=(dim,), n_classes=n_classes, n_train=n_train, n_test=n_test,
+        memmap_dir=memmap_dir, **store_kw)
 
 
 def sent140_like(seed: int = 0, n_clients: int = 772, vocab: int = 1000,

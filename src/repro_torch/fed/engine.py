@@ -1,9 +1,15 @@
 """Round-based federated training engines: FedAvg / FedProx base trainer
-and the grouped-trainer machinery (``repro.fed.engine``), on the pinned,
-synchronous path: per round, or in round blocks (``block_size > 1``).
+and the grouped-trainer machinery (``repro.fed.engine``), synchronous:
+per round, or in round blocks (``block_size > 1``).
 
-The padded per-client train/eval stacks are placed on the device once at
-init and selection is a device gather. Cohort *selection* draws from a
+Two ways to feed a trainer. Pinned (``data=``): the padded per-client
+train/eval stacks are placed on the device once at init and selection is
+a device gather. Streamed (``population=``, ``fed.population``): the
+population stays in a host store, each round's cohort comes from the
+population's scheduler and prefetcher (``next_cohort()``), eval runs over
+blocks of the store's test data, and the grouped trainers' membership is
+the population's state-table column. A same-seed streamed run equals its
+pinned run bit for bit on the CPU. Cohort *selection* draws from a
 dedicated numpy stream ``default_rng([seed, 0x5E1EC7])`` and the cold-start
 / ablation draws from ``default_rng(seed)``, exactly as the reference does,
 so cohorts match it. Every other random draw goes through a draws object
@@ -17,11 +23,12 @@ device fetch per block. A round that needs host work first (FedGroup's
 group cold start, cold newcomers in a cohort, an enabled shift detector)
 breaks back to the per-round path; a cohort already drawn for it is
 carried over as ``pending``, so every random stream matches a per-round
-run.
+run. A streamed population always runs per round
+(``Population.block_stageable`` is False).
 
 Not yet ported, and refused with ``NotImplementedError`` (``ROADMAP.md``):
-the async runtime (``async_depth > 0``), checkpoints, streamed populations
-(``population=``), a device mesh and telemetry (``telemetry_dir``).
+the async runtime (``async_depth > 0``), checkpoints, a device mesh and
+telemetry (``telemetry_dir``).
 """
 from __future__ import annotations
 
@@ -106,13 +113,11 @@ def _not_ported(what: str):
         "queue 1); use the JAX package repro for it")
 
 
-def _check_ported(cfg: FedConfig, mesh, population):
+def _check_ported(cfg: FedConfig, mesh):
     if cfg.async_depth > 0:
         _not_ported("the async runtime (async_depth > 0)")
     if cfg.checkpoint_every or cfg.checkpoint_dir:
         _not_ported("checkpointing")
-    if population is not None:
-        _not_ported("streamed populations (population=)")
     if mesh is not None:
         _not_ported("a device mesh")
     if cfg.telemetry_dir:
@@ -161,23 +166,36 @@ class FedAvgTrainer:
     ``init_params`` replaces ``model.init`` (parity tests carry the JAX
     package's params over); ``draws`` replaces the default
     ``TorchDraws(cfg.seed)``. ``counters`` counts the reference's registry
-    events (cold starts, migrations, completed rounds)."""
+    events (cold starts, migrations, completed rounds).
+
+    ``population=`` (a ``fed.population.Population``) streams the cohorts
+    from a host store instead; ``data`` may then be None. The population
+    is attached to this trainer and runs on its device; ``close()`` stops
+    its prefetcher and state writer."""
 
     framework = "fedavg"
 
-    def __init__(self, model: ModelSpec, data: FederatedData,
+    def __init__(self, model: ModelSpec, data: FederatedData | None,
                  cfg: FedConfig, device="cuda", mesh=None, population=None,
                  init_params=None, draws=None):
-        _check_ported(cfg, mesh, population)
-        if data is None:
-            raise ValueError("pass data=")
+        _check_ported(cfg, mesh)
         self.device = resolve_device(device)
         self.model, self.cfg, self.data = model, cfg, data
+        self.population = population
         self.rng = np.random.default_rng(cfg.seed)
         self.select_rng = np.random.default_rng([cfg.seed, SELECT_STREAM])
         self.draws = TorchDraws(cfg.seed) if draws is None else draws
-        self.n_clients = data.n_clients
-        self._max_samples = data.x_train.shape[1]
+        if population is not None:
+            store = population.store
+            self.n_clients = store.n_clients
+            self._max_samples = store.max_train
+            self._n_train = store.n_train
+        else:
+            if data is None:
+                raise ValueError("pass data= (pinned) or population=")
+            self.n_clients = data.n_clients
+            self._max_samples = data.x_train.shape[1]
+            self._n_train = data.n_train
         self.solver = client_lib.make_batch_solver(
             model, epochs=cfg.local_epochs, batch_size=cfg.batch_size,
             lr=cfg.lr, mu=cfg.mu, max_samples=self._max_samples)
@@ -193,17 +211,24 @@ class FedAvgTrainer:
         self._round_exec = None     # lazily-built fused round
         self._block_exec = None     # lazily-built round-block executor
         self._grouped_eval = client_lib.grouped_eval_correct(model)
-        # pin the padded per-client stacks on the device once — selection
-        # is a device gather, not a fresh upload every round
-        dev = self.device
-        self._train_stack = (torch.as_tensor(data.x_train, device=dev),
-                             torch.as_tensor(data.y_train, device=dev).long(),
-                             torch.as_tensor(data.n_train, device=dev).long())
-        self._test_stack = (torch.as_tensor(data.x_test, device=dev),
-                            torch.as_tensor(data.y_test, device=dev).long(),
-                            torch.as_tensor(data.n_test, device=dev).long())
-        self._eval_zero_mem = torch.zeros(self.n_clients, dtype=torch.long,
-                                          device=dev)
+        self._eval_fn = client_lib.make_eval_fn(model)
+        if population is not None:
+            population.attach(cfg, self.device)
+            self._train_stack = self._test_stack = None
+        else:
+            # pin the padded per-client stacks on the device once —
+            # selection is a device gather, not an upload every round
+            dev = self.device
+            self._train_stack = (
+                torch.as_tensor(data.x_train, device=dev),
+                torch.as_tensor(data.y_train, device=dev).long(),
+                torch.as_tensor(data.n_train, device=dev).long())
+            self._test_stack = (
+                torch.as_tensor(data.x_test, device=dev),
+                torch.as_tensor(data.y_test, device=dev).long(),
+                torch.as_tensor(data.n_test, device=dev).long())
+            self._eval_zero_mem = torch.zeros(
+                self.n_clients, dtype=torch.long, device=dev)
 
     # -- fused round executor ----------------------------------------------
     def _exec_spec(self) -> dict:
@@ -261,7 +286,7 @@ class FedAvgTrainer:
         K = min(self.cfg.clients_per_round, self.n_clients)
         idx = np.asarray(idx, np.int64)
         k = len(idx)
-        n = torch.as_tensor(self.data.n_train[idx]).long()
+        n = torch.as_tensor(self._n_train[idx]).long()
         bidx = self._batch_indices(n, self.solver.max_steps).cpu()
         if k < K:
             idx = np.concatenate([idx, np.full(K - k, idx[0], np.int64)])
@@ -343,6 +368,8 @@ class FedAvgTrainer:
 
     # -- helpers -----------------------------------------------------------
     def _select(self):
+        if self.population is not None:
+            return self.population.next_cohort().idx
         idx = self.select_rng.choice(self.n_clients,
                                      min(self.cfg.clients_per_round,
                                          self.n_clients), replace=False)
@@ -356,6 +383,10 @@ class FedAvgTrainer:
         return idx
 
     def _client_batch(self, idx):
+        if self.population is not None:
+            # the live cohort's tensors (or a slice of them, e.g. the
+            # cold-start subset); a fresh store gather otherwise
+            return self.population.device_batch(idx)
         sel = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
         x, y, n = self._train_stack
         return x[sel], y[sel], n[sel]
@@ -383,9 +414,27 @@ class FedAvgTrainer:
         c, tot = self._grouped_eval(group_params, membership, xt, yt, nt)
         return int(c) / max(int(tot), 1)
 
+    @torch.no_grad()
+    def _eval_correct(self, params, client_idx=None):
+        """Streamed eval: (correct, total) summed over blocks of at most
+        ``eval_batch`` clients (no whole-population device allocation);
+        one device fetch at the end."""
+        pop = self.population
+        idx = pop.eval_ids() if client_idx is None else np.asarray(client_idx)
+        if len(idx) == 0:
+            return 0, 0
+        correct = torch.zeros((), dtype=torch.long, device=self.device)
+        total = 0
+        for block, x, y, n in pop.eval_batches(idx):
+            correct += torch.sum(self._eval_fn(params, x, y, n))
+            total += int(pop.store.n_test[block].sum())
+        return int(correct), total
+
     def _round_eval(self, t: int) -> float:
         if not self._should_eval(t):
             return float("nan")
+        if self.population is not None:
+            return self.evaluate()
         return self._fused_eval_acc({k: p[None] for k, p in
                                      self.params.items()},
                                     self._eval_zero_mem)
@@ -393,6 +442,9 @@ class FedAvgTrainer:
     @torch.no_grad()
     def evaluate(self, params=None, client_idx=None) -> float:
         params = self.params if params is None else params
+        if self.population is not None:
+            correct, total = self._eval_correct(params, client_idx)
+            return correct / max(total, 1)
         xt, yt, nt = self._test_stack
         if client_idx is None:
             idx = np.arange(self.n_clients)
@@ -402,7 +454,7 @@ class FedAvgTrainer:
                 return 0.0
             sel = torch.as_tensor(idx.astype(np.int64), device=self.device)
             xt, yt, nt = xt[sel], yt[sel], nt[sel]
-        correct = client_lib.make_eval_fn(self.model)(params, xt, yt, nt)
+        correct = self._eval_fn(params, xt, yt, nt)
         total = self.data.n_test[idx].sum()
         return float(int(torch.sum(correct)) / max(total, 1))
 
@@ -438,10 +490,12 @@ class FedAvgTrainer:
         length. With ``block_size > 1`` upcoming rounds are staged on the
         host and run as one block; a round that needs the host breaks back
         to the per-round path (its cohort, if already drawn, is carried
-        over as ``pending``), as does a lone last round."""
+        over as ``pending``), as does a lone last round; so does every
+        round of a streamed population."""
         t = len(self.history.rounds)
         total = t + (n_rounds or self.cfg.n_rounds)
-        blocks = self.cfg.block_size > 1
+        blocks = self.cfg.block_size > 1 and (
+            self.population is None or self.population.block_stageable)
         pending = None
         while t < total:
             if pending is not None:
@@ -462,6 +516,12 @@ class FedAvgTrainer:
                     t += 1
         return self.history
 
+    def close(self):
+        """Stop the population's prefetch thread and state writer (a no-op
+        when pinned)."""
+        if self.population is not None:
+            self.population.close()
+
 
 class FedProxTrainer(FedAvgTrainer):
     framework = "fedprox"
@@ -480,7 +540,11 @@ class GroupedTrainer(FedAvgTrainer):
     def __init__(self, model, data, cfg: FedConfig, **kw):
         super().__init__(model, data, cfg, **kw)
         self.m = cfg.n_groups
-        self.membership = np.full(self.n_clients, -1, np.int64)
+        if self.population is not None:
+            # the state table's column, shared: every write is in place
+            self.membership = self.population.state.membership
+        else:
+            self.membership = np.full(self.n_clients, -1, np.int64)
 
     def _random_groups(self, offset: int, given=None) -> dict:
         """m-stacked group params for the trainers that start from m random
@@ -510,7 +574,20 @@ class GroupedTrainer(FedAvgTrainer):
 
     def evaluate_groups(self) -> float:
         """Weighted accuracy: each group model on the test data of all
-        clients assigned to it (paper §5.1 metric), in one fused pass."""
+        clients assigned to it (paper §5.1 metric), in one fused pass when
+        pinned; streamed, group by group over blocks of the eval ids'
+        members."""
+        if self.population is not None:
+            eval_ids = self.population.eval_ids()
+            mem = self.membership[eval_ids]
+            correct = total = 0
+            for j in range(self.m):
+                members = eval_ids[mem == j]
+                if len(members):
+                    c, tot = self._eval_correct(self.group_param(j), members)
+                    correct += c
+                    total += tot
+            return correct / max(total, 1)
         return self._fused_eval_acc(
             self.group_params,
             torch.as_tensor(self.membership, device=self.device))

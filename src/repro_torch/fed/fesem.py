@@ -13,6 +13,12 @@ updates in place (``fesem_state_update``) — no host round trip. It is
 allocated once with the round blocks' trash row, as (N+1, d_w), and
 ``local_flat`` is the view of its first N rows: a block carries the whole
 buffer without copying it, and a captured graph keeps its address.
+
+With a streamed population the (N, d_w) matrix stays on the host, in the
+population's state table (lazy CPU rows, default centre 0): each round
+gathers the cohort's rows (draining the state writer first), copies them
+to the device and runs the same fused round on the (K, d_w) rows with
+cohort-local ids; the updated rows go back through the writer thread.
 """
 from __future__ import annotations
 
@@ -63,12 +69,17 @@ class FeSEMTrainer(GroupedTrainer):
         super().__init__(model, data, cfg, **kw)
         self.group_params = self._random_groups(INIT_OFFSET,
                                                 init_group_params)
-        # each client's last local model, all starting at centre 0, plus
-        # the zero trash row of the round blocks' padded lanes
+        # each client's last local model, all starting at centre 0
         flat0 = flatten_updates(self.group_param(0))
-        self._local_flat_rows = flat0[None].repeat(self.n_clients + 1, 1)
-        self._local_flat_rows[-1] = 0.0
-        self.local_flat = self._local_flat_rows[:-1]
+        if self.population is not None:
+            # host rows in the state table; only the cohort's reach the card
+            self.local_flat = None
+            self.population.state.init_local_flat(flat0)
+        else:
+            # plus the zero trash row of the round blocks' padded lanes
+            self._local_flat_rows = flat0[None].repeat(self.n_clients + 1, 1)
+            self._local_flat_rows[-1] = 0.0
+            self.local_flat = self._local_flat_rows[:-1]
 
     def _exec_spec(self) -> dict:
         return {"n_groups": self.m, "eta_g": 0.0,
@@ -101,12 +112,23 @@ class FeSEMTrainer(GroupedTrainer):
         self.comm_params += 2 * len(idx) * self.model_size
         x, y, n = self._client_batch(idx)
         ex = self._round_executor()
-        state = {"local_flat": self.local_flat,
-                 "idx": torch.as_tensor(np.asarray(idx, np.int64),
-                                        device=self.device)}
+        if self.population is not None:
+            # the cohort's host rows with cohort-local ids: the same fused
+            # round on (K, d_w) instead of (N, d_w)
+            rows = self.population.gather_local_flat(idx).to(self.device)
+            state = {"local_flat": rows,
+                     "idx": torch.arange(len(idx), device=self.device)}
+        else:
+            state = {"local_flat": self.local_flat,
+                     "idx": torch.as_tensor(np.asarray(idx, np.int64),
+                                            device=self.device)}
         out = ex(self.group_params, state, x, y, n,
                  self._batch_indices(n, ex.max_steps))
         self.group_params = out.group_params
-        self.local_flat = out.assign_state["local_flat"]
+        if self.population is not None:
+            self.population.scatter_local_flat(
+                idx, out.assign_state["local_flat"])
+        else:
+            self.local_flat = out.assign_state["local_flat"]
         self._adopt_membership(idx, out.membership.cpu().numpy())
         return self._add_round(t, self._round_eval(t), out)

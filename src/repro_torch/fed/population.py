@@ -1,0 +1,777 @@
+"""Streamed populations: round cohorts over a host-resident client store
+(``repro.fed.population``).
+
+The pinned trainers place the whole padded population on the device at
+init; this module is the large-N replacement. A ``Population`` bundles
+
+  * a ``ClientStore`` (``fed.store``) holding the population on the host,
+  * a ``Scheduler``: uniform (the pinned trainers' selection under the
+    same seed), size-weighted or scripted cohorts, diurnal availability,
+    and a Poisson *arrival process* that activates unseen clients every
+    round, so FedGroup's eq.-9 client cold start runs every round,
+  * a ``ClientStateTable`` (membership, cold flags, FeSEM's ``local_flat``
+    rows, cached pre-training directions) gathered and scattered per
+    cohort; ``local_flat`` writes land on a FIFO writer thread that every
+    read drains first,
+  * a *prefetcher*: a producer thread selects round t+1's cohort, gathers
+    it from the store into one of ``prefetch + 1`` page-locked host slots
+    and enqueues its host-to-device copy on a CUDA stream of its own,
+    while round t runs. It records an event after the copy;
+    ``next_cohort()`` makes the consumer's stream wait on that event
+    before anything reads the cohort, and a slot is refilled only after
+    its last copy's event completed. Eval blocks (``eval_batches``) and
+    ad-hoc gathers (``device_batch``) go through the same staging. On the
+    CPU there is no copy: the gathered arrays become tensors directly.
+
+Either way x is float32 and y and n are int64, the dtypes of the pinned
+stacks, so the fused round sees the same inputs on both paths: a streamed
+run equals its pinned run bit for bit on the CPU.
+
+The population is also a distribution-shift stage: a ``ShiftConfig``
+scripts label swaps and gradual drift (``ShiftSpec``), pure functions of
+(round, client id, seed) applied to the host labels on every gather path
+before the copy:
+
+>>> import numpy as np
+>>> from repro_torch.fed.population import ShiftConfig, ShiftSpec, \\
+...     apply_shift
+>>> sh = ShiftConfig([ShiftSpec(at=2, classes=(0, 2))])
+>>> y = np.array([[0, 1, 2]])
+>>> apply_shift(sh, 4, 3, 1, np.array([0]), y).tolist()   # before t=2
+[[0, 1, 2]]
+>>> apply_shift(sh, 4, 3, 2, np.array([0]), y).tolist()   # 0<->2 swapped
+[[2, 1, 0]]
+
+Not yet ported (``ROADMAP.md``): fault injection, the straggler deadline
+and the writer's retries and crash hook (item 11b: ``PopulationConfig
+.faults`` / ``.deadline`` raise ``NotImplementedError``), the population's
+checkpoint state (item 12), its spans and ``pop.*`` metrics (item 14:
+``Population.stats`` holds the counters' names, all zero) and the
+per-shard gather over a mesh (item 16).
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import warnings
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.fed.store import (SELECT_STREAM, ClientStateTable,
+                                   ClientStore, _host_rows)
+
+# the reference's population degradation counters; none is fed until fault
+# injection and the deadline are ported (ROADMAP.md item 11b)
+_STATS_ZERO = {"deadline_rounds": 0, "deadline_dropped_clients": 0,
+               "killed_clients": 0, "corrupted_clients": 0,
+               "writer_crashes": 0, "writer_retries": 0,
+               "lease_expiries": 0, "requeues": 0}
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(
+        f"{what} is not yet ported to repro_torch (see ROADMAP.md, item "
+        "11b: fault injection and the straggler deadline); use the JAX "
+        "package repro for it")
+
+
+class _AsyncStateWriter:
+    """One background thread applying host state-table writes in FIFO
+    order. ``drain()`` blocks until every submitted write has landed, and
+    readers call it before any gather, so the asynchrony never reorders a
+    read past a write. A write that raises is recorded and raised by the
+    next ``drain()``. Waits are bounded: a drain that outlives ``timeout``,
+    or finds the worker dead with writes pending, raises instead of
+    hanging."""
+
+    def __init__(self, timeout: float = 60.0, max_retries: int = 0):
+        if max_retries:
+            _not_ported("the state writer's retries (max_retries)")
+        self.timeout = timeout
+        self._q = queue.Queue()
+        self._thread = None
+        self._err = None
+        self._cond = threading.Condition()
+        self._pending = 0
+        self._label = None              # description of the write in flight
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fn, args, label = item
+            with self._cond:
+                self._label = label
+            try:
+                fn(*args)
+            except Exception as e:      # noqa: BLE001 — raised by drain()
+                self._err = e
+            with self._cond:
+                self._pending -= 1
+                self._label = None
+                self._cond.notify_all()
+
+    def submit(self, fn, *args, label: str | None = None):
+        with self._cond:
+            self._pending += 1
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name="state-table-writer", daemon=True)
+            self._thread.start()
+        self._q.put((fn, args, label or getattr(fn, "__name__", "write")))
+
+    def drain(self, timeout: float | None = None):
+        """Block until every submitted write has landed, at most
+        ``timeout`` seconds (default: the writer's); raise the first
+        failed write's error."""
+        limit = self.timeout if timeout is None else timeout
+        deadline = time.monotonic() + limit
+        with self._cond:
+            while self._pending > 0:
+                if self._thread is not None and not self._thread.is_alive():
+                    raise RuntimeError(
+                        f"state-table writer thread died with "
+                        f"{self._pending} write(s) pending")
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    raise RuntimeError(
+                        f"state-table write did not complete within "
+                        f"{limit:.1f}s: {self._pending} pending (in "
+                        f"flight: {self._label!r})")
+                self._cond.wait(min(remaining, 0.1))
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise RuntimeError("async state-table write failed") from err
+
+    def close(self, timeout: float | None = None):
+        """Land the pending writes (bounded), then stop the worker."""
+        self.drain(timeout)
+        if self._thread is not None:
+            self._q.put(None)
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def inject_thread_crash(self):
+        _not_ported("the state writer's crash hook")
+
+
+class _PinnedSlot:
+    """Page-locked host buffers for up to ``rows`` clients of ``max_n``
+    samples (x float32, y and n int64) and the event recorded after the
+    last copy out of them."""
+
+    def __init__(self, rows: int, max_n: int, feat: tuple):
+        self.rows = rows
+        self.x = torch.empty((rows, max_n) + feat, dtype=torch.float32,
+                             pin_memory=True)
+        self.y = torch.empty((rows, max_n), dtype=torch.int64,
+                             pin_memory=True)
+        self.n = torch.empty((rows,), dtype=torch.int64, pin_memory=True)
+        self.event = None
+
+
+class _SlotRing:
+    """Slots taken round robin. ``take`` waits for the slot's last copy to
+    finish before handing it out again (refilling it earlier would corrupt
+    a transfer in flight) and replaces a slot too small for the request."""
+
+    def __init__(self, count: int, rows: int, max_n: int, feat: tuple):
+        self.rows, self.max_n, self.feat = rows, max_n, feat
+        self.slots = [None] * count
+        self.pos = 0
+
+    def fill(self):
+        """Allocate every slot now (so a failure to pin raises here)."""
+        self.slots = [_PinnedSlot(self.rows, self.max_n, self.feat)
+                      for _ in self.slots]
+
+    def take(self, rows: int) -> _PinnedSlot:
+        i = self.pos
+        self.pos = (i + 1) % len(self.slots)
+        slot = self.slots[i]
+        if slot is not None and slot.event is not None:
+            slot.event.synchronize()
+        if slot is None or slot.rows < rows:
+            slot = self.slots[i] = _PinnedSlot(max(rows, self.rows),
+                                               self.max_n, self.feat)
+        return slot
+
+
+@dataclass
+class ShiftSpec:
+    """One scripted distribution shift over the client population.
+
+    at          first round the shift is live (train cohorts gathered for
+                round ``at`` and eval blocks from round ``at`` on see it).
+    kind        "label_swap" — every affected client's labels are remapped
+                through one cycle of ``classes`` at once (the classic
+                abrupt concept shift); "drift" — the remap phases in
+                sample-by-sample over ``duration`` rounds (gradual concept
+                drift): each sample flips at a fixed deterministic point of
+                the ramp, so the set of remapped samples grows
+                monotonically and any given round is reproducible.
+    frac        fraction of clients affected (chosen by a seeded hash of
+                the client id — the same clients every round / replay).
+    classes     label cycle, e.g. ``(0, 2)`` swaps 0<->2 and ``(1, 2, 3)``
+                rotates 1->2->3->1; None cycles *all* classes.
+    duration    drift ramp length in rounds (ignored for label_swap).
+    """
+    at: int
+    kind: str = "label_swap"
+    frac: float = 1.0
+    classes: tuple | None = None
+    duration: int = 0
+
+
+@dataclass
+class ShiftConfig:
+    """Scripted distribution-shift scenarios (``PopulationConfig.shift``):
+    every ``ShiftSpec`` in ``specs`` composes, in order, onto the host
+    label arrays of each gather; ``seed`` drives the affected-client and
+    per-sample drift choices so a scenario replays identically across
+    prefetch depths, restarts and checkpoint resumes (the transform is a
+    pure function of (round, client id, seed) — nothing is persisted)."""
+    specs: list
+    seed: int = 0
+
+
+def shift_client_mask(n_clients: int, seed: int, spec_index: int,
+                      frac: float) -> np.ndarray:
+    """(N,) bool mask of the clients a spec affects — a fixed seeded draw,
+    identical every round, so a shifted client stays shifted."""
+    if frac >= 1.0:
+        return np.ones(n_clients, bool)
+    rng = np.random.default_rng([int(seed), 0x5F1F7, int(spec_index)])
+    return rng.random(n_clients) < frac
+
+
+def shift_label_map(n_classes: int, classes) -> np.ndarray:
+    """Label permutation for one spec: cycle ``classes`` by one position
+    (identity elsewhere); ``classes=None`` cycles all labels."""
+    mapping = np.arange(int(n_classes), dtype=np.int64)
+    cyc = np.asarray(classes if classes is not None
+                     else np.arange(int(n_classes)), np.int64)
+    if len(cyc) >= 2:
+        mapping[cyc] = np.roll(cyc, -1)
+    return mapping
+
+
+def apply_shift(cfg: "ShiftConfig | None", n_clients: int, n_classes: int,
+                t, idx, y):
+    """Apply every live spec of ``cfg`` to the (K, max_n) label block ``y``
+    of clients ``idx`` as seen at round ``t``. Pure and deterministic:
+    a copy is returned only when something actually changes. Padding rows
+    beyond each client's ``n`` are remapped too, harmlessly — every
+    consumer masks by the sample counts."""
+    if cfg is None or t is None or int(t) < 0 or not cfg.specs:
+        return y
+    t = int(t)
+    idx = np.asarray(idx, np.int64)
+    out = None
+    for si, spec in enumerate(cfg.specs):
+        if t < spec.at:
+            continue
+        mask = shift_client_mask(n_clients, cfg.seed, si, spec.frac)
+        rows = np.where(mask[idx])[0]
+        if len(rows) == 0:
+            continue
+        if out is None:
+            out = np.array(y, copy=True)
+        mapping = shift_label_map(n_classes, spec.classes)
+        if spec.kind == "label_swap":
+            out[rows] = mapping[out[rows]]
+        elif spec.kind == "drift":
+            p = 1.0 if spec.duration <= 0 else \
+                min(max((t - spec.at + 1) / spec.duration, 0.0), 1.0)
+            for r in rows:
+                u = np.random.default_rng(
+                    [int(cfg.seed), 0xD51F7, si, int(idx[r])]
+                ).random(out.shape[1])
+                sel = u < p
+                out[r, sel] = mapping[out[r, sel]]
+        else:
+            raise ValueError(f"unknown shift kind {spec.kind!r}")
+    return y if out is None else out
+
+
+@dataclass
+class PopulationConfig:
+    """Knobs of the streamed population (sampling, availability, arrivals,
+    prefetch, eval). ``seed=None`` inherits the trainer's ``cfg.seed``, so a
+    same-seed uniform, always-available population selects the pinned
+    trainers' cohorts exactly.
+
+    ``prefetch > 0`` stages the next cohorts on a producer thread. On eager
+    rounds it has shown no measured gain over ``prefetch=0``: the round is
+    host-bound and the producer's gather runs under the GIL in the
+    launching thread's gaps (PERF.md §6). The default follows the
+    reference's."""
+    sampler: str = "uniform"        # uniform | size | scripted
+    script: list | None = None      # scripted: per-round index arrays
+    availability: str = "always"    # always | diurnal
+    period: int = 24                # diurnal: rounds per simulated day
+    duty: float = 0.5               # diurnal: awake fraction of the day
+    initial_active: int | None = None   # None = whole population active
+    arrival_rate: float = 0.0       # Poisson mean newcomers per round
+    newcomers_join: bool = True     # arrivals are forced into their round's cohort
+    prefetch: int = 2               # cohorts in flight (0 = synchronous)
+    # eval on a fixed subsample; None = the whole population (the pinned
+    # path's semantics, O(N) per evaluate())
+    eval_clients: int | None = None
+    eval_batch: int = 512           # clients per streamed eval block
+    seed: int | None = None
+    # not yet ported (ROADMAP.md item 11b, which also brings the
+    # deadline's stage_chunks): setting deadline or faults raises
+    deadline: float | None = None   # straggler deadline (seconds)
+    faults: object | None = None    # the reference's FaultConfig
+    shift: ShiftConfig | None = None    # scripted distribution shifts
+
+
+@dataclass
+class Cohort:
+    """One scheduled round batch: ids and padded (x, y, n) tensors on the
+    population's device. ``stage_ms`` is the host time of its select,
+    gather and copy enqueue; ``_event`` the copy's event (None on the
+    CPU), which ``next_cohort()`` makes the consumer wait on."""
+    t: int
+    idx: np.ndarray                 # (K,) client ids
+    x: torch.Tensor                 # (K, max_n, ...) float32
+    y: torch.Tensor                 # (K, max_n) int64
+    n: torch.Tensor                 # (K,) int64
+    n_new: int = 0                  # newcomers activated this round
+    stage_ms: float = 0.0
+    _event: object = field(default=None, repr=False)
+    _pos: dict = field(default_factory=dict, repr=False)
+
+    def positions(self, ids) -> np.ndarray | None:
+        """Cohort-local positions of ``ids`` (None if any id is absent)."""
+        if not self._pos:
+            self._pos = {int(i): p for p, i in enumerate(self.idx)}
+        try:
+            return np.asarray([self._pos[int(i)] for i in ids], np.int64)
+        except KeyError:
+            return None
+
+
+class Scheduler:
+    """Availability-aware cohort selection + the newcomer arrival process.
+
+    The active set starts as ``initial_active`` uniformly random clients
+    (or everyone); each round ``select(t, k)`` first activates
+    ``Poisson(arrival_rate)`` arrivals (in a fixed random arrival order),
+    then samples the cohort from the *available* actives: everyone under
+    ``availability='always'``, or the clients whose diurnal phase puts them
+    awake at round t (each client keeps a fixed phase; a fraction ``duty``
+    of the period is awake — the classic cross-device availability trace).
+    Newcomers join their arrival round's cohort (they "report in", which
+    is what feeds the eq.-9 cold-start path every round); the rest of the
+    cohort fills uniformly or size-weighted without replacement.
+    """
+
+    def __init__(self, store: ClientStore, cfg: PopulationConfig, seed: int):
+        self.store, self.cfg = store, cfg
+        # same derived stream as the pinned trainers' select_rng
+        self.rng = np.random.default_rng(
+            [cfg.seed if cfg.seed is not None else seed, SELECT_STREAM])
+        N = store.n_clients
+        if cfg.sampler not in ("uniform", "size", "scripted"):
+            raise ValueError(f"unknown sampler {cfg.sampler!r}")
+        if cfg.sampler == "scripted" and not cfg.script:
+            raise ValueError("scripted sampler needs cfg.script")
+        self.active = np.ones(N, bool)
+        self._arrival_queue = np.empty(0, np.int64)
+        if cfg.initial_active is not None and cfg.initial_active < N:
+            perm = self.rng.permutation(N)
+            self.active[:] = False
+            self.active[perm[:cfg.initial_active]] = True
+            self._arrival_queue = perm[cfg.initial_active:]
+        self.phase = (self.rng.integers(0, cfg.period, N)
+                      if cfg.availability == "diurnal" else None)
+        self.last_arrivals = np.empty(0, np.int64)
+        self.rounds_scheduled = 0
+
+    # -- availability ------------------------------------------------------
+    def available_mask(self, t: int) -> np.ndarray:
+        avail = self.active.copy()
+        if self.phase is not None:
+            awake = ((t + self.phase) % self.cfg.period) < \
+                self.cfg.duty * self.cfg.period
+            avail &= awake
+        return avail
+
+    def active_ids(self) -> np.ndarray:
+        return np.where(self.active)[0]
+
+    # -- arrivals ----------------------------------------------------------
+    def _arrive(self) -> np.ndarray:
+        cfg = self.cfg
+        if cfg.arrival_rate <= 0 or len(self._arrival_queue) == 0:
+            self.last_arrivals = np.empty(0, np.int64)
+            return self.last_arrivals
+        k = min(int(self.rng.poisson(cfg.arrival_rate)),
+                len(self._arrival_queue))
+        new, self._arrival_queue = (self._arrival_queue[:k],
+                                    self._arrival_queue[k:])
+        self.active[new] = True
+        self.last_arrivals = new
+        return new
+
+    # -- selection ---------------------------------------------------------
+    def select(self, t: int, k: int, dropout_rate: float = 0.0):
+        """-> (cohort ids (K,), n_new). Sequential in t (the prefetcher is
+        the only caller); all randomness comes from the scheduler rng."""
+        cfg = self.cfg
+        if cfg.sampler == "scripted":
+            idx = np.asarray(cfg.script[t % len(cfg.script)], np.int64)
+            self.rounds_scheduled += 1
+            return idx, 0
+        new = self._arrive()
+        avail = self.available_mask(t)
+        pool = np.where(avail)[0]
+        if cfg.sampler == "uniform" and len(new) == 0 and \
+                len(pool) == self.store.n_clients:
+            # bit-compatible with the pinned trainers' selection: same
+            # rng.choice(n, k) call when the whole population is available
+            idx = self.rng.choice(self.store.n_clients,
+                                  min(k, self.store.n_clients),
+                                  replace=False)
+        else:
+            forced = new[:k] if cfg.newcomers_join else np.empty(0, np.int64)
+            rest = pool[~np.isin(pool, forced)]
+            want = min(k, len(rest) + len(forced)) - len(forced)
+            if want > 0 and len(rest) > 0:
+                if cfg.sampler == "size":
+                    w = self.store.n_train[rest].astype(np.float64)
+                    p = w / max(w.sum(), 1e-12)
+                    fill = self.rng.choice(rest, want, replace=False, p=p)
+                else:
+                    fill = self.rng.choice(rest, want, replace=False)
+            else:
+                fill = np.empty(0, np.int64)
+            idx = np.concatenate([forced, fill])
+        if len(idx) == 0:
+            # every active client is asleep this round — the round executor
+            # needs >=1 client (the pinned dropout path keeps the same
+            # floor), so wake one active client uniformly
+            actives = np.where(self.active)[0]
+            if len(actives) == 0:
+                raise RuntimeError(
+                    "population has no active clients to schedule "
+                    "(initial_active=0 and no arrivals yet)")
+            idx = self.rng.choice(actives, 1)
+        if dropout_rate > 0.0 and len(idx):
+            alive = self.rng.random(len(idx)) >= dropout_rate
+            if not alive.any():
+                alive[self.rng.integers(len(idx))] = True
+            idx = idx[alive]
+        self.rounds_scheduled += 1
+        return idx, len(new)
+
+    # -- checkpointing ------------------------------------------------------
+    def snapshot(self) -> dict:
+        """Everything ``select`` depends on besides t: rng stream, active
+        set, pending arrival order. ``phase`` is deliberately absent — it
+        is drawn once at construction, so a same-config fresh scheduler
+        regenerates it before ``restore`` rewinds the rng."""
+        return {"rng_state": self.rng.bit_generator.state,
+                "active": self.active.copy(),
+                "arrival_queue": self._arrival_queue.copy(),
+                "last_arrivals": self.last_arrivals.copy(),
+                "rounds_scheduled": int(self.rounds_scheduled)}
+
+    def restore(self, snap: dict):
+        self.rng.bit_generator.state = snap["rng_state"]
+        self.active[:] = np.asarray(snap["active"], bool)
+        self._arrival_queue = np.asarray(snap["arrival_queue"],
+                                         np.int64).copy()
+        self.last_arrivals = np.asarray(snap["last_arrivals"],
+                                        np.int64).copy()
+        self.rounds_scheduled = int(snap["rounds_scheduled"])
+
+
+class Population:
+    """Store + scheduler + state table + prefetcher, bound to one trainer.
+
+    Construct with a store and a ``PopulationConfig`` and pass it as a
+    trainer's ``population=``; the trainer calls ``attach`` with its
+    ``FedConfig`` and device. The prefetch thread starts at the first
+    ``next_cohort()``, after FedGroup's group cold start has read
+    ``scheduler.active_ids()`` (the producer runs the scheduler's rng up to
+    ``prefetch`` rounds ahead).
+
+    On a CUDA device the cohorts are staged through page-locked slots and a
+    copy stream of the population's own; failing to pin memory or to
+    create the stream raises: nothing gathers on the CPU instead.
+    """
+
+    # streamed rounds stay on the per-round path: the arrival process and
+    # the prefetcher are observed by the host between rounds
+    block_stageable = False
+
+    def __init__(self, store: ClientStore, cfg: PopulationConfig | None = None):
+        self.store = store
+        self.cfg = cfg or PopulationConfig()
+        if self.cfg.faults is not None:
+            _not_ported("fault injection (PopulationConfig.faults)")
+        if self.cfg.deadline is not None:
+            _not_ported("the straggler deadline (PopulationConfig.deadline)")
+        self.state = ClientStateTable(store.n_clients)
+        self.scheduler = None
+        self.device = None
+        self._cuda_index = None
+        self._copy_stream = None
+        self._rings = {}
+        self._k = None
+        self._dropout = 0.0
+        self._queue = None
+        self._thread = None
+        self._stop = threading.Event()
+        self._producer_error = None
+        self._writer = _AsyncStateWriter()
+        self._warned_eval_scale = False
+        self._cohort = None            # live (most recently consumed) cohort
+        self._eval_ids = None
+        self.rounds_streamed = 0
+        self.stats = dict(_STATS_ZERO)
+
+    # -- trainer binding ---------------------------------------------------
+    def attach(self, fed_cfg, device="cuda"):
+        """Bind to a trainer: its cohort size, dropout and seed, and its
+        device (``cuda`` unless the caller asks for the CPU)."""
+        if self.scheduler is not None:
+            raise RuntimeError("Population is already attached to a trainer")
+        self.device = resolve_device(device)
+        self.scheduler = Scheduler(self.store, self.cfg, seed=fed_cfg.seed)
+        self._k = fed_cfg.clients_per_round
+        self._dropout = fed_cfg.dropout_rate
+        if self.device.type == "cuda":
+            self._cuda_index = (self.device.index
+                                if self.device.index is not None
+                                else torch.cuda.current_device())
+            self._copy_stream = torch.cuda.Stream(device=self._cuda_index)
+            k = min(self._k, self.store.n_clients)
+            train = _SlotRing(max(self.cfg.prefetch, 0) + 1, k,
+                              self.store.max_train, self.store.feat)
+            train.fill()
+            self._rings["train"] = train
+        if self.cfg.eval_clients is not None and \
+                self.cfg.eval_clients < self.store.n_clients:
+            eval_rng = np.random.default_rng(
+                (self.cfg.seed if self.cfg.seed is not None
+                 else fed_cfg.seed) + 0x5EED)
+            self._eval_ids = np.sort(eval_rng.choice(
+                self.store.n_clients, self.cfg.eval_clients, replace=False))
+        else:
+            self._eval_ids = np.arange(self.store.n_clients)
+
+    # -- host -> device staging ----------------------------------------------
+    def _ring(self, name: str) -> _SlotRing:
+        """The slot ring of one staging path: "train" (the cohorts,
+        ``prefetch + 1`` slots), "eval" (two slots, so one block's gather
+        overlaps the previous block's eval) and "batch" (ad-hoc gathers)."""
+        ring = self._rings.get(name)
+        if ring is None:
+            store = self.store
+            if name == "eval":
+                rows = min(max(int(self.cfg.eval_batch), 1),
+                           len(self.eval_ids()))
+                ring = _SlotRing(2, rows, store.max_test, store.feat)
+            else:
+                ring = _SlotRing(1, min(self._k, store.n_clients),
+                                 store.max_train, store.feat)
+            self._rings[name] = ring
+        return ring
+
+    def _ready(self, arrays, event):
+        """Make the calling thread's current stream wait for the copy, and
+        mark the tensors (allocated on the copy stream) as used by it, so
+        the caching allocator does not hand their memory out while that
+        stream may still read it."""
+        if event is None:
+            return arrays
+        cur = torch.cuda.current_stream(self._cuda_index)
+        cur.wait_event(event)
+        for t in arrays:
+            t.record_stream(cur)
+        return arrays
+
+    def _shift_host(self, t, idx, arrays):
+        """The scripted distribution shift (if any) on one gathered host
+        block, before the copy."""
+        if self.cfg.shift is None:
+            return arrays
+        x, y, n = arrays
+        return (x, apply_shift(self.cfg.shift, self.store.n_clients,
+                               self.store.n_classes, t, idx, y), n)
+
+    def _gather_put(self, ring: str, split: str, idx, t=None):
+        """Store gather, shift and copy enqueue of ``idx`` -> ((x, y, n)
+        tensors, event); ``t`` is the shift clock of the round this gather
+        feeds (None = no shift).
+
+        On the CPU the gathered arrays become tensors (no copy, event
+        None). On the card they fill a pinned slot of ``ring``, then three
+        non-blocking copies go out on the copy stream, followed by an
+        event: the tensors must not be read before ``_ready`` made the
+        reader's stream wait on it."""
+        idx = np.asarray(idx, np.int64)
+        x, y, n = self._shift_host(t, idx, self.store._gather(split, idx))
+        if self._copy_stream is None:
+            return (torch.as_tensor(x, dtype=torch.float32),
+                    torch.as_tensor(y).long(), torch.as_tensor(n).long()), None
+        k = len(idx)
+        slot = self._ring(ring).take(k)
+        hx, hy, hn = slot.x[:k], slot.y[:k], slot.n[:k]
+        hx.numpy()[...] = x
+        hy.numpy()[...] = y
+        hn.numpy()[...] = n
+        with torch.cuda.stream(self._copy_stream):
+            out = tuple(h.to(self.device, non_blocking=True)
+                        for h in (hx, hy, hn))
+            slot.event = torch.cuda.Event()
+            slot.event.record(self._copy_stream)
+        return out, slot.event
+
+    def device_batch(self, idx):
+        """(x, y, n) on the device for any id set. Ids inside the live
+        cohort are sliced from its tensors (the cold-start subset case);
+        anything else is a fresh gather at the live cohort's shift clock."""
+        idx = np.asarray(idx)
+        c = self._cohort
+        if c is not None:
+            pos = c.positions(idx)
+            if pos is not None:
+                if len(pos) == len(c.idx) and \
+                        np.array_equal(pos, np.arange(len(pos))):
+                    return c.x, c.y, c.n
+                sel = torch.as_tensor(pos, device=c.x.device)
+                return c.x[sel], c.y[sel], c.n[sel]
+        return self._ready(*self._gather_put(
+            "batch", "train", idx, t=self.rounds_streamed - 1))
+
+    # -- persistent state --------------------------------------------------
+    def gather_local_flat(self, idx) -> torch.Tensor:
+        """(len(idx), d_w) CPU rows of FeSEM's ``local_flat``. Drains the
+        writer first, so a gather observes every earlier scatter."""
+        self._writer.drain()
+        return self.state.gather_local_flat(idx)
+
+    def scatter_local_flat(self, idx, rows):
+        """Write the cohort's updated rows back into the host table: the
+        device-to-host copy here, the per-row table update on the writer
+        thread (it overlaps the eval and the next cohort's staging)."""
+        rows = _host_rows(rows)
+        self._writer.submit(self.state.scatter_local_flat,
+                            np.asarray(idx).copy(), rows,
+                            label=f"scatter_local_flat[{len(rows)} rows]")
+
+    # -- streamed cohorts --------------------------------------------------
+    def _sync_cohort(self, t: int) -> Cohort:
+        """Select, gather and enqueue the copy of round t's cohort: inline
+        when ``prefetch=0``, on the producer thread otherwise."""
+        t0 = time.perf_counter()
+        idx, n_new = self.scheduler.select(t, self._k, self._dropout)
+        idx = np.asarray(idx, np.int64)
+        (x, y, n), event = self._gather_put("train", "train", idx, t=t)
+        return Cohort(t, idx, x, y, n, min(n_new, len(idx)),
+                      stage_ms=(time.perf_counter() - t0) * 1e3,
+                      _event=event)
+
+    def _produce(self):
+        try:
+            if self._cuda_index is not None:
+                torch.cuda.set_device(self._cuda_index)   # per thread
+            t = self.rounds_streamed
+            while not self._stop.is_set():
+                cohort = self._sync_cohort(t)
+                while not self._stop.is_set():
+                    try:
+                        self._queue.put(cohort, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
+                t += 1
+        except Exception as e:          # noqa: BLE001 — raised by next_cohort
+            self._producer_error = e
+            while not self._stop.is_set():
+                try:                    # wake a blocked consumer
+                    self._queue.put(None, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+
+    def next_cohort(self) -> Cohort:
+        """The next scheduled round batch, its tensors safe to read on the
+        calling thread's current stream. With ``prefetch=0`` selection and
+        gather run inline."""
+        if self.scheduler is None:
+            raise RuntimeError("attach() a trainer first")
+        if self._stop.is_set():
+            raise RuntimeError("population was close()d — the cohort "
+                               "stream cannot be resumed")
+        if self.cfg.prefetch <= 0:
+            cohort = self._sync_cohort(self.rounds_streamed)
+        else:
+            if self._thread is None:
+                self._queue = queue.Queue(maxsize=self.cfg.prefetch)
+                self._thread = threading.Thread(
+                    target=self._produce, name="population-prefetch",
+                    daemon=True)
+                self._thread.start()
+            cohort = self._queue.get()
+            if cohort is None:          # producer died: raise its error
+                raise RuntimeError(
+                    "population prefetch thread failed"
+                ) from self._producer_error
+        cohort.x, cohort.y, cohort.n = self._ready(
+            (cohort.x, cohort.y, cohort.n), cohort._event)
+        self.rounds_streamed += 1
+        self._cohort = cohort
+        return cohort
+
+    def close(self):
+        """Stop the prefetch thread (joined) and the state writer (pending
+        writes land first)."""
+        self._stop.set()
+        if self._thread is not None:
+            # empty the queue so a producer blocked on put() sees the flag
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=5.0)
+            if self._thread.is_alive():
+                raise RuntimeError("population prefetch thread did not stop")
+            self._thread = None
+        self._writer.close()
+
+    # -- streamed evaluation ----------------------------------------------
+    def eval_ids(self) -> np.ndarray:
+        return self._eval_ids if self._eval_ids is not None \
+            else np.arange(self.store.n_clients)
+
+    def eval_batches(self, idx=None):
+        """Yield (ids, x_test, y_test, n_test) blocks of at most
+        ``eval_batch`` clients on the device: the whole population's eval
+        without a whole-population device allocation."""
+        idx = self.eval_ids() if idx is None else np.asarray(idx)
+        if len(idx) > 20_000 and not self._warned_eval_scale:
+            self._warned_eval_scale = True
+            warnings.warn(
+                f"streaming evaluation over {len(idx)} clients every "
+                f"round is O(N) host gather — set "
+                f"PopulationConfig.eval_clients to subsample (grouped "
+                f"trainers' eval only touches assigned members)",
+                stacklevel=2)
+        B = max(int(self.cfg.eval_batch), 1)
+        for lo in range(0, len(idx), B):
+            block = idx[lo:lo + B]
+            x, y, n = self._ready(*self._gather_put(
+                "eval", "test", block, t=self.rounds_streamed - 1))
+            yield block, x, y, n

@@ -46,7 +46,7 @@ def test_reference_archive_reads_with_the_port(tmp_path):
     tree = _tree(1)
     path = str(tmp_path / "ref.npz")
     ref_io.save_pytree(path, tree, {"dataset": "mnist"})
-    got = ckpt.load_pytree(path)
+    got = ckpt.load_pytree(path, device="cpu")
     assert ckpt.load_metadata(path) == {"dataset": "mnist"}
     for key in ("w1", "b1"):
         np.testing.assert_array_equal(got[key].numpy(), tree[key])
@@ -58,7 +58,7 @@ def test_reference_archive_reads_with_the_port(tmp_path):
     raw[at + 5] ^= 0x10                          # one bit inside "w1"
     open(path, "wb").write(bytes(raw))
     with pytest.raises(ckpt.CheckpointCorruptError):
-        ckpt.load_pytree(path)
+        ckpt.load_pytree(path, device="cpu")
 
 
 def test_train_cli_writes_the_reference_format(tmp_path, capsys):
@@ -74,7 +74,7 @@ def test_train_cli_writes_the_reference_format(tmp_path, capsys):
     assert meta["framework"] == "fedgroup"
     assert meta["dataset"] == "synthetic"
     assert f"max_acc={meta['max_acc']:.4f}" in printed
-    params = ckpt.load_pytree(str(out / "model.npz"))
+    params = ckpt.load_pytree(str(out / "model.npz"), device="cpu")
     assert sorted(params) == ["b", "w"]          # mclr(60, 10)
     assert params["w"].shape == (60, 10)
 
@@ -99,3 +99,16 @@ def test_train_cli_dynamic_assignment_writes_group_zero(framework, tmp_path,
                                  "w": np.zeros((60, 10), np.float32)})
     assert params["w"].shape == (60, 10)          # group 0 of mclr(60, 10)
     assert np.isfinite(params["w"]).all()
+
+
+def test_load_pytree_defaults_to_the_card(tmp_path):
+    """Without ``device=`` the tensors go to ``cuda``: where there is no
+    card that raises instead of quietly loading onto the CPU."""
+    path = str(tmp_path / "ref.npz")
+    ref_io.save_pytree(path, _tree(2), {})
+    if torch.cuda.is_available():
+        got = ckpt.load_pytree(path)
+        assert got["w1"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            ckpt.load_pytree(path)

@@ -36,6 +36,7 @@ SLICE_MODULES = [
     "repro_torch.configs.zamba2_1p2b", "repro_torch.launch.serve",
     "repro_torch.fed.store", "repro_torch.fed.ifca", "repro_torch.fed.fesem",
     "repro_torch.fed.strategies", "repro_torch.core.gating",
+    "repro_torch.fed.population", "repro_torch.checkpoint",
 ]
 
 
