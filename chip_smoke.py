@@ -54,7 +54,11 @@ with no final ``ok`` line):
                 devices), then all six trainers in round blocks
                 (block_size 4, 6 rounds: the eager block on the CPU, the
                 captured graphs on the card; membership equal, rtol
-                1e-3); it is also the warm-up of the card's libraries.
+                1e-3), then FedGroup with the quarantine, streamed, with
+                clients killed in round 1 and NaN payloads in round 2 (no
+                deadline: it depends on timing): ``stats``, membership and
+                quarantined counts equal, the same tolerances; it is also
+                the warm-up of the card's libraries.
   4. main     — FedGroup on the paper's FEMNIST MLP-512 (d_w = 415,258):
                 Alg. 3 cold start + 3 fused rounds with measure=edc, then
                 with measure=madc; per-round metrics, cold-start and round
@@ -111,6 +115,27 @@ with no final ``ok`` line):
                 and stage ms, cold starts and arrivals a round (fails if
                 none), clients generated, host RSS, peak device memory,
                 labels in [0, m) and finite metrics (else fails).
+     4f         the fault-tolerant runtime at phase 4's width. 4f-i:
+                kill-and-resume of FedGroup (EDC) pinned and of FeSEM
+                streamed (``PopulationConfig(prefetch=2, initial_active=
+                150, arrival_rate=2.0)``): RESUME_ROUNDS rounds
+                uninterrupted; the same trainer with ``checkpoint_every=2``
+                into ``build/ckpt_<trainer>`` killed after 3 rounds; a
+                fresh one loads the directory (t = 2) and runs 2 more:
+                histories equal, max |Δ| of every parameter 0, membership
+                and FeSEM's host rows equal (else fails); the archive's
+                bytes, ``save_checkpoint`` / ``load_checkpoint`` ms and
+                their share of the median round. 4f-ii: FedAvg with the
+                quarantine, streamed, ``prefetch=2``, round 0 straggling
+                2 s against a 0.3 s deadline (4 chunks), 5 clients killed
+                in round 1, 3 NaN payloads in round 2: fails unless the
+                counts are exactly those, the deadline fired, round 2
+                quarantined, the parameters are finite and the degraded
+                cohort's H2D transfer, read from the run's torch.profiler
+                trace (the bytes of the copy stream's first three
+                host-to-device copies), is its staged rows' bytes, not
+                the slot's; round ms, each cohort's stage ms, rows and
+                tensor bytes; the phase's seconds.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -133,7 +158,8 @@ with no final ``ok`` line):
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
      ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
-     20-group and shift runs and phase 4d's and 4e's FedGroup runs), then
+     20-group and shift runs and phase 4d's, 4e's and 4f's FedGroup
+     runs), then
      the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -177,6 +203,8 @@ POP_ROUNDS, POP_CLIENTS = 20, 100_000   # phase 4e-ii: the reference bench's
 # phase 4e-ii: the prefetch depth of each run; the first is held apart
 # (the process's first prefetching run at this scale reads slower)
 POP_ORDER = (2, 2, 0, 0, 2)
+RESUME_ROUNDS = 4              # phase 4f: 4 rounds, checkpoints every 2
+RESUME_POP = dict(prefetch=2, initial_active=150, arrival_rate=2.0)
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
 SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -s · softplus(randn)
@@ -936,6 +964,7 @@ def reference_check(torch):
     for name in STRATEGIES + ("shift",):
         reference_check_strategy(torch, data, name)
     reference_check_block(torch, data)
+    reference_check_faults(torch, data)
 
 
 def make_block_trainer(model, data, name: str, block_size: int, **kw):
@@ -1221,6 +1250,51 @@ def h2d_overlap(trace_path: Path) -> dict:
             "h2d_overlaps_compute": overlap_us > 0.0}
 
 
+H2D_MARK = 4_099     # bytes of the marker copy that opens a traced window
+
+
+def traced_h2d_bytes(torch, fn, trace_path: Path) -> list:
+    """``fn`` under torch.profiler after one warm-up step: CUPTI is
+    enabled in the warm-up and capture starts at the traced step (a
+    profiler started cold in a process that profiled before missed the
+    first half second of phase 4f's run on the H100). A marker copy of
+    H2D_MARK bytes opens the traced step. Returns, in start order, the
+    bytes of the host-to-device copies after the marker on streams that
+    ran no kernel (the population's copy stream). Raises when the trace
+    lacks the marker or the byte counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    mark = torch.zeros(H2D_MARK, dtype=torch.uint8).pin_memory()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(
+                     str(trace_path))) as prof:
+        mark.to("cuda")
+        torch.cuda.synchronize()
+        prof.step()
+        mark.to("cuda")
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if "ts" in e]
+    compute = {e.get("args", {}).get("stream") for e in events
+               if e.get("cat") == "kernel"}
+    copies = sorted((e for e in events if e.get("cat") == "gpu_memcpy"
+                     and "HtoD" in e.get("name", "")), key=lambda e: e["ts"])
+    if not copies or any("bytes" not in e.get("args", {}) for e in copies):
+        raise AssertionError(f"{trace_path}: host-to-device copies without "
+                             "byte counts")
+    first = next((i for i, e in enumerate(copies)
+                  if e["args"]["bytes"] == H2D_MARK), None)
+    if first is None:
+        raise AssertionError(f"{trace_path}: the marker copy is missing, so "
+                             "the trace began after the traced window did")
+    return [int(e["args"]["bytes"]) for e in copies[first + 1:]
+            if e["args"].get("stream") not in compute]
+
+
 def stream_trainer(model, data, name: str, population=None):
     from repro_torch.core.fedgroup import FedGroupTrainer
     from repro_torch.fed import strategies
@@ -1377,6 +1451,259 @@ def host_rss_bytes() -> int:
     """The process's resident set now (``/proc/self/statm``)."""
     pages = int(Path("/proc/self/statm").read_text().split()[1])
     return pages * resource.getpagesize()
+
+
+def resume_trainer(model, data, name: str, ckpt_dir=None):
+    """Phase 4f's trainers at phase 4's width: FedGroup pinned (EDC), or
+    FeSEM streamed with newcomer arrivals (RESUME_POP)."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed import strategies
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.fed.store import ArrayClientStore
+
+    ck = (dict(checkpoint_every=2, checkpoint_dir=str(ckpt_dir))
+          if ckpt_dir is not None else {})
+    cfg = FedConfig(n_rounds=RESUME_ROUNDS, clients_per_round=20,
+                    local_epochs=2, batch_size=10, lr=0.03, n_groups=5,
+                    pretrain_scale=20, seed=0, **ck)
+    if name == "fedgroup":
+        return FedGroupTrainer(model, data, cfg, device="cuda")
+    pop = Population(ArrayClientStore(data), PopulationConfig(**RESUME_POP))
+    return strategies.make_trainer(name, model, None, cfg, device="cuda",
+                                   population=pop)
+
+
+def resume_run(torch, data, model, name: str) -> dict:
+    """Phase 4f-i: kill-and-resume at full width. RESUME_ROUNDS rounds
+    uninterrupted; the same trainer with ``checkpoint_every=2`` killed
+    after 3 rounds; a fresh one ``load_checkpoint``s the directory (must
+    return 2) and runs 2 more. Fails unless the histories are equal, every
+    parameter and group parameter differs by 0, membership is equal and,
+    for FeSEM, every host ``local_flat`` row is equal. Prints the archive's
+    bytes, ``save_checkpoint`` and ``load_checkpoint`` ms (host clock, the
+    save ending in its fsync, the load in synchronize) and their share of
+    the uninterrupted run's median round (t >= 1)."""
+    import shutil
+
+    ckpt_dir = ROOT / "build" / f"ckpt_{name}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ref = resume_trainer(model, data, name)
+    ref_ms, _, _ = timed_rounds(torch, ref, RESUME_ROUNDS, False)
+    ref.close()
+
+    killed = resume_trainer(model, data, name, ckpt_dir)
+    save_ms = []
+    save = killed.save_checkpoint
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(*a, **kw)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        return path
+
+    killed.save_checkpoint = timed_save
+    killed.run(3)
+    killed.close()
+    del killed
+    archives = sorted(p.name for p in ckpt_dir.iterdir())
+
+    resumed = resume_trainer(model, data, name, ckpt_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = resumed.load_checkpoint(str(ckpt_dir))
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    resumed.run(RESUME_ROUNDS - t)
+    resumed.close()
+
+    dev = 0.0
+    for a, b in ((ref.params, resumed.params),
+                 (ref.group_params, resumed.group_params)):
+        for k in a:
+            dev = max(dev, float((a[k] - b[k]).abs().max()))
+    mem_equal = bool((ref.membership == resumed.membership).all())
+    rows_equal = None
+    if ref.population is not None:
+        ids = np.arange(ref.n_clients)
+        rows_equal = bool(torch.equal(ref.population.gather_local_flat(ids),
+                                      resumed.population.gather_local_flat(
+                                          ids)))
+    hist_equal = resumed.history.rounds == ref.history.rounds
+    median = float(np.median(ref_ms[1:]))
+    archive = ckpt_dir / archives[0]
+    rec = {"phase": "resume", "trainer": name,
+           "streamed": ref.population is not None,
+           "rounds": RESUME_ROUNDS, "killed_after": 3, "resumed_at": t,
+           "archives": archives, "archive_bytes": archive.stat().st_size,
+           "save_ms": save_ms, "load_ms": load_ms,
+           "round_ms": ref_ms, "median_round_ms": median,
+           "save_share_of_round": save_ms[0] / median,
+           "load_share_of_round": load_ms / median,
+           "history_equal": hist_equal, "max_abs_param_dev": dev,
+           "membership_equal": mem_equal, "local_flat_rows_equal": rows_equal,
+           "acc": [r.weighted_acc for r in resumed.history.rounds]}
+    emit(rec)
+    if t != 2 or archives != ["ckpt_00000002.npz"]:
+        raise AssertionError(f"resume {name}: resumed at {t} from "
+                             f"{archives}")
+    if not (hist_equal and dev == 0.0 and mem_equal
+            and rows_equal is not False):
+        raise AssertionError(f"resume {name}: the resumed run differs "
+                             f"from the uninterrupted one: {rec}")
+    return rec
+
+
+def faults_run(torch, data, model) -> dict:
+    """Phase 4f-ii: FedAvg with the quarantine, streamed (``prefetch=2``)
+    under FAULTS_4F with a 0.3 s deadline and 4 chunks, RESUME_ROUNDS
+    rounds. Fails unless 5 clients were killed and 3 corrupted, the
+    deadline fired and dropped clients, round 2 quarantined a client, the
+    parameters are finite, and the degraded cohort's H2D transfer is its
+    staged rows' bytes (fewer than the slot's K rows). The run is traced
+    by torch.profiler (``traced_h2d_bytes``): the transfer is the bytes of
+    the copy stream's first three host-to-device copies (x, y, n of round
+    0's claimed prefix; nothing is copied on that stream before). Prints
+    round ms (under the profiler) and each cohort's stage ms, rows and
+    tensor bytes."""
+    from repro_torch.fed.engine import FedAvgTrainer, FedConfig
+    from repro_torch.fed.population import (FaultConfig, FaultSpec,
+                                            Population, PopulationConfig)
+    from repro_torch.fed.store import ArrayClientStore
+
+    faults = FaultConfig({0: FaultSpec(straggle=2.0), 1: FaultSpec(kill=5),
+                          2: FaultSpec(corrupt=3, corrupt_mode="nan")})
+    pop = Population(ArrayClientStore(data), PopulationConfig(
+        prefetch=2, faults=faults, deadline=0.3, stage_chunks=4))
+    K = 20
+    cfg = FedConfig(n_rounds=RESUME_ROUNDS, clients_per_round=K,
+                    local_epochs=2, batch_size=10, lr=0.03, seed=0,
+                    quarantine=True)
+    tr = FedAvgTrainer(model, None, cfg, device="cuda", population=pop)
+    cohorts = []
+    next_cohort = pop.next_cohort
+
+    def seen_cohort():
+        c = next_cohort()
+        cohorts.append({"t": c.t, "rows": len(c.idx),
+                        "stage_ms": c.stage_ms, "h2d_bytes": sum(
+                            v.numel() * v.element_size()
+                            for v in (c.x, c.y, c.n))})
+        return c
+
+    pop.next_cohort = seen_cohort
+    round_ms = []
+    one_round = tr.round
+
+    def timed_round(*a, **kw):
+        t0 = time.perf_counter()
+        m = one_round(*a, **kw)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    tr.round = timed_round
+    trace = ROOT / "build" / "faults_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    out = []                                # one run: stats reset once
+    copies = traced_h2d_bytes(
+        torch, lambda: out.append(tr.run(RESUME_ROUNDS)), trace)
+    rounds = out[0].rounds
+    tr.close()
+    # a cohort row: x float32, y and n int64
+    row_bytes = (4 * int(np.prod(data.x_train.shape[1:]))
+                 + 8 * data.y_train.shape[1] + 8)
+    deg = cohorts[0]
+    deg["h2d_transfer_bytes"] = sum(copies[:3])
+    finite = all(bool(torch.isfinite(v).all()) for v in tr.params.values())
+    rec = {"phase": "faults", "trainer": "fedavg", "quarantine": True,
+           "prefetch": 2, "deadline_s": 0.3, "stage_chunks": 4,
+           "faults": "0: straggle 2.0 s, 1: kill 5, 2: corrupt 3 nan",
+           "stats": dict(pop.stats), "round_ms_profiled": round_ms,
+           "cohorts": cohorts, "copy_stream_h2d_bytes": copies,
+           "quarantined": [r.quarantined for r in rounds],
+           "degraded_tensor_bytes": deg["h2d_bytes"],
+           "degraded_h2d_transfer_bytes": deg["h2d_transfer_bytes"],
+           "degraded_rows_bytes": deg["rows"] * row_bytes,
+           "slot_bytes": K * row_bytes, "params_finite": finite,
+           "acc": [r.weighted_acc for r in rounds]}
+    emit(rec)
+    st = pop.stats
+    ok = (st["killed_clients"] == 5 and st["corrupted_clients"] == 3
+          and st["deadline_rounds"] >= 1
+          and st["deadline_dropped_clients"] >= 1
+          and rounds[2].quarantined >= 1 and finite
+          and deg["rows"] < K
+          and deg["h2d_transfer_bytes"] == deg["rows"] * row_bytes)
+    if not ok:
+        raise AssertionError(f"faults: a gate failed: {rec}")
+    return rec
+
+
+def fault_tolerance_phase(torch, data, model) -> dict:
+    """Phase 4f: kill-and-resume (FedGroup pinned, FeSEM streamed), then
+    the faulted streamed run; returns the kernels' launch counts of the
+    phase (FedGroup's two cold starts launch ``edc_cosine``)."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for name in ("fedgroup", "fesem"):
+        resume_run(torch, data, model, name)
+        torch.cuda.empty_cache()
+    faults_run(torch, data, model)
+    counts = ops.launch_counts()
+    emit({"phase": "fault_tolerance", "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    if counts["edc_cosine"] < 2:
+        raise AssertionError("phase 4f's FedGroup runs launched no "
+                             "edc_cosine kernel")
+    return counts
+
+
+def reference_check_faults(torch, data):
+    """Phase 3, faults: a tiny FedGroup run with the quarantine, streamed
+    (``prefetch=2``), clients killed in round 1 and NaN payloads in round
+    2, no deadline (it depends on timing), on the CPU and on the card:
+    ``stats`` equal, membership equal, loss and discrepancy within rtol
+    1e-3, accuracy within 0.01, quarantined counts equal."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.fed.population import (FaultConfig, FaultSpec,
+                                            Population, PopulationConfig)
+    from repro_torch.fed.store import ArrayClientStore
+    from repro_torch.models.paper_models import mlp
+
+    cfg = FedConfig(n_rounds=3, clients_per_round=8, local_epochs=2,
+                    batch_size=10, lr=0.05, n_groups=3, pretrain_scale=4,
+                    seed=0, quarantine=True)
+    faults = FaultConfig({1: FaultSpec(kill=3),
+                          2: FaultSpec(corrupt=2, corrupt_mode="nan")})
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        pop = Population(ArrayClientStore(data), PopulationConfig(
+            prefetch=2, faults=faults))
+        tr = FedGroupTrainer(mlp(32, 16, 10), None, cfg, device=dev,
+                             population=pop)
+        runs[dev] = (tr.run(), tr.membership.copy(), dict(pop.stats))
+        tr.close()
+    (hc, mc, sc), (hg, mg, sg) = runs["cpu"], runs["cuda"]
+    ok = bool((mc == mg).all()) and sc == sg
+    for rc, rg in zip(hc.rounds, hg.rounds):
+        ok &= math.isclose(rc.mean_loss, rg.mean_loss, rel_tol=1e-3)
+        ok &= math.isclose(rc.discrepancy, rg.discrepancy, rel_tol=1e-3)
+        ok &= abs(rc.weighted_acc - rg.weighted_acc) <= 0.01
+        ok &= rc.quarantined == rg.quarantined
+    emit({"phase": "reference", "faults": "fedgroup", "ok": ok,
+          "stats": {"cpu": sc, "cuda": sg},
+          "quarantined": [r.quarantined for r in hg.rounds],
+          "cpu": [[r.weighted_acc, r.mean_loss, r.discrepancy]
+                  for r in hc.rounds],
+          "cuda": [[r.weighted_acc, r.mean_loss, r.discrepancy]
+                   for r in hg.rounds]})
+    if not ok:
+        raise AssertionError("faults: card run disagrees with CPU")
 
 
 def population_run(torch, prefetch: int):
@@ -1859,6 +2186,8 @@ def main() -> int:
     if counts_stream["edc_cosine"] < 1:
         raise AssertionError("the population phase launched no edc_cosine "
                              "kernel")
+    # phase 4f: checkpoints with kill-and-resume, faults and the deadline
+    counts_ft = fault_tolerance_phase(torch, data, model)
 
     # phase 5: where the time goes
     breakdown(torch, tr_edc, pre_idx)
@@ -1878,13 +2207,14 @@ def main() -> int:
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
-    # block phase's FedGroup runs and the population phase's FedGroup runs;
+    # block phase's FedGroup runs, the population phase's FedGroup runs
+    # and phase 4f's FedGroup runs;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
-                + counts_stream["edc_cosine"],
+                + counts_stream["edc_cosine"] + counts_ft["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"],

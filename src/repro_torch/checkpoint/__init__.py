@@ -1,9 +1,16 @@
 """Checkpoint archives of the port, in the JAX package's ``.npz`` format
-(``repro.checkpoint``): so far only what ``launch/train.py --out`` needs
-(``save_pytree``, ``load_pytree``, ``load_metadata``)."""
+(``repro.checkpoint``): the archive itself (``save_pytree``,
+``load_pytree``, ``load_metadata``) and the per-round checkpoints of the
+trainers (``checkpoint_path``, ``latest_checkpoint``,
+``prune_checkpoints``, ``saved_array_specs``)."""
 from repro_torch.checkpoint.io import (CheckpointCorruptError,
-                                       CheckpointFormatError, load_metadata,
-                                       load_pytree, save_pytree)
+                                       CheckpointFormatError,
+                                       checkpoint_path, latest_checkpoint,
+                                       load_metadata, load_pytree,
+                                       prune_checkpoints, save_pytree,
+                                       saved_array_specs)
 
 __all__ = ["CheckpointCorruptError", "CheckpointFormatError",
-           "load_metadata", "load_pytree", "save_pytree"]
+           "checkpoint_path", "latest_checkpoint", "load_metadata",
+           "load_pytree", "prune_checkpoints", "save_pytree",
+           "saved_array_specs"]

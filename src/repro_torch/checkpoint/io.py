@@ -9,13 +9,20 @@ metadata, ``__ckpt_format__`` = 4 and ``__crc__``, the ``zlib.crc32`` of
 each array's C-order bytes. ``save_pytree`` is atomic: a temp file in the
 target directory, fsync, then ``os.replace``. ``load_pytree`` checks the
 format version first (3 and 4 are read; a v3 archive has no checksums)
-and each array's checksum. Trainer state and resume are not ported
-(``ROADMAP.md``).
+and each array's checksum. Given a ``template`` it is strict, as the
+reference's: the key set, every shape and every dtype must match.
+
+The trainers' round checkpoints (``fed/engine.py``) are built on these:
+``checkpoint_path`` / ``latest_checkpoint`` name and find the per-round
+``ckpt_<t>.npz`` archives, ``prune_checkpoints`` keeps the newest few, and
+``saved_array_specs`` gives the template of state whose size is known only
+at save time (lazy state-table rows, arrival queues).
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import zipfile
 import zlib
 
@@ -29,6 +36,7 @@ _MIN_READ_VERSION = 3
 _FORMAT_KEY = "__ckpt_format__"
 _CRC_KEY = "__crc__"
 _META_KEY = "__meta__"
+_CKPT_RE = re.compile(r"ckpt_(\d+)\.npz$")
 
 
 class CheckpointFormatError(ValueError):
@@ -53,16 +61,21 @@ def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).tobytes())
 
 
-def _flatten(tree, prefix: str = "") -> dict:
-    """{"a/b": leaf as numpy} in sorted-key order, nested dicts joined."""
+def _flatten_leaves(tree, prefix: str = "") -> dict:
+    """{"a/b": leaf} in sorted-key order, nested dicts joined."""
     if isinstance(tree, dict):
         flat = {}
         for k in sorted(tree):
-            flat.update(_flatten(tree[k], f"{prefix}{k}/"))
+            flat.update(_flatten_leaves(tree[k], f"{prefix}{k}/"))
         return flat
-    if isinstance(tree, torch.Tensor):
-        tree = tree.detach().cpu().numpy()
-    return {prefix[:-1]: np.asarray(tree)}
+    return {prefix[:-1]: tree}
+
+
+def _flatten(tree) -> dict:
+    """{"a/b": leaf as numpy} in sorted-key order, nested dicts joined."""
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+            for k, v in _flatten_leaves(tree).items()}
 
 
 def _load_npz(path: str):
@@ -104,33 +117,82 @@ def save_pytree(path: str, params: dict, metadata: dict | None = None):
             os.remove(tmp)
 
 
-def load_pytree(path: str, device="cuda") -> dict:
-    """The archive's arrays as a nested dict of tensors on ``device`` (the
-    "/"-joined keys split back into levels), each verified against its
-    checksum. ``cuda`` unless the caller asks for the CPU: asking for it
-    without a card raises (``repro_torch.resolve_device``)."""
-    device = resolve_device(device)
+def _read_array(path: str, data, crcs, key: str) -> np.ndarray:
+    """One stored array, verified against its save-time checksum."""
+    try:
+        arr = data[key]
+    except (zipfile.BadZipFile, EOFError, zlib.error) as e:
+        raise CheckpointCorruptError(
+            f"{path}: stored array {key!r} is unreadable ({e})") from e
+    stored = None if crcs is None else crcs.get(key)
+    if stored is not None and _crc(arr) != int(stored):
+        raise CheckpointCorruptError(
+            f"{path}: stored array {key!r} failed its CRC32 check")
+    return arr
+
+
+def _unflatten_into(template, prefix: str, flat: dict):
+    if isinstance(template, dict):
+        return {k: _unflatten_into(v, f"{prefix}{k}/", flat)
+                for k, v in template.items()}
+    return flat[prefix[:-1]]
+
+
+def load_pytree(path: str, template: dict | None = None, device="cuda"):
+    """The archive's arrays, each verified against its checksum.
+
+    Without ``template``: a nested dict of tensors on ``device`` (the
+    "/"-joined keys split back into levels); ``cuda`` unless the caller
+    asks for the CPU, and asking for it without a card raises
+    (``repro_torch.resolve_device``).
+
+    With ``template`` (a nested dict of tensors and numpy arrays): strict.
+    The archive's keys must be the template's flattened keys exactly, and
+    each array's shape and dtype its leaf's, else ``ValueError``. A numpy
+    leaf comes back as host numpy; a tensor leaf lands on that tensor's
+    device (``device`` is not used)."""
     data = _load_npz(path)
     crcs = _read_meta(path, data).get(_CRC_KEY)
-    tree: dict = {}
-    for key in data.files:
-        if key == _META_KEY:
-            continue
-        try:
-            arr = data[key]
-        except (zipfile.BadZipFile, EOFError, zlib.error) as e:
-            raise CheckpointCorruptError(
-                f"{path}: stored array {key!r} is unreadable ({e})") from e
-        stored = None if crcs is None else crcs.get(key)
-        if stored is not None and _crc(arr) != int(stored):
-            raise CheckpointCorruptError(
-                f"{path}: stored array {key!r} failed its CRC32 check")
-        *parents, leaf = key.split("/")
-        node = tree
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = torch.as_tensor(arr).to(device)
-    return tree
+    file_keys = set(data.files) - {_META_KEY}
+    if template is None:
+        device = resolve_device(device)
+        tree: dict = {}
+        for key in data.files:
+            if key == _META_KEY:
+                continue
+            arr = _read_array(path, data, crcs, key)
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = torch.as_tensor(arr).to(device)
+        return tree
+    leaves = _flatten_leaves(template)
+    missing = sorted(set(leaves) - file_keys)
+    extra = sorted(file_keys - set(leaves))
+    if missing or extra:
+        raise ValueError(
+            f"checkpoint {path} does not match the template: missing keys "
+            f"{missing or 'none'}, extra keys {extra or 'none'}")
+    flat = {}
+    for key, tmpl in leaves.items():
+        arr = _read_array(path, data, crcs, key)
+        shape = tuple(tmpl.shape)
+        if arr.shape != shape:
+            raise ValueError(f"shape mismatch at {key}: {arr.shape} vs "
+                             f"{shape}")
+        if isinstance(tmpl, torch.Tensor):
+            got = torch.as_tensor(arr)
+            if got.dtype != tmpl.dtype:
+                raise ValueError(f"dtype mismatch at {key}: {arr.dtype} vs "
+                                 f"{tmpl.dtype}")
+            flat[key] = got.to(tmpl.device)
+        else:
+            if arr.dtype != np.asarray(tmpl).dtype:
+                raise ValueError(f"dtype mismatch at {key}: {arr.dtype} vs "
+                                 f"{np.asarray(tmpl).dtype}")
+            flat[key] = np.array(arr)
+    return _unflatten_into(template, "", flat)
 
 
 def load_metadata(path: str) -> dict:
@@ -140,3 +202,52 @@ def load_metadata(path: str) -> dict:
     meta.pop(_FORMAT_KEY, None)
     meta.pop(_CRC_KEY, None)
     return meta
+
+
+def saved_array_specs(path: str) -> dict:
+    """``{key: (shape, dtype)}`` of every stored array: the template of
+    state whose size is only known at save time."""
+    data = _load_npz(path)
+    return {k: (data[k].shape, data[k].dtype)
+            for k in data.files if k != _META_KEY}
+
+
+def checkpoint_path(directory: str, t: int) -> str:
+    """The round-``t`` checkpoint's name in ``directory``."""
+    return os.path.join(directory, f"ckpt_{t:08d}.npz")
+
+
+def prune_checkpoints(directory: str, keep: int) -> list:
+    """Delete all but the newest ``keep`` ``ckpt_<t>.npz`` archives of
+    ``directory`` (by round number) and return the removed paths. Run after
+    a successful atomic write, so the newest archive always survives;
+    other files are left alone, and ``keep <= 0`` keeps everything."""
+    if keep <= 0:
+        return []
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    found = sorted((int(m.group(1)), name) for name in names
+                   if (m := _CKPT_RE.fullmatch(name)))
+    removed = []
+    for _, name in found[:-keep]:
+        path = os.path.join(directory, name)
+        try:
+            os.remove(path)
+            removed.append(path)
+        except OSError:
+            pass                # already gone: nothing to keep
+    return removed
+
+
+def latest_checkpoint(directory: str) -> str | None:
+    """The highest-round ``ckpt_*.npz`` of ``directory``; None for a
+    missing directory or one without checkpoints."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return None
+    found = [(int(m.group(1)), name) for name in names
+             if (m := _CKPT_RE.fullmatch(name))]
+    return os.path.join(directory, max(found)[1]) if found else None

@@ -25,7 +25,12 @@ is re-routed by eq. 9 against the groups' update directions (a migration).
 Round blocks (``block_size > 1``) break on host events: the Alg. 3 cold
 start before the first round, a cohort with cold newcomers (eq. 9), and
 every round while the shift detector is on, which pins the trainer to the
-per-round path. The checkpoint hooks are not yet ported (``ROADMAP.md``).
+per-round path.
+
+A checkpoint adds the groups' update directions (``group_delta``, zeros
+before the cold start), the cold-start flags and the shift detector's
+clock, and the pinned direction cache as ``state/fg_dir_*``: a resumed
+trainer does not run Alg. 3 again.
 
 With a streamed population (``population=``) the Alg. 3 founders are
 drawn from the scheduler's active clients only, the newcomers its arrival
@@ -274,6 +279,51 @@ class FedGroupTrainer(GroupedTrainer):
     def _carry_refs(self, carry: dict):
         super()._carry_refs(carry)
         self.group_delta = carry["group_delta"]
+
+    # ------------------------------------------------------------------
+    # Checkpoint: + eq.-9 update directions, cold-start flags, the pinned
+    # direction cache
+    # ------------------------------------------------------------------
+    def _ckpt_model_tree(self) -> dict:
+        tree = super()._ckpt_model_tree()
+        # zeros before the cold start keep the archive's keys fixed;
+        # "has_group_delta" in the metadata says which it was
+        tree["group_delta"] = self.group_delta \
+            if self.group_delta is not None \
+            else torch.zeros((self.m, self.model_size), device=self.device)
+        return tree
+
+    def _ckpt_load_model(self, tree: dict):
+        super()._ckpt_load_model(tree)
+        self.group_delta = tree["group_delta"]
+
+    def _ckpt_meta_extra(self) -> dict:
+        return {"cold_started": bool(self.cold_started),
+                "last_cold": int(self.last_cold),
+                "has_group_delta": self.group_delta is not None,
+                "shift_tick": int(self._shift_tick)}
+
+    def _ckpt_apply_extra(self, extra: dict):
+        self.cold_started = bool(extra["cold_started"])
+        self.last_cold = int(extra["last_cold"])
+        if not extra["has_group_delta"]:
+            self.group_delta = None
+        self._shift_tick = int(extra.get("shift_tick", 0))
+
+    def _ckpt_state_arrays(self) -> dict:
+        # the population's rows checkpoint through its state table
+        out = super()._ckpt_state_arrays()
+        if self._pin_dirs is not None:
+            for k, v in self._pin_dirs.ckpt_arrays().items():
+                out[f"fg_dir_{k}"] = v
+        return out
+
+    def _ckpt_apply_state(self, arrays: dict):
+        super()._ckpt_apply_state(arrays)
+        if "fg_dir_ids" in arrays:
+            self._pin_dirs = _LazyRows.from_ckpt(
+                {k: arrays[f"fg_dir_{k}"] for k in ("ids", "rows", "default")},
+                device=self.device)
 
     # ------------------------------------------------------------------
     # Round (Algorithm 2) — one fused call over all groups

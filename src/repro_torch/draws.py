@@ -11,9 +11,17 @@ the same numbers.
 ``TorchDraws`` is the default: one CPU ``torch.Generator``, so a seed gives
 the same draws whichever device the trainer runs on (the draws are small
 and copied to the device).
+
+A draws object's state is one numpy array (``get_state`` / ``set_state``),
+which a trainer checkpoint stores under the name the reference gives its
+PRNG key, ``model/key``. ``TorchDraws``'s is the generator's state: the
+port's own random stream, which the JAX package's strict load refuses (its
+key is ``uint32[2]``). An object that replays the reference's draws gives
+the key itself, and its archives load into the JAX trainers.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.cluster import pp_seed_indices
@@ -23,6 +31,13 @@ from repro_torch.fed.client import draw_batch_indices
 class TorchDraws:
     def __init__(self, seed: int = 0):
         self.generator = torch.Generator().manual_seed(int(seed))
+
+    def get_state(self) -> np.ndarray:
+        """The generator's state (uint8 bytes) as numpy."""
+        return self.generator.get_state().numpy().copy()
+
+    def set_state(self, state: np.ndarray):
+        self.generator.set_state(torch.as_tensor(np.asarray(state, np.uint8)))
 
     def batch_indices(self, n: torch.Tensor, max_steps: int,
                       batch_size: int) -> torch.Tensor:

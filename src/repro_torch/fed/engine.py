@@ -22,18 +22,31 @@ replays of one captured CUDA graph on the card (``fed.graphs``) — with one
 device fetch per block. A round that needs host work first (FedGroup's
 group cold start, cold newcomers in a cohort, an enabled shift detector)
 breaks back to the per-round path; a cohort already drawn for it is
-carried over as ``pending``, so every random stream matches a per-round
-run. A streamed population always runs per round
-(``Population.block_stageable`` is False).
+given back by rewinding ``select_rng``, so every random stream matches a
+per-round run and a checkpoint at the block's end. (The reference carries
+that cohort over as ``pending`` instead, and its checkpoint at such a
+block's end holds ``select_rng`` one draw past the round.) A streamed
+population always runs per round (``Population.block_stageable`` is
+False).
+
+Checkpoints: with ``checkpoint_every`` / ``checkpoint_dir`` an atomic
+``ckpt_<t>.npz`` lands each time a multiple of ``checkpoint_every``
+completed rounds is crossed (a block that crosses one checkpoints at its
+end), in the reference's archive layout (``save_checkpoint``). A fresh
+same-config trainer resumes from it bit for bit (``load_checkpoint``): the
+model and group state, the draws object's state (``model/key``), both
+numpy streams, the history, the counters and, when streaming, the
+population's scheduler stream, state table and ``stats``.
 
 Not yet ported, and refused with ``NotImplementedError`` (``ROADMAP.md``):
-the async runtime (``async_depth > 0``), checkpoints, a device mesh and
-telemetry (``telemetry_dir``).
+the async runtime (``async_depth > 0``), a device mesh and telemetry
+(``telemetry_dir``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from collections import Counter
 from dataclasses import dataclass, field
 
@@ -41,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.data.federated import FederatedData
 from repro_torch.draws import TorchDraws
 from repro_torch.fed import client as client_lib
@@ -82,7 +96,10 @@ class FedConfig:
     quarantine: bool = False
     quarantine_mult: float = 10.0        # outlier threshold: mult x median
                                          # cohort update norm
-    # checkpoint/restore (not yet ported: non-default values raise)
+    # checkpoint/restore: every `checkpoint_every` completed rounds write an
+    # atomic ckpt_<t>.npz into `checkpoint_dir` (0 / None = off), keeping
+    # the newest `checkpoint_keep` (0 = all); a fresh same-config trainer
+    # resumes bit for bit via load_checkpoint()
     checkpoint_every: int = 0
     checkpoint_dir: str | None = None
     checkpoint_keep: int = 0
@@ -116,8 +133,6 @@ def _not_ported(what: str):
 def _check_ported(cfg: FedConfig, mesh):
     if cfg.async_depth > 0:
         _not_ported("the async runtime (async_depth > 0)")
-    if cfg.checkpoint_every or cfg.checkpoint_dir:
-        _not_ported("checkpointing")
     if mesh is not None:
         _not_ported("a device mesh")
     if cfg.telemetry_dir:
@@ -166,7 +181,7 @@ class FedAvgTrainer:
     ``init_params`` replaces ``model.init`` (parity tests carry the JAX
     package's params over); ``draws`` replaces the default
     ``TorchDraws(cfg.seed)``. ``counters`` counts the reference's registry
-    events (cold starts, migrations, completed rounds).
+    events (cold starts, migrations, completed rounds, checkpoints).
 
     ``population=`` (a ``fed.population.Population``) streams the cohorts
     from a host store instead; ``data`` may then be None. The population
@@ -208,6 +223,7 @@ class FedAvgTrainer:
         self.counters = Counter()
         self.model_size = param_count(self.params)
         self.comm_params = 0        # cumulative parameters transferred
+        self._resumed = False       # load_checkpoint ran; run() keeps stats
         self._round_exec = None     # lazily-built fused round
         self._block_exec = None     # lazily-built round-block executor
         self._grouped_eval = client_lib.grouped_eval_correct(model)
@@ -299,19 +315,21 @@ class FedAvgTrainer:
 
     def _stage_block(self, t0: int, max_b: int):
         """Stage up to ``max_b`` upcoming rounds. Stops at the first round
-        that needs the host; a cohort already drawn for that round is
-        returned as ``pending`` so the per-round path consumes it without
-        drawing again."""
-        staged, pending = [], None
+        that needs the host; the cohort drawn for that round is given back
+        (``select_rng`` rewound to before the draw), so a checkpoint at the
+        block's end holds the stream of the round it labels and the
+        per-round path draws the same cohort again."""
+        staged = []
         for b in range(max_b):
             if self._host_round_pre():
                 break
+            before = self.select_rng.bit_generator.state
             idx = self._select()
             if self._needs_host(idx):
-                pending = idx
+                self.select_rng.bit_generator.state = before
                 break
             staged.append(self._stage_round(t0 + b, idx))
-        return staged, pending
+        return staged
 
     # carry construction / teardown — overridden down the trainer hierarchy
     def _membership_host(self):
@@ -489,32 +507,175 @@ class FedAvgTrainer:
         """Runs ``n_rounds`` MORE rounds, labelled from the current history
         length. With ``block_size > 1`` upcoming rounds are staged on the
         host and run as one block; a round that needs the host breaks back
-        to the per-round path (its cohort, if already drawn, is carried
-        over as ``pending``), as does a lone last round; so does every
-        round of a streamed population."""
+        to the per-round path (its cohort, if already drawn, is drawn
+        again there), as does a lone last round; so does every
+        round of a streamed population.
+
+        A fresh run zeroes the population's ``stats``; the first run after
+        ``load_checkpoint`` keeps the restored totals. With checkpointing
+        on, a checkpoint lands each time a multiple of
+        ``checkpoint_every`` completed rounds is crossed."""
+        if self.population is not None:
+            if self._resumed:
+                self._resumed = False
+            else:
+                self.population.reset_stats()
         t = len(self.history.rounds)
         total = t + (n_rounds or self.cfg.n_rounds)
         blocks = self.cfg.block_size > 1 and (
             self.population is None or self.population.block_stageable)
-        pending = None
         while t < total:
-            if pending is not None:
-                self.round(t, idx=pending)
-                pending = None
-                t += 1
-            elif not blocks or total - t < 2:
+            prev = t
+            staged = (self._stage_block(t, min(self.cfg.block_size,
+                                               total - t))
+                      if blocks and total - t >= 2 else [])
+            if staged:
+                self._run_block(t, staged)
+                t += len(staged)
+            else:
                 self.round(t)
                 t += 1
-            else:
-                staged, pending = self._stage_block(
-                    t, min(self.cfg.block_size, total - t))
-                if staged:
-                    self._run_block(t, staged)
-                    t += len(staged)
-                elif pending is None:
-                    self.round(t)
-                    t += 1
+            self._maybe_checkpoint(prev, t)
         return self.history
+
+    # -- checkpoint / restore ----------------------------------------------
+    def _maybe_checkpoint(self, prev_t: int, t: int):
+        e = self.cfg.checkpoint_every
+        if e > 0 and self.cfg.checkpoint_dir and t // e > prev_t // e:
+            self.save_checkpoint()
+
+    def _ckpt_model_tree(self) -> dict:
+        """The model state a checkpoint holds; also the strict load's
+        template (a fresh same-config trainer has the same shapes)."""
+        return {"params": self.params, "key": self.draws.get_state()}
+
+    def _ckpt_load_model(self, tree: dict):
+        self.params = tree["params"]
+        self.draws.set_state(tree["key"])
+
+    def _ckpt_meta_extra(self) -> dict:
+        """Framework scalars for the metadata (FedGroup: cold-start
+        flags)."""
+        return {}
+
+    def _ckpt_apply_extra(self, extra: dict):
+        pass
+
+    def _ckpt_state_arrays(self) -> dict:
+        """Framework host arrays of save-time shape for the ``state``
+        sub-tree, beside the population's (FedGroup: the pinned direction
+        cache); the load template comes from the archive."""
+        return {}
+
+    def _ckpt_apply_state(self, arrays: dict):
+        pass
+
+    def save_checkpoint(self, path: str | None = None) -> str:
+        """Atomically write the state after ``len(history.rounds)``
+        completed rounds to ``path`` (default: ``checkpoint_dir``'s
+        ``ckpt_<t>.npz``), in the reference's layout: ``model/*`` (params,
+        ``key`` = the draws' state, group state), ``state/*`` (the
+        population's scheduler arrays and table rows, framework arrays) and
+        the metadata (both numpy streams, history, comm accounting,
+        ``extra``, ``obs`` = the counters under the reference's registry
+        names, ``population``). Then prunes to ``checkpoint_keep``."""
+        t = len(self.history.rounds)
+        if path is None:
+            if not self.cfg.checkpoint_dir:
+                raise ValueError("pass a path or set FedConfig"
+                                 ".checkpoint_dir")
+            path = ckpt_io.checkpoint_path(self.cfg.checkpoint_dir, t)
+        # counted before the snapshot, so a resumed run's total matches an
+        # uninterrupted run's
+        self.counters["rounds.checkpoints"] += 1
+        state, pop_meta = {}, None
+        obs = {k: int(v) for k, v in self.counters.items()}
+        if self.population is not None:
+            # drains the writer and syncs writer_retries into stats first
+            state, pop_meta = self.population.ckpt_state()
+            obs.update({f"pop.{k}": int(v)
+                        for k, v in self.population.stats.items()})
+        state = dict(state, **self._ckpt_state_arrays())
+        meta = {"framework": self.framework, "t": t,
+                "n_clients": int(self.n_clients),
+                "rng": self.rng.bit_generator.state,
+                "select_rng": self.select_rng.bit_generator.state,
+                "comm_params": int(self.comm_params),
+                "history": [[r.round, r.weighted_acc, r.mean_loss,
+                             r.discrepancy, r.quarantined]
+                            for r in self.history.rounds],
+                "extra": self._ckpt_meta_extra(),
+                "group_version": None,      # the async runtime's clocks
+                "obs": obs,
+                "fleet": None,              # a coordinator's snapshot
+                "population": pop_meta}
+        ckpt_io.save_pytree(path, {"model": self._ckpt_model_tree(),
+                                   "state": state}, meta)
+        if self.cfg.checkpoint_keep > 0 and self.cfg.checkpoint_dir:
+            # after the atomic write: the newest archive always survives
+            ckpt_io.prune_checkpoints(self.cfg.checkpoint_dir,
+                                      self.cfg.checkpoint_keep)
+        return path
+
+    def load_checkpoint(self, path_or_dir: str) -> int:
+        """Restore a ``save_checkpoint`` archive (a file, or a directory's
+        latest ``ckpt_*.npz``) into this fresh trainer of the same config
+        and population construction; returns the completed-round count,
+        after which ``run(n)`` continues as the uninterrupted run would.
+        Refuses another framework, another client count, a trainer that
+        has trained, and a pinned archive in a streamed trainer or the
+        reverse. The tensors land on this trainer's device."""
+        path = path_or_dir
+        if os.path.isdir(path):
+            path = ckpt_io.latest_checkpoint(path)
+            if path is None:
+                raise FileNotFoundError(
+                    f"no ckpt_*.npz checkpoints in {path_or_dir}")
+        if self.history.rounds:
+            raise RuntimeError("load_checkpoint needs a fresh trainer — "
+                               "this one has already trained")
+        meta = ckpt_io.load_metadata(path)
+        if meta["framework"] != self.framework:
+            raise ValueError(
+                f"checkpoint was written by framework "
+                f"{meta['framework']!r}, this trainer is {self.framework!r}")
+        if int(meta["n_clients"]) != self.n_clients:
+            raise ValueError(
+                f"checkpoint population has {meta['n_clients']} clients, "
+                f"this trainer has {self.n_clients}")
+        if meta["population"] is not None and self.population is None:
+            raise ValueError("checkpoint came from a streamed-population "
+                             "run — construct the trainer with the same "
+                             "population")
+        if meta["population"] is None and self.population is not None:
+            raise ValueError("checkpoint came from a pinned run — "
+                             "construct the trainer without population")
+        # the model template is this fresh trainer's state; the state
+        # sub-tree's sizes are known only at save time
+        state_tmpl = {
+            k[len("state/"):]: np.zeros(shape, dtype)
+            for k, (shape, dtype) in ckpt_io.saved_array_specs(path).items()
+            if k.startswith("state/")}
+        tree = ckpt_io.load_pytree(
+            path, {"model": self._ckpt_model_tree(), "state": state_tmpl})
+        self._ckpt_load_model(tree["model"])
+        self._ckpt_apply_extra(meta.get("extra") or {})
+        self.rng.bit_generator.state = meta["rng"]
+        self.select_rng.bit_generator.state = meta["select_rng"]
+        self.comm_params = int(meta["comm_params"])
+        self.history = History([RoundMetrics(int(r[0]), float(r[1]),
+                                             float(r[2]), float(r[3]),
+                                             int(r[4]))
+                                for r in meta["history"]])
+        if self.population is not None:
+            self.population.ckpt_restore(tree["state"], meta["population"])
+        self._ckpt_apply_state(tree["state"])
+        # the registry's counters; pop.* came back with the population
+        self.counters = Counter({k: v for k, v in (meta.get("obs") or {})
+                                 .items() if isinstance(v, int)
+                                 and not k.startswith("pop.")})
+        self._resumed = True
+        return int(meta["t"])
 
     def close(self):
         """Stop the population's prefetch thread and state writer (a no-op
@@ -611,3 +772,16 @@ class GroupedTrainer(FedAvgTrainer):
     def _carry_out(self, carry: dict, membership: np.ndarray):
         self._carry_refs(carry)
         self.membership[:] = membership
+
+    # -- checkpoint: m-stacked groups + membership -------------------------
+    def _ckpt_model_tree(self) -> dict:
+        tree = super()._ckpt_model_tree()
+        tree["group_params"] = self.group_params
+        tree["membership"] = np.asarray(self.membership)
+        return tree
+
+    def _ckpt_load_model(self, tree: dict):
+        super()._ckpt_load_model(tree)
+        self.group_params = tree["group_params"]
+        # in place: a population's state table shares this array
+        self.membership[:] = tree["membership"]

@@ -19,6 +19,10 @@ population's state table (lazy CPU rows, default centre 0): each round
 gathers the cohort's rows (draining the state writer first), copies them
 to the device and runs the same fused round on the (K, d_w) rows with
 cohort-local ids; the updated rows go back through the writer thread.
+
+A pinned checkpoint holds the (N, d_w) matrix as ``model/local_flat``; a
+streamed one holds the touched host rows through the population's state
+table.
 """
 from __future__ import annotations
 
@@ -104,6 +108,20 @@ class FeSEMTrainer(GroupedTrainer):
         super()._carry_refs(carry)
         self._local_flat_rows = carry["aux"]
         self.local_flat = carry["aux"][:-1]
+
+    # -- checkpoint: + the pinned (N, d_w) local-model matrix ----------------
+    def _ckpt_model_tree(self) -> dict:
+        tree = super()._ckpt_model_tree()
+        if self.local_flat is not None:
+            tree["local_flat"] = self.local_flat
+        return tree
+
+    def _ckpt_load_model(self, tree: dict):
+        super()._ckpt_load_model(tree)
+        if "local_flat" in tree:
+            # into the buffer that also holds the blocks' trash row
+            self._local_flat_rows[:-1].copy_(tree["local_flat"])
+            self.local_flat = self._local_flat_rows[:-1]
 
     def round(self, t: int, idx=None) -> RoundMetrics:
         if idx is None:

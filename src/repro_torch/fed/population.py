@@ -21,7 +21,8 @@ init; this module is the large-N replacement. A ``Population`` bundles
     before anything reads the cohort, and a slot is refilled only after
     its last copy's event completed. Eval blocks (``eval_batches``) and
     ad-hoc gathers (``device_batch``) go through the same staging. On the
-    CPU there is no copy: the gathered arrays become tensors directly.
+    CPU a fresh host block takes the slot's place and the cohort's tensors
+    view it: there is no copy.
 
 Either way x is float32 and y and n are int64, the dtypes of the pinned
 stacks, so the fused round sees the same inputs on both paths: a streamed
@@ -42,11 +43,19 @@ before the copy:
 >>> apply_shift(sh, 4, 3, 2, np.array([0]), y).tolist()   # 0<->2 swapped
 [[2, 1, 0]]
 
-Not yet ported (``ROADMAP.md``): fault injection, the straggler deadline
-and the writer's retries and crash hook (item 11b: ``PopulationConfig
-.faults`` / ``.deadline`` raise ``NotImplementedError``), the population's
-checkpoint state (item 12), its spans and ``pop.*`` metrics (item 14:
-``Population.stats`` holds the counters' names, all zero) and the
+It is also the runtime's failure domain. A ``FaultConfig`` scripts
+per-round faults (``FaultSpec``: clients killed mid-round, a straggling
+gather, poisoned payloads, a killed state writer) against the production
+paths; ``PopulationConfig.deadline`` bounds how long ``next_cohort()``
+waits for the cohort before it degrades to the staged prefix (the gather
+runs in ``stage_chunks`` pieces into the rows of the round's slot, so that
+a prefix exists; a degraded cohort copies only its staged rows); a state write that fails is retried with
+backoff. ``Population.stats`` counts what happened. ``ckpt_state()`` /
+``ckpt_restore()`` capture the scheduler stream as of the last consumed
+round and the state table, for the trainers' bit-identical resume.
+
+Not yet ported (``ROADMAP.md``): the population's spans and ``pop.*``
+registry (item 14: ``stats`` is a plain dict of the same counters) and the
 per-shard gather over a mesh (item 16).
 """
 from __future__ import annotations
@@ -64,40 +73,60 @@ from repro_torch import resolve_device
 from repro_torch.fed.store import (SELECT_STREAM, ClientStateTable,
                                    ClientStore, _host_rows)
 
-# the reference's population degradation counters; none is fed until fault
-# injection and the deadline are ported (ROADMAP.md item 11b)
+# the reference's population degradation counters (``Population.stats``):
+# fault injection, the deadline and the state writer feed the first six;
+# the async runtime's lease counters stay zero until it is ported (item 13)
 _STATS_ZERO = {"deadline_rounds": 0, "deadline_dropped_clients": 0,
                "killed_clients": 0, "corrupted_clients": 0,
                "writer_crashes": 0, "writer_retries": 0,
                "lease_expiries": 0, "requeues": 0}
 
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not yet ported to repro_torch (see ROADMAP.md, item "
-        "11b: fault injection and the straggler deadline); use the JAX "
-        "package repro for it")
+# fault-injection sentinel: the writer thread returns without finishing
+# its pending write, the observable state of a thread killed mid-write
+_CRASH = object()
 
 
 class _AsyncStateWriter:
     """One background thread applying host state-table writes in FIFO
     order. ``drain()`` blocks until every submitted write has landed, and
     readers call it before any gather, so the asynchrony never reorders a
-    read past a write. A write that raises is recorded and raised by the
-    next ``drain()``. Waits are bounded: a drain that outlives ``timeout``,
-    or finds the worker dead with writes pending, raises instead of
-    hanging."""
+    read past a write.
 
-    def __init__(self, timeout: float = 60.0, max_retries: int = 0):
-        if max_retries:
-            _not_ported("the state writer's retries (max_retries)")
+    A write that raises is retried up to ``max_retries`` times, sleeping
+    ``backoff * 2**attempt`` seconds (at most ``backoff_cap``) between
+    attempts; ``retries`` counts the failed attempts that later succeeded
+    (``Population.stats["writer_retries"]``). A write that still fails is
+    recorded and raised by the next ``drain()``. Waits are bounded: a
+    drain that outlives ``timeout``, or finds the worker dead with writes
+    pending, raises instead of hanging."""
+
+    def __init__(self, timeout: float = 60.0, max_retries: int = 3,
+                 backoff: float = 0.02, backoff_cap: float = 1.0):
         self.timeout = timeout
+        self.max_retries = int(max_retries)
+        self.backoff = float(backoff)
+        self.backoff_cap = float(backoff_cap)
+        self.retries = 0
         self._q = queue.Queue()
         self._thread = None
         self._err = None
         self._cond = threading.Condition()
         self._pending = 0
         self._label = None              # description of the write in flight
+
+    def _attempt(self, fn, args):
+        for attempt in range(self.max_retries + 1):
+            try:
+                fn(*args)
+            except Exception as e:      # noqa: BLE001 — raised by drain()
+                if attempt == self.max_retries:
+                    self._err = e
+                    return
+                time.sleep(min(self.backoff * 2.0 ** attempt,
+                               self.backoff_cap))
+            else:
+                self.retries += attempt
+                return
 
     def _run(self):
         while True:
@@ -107,23 +136,27 @@ class _AsyncStateWriter:
             fn, args, label = item
             with self._cond:
                 self._label = label
-            try:
-                fn(*args)
-            except Exception as e:      # noqa: BLE001 — raised by drain()
-                self._err = e
+            if fn is _CRASH:
+                return                  # injected: die, the write pending
+            self._attempt(fn, args)
             with self._cond:
                 self._pending -= 1
                 self._label = None
                 self._cond.notify_all()
 
-    def submit(self, fn, *args, label: str | None = None):
+    def _enqueue(self, fn, args, label: str):
         with self._cond:
             self._pending += 1
         if self._thread is None:
             self._thread = threading.Thread(
                 target=self._run, name="state-table-writer", daemon=True)
             self._thread.start()
-        self._q.put((fn, args, label or getattr(fn, "__name__", "write")))
+        # a dead thread is not restarted: its pending count stays up and
+        # the next drain() reports the crash
+        self._q.put((fn, args, label))
+
+    def submit(self, fn, *args, label: str | None = None):
+        self._enqueue(fn, args, label or getattr(fn, "__name__", "write"))
 
     def drain(self, timeout: float | None = None):
         """Block until every submitted write has landed, at most
@@ -136,7 +169,8 @@ class _AsyncStateWriter:
                 if self._thread is not None and not self._thread.is_alive():
                     raise RuntimeError(
                         f"state-table writer thread died with "
-                        f"{self._pending} write(s) pending")
+                        f"{self._pending} write(s) pending (in flight: "
+                        f"{self._label or 'queued, never started'})")
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     raise RuntimeError(
@@ -157,21 +191,24 @@ class _AsyncStateWriter:
             self._thread = None
 
     def inject_thread_crash(self):
-        _not_ported("the state writer's crash hook")
+        """Fault injection: the worker exits without finishing a pending
+        write, as a writer thread killed mid-write; the next ``drain()`` or
+        ``close()`` raises instead of hanging."""
+        self._enqueue(_CRASH, (), "<injected writer-thread crash>")
 
 
-class _PinnedSlot:
-    """Page-locked host buffers for up to ``rows`` clients of ``max_n``
-    samples (x float32, y and n int64) and the event recorded after the
-    last copy out of them."""
+class _HostSlot:
+    """Host buffers for up to ``rows`` clients of ``max_n`` samples (x
+    float32, y and n int64), page-locked on the card's path, and the event
+    recorded after the last copy out of them (None on the CPU)."""
 
-    def __init__(self, rows: int, max_n: int, feat: tuple):
+    def __init__(self, rows: int, max_n: int, feat: tuple, pin: bool = True):
         self.rows = rows
         self.x = torch.empty((rows, max_n) + feat, dtype=torch.float32,
-                             pin_memory=True)
+                             pin_memory=pin)
         self.y = torch.empty((rows, max_n), dtype=torch.int64,
-                             pin_memory=True)
-        self.n = torch.empty((rows,), dtype=torch.int64, pin_memory=True)
+                             pin_memory=pin)
+        self.n = torch.empty((rows,), dtype=torch.int64, pin_memory=pin)
         self.event = None
 
 
@@ -187,7 +224,7 @@ class _SlotRing:
 
     def fill(self):
         """Allocate every slot now (so a failure to pin raises here)."""
-        self.slots = [_PinnedSlot(self.rows, self.max_n, self.feat)
+        self.slots = [_HostSlot(self.rows, self.max_n, self.feat)
                       for _ in self.slots]
 
     def take(self, rows: int) -> _PinnedSlot:
@@ -197,9 +234,64 @@ class _SlotRing:
         if slot is not None and slot.event is not None:
             slot.event.synchronize()
         if slot is None or slot.rows < rows:
-            slot = self.slots[i] = _PinnedSlot(max(rows, self.rows),
+            slot = self.slots[i] = _HostSlot(max(rows, self.rows),
                                                self.max_n, self.feat)
         return slot
+
+
+@dataclass
+class FaultSpec:
+    """What goes wrong in one round (all effects compose).
+
+    kill            clients that die mid-round after selection: the tail of
+                    the cohort drops (forced newcomers stage first and
+                    survive), floored at 1 survivor; the round proceeds
+                    with the rest, re-weighted by the segment sum.
+    straggle        extra staging wall-clock (seconds) for this round's
+                    cohort, spread over the gather chunks: what
+                    ``PopulationConfig.deadline`` degrades against.
+    corrupt         clients whose payload arrives poisoned: ``corrupt``
+                    seeded cohort lanes have their train features
+                    overwritten per ``corrupt_mode`` on the host, before
+                    the copy, so the quarantine screen has NaN / Inf /
+                    blown-up updates to catch.
+    corrupt_mode    "nan" | "inf" | "scale" (features times
+                    ``corrupt_scale``: finite, norm-outlier updates).
+    writer_crash    kill the state writer thread mid-write this round (the
+                    next drain raises, ``_AsyncStateWriter
+                    .inject_thread_crash``).
+
+    The ``worker_kill`` / ``heartbeat_delay`` / ``msg_*`` fields are the
+    reference's fleet faults, read by its coordinator; the port has no
+    coordinator, so ``Population`` refuses a script that sets one."""
+    kill: int = 0
+    straggle: float = 0.0
+    corrupt: int = 0
+    corrupt_mode: str = "nan"
+    corrupt_scale: float = 64.0
+    writer_crash: bool = False
+    worker_kill: bool = False
+    heartbeat_delay: float = 0.0
+    msg_drop: bool = False
+    msg_dup: bool = False
+    msg_reorder: bool = False
+
+
+# FaultSpec's fleet faults: only the reference's coordinator reads them
+_FLEET_FAULTS = ("worker_kill", "heartbeat_delay", "msg_drop", "msg_dup",
+                 "msg_reorder")
+
+
+@dataclass
+class FaultConfig:
+    """Scripted per-round faults (``PopulationConfig.faults``): ``rounds``
+    maps round t to the ``FaultSpec`` injected that round; ``seed`` drives
+    the choice of corrupted lanes, so a scenario replays identically."""
+    rounds: dict
+    seed: int = 0
+
+    def spec(self, t: int) -> FaultSpec | None:
+        return self.rounds.get(int(t))
 
 
 @dataclass
@@ -325,10 +417,14 @@ class PopulationConfig:
     eval_clients: int | None = None
     eval_batch: int = 512           # clients per streamed eval block
     seed: int | None = None
-    # not yet ported (ROADMAP.md item 11b, which also brings the
-    # deadline's stage_chunks): setting deadline or faults raises
-    deadline: float | None = None   # straggler deadline (seconds)
-    faults: object | None = None    # the reference's FaultConfig
+    # straggler deadline (seconds): how long next_cohort() waits for the
+    # whole cohort before it proceeds with the clients staged so far
+    # (>= 1), re-weighting the segment sum instead of waiting. None = wait
+    # for all. With a deadline the cohort stages in ``stage_chunks`` pieces
+    # so that a prefix exists to degrade to.
+    deadline: float | None = None
+    stage_chunks: int = 8
+    faults: FaultConfig | None = None   # scripted per-round faults
     shift: ShiftConfig | None = None    # scripted distribution shifts
 
 
@@ -337,7 +433,10 @@ class Cohort:
     """One scheduled round batch: ids and padded (x, y, n) tensors on the
     population's device. ``stage_ms`` is the host time of its select,
     gather and copy enqueue; ``_event`` the copy's event (None on the
-    CPU), which ``next_cohort()`` makes the consumer wait on."""
+    CPU), which ``next_cohort()`` makes the consumer wait on.
+    ``sched_state`` is the scheduler's snapshot right after this cohort's
+    select, kept when the trainer checkpoints: what a checkpoint at round t
+    stores, since the live scheduler may be rounds ahead."""
     t: int
     idx: np.ndarray                 # (K,) client ids
     x: torch.Tensor                 # (K, max_n, ...) float32
@@ -345,6 +444,7 @@ class Cohort:
     n: torch.Tensor                 # (K,) int64
     n_new: int = 0                  # newcomers activated this round
     stage_ms: float = 0.0
+    sched_state: dict | None = None
     _event: object = field(default=None, repr=False)
     _pos: dict = field(default_factory=dict, repr=False)
 
@@ -494,6 +594,28 @@ class Scheduler:
         self.rounds_scheduled = int(snap["rounds_scheduled"])
 
 
+class _Staging:
+    """Progress of one cohort's chunked gather into the rows of its
+    ``slot`` (rows ``[0, n_staged)`` are staged), shared by the producer
+    and a consumer whose deadline fired. The consumer claims the staged
+    prefix (``claimed``), after which the producer abandons the round.
+    ``done`` flips once every chunk is staged; it and ``claimed`` are set
+    under ``cond``, so exactly one side owns the cohort."""
+
+    def __init__(self, t: int, idx: np.ndarray, n_new: int,
+                 sched_state: dict | None, slot, t0: float):
+        self.t = t
+        self.idx = idx
+        self.n_new = n_new
+        self.sched_state = sched_state
+        self.slot = slot
+        self.t0 = t0
+        self.n_staged = 0
+        self.done = False
+        self.claimed = False
+        self.cond = threading.Condition()
+
+
 class Population:
     """Store + scheduler + state table + prefetcher, bound to one trainer.
 
@@ -516,10 +638,16 @@ class Population:
     def __init__(self, store: ClientStore, cfg: PopulationConfig | None = None):
         self.store = store
         self.cfg = cfg or PopulationConfig()
-        if self.cfg.faults is not None:
-            _not_ported("fault injection (PopulationConfig.faults)")
-        if self.cfg.deadline is not None:
-            _not_ported("the straggler deadline (PopulationConfig.deadline)")
+        for t, spec in (self.cfg.faults.rounds.items()
+                        if self.cfg.faults is not None else ()):
+            fleet = [f for f in _FLEET_FAULTS
+                     if getattr(spec, f) != getattr(FaultSpec(), f)]
+            if fleet:
+                raise NotImplementedError(
+                    f"round {t}'s fleet faults ({', '.join(fleet)}) need "
+                    "the reference's coordinator, which is not yet ported "
+                    "to repro_torch (see ROADMAP.md, queue 1); use the JAX "
+                    "package repro for them")
         self.state = ClientStateTable(store.n_clients)
         self.scheduler = None
         self.device = None
@@ -537,18 +665,44 @@ class Population:
         self._cohort = None            # live (most recently consumed) cohort
         self._eval_ids = None
         self.rounds_streamed = 0
+        self._staging = None           # the producer's chunked gather
+        self._track_sched = False      # keep per-cohort scheduler snapshots
+        self._consumed_sched = None    # the last consumed round's snapshot
+        # fault, deadline and writer counters: zeroed by each fresh run()
+        # (reset_stats), carried through checkpoints; the producer and the
+        # consumer both count, under _stats_lock
         self.stats = dict(_STATS_ZERO)
+        self._stats_lock = threading.Lock()
+
+    def _count(self, **incs):
+        with self._stats_lock:
+            for k, n in incs.items():
+                self.stats[k] += n
+
+    def _set_stats(self, values: dict):
+        with self._stats_lock:
+            self.stats.update(_STATS_ZERO)
+            self.stats.update(values)
+        self._writer.retries = int(self.stats["writer_retries"])
+
+    def reset_stats(self):
+        """Zero the counters (the engine calls it at the start of a fresh
+        run; a resumed run keeps the restored totals)."""
+        self._set_stats({})
 
     # -- trainer binding ---------------------------------------------------
     def attach(self, fed_cfg, device="cuda"):
         """Bind to a trainer: its cohort size, dropout and seed, and its
-        device (``cuda`` unless the caller asks for the CPU)."""
+        device (``cuda`` unless the caller asks for the CPU). A trainer
+        that checkpoints makes every cohort keep its scheduler snapshot."""
         if self.scheduler is not None:
             raise RuntimeError("Population is already attached to a trainer")
         self.device = resolve_device(device)
         self.scheduler = Scheduler(self.store, self.cfg, seed=fed_cfg.seed)
         self._k = fed_cfg.clients_per_round
         self._dropout = fed_cfg.dropout_rate
+        self._track_sched = bool(fed_cfg.checkpoint_every
+                                 or fed_cfg.checkpoint_dir)
         if self.device.type == "cuda":
             self._cuda_index = (self.device.index
                                 if self.device.index is not None
@@ -602,40 +756,61 @@ class Population:
 
     def _shift_host(self, t, idx, arrays):
         """The scripted distribution shift (if any) on one gathered host
-        block, before the copy."""
+        block, before fault corruption and the copy."""
         if self.cfg.shift is None:
             return arrays
         x, y, n = arrays
         return (x, apply_shift(self.cfg.shift, self.store.n_clients,
                                self.store.n_classes, t, idx, y), n)
 
-    def _gather_put(self, ring: str, split: str, idx, t=None):
-        """Store gather, shift and copy enqueue of ``idx`` -> ((x, y, n)
-        tensors, event); ``t`` is the shift clock of the round this gather
-        feeds (None = no shift).
-
-        On the CPU the gathered arrays become tensors (no copy, event
-        None). On the card they fill a pinned slot of ``ring``, then three
-        non-blocking copies go out on the copy stream, followed by an
-        event: the tensors must not be read before ``_ready`` made the
-        reader's stream wait on it."""
+    def _host(self, split: str, idx, t):
+        """Store gather and shift of ``idx``: host (x, y, n)."""
         idx = np.asarray(idx, np.int64)
-        x, y, n = self._shift_host(t, idx, self.store._gather(split, idx))
+        return self._shift_host(t, idx, self.store._gather(split, idx))
+
+    def _slot(self, ring: str, k: int) -> _HostSlot:
+        """Staging rows for ``k`` clients: a pinned slot of ``ring`` on the
+        card; on the CPU a fresh host block, which the cohort's tensors
+        then view."""
+        r = self._ring(ring)
         if self._copy_stream is None:
-            return (torch.as_tensor(x, dtype=torch.float32),
-                    torch.as_tensor(y).long(), torch.as_tensor(n).long()), None
-        k = len(idx)
-        slot = self._ring(ring).take(k)
-        hx, hy, hn = slot.x[:k], slot.y[:k], slot.n[:k]
-        hx.numpy()[...] = x
-        hy.numpy()[...] = y
-        hn.numpy()[...] = n
+            return _HostSlot(k, r.max_n, r.feat, pin=False)
+        return r.take(k)
+
+    @staticmethod
+    def _fill(slot, lo: int, arrays):
+        """Host arrays into the slot's rows ``[lo, lo + len(n))``."""
+        x, y, n = arrays
+        hi = lo + len(n)
+        slot.x[lo:hi].numpy()[...] = x
+        slot.y[lo:hi].numpy()[...] = y
+        slot.n[lo:hi].numpy()[...] = n
+
+    def _copy(self, slot, k: int):
+        """The slot's rows ``[0, k)`` on the device -> ((x, y, n) tensors,
+        event). On the CPU the tensors view the slot (event None). On the
+        card the copy and then its event are enqueued on the copy stream:
+        the tensors must not be read before ``_ready`` made the reader's
+        stream wait."""
+        if self._copy_stream is None:
+            return (slot.x[:k], slot.y[:k], slot.n[:k]), None
         with torch.cuda.stream(self._copy_stream):
-            out = tuple(h.to(self.device, non_blocking=True)
-                        for h in (hx, hy, hn))
+            out = tuple(h[:k].to(self.device, non_blocking=True)
+                        for h in (slot.x, slot.y, slot.n))
             slot.event = torch.cuda.Event()
             slot.event.record(self._copy_stream)
         return out, slot.event
+
+    def _put(self, ring: str, arrays):
+        """Host (x, y, n) -> (tensors, event), through a slot of ``ring``."""
+        slot = self._slot(ring, len(arrays[2]))
+        self._fill(slot, 0, arrays)
+        return self._copy(slot, len(arrays[2]))
+
+    def _gather_put(self, ring: str, split: str, idx, t=None):
+        """Store gather, shift and copy enqueue of ``idx``; ``t`` is the
+        shift clock of the round this gather feeds (None = no shift)."""
+        return self._put(ring, self._host(split, idx, t))
 
     def device_batch(self, idx):
         """(x, y, n) on the device for any id set. Ids inside the live
@@ -670,17 +845,131 @@ class Population:
                             np.asarray(idx).copy(), rows,
                             label=f"scatter_local_flat[{len(rows)} rows]")
 
+    # -- fault injection ---------------------------------------------------
+    def _fault_spec(self, t: int) -> FaultSpec | None:
+        return self.cfg.faults.spec(t) if self.cfg.faults is not None \
+            else None
+
+    def _apply_kill(self, spec: FaultSpec | None, idx: np.ndarray):
+        """Mid-round client death: the cohort's tail drops (forced
+        newcomers come first and survive), floored at one survivor."""
+        if spec is None or spec.kill <= 0 or len(idx) <= 1:
+            return idx
+        keep = max(len(idx) - int(spec.kill), 1)
+        self._count(killed_clients=len(idx) - keep)
+        return idx[:keep]
+
+    def _corrupt(self, t: int, spec: FaultSpec | None, arrays,
+                 lane0: int, total: int):
+        """Poison the train features of this round's seeded cohort lanes
+        that fall in ``[lane0, lane0 + len(n))``, on the host before the
+        copy: the device sees exactly a poisoned upload. The lanes are the
+        reference's (the same numpy draw)."""
+        if spec is None or spec.corrupt <= 0:
+            return arrays
+        rng = np.random.default_rng([self.cfg.faults.seed, 0xFA017, t])
+        lanes = rng.choice(total, min(int(spec.corrupt), total),
+                           replace=False)
+        x, y, n = arrays
+        hit = lanes[(lanes >= lane0) & (lanes < lane0 + len(n))] - lane0
+        if len(hit) == 0:
+            return arrays
+        x = np.array(x, copy=True)
+        if spec.corrupt_mode == "nan":
+            x[hit] = np.nan
+        elif spec.corrupt_mode == "inf":
+            x[hit] = np.inf
+        elif spec.corrupt_mode == "scale":
+            x[hit] *= spec.corrupt_scale
+        else:
+            raise ValueError(f"unknown corrupt_mode {spec.corrupt_mode!r}")
+        self._count(corrupted_clients=len(hit))
+        return (x, y, n)
+
+    def _pre_round_faults(self, t: int):
+        """Select, then the faults that act before the gather ->
+        (idx, n_new, spec, scheduler snapshot)."""
+        idx, n_new = self.scheduler.select(t, self._k, self._dropout)
+        snap = self.scheduler.snapshot() if self._track_sched else None
+        spec = self._fault_spec(t)
+        idx = self._apply_kill(spec, np.asarray(idx, np.int64))
+        if spec is not None and spec.writer_crash:
+            self._count(writer_crashes=1)
+            self._writer.inject_thread_crash()
+        return idx, min(n_new, len(idx)), spec, snap
+
+    def _chunking(self, spec: FaultSpec | None, n: int):
+        """(chunk step, straggle sleep a chunk) of an n-client staged
+        gather."""
+        step = max(-(-n // max(int(self.cfg.stage_chunks), 1)), 1)
+        straggle = spec.straggle if spec is not None else 0.0
+        return step, (straggle / -(-n // step) if straggle > 0 else 0.0)
+
+    def _chunk(self, t: int, spec, idx: np.ndarray, lo: int, step: int):
+        """Gathered, shifted and corrupted host chunk ``idx[lo:lo+step]``."""
+        return self._corrupt(t, spec, self._host("train", idx[lo:lo + step],
+                                                 t), lo, len(idx))
+
     # -- streamed cohorts --------------------------------------------------
     def _sync_cohort(self, t: int) -> Cohort:
-        """Select, gather and enqueue the copy of round t's cohort: inline
-        when ``prefetch=0``, on the producer thread otherwise."""
+        """Select, gather and enqueue the copy of round t's whole cohort,
+        with the scripted faults (a straggle sleeps before the gather):
+        inline when ``prefetch=0``, on the producer thread otherwise. With
+        a deadline, ``_stage_chunked`` stages instead."""
         t0 = time.perf_counter()
-        idx, n_new = self.scheduler.select(t, self._k, self._dropout)
-        idx = np.asarray(idx, np.int64)
-        (x, y, n), event = self._gather_put("train", "train", idx, t=t)
-        return Cohort(t, idx, x, y, n, min(n_new, len(idx)),
+        idx, n_new, spec, snap = self._pre_round_faults(t)
+        if spec is not None and spec.straggle > 0:
+            time.sleep(spec.straggle)
+        arrays, event = self._put("train", self._corrupt(
+            t, spec, self._host("train", idx, t), 0, len(idx)))
+        return Cohort(t, idx, *arrays, n_new,
                       stage_ms=(time.perf_counter() - t0) * 1e3,
-                      _event=event)
+                      sched_state=snap, _event=event)
+
+    def _stage_chunked(self, t: int, inline: bool) -> Cohort | None:
+        """Round t's cohort with a deadline: staged chunk by chunk into the
+        rows of its slot. ``inline`` (``prefetch=0``): the cohort stops at
+        the first chunk past the deadline. On the producer: the record is
+        published as ``_staging``, so a consumer whose deadline fired can
+        claim the staged prefix; the producer then abandons the round (its
+        prefix is being trained on) and returns None."""
+        t0 = time.perf_counter()
+        idx, n_new, spec, snap = self._pre_round_faults(t)
+        st = _Staging(t, idx, n_new, snap, self._slot("train", len(idx)), t0)
+        step, delay = self._chunking(spec, len(idx))
+        end = time.monotonic() + self.cfg.deadline if inline else None
+        if not inline:
+            self._staging = st
+        for lo in range(0, len(idx), step):
+            if inline and lo > 0 and time.monotonic() >= end:
+                return self._staged_cohort(st, lo, degraded=True)
+            if delay:
+                time.sleep(delay)
+            if self._stop.is_set():
+                return None
+            # rows >= n_staged: a claimed prefix never reads them
+            self._fill(st.slot, lo, self._chunk(t, spec, idx, lo, step))
+            with st.cond:
+                if st.claimed:
+                    return None
+                st.n_staged = min(lo + step, len(idx))
+                st.cond.notify_all()
+        with st.cond:
+            if st.claimed:
+                return None
+            st.done = True
+        return self._staged_cohort(st, len(idx), degraded=False)
+
+    def _staged_cohort(self, st: _Staging, k: int, degraded: bool) -> Cohort:
+        """Round ``st.t``'s cohort from its slot's rows ``[0, k)``, the
+        copy enqueued; a degraded round counts its dropped clients."""
+        if degraded:
+            self._count(deadline_rounds=1,
+                        deadline_dropped_clients=len(st.idx) - k)
+        arrays, event = self._copy(st.slot, k)
+        return Cohort(st.t, st.idx[:k], *arrays, min(st.n_new, k),
+                      stage_ms=(time.perf_counter() - st.t0) * 1e3,
+                      sched_state=st.sched_state, _event=event)
 
     def _produce(self):
         try:
@@ -688,14 +977,15 @@ class Population:
                 torch.cuda.set_device(self._cuda_index)   # per thread
             t = self.rounds_streamed
             while not self._stop.is_set():
-                cohort = self._sync_cohort(t)
-                while not self._stop.is_set():
+                cohort = (self._sync_cohort(t) if self.cfg.deadline is None
+                          else self._stage_chunked(t, inline=False))
+                t += 1
+                while cohort is not None and not self._stop.is_set():
                     try:
                         self._queue.put(cohort, timeout=0.2)
                         break
                     except queue.Full:
                         continue
-                t += 1
         except Exception as e:          # noqa: BLE001 — raised by next_cohort
             self._producer_error = e
             while not self._stop.is_set():
@@ -705,17 +995,65 @@ class Population:
                 except queue.Full:
                     continue
 
+    def _claim_degraded(self, t: int, st: _Staging) -> Cohort | None:
+        """The deadline fired with round t's gather in flight: claim the
+        staged prefix (waiting, bounded by chunk progress, for at least one
+        client) and make it the cohort. Returns None if the producer
+        finished the whole cohort first (it is on the queue). On the card
+        only the prefix's rows of the slot are copied, on the copy stream;
+        the copy and its event are enqueued before the claim is released,
+        so the producer cannot refill the slot before the copy's event."""
+        with st.cond:
+            while not st.done and st.n_staged == 0:
+                if self._producer_error is not None:
+                    raise RuntimeError("population prefetch thread failed"
+                                       ) from self._producer_error
+                st.cond.wait(0.05)
+            if st.done:
+                return None
+            st.claimed = True
+            return self._staged_cohort(st, st.n_staged, degraded=True)
+
+    def _get_with_deadline(self, t: int) -> Cohort | None:
+        """The queue get bounded by ``cfg.deadline``: when the whole cohort
+        is not ready in time, degrade to the staged prefix of the gather in
+        flight instead of waiting for the stragglers."""
+        end = time.monotonic() + self.cfg.deadline
+        while True:
+            remaining = end - time.monotonic()
+            if remaining <= 0:
+                break
+            try:
+                return self._queue.get(timeout=min(remaining, 0.05))
+            except queue.Empty:
+                continue
+        while True:
+            st = self._staging
+            if st is not None and st.t == t:
+                cohort = self._claim_degraded(t, st)
+                return cohort if cohort is not None else self._queue.get()
+            # round t's staging is not visible yet (the producer is between
+            # rounds, or the cohort is already on the queue)
+            try:
+                return self._queue.get(timeout=0.05)
+            except queue.Empty:
+                continue
+
     def next_cohort(self) -> Cohort:
         """The next scheduled round batch, its tensors safe to read on the
         calling thread's current stream. With ``prefetch=0`` selection and
-        gather run inline."""
+        gather run inline. With ``cfg.deadline`` the wait for the whole
+        cohort is bounded: past it the round proceeds with the staged
+        prefix (>= 1 client), and ``stats`` counts the degraded rounds."""
         if self.scheduler is None:
             raise RuntimeError("attach() a trainer first")
         if self._stop.is_set():
             raise RuntimeError("population was close()d — the cohort "
                                "stream cannot be resumed")
         if self.cfg.prefetch <= 0:
-            cohort = self._sync_cohort(self.rounds_streamed)
+            cohort = (self._sync_cohort(self.rounds_streamed)
+                      if self.cfg.deadline is None else
+                      self._stage_chunked(self.rounds_streamed, inline=True))
         else:
             if self._thread is None:
                 self._queue = queue.Queue(maxsize=self.cfg.prefetch)
@@ -723,7 +1061,10 @@ class Population:
                     target=self._produce, name="population-prefetch",
                     daemon=True)
                 self._thread.start()
-            cohort = self._queue.get()
+            if self.cfg.deadline is not None:
+                cohort = self._get_with_deadline(self.rounds_streamed)
+            else:
+                cohort = self._queue.get()
             if cohort is None:          # producer died: raise its error
                 raise RuntimeError(
                     "population prefetch thread failed"
@@ -732,11 +1073,12 @@ class Population:
             (cohort.x, cohort.y, cohort.n), cohort._event)
         self.rounds_streamed += 1
         self._cohort = cohort
+        self._consumed_sched = cohort.sched_state
         return cohort
 
     def close(self):
         """Stop the prefetch thread (joined) and the state writer (pending
-        writes land first)."""
+        writes land first; a writer killed by a fault raises here)."""
         self._stop.set()
         if self._thread is not None:
             # empty the queue so a producer blocked on put() sees the flag
@@ -750,6 +1092,66 @@ class Population:
                 raise RuntimeError("population prefetch thread did not stop")
             self._thread = None
         self._writer.close()
+
+    # -- checkpointing ------------------------------------------------------
+    def ckpt_state(self):
+        """(arrays, meta) of the streamed runtime as of the last consumed
+        round: the scheduler stream (rng, active set, pending arrivals),
+        the state table's rows, the round count and ``stats``. Drains the
+        writer first, so every scatter is in. Membership is left out: the
+        trainer checkpoints it (the array is shared)."""
+        if self.scheduler is None:
+            raise RuntimeError("attach() a trainer first")
+        self._writer.drain()
+        self.stats["writer_retries"] = self._writer.retries
+        snap = self._consumed_sched
+        if snap is None:
+            if self.rounds_streamed and self.cfg.prefetch > 0 \
+                    and not self._track_sched:
+                raise RuntimeError(
+                    "cannot checkpoint a prefetching population whose "
+                    "trainer was attached without checkpointing enabled "
+                    "(FedConfig.checkpoint_every / checkpoint_dir): the "
+                    "live scheduler stream is already ahead of the "
+                    "consumed round")
+            # nothing consumed yet, or inline: the live scheduler state is
+            # the state after the consumed round
+            snap = self.scheduler.snapshot()
+        arrays = {"sched_active": snap["active"],
+                  "sched_arrival_queue": np.asarray(snap["arrival_queue"],
+                                                    np.int64),
+                  "sched_last_arrivals": np.asarray(snap["last_arrivals"],
+                                                    np.int64)}
+        arrays.update(self.state.ckpt_arrays())
+        meta = {"sched_rng": snap["rng_state"],
+                "sched_rounds_scheduled": int(snap["rounds_scheduled"]),
+                "rounds_streamed": int(self.rounds_streamed),
+                "stats": {k: int(v) for k, v in self.stats.items()}}
+        return arrays, meta
+
+    def ckpt_restore(self, arrays: dict, meta: dict):
+        """Rewind a fresh (attached, never streamed) population to a
+        ``ckpt_state`` snapshot: the next select draws the checkpointed
+        run's next cohort bit for bit."""
+        if self.scheduler is None:
+            raise RuntimeError("attach() a trainer first, then restore")
+        if self._thread is not None or self.rounds_streamed:
+            raise RuntimeError(
+                "checkpoint restore needs a fresh population — this one "
+                "has already streamed cohorts")
+        self.scheduler.restore({
+            "rng_state": meta["sched_rng"],
+            "active": np.asarray(arrays["sched_active"], bool),
+            "arrival_queue": np.asarray(arrays["sched_arrival_queue"],
+                                        np.int64),
+            "last_arrivals": np.asarray(arrays["sched_last_arrivals"],
+                                        np.int64),
+            "rounds_scheduled": meta["sched_rounds_scheduled"]})
+        self.state.ckpt_restore(arrays)
+        self.rounds_streamed = int(meta["rounds_streamed"])
+        self._set_stats(meta.get("stats", {}))
+        self._consumed_sched = self.scheduler.snapshot() \
+            if self._track_sched else None
 
     # -- streamed evaluation ----------------------------------------------
     def eval_ids(self) -> np.ndarray:

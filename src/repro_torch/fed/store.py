@@ -18,9 +18,9 @@ cold flags (FedGroup eq. 9), FeSEM's flattened local models and the cached
 pre-training directions. The row tables are ``_LazyRows`` over a CPU
 default row, so memory scales with the clients ever touched, not N.
 
-Not ported here: ``ShardedClientStore`` and ``shard_cohort_slices`` (the
-multi-host gather, ``ROADMAP.md`` item 16) and the table's checkpoint
-hooks (item 12).
+The table checkpoints its row tables (``ckpt_arrays`` / ``ckpt_restore``)
+in the reference's key names. Not ported here: ``ShardedClientStore`` and
+``shard_cohort_slices`` (the multi-host gather, ``ROADMAP.md`` item 16).
 """
 from __future__ import annotations
 
@@ -302,9 +302,11 @@ class _LazyRows:
                 "default": self.default_row.cpu().numpy()}
 
     @classmethod
-    def from_ckpt(cls, arrays: dict) -> "_LazyRows":
+    def from_ckpt(cls, arrays: dict, device="cpu") -> "_LazyRows":
+        """The table of a ``ckpt_arrays`` snapshot, its rows on
+        ``device``."""
         table = cls(torch.as_tensor(np.asarray(arrays["default"],
-                                               np.float32)))
+                                               np.float32), device=device))
         table.scatter(arrays["ids"], np.asarray(arrays["rows"], np.float32))
         return table
 
@@ -390,3 +392,28 @@ class ClientStateTable:
     def touched_rows(self) -> int:
         return sum(len(t) for t in (self._local_flat, self._pretrain_dir)
                    if t is not None)
+
+    # -- checkpointing ------------------------------------------------------
+    _CKPT_TABLES = (("local_flat", "_local_flat"),
+                    ("pretrain_dir", "_pretrain_dir"))
+
+    def ckpt_arrays(self) -> dict:
+        """The row tables as numpy, prefixed per table
+        (``local_flat_ids`` ...). Membership is left out: the trainer,
+        which shares the array, checkpoints it."""
+        out = {}
+        for name, attr in self._CKPT_TABLES:
+            table = getattr(self, attr)
+            if table is not None:
+                for k, v in table.ckpt_arrays().items():
+                    out[f"{name}_{k}"] = v
+        return out
+
+    def ckpt_restore(self, arrays: dict):
+        """Rebuild the row tables of a ``ckpt_arrays`` snapshot (a table
+        absent from it was never made and is left as it is)."""
+        for name, attr in self._CKPT_TABLES:
+            if f"{name}_ids" in arrays:
+                setattr(self, attr, _LazyRows.from_ckpt(
+                    {k: arrays[f"{name}_{k}"]
+                     for k in ("ids", "rows", "default")}))

@@ -66,11 +66,21 @@ def pp_seed_indices_jax(key, X, k: int):
 class ReplayDraws:
     """The reference trainer's key chain (``PRNGKey(seed)``), answered in
     the order its trainers split the key: one split per solver call, one
-    three-way split (SVD, K-Means++) per EDC group cold start."""
+    three-way split (SVD, K-Means++) per EDC group cold start.
+
+    Its state is the key itself (``uint32[2]``), as the JAX trainer's
+    checkpoint stores it: ``_km_key`` is used up inside the group cold
+    start and never crosses a round boundary."""
 
     def __init__(self, seed: int):
         self.key = jax.random.PRNGKey(seed)
         self._km_key = None
+
+    def get_state(self) -> np.ndarray:
+        return np.asarray(self.key).copy()
+
+    def set_state(self, state):
+        self.key = jnp.asarray(np.asarray(state, np.uint32))
 
     def batch_indices(self, n, max_steps: int, batch_size: int):
         self.key, sk = jax.random.split(self.key)

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.checkpoint import io as ref_io
 from repro_torch import checkpoint as ckpt
 from repro_torch.launch import train as train_cli

@@ -11,6 +11,7 @@ import torch
 from torch.func import vmap
 
 from _torch_parity import replay_batch_indices, tnp
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.fed import client as jclient
 from repro.models import paper_models as jpm
 from repro_torch.convert import params_from_numpy

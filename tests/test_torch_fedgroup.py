@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import ReplayDraws
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.core.fedgroup import FedGroupTrainer as JFedGroup
 from repro.data.generators import mnist_like as j_mnist_like
 from repro.fed.engine import FedConfig as JFedConfig

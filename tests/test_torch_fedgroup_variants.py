@@ -3,6 +3,7 @@ package (the harness of tests/test_torch_fedgroup.py, same tolerances:
 mean_loss and discrepancy rtol 1e-3, weighted accuracy 0.01 absolute,
 memberships equal)."""
 from test_torch_fedgroup import _assert_rounds_agree, _cfg, _pair
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro_torch.core.fedgroup import FedGrouProxTrainer
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.kernels import ops as jops
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_chunk as ssd_mod

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from _torch_parity import ReplayDraws, tnp
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.core import gating as jgating
 from repro.core.fedgroup import FedGroupTrainer as JFedGroup
 from repro.data.generators import mnist_like as j_mnist_like

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from _torch_parity import pp_seed_indices_jax, tnp
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.core import cluster as jcluster
 from repro.core import measures as jmeas
 from repro.core import svd as jsvd

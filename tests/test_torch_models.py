@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.models import modules as jmod
 from repro.models import paper_models as jpm
 from repro_torch.convert import params_from_numpy

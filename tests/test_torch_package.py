@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.data import generators as jgen
 from repro.fed.engine import FedConfig as JFedConfig
 from repro_torch import resolve_device
@@ -37,6 +38,8 @@ SLICE_MODULES = [
     "repro_torch.fed.store", "repro_torch.fed.ifca", "repro_torch.fed.fesem",
     "repro_torch.fed.strategies", "repro_torch.core.gating",
     "repro_torch.fed.population", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.io", "repro_torch.optim",
+    "repro_torch.optim.solvers",
 ]
 
 
@@ -80,14 +83,26 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("checkpoint_dir", "/nonexistent"), ("async_depth", 1),
-    ("checkpoint_every", 1), ("telemetry_dir", "/nonexistent"),
+    ("async_depth", 1), ("telemetry_dir", "/nonexistent"),
 ])
 def test_unported_options_raise(field, value):
     data = tgen.synthetic(seed=0, n_clients=4)
     cfg = dataclasses.replace(FedConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("checkpoint_dir", "ckpts"), ("checkpoint_every", 1),
+    ("checkpoint_keep", 2),
+])
+def test_checkpoint_options_are_ported(field, value, tmp_path):
+    data = tgen.synthetic(seed=0, n_clients=4)
+    if field == "checkpoint_dir":
+        value = str(tmp_path / value)
+    cfg = dataclasses.replace(FedConfig(), **{field: value})
+    tr = FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu")
+    assert getattr(tr.cfg, field) == value
 
 
 def test_fedconfig_fields_and_defaults_equal_reference():

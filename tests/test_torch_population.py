@@ -16,7 +16,7 @@ trainers' ``population=`` mode) on the CPU.
     ``tests/test_torch_strategies.py``).
   * Plumbing: producer errors raise, one attach, ``device_batch`` slices
     the live cohort, ``close()`` joins the thread, the state writer's
-    errors surface at ``drain()``, what is not ported raises.
+    errors surface at ``drain()``, the card is the default device.
 """
 import dataclasses
 import threading
@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from _torch_parity import ReplayDraws, tnp
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.core.fedgroup import FedGroupTrainer as JFedGroup
 from repro.data.generators import mnist_like as j_mnist_like
 from repro.fed import population as jpop
@@ -482,16 +483,13 @@ def test_close_joins_the_prefetch_thread(small_data):
 
 
 def test_what_is_not_ported_raises(small_data):
+    """Faults, the deadline and the writer's retries are ported (held by
+    ``tests/test_torch_faults.py``); what stays: ``stats`` starts at the
+    reference's zeros, and the card is the default device."""
     _, ts = _stores(small_data)
-    for kw in (dict(faults=object()), dict(deadline=0.5)):
-        with pytest.raises(NotImplementedError, match="11b"):
-            tpop.Population(ts, tpop.PopulationConfig(**kw))
-    with pytest.raises(NotImplementedError, match="11b"):
-        tpop._AsyncStateWriter(max_retries=3)
-    with pytest.raises(NotImplementedError, match="11b"):
-        tpop._AsyncStateWriter().inject_thread_crash()
     pop = tpop.Population(ts)
     assert pop.stats == dict.fromkeys(jpop._STATS_ZERO, 0)
+    assert tpop._AsyncStateWriter().max_retries == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             pop.attach(_cfg())                    # the default is the card

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from _torch_parity import replay_batch_indices, tnp
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.fed import client as jclient
 from repro.fed import rounds as jrounds
 from repro.models import paper_models as jpm

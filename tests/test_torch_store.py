@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.data import generators as jgen
 from repro.fed import store as jstore
 from repro_torch.data import generators as tgen

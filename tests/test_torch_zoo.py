@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.configs import registry as jreg
 from repro.models import attention as jattn
 from repro.models import modules as jmod

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import ssm as jssm
