@@ -136,6 +136,33 @@ with no final ``ok`` line):
                 host-to-device copies), is its staged rows' bytes, not
                 the slot's; round ms, each cohort's stage ms, rows and
                 tensor bytes; the phase's seconds.
+     4g         the async runtime (``FedConfig.async_depth``) at phase 4's
+                width, ASYNC_ROUNDS rounds a run. 4g-i, the equivalence
+                mode (D = 1, α = 1, β = 0): FedAvg, FedGroup (EDC, α =
+                20), IFCA and FeSEM pinned against their ``block_size=4``
+                runs, FedAvg, FedGroup and FeSEM through ``Population(
+                ArrayClientStore(data), PopulationConfig(prefetch=2))``
+                against their per-round runs: histories equal, max |Δ| of
+                every parameter 0, membership and FeSEM's rows equal,
+                ``staleness_hist == {"0": rounds}``, and pinned every
+                dispatch a graph replay (replays = dispatches = folds, one
+                capture, no eager round executor built), else fails.
+                4g-ii: FedGroup at α = 40 (all founders: no newcomer's
+                eq. 9 waits on the card) and FeSEM pinned at D = 1, 2, 3
+                with α = 0.8, β = 0.5: round ms (the median gap between
+                consecutive leases turning ready) against D = 1 and
+                against phase 4d's blocked round, wall ms of the run,
+                ``async_stats``, ``group_version``, one more fold window
+                of 4 rounds under torch.profiler (busy share, host launch
+                calls a round), peak memory; then FedGroup pinned and
+                FedAvg streamed at D = 2 on a small configuration (40
+                clients, mclr) on the card and on the CPU: labels and
+                ``async_stats`` equal, rtol 1e-3, accuracy within 0.01.
+                4g-iii: FedAvg pinned at D = 2 with one lease scripted
+                never to report ready: lease_expiries = requeues = 1,
+                dispatches = folds + 1, rounds in order. 4g-iv:
+                kill-and-resume mid-async (D = 2, a checkpoint every 3
+                rounds) of FedGroup pinned and FeSEM streamed: deviation 0.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -158,7 +185,7 @@ with no final ``ok`` line):
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
      ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
-     20-group and shift runs and phase 4d's, 4e's and 4f's FedGroup
+     20-group and shift runs and phase 4d's, 4e's, 4f's and 4g's FedGroup
      runs), then
      the ``{"ok": true, ...}`` line.
 
@@ -205,6 +232,15 @@ POP_ROUNDS, POP_CLIENTS = 20, 100_000   # phase 4e-ii: the reference bench's
 POP_ORDER = (2, 2, 0, 0, 2)
 RESUME_ROUNDS = 4              # phase 4f: 4 rounds, checkpoints every 2
 RESUME_POP = dict(prefetch=2, initial_active=150, arrival_rate=2.0)
+ASYNC_ROUNDS = 8               # phase 4g: rounds a run
+ASYNC_EQ_PINNED = ("fedavg", "fedgroup", "ifca", "fesem")
+ASYNC_EQ_STREAMED = ("fedavg", "fedgroup", "fesem")
+ASYNC_DEPTHS = (1, 2, 3)
+ASYNC_WEIGHTS = dict(async_alpha=0.8, async_beta=0.5)
+# phase 4g-ii's trainers and α: FedGroup at α = 40 has every client as a
+# founder, so no newcomer's eq. 9 (a host read of the card) drains the
+# in-flight window
+ASYNC_DEPTH_RUNS = (("fedgroup", 40), ("fesem", 20))
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
 SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -s · softplus(randn)
@@ -1257,11 +1293,12 @@ def traced_h2d_bytes(torch, fn, trace_path: Path) -> list:
     """``fn`` under torch.profiler after one warm-up step: CUPTI is
     enabled in the warm-up and capture starts at the traced step (a
     profiler started cold in a process that profiled before missed the
-    first half second of phase 4f's run on the H100). A marker copy of
-    H2D_MARK bytes opens the traced step. Returns, in start order, the
-    bytes of the host-to-device copies after the marker on streams that
-    ran no kernel (the population's copy stream). Raises when the trace
-    lacks the marker or the byte counts."""
+    first half second of phase 4f's run on the H100). Marker copies of
+    H2D_MARK bytes open the traced step, the last one two seconds after
+    the first (a trace that opened late in the step still holds it). Returns,
+    in start order, the bytes of the host-to-device copies after the last
+    marker on streams that ran no kernel (the population's copy stream).
+    Raises when the trace lacks a marker or the byte counts."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     mark = torch.zeros(H2D_MARK, dtype=torch.uint8).pin_memory()
@@ -1274,6 +1311,10 @@ def traced_h2d_bytes(torch, fn, trace_path: Path) -> list:
         torch.cuda.synchronize()
         prof.step()
         mark.to("cuda")
+        torch.cuda.synchronize()
+        time.sleep(2.0)
+        mark.to("cuda")
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
         prof.step()
@@ -1286,9 +1327,22 @@ def traced_h2d_bytes(torch, fn, trace_path: Path) -> list:
     if not copies or any("bytes" not in e.get("args", {}) for e in copies):
         raise AssertionError(f"{trace_path}: host-to-device copies without "
                              "byte counts")
-    first = next((i for i, e in enumerate(copies)
-                  if e["args"]["bytes"] == H2D_MARK), None)
+    first = max((i for i, e in enumerate(copies)
+                 if e["args"]["bytes"] == H2D_MARK), default=None)
     if first is None:
+        t0 = min((e["ts"] for e in events if e.get("cat") == "cpu_op"),
+                 default=0.0)
+        emit({"phase": "trace_diagnostic", "trace": str(trace_path),
+              "events": len(events), "first_cpu_op_ts": t0,
+              "first_gpu_ts": min((e["ts"] for e in events if e.get("cat")
+                                   in ("kernel", "gpu_memcpy")),
+                                  default=None),
+              "h2d": [[e["ts"] - t0, e["args"].get("bytes"),
+                       e["args"].get("stream")] for e in copies[:20]],
+              "runtime_copies": [e["ts"] - t0 for e in sorted(
+                  (e for e in events if e.get("cat") == "cuda_runtime"
+                   and "Memcpy" in e.get("name", "")),
+                  key=lambda e: e["ts"])[:10]]})
         raise AssertionError(f"{trace_path}: the marker copy is missing, so "
                              "the trace began after the traced window did")
     return [int(e["args"]["bytes"]) for e in copies[first + 1:]
@@ -1704,6 +1758,345 @@ def reference_check_faults(torch, data):
                    for r in hg.rounds]})
     if not ok:
         raise AssertionError("faults: card run disagrees with CPU")
+
+
+def async_trainer(model, data, name: str, alpha: int = 20,
+                  population=None, **kw):
+    """Phase 4g's trainers at phase 4's width, ASYNC_ROUNDS rounds."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed import strategies
+    from repro_torch.fed.engine import FedAvgTrainer, FedConfig
+
+    cfg = FedConfig(n_rounds=ASYNC_ROUNDS, clients_per_round=20,
+                    local_epochs=2, batch_size=10, lr=0.03, n_groups=5,
+                    pretrain_scale=alpha, seed=0, **kw)
+    args = dict(device="cuda", population=population)
+    if name == "fedavg":
+        return FedAvgTrainer(model, data, cfg, **args)
+    if name == "fedgroup":
+        return FedGroupTrainer(model, data, cfg, **args)
+    return strategies.make_trainer(name, model, data, cfg, **args)
+
+
+def timed_async(torch, tr, rounds: int):
+    """``tr.run(rounds)``: wall ms (host clock, ended by synchronize) and
+    the ms between consecutive leases turning ready (``_wait_ready``
+    returning True): the loop's round period."""
+    ready = []
+    wait = tr._wait_ready
+
+    def stamped(lease):
+        ok = wait(lease)
+        if ok:
+            ready.append(time.perf_counter())
+        return ok
+
+    tr._wait_ready = stamped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(rounds)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    tr._wait_ready = wait
+    return wall, [float(v) for v in np.diff(ready) * 1e3]
+
+
+def model_state(tr) -> dict:
+    """The tensors a run must reproduce: params, group params, FeSEM's
+    rows (pinned on the card, streamed from the host table)."""
+    out = {f"params/{k}": v for k, v in tr.params.items()}
+    out.update({f"group_params/{k}": v for k, v in
+                (getattr(tr, "group_params", None) or {}).items()})
+    if tr.population is not None:
+        if tr.population.state._local_flat is not None:
+            out["local_flat"] = tr.population.gather_local_flat(
+                np.arange(tr.n_clients))
+    elif getattr(tr, "local_flat", None) is not None:
+        out["local_flat"] = tr.local_flat
+    return out
+
+
+def max_abs_dev(a: dict, b: dict) -> float:
+    if sorted(a) != sorted(b):
+        return float("inf")
+    return max(float((x.double().cpu() - b[k].double().cpu()).abs().max())
+               for k, x in a.items())
+
+
+def same_membership(a, b) -> bool:
+    return not hasattr(a, "membership") or bool(
+        (a.membership == b.membership).all())
+
+
+def async_equivalence(torch, data, model, name: str, streamed: bool):
+    """Phase 4g-i: the equivalence mode (D = 1, α = 1, β = 0) against the
+    synchronous path of the same seed: ``block_size=4`` pinned, per round
+    streamed (``prefetch=2``). Fails unless the histories are equal,
+    every parameter differs by 0, membership and FeSEM's rows are equal,
+    every fold had staleness 0 and, pinned, every dispatch was a replay of
+    the one captured graph and no eager round executor was built."""
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.fed.store import ArrayClientStore
+
+    def make(**kw):
+        if not streamed:
+            return async_trainer(model, data, name, **kw)
+        pop = Population(ArrayClientStore(data), PopulationConfig(prefetch=2))
+        return async_trainer(model, None, name, population=pop, **kw)
+
+    sync = make(**({} if streamed else {"block_size": BLOCK_SIZE}))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync.run(ASYNC_ROUNDS)
+    torch.cuda.synchronize()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    asy = make(async_depth=1)
+    wall, gaps = timed_async(torch, asy, ASYNC_ROUNDS)
+    dev = max_abs_dev(model_state(sync), model_state(asy))
+    hist_equal = asy.history.rounds == sync.history.rounds
+    mem_equal = same_membership(sync, asy)
+    sync.close()
+    asy.close()
+    st = dict(asy.history.async_stats)
+    rec = {"phase": "async", "part": "equivalence", "trainer": name,
+           "streamed": streamed, "rounds": ASYNC_ROUNDS, "depth": 1,
+           "history_equal": hist_equal, "max_abs_param_dev": dev,
+           "membership_equal": mem_equal, "async_stats": st,
+           "sync_wall_ms": sync_ms, "async_wall_ms": wall,
+           "async_round_ms": gaps,
+           "acc": [r.weighted_acc for r in asy.history.rounds]}
+    ok = (hist_equal and dev == 0.0 and mem_equal
+          and st["staleness_hist"] == {"0": ASYNC_ROUNDS}
+          and st["dispatches"] == st["folds"] == ASYNC_ROUNDS
+          and st["max_in_flight"] == 1)
+    if not streamed:
+        ex = asy._async_exec
+        rec.update(graph_replays=ex.replays, captures=ex.captures,
+                   capture_ms=ex.capture_ms,
+                   eager_round_executor_built=asy._round_exec is not None)
+        ok &= (ex.replays == st["dispatches"] and ex.captures == 1
+               and asy._round_exec is None)
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"async {name} (streamed={streamed}): D = 1 "
+                             f"differs from the synchronous run: {rec}")
+
+
+def async_depth_run(torch, data, model, name: str, alpha: int, depth: int,
+                    blocked_ms) -> dict:
+    """Phase 4g-ii: one pinned trainer at depth ``depth`` with α = 0.8,
+    β = 0.5: round ms, wall ms, ``async_stats``, ``group_version``, a
+    profiled window of 4 more rounds, peak memory. Fails on a non-finite
+    metric or parameter, a fold count off the rounds, a window that never
+    filled to ``depth``, or a dispatch that was not a replay."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = async_trainer(model, data, name, alpha=alpha, async_depth=depth,
+                       **ASYNC_WEIGHTS)
+    wall, gaps = timed_async(torch, tr, ASYNC_ROUNDS)
+    peak = torch.cuda.max_memory_allocated()
+    st = dict(tr.history.async_stats)
+    prof = profile_window(torch, lambda: tr.run(4))
+    launches = (prof["host_kernel_launches"] + prof["host_graph_launches"]
+                + prof["host_copies"]) / 4
+    ex = tr._async_exec
+    rounds = tr.history.rounds
+    rec = {"phase": "async", "part": "depth", "trainer": name,
+           "alpha": alpha, "depth": depth, **ASYNC_WEIGHTS,
+           "rounds": ASYNC_ROUNDS, "wall_ms": wall, "round_ms": gaps,
+           # the last depth - 1 gaps are the window draining, not rounds
+           "round_ms_median": float(np.median(gaps[:len(gaps) - depth + 1])),
+           "blocked_round_ms_phase4d": blocked_ms,
+           "async_stats": st, "group_version": tr.group_version.tolist(),
+           "graph_replays": ex.replays, "captures": ex.captures,
+           "capture_ms": ex.capture_ms, "peak_device_bytes": peak,
+           "fold_window_profile": prof,
+           "host_launch_calls_per_round": launches,
+           "acc": [r.weighted_acc for r in rounds],
+           "loss": [r.mean_loss for r in rounds]}
+    emit(rec)
+    finite = all(math.isfinite(r.mean_loss) and math.isfinite(r.discrepancy)
+                 for r in rounds) and all(
+        bool(torch.isfinite(v).all()) for v in model_state(tr).values())
+    if not (finite and st["folds"] == ASYNC_ROUNDS
+            and st["max_in_flight"] == depth
+            and ex.replays == tr.history.async_stats["dispatches"]):
+        raise AssertionError(f"async {name} D = {depth}: a gate failed: "
+                             f"{rec}")
+    return rec
+
+
+def async_reference_check(torch):
+    """Phase 4g-ii: FedGroup pinned and FedAvg streamed at D = 2 (α = 0.8,
+    β = 0.5) on a small configuration (40 clients, mclr(16, 10), K = 8,
+    E = 2) on the CPU and on the card with the same draws: labels,
+    ``async_stats`` and ``group_version`` equal, loss and discrepancy
+    within rtol 1e-3, accuracy within 0.01."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.data.generators import mnist_like
+    from repro_torch.fed.engine import FedAvgTrainer, FedConfig
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.fed.store import ArrayClientStore
+    from repro_torch.models.paper_models import mclr
+
+    data = mnist_like(seed=0, n_clients=40, classes_per_client=2,
+                      total_train=2000, dim=16)
+    cfg = FedConfig(n_rounds=6, clients_per_round=8, local_epochs=2,
+                    batch_size=5, lr=0.05, n_groups=3, pretrain_scale=4,
+                    seed=0, async_depth=2, **ASYNC_WEIGHTS)
+    for name in ("fedgroup", "fedavg"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            if name == "fedgroup":
+                tr = FedGroupTrainer(mclr(16, 10), data, cfg, device=dev)
+            else:
+                pop = Population(ArrayClientStore(data), PopulationConfig(
+                    prefetch=2, initial_active=30, arrival_rate=2.0))
+                tr = FedAvgTrainer(mclr(16, 10), None, cfg, device=dev,
+                                   population=pop)
+            h = tr.run()
+            tr.close()
+            runs[dev] = (h, getattr(tr, "membership", None),
+                         tr.group_version.tolist(), dict(h.async_stats))
+        (hc, mc, vc, sc), (hg, mg, vg, sg) = runs["cpu"], runs["cuda"]
+        ok = (mc is None or bool((mc == mg).all())) and vc == vg and sc == sg
+        for rc, rg in zip(hc.rounds, hg.rounds, strict=True):
+            ok &= math.isclose(rc.mean_loss, rg.mean_loss, rel_tol=1e-3)
+            ok &= math.isclose(rc.discrepancy, rg.discrepancy, rel_tol=1e-3)
+            ok &= abs(rc.weighted_acc - rg.weighted_acc) <= 0.01
+        emit({"phase": "reference", "async": name, "depth": 2, "ok": ok,
+              "streamed": name == "fedavg", "async_stats": sg,
+              "group_version": {"cpu": vc, "cuda": vg},
+              "cpu": [[r.weighted_acc, r.mean_loss, r.discrepancy]
+                      for r in hc.rounds],
+              "cuda": [[r.weighted_acc, r.mean_loss, r.discrepancy]
+                       for r in hg.rounds]})
+        if not ok:
+            raise AssertionError(f"async {name}: card run at D = 2 "
+                                 "disagrees with the CPU")
+
+
+def async_expiry_run(torch, data, model) -> dict:
+    """Phase 4g-iii: FedAvg pinned at D = 2, 6 rounds, a 0.5 s lease, the
+    first lease scripted never to report ready: it expires, is requeued and
+    folds later. Fails unless lease_expiries = requeues = 1, dispatches =
+    folds + 1, the rounds are 0..5 in order and every dispatch replayed
+    the graph."""
+    tr = async_trainer(model, data, "fedavg", async_depth=2,
+                       async_lease_timeout=0.5, async_backoff=0.01,
+                       async_backoff_cap=0.02)
+    real, doomed = tr._lease_ready, []
+
+    def scripted(lease):
+        if not doomed:
+            doomed.append(lease)
+        return False if lease is doomed[0] else real(lease)
+
+    tr._lease_ready = scripted
+    wall, gaps = timed_async(torch, tr, 6)
+    st = dict(tr.history.async_stats)
+    rec = {"phase": "async", "part": "expiry", "trainer": "fedavg",
+           "depth": 2, "lease_timeout_s": 0.5, "async_stats": st,
+           "rounds": [r.round for r in tr.history.rounds],
+           "graph_replays": tr._async_exec.replays, "wall_ms": wall,
+           "round_ms": gaps}
+    emit(rec)
+    if not (st["lease_expiries"] == st["requeues"] == 1
+            and st["dispatches"] == st["folds"] + 1 == 7
+            and rec["rounds"] == list(range(6))
+            and rec["graph_replays"] == st["dispatches"]):
+        raise AssertionError(f"async expiry: a gate failed: {rec}")
+    return rec
+
+
+def async_resume_run(torch, data, model, name: str) -> dict:
+    """Phase 4g-iv: kill-and-resume mid-async at D = 2 (α = 0.8, β = 0.5),
+    a checkpoint every 3 rounds into ``build/ckpt_async_<trainer>``:
+    ASYNC_ROUNDS rounds uninterrupted; killed after 5 (the crossing at 3
+    drains the window: the archive is t = 4); a fresh trainer loads it and
+    runs the rest. FedGroup pinned, FeSEM streamed (RESUME_POP). Fails
+    unless the histories, ``async_stats``, ``group_version`` and
+    membership are equal and every parameter and row differs by 0."""
+    import shutil
+
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.fed.store import ArrayClientStore
+
+    ckpt = ROOT / "build" / f"ckpt_async_{name}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def make(ckpt_dir):
+        kw = dict(async_depth=2, checkpoint_every=3,
+                  checkpoint_dir=str(ckpt_dir), **ASYNC_WEIGHTS)
+        if name == "fedgroup":
+            return async_trainer(model, data, name, **kw)
+        pop = Population(ArrayClientStore(data), PopulationConfig(
+            **RESUME_POP))
+        return async_trainer(model, None, name, population=pop, **kw)
+
+    ref = make(ckpt / "ref")
+    ref.run(ASYNC_ROUNDS)
+    ref.close()
+    killed = make(ckpt / "kill")
+    killed.run(5)
+    killed.close()
+    del killed
+    resumed = make(ckpt / "kill")
+    t = resumed.load_checkpoint(str(ckpt / "kill"))
+    resumed.run(ASYNC_ROUNDS - t)
+    resumed.close()
+    dev = max_abs_dev(model_state(ref), model_state(resumed))
+    rec = {"phase": "async", "part": "resume", "trainer": name,
+           "streamed": ref.population is not None, "depth": 2,
+           "killed_after": 5, "resumed_at": t,
+           "history_equal": resumed.history.rounds == ref.history.rounds,
+           "async_stats_equal": (dict(resumed.history.async_stats)
+                                 == dict(ref.history.async_stats)),
+           "group_version": {"ref": ref.group_version.tolist(),
+                             "resumed": resumed.group_version.tolist()},
+           "max_abs_param_dev": dev,
+           "membership_equal": same_membership(ref, resumed),
+           "async_stats": dict(resumed.history.async_stats)}
+    emit(rec)
+    if not (t == 4 and rec["history_equal"] and rec["async_stats_equal"]
+            and dev == 0.0 and rec["membership_equal"]
+            and rec["group_version"]["ref"]
+            == rec["group_version"]["resumed"]):
+        raise AssertionError(f"async resume {name}: a gate failed: {rec}")
+    return rec
+
+
+def async_phase(torch, data, model, blocked_ms: dict) -> dict:
+    """Phase 4g; returns the kernels' launch counts of the phase
+    (FedGroup's cold starts launch ``edc_cosine``)."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for name in ASYNC_EQ_PINNED:
+        async_equivalence(torch, data, model, name, streamed=False)
+        torch.cuda.empty_cache()
+    for name in ASYNC_EQ_STREAMED:
+        async_equivalence(torch, data, model, name, streamed=True)
+        torch.cuda.empty_cache()
+    for name, alpha in ASYNC_DEPTH_RUNS:
+        for depth in ASYNC_DEPTHS:
+            async_depth_run(torch, data, model, name, alpha, depth,
+                            blocked_ms.get((name, alpha)))
+            torch.cuda.empty_cache()
+    async_reference_check(torch)
+    async_expiry_run(torch, data, model)
+    for name in ("fedgroup", "fesem"):
+        async_resume_run(torch, data, model, name)
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    emit({"phase": "async_runtime", "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    if counts["edc_cosine"] < 1:
+        raise AssertionError("phase 4g's FedGroup runs launched no "
+                             "edc_cosine kernel")
+    return counts
 
 
 def population_run(torch, prefetch: int):
@@ -2163,8 +2556,10 @@ def main() -> int:
     counts_shift = strategy_run(torch, data, model, "shift")
     # phase 4d: round blocks, each fused round a replayed CUDA graph
     ops.reset_launch_counts()
+    blocked_ms = {}
     for name, alpha in BLOCK_RUNS:
-        block_run(torch, data, model, name, alpha)
+        rec = block_run(torch, data, model, name, alpha)
+        blocked_ms[(name, alpha)] = rec["blocked_round_ms_steady"]
         torch.cuda.empty_cache()
     counts_block = ops.launch_counts()
     if counts_block["edc_cosine"] < 2:
@@ -2188,6 +2583,8 @@ def main() -> int:
                              "kernel")
     # phase 4f: checkpoints with kill-and-resume, faults and the deadline
     counts_ft = fault_tolerance_phase(torch, data, model)
+    # phase 4g: the async runtime (leases, staleness folds, graph dispatch)
+    counts_async = async_phase(torch, data, model, blocked_ms)
 
     # phase 5: where the time goes
     breakdown(torch, tr_edc, pre_idx)
@@ -2207,14 +2604,15 @@ def main() -> int:
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
-    # block phase's FedGroup runs, the population phase's FedGroup runs
-    # and phase 4f's FedGroup runs;
+    # block phase's FedGroup runs, the population phase's FedGroup runs,
+    # phase 4f's and phase 4g's FedGroup runs;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
-                + counts_stream["edc_cosine"] + counts_ft["edc_cosine"],
+                + counts_stream["edc_cosine"] + counts_ft["edc_cosine"]
+                + counts_async["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"],

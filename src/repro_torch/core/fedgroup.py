@@ -25,7 +25,10 @@ is re-routed by eq. 9 against the groups' update directions (a migration).
 Round blocks (``block_size > 1``) break on host events: the Alg. 3 cold
 start before the first round, a cohort with cold newcomers (eq. 9), and
 every round while the shift detector is on, which pins the trainer to the
-per-round path.
+per-round path. The async runtime (``async_depth >= 1``) runs Alg. 3
+before its first stage, and the shift check and eq. 9 at stage time on the
+state of the last fold; the rows they assign go into the live carry,
+while the dispatches in flight keep their snapshot.
 
 A checkpoint adds the groups' update directions (``group_delta``, zeros
 before the cold start), the cold-start flags and the shift detector's
@@ -191,7 +194,7 @@ class FedGroupTrainer(GroupedTrainer):
     def client_cold_start(self, cold_idx: np.ndarray):
         if len(cold_idx) == 0:
             return
-        self.counters["rounds.cold_started"] += len(cold_idx)
+        self.registry.inc("rounds.cold_started", len(cold_idx))
         if self.cfg.rac:                                       # ablation
             self._adopt_membership(
                 cold_idx, self.rng.integers(0, self.m, len(cold_idx)))
@@ -237,7 +240,7 @@ class FedGroupTrainer(GroupedTrainer):
         self._shift_last = (len(checked), 0)
         if len(checked) == 0:
             return none
-        self.counters["rounds.shift_checks"] += len(checked)
+        self.registry.inc("rounds.shift_checks", len(checked))
         self.comm_params += 2 * len(checked) * self.model_size
         deltas, _, _ = self._solve(self.params, checked,
                                    solver=self.pretrain_solver)
@@ -279,6 +282,30 @@ class FedGroupTrainer(GroupedTrainer):
     def _carry_refs(self, carry: dict):
         super()._carry_refs(carry)
         self.group_delta = carry["group_delta"]
+
+    # ------------------------------------------------------------------
+    # Async runtime hooks: Alg. 3 before the first stage, then at stage
+    # time the shift check and eq. 9 (round()'s host segment)
+    # ------------------------------------------------------------------
+    def _async_host_pre(self):
+        if not self.cold_started:
+            self.group_cold_start()
+
+    def _async_cold(self, idx) -> np.ndarray:
+        # eq. 9 routes by the auxiliary model and update directions of the
+        # last fold (the trainer's state points at the live carry)
+        idx = np.asarray(idx)
+        shifted = self._maybe_shift(idx)
+        cold = idx[self.membership[idx] < 0]
+        self.last_cold = len(cold)
+        self.comm_params += 2 * len(cold) * self.model_size
+        self.client_cold_start(cold)
+        return np.concatenate([shifted, cold]) if len(shifted) else cold
+
+    def _async_adopt(self, out, idx, folded_groups, folded_global):
+        super()._async_adopt(out, idx, folded_groups, folded_global)
+        self.group_delta = out.group_delta_flat
+        self.params = folded_global
 
     # ------------------------------------------------------------------
     # Checkpoint: + eq.-9 update directions, cold-start flags, the pinned

@@ -1,6 +1,6 @@
 """Round-based federated training engines: FedAvg / FedProx base trainer
-and the grouped-trainer machinery (``repro.fed.engine``), synchronous:
-per round, or in round blocks (``block_size > 1``).
+and the grouped-trainer machinery (``repro.fed.engine``): per round, in
+round blocks (``block_size > 1``) or asynchronous (``async_depth >= 1``).
 
 Two ways to feed a trainer. Pinned (``data=``): the padded per-client
 train/eval stacks are placed on the device once at init and selection is
@@ -38,15 +38,35 @@ model and group state, the draws object's state (``model/key``), both
 numpy streams, the history, the counters and, when streaming, the
 population's scheduler stream, state table and ``stats``.
 
+Async runtime: ``FedConfig.async_depth >= 1`` switches ``run()`` to
+``_run_async``, which keeps up to ``async_depth`` cohort dispatches in
+flight against the live state and folds each completed one FIFO into it
+with FedAsync staleness weights α·(s+1)^(-β), the staleness s counted per
+group (``group_version``). Pinned, a dispatch is one
+``fed.rounds.make_async_dispatch_executor`` step against a snapshot of the
+carry (on the card a replay of its captured graph, ``fed.graphs``) and
+the fold (``make_staleness_fold``) writes the live carry in place; on the
+card, stream order gives every dispatch its snapshot. Streamed, a dispatch
+is the fused round on the group parameters of the moment and the fold
+(``make_param_fold``) mixes the parameters only. Every dispatch holds a
+lease (``fed.leases``): one not ready by ``async_lease_timeout`` is
+requeued with capped backoff, at most ``async_max_retries`` times. Depth 1
+with α = 1, β = 0 equals the block path (pinned) and the per-round path
+(streamed) bit for bit on the CPU.
+
+Counters live in a metrics registry (``repro_torch.obs``; a population's
+when streaming): ``History.async_stats`` and ``Population.stats`` are
+views of it, and its snapshot is the checkpoint's ``obs``.
+
 Not yet ported, and refused with ``NotImplementedError`` (``ROADMAP.md``):
-the async runtime (``async_depth > 0``), a device mesh and telemetry
-(``telemetry_dir``).
+a device mesh and telemetry (``telemetry_dir``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
+import time
 from collections import Counter
 from dataclasses import dataclass, field
 
@@ -59,13 +79,19 @@ from repro_torch.data.federated import FederatedData
 from repro_torch.draws import TorchDraws
 from repro_torch.fed import client as client_lib
 from repro_torch.fed import graphs as graphs_lib
+from repro_torch.fed import leases as leases_lib
 from repro_torch.fed import rounds as rounds_lib
 from repro_torch.fed import server as server_lib
 from repro_torch.models.modules import param_count
 from repro_torch.models.paper_models import ModelSpec
+from repro_torch.obs import metrics as obs_metrics
 
 # seed-derivation tag of the cohort-selection stream (``repro.fed.store``)
 SELECT_STREAM = 0x5E1EC7
+
+# the async runtime's lease record (``fed.leases``); its ``metrics`` slot
+# holds the readiness event recorded after the dispatch (None on the CPU)
+_AsyncLease = leases_lib.Lease
 
 
 @dataclass
@@ -103,7 +129,11 @@ class FedConfig:
     checkpoint_every: int = 0
     checkpoint_dir: str | None = None
     checkpoint_keep: int = 0
-    # asynchronous runtime (not yet ported: async_depth > 0 raises)
+    # asynchronous runtime (0 = synchronous): up to `async_depth` cohort
+    # dispatches in flight, folded FIFO with staleness weights
+    # alpha * (s + 1)^(-beta); a dispatch not ready within
+    # `async_lease_timeout` s is requeued with capped exponential backoff,
+    # at most `async_max_retries` times
     async_depth: int = 0
     async_alpha: float = 1.0
     async_beta: float = 0.0
@@ -131,8 +161,6 @@ def _not_ported(what: str):
 
 
 def _check_ported(cfg: FedConfig, mesh):
-    if cfg.async_depth > 0:
-        _not_ported("the async runtime (async_depth > 0)")
     if mesh is not None:
         _not_ported("a device mesh")
     if cfg.telemetry_dir:
@@ -152,9 +180,15 @@ class RoundMetrics:
 @dataclass
 class History:
     """Per-round metrics. Rounds skipped by the ``eval_every`` cadence
-    record ``weighted_acc = nan``; the aggregates below ignore them."""
+    record ``weighted_acc = nan``; the aggregates below ignore them.
+
+    ``async_stats`` is the async runtime's record (all zero on synchronous
+    runs): dispatches / folds / max_in_flight / lease_expiries / requeues
+    and ``staleness_hist``, a {max staleness: folds} histogram. Inside a
+    trainer it is a view of the registry's ``async.*`` metrics."""
 
     rounds: list = field(default_factory=list)
+    async_stats: dict = field(default_factory=dict)
 
     def add(self, m: RoundMetrics):
         self.rounds.append(m)
@@ -180,8 +214,9 @@ class FedAvgTrainer:
 
     ``init_params`` replaces ``model.init`` (parity tests carry the JAX
     package's params over); ``draws`` replaces the default
-    ``TorchDraws(cfg.seed)``. ``counters`` counts the reference's registry
-    events (cold starts, migrations, completed rounds, checkpoints).
+    ``TorchDraws(cfg.seed)``. ``registry`` holds the reference's metrics
+    (``async.*``, ``rounds.*``, and a population's ``pop.*``);
+    ``counters`` is its nonzero ``rounds.*`` counters.
 
     ``population=`` (a ``fed.population.Population``) streams the cohorts
     from a host store instead; ``data`` may then be None. The population
@@ -219,13 +254,18 @@ class FedAvgTrainer:
                 torch.Generator().manual_seed(cfg.seed + 1), self.device)
         self.params = {k: v.to(self.device, torch.float32)
                        for k, v in init_params.items()}
-        self.history = History()
-        self.counters = Counter()
+        # a population's registry when streaming, as the reference shares
+        # its population's telemetry bundle
+        self.registry = (population.registry if population is not None
+                         else obs_metrics.MetricsRegistry())
+        self._bind_history(History())
         self.model_size = param_count(self.params)
         self.comm_params = 0        # cumulative parameters transferred
         self._resumed = False       # load_checkpoint ran; run() keeps stats
         self._round_exec = None     # lazily-built fused round
         self._block_exec = None     # lazily-built round-block executor
+        self._async_exec = None     # lazily-built async dispatch executor
+        self.group_version = None   # (m,) per-group staleness clock (async)
         self._grouped_eval = client_lib.grouped_eval_correct(model)
         self._eval_fn = client_lib.make_eval_fn(model)
         if population is not None:
@@ -245,6 +285,19 @@ class FedAvgTrainer:
                 torch.as_tensor(data.n_test, device=dev).long())
             self._eval_zero_mem = torch.zeros(
                 self.n_clients, dtype=torch.long, device=dev)
+
+    def _bind_history(self, h: History):
+        """``h.async_stats`` becomes the registry's ``async.*`` view."""
+        h.async_stats = self.registry.view(obs_metrics.ASYNC_VIEW)
+        self.history = h
+
+    @property
+    def counters(self) -> Counter:
+        """The registry's nonzero ``rounds.*`` counters (completed rounds,
+        evals, cold starts, migrations, shift checks, checkpoints)."""
+        reg = self.registry
+        return Counter({n: reg.get(n) for n in reg.names("rounds.")
+                        if reg.get(n)})
 
     # -- fused round executor ----------------------------------------------
     def _exec_spec(self) -> dict:
@@ -483,9 +536,11 @@ class FedAvgTrainer:
     def _record(self, t, acc, loss, disc, n_quar) -> RoundMetrics:
         m = RoundMetrics(t, acc, loss, disc, n_quar)
         self.history.add(m)
-        self.counters["rounds.completed"] += 1
+        self.registry.inc("rounds.completed")
+        if not math.isnan(acc):
+            self.registry.inc("rounds.evals")
         if m.quarantined:
-            self.counters["rounds.quarantined"] += m.quarantined
+            self.registry.inc("rounds.quarantined", m.quarantined)
         return m
 
     # -- main loop ---------------------------------------------------------
@@ -514,7 +569,9 @@ class FedAvgTrainer:
         A fresh run zeroes the population's ``stats``; the first run after
         ``load_checkpoint`` keeps the restored totals. With checkpointing
         on, a checkpoint lands each time a multiple of
-        ``checkpoint_every`` completed rounds is crossed."""
+        ``checkpoint_every`` completed rounds is crossed. With
+        ``async_depth >= 1`` the rounds run on the async loop
+        (``_run_async``)."""
         if self.population is not None:
             if self._resumed:
                 self._resumed = False
@@ -522,6 +579,8 @@ class FedAvgTrainer:
                 self.population.reset_stats()
         t = len(self.history.rounds)
         total = t + (n_rounds or self.cfg.n_rounds)
+        if self.cfg.async_depth >= 1:
+            return self._run_async(t, total)
         blocks = self.cfg.block_size > 1 and (
             self.population is None or self.population.block_stageable)
         while t < total:
@@ -537,6 +596,311 @@ class FedAvgTrainer:
                 t += 1
             self._maybe_checkpoint(prev, t)
         return self.history
+
+    # -- asynchronous runtime (FedConfig.async_depth >= 1) -------------------
+    def _group_version(self) -> np.ndarray:
+        """The (m,) int64 per-group staleness clock: version[g] grows by one
+        each time a fold lands clients in group g, and a dispatch's
+        staleness is the clock's advance between its dispatch and its fold.
+        The population's state table holds it when streaming (shared like
+        membership), the trainer when pinned."""
+        if self.group_version is None:
+            m = self._exec_spec()["n_groups"]
+            if self.population is not None:
+                self.group_version = \
+                    self.population.state.init_group_version(m)
+            else:
+                self.group_version = np.zeros(m, np.int64)
+        return self.group_version
+
+    def _async_executor(self):
+        """The pinned dispatch: one ``make_async_dispatch_executor`` step
+        against a snapshot carry (the block step, no in-program eval, the
+        carry only read), a replayed graph on the card."""
+        if self._async_exec is None:
+            cfg = self.cfg
+            fn = rounds_lib.make_async_dispatch_executor(
+                self.model, epochs=cfg.local_epochs,
+                batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
+                max_samples=self._max_samples, quarantine=cfg.quarantine,
+                quarantine_mult=cfg.quarantine_mult, **self._block_kwargs())
+            self._async_exec = graphs_lib.GraphDispatchExecutor(
+                fn, max(1, int(cfg.async_depth)))
+        return self._async_exec
+
+    def _async_host_pre(self):
+        """Host work that must precede async staging (FedGroup: the Alg. 3
+        group cold start before the first cohort is drawn)."""
+
+    def _async_cold(self, idx) -> np.ndarray:
+        """Stage-time host hook; returns the ids whose membership it wrote,
+        so the pinned loop writes those rows into the live carry (FedGroup:
+        the shift check and eq. 9 for cold newcomers)."""
+        return np.empty(0, np.int64)
+
+    def _async_stream_arg(self, idx):
+        """The streamed round's assignment argument, built as the
+        synchronous ``round()`` builds it."""
+        return torch.zeros(len(idx), dtype=torch.long, device=self.device)
+
+    def _async_adopt(self, out, idx, folded_groups, folded_global):
+        """Adopt a folded *streamed* dispatch as each trainer's synchronous
+        ``round()`` adopts its result, so the weight-1.0 fold (a bitwise
+        passthrough) reproduces it."""
+        self.params = folded_global
+
+    def _stage_async(self, t: int):
+        """Stage one cohort for dispatch: host-pre hook, selection, the
+        stage-time hook, the minibatch draws and the communication count,
+        in the synchronous paths' order (the draws object is asked once,
+        as the per-round path asks it). Returns ``(ids written by the
+        hook, staged)``; the staged inputs stay with the lease, so an
+        expired one is dispatched again as it was."""
+        self._async_host_pre()
+        idx = self._select()
+        cold = np.asarray(self._async_cold(idx))
+        if self.population is None:
+            idx_p, bidx, alive, _ = self._stage_round(t, idx)
+            return cold, (torch.as_tensor(idx_p), bidx,
+                          torch.as_tensor(alive))
+        x, y, n = self._client_batch(idx)
+        bidx = self._batch_indices(n, self._round_executor().max_steps)
+        self._stage_comm(len(idx))
+        return cold, (np.asarray(idx), x, y, n, bidx,
+                      self._async_stream_arg(idx))
+
+    def _ready_event(self):
+        """An event recorded on the trainer's current stream after the
+        work enqueued so far (None on the CPU, where it is all done)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def _lease_ready(self, lease) -> bool:
+        """True when a lease's dispatch has finished: its event's
+        ``query()`` on the card, always on the CPU (tests patch this to
+        script lease expiries)."""
+        return lease.metrics is None or lease.metrics.query()
+
+    def _wait_ready(self, lease) -> bool:
+        """Poll a lease until ready or past its deadline, the pause backing
+        off from 1e-4 s to 5e-3 s; never a synchronize. Readiness is
+        checked before the deadline, so a finished dispatch is never
+        expired."""
+        pause = 1e-4
+        while True:
+            if self._lease_ready(lease):
+                return True
+            if time.monotonic() >= lease.deadline:
+                return False
+            time.sleep(pause)
+            pause = min(pause * 2.0, 0.005)
+
+    def _async_carry(self) -> dict:
+        """The live carry of a pinned async run on the trainer's device.
+        The folds write it in place, so the model state gets buffers of its
+        own (not the caller's init tensors, not views of each other);
+        FeSEM's row buffer is the trainer's already."""
+        c = self._carry_in()
+        own = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+        return dict(group_params=own(c["group_params"]),
+                    global_params=own(c["global_params"]),
+                    group_delta=c["group_delta"].clone(),
+                    membership=c["membership"].to(self.device),
+                    aux=c["aux"])
+
+    def _write_rows(self, membership: torch.Tensor, ids):
+        """The host membership of ``ids`` into the live carry's column, in
+        stream order (on the card through pinned memory, without a sync)."""
+        ids = np.asarray(ids, np.int64)
+        ix = torch.as_tensor(ids)
+        vals = torch.as_tensor(self.membership[ids]).to(membership.dtype)
+        if membership.device.type == "cuda":
+            ix, vals = (v.pin_memory().to(membership.device, non_blocking=True)
+                        for v in (ix, vals))
+        membership.index_put_((ix,), vals)
+
+    @torch.no_grad()
+    def _async_eval(self, carry):
+        """The fused grouped eval of the folded carry: (correct, total) as a
+        (2,) int64 host tensor; on the card a pinned buffer filled without
+        a sync (valid once an event recorded after it completes)."""
+        xt, yt, nt = self._test_stack
+        c, tot = self._grouped_eval(carry["group_params"],
+                                    carry["membership"][:-1], xt, yt, nt)
+        counts = torch.stack([c, tot]).long()
+        if counts.device.type != "cuda":
+            return counts
+        host = torch.empty(2, dtype=torch.int64, pin_memory=True)
+        host.copy_(counts, non_blocking=True)
+        return host
+
+    def _run_async(self, t0: int, total: int) -> History:
+        """The asynchronous loop: keep up to ``async_depth`` dispatches in
+        flight against the live state, fold completed ones FIFO with
+        per-group staleness weights, requeue expired leases with capped
+        backoff.
+
+        Fold order defines the round index (a requeued cohort folds later
+        and becomes a later round), and the eval and checkpoint cadences
+        are read at fold time. A checkpoint crossing first drains the
+        window, so an archive never holds a lease. Folds are FIFO: on one
+        device stream the dispatches run in enqueue order anyway.
+
+        Pinned on the card the loop never waits on the stream: a lease is
+        ready when its event is, the fold and the eval are enqueued after
+        it, and a folded round's metrics and eval counts come back through
+        pinned memory; its ``RoundMetrics`` is added when they have (in
+        order, at the latest at a checkpoint and at the end)."""
+        cfg = self.cfg
+        pop = self.population
+        pinned = pop is None
+        depth = max(1, int(cfg.async_depth))
+        ver = self._group_version()
+        st = self.history.async_stats
+        shist = st["staleness_hist"]
+        self._async_host_pre()
+        if pinned:
+            exec_ = self._async_executor()
+            carry = exec_.bind(self._async_carry())
+            fold = rounds_lib.make_staleness_fold()
+        else:
+            carry, exec_ = None, self._round_executor()
+            fold = rounds_lib.make_param_fold()
+        policy = leases_lib.RetryPolicy(
+            cfg.async_lease_timeout, cfg.async_max_retries,
+            cfg.async_backoff, cfg.async_backoff_cap)
+        pending = []                 # in-flight leases, FIFO fold order
+        requeued = leases_lib.RequeueBuffer()  # expired, backing off
+        records = []                 # folded pinned rounds: metrics en route
+        t_stage = t0                 # cohorts staged so far
+        t_fold = t0                  # rounds folded so far
+
+        def dispatch(staged, attempts):
+            if pinned:
+                result = exec_(carry, self._train_stack, *staged)
+            else:
+                result = exec_(self._stacked_group_params(), staged[5],
+                               staged[1], staged[2], staged[3], staged[4])
+            pending.append(_AsyncLease(
+                staged, ver.copy(), result, self._ready_event(),
+                time.monotonic() + cfg.async_lease_timeout, attempts))
+            st["dispatches"] += 1
+            st["max_in_flight"] = max(st["max_in_flight"], len(pending))
+
+        def fill(fresh):
+            nonlocal t_stage
+            while len(pending) < depth:
+                ready = requeued.pop_ready(time.monotonic())
+                if ready is not None:
+                    dispatch(*ready)
+                elif fresh and t_stage < total:
+                    written, staged = self._stage_async(t_stage)
+                    if pinned and len(written):
+                        # eq.-9 / shift assignments made on the host: into
+                        # the live column, after the dispatches in flight
+                        self._write_rows(carry["membership"], written)
+                    dispatch(staged, 0)
+                    t_stage += 1
+                elif requeued and not pending:
+                    # nothing in flight, every lease backing off: sleep to
+                    # the earliest retry instead of spinning
+                    time.sleep(max(0.0, requeued.earliest()
+                                   - time.monotonic()))
+                else:
+                    break
+
+        def fold_one(lease):
+            nonlocal t_fold
+            t = t_fold
+            s = (ver - lease.version).astype(np.int64)
+            w = rounds_lib.staleness_weight(
+                s, alpha=cfg.async_alpha, beta=cfg.async_beta)
+            key = str(int(s.max()) if s.size else 0)
+            shist[key] = shist.get(key, 0) + 1
+            if pinned:
+                d = lease.result
+                mets = d.metrics.numpy().copy()  # ready: the lease's event
+                fold(carry, d.result, d.idx, d.alive, w)
+                exec_.release(d)
+                self._carry_refs(carry)
+                alive = lease.staged[2].numpy()
+                mem = mets[3:3 + len(alive)].astype(np.int64)
+                occupied = np.unique(mem[alive > 0])
+                counts = (self._async_eval(carry) if self._should_eval(t)
+                          else None)
+                records.append((t, mets[:3], counts, self._ready_event()))
+            else:
+                out = lease.result
+                groups, glob = fold(self._stacked_group_params(),
+                                    out.group_params, out.global_params, w)
+                self._async_adopt(out, lease.staged[0], groups, glob)
+                occupied = np.unique(out.membership.cpu().numpy())
+                self._add_round(t, self._round_eval(t), out)
+            ver[occupied] += 1
+            st["folds"] += 1
+            t_fold += 1
+
+        def flush(wait):
+            """Add the folded pinned rounds whose metrics have arrived."""
+            while records:
+                t, (loss, disc, n_quar), counts, ev = records[0]
+                if ev is not None and not (wait or ev.query()):
+                    return
+                if ev is not None:
+                    ev.synchronize()
+                records.pop(0)
+                acc = (float("nan") if counts is None
+                       else int(counts[0]) / max(int(counts[1]), 1))
+                self._record(t, acc, float(loss), float(disc), int(n_quar))
+
+        def harvest():
+            """Fold the FIFO head if it completes within its lease, abandon
+            and requeue it with capped backoff otherwise."""
+            lease = pending.pop(0)
+            if self._wait_ready(lease):
+                fold_one(lease)
+                return True
+            st["lease_expiries"] += 1
+            if pop is not None:
+                pop._count(lease_expiries=1)
+            if pinned:
+                exec_.release(lease.result)
+            requeued.push(lease, policy, time.monotonic())
+            st["requeues"] += 1
+            if pop is not None:
+                pop._count(requeues=1)
+            return False
+
+        while t_fold < total:
+            fill(fresh=True)
+            prev = t_fold
+            if pending and harvest():
+                flush(wait=False)
+                e = cfg.checkpoint_every
+                if e > 0 and cfg.checkpoint_dir and t_fold // e > prev // e:
+                    # drain to quiescence first: a checkpoint never holds
+                    # an outstanding lease
+                    while pending or requeued:
+                        fill(fresh=False)
+                        if pending:
+                            harvest()
+                    flush(wait=True)
+                    if pinned:
+                        self._async_carry_out(carry)
+                    self.save_checkpoint()
+        flush(wait=True)
+        if pinned:
+            self._async_carry_out(carry)
+        if pop is not None:
+            pop.stats["writer_retries"] = pop._writer.retries
+        return self.history
+
+    def _async_carry_out(self, carry: dict):
+        """``_carry_out`` with the live column fetched (a sync)."""
+        self._carry_out(carry, carry["membership"][:-1].cpu().numpy())
 
     # -- checkpoint / restore ----------------------------------------------
     def _maybe_checkpoint(self, prev_t: int, t: int):
@@ -577,8 +941,8 @@ class FedAvgTrainer:
         ``key`` = the draws' state, group state), ``state/*`` (the
         population's scheduler arrays and table rows, framework arrays) and
         the metadata (both numpy streams, history, comm accounting,
-        ``extra``, ``obs`` = the counters under the reference's registry
-        names, ``population``). Then prunes to ``checkpoint_keep``."""
+        ``extra``, ``group_version``, ``obs`` = the registry's snapshot,
+        ``population``). Then prunes to ``checkpoint_keep``."""
         t = len(self.history.rounds)
         if path is None:
             if not self.cfg.checkpoint_dir:
@@ -587,14 +951,11 @@ class FedAvgTrainer:
             path = ckpt_io.checkpoint_path(self.cfg.checkpoint_dir, t)
         # counted before the snapshot, so a resumed run's total matches an
         # uninterrupted run's
-        self.counters["rounds.checkpoints"] += 1
+        self.registry.inc("rounds.checkpoints")
         state, pop_meta = {}, None
-        obs = {k: int(v) for k, v in self.counters.items()}
         if self.population is not None:
             # drains the writer and syncs writer_retries into stats first
             state, pop_meta = self.population.ckpt_state()
-            obs.update({f"pop.{k}": int(v)
-                        for k, v in self.population.stats.items()})
         state = dict(state, **self._ckpt_state_arrays())
         meta = {"framework": self.framework, "t": t,
                 "n_clients": int(self.n_clients),
@@ -605,8 +966,13 @@ class FedAvgTrainer:
                              r.discrepancy, r.quarantined]
                             for r in self.history.rounds],
                 "extra": self._ckpt_meta_extra(),
-                "group_version": None,      # the async runtime's clocks
-                "obs": obs,
+                # the async runtime's per-group clocks (a checkpoint never
+                # holds a lease: the async loop drains its window first)
+                "group_version": ([int(v) for v in self.group_version]
+                                  if self.group_version is not None
+                                  else None),
+                # the registry: async.*, rounds.* and, streamed, pop.*
+                "obs": self.registry.snapshot(),
                 "fleet": None,              # a coordinator's snapshot
                 "population": pop_meta}
         ckpt_io.save_pytree(path, {"model": self._ckpt_model_tree(),
@@ -663,17 +1029,23 @@ class FedAvgTrainer:
         self.rng.bit_generator.state = meta["rng"]
         self.select_rng.bit_generator.state = meta["select_rng"]
         self.comm_params = int(meta["comm_params"])
-        self.history = History([RoundMetrics(int(r[0]), float(r[1]),
-                                             float(r[2]), float(r[3]),
-                                             int(r[4]))
-                                for r in meta["history"]])
+        self._bind_history(History([RoundMetrics(int(r[0]), float(r[1]),
+                                                 float(r[2]), float(r[3]),
+                                                 int(r[4]))
+                                    for r in meta["history"]]))
+        gv = meta.get("group_version")
+        if gv is not None:
+            self._group_version()[:] = np.asarray(gv, np.int64)
         if self.population is not None:
             self.population.ckpt_restore(tree["state"], meta["population"])
         self._ckpt_apply_state(tree["state"])
-        # the registry's counters; pop.* came back with the population
-        self.counters = Counter({k: v for k, v in (meta.get("obs") or {})
-                                 .items() if isinstance(v, int)
-                                 and not k.startswith("pop.")})
+        # the registry's snapshot (pop.* too, the values the population
+        # restored); an archive older than the registry carried only its
+        # async_stats
+        obs = meta.get("obs")
+        if obs is None and meta.get("async_stats"):
+            obs = {f"async.{k}": v for k, v in meta["async_stats"].items()}
+        self.registry.restore(obs or {})
         self._resumed = True
         return int(meta["t"])
 
@@ -726,7 +1098,7 @@ class GroupedTrainer(FedAvgTrainer):
         old = self.membership[idx]
         mig = int(np.sum((old >= 0) & (old != new)))
         if mig:
-            self.counters["rounds.migrations"] += mig
+            self.registry.inc("rounds.migrations", mig)
         self.membership[idx] = new
 
     def group_param(self, j: int) -> dict:
@@ -772,6 +1144,18 @@ class GroupedTrainer(FedAvgTrainer):
     def _carry_out(self, carry: dict, membership: np.ndarray):
         self._carry_refs(carry)
         self.membership[:] = membership
+
+    def _async_stream_arg(self, idx):
+        # the cohort's current group ids (FedGroup's static round, LCFL's
+        # hysteresis state); IFCA and FeSEM override
+        return torch.as_tensor(self.membership[np.asarray(idx)],
+                               device=self.device)
+
+    def _async_adopt(self, out, idx, folded_groups, folded_global):
+        # the grouped adoption: group models and the cohort's membership;
+        # the consensus params stay as the synchronous round() leaves them
+        self.group_params = folded_groups
+        self._adopt_membership(idx, out.membership.cpu().numpy())
 
     # -- checkpoint: m-stacked groups + membership -------------------------
     def _ckpt_model_tree(self) -> dict:

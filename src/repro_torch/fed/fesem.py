@@ -23,6 +23,11 @@ cohort-local ids; the updated rows go back through the writer thread.
 A pinned checkpoint holds the (N, d_w) matrix as ``model/local_flat``; a
 streamed one holds the touched host rows through the population's state
 table.
+
+Async (``async_depth >= 1``): a pinned dispatch reads the cohort's rows
+into a copy and its fold writes them back into the buffer; a streamed
+dispatch carries the rows gathered at stage time (the writer drained
+first), and its fold hands the updated rows to the writer.
 """
 from __future__ import annotations
 
@@ -108,6 +113,19 @@ class FeSEMTrainer(GroupedTrainer):
         super()._carry_refs(carry)
         self._local_flat_rows = carry["aux"]
         self.local_flat = carry["aux"][:-1]
+
+    # -- async streaming: the E-step rows ride each staged dispatch --------
+    def _async_stream_arg(self, idx):
+        # the rows a client would train from at dispatch time: the gather
+        # drains the writer, so every earlier fold's scatter is in
+        rows = self.population.gather_local_flat(idx).to(self.device)
+        return {"local_flat": rows,
+                "idx": torch.arange(len(idx), device=self.device)}
+
+    def _async_adopt(self, out, idx, folded_groups, folded_global):
+        super()._async_adopt(out, idx, folded_groups, folded_global)
+        self.population.scatter_local_flat(
+            idx, out.assign_state["local_flat"])
 
     # -- checkpoint: + the pinned (N, d_w) local-model matrix ----------------
     def _ckpt_model_tree(self) -> dict:

@@ -1,6 +1,7 @@
-"""Round blocks on the card: one fused round captured once as a CUDA graph
-and replayed B times, the counterpart of
-``repro.fed.parallel.make_sharded_block_executor`` with ``mesh=None``.
+"""Round blocks and async dispatches on the card: one fused round captured
+once as a CUDA graph and replayed, the counterparts of
+``repro.fed.parallel.make_sharded_block_executor`` and
+``make_async_dispatch_executor`` with ``mesh=None``.
 
 The reference fuses B rounds into one ``lax.scan`` dispatch with a donated
 carry. Here ``GraphBlockExecutor(block_fn)`` (``block_fn`` from
@@ -34,10 +35,33 @@ and a later block copies in only the tensors that changed in between.
 On CPU tensors the executor runs ``block_fn`` eagerly (the plain version).
 On the card it replays graphs or raises: a capture failure is raised, and
 nothing runs eagerly on the card in its place.
+
+``GraphDispatchExecutor`` does the same for the async runtime
+(``FedConfig.async_depth``): one dispatch is one replay of a captured
+``make_async_dispatch_executor`` step, which reads the carry and writes
+nothing of it. Each dispatch, on the current stream:
+
+  1. copies the staged cohort from a pinned host buffer (one per result
+     slot) to the card, and any carry tensor that does not lie in the
+     graph's input buffers into them;
+  2. replays the graph;
+  3. copies the graph's outputs into a *result slot* of its own (a pool of
+     ``depth + 1``, one taken per dispatch and given back after its fold),
+     and the slot's metrics into pinned host memory, without a sync.
+
+Stream order gives the reference's snapshot semantics: everything enqueued
+before a dispatch (earlier folds, FedGroup's newcomer rows) runs before it
+reads the carry, everything enqueued after it (the fold that writes the
+live carry in place) after. The graph's inputs are the live carry's own
+buffers: the staleness fold writes them in place, so they keep their
+addresses, and a later run's carry is bound to them (``bind``): step 1
+copies nothing of the carry once the graph is captured.
 """
 from __future__ import annotations
 
+import math
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -201,3 +225,177 @@ class GraphBlockExecutor:
                  input=s_in, output=s_out)
         self.captures += 1
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+
+class Dispatch(NamedTuple):
+    """One async dispatch: ``result`` (``make_async_dispatch_executor``'s
+    dict), ``metrics`` ((3 + K,) float64 on the host; on the card a pinned
+    buffer that holds the values once the event recorded after the
+    dispatch has completed), the staged ``idx`` and ``alive`` on the
+    result's device (the fold's scatter rows), and the result ``slot``
+    (-1 on the CPU)."""
+    result: dict
+    metrics: torch.Tensor
+    idx: torch.Tensor
+    alive: torch.Tensor
+    slot: int = -1
+
+
+class GraphDispatchExecutor:
+    """``executor(carry, train_stack, idx, bidx, alive) -> Dispatch`` with
+    ``dispatch_fn``'s arguments (``fed.rounds.make_async_dispatch_
+    executor``), the staged idx / bidx / alive as host tensors. On CPU
+    tensors it runs ``dispatch_fn`` eagerly; on the card it replays the
+    captured step (see the module docstring) or raises. ``release(d)``
+    gives a dispatch's result slot back once its fold is enqueued (or its
+    lease abandoned). ``replays`` counts the replays, ``captures`` the
+    captures, ``capture_ms`` the one-time warm-up and capture."""
+
+    def __init__(self, dispatch_fn, depth: int):
+        self.dispatch_fn = dispatch_fn
+        self.slots = int(depth) + 1
+        self.captures = 0
+        self.replays = 0
+        self.capture_ms = None
+        self._g = None
+
+    def __call__(self, carry, train_stack, idx, bidx, alive) -> Dispatch:
+        if train_stack[0].device.type != "cuda":
+            dev = train_stack[0].device
+            idx, bidx, alive = (t.to(dev) for t in (idx, bidx, alive))
+            result, metrics = self.dispatch_fn(carry, train_stack, idx,
+                                               bidx, alive)
+            return Dispatch(result, metrics, idx, alive)
+        with torch.cuda.device(train_stack[0].device):
+            return self._replay(carry, train_stack, idx, bidx, alive)
+
+    def bind(self, carry: dict) -> dict:
+        """The live carry of a run: once the step is captured, ``carry``'s
+        values in the graph's input buffers (which the run then updates in
+        place); ``carry`` itself before."""
+        if self._g is None or "inputs" not in self._g:
+            return carry
+        ins = self._g["inputs"]
+        for k, dst in ins["group_params"].items():
+            dst.copy_(carry["group_params"][k])
+        for key in ("membership", "aux"):
+            if ins[key] is not None and ins[key] is not carry[key]:
+                ins[key].copy_(carry[key])
+        return dict(carry, **ins)
+
+    def release(self, d: Dispatch):
+        if d.slot >= 0:
+            self._g["free"].append(d.slot)
+
+    def _replay(self, carry, train_stack, idx, bidx, alive) -> Dispatch:
+        K = idx.shape[0]
+        shape = (K, tuple(bidx.shape[1:]), carry["membership"].shape[0])
+        if self._g is None:
+            self._allocate(shape, train_stack[0].device)
+        g = self._g
+        if shape != g["shape"]:
+            raise ValueError(f"dispatch of shape {shape} (K, rows, N + 1) "
+                             f"differs from the captured {g['shape']}")
+        if not g["free"]:
+            raise RuntimeError("no free result slot: more dispatches in "
+                               f"flight than the pool's {self.slots}")
+        j = g["free"].pop(0)
+        # this slot's previous dispatch (folded or abandoned) has finished
+        # reading its host buffer and writing its host metrics
+        g["done"][j].synchronize()
+        host = g["host_in"][j]
+        host[:K].copy_(idx)
+        host[K:2 * K].copy_(alive)
+        host[2 * K:].copy_(bidx.reshape(-1))
+        g["input"].copy_(host, non_blocking=True)
+        if "graph" not in g:
+            self._capture(carry, train_stack)
+        static = g["inputs"]
+        for k, dst in static["group_params"].items():
+            if dst.data_ptr() != carry["group_params"][k].data_ptr():
+                dst.copy_(carry["group_params"][k])
+        for key in ("membership", "aux"):
+            dst, src = static[key], carry[key]
+            if dst is not None and dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+        g["graph"].replay()
+        self.replays += 1
+        out, slot = g["output"], g["slots"][j]
+        for key in ("group_params", "global_params"):
+            for k, dst in slot[key].items():
+                dst.copy_(out[key][k])
+        for key in ("group_delta", "membership", "aux"):
+            if slot[key] is not None:
+                slot[key].copy_(out[key])
+        slot["idx"].copy_(g["input"][:K])
+        slot["alive"].copy_(g["input"][K:2 * K])
+        g["host_metrics"][j].copy_(g["metrics"], non_blocking=True)
+        g["done"][j].record()
+        result = {k: slot[k] for k in ("group_params", "global_params",
+                                       "group_delta", "membership", "aux")}
+        return Dispatch(result, g["host_metrics"][j], slot["idx"],
+                        slot["alive"], j)
+
+    def _allocate(self, shape, device):
+        K, rows, _ = shape
+        n = 2 * K + K * math.prod(rows)
+        self._g = {"shape": shape, "free": list(range(self.slots)),
+                   "host_in": [torch.empty(n, dtype=torch.int64,
+                                           pin_memory=True)
+                               for _ in range(self.slots)],
+                   "done": [torch.cuda.Event() for _ in range(self.slots)],
+                   "input": torch.empty(n, dtype=torch.int64, device=device)}
+
+    def _capture(self, carry, train_stack):
+        """Warm up and capture the step on the carry itself (the step only
+        reads it) with the first staged cohort as the input, then make the
+        result slots in the outputs' shapes."""
+        g = self._g
+        K, rows, _ = g["shape"]
+        s_in = g["input"]
+        t0 = time.perf_counter()
+
+        def body():
+            return self.dispatch_fn(carry, train_stack, s_in[:K],
+                                    s_in[2 * K:].view((K,) + rows),
+                                    s_in[K:2 * K].to(torch.float32))
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                output, metrics = body()
+        except Exception as e:
+            raise RuntimeError(
+                "CUDA graph capture of the async dispatch failed (a host "
+                "sync inside the round?); async dispatches do not run "
+                "eagerly on the card") from e
+        torch.cuda.synchronize()
+
+        def like(v):
+            if isinstance(v, dict):
+                return {k: torch.empty_like(t) for k, t in v.items()}
+            return None if v is None else torch.empty_like(v)
+
+        g["slots"] = [dict({k: like(v) for k, v in output.items()},
+                           idx=torch.empty(K, dtype=torch.int64,
+                                           device=s_in.device),
+                           alive=torch.empty(K, dtype=torch.float32,
+                                             device=s_in.device))
+                      for _ in range(self.slots)]
+        g["host_metrics"] = [torch.empty(metrics.shape, dtype=metrics.dtype,
+                                         pin_memory=True)
+                             for _ in range(self.slots)]
+        # what the step reads of the carry, by reference
+        g.update(graph=graph, output=output, metrics=metrics,
+                 inputs={"group_params": dict(carry["group_params"]),
+                         "membership": carry["membership"],
+                         "aux": carry["aux"]})
+        self.captures += 1
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+

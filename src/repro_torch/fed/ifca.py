@@ -57,6 +57,9 @@ class IFCATrainer(GroupedTrainer):
         # the m× broadcast accounting is per ALIVE client, block or not
         self.comm_params += (self.m + 1) * k * self.model_size
 
+    def _async_stream_arg(self, idx):
+        return None      # the in-round argmin-loss stage needs no state
+
     def round(self, t: int, idx=None) -> RoundMetrics:
         if idx is None:
             idx = self._select()

@@ -54,9 +54,10 @@ backoff. ``Population.stats`` counts what happened. ``ckpt_state()`` /
 ``ckpt_restore()`` capture the scheduler stream as of the last consumed
 round and the state table, for the trainers' bit-identical resume.
 
-Not yet ported (``ROADMAP.md``): the population's spans and ``pop.*``
-registry (item 14: ``stats`` is a plain dict of the same counters) and the
-per-shard gather over a mesh (item 16).
+``stats`` is a view of the ``pop.*`` counters of the population's
+metrics registry (``repro_torch.obs``), which a trainer built on the
+population shares. Not yet ported (``ROADMAP.md``): the population's spans
+(item 14) and the per-shard gather over a mesh (item 16).
 """
 from __future__ import annotations
 
@@ -72,14 +73,22 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.fed.store import (SELECT_STREAM, ClientStateTable,
                                    ClientStore, _host_rows)
+from repro_torch.obs import metrics as obs_metrics
 
 # the reference's population degradation counters (``Population.stats``):
-# fault injection, the deadline and the state writer feed the first six;
-# the async runtime's lease counters stay zero until it is ported (item 13)
+# fault injection, the deadline and the state writer feed the first six,
+# the async runtime's lease window the last two
 _STATS_ZERO = {"deadline_rounds": 0, "deadline_dropped_clients": 0,
                "killed_clients": 0, "corrupted_clients": 0,
                "writer_crashes": 0, "writer_retries": 0,
                "lease_expiries": 0, "requeues": 0}
+
+
+def pop_metric_specs():
+    """The ``pop.*`` registry schema derived from ``_STATS_ZERO``."""
+    return [obs_metrics.MetricSpec(f"pop.{k}", obs_metrics.COUNTER,
+                                   "population degradation counter")
+            for k in _STATS_ZERO]
 
 # fault-injection sentinel: the writer thread returns without finishing
 # its pending write, the observable state of a thread killed mid-write
@@ -668,10 +677,14 @@ class Population:
         self._staging = None           # the producer's chunked gather
         self._track_sched = False      # keep per-cohort scheduler snapshots
         self._consumed_sched = None    # the last consumed round's snapshot
-        # fault, deadline and writer counters: zeroed by each fresh run()
-        # (reset_stats), carried through checkpoints; the producer and the
-        # consumer both count, under _stats_lock
-        self.stats = dict(_STATS_ZERO)
+        # fault, deadline, writer and lease counters: zeroed by each fresh
+        # run() (reset_stats), carried through checkpoints. A view of the
+        # pop.* metrics of this population's registry, which its trainer
+        # shares; the producer and the consumer both count, under
+        # _stats_lock
+        self.registry = obs_metrics.MetricsRegistry()
+        self.registry.declare(pop_metric_specs())
+        self.stats = self.registry.view({k: f"pop.{k}" for k in _STATS_ZERO})
         self._stats_lock = threading.Lock()
 
     def _count(self, **incs):

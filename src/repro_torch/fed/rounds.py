@@ -23,10 +23,17 @@ tensors its ``block_fn`` runs the step B times eagerly (the plain
 version); on the card ``fed.graphs`` captures one step as a CUDA graph and
 replays it B times.
 
+The async runtime (``FedConfig.async_depth``) runs one such step per
+in-flight dispatch against a snapshot of the state
+(``make_async_dispatch_executor``; on the card ``fed.graphs`` replays it
+as a captured graph) and folds each result into the live state with
+FedAsync staleness weights (``staleness_weight``, ``make_staleness_fold``
+when pinned, ``make_param_fold`` when streamed). None of these is a Pallas
+kernel in the reference; they are plain torch functions here, on the CPU
+and on the card.
+
 ``serial_reference_round`` / ``serial_ifca_round`` / ``serial_fesem_round``
 keep the per-group loop as the oracles the fused round is tested against.
-
-The async and staleness executors are not yet ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -317,6 +324,186 @@ def make_block_executor(model, *, epochs: int, batch_size: int, lr: float,
     block_fn.evaluate = torch.no_grad()(evaluate)
     block_fn.max_steps = core.max_steps
     return block_fn
+
+
+def staleness_weight(staleness, *, alpha: float = 1.0, beta: float = 0.0):
+    """FedAsync mixing weight w = alpha * (staleness + 1)^(-beta), as (m,)
+    float32 host numpy (computed in float64, then cast).
+
+    ``staleness`` counts, per group, how many folds landed between a
+    dispatch's snapshot and its own fold (0 = fresh). s = 0 gives exactly
+    ``alpha``; the weight is non-increasing in s for beta >= 0; alpha = 1,
+    beta = 0 gives exactly 1.0 everywhere, the equivalence mode whose fold
+    is a bitwise passthrough of the dispatch result."""
+    s = np.asarray(staleness, np.float64)
+    if np.any(s < 0):
+        raise ValueError(f"negative staleness {s}")
+    return np.asarray(alpha * (s + 1.0) ** (-float(beta)), np.float32)
+
+
+def _device_weights(weights, device) -> tuple:
+    """(host numpy float32 weights, the same as a tensor on ``device``);
+    the copy to the card goes through pinned memory, without a sync."""
+    host = (weights.detach().cpu().numpy() if isinstance(weights, torch.Tensor)
+            else np.asarray(weights)).astype(np.float32)
+    w = torch.from_numpy(host)
+    if torch.device(device).type == "cuda":
+        w = w.pin_memory().to(device, non_blocking=True)
+    return host, w
+
+
+def _mix_weighted(w):
+    """Per-leaf convex mix new = (1-w)*cur + w*res over the leading group
+    axis, with w == 1.0 an exact bitwise passthrough of ``res`` (0*cur +
+    1*res is NOT bit-exact when cur is -0.0 or non-finite, so the
+    passthrough is a ``where`` select, not arithmetic)."""
+    def mix(cur, res):
+        wl = w.reshape((-1,) + (1,) * (res.ndim - 1)).to(res.dtype)
+        return torch.where(wl == 1.0, res, (1.0 - wl) * cur + wl * res)
+    return mix
+
+
+def make_async_dispatch_executor(model, *, epochs: int, batch_size: int,
+                                 lr: float, mu: float, n_groups: int,
+                                 max_samples: int, eta_g: float = 0.0,
+                                 assign_fn=None, state_update_fn=None,
+                                 make_state=None, state_to_aux=None,
+                                 quarantine: bool = False,
+                                 quarantine_mult: float = 10.0):
+    """Returns dispatch_fn(carry, train_stack, idx, bidx, alive) ->
+    (result, metrics): ONE staged round computed against a *snapshot*
+    carry, for the async runtime's in-flight window
+    (``FedConfig.async_depth``).
+
+    It is ``make_block_executor``'s step (same core, same in-program gather
+    from the pinned stacks, padded lanes redirected to the trash row)
+    without the in-program eval (the loop evaluates at fold time) and
+    without writing the carry: at depth D > 1 the snapshot is shared with
+    the live state and every other dispatch in flight. So the result holds
+    only what the cohort touched:
+
+      ``group_params`` / ``global_params`` / ``group_delta``  the round's
+      ``membership``  (K,) the cohort's post-assignment group ids
+      ``aux``         (K, ·) the cohort's updated rows (FeSEM's
+                      ``local_flat``), or None
+
+    and ``make_staleness_fold`` scatters the two row sets at the cohort's
+    ids. With an ``aux``, ``make_state`` receives the cohort's gathered
+    rows and their local ids 0..K-1 (the streamed trainers' form), so a
+    state update that writes its rows in place (``fesem_state_update``)
+    writes the gathered copy; without one it receives ``(None, ids,
+    membership)``, the ids redirected to the trash row.
+
+    metrics: (3 + K,) float64: mean_loss, discrepancy, n_quarantined, then
+    the K post-assignment group ids (the fold's version clocks read them
+    on the host)."""
+    core = _make_round_core(
+        model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
+        n_groups=n_groups, max_samples=max_samples, eta_g=eta_g,
+        assign_fn=assign_fn, state_update_fn=state_update_fn,
+        quarantine=quarantine, quarantine_mult=quarantine_mult)
+
+    @torch.no_grad()
+    def dispatch_fn(carry, train_stack, idx, bidx, alive):
+        X_all, Y_all, n_all = train_stack
+        x, y, n = X_all[idx], Y_all[idx], n_all[idx]
+        mem = carry["membership"]
+        trash = mem.shape[0] - 1                    # row N: padded lanes
+        ix_eff = torch.where(alive > 0, idx, torch.full_like(idx, trash))
+        aux = carry["aux"]
+        rows = None if aux is None else aux[ix_eff]
+        if assign_fn is None:
+            arg = mem[idx]
+        elif make_state is not None:
+            arg = (make_state(None, ix_eff, mem) if rows is None else
+                   make_state(rows, torch.arange(idx.shape[0],
+                                                 device=idx.device), mem))
+        else:
+            arg = None
+        out = core(carry["group_params"], arg, x, y, n, bidx, alive)
+        if state_to_aux is not None:
+            rows = state_to_aux(out.assign_state)
+        result = dict(group_params=out.group_params,
+                      global_params=out.global_params,
+                      group_delta=out.group_delta_flat,
+                      membership=out.membership, aux=rows)
+        metrics = torch.cat([torch.stack([out.mean_loss.double(),
+                                          out.discrepancy.double(),
+                                          out.n_quarantined.double()]),
+                             out.membership.double()])
+        return result, metrics
+
+    dispatch_fn.max_steps = core.max_steps
+    return dispatch_fn
+
+
+def make_staleness_fold():
+    """Returns fold_fn(current, result, idx, alive, weights) -> current:
+    fold a completed async dispatch (``make_async_dispatch_executor``'s
+    result) into the live carry with per-group staleness weights
+    (``staleness_weight``), IN PLACE: the carry keeps its buffers, so a
+    captured dispatch graph that reads them stays valid, and a dispatch
+    enqueued before the fold (on the card: earlier in stream order; on the
+    CPU: already computed) keeps the snapshot it read.
+
+      * group_params: per-group convex mix (1-w)·current + w·result, w ==
+        1.0 a bitwise ``where`` passthrough of the result;
+      * global_params: the result's own when every weight is 1.0 (bitwise:
+        the D = 1 equivalence mode), the mean of the folded groups
+        otherwise;
+      * group_delta: the result's flattened update directions (eq. 9
+        routes by the direction, not the magnitude);
+      * membership / aux: only the cohort's rows are written, dead lanes
+        redirected to the trash row, so at D > 1 concurrent dispatches
+        merge row-wise (the last fold wins on a shared row).
+
+    idx / alive: the staged cohort (K,) (any device); weights: (m,) host
+    numpy or tensor."""
+    @torch.no_grad()
+    def fold_fn(current, result, idx, alive, weights):
+        mem = current["membership"]
+        dev = mem.device
+        trash = mem.shape[0] - 1
+        idx, alive = idx.to(dev), alive.to(dev)
+        ix_eff = torch.where(alive > 0, idx, torch.full_like(idx, trash))
+        mem.index_put_((ix_eff,), result["membership"].to(mem.dtype))
+        if current["aux"] is not None:
+            current["aux"].index_put_((ix_eff,), result["aux"])
+        host, w = _device_weights(weights, dev)
+        mix = _mix_weighted(w)
+        groups = current["group_params"]
+        for k, g in groups.items():
+            g.copy_(mix(g, result["group_params"][k]))
+        all_one = bool(np.all(host == 1.0))
+        for k, p in current["global_params"].items():
+            p.copy_(result["global_params"][k] if all_one
+                    else torch.mean(groups[k], dim=0))
+        current["group_delta"].copy_(result["group_delta"])
+        return current
+
+    return fold_fn
+
+
+def make_param_fold():
+    """Returns fold_fn(current_groups, result_groups, result_global,
+    weights) -> (folded_groups, folded_global): the carry-less staleness
+    fold of the *streamed* async path, where membership and FeSEM's rows
+    stay on the host and only the m-stacked group parameters live on the
+    device. The same mixing as ``make_staleness_fold`` (w == 1.0 a bitwise
+    passthrough, so the equivalence mode adopts the dispatch result as the
+    synchronous round does); the current groups are not written."""
+    @torch.no_grad()
+    def fold_fn(current_groups, result_groups, result_global, weights):
+        dev = next(iter(current_groups.values())).device
+        host, w = _device_weights(weights, dev)
+        mix = _mix_weighted(w)
+        groups = {k: mix(g, result_groups[k])
+                  for k, g in current_groups.items()}
+        if bool(np.all(host == 1.0)):
+            return groups, result_global
+        return groups, {k: torch.mean(g, dim=0) for k, g in groups.items()}
+
+    return fold_fn
 
 
 def serial_reference_round(batch_solver, group_params_list, membership,

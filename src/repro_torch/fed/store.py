@@ -338,8 +338,8 @@ class ClientStateTable:
 
     def init_group_version(self, m: int) -> np.ndarray:
         """The (m,) per-group version counters of the async runtime
-        (``ROADMAP.md`` item 13), made once and shared by reference like
-        ``membership``."""
+        (``FedAvgTrainer._group_version``), made once and shared by
+        reference like ``membership``."""
         if self.group_version is None:
             self.group_version = np.zeros(int(m), np.int64)
         return self.group_version

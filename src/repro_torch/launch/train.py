@@ -6,8 +6,11 @@ fed flags and datasets, plus ``--device``).
       --framework fedgroup --dataset femnist --rounds 30
 
 Frameworks: fedavg, fedprox, fedgroup, fedgrouprox, ifca, fesem. Runs on
-``cuda`` unless ``--device cpu``. Not yet ported (they raise):
-``--mode lm``, ``--async-depth`` and ``--telemetry-dir``.
+``cuda`` unless ``--device cpu``. ``--async-depth D`` (with
+``--async-alpha`` / ``--async-beta``) runs the async runtime with D
+dispatches in flight; ``--async-depth 1`` prints the synchronous run's
+``acc=`` / ``disc=`` lines exactly. Not yet ported (they raise): ``--mode
+lm`` and ``--telemetry-dir``.
 """
 from __future__ import annotations
 
@@ -29,9 +32,6 @@ def run_fed(args) -> int:
     from repro_torch.fed.server import tree_index
     from repro_torch.models.paper_models import lstm_classifier, mclr, mlp
 
-    if args.async_depth:
-        raise NotImplementedError("--async-depth: the async runtime is not "
-                                  "yet ported to repro_torch (ROADMAP.md)")
     if args.telemetry_dir:
         raise NotImplementedError("--telemetry-dir: telemetry is not yet "
                                   "ported to repro_torch (ROADMAP.md)")
@@ -69,16 +69,30 @@ def run_fed(args) -> int:
                     local_epochs=args.epochs, batch_size=args.batch,
                     lr=args.lr, mu=args.mu, n_groups=args.groups,
                     pretrain_scale=args.alpha, eta_g=args.eta_g,
-                    measure=args.measure, seed=args.seed)
+                    measure=args.measure, seed=args.seed,
+                    async_depth=args.async_depth,
+                    async_alpha=args.async_alpha, async_beta=args.async_beta)
     tr = frameworks[args.framework](model, data, cfg, device=args.device)
     print(f"# {args.framework} on {data.name} ({tr.device}): "
           f"{data.n_clients} clients, m={cfg.n_groups}, "
-          f"K={cfg.clients_per_round}, E={cfg.local_epochs}")
+          f"K={cfg.clients_per_round}, E={cfg.local_epochs}"
+          + (f", async_depth={cfg.async_depth}" if cfg.async_depth else ""))
     t0 = time.time()
-    for t in range(cfg.n_rounds):
-        m = tr.round(t)
-        print(f"round {t:3d} acc={m.weighted_acc:.4f} "
-              f"disc={m.discrepancy:.4f} ({time.time()-t0:.1f}s)")
+    if cfg.async_depth:
+        # the async loop folds inside run(): the per-fold lines come after
+        tr.run(cfg.n_rounds)
+        for t, m in enumerate(tr.history.rounds):
+            print(f"round {t:3d} acc={m.weighted_acc:.4f} "
+                  f"disc={m.discrepancy:.4f}")
+        st = tr.history.async_stats
+        print(f"async: folds={st['folds']} "
+              f"max_in_flight={st['max_in_flight']} "
+              f"staleness={st['staleness_hist']} ({time.time()-t0:.1f}s)")
+    else:
+        for t in range(cfg.n_rounds):
+            m = tr.round(t)
+            print(f"round {t:3d} acc={m.weighted_acc:.4f} "
+                  f"disc={m.discrepancy:.4f} ({time.time()-t0:.1f}s)")
     print(f"max_acc={tr.history.max_acc:.4f}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -110,7 +124,12 @@ def main(argv=None) -> int:
     ap.add_argument("--measure", choices=("edc", "madc"), default="edc")
     ap.add_argument("--clients", type=int, default=None)
     ap.add_argument("--async-depth", type=int, default=0, dest="async_depth",
-                    help="not yet ported: any value > 0 raises")
+                    help="D>0 keeps D in-flight cohort dispatches, folded "
+                         "with FedAsync staleness weights (0 = synchronous)")
+    ap.add_argument("--async-alpha", type=float, default=1.0,
+                    dest="async_alpha")
+    ap.add_argument("--async-beta", type=float, default=0.0,
+                    dest="async_beta")
     ap.add_argument("--telemetry-dir", default=None, dest="telemetry_dir",
                     help="not yet ported: setting it raises")
     ap.add_argument("--device", default="cuda",

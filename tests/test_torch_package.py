@@ -39,7 +39,8 @@ SLICE_MODULES = [
     "repro_torch.fed.strategies", "repro_torch.core.gating",
     "repro_torch.fed.population", "repro_torch.checkpoint",
     "repro_torch.checkpoint.io", "repro_torch.optim",
-    "repro_torch.optim.solvers",
+    "repro_torch.optim.solvers", "repro_torch.fed.leases",
+    "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.fed.graphs",
 ]
 
 
@@ -83,13 +84,45 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("async_depth", 1), ("telemetry_dir", "/nonexistent"),
+    ("telemetry_dir", "/nonexistent"),
 ])
 def test_unported_options_raise(field, value):
     data = tgen.synthetic(seed=0, n_clients=4)
     cfg = dataclasses.replace(FedConfig(), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu")
+
+
+def test_a_mesh_raises():
+    data = tgen.synthetic(seed=0, n_clients=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FedAvgTrainer(mclr(60, 10), data, FedConfig(), device="cpu",
+                      mesh=object())
+
+
+def test_async_depth_runs_on_the_cpu():
+    data = tgen.synthetic(seed=0, n_clients=4)
+    cfg = FedConfig(n_rounds=2, clients_per_round=2, local_epochs=1,
+                    async_depth=1)
+    tr = FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu")
+    h = tr.run()
+    assert len(h.rounds) == 2
+    assert h.async_stats["folds"] == h.async_stats["dispatches"] == 2
+
+
+@pytest.mark.parametrize("module", ["repro_torch.fed.leases",
+                                    "repro_torch.obs"])
+def test_reference_copies_import_no_jax_and_no_reference(module):
+    # the port's own copies of reference modules that never import JAX
+    code = (f"import importlib, sys; importlib.import_module({module!r})\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
+            "or m.startswith(('jax.', 'repro.')))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("field,value", [
