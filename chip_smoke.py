@@ -163,6 +163,34 @@ with no final ``ok`` line):
                 dispatches = folds + 1, rounds in order. 4g-iv:
                 kill-and-resume mid-async (D = 2, a checkpoint every 3
                 rounds) of FedGroup pinned and FeSEM streamed: deviation 0.
+     4h         telemetry and the elastic control plane at phase 4's width,
+                FedGroup (EDC) at α = 40, FLEET_ROUNDS rounds a run on three
+                paths: per round, blocks of BLOCK_SIZE (replayed graphs),
+                async D = 2. 4h-i: each path without and with a telemetry
+                dir (``build/telemetry_<path>``): histories equal, max |Δ|
+                0, membership equal, blocks still replays, the dir passes
+                ``repro_torch.launch.inspect.check_dir`` (else fails);
+                median round ms off and on, spans a round by kind,
+                ``metrics.jsonl`` bytes, ``finalize`` ms; then one
+                ``Telemetry.profile()`` window of 2 rounds: the spans found
+                in the capture and the device ms under each. 4h-ii:
+                ``Coordinator(trainer, FleetConfig(n_workers=1))`` (a
+                worker thread) against ``trainer.run()`` on the three
+                paths and FeSEM streamed (``prefetch=2``): deviation 0,
+                histories and membership equal, jobs = results, fleet
+                blocks replays of one graph (else fails); median round ms
+                of both and their ratio; then two workers with the holder
+                of dispatch 3 killed and dispatch 4's, 5's and 6's results
+                dropped, duplicated and held back: equal to the unfaulted
+                run, each fault counted, ``fleet.*`` and recovery ms.
+                4h-iii: PROC_ROUNDS rounds through two spawned workers
+                (``ProcTransport``; each builds its replica with
+                ``fleet_worker_trainer``), unkilled and with round
+                PROC_KILL_ROUND's holder SIGKILLed: the two equal exactly
+                (else fails), their deviation from the in-process run
+                (expected 0), spawn and build s, round ms, payload bytes
+                each way a dispatch, the kill's recovery ms; the phase's
+                seconds.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -185,8 +213,8 @@ with no final ``ok`` line):
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
      ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
-     20-group and shift runs and phase 4d's, 4e's, 4f's and 4g's FedGroup
-     runs), then
+     20-group and shift runs and phase 4d's, 4e's, 4f's, 4g's and 4h's
+     FedGroup runs), then
      the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -241,6 +269,18 @@ ASYNC_WEIGHTS = dict(async_alpha=0.8, async_beta=0.5)
 # founder, so no newcomer's eq. 9 (a host read of the card) drains the
 # in-flight window
 ASYNC_DEPTH_RUNS = (("fedgroup", 40), ("fesem", 20))
+# phase 4h: FedGroup at α = 40 (every client a founder) on three paths,
+# FLEET_ROUNDS rounds; a 5 s heartbeat window for the equivalence runs, a
+# 0.5 s one for the chaos run (the in-process kill is found by it)
+FLEET_ROUNDS, FLEET_ALPHA = 8, 40
+FLEET_PATHS = {"round": {}, "block": {"block_size": BLOCK_SIZE},
+               "async2": dict(async_depth=2, **ASYNC_WEIGHTS)}
+FLEET_CALM = dict(heartbeat_interval=0.05, heartbeat_miss=100)
+FLEET_CHAOS = dict(heartbeat_interval=0.05, heartbeat_miss=10,
+                   backoff=0.005, backoff_cap=0.02)
+PROC_ROUNDS, PROC_KILL_ROUND = 4, 2   # phase 4h-iii: spawned workers
+PROC_BUILDER = "chip_smoke:fleet_worker_trainer"   # their replica builder
+PROC_BEAT = (0.1, 50)          # heartbeat interval s and misses: 5 s window
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
 SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -s · softplus(randn)
@@ -2099,6 +2139,447 @@ def async_phase(torch, data, model, blocked_ms: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: telemetry and the elastic control plane
+# ---------------------------------------------------------------------------
+def fleet_trainer(model, data, path: str, population=None, **kw):
+    """Phase 4h's trainer: FedGroup (EDC) at α = 40 (every client a
+    founder) on ``path`` ("round", "block" or "async2"), FLEET_ROUNDS
+    rounds; FeSEM when streamed."""
+    name = "fesem" if population is not None else "fedgroup"
+    return async_trainer(model, data, name, alpha=FLEET_ALPHA,
+                         population=population, **FLEET_PATHS[path], **kw)
+
+
+def timed_run(torch, tr, path: str, run, rounds: int) -> dict:
+    """One ``run(rounds)`` (the trainer's, or a coordinator's, which runs
+    the trainer's loop), with the host ms of each unit of work: every
+    ``round`` and ``_run_block`` call ended by synchronize (a block's ms
+    over its rounds), or the gaps between leases turning ready (async).
+    ``round_ms_median`` leaves out the cold-start round, the first block
+    (its capture) and the async window's drain."""
+    if path == "async2":
+        wall, gaps = timed_async(torch, tr, rounds)
+        steady = gaps[:len(gaps) - 1]
+        return {"wall_ms": wall, "round_ms": gaps,
+                "round_ms_median": float(np.median(steady))}
+    units = []
+    name = "_run_block" if path == "block" else "round"
+    real = getattr(tr, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        b = len(args[1]) if path == "block" else 1
+        units.append(((time.perf_counter() - t0) * 1e3, b))
+        return out
+
+    setattr(tr, name, timed)           # the instance's, ahead of the class's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        run(rounds)
+        torch.cuda.synchronize()
+    finally:
+        delattr(tr, name)
+    wall = (time.perf_counter() - t0) * 1e3
+    per_round = [ms / b for ms, b in units]
+    return {"wall_ms": wall, "round_ms": per_round,
+            "round_ms_median": float(np.median(per_round[1:]))}
+
+
+def round_dispatches(tr) -> int:
+    """Per-round executor calls a traced run made (its dispatch spans)."""
+    return sum(1 for r in tr.obs.tracer.records()
+               if r.kind == "dispatch" and r.attrs.get("exec") == "round")
+
+
+def telemetry_run(torch, data, model, path: str) -> dict:
+    """Phase 4h-i: FedGroup pinned on ``path`` without and with a
+    telemetry dir. Fails unless the histories are equal, every parameter
+    differs by 0, membership is equal, the dir passes the inspector's
+    check and, blocked, the traced run replayed the one captured graph for
+    every blocked round. Prints both median round ms, spans a round by
+    kind, ``metrics.jsonl`` bytes and ``finalize`` ms."""
+    import shutil
+
+    from repro_torch.launch import inspect as tinspect
+
+    tdir = ROOT / "build" / f"telemetry_{path}"
+    shutil.rmtree(tdir, ignore_errors=True)
+    off = fleet_trainer(model, data, path)
+    t_off = timed_run(torch, off, path, off.run, FLEET_ROUNDS)
+    on = fleet_trainer(model, data, path, telemetry_dir=str(tdir))
+    t_on = timed_run(torch, on, path, on.run, FLEET_ROUNDS)
+    t0 = time.perf_counter()
+    on.obs.finalize(on._summary_extra())
+    finalize_ms = (time.perf_counter() - t0) * 1e3
+    dev = max_abs_dev(model_state(off), model_state(on))
+    hist_equal = on.history.rounds == off.history.rounds
+    mem_equal = same_membership(off, on)
+    kinds = {}
+    for r in on.obs.tracer.records():
+        kinds[r.kind] = kinds.get(r.kind, 0) + 1
+    errors = tinspect.check_dir(str(tdir))
+    rec = {"phase": "telemetry", "trainer": "fedgroup", "alpha": FLEET_ALPHA,
+           "path": path, "rounds": FLEET_ROUNDS, "history_equal": hist_equal,
+           "max_abs_param_dev": dev, "membership_equal": mem_equal,
+           "round_ms_median_off": t_off["round_ms_median"],
+           "round_ms_median_on": t_on["round_ms_median"],
+           "wall_ms_off": t_off["wall_ms"], "wall_ms_on": t_on["wall_ms"],
+           "spans_per_round": {k: v / FLEET_ROUNDS
+                               for k, v in sorted(kinds.items())},
+           "metrics_jsonl_bytes": (tdir / "metrics.jsonl").stat().st_size,
+           "trace_json_bytes": (tdir / "trace.json").stat().st_size,
+           "finalize_ms": finalize_ms, "inspect_errors": errors}
+    ok = hist_equal and dev == 0.0 and mem_equal and errors == []
+    if path == "block":
+        ex_on, ex_off = on._block_exec, off._block_exec
+        blocked = FLEET_ROUNDS - round_dispatches(on)
+        rec.update(graph_replays_on=ex_on.replays,
+                   graph_replays_off=ex_off.replays, blocked_rounds=blocked,
+                   captures_on=ex_on.captures)
+        ok &= (ex_on.replays == ex_off.replays == blocked > 0
+               and ex_on.captures == 1)
+    if path == "async2":
+        ex = on._async_exec
+        rec.update(graph_replays_on=ex.replays,
+                   async_stats=dict(on.history.async_stats))
+        ok &= ex.replays == on.history.async_stats["dispatches"]
+    emit(rec)
+    if path == "round":
+        emit(telemetry_profile(torch, on))
+    off.close()
+    on.close()
+    if not ok:
+        raise AssertionError(f"telemetry on {path}: a gate failed: {rec}")
+    return rec
+
+
+def telemetry_profile(torch, tr) -> dict:
+    """Phase 4h-i: one ``Telemetry.profile()`` window of 2 more rounds
+    with the spans annotated: each span kind found in the capture, its
+    count, host ms, the device ms of the kernels launched under it, and
+    the extent of its range on the device (first kernel to last, idle
+    gaps included)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.obs.trace import SPAN_KINDS
+
+    tr.obs.tracer.annotate = True
+    with tr.obs.profile() as p:
+        tr.run(2)
+        torch.cuda.synchronize()
+    tr.obs.tracer.annotate = False
+    spans = {}
+    for e in p.prof.events():
+        if e.name not in SPAN_KINDS:
+            continue
+        s = spans.setdefault(e.name, {"count": 0, "host_ms": 0.0,
+                                      "kernel_ms": 0.0,
+                                      "device_extent_ms": 0.0})
+        if e.device_type == DeviceType.CPU:
+            # the range on the host, and the kernels launched inside it
+            s["count"] += 1
+            s["host_ms"] += e.cpu_time_total / 1e3
+            s["kernel_ms"] += e.device_time_total / 1e3
+        else:
+            # the range's mirror on the device: first kernel to last
+            s["device_extent_ms"] += e.device_time_total / 1e3
+    if "dispatch" not in spans:
+        raise AssertionError(f"the profile window shows no dispatch span: "
+                             f"{sorted(spans)}")
+    return {"phase": "telemetry", "part": "profile", "rounds": 2,
+            "spans": spans, "trace": str(Path(p.log_dir).relative_to(ROOT))}
+
+
+def fleet_equivalence(torch, data, model, path: str,
+                      streamed: bool = False) -> dict:
+    """Phase 4h-ii: ``Coordinator(trainer, FleetConfig(n_workers=1))``
+    against ``trainer.run()``, FedGroup pinned on ``path`` or FeSEM
+    streamed (``prefetch=2``). Fails unless histories, parameters (max
+    |Δ| 0) and membership are equal, every dispatch went through the fleet
+    and, blocked, the fleet-routed blocks were replays of one graph."""
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.fed.store import ArrayClientStore
+    from repro_torch.launch.coordinator import Coordinator, FleetConfig
+
+    def make():
+        if not streamed:
+            return fleet_trainer(model, data, path)
+        pop = Population(ArrayClientStore(data), PopulationConfig(prefetch=2))
+        return fleet_trainer(model, None, path, population=pop)
+
+    plain = make()
+    t_plain = timed_run(torch, plain, path, plain.run, FLEET_ROUNDS)
+    tr = make()
+    coord = Coordinator(tr, FleetConfig(n_workers=1, **FLEET_CALM))
+    t_fleet = timed_run(torch, tr, path, coord.run, FLEET_ROUNDS)
+    dev = max_abs_dev(model_state(plain), model_state(tr))
+    hist_equal = tr.history.rounds == plain.history.rounds
+    mem_equal = same_membership(plain, tr)
+    reg = tr.registry
+    snap = {k: reg.get(k) for k in reg.names("fleet.")}
+    rec = {"phase": "fleet", "part": "equivalence",
+           "trainer": "fesem" if streamed else "fedgroup",
+           "streamed": streamed, "path": path, "rounds": FLEET_ROUNDS,
+           "history_equal": hist_equal, "max_abs_param_dev": dev,
+           "membership_equal": mem_equal, "fleet": snap,
+           "plain_round_ms_median": t_plain["round_ms_median"],
+           "fleet_round_ms_median": t_fleet["round_ms_median"],
+           "fleet_over_plain": (t_fleet["round_ms_median"]
+                                / t_plain["round_ms_median"]),
+           "plain_wall_ms": t_plain["wall_ms"],
+           "fleet_wall_ms": t_fleet["wall_ms"]}
+    ok = (hist_equal and dev == 0.0 and mem_equal
+          and snap["fleet.jobs"] == snap["fleet.results"] > 0)
+    if path in ("block", "async2"):
+        ex = tr._block_exec if path == "block" else tr._async_exec
+        ex_plain = plain._block_exec if path == "block" else \
+            plain._async_exec
+        rec.update(graph_replays=ex.replays, captures=ex.captures,
+                   graph_replays_plain=ex_plain.replays)
+        ok &= ex.replays == ex_plain.replays > 0 and ex.captures == 1
+    coord.close()
+    plain.close()
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"fleet of 1 on {path}: a gate failed: {rec}")
+    return rec
+
+
+def fleet_chaos(torch, data, model) -> dict:
+    """Phase 4h-ii: two in-process workers, FedGroup pinned per round, the
+    holder of dispatch 3 killed, then dispatch 4's result dropped, 5's
+    duplicated and 6's held back. Fails unless the run equals the
+    unfaulted one (histories, max |Δ| 0, membership) and each fault was
+    counted. Prints ``fleet.*`` and the killed round's recovery ms over
+    the median round."""
+    from repro_torch.fed.population import FaultConfig, FaultSpec
+    from repro_torch.launch.coordinator import Coordinator, FleetConfig
+
+    faults = FaultConfig(rounds={3: FaultSpec(worker_kill=True),
+                                 4: FaultSpec(msg_drop=True),
+                                 5: FaultSpec(msg_dup=True),
+                                 6: FaultSpec(msg_reorder=True)})
+    plain = fleet_trainer(model, data, "round")
+    plain.run()
+    tr = fleet_trainer(model, data, "round")
+    coord = Coordinator(tr, FleetConfig(n_workers=2, faults=faults,
+                                        **FLEET_CHAOS))
+    t = timed_run(torch, tr, "round", coord.run, FLEET_ROUNDS)
+    dev = max_abs_dev(model_state(plain), model_state(tr))
+    hist_equal = tr.history.rounds == plain.history.rounds
+    mem_equal = same_membership(plain, tr)
+    reg = tr.registry
+    snap = {k: reg.get(k) for k in reg.names("fleet.")}
+    coord.close()
+    plain.close()
+    ms = t["round_ms"]
+    calm = float(np.median([m for i, m in enumerate(ms)
+                            if i not in (0, 3, 4, 5, 6)]))
+    window = FLEET_CHAOS["heartbeat_interval"] * FLEET_CHAOS["heartbeat_miss"]
+    rec = {"phase": "fleet", "part": "chaos", "trainer": "fedgroup",
+           "workers": 2, "faults": {"worker_kill": 3, "msg_drop": 4,
+                                    "msg_dup": 5, "msg_reorder": 6},
+           "history_equal": hist_equal, "max_abs_param_dev": dev,
+           "membership_equal": mem_equal, "fleet": snap,
+           "heartbeat_window_s": window, "round_ms": ms,
+           "round_ms_median_unfaulted": calm,
+           "kill_recovery_ms": ms[3] - calm,
+           "drop_recovery_ms": ms[4] - calm}
+    emit(rec)
+    ok = (hist_equal and dev == 0.0 and mem_equal
+          and snap["fleet.worker_deaths"] >= 1
+          and snap["fleet.requeues"] >= 2
+          and snap["fleet.msgs_dropped"] == snap["fleet.msgs_duplicated"]
+          == snap["fleet.msgs_reordered"] == 1
+          and snap["fleet.stale_results"] >= 1)
+    if not ok:
+        raise AssertionError(f"fleet chaos: a gate failed: {rec}")
+    return rec
+
+
+def fleet_worker_trainer(data=None, model=None, rounds: int = PROC_ROUNDS):
+    """Phase 4h-iii's trainer (FedGroup, EDC, α = 40, phase 4's width,
+    per round), also the process workers' replica builder
+    (``WorkerSpec("chip_smoke:fleet_worker_trainer")``; a spawned worker
+    inherits this process's ``sys.path``, ``src/`` included): without
+    ``data`` and ``model`` it makes phase 4's from seed 0, as every worker
+    does."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.data.generators import femnist_like
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.models.paper_models import mlp
+
+    if data is None:
+        data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
+    if model is None:
+        model = mlp(784, 512, 26)
+    cfg = FedConfig(n_rounds=rounds, clients_per_round=20, local_epochs=2,
+                    batch_size=10, lr=0.03, n_groups=5,
+                    pretrain_scale=FLEET_ALPHA, seed=0)
+    return FedGroupTrainer(model, data, cfg, device="cuda")
+
+
+def first_difference(a, b) -> dict | None:
+    """The first round metric that differs between two histories."""
+    for ra, rb in zip(a.history.rounds, b.history.rounds):
+        for f in ("weighted_acc", "mean_loss", "discrepancy", "quarantined"):
+            if getattr(ra, f) != getattr(rb, f):
+                return {"round": ra.round, "metric": f,
+                        "a": getattr(ra, f), "b": getattr(rb, f)}
+    return None
+
+
+def payload_bytes(tree) -> int:
+    """Bytes of the numpy arrays in a nest of dicts, lists and tuples (a
+    process worker's payload, ``launch.worker._to_numpy``'s output)."""
+    if isinstance(tree, np.ndarray):
+        return int(tree.nbytes)
+    if isinstance(tree, dict):
+        return sum(payload_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(payload_bytes(v) for v in tree)
+    return 0
+
+
+def proc_fleet_start(data, model, killed: bool):
+    """Phase 4h-iii: a coordinator over two spawned workers (each its own
+    CUDA context, its replica built by ``PROC_BUILDER``), killed or not;
+    the workers start building at once."""
+    from repro_torch.fed.population import FaultConfig, FaultSpec
+    from repro_torch.launch import worker as worker_lib
+    from repro_torch.launch.coordinator import Coordinator, FleetConfig
+
+    faults = (FaultConfig(rounds={PROC_KILL_ROUND: FaultSpec(
+        worker_kill=True)}) if killed else None)
+    tr = fleet_worker_trainer(data, model)
+    coord = Coordinator(tr, FleetConfig(
+        n_workers=2, transport="proc", faults=faults,
+        worker_spec=worker_lib.WorkerSpec(PROC_BUILDER, {}),
+        heartbeat_interval=PROC_BEAT[0], heartbeat_miss=PROC_BEAT[1],
+        lease_timeout=600.0, join_timeout=600.0))
+    return tr, coord
+
+
+def proc_fleet_run(torch, tr, coord, count_bytes: bool) -> tuple:
+    """Phase 4h-iii: PROC_ROUNDS rounds through ``coord``'s workers:
+    per-round ms, ``fleet.*``, the model state and, with ``count_bytes``,
+    the numpy payload's bytes each way a dispatch."""
+    from repro_torch.launch import worker as worker_lib
+
+    sent, received = [], []
+    if count_bytes:
+        real = coord._dispatch
+
+        def counted(fn_name, args, remote):
+            sent.append(payload_bytes(worker_lib._to_numpy(args)))
+            out = real(fn_name, args, remote)
+            received.append(payload_bytes(worker_lib._to_numpy(out)))
+            return out
+
+        coord._dispatch = counted
+    try:
+        t = timed_run(torch, tr, "round", coord.run, PROC_ROUNDS)
+        reg = tr.registry
+        snap = {k: reg.get(k) for k in reg.names("fleet.")}
+        state = {k: v.detach().clone() for k, v in model_state(tr).items()}
+    finally:
+        coord.close()
+    return state, snap, t["round_ms"], sent, received
+
+
+def proc_fleet(torch, data, model) -> dict:
+    """Phase 4h-iii: FedGroup pinned per round, PROC_ROUNDS rounds through
+    two spawned workers, unkilled and with the holder of round
+    PROC_KILL_ROUND's dispatch SIGKILLed (both fleets' four workers built
+    at once). Fails unless the killed run equals the unkilled one exactly
+    (histories, max |Δ| 0, membership) and the death was detected and
+    recovered. Prints the deviation of the process runs from the
+    in-process run (expected 0; else the first metric that differs), the
+    spawn and replica-build s, each worker's first job (its process's
+    first use of the card) and the later rounds' ms, payload bytes each
+    way a dispatch and the kill's recovery ms."""
+    plain = fleet_worker_trainer(data, model)
+    plain.run()
+    plain_state = model_state(plain)
+    t0 = time.perf_counter()
+    fleets = [proc_fleet_start(data, model, killed) for killed in (0, 1)]
+    end = time.monotonic() + 600.0
+    while any(len(c._live) < 2 for _, c in fleets):
+        if time.monotonic() > end:
+            raise AssertionError("process workers did not join")
+        for _, c in fleets:
+            c._pump(0.02)
+    spawn_s = time.perf_counter() - t0
+    (clean, c_clean), (kill, c_kill) = fleets
+    clean_state, _, ms_clean, _, _ = proc_fleet_run(torch, clean, c_clean,
+                                                    False)
+    kill_state, snap, ms, sent, recv = proc_fleet_run(torch, kill, c_kill,
+                                                      True)
+    dev = max_abs_dev(clean_state, kill_state)
+    hist_equal = kill.history.rounds == clean.history.rounds
+    mem_equal = same_membership(clean, kill)
+    dev_inproc = max_abs_dev(plain_state, kill_state)
+    # rounds 0 and 1 are each worker's first job; the killed round's
+    # requeue lands on a warm worker
+    calm = [m for i, m in enumerate(ms) if i >= 2 and i != PROC_KILL_ROUND]
+    rec = {"phase": "fleet", "part": "process", "trainer": "fedgroup",
+           "workers": 2, "rounds": PROC_ROUNDS,
+           "killed_round": PROC_KILL_ROUND, "history_equal": hist_equal,
+           "max_abs_param_dev_killed_vs_unkilled": dev,
+           "membership_equal": mem_equal,
+           "max_abs_param_dev_vs_inprocess": dev_inproc,
+           "first_metric_differing_from_inprocess": first_difference(
+               plain, kill),
+           "fleet": snap, "spawn_and_build_s_4_workers": spawn_s,
+           "first_job_ms_unkilled": ms_clean[:2],
+           "first_job_ms_killed": ms[:2],
+           "round_ms_unkilled": ms_clean, "round_ms_killed": ms,
+           "round_ms_median_warm_unkilled": float(np.median(ms_clean[2:])),
+           "payload_bytes_sent": sent, "payload_bytes_received": recv,
+           "heartbeat_window_s": PROC_BEAT[0] * PROC_BEAT[1],
+           "kill_recovery_ms": ms[PROC_KILL_ROUND] - float(np.median(calm))}
+    emit(rec)
+    plain.close()
+    ok = (hist_equal and dev == 0.0 and mem_equal
+          and snap["fleet.worker_deaths"] == 1
+          and snap["fleet.requeues"] >= 1 and snap["fleet.workers"] == 1)
+    if not ok:
+        raise AssertionError(f"process fleet: a gate failed: {rec}")
+    return rec
+
+
+def fleet_phase(torch, data, model) -> dict:
+    """Phase 4h; returns the kernels' launch counts of the phase
+    (FedGroup's cold starts launch ``edc_cosine``; the process workers run
+    only the round executor)."""
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for path in FLEET_PATHS:
+        telemetry_run(torch, data, model, path)
+        torch.cuda.empty_cache()
+    for path in FLEET_PATHS:
+        fleet_equivalence(torch, data, model, path)
+        torch.cuda.empty_cache()
+    fleet_equivalence(torch, data, model, "round", streamed=True)
+    fleet_chaos(torch, data, model)
+    torch.cuda.empty_cache()
+    proc_fleet(torch, data, model)
+    torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    emit({"phase": "fleet_phase", "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    if counts["edc_cosine"] < 1:
+        raise AssertionError("phase 4h's FedGroup runs launched no "
+                             "edc_cosine kernel")
+    return counts
+
+
 def population_run(torch, prefetch: int):
     """Phase 4e-ii: the reference population bench's setup on the card:
     ``virtual_synthetic(alpha=1, beta=1, seed=0, n_clients=100_000)`` (LRU
@@ -2585,6 +3066,9 @@ def main() -> int:
     counts_ft = fault_tolerance_phase(torch, data, model)
     # phase 4g: the async runtime (leases, staleness folds, graph dispatch)
     counts_async = async_phase(torch, data, model, blocked_ms)
+    # phase 4h: telemetry and the elastic control plane (coordinator and
+    # workers over threads and spawned processes)
+    counts_fleet = fleet_phase(torch, data, model)
 
     # phase 5: where the time goes
     breakdown(torch, tr_edc, pre_idx)
@@ -2605,14 +3089,14 @@ def main() -> int:
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
     # block phase's FedGroup runs, the population phase's FedGroup runs,
-    # phase 4f's and phase 4g's FedGroup runs;
+    # phase 4f's, 4g's and 4h's FedGroup runs;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
                 + counts_stream["edc_cosine"] + counts_ft["edc_cosine"]
-                + counts_async["edc_cosine"],
+                + counts_async["edc_cosine"] + counts_fleet["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"],

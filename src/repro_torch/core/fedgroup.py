@@ -352,6 +352,16 @@ class FedGroupTrainer(GroupedTrainer):
                 {k: arrays[f"fg_dir_{k}"] for k in ("ids", "rows", "default")},
                 device=self.device)
 
+    def _round_fields(self) -> dict:
+        rec = super()._round_fields()
+        rec["cold"] = int(self.last_cold)
+        rec["eta_g"] = float(self.cfg.eta_g)
+        if self._shift_enabled():
+            checked, migrated = self._shift_last
+            rec["shift_checked"] = int(checked)
+            rec["shift_migrations"] = int(migrated)
+        return rec
+
     # ------------------------------------------------------------------
     # Round (Algorithm 2) — one fused call over all groups
     # ------------------------------------------------------------------

@@ -54,12 +54,21 @@ requeued with capped backoff, at most ``async_max_retries`` times. Depth 1
 with α = 1, β = 0 equals the block path (pinned) and the per-round path
 (streamed) bit for bit on the CPU.
 
-Counters live in a metrics registry (``repro_torch.obs``; a population's
-when streaming): ``History.async_stats`` and ``Population.stats`` are
-views of it, and its snapshot is the checkpoint's ``obs``.
+Telemetry (``repro_torch.obs``): a trainer owns one bundle, ``obs`` (a
+population's when streaming), whose registry holds the counters
+(``History.async_stats`` and ``Population.stats`` are views of it, and
+its snapshot is the checkpoint's ``obs``). Spans mark the host seams
+(stage, h2d, dispatch, fold, eval, state-write, checkpoint); with
+``telemetry_dir`` the tracer is on and every round appends a
+deterministic record to ``metrics.jsonl``, truncated at a resume so the
+stream stays byte-identical to an uninterrupted run's; ``close()`` (and
+the end of ``run()``) writes ``trace.json`` and ``run_summary.json``.
+The executors are wrapped in ``dispatch`` spans (``obs.wrap``, which
+keeps the executor objects' attributes), and a coordinator
+(``launch.coordinator``) may replace them with fleet proxies.
 
 Not yet ported, and refused with ``NotImplementedError`` (``ROADMAP.md``):
-a device mesh and telemetry (``telemetry_dir``).
+a device mesh.
 """
 from __future__ import annotations
 
@@ -84,7 +93,7 @@ from repro_torch.fed import rounds as rounds_lib
 from repro_torch.fed import server as server_lib
 from repro_torch.models.modules import param_count
 from repro_torch.models.paper_models import ModelSpec
-from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import telemetry as obs_lib
 
 # seed-derivation tag of the cohort-selection stream (``repro.fed.store``)
 SELECT_STREAM = 0x5E1EC7
@@ -150,7 +159,9 @@ class FedConfig:
     # of the flattened weights, LCFL's hysteresis margin
     fedclust_frac: float = 0.25
     lcfl_margin: float = 0.1
-    # telemetry (not yet ported: a directory raises)
+    # telemetry (repro_torch.obs): a directory enables span tracing and
+    # streams per-round records to <dir>/metrics.jsonl, with trace.json +
+    # run_summary.json written at the end of run() and by close()
     telemetry_dir: str | None = None
 
 
@@ -163,8 +174,6 @@ def _not_ported(what: str):
 def _check_ported(cfg: FedConfig, mesh):
     if mesh is not None:
         _not_ported("a device mesh")
-    if cfg.telemetry_dir:
-        _not_ported("telemetry (telemetry_dir)")
 
 
 @dataclass
@@ -214,8 +223,10 @@ class FedAvgTrainer:
 
     ``init_params`` replaces ``model.init`` (parity tests carry the JAX
     package's params over); ``draws`` replaces the default
-    ``TorchDraws(cfg.seed)``. ``registry`` holds the reference's metrics
-    (``async.*``, ``rounds.*``, and a population's ``pop.*``);
+    ``TorchDraws(cfg.seed)``. ``obs`` is the run's telemetry bundle
+    (``repro_torch.obs.Telemetry``); ``registry``, the same object as
+    ``obs.registry``, holds the reference's metrics (``async.*``,
+    ``rounds.*``, a population's ``pop.*``, a coordinator's ``fleet.*``);
     ``counters`` is its nonzero ``rounds.*`` counters.
 
     ``population=`` (a ``fed.population.Population``) streams the cohorts
@@ -254,10 +265,13 @@ class FedAvgTrainer:
                 torch.Generator().manual_seed(cfg.seed + 1), self.device)
         self.params = {k: v.to(self.device, torch.float32)
                        for k, v in init_params.items()}
-        # a population's registry when streaming, as the reference shares
-        # its population's telemetry bundle
-        self.registry = (population.registry if population is not None
-                         else obs_metrics.MetricsRegistry())
+        # one telemetry bundle per runtime: a population owns one (its
+        # degradation counters live there), which the trainer shares
+        self.obs = (population.obs if population is not None
+                    else obs_lib.from_config(cfg))
+        self.registry = self.obs.registry
+        self._last_staleness = None  # the last async fold's max staleness
+        self._last_weights = None    # and group weights (round record)
         self._bind_history(History())
         self.model_size = param_count(self.params)
         self.comm_params = 0        # cumulative parameters transferred
@@ -288,8 +302,37 @@ class FedAvgTrainer:
 
     def _bind_history(self, h: History):
         """``h.async_stats`` becomes the registry's ``async.*`` view."""
-        h.async_stats = self.registry.view(obs_metrics.ASYNC_VIEW)
+        h.async_stats = self.obs.async_view()
         self.history = h
+
+    # -- telemetry (repro_torch.obs) ----------------------------------------
+    def _round_fields(self) -> dict:
+        """The round record's state fields, read when the round is added
+        (the pinned async loop reads them at fold time and adds the round
+        when its metrics arrive): the group clocks, the last fold's
+        staleness and weights; subclasses add theirs."""
+        rec = {}
+        if self.group_version is not None:
+            rec["group_version"] = [int(v) for v in self.group_version]
+        if self._last_staleness is not None:
+            rec["staleness"] = self._last_staleness
+            rec["weights"] = self._last_weights
+            self._last_staleness = self._last_weights = None
+        return rec
+
+    def _round_record(self, m: RoundMetrics, fields: dict) -> dict:
+        """One ``metrics.jsonl`` record: deterministic functions of the
+        training state (never wall time), so the stream is bit-stable
+        across kill-and-resume."""
+        return dict(fields, kind="round", t=m.round, acc=m.weighted_acc,
+                    loss=m.mean_loss, disc=m.discrepancy,
+                    quarantined=m.quarantined)
+
+    def _summary_extra(self) -> dict:
+        return {"framework": self.framework,
+                "rounds": len(self.history.rounds),
+                "max_acc": self.history.max_acc,
+                "comm_params": int(self.comm_params)}
 
     @property
     def counters(self) -> Counter:
@@ -308,11 +351,13 @@ class FedAvgTrainer:
     def _round_executor(self):
         if self._round_exec is None:
             cfg = self.cfg
-            self._round_exec = rounds_lib.make_round_executor(
-                self.model, epochs=cfg.local_epochs,
-                batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
-                max_samples=self._max_samples, quarantine=cfg.quarantine,
-                quarantine_mult=cfg.quarantine_mult, **self._exec_spec())
+            self._round_exec = self.obs.wrap(
+                "dispatch", rounds_lib.make_round_executor(
+                    self.model, epochs=cfg.local_epochs,
+                    batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
+                    max_samples=self._max_samples, quarantine=cfg.quarantine,
+                    quarantine_mult=cfg.quarantine_mult,
+                    **self._exec_spec()), exec="round")
         return self._round_exec
 
     # -- round blocks ------------------------------------------------------
@@ -330,7 +375,8 @@ class FedAvgTrainer:
                 batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
                 max_samples=self._max_samples, quarantine=cfg.quarantine,
                 quarantine_mult=cfg.quarantine_mult, **self._block_kwargs())
-            self._block_exec = graphs_lib.GraphBlockExecutor(fn)
+            self._block_exec = self.obs.wrap(
+                "dispatch", graphs_lib.GraphBlockExecutor(fn), exec="block")
         return self._block_exec
 
     def _host_round_pre(self) -> bool:
@@ -373,15 +419,16 @@ class FedAvgTrainer:
         block's end holds the stream of the round it labels and the
         per-round path draws the same cohort again."""
         staged = []
-        for b in range(max_b):
-            if self._host_round_pre():
-                break
-            before = self.select_rng.bit_generator.state
-            idx = self._select()
-            if self._needs_host(idx):
-                self.select_rng.bit_generator.state = before
-                break
-            staged.append(self._stage_round(t0 + b, idx))
+        with self.obs.span("stage", t=t0):
+            for b in range(max_b):
+                if self._host_round_pre():
+                    break
+                before = self.select_rng.bit_generator.state
+                idx = self._select()
+                if self._needs_host(idx):
+                    self.select_rng.bit_generator.state = before
+                    break
+                staged.append(self._stage_round(t0 + b, idx))
         return staged
 
     # carry construction / teardown — overridden down the trainer hierarchy
@@ -435,7 +482,8 @@ class FedAvgTrainer:
             loss, disc, correct, total, n_quar = ys[b]
             acc = (int(correct) / max(int(total), 1) if do_eval[b]
                    else float("nan"))
-            self._record(t0 + b, acc, float(loss), float(disc), int(n_quar))
+            self._record(t0 + b, acc, float(loss), float(disc), int(n_quar),
+                         alive=int(staged[b][2].sum()))
 
     # -- helpers -----------------------------------------------------------
     def _select(self):
@@ -504,11 +552,12 @@ class FedAvgTrainer:
     def _round_eval(self, t: int) -> float:
         if not self._should_eval(t):
             return float("nan")
-        if self.population is not None:
-            return self.evaluate()
-        return self._fused_eval_acc({k: p[None] for k, p in
-                                     self.params.items()},
-                                    self._eval_zero_mem)
+        with self.obs.span("eval", t=t):
+            if self.population is not None:
+                return self.evaluate()
+            return self._fused_eval_acc({k: p[None] for k, p in
+                                         self.params.items()},
+                                        self._eval_zero_mem)
 
     @torch.no_grad()
     def evaluate(self, params=None, client_idx=None) -> float:
@@ -531,16 +580,29 @@ class FedAvgTrainer:
 
     def _add_round(self, t, acc, out) -> RoundMetrics:
         return self._record(t, acc, float(out.mean_loss),
-                            float(out.discrepancy), int(out.n_quarantined))
+                            float(out.discrepancy), int(out.n_quarantined),
+                            alive=int(out.membership.shape[0]))
 
-    def _record(self, t, acc, loss, disc, n_quar) -> RoundMetrics:
+    def _record(self, t, acc, loss, disc, n_quar, alive=None,
+                fields=None) -> RoundMetrics:
+        """Add round t to the history: the registry's ``rounds.*``
+        counters and, with a telemetry dir, the round's JSONL record
+        (``fields``: its state fields when they were read earlier).
+        ``alive`` is the cohort's alive count: a round that screened every
+        alive update folded the identity (``rounds.empty_folds``)."""
         m = RoundMetrics(t, acc, loss, disc, n_quar)
         self.history.add(m)
-        self.registry.inc("rounds.completed")
+        reg = self.registry
+        reg.inc("rounds.completed")
         if not math.isnan(acc):
-            self.registry.inc("rounds.evals")
+            reg.inc("rounds.evals")
         if m.quarantined:
-            self.registry.inc("rounds.quarantined", m.quarantined)
+            reg.inc("rounds.quarantined", m.quarantined)
+            if alive is not None and m.quarantined >= alive:
+                reg.inc("rounds.empty_folds")
+        if self.obs.recording:
+            self.obs.round_record(self._round_record(
+                m, self._round_fields() if fields is None else fields))
         return m
 
     # -- main loop ---------------------------------------------------------
@@ -580,7 +642,9 @@ class FedAvgTrainer:
         t = len(self.history.rounds)
         total = t + (n_rounds or self.cfg.n_rounds)
         if self.cfg.async_depth >= 1:
-            return self._run_async(t, total)
+            h = self._run_async(t, total)
+            self.obs.finalize(self._summary_extra())
+            return h
         blocks = self.cfg.block_size > 1 and (
             self.population is None or self.population.block_stageable)
         while t < total:
@@ -595,6 +659,7 @@ class FedAvgTrainer:
                 self.round(t)
                 t += 1
             self._maybe_checkpoint(prev, t)
+        self.obs.finalize(self._summary_extra())
         return self.history
 
     # -- asynchronous runtime (FedConfig.async_depth >= 1) -------------------
@@ -624,8 +689,9 @@ class FedAvgTrainer:
                 batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
                 max_samples=self._max_samples, quarantine=cfg.quarantine,
                 quarantine_mult=cfg.quarantine_mult, **self._block_kwargs())
-            self._async_exec = graphs_lib.GraphDispatchExecutor(
-                fn, max(1, int(cfg.async_depth)))
+            self._async_exec = self.obs.wrap(
+                "dispatch", graphs_lib.GraphDispatchExecutor(
+                    fn, max(1, int(cfg.async_depth))), exec="async")
         return self._async_exec
 
     def _async_host_pre(self):
@@ -656,18 +722,19 @@ class FedAvgTrainer:
         as the per-round path asks it). Returns ``(ids written by the
         hook, staged)``; the staged inputs stay with the lease, so an
         expired one is dispatched again as it was."""
-        self._async_host_pre()
-        idx = self._select()
-        cold = np.asarray(self._async_cold(idx))
-        if self.population is None:
-            idx_p, bidx, alive, _ = self._stage_round(t, idx)
-            return cold, (torch.as_tensor(idx_p), bidx,
-                          torch.as_tensor(alive))
-        x, y, n = self._client_batch(idx)
-        bidx = self._batch_indices(n, self._round_executor().max_steps)
-        self._stage_comm(len(idx))
-        return cold, (np.asarray(idx), x, y, n, bidx,
-                      self._async_stream_arg(idx))
+        with self.obs.span("stage", t=t):
+            self._async_host_pre()
+            idx = self._select()
+            cold = np.asarray(self._async_cold(idx))
+            if self.population is None:
+                idx_p, bidx, alive, _ = self._stage_round(t, idx)
+                return cold, (torch.as_tensor(idx_p), bidx,
+                              torch.as_tensor(alive))
+            x, y, n = self._client_batch(idx)
+            bidx = self._batch_indices(n, self._round_executor().max_steps)
+            self._stage_comm(len(idx))
+            return cold, (np.asarray(idx), x, y, n, bidx,
+                          self._async_stream_arg(idx))
 
     def _ready_event(self):
         """An event recorded on the trainer's current stream after the
@@ -815,38 +882,54 @@ class FedAvgTrainer:
         def fold_one(lease):
             nonlocal t_fold
             t = t_fold
-            s = (ver - lease.version).astype(np.int64)
-            w = rounds_lib.staleness_weight(
-                s, alpha=cfg.async_alpha, beta=cfg.async_beta)
-            key = str(int(s.max()) if s.size else 0)
-            shist[key] = shist.get(key, 0) + 1
-            if pinned:
-                d = lease.result
-                mets = d.metrics.numpy().copy()  # ready: the lease's event
-                fold(carry, d.result, d.idx, d.alive, w)
-                exec_.release(d)
-                self._carry_refs(carry)
-                alive = lease.staged[2].numpy()
-                mem = mets[3:3 + len(alive)].astype(np.int64)
-                occupied = np.unique(mem[alive > 0])
-                counts = (self._async_eval(carry) if self._should_eval(t)
-                          else None)
-                records.append((t, mets[:3], counts, self._ready_event()))
-            else:
-                out = lease.result
-                groups, glob = fold(self._stacked_group_params(),
-                                    out.group_params, out.global_params, w)
-                self._async_adopt(out, lease.staged[0], groups, glob)
-                occupied = np.unique(out.membership.cpu().numpy())
-                self._add_round(t, self._round_eval(t), out)
-            ver[occupied] += 1
-            st["folds"] += 1
+            with self.obs.span("fold", t=t):
+                s = (ver - lease.version).astype(np.int64)
+                w = rounds_lib.staleness_weight(
+                    s, alpha=cfg.async_alpha, beta=cfg.async_beta)
+                key = str(int(s.max()) if s.size else 0)
+                shist[key] = shist.get(key, 0) + 1
+                if self.obs.recording:
+                    self._last_staleness = int(s.max()) if s.size else 0
+                    self._last_weights = [float(v)
+                                          for v in np.asarray(w).ravel()]
+                if pinned:
+                    d = lease.result
+                    mets = d.metrics.numpy().copy()  # ready: lease's event
+                    fold(carry, d.result, d.idx, d.alive, w)
+                    exec_.release(d)
+                    self._carry_refs(carry)
+                    alive = lease.staged[2].numpy()
+                    mem = mets[3:3 + len(alive)].astype(np.int64)
+                    occupied = np.unique(mem[alive > 0])
+                    counts = None
+                    if self._should_eval(t):
+                        with self.obs.span("eval", t=t):
+                            counts = self._async_eval(carry)
+                    ver[occupied] += 1
+                    # the record's state fields as of this fold; the round
+                    # is added when its metrics have arrived (flush)
+                    fields = (self._round_fields() if self.obs.recording
+                              else None)
+                    records.append((t, mets[:3], counts, self._ready_event(),
+                                    int(alive.sum()), fields))
+                else:
+                    out = lease.result
+                    groups, glob = fold(self._stacked_group_params(),
+                                        out.group_params, out.global_params,
+                                        w)
+                    self._async_adopt(out, lease.staged[0], groups, glob)
+                    occupied = np.unique(out.membership.cpu().numpy())
+                    acc = self._round_eval(t)
+                    ver[occupied] += 1
+                    self._add_round(t, acc, out)
+                st["folds"] += 1
             t_fold += 1
 
         def flush(wait):
             """Add the folded pinned rounds whose metrics have arrived."""
             while records:
-                t, (loss, disc, n_quar), counts, ev = records[0]
+                t, (loss, disc, n_quar), counts, ev, alive, fields = \
+                    records[0]
                 if ev is not None and not (wait or ev.query()):
                     return
                 if ev is not None:
@@ -854,7 +937,8 @@ class FedAvgTrainer:
                 records.pop(0)
                 acc = (float("nan") if counts is None
                        else int(counts[0]) / max(int(counts[1]), 1))
-                self._record(t, acc, float(loss), float(disc), int(n_quar))
+                self._record(t, acc, float(loss), float(disc), int(n_quar),
+                             alive=alive, fields=fields)
 
         def harvest():
             """Fold the FIFO head if it completes within its lease, abandon
@@ -952,36 +1036,43 @@ class FedAvgTrainer:
         # counted before the snapshot, so a resumed run's total matches an
         # uninterrupted run's
         self.registry.inc("rounds.checkpoints")
-        state, pop_meta = {}, None
-        if self.population is not None:
-            # drains the writer and syncs writer_retries into stats first
-            state, pop_meta = self.population.ckpt_state()
-        state = dict(state, **self._ckpt_state_arrays())
-        meta = {"framework": self.framework, "t": t,
-                "n_clients": int(self.n_clients),
-                "rng": self.rng.bit_generator.state,
-                "select_rng": self.select_rng.bit_generator.state,
-                "comm_params": int(self.comm_params),
-                "history": [[r.round, r.weighted_acc, r.mean_loss,
-                             r.discrepancy, r.quarantined]
-                            for r in self.history.rounds],
-                "extra": self._ckpt_meta_extra(),
-                # the async runtime's per-group clocks (a checkpoint never
-                # holds a lease: the async loop drains its window first)
-                "group_version": ([int(v) for v in self.group_version]
-                                  if self.group_version is not None
-                                  else None),
-                # the registry: async.*, rounds.* and, streamed, pop.*
-                "obs": self.registry.snapshot(),
-                "fleet": None,              # a coordinator's snapshot
-                "population": pop_meta}
-        ckpt_io.save_pytree(path, {"model": self._ckpt_model_tree(),
-                                   "state": state}, meta)
+        with self.obs.span("checkpoint", t=t):
+            state, pop_meta = {}, None
+            if self.population is not None:
+                # drains the writer and syncs writer_retries into stats first
+                state, pop_meta = self.population.ckpt_state()
+            state = dict(state, **self._ckpt_state_arrays())
+            meta = {"framework": self.framework, "t": t,
+                    "n_clients": int(self.n_clients),
+                    "rng": self.rng.bit_generator.state,
+                    "select_rng": self.select_rng.bit_generator.state,
+                    "comm_params": int(self.comm_params),
+                    "history": [[r.round, r.weighted_acc, r.mean_loss,
+                                 r.discrepancy, r.quarantined]
+                                for r in self.history.rounds],
+                    "extra": self._ckpt_meta_extra(),
+                    # the async runtime's per-group clocks (a checkpoint never
+                    # holds a lease: the async loop drains its window first)
+                    "group_version": ([int(v) for v in self.group_version]
+                                      if self.group_version is not None
+                                      else None),
+                    # the registry: async.*, rounds.* and, streamed, pop.*
+                    "obs": self.registry.snapshot(),
+                    # a coordinator's control-plane snapshot (None alone)
+                    "fleet": self._fleet_meta(),
+                    "population": pop_meta}
+            ckpt_io.save_pytree(path, {"model": self._ckpt_model_tree(),
+                                       "state": state}, meta)
         if self.cfg.checkpoint_keep > 0 and self.cfg.checkpoint_dir:
             # after the atomic write: the newest archive always survives
             ckpt_io.prune_checkpoints(self.cfg.checkpoint_dir,
                                       self.cfg.checkpoint_keep)
         return path
+
+    def _fleet_meta(self):
+        """The checkpoint's ``fleet`` metadata: None for a trainer on its
+        own; a ``launch.coordinator.Coordinator`` installs its own."""
+        return None
 
     def load_checkpoint(self, path_or_dir: str) -> int:
         """Restore a ``save_checkpoint`` archive (a file, or a directory's
@@ -1046,14 +1137,20 @@ class FedAvgTrainer:
         if obs is None and meta.get("async_stats"):
             obs = {f"async.{k}": v for k, v in meta["async_stats"].items()}
         self.registry.restore(obs or {})
+        # drop streamed round records at and after the resume point: the
+        # resumed run emits them again, so the JSONL stream stays
+        # byte-identical to an uninterrupted run's
+        self.obs.resume_at(int(meta["t"]))
         self._resumed = True
         return int(meta["t"])
 
     def close(self):
         """Stop the population's prefetch thread and state writer (a no-op
-        when pinned)."""
+        when pinned) and write the telemetry artifacts (``trace.json``,
+        ``run_summary.json``; a no-op without ``telemetry_dir``)."""
         if self.population is not None:
             self.population.close()
+        self.obs.finalize(self._summary_extra())
 
 
 class FedProxTrainer(FedAvgTrainer):
@@ -1073,6 +1170,7 @@ class GroupedTrainer(FedAvgTrainer):
     def __init__(self, model, data, cfg: FedConfig, **kw):
         super().__init__(model, data, cfg, **kw)
         self.m = cfg.n_groups
+        self._mig_last = None       # the last membership write's migrations
         if self.population is not None:
             # the state table's column, shared: every write is in place
             self.membership = self.population.state.membership
@@ -1097,9 +1195,21 @@ class GroupedTrainer(FedAvgTrainer):
         new = np.asarray(new)
         old = self.membership[idx]
         mig = int(np.sum((old >= 0) & (old != new)))
+        self._mig_last = mig
         if mig:
             self.registry.inc("rounds.migrations", mig)
-        self.membership[idx] = new
+        with self.obs.span("state-write", rows=int(len(new))):
+            self.membership[idx] = new
+
+    def _round_fields(self) -> dict:
+        rec = super()._round_fields()
+        mem = self.membership
+        sizes = np.bincount(mem[mem >= 0].astype(np.int64), minlength=self.m)
+        rec["group_sizes"] = [int(v) for v in sizes[:self.m]]
+        if self._mig_last is not None:
+            rec["migrations"] = self._mig_last
+            self._mig_last = None
+        return rec
 
     def group_param(self, j: int) -> dict:
         """The j-th group's parameters (views into the stacked state)."""
@@ -1128,7 +1238,8 @@ class GroupedTrainer(FedAvgTrainer):
     def _round_eval(self, t: int) -> float:
         if not self._should_eval(t):
             return float("nan")
-        return self.evaluate_groups()
+        with self.obs.span("eval", t=t):
+            return self.evaluate_groups()
 
     # -- round-block carry: m-stacked groups + membership ------------------
     def _membership_host(self):

@@ -10,8 +10,8 @@ re-dispatched against the then-current state. After ``max_retries``
 requeues the work is declared unrecoverable (not merely slow) and the run
 raises with a clear error instead of retrying forever.
 
-``fed.engine._run_async`` uses this module; the reference's coordinator
-shares it too (not yet ported, ``ROADMAP.md`` item 15).
+``fed.engine._run_async`` uses this module, and so does the fleet's
+coordinator (``launch.coordinator``) for its job leases.
 
 >>> from repro_torch.fed.leases import RetryPolicy, backoff_delay
 >>> backoff_delay(0, 0.05, 1.0)

@@ -54,10 +54,12 @@ backoff. ``Population.stats`` counts what happened. ``ckpt_state()`` /
 ``ckpt_restore()`` capture the scheduler stream as of the last consumed
 round and the state table, for the trainers' bit-identical resume.
 
-``stats`` is a view of the ``pop.*`` counters of the population's
-metrics registry (``repro_torch.obs``), which a trainer built on the
-population shares. Not yet ported (``ROADMAP.md``): the population's spans
-(item 14) and the per-shard gather over a mesh (item 16).
+The population owns the run's telemetry bundle (``obs``,
+``repro_torch.obs``), which a trainer built on it shares: ``stats`` is a
+view of the ``pop.*`` counters of its registry, and its tracer records the
+cohorts' ``stage`` and ``h2d`` spans (on the producer thread when
+prefetching) and the writer thread's ``state-write`` spans. Not yet
+ported (``ROADMAP.md`` item 16): the per-shard gather over a mesh.
 """
 from __future__ import annotations
 
@@ -74,6 +76,8 @@ from repro_torch import resolve_device
 from repro_torch.fed.store import (SELECT_STREAM, ClientStateTable,
                                    ClientStore, _host_rows)
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import telemetry as obs_lib
+from repro_torch.obs import trace as obs_trace
 
 # the reference's population degradation counters (``Population.stats``):
 # fault injection, the deadline and the state writer feed the first six,
@@ -94,6 +98,10 @@ def pop_metric_specs():
 # its pending write, the observable state of a thread killed mid-write
 _CRASH = object()
 
+# spans of a writer made outside a Population (unit tests) go nowhere: a
+# permanently disabled tracer, whose span() is the no-op path
+_NULL_TRACER = obs_trace.Tracer(enabled=False)
+
 
 class _AsyncStateWriter:
     """One background thread applying host state-table writes in FIFO
@@ -107,11 +115,14 @@ class _AsyncStateWriter:
     (``Population.stats["writer_retries"]``). A write that still fails is
     recorded and raised by the next ``drain()``. Waits are bounded: a
     drain that outlives ``timeout``, or finds the worker dead with writes
-    pending, raises instead of hanging."""
+    pending, raises instead of hanging. Each write runs in a
+    ``state-write`` span of ``tracer``."""
 
     def __init__(self, timeout: float = 60.0, max_retries: int = 3,
-                 backoff: float = 0.02, backoff_cap: float = 1.0):
+                 backoff: float = 0.02, backoff_cap: float = 1.0,
+                 tracer=None):
         self.timeout = timeout
+        self._tracer = tracer if tracer is not None else _NULL_TRACER
         self.max_retries = int(max_retries)
         self.backoff = float(backoff)
         self.backoff_cap = float(backoff_cap)
@@ -147,7 +158,8 @@ class _AsyncStateWriter:
                 self._label = label
             if fn is _CRASH:
                 return                  # injected: die, the write pending
-            self._attempt(fn, args)
+            with self._tracer.span("state-write", label=label):
+                self._attempt(fn, args)
             with self._cond:
                 self._pending -= 1
                 self._label = None
@@ -271,8 +283,9 @@ class FaultSpec:
                     .inject_thread_crash``).
 
     The ``worker_kill`` / ``heartbeat_delay`` / ``msg_*`` fields are the
-    reference's fleet faults, read by its coordinator; the port has no
-    coordinator, so ``Population`` refuses a script that sets one."""
+    fleet faults: a ``Population`` ignores them, and the coordinator
+    (``launch.coordinator``) reads them from ``FleetConfig.faults`` on its
+    dispatch clock."""
     kill: int = 0
     straggle: float = 0.0
     corrupt: int = 0
@@ -284,11 +297,6 @@ class FaultSpec:
     msg_drop: bool = False
     msg_dup: bool = False
     msg_reorder: bool = False
-
-
-# FaultSpec's fleet faults: only the reference's coordinator reads them
-_FLEET_FAULTS = ("worker_kill", "heartbeat_delay", "msg_drop", "msg_dup",
-                 "msg_reorder")
 
 
 @dataclass
@@ -647,16 +655,6 @@ class Population:
     def __init__(self, store: ClientStore, cfg: PopulationConfig | None = None):
         self.store = store
         self.cfg = cfg or PopulationConfig()
-        for t, spec in (self.cfg.faults.rounds.items()
-                        if self.cfg.faults is not None else ()):
-            fleet = [f for f in _FLEET_FAULTS
-                     if getattr(spec, f) != getattr(FaultSpec(), f)]
-            if fleet:
-                raise NotImplementedError(
-                    f"round {t}'s fleet faults ({', '.join(fleet)}) need "
-                    "the reference's coordinator, which is not yet ported "
-                    "to repro_torch (see ROADMAP.md, queue 1); use the JAX "
-                    "package repro for them")
         self.state = ClientStateTable(store.n_clients)
         self.scheduler = None
         self.device = None
@@ -669,7 +667,11 @@ class Population:
         self._thread = None
         self._stop = threading.Event()
         self._producer_error = None
-        self._writer = _AsyncStateWriter()
+        # the run's telemetry bundle: its registry is this population's
+        # own (counters never bleed between populations), its tracer the
+        # process default's when a harness installed one
+        self.obs = obs_lib.from_config(None)
+        self._writer = _AsyncStateWriter(tracer=self.obs.tracer)
         self._warned_eval_scale = False
         self._cohort = None            # live (most recently consumed) cohort
         self._eval_ids = None
@@ -682,7 +684,7 @@ class Population:
         # pop.* metrics of this population's registry, which its trainer
         # shares; the producer and the consumer both count, under
         # _stats_lock
-        self.registry = obs_metrics.MetricsRegistry()
+        self.registry = self.obs.registry
         self.registry.declare(pop_metric_specs())
         self.stats = self.registry.view({k: f"pop.{k}" for k in _STATS_ZERO})
         self._stats_lock = threading.Lock()
@@ -716,6 +718,8 @@ class Population:
         self._dropout = fed_cfg.dropout_rate
         self._track_sched = bool(fed_cfg.checkpoint_every
                                  or fed_cfg.checkpoint_dir)
+        if fed_cfg.telemetry_dir:
+            self.obs.configure(fed_cfg.telemetry_dir)
         if self.device.type == "cuda":
             self._cuda_index = (self.device.index
                                 if self.device.index is not None
@@ -805,14 +809,15 @@ class Population:
         card the copy and then its event are enqueued on the copy stream:
         the tensors must not be read before ``_ready`` made the reader's
         stream wait."""
-        if self._copy_stream is None:
-            return (slot.x[:k], slot.y[:k], slot.n[:k]), None
-        with torch.cuda.stream(self._copy_stream):
-            out = tuple(h[:k].to(self.device, non_blocking=True)
-                        for h in (slot.x, slot.y, slot.n))
-            slot.event = torch.cuda.Event()
-            slot.event.record(self._copy_stream)
-        return out, slot.event
+        with self.obs.span("h2d", rows=int(k)):
+            if self._copy_stream is None:
+                return (slot.x[:k], slot.y[:k], slot.n[:k]), None
+            with torch.cuda.stream(self._copy_stream):
+                out = tuple(h[:k].to(self.device, non_blocking=True)
+                            for h in (slot.x, slot.y, slot.n))
+                slot.event = torch.cuda.Event()
+                slot.event.record(self._copy_stream)
+            return out, slot.event
 
     def _put(self, ring: str, arrays):
         """Host (x, y, n) -> (tensors, event), through a slot of ``ring``."""
@@ -930,11 +935,12 @@ class Population:
         inline when ``prefetch=0``, on the producer thread otherwise. With
         a deadline, ``_stage_chunked`` stages instead."""
         t0 = time.perf_counter()
-        idx, n_new, spec, snap = self._pre_round_faults(t)
-        if spec is not None and spec.straggle > 0:
-            time.sleep(spec.straggle)
-        arrays, event = self._put("train", self._corrupt(
-            t, spec, self._host("train", idx, t), 0, len(idx)))
+        with self.obs.span("stage", t=t):
+            idx, n_new, spec, snap = self._pre_round_faults(t)
+            if spec is not None and spec.straggle > 0:
+                time.sleep(spec.straggle)
+            arrays, event = self._put("train", self._corrupt(
+                t, spec, self._host("train", idx, t), 0, len(idx)))
         return Cohort(t, idx, *arrays, n_new,
                       stage_ms=(time.perf_counter() - t0) * 1e3,
                       sched_state=snap, _event=event)
@@ -946,6 +952,10 @@ class Population:
         published as ``_staging``, so a consumer whose deadline fired can
         claim the staged prefix; the producer then abandons the round (its
         prefix is being trained on) and returns None."""
+        with self.obs.span("stage", t=t):
+            return self._chunked_cohort(t, inline)
+
+    def _chunked_cohort(self, t: int, inline: bool) -> Cohort | None:
         t0 = time.perf_counter()
         idx, n_new, spec, snap = self._pre_round_faults(t)
         st = _Staging(t, idx, n_new, snap, self._slot("train", len(idx)), t0)

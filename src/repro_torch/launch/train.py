@@ -9,8 +9,10 @@ Frameworks: fedavg, fedprox, fedgroup, fedgrouprox, ifca, fesem. Runs on
 ``cuda`` unless ``--device cpu``. ``--async-depth D`` (with
 ``--async-alpha`` / ``--async-beta``) runs the async runtime with D
 dispatches in flight; ``--async-depth 1`` prints the synchronous run's
-``acc=`` / ``disc=`` lines exactly. Not yet ported (they raise): ``--mode
-lm`` and ``--telemetry-dir``.
+``acc=`` / ``disc=`` lines exactly. ``--telemetry-dir DIR`` traces the run
+and streams its round records into DIR (``metrics.jsonl``, ``trace.json``,
+``run_summary.json``), which ``python -m repro_torch.launch.inspect DIR``
+renders. Not yet ported (it raises): ``--mode lm``.
 """
 from __future__ import annotations
 
@@ -32,9 +34,6 @@ def run_fed(args) -> int:
     from repro_torch.fed.server import tree_index
     from repro_torch.models.paper_models import lstm_classifier, mclr, mlp
 
-    if args.telemetry_dir:
-        raise NotImplementedError("--telemetry-dir: telemetry is not yet "
-                                  "ported to repro_torch (ROADMAP.md)")
     datasets = {
         "mnist": lambda: (gen.mnist_like(args.seed,
                                          n_clients=args.clients or 1000,
@@ -71,7 +70,8 @@ def run_fed(args) -> int:
                     pretrain_scale=args.alpha, eta_g=args.eta_g,
                     measure=args.measure, seed=args.seed,
                     async_depth=args.async_depth,
-                    async_alpha=args.async_alpha, async_beta=args.async_beta)
+                    async_alpha=args.async_alpha, async_beta=args.async_beta,
+                    telemetry_dir=args.telemetry_dir)
     tr = frameworks[args.framework](model, data, cfg, device=args.device)
     print(f"# {args.framework} on {data.name} ({tr.device}): "
           f"{data.n_clients} clients, m={cfg.n_groups}, "
@@ -104,6 +104,10 @@ def run_fed(args) -> int:
         with open(os.path.join(args.out, "history.json"), "w") as f:
             json.dump([r.__dict__ for r in tr.history.rounds], f, indent=1)
         print(f"saved to {args.out}")
+    tr.close()          # flush telemetry (trace.json + run_summary.json)
+    if args.telemetry_dir:
+        print(f"telemetry in {args.telemetry_dir} — render with "
+              f"python -m repro_torch.launch.inspect {args.telemetry_dir}")
     return 0
 
 
@@ -131,7 +135,9 @@ def main(argv=None) -> int:
     ap.add_argument("--async-beta", type=float, default=0.0,
                     dest="async_beta")
     ap.add_argument("--telemetry-dir", default=None, dest="telemetry_dir",
-                    help="not yet ported: setting it raises")
+                    help="trace the run and stream per-round records "
+                         "into this dir (render with python -m "
+                         "repro_torch.launch.inspect DIR)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain kernel versions)")
     ap.add_argument("--seed", type=int, default=0)

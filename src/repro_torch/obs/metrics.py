@@ -2,8 +2,9 @@
 schema, plus dict-like *views* that keep the runtime's historical surfaces
 (``Population.stats``, ``History.async_stats``) working unchanged
 (``repro.obs.metrics``, which imports no JAX; this is the port's own
-copy, held to it by ``tests/test_torch_async.py``). The reference's
-``FLEET_SCHEMA`` comes with the coordinator (``ROADMAP.md`` item 15).
+copy, held to it by ``tests/test_torch_async.py`` and
+``tests/test_torch_fleet.py``). ``FLEET_SCHEMA`` is declared by the
+coordinator (``launch.coordinator``) when it attaches to a trainer.
 
 Namespacing matters: ``lease_expiries`` / ``requeues`` exist both as async
 window counters (``async.*`` — incremented by the engine's fill loop) and
@@ -67,6 +68,32 @@ ROUND_SCHEMA = (
                "clients probed by the shift detector"),
     MetricSpec("rounds.empty_folds", COUNTER,
                "rounds whose cohort was entirely screened (identity fold)"),
+)
+
+#: coordinator/worker control-plane counters (launch.coordinator) —
+#: declared when a Coordinator attaches, not in the default registry, so
+#: single-process runs keep their exact metric set.
+FLEET_SCHEMA = (
+    MetricSpec("fleet.jobs", COUNTER, "jobs dispatched to workers"),
+    MetricSpec("fleet.results", COUNTER, "job results folded in"),
+    MetricSpec("fleet.heartbeats", COUNTER, "worker heartbeats received"),
+    MetricSpec("fleet.heartbeat_misses", COUNTER,
+               "heartbeat-window expiries observed while awaiting results"),
+    MetricSpec("fleet.worker_deaths", COUNTER,
+               "workers declared dead (missed heartbeats / closed pipe)"),
+    MetricSpec("fleet.lease_expiries", COUNTER, "fleet job leases expired"),
+    MetricSpec("fleet.requeues", COUNTER, "expired jobs re-dispatched"),
+    MetricSpec("fleet.joins", COUNTER,
+               "workers adopted mid-run (elastic joins + resurrections)"),
+    MetricSpec("fleet.leaves", COUNTER, "workers departed gracefully"),
+    MetricSpec("fleet.stale_results", COUNTER,
+               "results for superseded job ids ignored"),
+    MetricSpec("fleet.msgs_dropped", COUNTER, "chaos: messages dropped"),
+    MetricSpec("fleet.msgs_duplicated", COUNTER,
+               "chaos: messages delivered twice"),
+    MetricSpec("fleet.msgs_reordered", COUNTER,
+               "chaos: messages held past a later one"),
+    MetricSpec("fleet.workers", GAUGE, "live workers"),
 )
 
 #: ``History.async_stats``' keys -> their metrics (the reference

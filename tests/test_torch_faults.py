@@ -14,8 +14,10 @@ fixtures.
     same bytes, whole or in deadline chunks, and leaves equal ``stats``.
   * The writer's FIFO order, bounded drain, retries with backoff and the
     failure it raises once they are spent.
-  * The reference's fleet faults (``worker_kill``, ``heartbeat_delay``,
-    ``msg_*``) raise ``NotImplementedError``: the port has no coordinator.
+  * The fleet faults (``worker_kill``, ``heartbeat_delay``, ``msg_*``)
+    are the coordinator's (``tests/test_torch_fleet.py``): a population
+    takes a script that sets them and ignores them, as the reference's
+    does.
 """
 import dataclasses
 import sys
@@ -247,13 +249,22 @@ def test_fault_spec_fields_equal_the_reference():
     ("msg_dup", True), ("msg_reorder", True),
 ])
 def test_fleet_faults_are_refused(field, value, small_data):
-    # the reference's coordinator reads these; the port has none, so a
-    # script that sets one must not run as if it had no fault
-    faults = FaultConfig({0: FaultSpec(kill=1),
-                          2: FaultSpec(**{field: value})})
-    with pytest.raises(NotImplementedError, match=f"round 2.*{field}"):
-        Population(ArrayClientStore(small_data), PopulationConfig(
-            faults=faults))
+    # the coordinator reads these from FleetConfig.faults on its dispatch
+    # clock (launch.coordinator); a population takes the script and
+    # ignores them, as the reference's does: the run equals one whose
+    # script lacks them
+    runs = []
+    for fleet in ({field: value}, {}):
+        faults = FaultConfig({0: FaultSpec(kill=1), 2: FaultSpec(**fleet)})
+        tr, pop = _streamed(FedAvgTrainer, small_data, faults=faults)
+        h = tr.run(3)
+        tr.close()
+        runs.append((h.rounds, dict(pop.stats),
+                     {k: v.numpy() for k, v in tr.params.items()}))
+    assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
+    assert runs[0][1]["killed_clients"] == 1
+    for k in runs[0][2]:
+        np.testing.assert_array_equal(runs[0][2][k], runs[1][2][k])
 
 
 # ---------------------------------------------------------------------------

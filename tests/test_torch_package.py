@@ -41,6 +41,9 @@ SLICE_MODULES = [
     "repro_torch.checkpoint.io", "repro_torch.optim",
     "repro_torch.optim.solvers", "repro_torch.fed.leases",
     "repro_torch.obs", "repro_torch.obs.metrics", "repro_torch.fed.graphs",
+    "repro_torch.obs.trace", "repro_torch.obs.telemetry",
+    "repro_torch.launch.inspect", "repro_torch.launch.transport",
+    "repro_torch.launch.worker", "repro_torch.launch.coordinator",
 ]
 
 
@@ -86,11 +89,16 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("field,value", [
     ("telemetry_dir", "/nonexistent"),
 ])
-def test_unported_options_raise(field, value):
+def test_unported_options_raise(field, value, tmp_path):
+    # telemetry is ported now: the option opens its stream under the given
+    # name (made relative to a scratch dir); a mesh is still refused
     data = tgen.synthetic(seed=0, n_clients=4)
+    value = str(tmp_path) + value
     cfg = dataclasses.replace(FedConfig(), **{field: value})
+    tr = FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu")
+    assert tr.obs.recording and os.path.isdir(value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu")
+        FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu", mesh=object())
 
 
 def test_a_mesh_raises():
@@ -110,8 +118,11 @@ def test_async_depth_runs_on_the_cpu():
     assert h.async_stats["folds"] == h.async_stats["dispatches"] == 2
 
 
-@pytest.mark.parametrize("module", ["repro_torch.fed.leases",
-                                    "repro_torch.obs"])
+@pytest.mark.parametrize("module", [
+    "repro_torch.fed.leases", "repro_torch.obs", "repro_torch.obs.trace",
+    "repro_torch.obs.telemetry", "repro_torch.launch.inspect",
+    "repro_torch.launch.transport", "repro_torch.launch.worker",
+    "repro_torch.launch.coordinator"])
 def test_reference_copies_import_no_jax_and_no_reference(module):
     # the port's own copies of reference modules that never import JAX
     code = (f"import importlib, sys; importlib.import_module({module!r})\n"
