@@ -210,11 +210,40 @@ with no final ``ok`` line):
                 ring cache; then ``python -m repro_torch.launch.serve
                 --arch zamba2-1.2b --batch 4 --prompt-len 32 --gen 32`` in
                 a child process.
+  6b. families — the zoo's attention families at their published widths,
+                random from seed 0, each model's weights freed before the
+                next, with its peak memory and seconds: Gemma-2B whole
+                (2,506,172,416 params; MQA, hd 256, GeGLU, tied and scaled
+                embeddings): bf16 prefill B=4, S=2048 (18 swa_attention
+                launches on the fp32 route, else the run fails), the
+                long_500k variant from ``shapes.config_for`` (an 8,192
+                window) at B=1, S=16,384 (18 more), a profiled prefill and
+                decode step, fp32 B=1, S=256 ``forward`` against 256
+                ``serve_step`` calls within 2e-3 with and without a 64
+                window and 64-slot ring, then the serve CLI with its
+                default arch in a child process; Granite-MoE-1B-A400M whole
+                (1,385,481,216): bf16 prefill B=4, S=2048 under both
+                ``moe_impl`` values (24 tc launches each), the first
+                layer's expert load (sums to 1), a profiled scatter
+                prefill, fp32 forward against
+                serve with ``capacity_factor=100``, the serve CLI;
+                InternVL2-1B whole (631,658,368; 256 patch embeddings
+                before 768 text tokens, B=4, tc) with forward against
+                serve on text at S=128; HuBERT-XLarge whole (945,153,280;
+                bidirectional, hd 80: fp32 route, B=4, S=1024) and the
+                serve CLI's encoder-only line with exit code 1;
+                GLM-4-9B, Granite-20B and Nemotron-4-15B at published
+                widths cut to 2 layers (listed in ``reduced``): bf16
+                prefill B=2, S=2048 (tc) and forward against serve at
+                S=128. Phase 2 holds swa_attention at each family's
+                prefill shape (GQA / MQA k, v with KV heads; SDPA with
+                ``enable_gqa=True`` as the library call).
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
      ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
      20-group and shift runs and phase 4d's, 4e's, 4f's, 4g's and 4h's
-     FedGroup runs), then
+     FedGroup runs; swa_attention's count Zamba2's and phase 6b's counted
+     forwards, not phase 2's comparisons), then
      the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -283,7 +312,26 @@ PROC_BUILDER = "chip_smoke:fleet_worker_trainer"   # their replica builder
 PROC_BEAT = (0.1, 50)          # heartbeat interval s and misses: 5 s window
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
+# phase 2's swa_attention cases at the zoo families' shapes: label ->
+# (B, S, H, KV, hd, window, causal, route of bf16 q/k/v)
+FAMILY_SWA = {
+    "gemma-prefill": (4, 2048, 8, 1, 256, None, True, "fp32"),
+    "gemma-long500k": (1, 16384, 8, 1, 256, 8192, True, "fp32"),
+    "glm4": (4, 2048, 32, 2, 128, None, True, "tc"),
+    "granite20b": (2, 2048, 48, 1, 128, None, True, "tc"),
+    "internvl2": (4, 1024, 14, 2, 64, None, True, "tc"),
+    "hubert": (4, 1024, 16, 16, 80, None, False, "fp32"),
+}
 SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -s · softplus(randn)
+# phase 6b: the zoo's attention families
+FAMILY_B, FAMILY_S = 4, 2048   # bf16 prefill batch and length
+LONG_S = 16384                 # Gemma long_500k: twice the 8,192 window
+CUT_ARCHS, CUT_LAYERS = ("glm4-9b", "granite-20b", "nemotron-4-15b"), 2
+FAMILY_PARAMS = {"gemma-2b": 2_506_172_416, "glm4-9b": 9_399_951_360,
+                 "granite-20b": 28_167_493_632,
+                 "nemotron-4-15b": 15_628_376_064,
+                 "internvl2-1b": 631_658_368, "hubert-xlarge": 945_153_280,
+                 "granite-moe-1b-a400m": 1_385_481_216}
 
 
 def emit(obj):
@@ -562,10 +610,14 @@ def check_zoo_kernels(torch):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     def swa_case(B, Sq, Sk, H, hd, window, causal, dtype, label,
-                 main=False, times=False):
+                 main=False, times=False, KV=None, want_route=None):
+        KV = KV or H
         q = randn((B, Sq, H, hd), dtype)
-        k, v = randn((B, Sk, H, hd), dtype), randn((B, Sk, H, hd), dtype)
+        k, v = randn((B, Sk, KV, hd), dtype), randn((B, Sk, KV, hd), dtype)
         route = swa_mod._route(dtype, dtype, hd)
+        if want_route and route != want_route:
+            raise AssertionError(f"swa_attention {label}: route {route}, "
+                                 f"not {want_route}")
         before = swa_mod.launches_by_route[route]
         got = swa_mod.swa_attention(q, k, v, window=window, causal=causal)
         want = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
@@ -579,15 +631,19 @@ def check_zoo_kernels(torch):
         es = q.element_size()
         pairs = kept_pairs(Sq, Sk, window, causal)
         bf16 = dtype == torch.bfloat16
-        n_bytes = ((B * Sq * H * hd + 2 * B * Sk * H * hd) * es
+        n_bytes = ((B * Sq * H * hd + 2 * B * Sk * KV * hd) * es
                    + B * Sq * H * hd * 4)
         flops = 4.0 * B * H * hd * pairs
         b_ms, b_by = bound_ms(n_bytes, flops, BF16_OPS_PER_S if bf16 else
                               FP32_OPS_PER_S)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        gqa = {"enable_gqa": True} if KV != H else {}
         if causal and not window and Sq == Sk:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True)
+                qt, kt, vt, is_causal=True, **gqa)
+        elif not causal and not window:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, **gqa)
         else:
             qpos = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
             kpos = torch.arange(Sk, device="cuda")[None, :]
@@ -597,9 +653,10 @@ def check_zoo_kernels(torch):
             if window:
                 keep &= kpos > qpos - window
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=keep)
+                qt, kt, vt, attn_mask=keep, **gqa)
         row = {"phase": "kernel", "name": "swa_attention", "case": label,
-               "route": route, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "hd": hd,
+               "route": route, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV,
+               "hd": hd,
                "window": window, "causal": causal,
                "dtype": str(dtype).split(".")[-1], "kept_pairs": pairs,
                "max_abs_err": err, "tol": tol,
@@ -608,7 +665,8 @@ def check_zoo_kernels(torch):
                "plain_ms": cuda_ms(torch, lambda: ref.swa_attention_ref(
                    q, k, v, window=window, causal=causal), 3, warmup=1),
                "library_ms": cuda_ms(torch, lib, 50),
-               "library_call": "F.scaled_dot_product_attention",
+               "library_call": "F.scaled_dot_product_attention"
+                               + (" (enable_gqa=True)" if gqa else ""),
                "bound_ms": b_ms, "bound_by": b_by,
                "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
         if route == "fp32":
@@ -727,6 +785,12 @@ def check_zoo_kernels(torch):
              "zamba2-fp32-w64")
     swa_case(2, 33, 65, 2, 40, 16, True, f32, "unaligned-fp32")
     swa_case(1, 96, 96, 2, 80, None, False, f32, "bidirectional-fp32")
+    # the zoo families' head layouts (phase 6b's bf16 prefills): MQA at hd
+    # 256 (Gemma, also in the long_500k window), GQA on the tensor cores,
+    # HuBERT's bidirectional hd 80
+    for label, (b, s_, h, kv, hd, w, causal, route) in FAMILY_SWA.items():
+        swa_case(b, s_, s_, h, hd, w, causal, bf, label, KV=kv,
+                 want_route=route, times=label == "gemma-prefill")
     # the tensor-core route at Zamba2's bf16 prefill, in both decay regimes;
     # the fp32 route at its fp32 forward (B=1, S=256: two chunks)
     rows["ssd_intra_chunk.tc"] = ssd_case(
@@ -2931,27 +2995,388 @@ def zamba2_consistency(torch, cfg, params):
     return total
 
 
-def zamba2_serve():
-    """Phase 6: the serving CLI at full width, in a child process."""
+def serve_cli(phase: str, arch=None) -> dict:
+    """The serving CLI at full width (``--arch arch``, or its default), in
+    a child process: B=4, a 32-token prompt, 32 generated."""
     import os
-    import re
 
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-           "zamba2-1.2b", "--batch", "4", "--prompt-len", "32", "--gen",
-           "32"]
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve"]
+    cmd += ["--arch", arch] if arch else []
+    cmd += ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
                           text=True, timeout=600)
     m = re.search(r"prefill ([\d.]+)ms\s+decode ([\d.]+)ms \(([\d.]+) tok/s\)",
                   proc.stdout)
-    emit({"phase": "zamba2_serve", "cmd": " ".join(cmd[1:]),
-          "rc": proc.returncode, "stdout": proc.stdout.splitlines(),
-          "prefill_ms": float(m.group(1)) if m else None,
-          "decode_ms": float(m.group(2)) if m else None,
-          "decode_tok_s": float(m.group(3)) if m else None})
+    rec = {"phase": phase, "cmd": " ".join(cmd[1:]),
+           "rc": proc.returncode, "stdout": proc.stdout.splitlines(),
+           "prefill_ms": float(m.group(1)) if m else None,
+           "decode_ms": float(m.group(2)) if m else None,
+           "decode_tok_s": float(m.group(3)) if m else None,
+           "child_s": time.perf_counter() - t0}
+    emit(rec)
     if proc.returncode != 0 or m is None:
         raise AssertionError(f"serve CLI failed:\n{proc.stdout}\n"
                              f"{proc.stderr[-4000:]}")
+    return rec
+
+
+def zamba2_serve():
+    """Phase 6: the serving CLI at full width, in a child process."""
+    serve_cli("zamba2_serve", "zamba2-1.2b")
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the zoo's attention families
+# ---------------------------------------------------------------------------
+
+def family_params(torch, arch: str, n_layers=None):
+    """Phase 6b: ``arch`` at its published widths, random from seed 0, cut
+    to ``n_layers`` layers where its fp32 weights would not leave room on
+    one card; the full depth's param count is checked on ``meta``."""
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import param_count
+
+    cfg = registry.get(arch)
+    full = param_count(zoo.init_params(None, cfg, device="meta"))
+    if full != FAMILY_PARAMS[arch]:
+        raise AssertionError(f"{arch} has {full} params, not "
+                             f"{FAMILY_PARAMS[arch]:,}")
+    published = cfg.n_layers
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = zoo.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    torch.cuda.synchronize()
+    n = param_count(params)
+    emit({"phase": "family_config", "arch": arch, "family": cfg.family,
+          "source": cfg.source, "params_full_depth": full,
+          "params_on_card": n, "param_bytes": n * 4,
+          "n_layers": cfg.n_layers, "n_layers_published": published,
+          "reduced": ([f"n_layers {published} -> {n_layers}: fp32 weights "
+                       f"of {full * 4 / 1e9:.1f} GB at full depth leave no "
+                       "room on one card for the casts and activations"]
+                      if n_layers else []),
+          "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+          "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
+          "d_ff": cfg.moe_d_ff or cfg.d_ff, "vocab": cfg.vocab_size,
+          "mlp": f"{cfg.mlp_act}{' gated' if cfg.mlp_gated else ''}",
+          "causal": cfg.causal, "tied": cfg.tie_embeddings,
+          "init_s": time.perf_counter() - t0,
+          "note": "weights random from seed 0 (no checkpoint in the repo)"})
+    return cfg, params
+
+
+def family_inputs(torch, cfg, B: int, S: int, seed: int, patches=None):
+    """A batch of S positions: frames (audio), or tokens, a VLM's
+    ``patches`` patch embeddings (the config's by default) before S −
+    patches text tokens."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "audio":
+        return {"frames": torch.randn((B, S, cfg.frontend_dim), generator=gen,
+                                      device="cuda").to(dt)}
+    n = 0
+    batch = {}
+    if cfg.family == "vlm":
+        n = cfg.n_patches if patches is None else patches
+        batch["patch_embeds"] = torch.randn(
+            (B, n, cfg.frontend_dim), generator=gen, device="cuda").to(dt)
+    batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, S - n),
+                                    generator=gen, device="cuda")
+    return batch
+
+
+def family_launches(torch, cfg) -> dict:
+    """One forward of a family without Mamba2: a swa_attention launch per
+    layer, on the route of the config's dtype and head dim."""
+    from repro_torch.kernels import swa_attention as swa_mod
+
+    dt = getattr(torch, cfg.dtype)
+    route = swa_mod._route(dt, dt, cfg.hd)
+    n = cfg.n_layers
+    return {"edc_cosine": 0, "madc": 0, "ssd_intra_chunk": 0,
+            "swa_attention": n,
+            "swa_attention.tc": n if route == "tc" else 0,
+            "swa_attention.fp32": n if route == "fp32" else 0,
+            "ssd_intra_chunk.tc": 0, "ssd_intra_chunk.fp32": 0}
+
+
+def family_prefill(torch, cfg, params, B: int, S: int, label: str,
+                   route: str, iters: int = 3) -> dict:
+    """Phase 6b: a bf16 ``forward`` of B × S positions: ms (CUDA events,
+    warmed), finite logits and aux, peak memory, launches by route (fails
+    unless one launch per layer on ``route``). Returns the launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    batch = family_inputs(torch, cfg, B, S, seed=5)
+    with torch.inference_mode():
+        def fwd():
+            return zoo.forward(params, cfg, batch)
+        fwd()                                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        logits, aux = fwd()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all()) and all(
+            bool(torch.isfinite(v).all()) for v in aux.values())
+        shape = list(logits.shape)
+        aux = {k: float(v) for k, v in aux.items()}
+        del logits
+        ms = cuda_ms(torch, lambda: fwd()[0], iters, warmup=0)
+    rec = {"phase": "family_prefill", "arch": cfg.name, "case": label,
+           "B": B, "S": S, "window": cfg.window, "dtype": cfg.dtype,
+           "moe_impl": cfg.moe_impl if cfg.family == "moe" else None,
+           "forward_ms": ms, "positions_per_s": B * S / ms * 1e3,
+           "logits_shape": shape, "finite": finite, "aux": aux,
+           "peak_device_bytes": peak, "launches": counts}
+    emit(rec)
+    if not finite:
+        raise AssertionError(f"{cfg.name} {label}: non-finite output")
+    want = family_launches(torch, cfg)
+    if counts != want or want[f"swa_attention.{route}"] != cfg.n_layers:
+        raise AssertionError(f"{cfg.name} {label}: launches {counts}, "
+                             f"expected {cfg.n_layers} on the {route} route")
+    return counts
+
+
+def family_profile(torch, cfg, params, B: int, S: int, label: str,
+                   decode: bool = True):
+    """Phase 6b: one bf16 prefill forward and (``decode``) one decode step
+    (after a 32-token prompt) under torch.profiler, where the device time
+    goes; decode ms a step on the host clock over 8 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import tree_leaves
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    batch = family_inputs(torch, cfg, B, S, seed=6)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            zoo.forward(params, cfg, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "family_profile", "arch": cfg.name,
+              "what": f"{label} forward B={B} S={S} {cfg.dtype}",
+              **device_summary(torch, prof, wall)})
+        if not decode:
+            return
+        cache = zoo.init_cache(cfg, B, 64, device="cuda")
+        tok = batch["tokens"]
+
+        def step(t):
+            return zoo.serve_step(params, cfg, cache, tok[:, t:t + 1],
+                                  torch.full((B,), t, device="cuda"))[1]
+        for t in range(32):                              # the prompt
+            cache = step(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(32, 40):
+            cache = step(t)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 8
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step(40)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        w_bytes = sum(p.numel() for p in tree_leaves(params)) * 6
+        emit({"phase": "family_profile", "arch": cfg.name,
+              "what": f"one decode step B={B} {cfg.dtype}",
+              "decode_step_ms": step_ms, "weight_cast_bytes": w_bytes,
+              "weight_cast_note": "each fp32 weight is read and written "
+                                  "as a bf16 copy at every use (4 + 2 "
+                                  "bytes a param)",
+              **device_summary(torch, prof, wall)})
+
+
+def family_consistency(torch, cfg, params, S: int, window=None,
+                       **replace) -> dict:
+    """Phase 6b: fp32, B=1: ``forward`` (the fp32 route) against S
+    ``serve_step`` calls (no kernel) within 2e-3; with ``window``, a
+    window-slot ring cache. A VLM's forward gets no patches, so both read
+    the same text. Returns the forward's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    c = cfg.replace(dtype="float32", **replace)
+    if window:
+        c = c.with_window(window)
+    batch = family_inputs(torch, c, 1, S, seed=7, patches=0)
+    tok = batch["tokens"]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        full = zoo.forward(params, c, batch)[0]
+        torch.cuda.synchronize()
+        fwd_counts = ops.launch_counts()
+        cache = zoo.init_cache(c, 1, window or S, device="cuda")
+        outs = []
+        t0 = time.perf_counter()
+        for t in range(S):
+            lg, cache = zoo.serve_step(params, c, cache, tok[:, t:t + 1],
+                                       torch.full((1,), t, device="cuda"))
+            outs.append(lg)
+        dec = torch.stack(outs, 1)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        serve_counts = ops.launch_counts()
+    err, ok = allclose_err(torch, dec, full, CONSIST_TOL, CONSIST_TOL)
+    emit({"phase": "family_consistency", "arch": cfg.name, "B": 1, "S": S,
+          "n_layers": c.n_layers, "window": window,
+          "cache_slots": window or S, "dtype": "float32", **replace,
+          "max_abs_err": err, "tol": CONSIST_TOL,
+          "max_abs_logit": float(full.abs().max()), "ok": ok,
+          "forward_launches": fwd_counts, "serve_steps_ms": serve_ms,
+          "serve_step_ms": serve_ms / S})
+    del full, dec
+    if not ok:
+        raise AssertionError(f"{cfg.name} consistency window={window}: max "
+                             f"abs err {err}")
+    if fwd_counts != family_launches(torch, c) or serve_counts != fwd_counts:
+        raise AssertionError(f"{cfg.name} consistency window={window}: "
+                             f"launches {fwd_counts} / {serve_counts}")
+    return fwd_counts
+
+
+def family_done(torch, cfg, params, t0: float):
+    """Phase 6b: the model's peak memory since its init and its seconds;
+    frees its weights."""
+    import gc
+
+    emit({"phase": "family_done", "arch": cfg.name,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t0})
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_load(torch, cfg, params) -> dict:
+    """Phase 6b: Granite-MoE's first MoE layer on the prefill batch's
+    normed embeddings under both dispatches: each expert load sums to 1."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import rmsnorm, tree_index
+
+    p0 = tree_index(params["blocks"], 0)
+    batch = family_inputs(torch, cfg, FAMILY_B, FAMILY_S, seed=5)
+    out = {}
+    with torch.inference_mode():
+        x, _ = zoo.embed_inputs(params, cfg, batch)
+        xn = rmsnorm(p0["ln2"], x, cfg.norm_eps)
+        for impl, fn in (("scatter", moe_lib.moe_apply),
+                         ("grouped", moe_lib.moe_apply_grouped)):
+            _, a = fn(p0["moe"], xn, top_k=cfg.top_k,
+                      capacity_factor=cfg.capacity_factor, act=cfg.mlp_act)
+            out[impl] = {"load_sum": float(a.expert_load.sum()),
+                         "load_max": float(a.expert_load.max()),
+                         "load_balance_loss": float(a.load_balance_loss),
+                         "router_z_loss": float(a.router_z_loss)}
+    emit({"phase": "family_moe_load", "arch": cfg.name, "layer": 0,
+          "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+          "capacity_factor": cfg.capacity_factor, **out})
+    for impl, o in out.items():
+        if abs(o["load_sum"] - 1.0) > 1e-5:
+            raise AssertionError(f"{cfg.name} {impl}: expert load sums to "
+                                 f"{o['load_sum']}")
+
+
+def hubert_serve() -> dict:
+    """Phase 6b: the serving CLI with an encoder-only arch: its line and
+    exit code 1, as the JAX launcher (in-process: it stops before any
+    weight is made)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", "hubert-xlarge"])
+    rec = {"phase": "family_serve", "arch": "hubert-xlarge", "rc": rc,
+           "stdout": buf.getvalue().splitlines()}
+    emit(rec)
+    if rc != 1 or rec["stdout"] != ["hubert-xlarge is encoder-only: no "
+                                    "decode step"]:
+        raise AssertionError(f"hubert serve CLI: rc {rc}, {rec['stdout']}")
+    return rec
+
+
+def family_phase(torch) -> dict:
+    """Phase 6b: Gemma-2B, Granite-MoE, InternVL2-1B and HuBERT-XLarge
+    whole, GLM-4-9B, Granite-20B and Nemotron-4-15B at 2 layers. Returns
+    the launches of the counted forwards (bf16 prefills, fp32 consistency
+    forwards)."""
+    from repro_torch.configs import shapes
+
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # Gemma-2B whole: prefill, the long_500k window, forward vs serve
+    t0 = time.perf_counter()
+    cfg, params = family_params(torch, "gemma-2b")
+    add(family_prefill(torch, cfg, params, FAMILY_B, FAMILY_S, "prefill",
+                       "fp32"))
+    long_cfg = shapes.config_for(cfg, shapes.SHAPES["long_500k"])
+    add(family_prefill(torch, long_cfg, params, 1, LONG_S, "long_500k",
+                       "fp32", iters=1))
+    family_profile(torch, cfg, params, FAMILY_B, FAMILY_S, "prefill")
+    add(family_consistency(torch, cfg, params, CONSIST_S))
+    add(family_consistency(torch, cfg, params, CONSIST_S, window=64))
+    family_done(torch, cfg, params, t0)
+    serve_cli("family_serve")                        # the default arch
+    # Granite-MoE whole: both dispatches, forward vs serve without drops
+    t0 = time.perf_counter()
+    cfg, params = family_params(torch, "granite-moe-1b-a400m")
+    for impl in ("scatter", "grouped"):
+        add(family_prefill(torch, cfg.replace(moe_impl=impl), params,
+                           FAMILY_B, FAMILY_S, f"prefill-{impl}", "tc"))
+    moe_load(torch, cfg, params)
+    family_profile(torch, cfg, params, FAMILY_B, FAMILY_S, "prefill-scatter",
+                   decode=False)
+    add(family_consistency(torch, cfg, params, CONSIST_S,
+                           capacity_factor=100.0))
+    family_done(torch, cfg, params, t0)
+    serve_cli("family_serve", "granite-moe-1b-a400m")
+    # InternVL2-1B and HuBERT-XLarge whole
+    t0 = time.perf_counter()
+    cfg, params = family_params(torch, "internvl2-1b")
+    add(family_prefill(torch, cfg, params, FAMILY_B, 1024, "patches+text",
+                       "tc"))
+    add(family_consistency(torch, cfg, params, 128))
+    family_done(torch, cfg, params, t0)
+    t0 = time.perf_counter()
+    cfg, params = family_params(torch, "hubert-xlarge")
+    add(family_prefill(torch, cfg, params, FAMILY_B, 1024, "frames",
+                       "fp32"))
+    family_done(torch, cfg, params, t0)
+    hubert_serve()
+    # GLM-4-9B, Granite-20B, Nemotron-4-15B at published widths, 2 layers
+    for arch in CUT_ARCHS:
+        t0 = time.perf_counter()
+        cfg, params = family_params(torch, arch, n_layers=CUT_LAYERS)
+        add(family_prefill(torch, cfg, params, 2, FAMILY_S, "prefill", "tc"))
+        add(family_consistency(torch, cfg, params, 128))
+        family_done(torch, cfg, params, t0)
+    emit({"phase": "family_phase", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total
 
 
 def main() -> int:
@@ -3085,21 +3510,27 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     zamba2_serve()
+    # phase 6b: the zoo's attention families (dense, VLM, audio, MoE)
+    counts_fam = family_phase(torch)
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
     # block phase's FedGroup runs, the population phase's FedGroup runs,
     # phase 4f's, 4g's and 4h's FedGroup runs;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
-    # two fp32 consistency forwards (the fp32 routes)
+    # two fp32 consistency forwards (the fp32 routes); phase 6b's counted
+    # bf16 prefills and fp32 consistency forwards (swa_attention, both
+    # routes)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
                 + counts_stream["edc_cosine"] + counts_ft["edc_cosine"]
                 + counts_async["edc_cosine"] + counts_fleet["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
-                "swa_attention.tc": counts_zoo["swa_attention.tc"],
-                "swa_attention.fp32": counts_f32["swa_attention.fp32"],
+                "swa_attention.tc": counts_zoo["swa_attention.tc"]
+                + counts_fam["swa_attention.tc"],
+                "swa_attention.fp32": counts_f32["swa_attention.fp32"]
+                + counts_fam["swa_attention.fp32"],
                 "ssd_intra_chunk.tc": counts_zoo["ssd_intra_chunk.tc"],
                 "ssd_intra_chunk.fp32": counts_f32["ssd_intra_chunk.fp32"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",

@@ -5,10 +5,14 @@ The prompt runs through ``serve_step`` one token at a time (the prefill),
 then the loop decodes; the same line as the JAX launcher reports both
 times. Weights are random from ``--seed``.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --batch 4 --prompt-len 32 --gen 32               # gemma-2b, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
-      --batch 4 --prompt-len 32 --gen 32               # on the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
-      --smoke --device cpu
+      --batch 4 --prompt-len 32 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+An encoder-only arch (``hubert-xlarge``) prints that it has no decode step
+and exits 1, as the JAX launcher does.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from repro_torch.models import zoo
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--arch", default="gemma-2b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32, dest="plen")

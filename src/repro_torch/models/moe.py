@@ -1,0 +1,200 @@
+"""Mixture-of-Experts layer with capacity dispatch (``repro.models.moe``).
+
+  * top-k router (fp32, whatever the param dtype) with softmax gates,
+    normalized over the top k.
+  * ``moe_apply``: the flattened (token, slot) assignments are ranked
+    within their expert by a one-hot cumulative sum in token-major order
+    and scattered into a dense (E, C, D) buffer of capacity C; assignments
+    past an expert's capacity are dropped (their combine weight is zero).
+  * ``moe_apply_grouped``: the same per group (a batch row), by a stable
+    sort on the expert id; every gather stays inside its group.
+  * expert compute: batched products over the expert axis (``bmm``), as
+    the JAX package computes them outside any Pallas kernel.
+  * aux losses: Switch load-balance loss, router z-loss, and each
+    expert's share of the assignments.
+
+The capacity is ``int(round(tokens · k / E · capacity_factor))`` (Python's
+round, half to even), at least 1, rounded up to a multiple of 8, exactly
+as the JAX package computes it: any other rounding drops other tokens.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.modules import act_fn, dense_init, randn
+
+
+class MoEAux(NamedTuple):
+    load_balance_loss: torch.Tensor
+    router_z_loss: torch.Tensor
+    expert_load: torch.Tensor         # fraction of tokens routed per expert
+
+
+def init_moe(gen, d_model: int, d_ff: int, n_experts: int,
+             n_shared: int = 0, shared_d_ff: int | None = None,
+             gated: bool = True, dtype=torch.float32, device="cpu"):
+    scale = 1.0 / math.sqrt(d_model)
+    p = {
+        "router": dense_init(gen, d_model, n_experts, torch.float32, device,
+                             scale=0.02),
+        "w_up": (randn(gen, (n_experts, d_model, d_ff), device)
+                 * scale).to(dtype),
+        "w_down": (randn(gen, (n_experts, d_ff, d_model), device)
+                   * (1.0 / d_ff ** 0.5)).to(dtype),
+    }
+    if gated:
+        p["w_gate"] = (randn(gen, (n_experts, d_model, d_ff), device)
+                       * scale).to(dtype)
+    if n_shared > 0:
+        sdff = shared_d_ff or d_ff
+        p["shared"] = {
+            "w_up": dense_init(gen, d_model, n_shared * sdff, dtype, device),
+            "w_gate": dense_init(gen, d_model, n_shared * sdff, dtype,
+                                 device),
+            "w_down": dense_init(gen, n_shared * sdff, d_model, dtype,
+                                 device),
+        }
+    return p
+
+
+def _capacity(tokens: int, top_k: int, n_experts: int,
+              capacity_factor: float) -> int:
+    c = max(1, int(round(tokens * top_k / n_experts * capacity_factor)))
+    return (c + 7) // 8 * 8
+
+
+def _route(params, x: torch.Tensor, top_k: int, normalize_gates: bool):
+    """fp32 router logits, softmax probs, and the top-k gates and experts
+    (descending, as ``jax.lax.top_k``)."""
+    logits = x.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, top_k, dim=-1, sorted=True)
+    if normalize_gates:
+        gate_vals = gate_vals / torch.sum(gate_vals, -1, keepdim=True)
+    return logits, probs, gate_vals, expert_ids
+
+
+def _experts(params, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """(E, C, D) -> (E, C, D): each expert's MLP on its rows."""
+    a = act_fn(act)
+    dt = buf.dtype
+    up = torch.bmm(buf, params["w_up"].to(dt))
+    if "w_gate" in params:
+        h = a(torch.bmm(buf, params["w_gate"].to(dt))) * up
+    else:
+        h = a(up)
+    return torch.bmm(h, params["w_down"].to(dt))
+
+
+def _shared(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    sh = params["shared"]
+    g = act_fn(act)(x @ sh["w_gate"].to(x.dtype))
+    return (g * (x @ sh["w_up"].to(x.dtype))) @ sh["w_down"].to(x.dtype)
+
+
+def _aux(logits, probs, expert_ids, n_experts: int) -> tuple:
+    E = n_experts
+    me = torch.mean(probs.reshape(-1, E), dim=0)
+    ce = torch.mean(F.one_hot(expert_ids[..., 0].reshape(-1), E).float(),
+                    dim=0)
+    load_balance = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    flat = expert_ids.reshape(-1)
+    load = torch.sum(F.one_hot(flat, E).float(), dim=0) / flat.numel()
+    return load_balance, z_loss, load
+
+
+def moe_apply(params, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, act: str = "silu",
+              normalize_gates: bool = True):
+    """x: (B, S, D) -> (y, MoEAux)."""
+    B, S, D = x.shape
+    E = params["router"].shape[1]
+    N = B * S
+    xt = x.reshape(N, D)
+    logits, probs, gate_vals, expert_ids = _route(params, xt, top_k,
+                                                  normalize_gates)
+    capacity = _capacity(N, top_k, E, capacity_factor)
+
+    # rank of each (token, slot) within its expert: a token-major running
+    # count per expert, scanned along contiguous (E, N*k) rows (a scan down
+    # the outer dim of (N*k, E) runs E-wide on the card: 15 ms a layer at
+    # Granite-MoE's prefill)
+    flat_e = expert_ids.reshape(-1)                              # (N*k,)
+    onehot = F.one_hot(flat_e, E).T.contiguous()                 # (E, N*k)
+    rank = torch.sum(torch.cumsum(onehot, dim=1) * onehot, dim=0) - 1
+    keep = rank < capacity
+    safe_rank = torch.where(keep, rank, capacity - 1)
+
+    # scatter tokens into (E, C, D); a dropped slot adds zero to cell C-1
+    tok_idx = torch.arange(N, device=x.device).repeat_interleave(top_k)
+    src = torch.where(keep[:, None], xt[tok_idx], 0)
+    buf = torch.zeros((E, capacity, D), dtype=xt.dtype, device=x.device)
+    buf.index_put_((flat_e, safe_rank), src, accumulate=True)
+
+    out_buf = _experts(params, buf, act)
+
+    # combine back with the gate weights
+    gathered = out_buf[flat_e, safe_rank]                        # (N*k, D)
+    w = (gate_vals.reshape(-1) * keep).to(xt.dtype)
+    y = torch.zeros((N, D), dtype=xt.dtype, device=x.device)
+    y.index_add_(0, tok_idx, gathered * w[:, None])
+    if "shared" in params:
+        y = y + _shared(params, xt, act)
+    return y.reshape(B, S, D), MoEAux(*_aux(logits, probs, expert_ids, E))
+
+
+def moe_apply_grouped(params, x: torch.Tensor, *, top_k: int,
+                      capacity_factor: float = 1.25, act: str = "silu",
+                      normalize_gates: bool = True):
+    """x: (B, S, D) -> (y, MoEAux). Groups = batch rows; each group has
+    its own capacity of ``S · k / E · capacity_factor``."""
+    B, S, D = x.shape
+    E = params["router"].shape[1]
+    G, T = B, S
+    dev = x.device
+    logits, probs, gate_vals, expert_ids = _route(params, x, top_k,
+                                                  normalize_gates)
+    TK = T * top_k
+    C = _capacity(T, top_k, E, capacity_factor)
+
+    flat_e = expert_ids.reshape(G, TK)
+    tok_of_slot = (torch.arange(TK, device=dev) // top_k).expand(G, TK)
+    order = torch.argsort(flat_e, dim=1, stable=True)            # (G, TK)
+    sorted_e = torch.gather(flat_e, 1, order)
+    sorted_tok = torch.gather(tok_of_slot, 1, order)
+
+    counts = torch.sum(F.one_hot(flat_e, E), dim=1)              # (G, E)
+    starts = torch.cumsum(counts, dim=1) - counts
+    rank_sorted = (torch.arange(TK, device=dev)[None, :]
+                   - torch.gather(starts, 1, sorted_e))          # (G, TK)
+    keep_sorted = rank_sorted < C
+
+    # (G, E, C): which sorted slot fills buffer cell (e, c)
+    cells = torch.arange(C, device=dev)[None, None, :]
+    src_slot = starts[:, :, None] + cells
+    cell_valid = cells < torch.clamp(counts, max=C)[:, :, None]
+    slot_idx = torch.clamp(src_slot, 0, TK - 1).reshape(G, E * C)
+    tok_for_buf = torch.gather(sorted_tok, 1, slot_idx)          # (G, E*C)
+    buf = torch.gather(x, 1, tok_for_buf[..., None].expand(G, E * C, D))
+    buf = buf * cell_valid.reshape(G, E * C, 1).to(buf.dtype)
+
+    ebuf = buf.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+    out_e = _experts(params, ebuf, act)
+    out_flat = out_e.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+
+    # combine: sorted slots read their buffer cell, then unsort
+    dest = sorted_e * C + torch.clamp(rank_sorted, 0, C - 1)     # (G, TK)
+    vals_sorted = torch.gather(out_flat, 1, dest[..., None].expand(G, TK, D))
+    vals_sorted = vals_sorted * keep_sorted[..., None].to(vals_sorted.dtype)
+    inv = torch.argsort(order, dim=1, stable=True)
+    vals = torch.gather(vals_sorted, 1, inv[..., None].expand(G, TK, D))
+    w = gate_vals.reshape(G, T, top_k).to(vals.dtype)
+    y = torch.sum(vals.reshape(G, T, top_k, D) * w[..., None], dim=2)
+    if "shared" in params:
+        y = y + _shared(params, x, act)
+    return y, MoEAux(*_aux(logits, probs, expert_ids, E))

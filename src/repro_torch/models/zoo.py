@@ -1,17 +1,18 @@
 """Architecture zoo (``repro.models.zoo``): ``ArchConfig`` whole, and the
-hybrid family (Zamba2: Mamba2 backbone + one shared attention/MLP block)
-for prefill (``forward``) and serving (``init_cache``, ``serve_step``).
+dense, VLM, audio, MoE (without MLA) and hybrid families for prefill
+(``forward``) and serving (``init_cache``, ``serve_step``).
 
 Params are nested dicts with the JAX package's keys, stacked leaves for the
 layer stack and ``(in, out)`` weights, so a JAX ``zoo.init_params`` tree
 carries across with ``repro_torch.convert.params_from_numpy``. The layer
-stack is a Python loop (the JAX ``lax.scan``); the shared block's
-``lax.cond`` on ``(i + 1) % period == 0`` is a Python ``if``.
+stack is a Python loop (the JAX ``lax.scan``); Zamba2's shared block's
+``lax.cond`` on ``(i + 1) % period == 0`` is a Python ``if``. Every
+attention layer's prefill core is the ``swa_attention`` kernel.
 
 Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item, queue 1): the dense/GQA family (17b), MoE/MLA and the MTP head
-(17c), xLSTM (17d), the VLM and audio front ends (17e) and the training
-step (``loss_fn``, ``train_step``; 17f).
+item, queue 1): MLA and the MTP head (17c′), xLSTM (the ``ssm`` family,
+17d), the training step (``loss_fn``, ``train_step``; 17f), and a sharded
+KV cache (``serve_step``'s ``kv_spec``; 16).
 """
 from __future__ import annotations
 
@@ -20,24 +21,26 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.modules import (dense_init, embed_init, init_mlp,
                                         init_rmsnorm, mlp_apply, rmsnorm,
                                         tree_index, tree_map, tree_stack)
 
 
-_ROADMAP_ITEM = {"dense": "17b", "moe": "17c", "ssm": "17d", "vlm": "17e",
-                 "audio": "17e", "train": "17f"}
+_ROADMAP_ITEM = {"mla": "17c′ (MLA and the MTP head)",
+                 "ssm": "17d (xLSTM)", "train": "17f (LM training)",
+                 "mesh": "16 (multi-GPU)"}
 
 
 def _not_ported(what: str, kind: str):
     return NotImplementedError(
         f"{what} is not yet ported to repro_torch: ROADMAP.md queue 1, item "
-        f"{_ROADMAP_ITEM[kind]} (the model zoo; 17a ported the hybrid "
-        "family)")
+        f"{_ROADMAP_ITEM[kind]}")
 
 
 # ===========================================================================
@@ -144,16 +147,18 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+_FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid")
+
+
 def _check_family(cfg: ArchConfig):
-    if cfg.family != "hybrid":
-        raise _not_ported(f"the {cfg.family!r} family ({cfg.name})",
-                          cfg.family)
-    if cfg.frontend != "none":
-        raise _not_ported(f"{cfg.name}'s {cfg.frontend} front end", "vlm")
+    if cfg.family == "ssm":
+        raise _not_ported(f"the 'ssm' family ({cfg.name}, xLSTM)", "ssm")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(cfg.family)
+    if cfg.mla:
+        raise _not_ported(f"{cfg.name}'s MLA attention", "mla")
     if cfg.mtp:
-        raise _not_ported(f"{cfg.name}'s MTP head", "moe")
-    if cfg.tie_embeddings or cfg.embed_scale:
-        raise _not_ported(f"{cfg.name}'s tied / scaled embeddings", "dense")
+        raise _not_ported(f"{cfg.name}'s MTP head", "mla")
 
 
 # ===========================================================================
@@ -172,6 +177,20 @@ def _init_dense_block(gen, cfg: ArchConfig, device):
     }
 
 
+def _init_moe_block(gen, cfg: ArchConfig, device):
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, cfg.p_dtype, device),
+        "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                    cfg.n_kv_heads, cfg.hd, cfg.p_dtype,
+                                    cfg.qkv_bias, device),
+        "ln2": init_rmsnorm(cfg.d_model, cfg.p_dtype, device),
+        "moe": moe_lib.init_moe(gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
+                                cfg.n_experts, cfg.n_shared_experts,
+                                gated=cfg.mlp_gated, dtype=cfg.p_dtype,
+                                device=device),
+    }
+
+
 def _init_mamba_block(gen, cfg: ArchConfig, device):
     return {
         "ln": init_rmsnorm(cfg.d_model, cfg.p_dtype, device),
@@ -186,17 +205,38 @@ def _init_mamba_block(gen, cfg: ArchConfig, device):
 def init_params(gen: Optional[torch.Generator], cfg: ArchConfig,
                 device="cuda"):
     """Random params from ``gen`` (a generator on ``device``). On the
-    ``meta`` device ``gen`` may be None: shapes only, for counting."""
+    ``meta`` device ``gen`` may be None: shapes only, for counting. The
+    tree is the JAX package's: ``frontend_proj`` (audio) or ``embed`` (and
+    the vision ``projector``), the stacked ``blocks`` (and Zamba2's
+    ``shared_attn``), ``final_norm``, and ``lm_head`` unless the
+    embeddings are tied (audio always has one)."""
     _check_family(cfg)
     device = resolve_device(device)
-    params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                  cfg.p_dtype, device)}
-    params["blocks"] = tree_stack([_init_mamba_block(gen, cfg, device)
+    pd = cfg.p_dtype
+    params = {}
+    if cfg.frontend == "audio":
+        params["frontend_proj"] = dense_init(gen, cfg.frontend_dim,
+                                             cfg.d_model, pd, device)
+    else:
+        params["embed"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, pd,
+                                     device)
+        if cfg.frontend == "vision":
+            params["projector"] = {
+                "w1": dense_init(gen, cfg.frontend_dim, cfg.d_model, pd,
+                                 device),
+                "w2": dense_init(gen, cfg.d_model, cfg.d_model, pd, device),
+            }
+    init_block = {"dense": _init_dense_block, "vlm": _init_dense_block,
+                  "audio": _init_dense_block, "moe": _init_moe_block,
+                  "hybrid": _init_mamba_block}[cfg.family]
+    params["blocks"] = tree_stack([init_block(gen, cfg, device)
                                    for _ in range(cfg.n_layers)])
-    params["shared_attn"] = _init_dense_block(gen, cfg, device)
-    params["final_norm"] = init_rmsnorm(cfg.d_model, cfg.p_dtype, device)
-    params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
-                                   cfg.p_dtype, device)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_dense_block(gen, cfg, device)
+    params["final_norm"] = init_rmsnorm(cfg.d_model, pd, device)
+    if cfg.family == "audio" or not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                       pd, device)
     return params
 
 
@@ -204,13 +244,29 @@ def init_params(gen: Optional[torch.Generator], cfg: ArchConfig,
 # Block forwards
 # ===========================================================================
 
+def _attn_kw(cfg: ArchConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                rope_theta=cfg.rope_theta, window=cfg.window)
+
+
 def _dense_block_fwd(cfg: ArchConfig, p, x, positions):
-    h = x + attn.attention_fwd(
-        p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), n_heads=cfg.n_heads,
-        n_kv=cfg.n_kv_heads, head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-        causal=cfg.causal, window=cfg.window, positions=positions)
+    h = x + attn.attention_fwd(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                               causal=cfg.causal, positions=positions,
+                               **_attn_kw(cfg))
     return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps),
                          cfg.mlp_act)
+
+
+def _moe_block_fwd(cfg: ArchConfig, p, x, positions):
+    h = x + attn.attention_fwd(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                               causal=cfg.causal, positions=positions,
+                               **_attn_kw(cfg))
+    moe_fn = (moe_lib.moe_apply_grouped if cfg.moe_impl == "grouped"
+              else moe_lib.moe_apply)
+    y, aux = moe_fn(p["moe"], rmsnorm(p["ln2"], h, cfg.norm_eps),
+                    top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                    act=cfg.mlp_act)
+    return h + y, aux
 
 
 def _mamba_block_fwd(cfg: ArchConfig, p, x):
@@ -223,31 +279,70 @@ def _mamba_block_fwd(cfg: ArchConfig, p, x):
 # Full forward (prefill)
 # ===========================================================================
 
+def _embed_tokens(params, cfg: ArchConfig, tokens):
+    """Token embeddings in the activation dtype; Gemma's scale √d_model is
+    rounded to that dtype first, as the JAX package multiplies by
+    ``jnp.asarray(d ** 0.5, act_dtype)`` (bf16: 45.25, not 45.2548…)."""
+    tok = params["embed"].to(cfg.act_dtype)[tokens]
+    if cfg.embed_scale:
+        scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.act_dtype)
+        tok = tok * scale.item()
+    return tok
+
+
 def embed_inputs(params, cfg: ArchConfig, batch):
-    """Returns (hidden (B,S,D), positions (B,S) or None)."""
+    """Returns (hidden (B,S,D), positions (B,S) or None). Audio reads
+    ``batch["frames"]`` (B, S, frontend_dim); a VLM puts the projected
+    ``batch["patch_embeds"]`` (B, P, frontend_dim) before the text."""
     _check_family(cfg)
-    return params["embed"].to(cfg.act_dtype)[batch["tokens"]], None
+    dt = cfg.act_dtype
+    if cfg.family == "audio":
+        return batch["frames"].to(dt) @ params["frontend_proj"].to(dt), None
+    tok = _embed_tokens(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        proj = params["projector"]
+        pe = batch["patch_embeds"].to(dt) @ proj["w1"].to(dt)
+        pe = F.gelu(pe, approximate="tanh") @ proj["w2"].to(dt)
+        tok = torch.cat([pe, tok], dim=1)
+    return tok, None
 
 
 def _logits(params, cfg: ArchConfig, h):
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    if cfg.tie_embeddings and cfg.family != "audio":
+        return h @ params["embed"].to(h.dtype).T
     return h @ params["lm_head"].to(h.dtype)
 
 
 def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False):
     """-> (logits (B,S,V), aux dict). return_hidden adds aux['hidden'].
-    ``batch["tokens"]``: (B, S) integer tensor on the params' device."""
+    ``batch["tokens"]``: (B, S) integer tensor on the params' device (or
+    ``"frames"``, or ``"patch_embeds"`` with the text, as the family
+    reads them). The MoE family's aux losses are the layers' means."""
     x, _ = embed_inputs(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     aux = {"load_balance_loss": torch.zeros((), device=x.device),
            "router_z_loss": torch.zeros((), device=x.device)}
-    shared = params["shared_attn"]
-    period = cfg.shared_attn_period
-    for i in range(cfg.n_layers):
-        x = _mamba_block_fwd(cfg, tree_index(params["blocks"], i), x)
-        if period > 0 and (i + 1) % period == 0:
-            x = _dense_block_fwd(cfg, shared, x, positions)
+    blocks = params["blocks"]
+    if cfg.family in ("dense", "vlm", "audio"):
+        for i in range(cfg.n_layers):
+            x = _dense_block_fwd(cfg, tree_index(blocks, i), x, positions)
+    elif cfg.family == "moe":
+        lb, zl = [], []
+        for i in range(cfg.n_layers):
+            x, a = _moe_block_fwd(cfg, tree_index(blocks, i), x, positions)
+            lb.append(a.load_balance_loss)
+            zl.append(a.router_z_loss)
+        aux["load_balance_loss"] = torch.mean(torch.stack(lb))
+        aux["router_z_loss"] = torch.mean(torch.stack(zl))
+    else:                                                   # hybrid
+        shared = params["shared_attn"]
+        period = cfg.shared_attn_period
+        for i in range(cfg.n_layers):
+            x = _mamba_block_fwd(cfg, tree_index(blocks, i), x)
+            if period > 0 and (i + 1) % period == 0:
+                x = _dense_block_fwd(cfg, shared, x, positions)
     if return_hidden:
         aux["hidden"] = x
     return _logits(params, cfg, x), aux
@@ -258,43 +353,84 @@ def loss_fn(*args, **kw):
                       "train")
 
 
-train_step = init_train_state = mtp_logits = loss_fn
+train_step = init_train_state = loss_fn
+
+
+def mtp_logits(*args, **kw):
+    raise _not_ported("the MTP head (mtp_logits)", "mla")
 
 
 # ===========================================================================
 # Decode: cache init + serve_step
 # ===========================================================================
 
+def _stacked(tree, n: int):
+    return tree_map(lambda a: a.expand((n,) + a.shape).clone(), tree)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
+    """Decode caches: a KV cache per layer (dense, VLM, MoE), or Zamba2's
+    Mamba2 states and one KV cache per shared-block application. ``max_len``
+    slots; with a window, a ring of ``max_len`` (== window) slots."""
     _check_family(cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.family} has no decode cache (encoder-only?)")
     device = resolve_device(device)
     dt = cfg.act_dtype
+    kv = attn.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.hd, dt,
+                            device)
+    if cfg.family in ("dense", "vlm", "moe"):
+        return _stacked(kv, cfg.n_layers)
     m = ssm_lib.init_mamba2_cache(batch, cfg.d_model, d_state=cfg.ssm_state,
                                   expand=cfg.ssm_expand,
                                   head_dim=cfg.ssm_head_dim,
                                   conv_width=cfg.conv_width, dtype=dt,
                                   device=device)
-    mstack = tree_map(lambda a: a.expand((cfg.n_layers,) + a.shape).clone(),
-                      m)
     n_apps = (cfg.n_layers // cfg.shared_attn_period
               if cfg.shared_attn_period else 0)
-    sa = attn.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.hd, dt, device)
-    sstack = tree_map(lambda a: a.expand((max(n_apps, 1),) + a.shape).clone(),
-                      sa)
-    return {"mamba": mstack, "shared_attn": sstack}
+    return {"mamba": _stacked(m, cfg.n_layers),
+            "shared_attn": _stacked(kv, max(n_apps, 1))}
 
 
-def serve_step(params, cfg: ArchConfig, cache, tokens, pos):
+def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None):
     """Decode ONE token. tokens: (B,1) integers; pos: (B,) absolute
     positions. Returns (logits (B, V), new_cache); ``cache`` is not
-    changed."""
+    changed. A VLM decodes text only. ``kv_spec`` is the JAX package's
+    sharding constraint for a sequence-sharded cache: only ``None`` (one
+    device) is ported."""
     _check_family(cfg)
-    x = params["embed"].to(cfg.act_dtype)[tokens]
-    # Python loop: shared-attn applications each own a cache slot
+    if kv_spec is not None:
+        raise _not_ported(f"a sharded KV cache (kv_spec={kv_spec!r})", "mesh")
+    if not cfg.decode_supported:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    x = _embed_tokens(params, cfg, tokens)
+    blocks = params["blocks"]
+    if cfg.family in ("dense", "vlm", "moe"):
+        new = []
+        for i in range(cfg.n_layers):
+            p = tree_index(blocks, i)
+            y, c2 = attn.attention_decode(
+                p["attn"], tree_index(cache, i),
+                rmsnorm(p["ln1"], x, cfg.norm_eps), pos, **_attn_kw(cfg))
+            x = x + y
+            xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
+            if cfg.family == "moe":
+                # the scatter dispatch whatever ``moe_impl``, as the JAX
+                # package decodes
+                y, _ = moe_lib.moe_apply(p["moe"], xn, top_k=cfg.top_k,
+                                         capacity_factor=cfg.capacity_factor,
+                                         act=cfg.mlp_act)
+                x = x + y
+            else:
+                x = x + mlp_apply(p["mlp"], xn, cfg.mlp_act)
+            new.append(c2)
+        return _logits(params, cfg, x)[:, 0], tree_stack(new)
+
+    # hybrid: shared-attn applications each own a cache slot
     new_mamba, new_shared = [], []
     app = 0
     for i in range(cfg.n_layers):
-        p = tree_index(params["blocks"], i)
+        p = tree_index(blocks, i)
         c = tree_index(cache["mamba"], i)
         y, c2 = ssm_lib.mamba2_step(p["mixer"], c,
                                     rmsnorm(p["ln"], x, cfg.norm_eps),
@@ -308,8 +444,7 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos):
             sc = tree_index(cache["shared_attn"], app)
             y, sc2 = attn.attention_decode(
                 sp["attn"], sc, rmsnorm(sp["ln1"], x, cfg.norm_eps), pos,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                rope_theta=cfg.rope_theta, window=cfg.window)
+                **_attn_kw(cfg))
             x = x + y
             x = x + mlp_apply(sp["mlp"], rmsnorm(sp["ln2"], x, cfg.norm_eps),
                               cfg.mlp_act)

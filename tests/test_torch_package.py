@@ -44,6 +44,11 @@ SLICE_MODULES = [
     "repro_torch.obs.trace", "repro_torch.obs.telemetry",
     "repro_torch.launch.inspect", "repro_torch.launch.transport",
     "repro_torch.launch.worker", "repro_torch.launch.coordinator",
+    "repro_torch.models.moe", "repro_torch.configs.shapes",
+    "repro_torch.configs.gemma_2b", "repro_torch.configs.glm4_9b",
+    "repro_torch.configs.granite_20b", "repro_torch.configs.nemotron_4_15b",
+    "repro_torch.configs.internvl2_1b", "repro_torch.configs.hubert_xlarge",
+    "repro_torch.configs.granite_moe_1b",
 ]
 
 
@@ -122,7 +127,8 @@ def test_async_depth_runs_on_the_cpu():
     "repro_torch.fed.leases", "repro_torch.obs", "repro_torch.obs.trace",
     "repro_torch.obs.telemetry", "repro_torch.launch.inspect",
     "repro_torch.launch.transport", "repro_torch.launch.worker",
-    "repro_torch.launch.coordinator"])
+    "repro_torch.launch.coordinator", "repro_torch.models.moe",
+    "repro_torch.configs.shapes"])
 def test_reference_copies_import_no_jax_and_no_reference(module):
     # the port's own copies of reference modules that never import JAX
     code = (f"import importlib, sys; importlib.import_module({module!r})\n"

@@ -287,13 +287,29 @@ def test_serve_step_leaves_its_cache_unchanged(zamba):
 # ---------------------------------------------------------------------------
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get("gemma-2b")
-    dense = _cfg().replace(family="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.init_params(torch.Generator(), dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What stays unported names its ROADMAP item: DeepSeek-V3 (MLA and
+    the MTP head, 17c′) and xLSTM (17d) in the registry, ``mla=True``,
+    ``mtp=True``, the ``ssm`` family, and the training step (17f)."""
+    with pytest.raises(KeyError, match="ROADMAP.*17c′"):
+        registry.get("deepseek-v3-671b")
+    with pytest.raises(KeyError, match="ROADMAP.*17d"):
+        registry.get("xlstm-350m")
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get("no-such-arch")
+    moe = registry.smoke_variant(registry.get("granite-moe-1b-a400m"))
+    for cfg, item in ((moe.replace(mla=True), "17c′"),
+                      (moe.replace(mtp=True), "17c′"),
+                      (_cfg().replace(family="ssm"), "17d")):
+        for call in (lambda: zoo.init_params(torch.Generator(), cfg,
+                                             device="cpu"),
+                     lambda: zoo.init_cache(cfg, 1, 4, device="cpu"),
+                     lambda: zoo.forward({}, cfg, {})):
+            with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+                call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*17f"):
         zoo.train_step()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*17c′"):
+        zoo.mtp_logits()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tattn.init_mla()
 
@@ -301,12 +317,27 @@ def test_unported_archs_and_families_raise():
 def test_serve_cli_runs_on_cpu_and_prints_its_timing_line():
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
-         "--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen",
-         "4", "--window", "4"], env=env, capture_output=True, text=True,
-        timeout=120)
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "zamba2-1.2b", "--smoke", "--device", "cpu", "--batch", "2",
+         "--prompt-len", "8", "--gen", "4", "--window", "4"], env=env,
+        capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
     assert lines[0].startswith("# served zamba2-1.2b: batch=2 prompt=8 gen=4")
     assert lines[1].startswith("prefill ") and "ms  decode " in lines[1]
     assert lines[1].endswith("tok/s)")
+
+
+@pytest.mark.parametrize("extra", [[], ["--window", "4"]])
+def test_serve_cli_default_arch_is_gemma(extra):
+    """No ``--arch``: gemma-2b, as the JAX launcher's default."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu", "--batch", "2", "--prompt-len", "8", "--gen",
+         "4"] + extra, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == ("# served gemma-2b: batch=2 prompt=8 gen=4 "
+                        "device=cpu")
+    assert lines[1].startswith("prefill ") and lines[1].endswith("tok/s)")
