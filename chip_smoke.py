@@ -237,13 +237,48 @@ with no final ``ok`` line):
                 prefill B=2, S=2048 (tc) and forward against serve at
                 S=128. Phase 2 holds swa_attention at each family's
                 prefill shape (GQA / MQA k, v with KV heads; SDPA with
-                ``enable_gqa=True`` as the library call).
+                ``enable_gqa=True`` as the library call), DeepSeek's MTP
+                block too (H = KV = 128, hd 56: the fp32 route).
+  6c. last families — random from seed 0, each model's weights freed
+                before the next, with its peak memory and seconds:
+                DeepSeek-V3 at published widths (MLA: q_rank 1,536,
+                kv_rank 512, 128 heads of 128 + 64 rope dims, v 128; the
+                MoE layer's top 8 of routed experts of d_ff 2,048 and one
+                shared) cut to 3 layers and 16 routed experts with the MTP
+                head on (5,013,474,304 params; the cuts in ``reduced``):
+                bf16 prefill B=2, S=2048 (MLA is plain einsums: no
+                launch), ``forward(return_hidden=True)`` then
+                ``mtp_logits`` (fails unless the MTP call launches one
+                swa_attention, on the fp32 route at hd 56), fp32 B=1,
+                S=2048 with ``attn_q_chunk=512`` against no chunking (the
+                first layer's ``mla_fwd`` within 1e-5 with its ms and peak
+                memory, the logits within 1e-4), a profiled prefill and
+                decode step, fp32 B=1, S=256 ``forward`` against 256
+                ``serve_step`` calls (the absorbed decode over the
+                compressed cache) within 2e-3 with and without a 64
+                window and 64-slot ring at ``capacity_factor=100``, the
+                serve CLI with ``--arch deepseek-v3-671b --smoke``;
+                xLSTM-350M whole (519,001,248; 20 mLSTM and 4 sLSTM
+                layers): bf16 prefill B=4, S=2048 with the chunkwise
+                mLSTM; fp32 B=1, S=512: each mLSTM layer's chunkwise form
+                against its recurrent form on the same input within 1e-4,
+                each whole forward's ms and launches; fp32 B=1, S=256:
+                each layer's 256 block steps against its forward on the
+                same input within 2e-3 (the whole forward against 256
+                ``serve_step`` calls, and the two forms' logits, are
+                recorded, not held: with random weights the sLSTM
+                post-FFNs grow the residual stream ~3,000× and fp32
+                rounding with it, in the JAX package too); a profiled
+                decode step; the serve CLI with
+                ``--arch xlstm-350m``. The xLSTM forwards' launches are
+                their ATen ops (a dispatch-mode count).
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
      ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
      20-group and shift runs and phase 4d's, 4e's, 4f's, 4g's and 4h's
      FedGroup runs; swa_attention's count Zamba2's and phase 6b's counted
-     forwards, not phase 2's comparisons), then
+     forwards and phase 6c's counted MTP call, not phase 2's
+     comparisons), then
      the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -321,6 +356,8 @@ FAMILY_SWA = {
     "granite20b": (2, 2048, 48, 1, 128, None, True, "tc"),
     "internvl2": (4, 1024, 14, 2, 64, None, True, "tc"),
     "hubert": (4, 1024, 16, 16, 80, None, False, "fp32"),
+    # DeepSeek-V3's MTP block: MHA at hd 7,168 / 128 = 56, padded to 64
+    "deepseek-mtp": (2, 2048, 128, 128, 56, None, True, "fp32"),
 }
 SSD_DECAY = {"fast": 1.0, "slow": 0.01}   # dtA = -s · softplus(randn)
 # phase 6b: the zoo's attention families
@@ -331,7 +368,18 @@ FAMILY_PARAMS = {"gemma-2b": 2_506_172_416, "glm4-9b": 9_399_951_360,
                  "granite-20b": 28_167_493_632,
                  "nemotron-4-15b": 15_628_376_064,
                  "internvl2-1b": 631_658_368, "hubert-xlarge": 945_153_280,
-                 "granite-moe-1b-a400m": 1_385_481_216}
+                 "granite-moe-1b-a400m": 1_385_481_216,
+                 "deepseek-v3-671b": 703_797_812_224,
+                 "xlstm-350m": 519_001_248}
+# phase 6c: the zoo's last two families. DeepSeek-V3 at its published
+# widths, cut to fit one card in fp32 (2.8 TB whole), with the MTP head on
+DEEPSEEK_CUT = dict(n_layers=3, n_experts=16, mtp=True)
+DEEPSEEK_CUT_PARAMS = 5_013_474_304
+DEEPSEEK_B = 2                 # bf16 prefill batch (S = FAMILY_S)
+# MLA's query chunks at fp32, B=1: a layer within 1e-5, the logits 1e-4
+Q_CHUNK, Q_CHUNK_S, Q_CHUNK_TOL, Q_CHUNK_LOGIT_TOL = 512, 2048, 1e-5, 1e-4
+XLSTM_B = 4                    # chunkwise bf16 prefill batch (S = FAMILY_S)
+XLSTM_REC_S, XLSTM_IMPL_TOL = 512, 1e-4   # recurrent vs chunkwise, fp32 B=1
 
 
 def emit(obj):
@@ -790,7 +838,8 @@ def check_zoo_kernels(torch):
     # HuBERT's bidirectional hd 80
     for label, (b, s_, h, kv, hd, w, causal, route) in FAMILY_SWA.items():
         swa_case(b, s_, s_, h, hd, w, causal, bf, label, KV=kv,
-                 want_route=route, times=label == "gemma-prefill")
+                 want_route=route,
+                 times=label in ("gemma-prefill", "deepseek-mtp"))
     # the tensor-core route at Zamba2's bf16 prefill, in both decay regimes;
     # the fp32 route at its fp32 forward (B=1, S=256: two chunks)
     rows["ssd_intra_chunk.tc"] = ssd_case(
@@ -2995,14 +3044,15 @@ def zamba2_consistency(torch, cfg, params):
     return total
 
 
-def serve_cli(phase: str, arch=None) -> dict:
-    """The serving CLI at full width (``--arch arch``, or its default), in
-    a child process: B=4, a 32-token prompt, 32 generated."""
+def serve_cli(phase: str, arch=None, extra=()) -> dict:
+    """The serving CLI at full width (``--arch arch``, or its default; its
+    smoke variant with ``extra=["--smoke"]``), in a child process: B=4, a
+    32-token prompt, 32 generated."""
     import os
 
     cmd = [sys.executable, "-m", "repro_torch.launch.serve"]
     cmd += ["--arch", arch] if arch else []
-    cmd += ["--batch", "4", "--prompt-len", "32", "--gen", "32"]
+    cmd += ["--batch", "4", "--prompt-len", "32", "--gen", "32", *extra]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
@@ -3031,10 +3081,13 @@ def zamba2_serve():
 # phase 6b: the zoo's attention families
 # ---------------------------------------------------------------------------
 
-def family_params(torch, arch: str, n_layers=None):
-    """Phase 6b: ``arch`` at its published widths, random from seed 0, cut
-    to ``n_layers`` layers where its fp32 weights would not leave room on
-    one card; the full depth's param count is checked on ``meta``."""
+def family_params(torch, arch: str, cut_params=None, **cut):
+    """Phase 6b, 6c: ``arch`` at its published widths, random from seed 0,
+    cut (``cut``: fewer layers, fewer experts) where its fp32 weights would
+    not leave room on one card; the published config's param count is
+    checked on ``meta``, and the cut's on the card against ``cut_params``
+    where given. ``mtp=True`` in ``cut`` turns DeepSeek's MTP head on (an
+    addition, not a cut)."""
     from repro_torch.configs import registry
     from repro_torch.models import zoo
     from repro_torch.models.modules import param_count
@@ -3044,9 +3097,12 @@ def family_params(torch, arch: str, n_layers=None):
     if full != FAMILY_PARAMS[arch]:
         raise AssertionError(f"{arch} has {full} params, not "
                              f"{FAMILY_PARAMS[arch]:,}")
-    published = cfg.n_layers
-    if n_layers:
-        cfg = cfg.replace(n_layers=n_layers)
+    published = cfg
+    cfg = cfg.replace(**cut)
+    reduced = [f"{k} {getattr(published, k)} -> {v}: fp32 weights of "
+               f"{full * 4 / 1e9:.1f} GB in full leave no room on one card "
+               "for the casts and activations"
+               for k, v in cut.items() if k in ("n_layers", "n_experts")]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3057,11 +3113,8 @@ def family_params(torch, arch: str, n_layers=None):
     emit({"phase": "family_config", "arch": arch, "family": cfg.family,
           "source": cfg.source, "params_full_depth": full,
           "params_on_card": n, "param_bytes": n * 4,
-          "n_layers": cfg.n_layers, "n_layers_published": published,
-          "reduced": ([f"n_layers {published} -> {n_layers}: fp32 weights "
-                       f"of {full * 4 / 1e9:.1f} GB at full depth leave no "
-                       "room on one card for the casts and activations"]
-                      if n_layers else []),
+          "n_layers": cfg.n_layers, "n_layers_published": published.n_layers,
+          "reduced": reduced, "mtp": cfg.mtp,
           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
           "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.hd,
           "d_ff": cfg.moe_d_ff or cfg.d_ff, "vocab": cfg.vocab_size,
@@ -3069,6 +3122,9 @@ def family_params(torch, arch: str, n_layers=None):
           "causal": cfg.causal, "tied": cfg.tie_embeddings,
           "init_s": time.perf_counter() - t0,
           "note": "weights random from seed 0 (no checkpoint in the repo)"})
+    if cut_params is not None and n != cut_params:
+        raise AssertionError(f"{arch} cut {cut} has {n} params on the card, "
+                             f"not {cut_params:,}")
     return cfg, params
 
 
@@ -3094,12 +3150,13 @@ def family_inputs(torch, cfg, B: int, S: int, seed: int, patches=None):
 
 def family_launches(torch, cfg) -> dict:
     """One forward of a family without Mamba2: a swa_attention launch per
-    layer, on the route of the config's dtype and head dim."""
+    layer, on the route of the config's dtype and head dim; none for MLA
+    and xLSTM (plain PyTorch, as in the JAX package)."""
     from repro_torch.kernels import swa_attention as swa_mod
 
     dt = getattr(torch, cfg.dtype)
     route = swa_mod._route(dt, dt, cfg.hd)
-    n = cfg.n_layers
+    n = 0 if cfg.mla or cfg.family == "ssm" else cfg.n_layers
     return {"edc_cosine": 0, "madc": 0, "ssd_intra_chunk": 0,
             "swa_attention": n,
             "swa_attention.tc": n if route == "tc" else 0,
@@ -3109,9 +3166,10 @@ def family_launches(torch, cfg) -> dict:
 
 def family_prefill(torch, cfg, params, B: int, S: int, label: str,
                    route: str, iters: int = 3) -> dict:
-    """Phase 6b: a bf16 ``forward`` of B × S positions: ms (CUDA events,
-    warmed), finite logits and aux, peak memory, launches by route (fails
-    unless one launch per layer on ``route``). Returns the launches."""
+    """Phase 6b, 6c: a bf16 ``forward`` of B × S positions: ms (CUDA
+    events, warmed), finite logits and aux, peak memory, launches by route
+    (fails unless one launch per layer on ``route``; ``route=None``: a
+    family without the kernel, no launch). Returns the launches."""
     from repro_torch.kernels import ops
     from repro_torch.models import zoo
 
@@ -3143,17 +3201,19 @@ def family_prefill(torch, cfg, params, B: int, S: int, label: str,
     if not finite:
         raise AssertionError(f"{cfg.name} {label}: non-finite output")
     want = family_launches(torch, cfg)
-    if counts != want or want[f"swa_attention.{route}"] != cfg.n_layers:
+    if counts != want or (route and want[f"swa_attention.{route}"]
+                          != cfg.n_layers):
         raise AssertionError(f"{cfg.name} {label}: launches {counts}, "
-                             f"expected {cfg.n_layers} on the {route} route")
+                             f"expected {want} ({route} route)")
     return counts
 
 
 def family_profile(torch, cfg, params, B: int, S: int, label: str,
-                   decode: bool = True):
-    """Phase 6b: one bf16 prefill forward and (``decode``) one decode step
-    (after a 32-token prompt) under torch.profiler, where the device time
-    goes; decode ms a step on the host clock over 8 steps."""
+                   decode: bool = True, prefill: bool = True):
+    """Phase 6b, 6c: one bf16 prefill forward (``prefill``) and
+    (``decode``) one decode step (after a 32-token prompt) under
+    torch.profiler, where the device time goes; decode ms a step on the
+    host clock over 8 steps, and the step's ATen ops."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import zoo
@@ -3163,14 +3223,15 @@ def family_profile(torch, cfg, params, B: int, S: int, label: str,
     batch = family_inputs(torch, cfg, B, S, seed=6)
     with torch.inference_mode():
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            zoo.forward(params, cfg, batch)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        emit({"phase": "family_profile", "arch": cfg.name,
-              "what": f"{label} forward B={B} S={S} {cfg.dtype}",
-              **device_summary(torch, prof, wall)})
+        if prefill:
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                zoo.forward(params, cfg, batch)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            emit({"phase": "family_profile", "arch": cfg.name,
+                  "what": f"{label} forward B={B} S={S} {cfg.dtype}",
+                  **device_summary(torch, prof, wall)})
         if not decode:
             return
         cache = zoo.init_cache(cfg, B, 64, device="cuda")
@@ -3196,6 +3257,7 @@ def family_profile(torch, cfg, params, B: int, S: int, label: str,
         emit({"phase": "family_profile", "arch": cfg.name,
               "what": f"one decode step B={B} {cfg.dtype}",
               "decode_step_ms": step_ms, "weight_cast_bytes": w_bytes,
+              "aten_ops": aten_ops(lambda: step(41)),
               "weight_cast_note": "each fp32 weight is read and written "
                                   "as a bf16 copy at every use (4 + 2 "
                                   "bytes a param)",
@@ -3379,6 +3441,307 @@ def family_phase(torch) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 6c: the zoo's last two families (MLA with the MTP head, xLSTM)
+# ---------------------------------------------------------------------------
+
+def deepseek_mtp(torch, cfg, params) -> dict:
+    """Phase 6c: bf16 B=2, S=2048: ``forward(return_hidden=True)``, then
+    ``mtp_logits`` on its hidden state; the counted MTP call fails the run
+    unless it launches exactly one swa_attention, on the ``fp32`` route
+    (its dense block's hd 56). Returns the MTP call's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+
+    batch = family_inputs(torch, cfg, DEEPSEEK_B, FAMILY_S, seed=8)
+    tok = batch["tokens"]
+    with torch.inference_mode():
+        _, aux = zoo.forward(params, cfg, batch, return_hidden=True)
+        hidden = aux["hidden"]
+        del aux
+
+        def mtp():
+            return zoo.mtp_logits(params, cfg, hidden, tok)
+        mtp()                                               # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        logits = mtp()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        shape = list(logits.shape)
+        del logits
+        ms = cuda_ms(torch, mtp, 3, warmup=0)
+    want = {k: 0 for k in counts}
+    want.update({"swa_attention": 1, "swa_attention.fp32": 1})
+    emit({"phase": "family_mtp", "arch": cfg.name, "B": DEEPSEEK_B,
+          "S": FAMILY_S, "dtype": cfg.dtype, "mtp_head_dim": cfg.hd,
+          "mtp_ms": ms, "logits_shape": shape, "finite": finite,
+          "peak_device_bytes": peak, "launches": counts})
+    if not finite or shape != [DEEPSEEK_B, FAMILY_S - 1, cfg.padded_vocab]:
+        raise AssertionError(f"mtp_logits: finite {finite}, shape {shape}")
+    if counts != want:
+        raise AssertionError(f"mtp_logits launched {counts}, not one "
+                             "swa_attention on the fp32 route")
+    return counts
+
+
+def deepseek_q_chunk(torch, cfg, params):
+    """Phase 6c: fp32, B=1, S=2048, MLA's prefill in query chunks of 512
+    against no chunking: the first layer's ``mla_fwd`` within 1e-5 (its
+    ms, CUDA events, and peak memory each), and the whole forward's logits
+    within 1e-4 (the CPU tests' bounds for a layer and for a model)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import rmsnorm, tree_index
+
+    c = cfg.replace(dtype="float32")
+    batch = family_inputs(torch, c, 1, Q_CHUNK_S, seed=9)
+    p0 = tree_index(params["blocks"], 0)
+    layer, logits, rec = {}, {}, {}
+    with torch.inference_mode():
+        x, _ = zoo.embed_inputs(params, c, batch)
+        xn = rmsnorm(p0["ln1"], x, c.norm_eps)
+        for qc in (None, Q_CHUNK):
+            def mla():
+                return attn.mla_fwd(p0["attn"], xn, causal=c.causal,
+                                    q_chunk=qc, **zoo._mla_kw(c))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            layer[qc] = mla()
+            torch.cuda.synchronize()
+            rec[str(qc)] = {"mla_fwd_ms": cuda_ms(torch, mla, 3, warmup=1),
+                            "mla_fwd_peak_bytes_over_inputs":
+                                torch.cuda.max_memory_allocated() - base}
+            logits[qc] = zoo.forward(params, c.replace(attn_q_chunk=qc),
+                                     batch)[0]
+    err, ok = allclose_err(torch, layer[Q_CHUNK], layer[None], Q_CHUNK_TOL,
+                           Q_CHUNK_TOL)
+    lerr, lok = allclose_err(torch, logits[Q_CHUNK], logits[None],
+                             Q_CHUNK_LOGIT_TOL, Q_CHUNK_LOGIT_TOL)
+    emit({"phase": "family_q_chunk", "arch": cfg.name, "B": 1,
+          "S": Q_CHUNK_S, "dtype": "float32", "q_chunk": Q_CHUNK,
+          "mla_fwd_max_abs_err": err, "mla_fwd_tol": Q_CHUNK_TOL,
+          "logits_max_abs_err": lerr, "logits_tol": Q_CHUNK_LOGIT_TOL,
+          "ok": ok and lok, "max_abs_logit": float(logits[None].abs().max()),
+          "by_q_chunk": rec,
+          "note": "the unchunked scores are (B, 128, S, S) fp32; the "
+                  "chunked (B, 128, q_chunk, S)"})
+    del layer, logits
+    if not (ok and lok):
+        raise AssertionError(f"MLA q_chunk={Q_CHUNK}: layer max abs err "
+                             f"{err}, logits {lerr}")
+
+
+def aten_ops(fn) -> int:
+    """The ATen ops one call of ``fn`` dispatches, counted by a
+    ``TorchDispatchMode``: on CUDA tensors each launches about one kernel
+    (a view none), where torch.profiler's post-processing of a forward of
+    ~300 k launches takes minutes."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def xlstm_layer_io(torch, cfg, params, x) -> list:
+    """The inputs of every xLSTM layer and the last one's output, the
+    stack run in ``cfg``'s mLSTM form (fp32, B=1)."""
+    from repro_torch.models import zoo
+
+    xs = [x]
+    for kind, p in zip(cfg.xlstm_pattern, params["blocks_list"]):
+        xs.append(zoo._xlstm_block_fwd(cfg, kind, p, xs[-1]))
+    return xs
+
+
+def xlstm_impls(torch, cfg, params):
+    """Phase 6c: fp32, B=1, S=512: each mLSTM layer in its chunkwise form
+    against its recurrent form on the same input (the recurrent stack's)
+    within 1e-4, the JAX package's own claim for the two forms; each
+    form's whole forward (ms on the host clock, ended by a synchronize;
+    its ATen ops) and their logits' difference, recorded (with random
+    weights the residual stream grows ~3,000× through the four sLSTM
+    post-FFNs and fp32 rounding with it: see PERF.md)."""
+    from repro_torch.models import zoo
+
+    batch = family_inputs(torch, cfg, 1, XLSTM_REC_S, seed=10)
+    rec_cfg = cfg.replace(dtype="float32", mlstm_impl="recurrent")
+    chk_cfg = rec_cfg.replace(mlstm_impl="chunkwise")
+    rec = {}
+    with torch.inference_mode():
+        x, _ = zoo.embed_inputs(params, rec_cfg, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs = xlstm_layer_io(torch, rec_cfg, params, x)
+        logits_rec = zoo._logits(params, rec_cfg, xs[-1])
+        torch.cuda.synchronize()
+        rec["recurrent"] = {"forward_ms": (time.perf_counter() - t0) * 1e3}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits_chk = zoo.forward(params, chk_cfg, batch)[0]
+        torch.cuda.synchronize()
+        rec["chunkwise"] = {"forward_ms": (time.perf_counter() - t0) * 1e3}
+        for c in (rec_cfg, chk_cfg):
+            rec[c.mlstm_impl]["aten_ops"] = aten_ops(
+                lambda: zoo.forward(params, c, batch))
+        layers = []
+        for i, kind in enumerate(cfg.xlstm_pattern):
+            if kind != "m":
+                continue
+            got = zoo._xlstm_block_fwd(chk_cfg, kind,
+                                       params["blocks_list"][i], xs[i])
+            err, ok = allclose_err(torch, got, xs[i + 1], XLSTM_IMPL_TOL,
+                                   XLSTM_IMPL_TOL)
+            layers.append({"layer": i, "max_abs_err": err, "ok": ok,
+                           "max_abs_input": float(xs[i].abs().max())})
+    lerr, _ = allclose_err(torch, logits_chk, logits_rec, XLSTM_IMPL_TOL,
+                           XLSTM_IMPL_TOL)
+    ok = all(r["ok"] for r in layers)
+    emit({"phase": "family_xlstm_impls", "arch": cfg.name, "B": 1,
+          "S": XLSTM_REC_S, "dtype": "float32", "tol": XLSTM_IMPL_TOL,
+          "ok": ok, "layers_max_abs_err": max(r["max_abs_err"]
+                                              for r in layers),
+          "layers": layers, "logits_max_abs_err": lerr,
+          "max_abs_logit": float(logits_rec.abs().max()),
+          "max_abs_residual": float(xs[-1].abs().max()), "by_impl": rec})
+    del xs, logits_rec, logits_chk
+    if not ok:
+        raise AssertionError(f"xLSTM chunkwise vs recurrent: {layers}")
+
+
+def xlstm_consistency(torch, cfg, params) -> dict:
+    """Phase 6c: fp32, B=1, S=256: each layer's S block steps from its
+    empty state against its forward on the same input (the forward's)
+    within 2e-3; the whole forward against 256 ``serve_step`` calls,
+    their logits' difference recorded. Returns the forward's launches
+    (none: xLSTM is plain PyTorch)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import xlstm as xlstm_lib
+    from repro_torch.models import zoo
+
+    c = cfg.replace(dtype="float32")
+    S = CONSIST_S
+    batch = family_inputs(torch, c, 1, S, seed=7)
+    tok = batch["tokens"]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        full = zoo.forward(params, c, batch)[0]
+        torch.cuda.synchronize()
+        fwd_counts = ops.launch_counts()
+        cache = zoo.init_cache(c, 1, S, device="cuda")
+        outs = []
+        t0 = time.perf_counter()
+        for t in range(S):
+            lg, cache = zoo.serve_step(params, c, cache, tok[:, t:t + 1],
+                                       torch.full((1,), t, device="cuda"))
+            outs.append(lg)
+        dec = torch.stack(outs, 1)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        serve_counts = ops.launch_counts()
+        xs = xlstm_layer_io(torch, c, params,
+                            zoo.embed_inputs(params, c, batch)[0])
+        layers = []
+        for i, (kind, p) in enumerate(zip(c.xlstm_pattern,
+                                          params["blocks_list"])):
+            if kind == "s":
+                st = xlstm_lib.init_slstm_cache(1, c.d_model, torch.float32,
+                                                "cuda")
+                step = lambda st, x: xlstm_lib.slstm_block_step(  # noqa: E731
+                    p, st, x, n_heads=c.n_heads)
+            else:
+                st = xlstm_lib.init_mlstm_cache(1, c.d_model, c.n_heads,
+                                                c.mlstm_proj_factor,
+                                                device="cuda")
+                step = lambda st, x: xlstm_lib.mlstm_block_step(  # noqa: E731
+                    p, st, x, n_heads=c.n_heads,
+                    proj_factor=c.mlstm_proj_factor)
+            ys = []
+            for t in range(S):
+                y, st = step(st, xs[i][:, t:t + 1])
+                ys.append(y)
+            err, ok = allclose_err(torch, torch.cat(ys, 1), xs[i + 1],
+                                   CONSIST_TOL, CONSIST_TOL)
+            layers.append({"layer": i, "kind": kind, "max_abs_err": err,
+                           "ok": ok,
+                           "max_abs_output": float(xs[i + 1].abs().max())})
+    err, _ = allclose_err(torch, dec, full, CONSIST_TOL, CONSIST_TOL)
+    ok = all(r["ok"] for r in layers)
+    emit({"phase": "family_consistency", "arch": cfg.name, "B": 1, "S": S,
+          "n_layers": c.n_layers, "window": None, "cache_slots": S,
+          "dtype": "float32", "tol": CONSIST_TOL, "ok": ok,
+          "layers_max_abs_err": max(r["max_abs_err"] for r in layers),
+          "layers": layers, "logits_max_abs_err": err,
+          "max_abs_logit": float(full.abs().max()),
+          "max_abs_residual": float(xs[-1].abs().max()),
+          "forward_launches": fwd_counts, "serve_steps_ms": serve_ms,
+          "serve_step_ms": serve_ms / S})
+    del full, dec, xs
+    if not ok:
+        raise AssertionError(f"{cfg.name} consistency: {layers}")
+    if fwd_counts != family_launches(torch, c) or serve_counts != fwd_counts:
+        raise AssertionError(f"{cfg.name} consistency: launches "
+                             f"{fwd_counts} / {serve_counts}")
+    return fwd_counts
+
+
+def last_families_phase(torch) -> dict:
+    """Phase 6c: DeepSeek-V3 at published widths cut to 3 layers and 16
+    routed experts with the MTP head, and xLSTM-350M whole, each model's
+    weights freed before the next. Returns the launches of the counted
+    calls (forwards, the MTP head, fp32 consistency forwards)."""
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    cfg, params = family_params(torch, "deepseek-v3-671b",
+                                cut_params=DEEPSEEK_CUT_PARAMS,
+                                **DEEPSEEK_CUT)
+    add(family_prefill(torch, cfg, params, DEEPSEEK_B, FAMILY_S, "prefill",
+                       None))
+    add(deepseek_mtp(torch, cfg, params))
+    deepseek_q_chunk(torch, cfg, params)
+    family_profile(torch, cfg, params, DEEPSEEK_B, FAMILY_S, "prefill")
+    for window in (None, 64):
+        add(family_consistency(torch, cfg, params, CONSIST_S, window=window,
+                               capacity_factor=100.0))
+    family_done(torch, cfg, params, t0)
+    serve_cli("family_serve", "deepseek-v3-671b", ["--smoke"])
+
+    t0 = time.perf_counter()
+    cfg, params = family_params(torch, "xlstm-350m")
+    chunkwise = cfg.replace(mlstm_impl="chunkwise")
+    add(family_prefill(torch, chunkwise, params, XLSTM_B, FAMILY_S,
+                       "prefill-chunkwise", None, iters=1))
+    xlstm_impls(torch, cfg, params)
+    add(xlstm_consistency(torch, cfg, params))
+    # the decode step only: a profiled prefill of ~300 k launches takes
+    # torch.profiler minutes to read
+    family_profile(torch, chunkwise, params, XLSTM_B, FAMILY_S,
+                   "prefill-chunkwise", prefill=False)
+    family_done(torch, cfg, params, t0)
+    serve_cli("family_serve", "xlstm-350m")
+    emit({"phase": "last_families_phase", "launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -3512,6 +3875,8 @@ def main() -> int:
     zamba2_serve()
     # phase 6b: the zoo's attention families (dense, VLM, audio, MoE)
     counts_fam = family_phase(torch)
+    # phase 6c: the zoo's last two families (DeepSeek-V3 cut, xLSTM-350M)
+    counts_last = last_families_phase(torch)
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
@@ -3520,7 +3885,7 @@ def main() -> int:
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes); phase 6b's counted
     # bf16 prefills and fp32 consistency forwards (swa_attention, both
-    # routes)
+    # routes); phase 6c's counted MTP call (the fp32 route)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
@@ -3528,9 +3893,11 @@ def main() -> int:
                 + counts_async["edc_cosine"] + counts_fleet["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"]
-                + counts_fam["swa_attention.tc"],
+                + counts_fam["swa_attention.tc"]
+                + counts_last["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"]
-                + counts_fam["swa_attention.fp32"],
+                + counts_fam["swa_attention.fp32"]
+                + counts_last["swa_attention.fp32"],
                 "ssd_intra_chunk.tc": counts_zoo["ssd_intra_chunk.tc"],
                 "ssd_intra_chunk.fp32": counts_f32["ssd_intra_chunk.fp32"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",

@@ -1,34 +1,26 @@
 """Architecture registry (``repro.configs.registry``): ``--arch <id>``
-resolution + reduced smoke variants.
-
-Every arch of the JAX package's registry is here but two, which raise a
-``KeyError`` naming their ROADMAP.md item (queue 1): DeepSeek-V3 (MLA and
-the MTP head, 17c′) and xLSTM (17d).
+resolution + reduced smoke variants, every arch of the JAX package's
+registry.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (gemma_2b, glm4_9b, granite_20b,
-                                 granite_moe_1b, hubert_xlarge, internvl2_1b,
-                                 nemotron_4_15b, zamba2_1p2b)
+from repro_torch.configs import (deepseek_v3_671b, gemma_2b, glm4_9b,
+                                 granite_20b, granite_moe_1b, hubert_xlarge,
+                                 internvl2_1b, nemotron_4_15b, xlstm_350m,
+                                 zamba2_1p2b)
 from repro_torch.models.zoo import ArchConfig
 
 ARCHS: dict[str, ArchConfig] = {
     c.CONFIG.name: c.CONFIG
-    for c in (glm4_9b, granite_20b, internvl2_1b, zamba2_1p2b,
-              granite_moe_1b, gemma_2b, hubert_xlarge, nemotron_4_15b)
+    for c in (glm4_9b, granite_20b, deepseek_v3_671b, internvl2_1b,
+              zamba2_1p2b, xlstm_350m, granite_moe_1b, gemma_2b,
+              hubert_xlarge, nemotron_4_15b)
 }
-
-# archs of the JAX package's registry that the port does not have yet
-NOT_PORTED = {"deepseek-v3-671b": "17c′ (MLA and the MTP head)",
-              "xlstm-350m": "17d (xLSTM)"}
 
 
 def get(name: str) -> ArchConfig:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported to repro_torch yet: "
-                       f"ROADMAP.md queue 1, item {NOT_PORTED[name]}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]

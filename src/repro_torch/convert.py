@@ -2,7 +2,8 @@
 
 ``jax.random`` and ``torch.Generator`` give different numbers from one
 seed, so a parity test builds the JAX package's params (as numpy arrays)
-and loads them here. Nested dicts are kept nested.
+and loads them here. Nested dicts are kept nested, lists (xLSTM's
+``blocks_list``, its cache's ``"xlstm"``) stay lists in their order.
 """
 from __future__ import annotations
 
@@ -10,15 +11,20 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree, device="cpu") -> dict:
-    """dict of numpy arrays (or array-likes) -> dict of tensors on device."""
+def params_from_numpy(tree, device="cpu"):
+    """Tree (dicts, lists) of numpy arrays (or array-likes) -> the same
+    tree of tensors on device."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_numpy(v, device) for v in tree]
     return torch.as_tensor(np.array(tree)).to(device)
 
 
-def params_to_numpy(params) -> dict:
-    """Inverse of ``params_from_numpy``: dict of tensors -> numpy arrays."""
+def params_to_numpy(params):
+    """Inverse of ``params_from_numpy``: tree of tensors -> numpy arrays."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to_numpy(v) for v in params]
     return params.detach().cpu().numpy()

@@ -9,10 +9,16 @@ times. Weights are random from ``--seed``.
       --batch 4 --prompt-len 32 --gen 32               # gemma-2b, on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --batch 4 --prompt-len 32 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m \\
+      --batch 4 --prompt-len 32 --gen 32           # xLSTM-350M whole
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v3-671b --smoke              # MLA's compressed cache
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-An encoder-only arch (``hubert-xlarge``) prints that it has no decode step
-and exits 1, as the JAX launcher does.
+Every arch of the registry serves (DeepSeek-V3's 704 B params fit no card
+whole: ``--smoke`` is its reduced variant). An encoder-only arch
+(``hubert-xlarge``) prints that it has no decode step and exits 1, as the
+JAX launcher does.
 """
 from __future__ import annotations
 

@@ -12,14 +12,16 @@ the sliding-window flash kernel (``kernels.swa_attention``): on CUDA it
 launches, on the CPU its plain version runs. ``attention_decode`` attends
 over a ring-buffer cache, which is not the kernel's contiguous layout, and
 stays plain PyTorch (``sdpa`` with an additive −1e30 bias), as the JAX
-package computes it outside any kernel too. MLA is not ported yet.
+package computes it outside any kernel too. MLA (``mla_fwd``,
+``mla_decode``) is plain PyTorch einsums, as the JAX package computes it
+outside any kernel: its q/k head dim (192) differs from v's (128).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.swa_attention import swa_attention
-from repro_torch.models.modules import apply_rope, dense_init
+from repro_torch.models.modules import apply_rope, dense_init, rmsnorm
 
 NEG_INF = -1e30
 
@@ -163,10 +165,136 @@ def attention_decode(params, cache, x, pos, *, n_heads: int, n_kv: int,
     return y, {"k": new_k, "v": new_v}
 
 
-def init_mla(*args, **kw):
-    raise NotImplementedError(
-        "MLA (DeepSeek-V3) is not yet ported to repro_torch: ROADMAP.md "
-        "queue 1, item 17c (MoE/MLA)")
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2/V3)
+# ---------------------------------------------------------------------------
+# Low-rank joint compression of q and kv. The decode cache stores only the
+# compressed kv latent c_kv (rank r_kv) and the decoupled rope key k_pe.
+
+def init_mla(gen, d_model: int, n_heads: int, *, q_rank: int, kv_rank: int,
+             qk_nope: int, qk_rope: int, v_dim: int, dtype=torch.float32,
+             device="cpu"):
+    return {
+        "w_dq": dense_init(gen, d_model, q_rank, dtype, device),
+        "w_uq": dense_init(gen, q_rank, n_heads * (qk_nope + qk_rope), dtype,
+                           device),
+        "w_dkv": dense_init(gen, d_model, kv_rank + qk_rope, dtype, device),
+        "w_uk": dense_init(gen, kv_rank, n_heads * qk_nope, dtype, device),
+        "w_uv": dense_init(gen, kv_rank, n_heads * v_dim, dtype, device),
+        "wo": dense_init(gen, n_heads * v_dim, d_model, dtype, device),
+        "q_norm": {"scale": torch.ones((q_rank,), dtype=dtype,
+                                       device=device)},
+        "kv_norm": {"scale": torch.ones((kv_rank,), dtype=dtype,
+                                        device=device)},
+    }
 
 
-mla_fwd = mla_decode = init_mla_cache = init_mla
+def _mla_qkv(params, x, positions, *, n_heads, qk_nope, qk_rope, kv_rank,
+             rope_theta):
+    """(q_nope, q_pe, c_kv, k_pe). Both norms take rmsnorm's default eps
+    (1e-6), as the JAX package; k_pe is roped with a singleton head axis."""
+    B, S, _ = x.shape
+    cq = rmsnorm(params["q_norm"], x @ params["w_dq"].to(x.dtype))
+    q = (cq @ params["w_uq"].to(x.dtype)).reshape(B, S, n_heads,
+                                                  qk_nope + qk_rope)
+    q_nope = q[..., :qk_nope]
+    q_pe = apply_rope(q[..., qk_nope:], positions, rope_theta)
+    dkv = x @ params["w_dkv"].to(x.dtype)
+    c_kv = rmsnorm(params["kv_norm"], dkv[..., :kv_rank])
+    k_pe = apply_rope(dkv[..., kv_rank:][:, :, None, :], positions,
+                      rope_theta)
+    return q_nope, q_pe, c_kv, k_pe[:, :, 0, :]
+
+
+def mla_fwd(params, x, *, n_heads: int, qk_nope: int, qk_rope: int,
+            v_dim: int, kv_rank: int, rope_theta: float,
+            causal: bool = True, window: int | None = None, positions=None,
+            q_chunk: int | None = None):
+    """x (B, S, D) -> (B, S, D). Scores in fp32 (the products of the
+    activation dtype summed in fp32, as ``preferred_element_type``), masked
+    by −1e30, probabilities cast to the activation dtype before P·V.
+    ``q_chunk``: queries in chunks of that many rows, one after another, so
+    the live scores are (B, H, q_chunk, S) instead of (B, H, S, S)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_pe, c_kv, k_pe = _mla_qkv(
+        params, x, positions, n_heads=n_heads, qk_nope=qk_nope,
+        qk_rope=qk_rope, kv_rank=kv_rank, rope_theta=rope_theta)
+    k_nope = (c_kv @ params["w_uk"].to(x.dtype)).reshape(B, S, n_heads,
+                                                         qk_nope)
+    v = (c_kv @ params["w_uv"].to(x.dtype)).reshape(B, S, n_heads, v_dim)
+    scale = 1.0 / (qk_nope + qk_rope) ** 0.5
+    k_nope32, k_pe32 = k_nope.float(), k_pe.float()
+
+    def block(qn, qp, q_off):
+        # in place: one (B, H, sq, S) fp32 buffer besides the softmax's
+        s = torch.einsum("bqhd,bkhd->bhqk", qn.float(), k_nope32)
+        s += torch.einsum("bqhd,bkd->bhqk", qp.float(), k_pe32)
+        s *= scale
+        s += make_mask_bias(qn.shape[1], S, causal=causal, window=window,
+                            q_offset=q_off, device=x.device)
+        p = torch.softmax(s, dim=-1).to(x.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+    if q_chunk is None or S <= q_chunk:
+        out = block(q_nope, q_pe, 0)
+    else:
+        if S % q_chunk:
+            raise ValueError(f"mla_fwd: S={S} is not a multiple of "
+                             f"q_chunk={q_chunk}")
+        out = torch.cat([block(q_nope[:, i:i + q_chunk],
+                               q_pe[:, i:i + q_chunk], i)
+                         for i in range(0, S, q_chunk)], dim=1)
+    return out.reshape(B, S, n_heads * v_dim) @ params["wo"].to(x.dtype)
+
+
+def init_mla_cache(batch: int, max_len: int, kv_rank: int, qk_rope: int,
+                   dtype, device="cpu"):
+    return {"c_kv": torch.zeros((batch, max_len, kv_rank), dtype=dtype,
+                                device=device),
+            "k_pe": torch.zeros((batch, max_len, qk_rope), dtype=dtype,
+                                device=device)}
+
+
+def mla_decode(params, cache, x, pos, *, n_heads: int, qk_nope: int,
+               qk_rope: int, v_dim: int, kv_rank: int, rope_theta: float,
+               window: int | None = None):
+    """Absorbed-matrix MLA decode over the compressed cache: W_uk folds into
+    the query and W_uv follows the latent P·V, so the cache never expands
+    to per-head keys (DeepSeek-V3 §2.1). Returns (y (B,1,D), new cache);
+    the old cache is not changed. Slot ``pos``, or ``pos % max_len`` with
+    a window (a ring of ``max_len`` slots)."""
+    B = x.shape[0]
+    max_len = cache["c_kv"].shape[1]
+    q_nope, q_pe, c_kv_new, k_pe_new = _mla_qkv(
+        params, x, pos[:, None], n_heads=n_heads, qk_nope=qk_nope,
+        qk_rope=qk_rope, kv_rank=kv_rank, rope_theta=rope_theta)
+
+    slot = pos % max_len if window is not None else pos
+    bidx = torch.arange(B, device=x.device)
+    c_kv = cache["c_kv"].clone()
+    k_pe = cache["k_pe"].clone()
+    c_kv[bidx, slot] = c_kv_new[:, 0]
+    k_pe[bidx, slot] = k_pe_new[:, 0]
+
+    w_uk = params["w_uk"].to(x.dtype).reshape(kv_rank, n_heads, qk_nope)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+    scale = 1.0 / (qk_nope + qk_rope) ** 0.5
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_lat.float(), c_kv.float())
+              + torch.einsum("bqhd,bkd->bhqk", q_pe.float(), k_pe.float())
+              ) * scale
+    slots = torch.arange(max_len, device=x.device)[None, :]
+    if window is not None:
+        delta = (slot[:, None] - slots) % max_len
+        abs_pos = pos[:, None] - delta
+        valid = (abs_pos >= 0) & (abs_pos > pos[:, None] - window)
+    else:
+        valid = slots <= pos[:, None]
+    scores = scores + torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bhqk,bkr->bqhr", probs, c_kv)
+    w_uv = params["w_uv"].to(x.dtype).reshape(kv_rank, n_heads, v_dim)
+    out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)
+    y = out.reshape(B, 1, n_heads * v_dim) @ params["wo"].to(x.dtype)
+    return y, {"c_kv": c_kv, "k_pe": k_pe}

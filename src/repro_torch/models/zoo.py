@@ -1,18 +1,22 @@
-"""Architecture zoo (``repro.models.zoo``): ``ArchConfig`` whole, and the
-dense, VLM, audio, MoE (without MLA) and hybrid families for prefill
-(``forward``) and serving (``init_cache``, ``serve_step``).
+"""Architecture zoo (``repro.models.zoo``): ``ArchConfig`` whole, and every
+family of the JAX package (dense, VLM, audio, MoE with or without MLA,
+hybrid, and ``ssm``: xLSTM) for prefill (``forward``), DeepSeek's MTP head
+(``mtp_logits``) and serving (``init_cache``, ``serve_step``).
 
 Params are nested dicts with the JAX package's keys, stacked leaves for the
 layer stack and ``(in, out)`` weights, so a JAX ``zoo.init_params`` tree
 carries across with ``repro_torch.convert.params_from_numpy``. The layer
 stack is a Python loop (the JAX ``lax.scan``); Zamba2's shared block's
-``lax.cond`` on ``(i + 1) % period == 0`` is a Python ``if``. Every
-attention layer's prefill core is the ``swa_attention`` kernel.
+``lax.cond`` on ``(i + 1) % period == 0`` is a Python ``if``. xLSTM's
+blocks are a list (``params["blocks_list"]``, its cache ``{"xlstm":
+[...]}``) of sLSTM and mLSTM dicts. Every MHA/GQA/MQA layer's prefill core
+is the ``swa_attention`` kernel (the MTP head's dense block too); MLA and
+xLSTM are plain PyTorch, as the JAX package computes them outside any
+kernel.
 
 Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item, queue 1): MLA and the MTP head (17c′), xLSTM (the ``ssm`` family,
-17d), the training step (``loss_fn``, ``train_step``; 17f), and a sharded
-KV cache (``serve_step``'s ``kv_spec``; 16).
+item, queue 1): the training step (``loss_fn``, ``train_step``; 17f) and a
+sharded KV cache (``serve_step``'s ``kv_spec``; 16).
 """
 from __future__ import annotations
 
@@ -27,14 +31,13 @@ from repro_torch import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.modules import (dense_init, embed_init, init_mlp,
                                         init_rmsnorm, mlp_apply, rmsnorm,
                                         tree_index, tree_map, tree_stack)
 
 
-_ROADMAP_ITEM = {"mla": "17c′ (MLA and the MTP head)",
-                 "ssm": "17d (xLSTM)", "train": "17f (LM training)",
-                 "mesh": "16 (multi-GPU)"}
+_ROADMAP_ITEM = {"train": "17f (LM training)", "mesh": "16 (multi-GPU)"}
 
 
 def _not_ported(what: str, kind: str):
@@ -147,18 +150,12 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
-_FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid")
+_FAMILIES = ("dense", "vlm", "audio", "moe", "hybrid", "ssm")
 
 
 def _check_family(cfg: ArchConfig):
-    if cfg.family == "ssm":
-        raise _not_ported(f"the 'ssm' family ({cfg.name}, xLSTM)", "ssm")
     if cfg.family not in _FAMILIES:
         raise ValueError(cfg.family)
-    if cfg.mla:
-        raise _not_ported(f"{cfg.name}'s MLA attention", "mla")
-    if cfg.mtp:
-        raise _not_ported(f"{cfg.name}'s MTP head", "mla")
 
 
 # ===========================================================================
@@ -178,11 +175,17 @@ def _init_dense_block(gen, cfg: ArchConfig, device):
 
 
 def _init_moe_block(gen, cfg: ArchConfig, device):
+    if cfg.mla:
+        a = attn.init_mla(gen, cfg.d_model, cfg.n_heads, q_rank=cfg.q_rank,
+                          kv_rank=cfg.kv_rank, qk_nope=cfg.qk_nope,
+                          qk_rope=cfg.qk_rope, v_dim=cfg.v_head_dim,
+                          dtype=cfg.p_dtype, device=device)
+    else:
+        a = attn.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.hd, cfg.p_dtype, cfg.qkv_bias, device)
     return {
         "ln1": init_rmsnorm(cfg.d_model, cfg.p_dtype, device),
-        "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads,
-                                    cfg.n_kv_heads, cfg.hd, cfg.p_dtype,
-                                    cfg.qkv_bias, device),
+        "attn": a,
         "ln2": init_rmsnorm(cfg.d_model, cfg.p_dtype, device),
         "moe": moe_lib.init_moe(gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff,
                                 cfg.n_experts, cfg.n_shared_experts,
@@ -202,14 +205,31 @@ def _init_mamba_block(gen, cfg: ArchConfig, device):
     }
 
 
+def _init_xlstm_block(gen, cfg: ArchConfig, kind: str, device):
+    if kind == "s":
+        return xlstm_lib.init_slstm(gen, cfg.d_model, cfg.n_heads,
+                                    cfg.p_dtype, device)
+    return xlstm_lib.init_mlstm(gen, cfg.d_model, cfg.n_heads,
+                                proj_factor=cfg.mlstm_proj_factor,
+                                dtype=cfg.p_dtype, device=device)
+
+
+def _mtp_block_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The MTP head's dense block: MHA (no MLA) with d_ff = max(moe_d_ff
+    or d_ff, d_ff)."""
+    return cfg.replace(mla=False, d_ff=max(cfg.moe_d_ff or cfg.d_ff,
+                                           cfg.d_ff))
+
+
 def init_params(gen: Optional[torch.Generator], cfg: ArchConfig,
                 device="cuda"):
     """Random params from ``gen`` (a generator on ``device``). On the
     ``meta`` device ``gen`` may be None: shapes only, for counting. The
     tree is the JAX package's: ``frontend_proj`` (audio) or ``embed`` (and
     the vision ``projector``), the stacked ``blocks`` (and Zamba2's
-    ``shared_attn``), ``final_norm``, and ``lm_head`` unless the
-    embeddings are tied (audio always has one)."""
+    ``shared_attn``) or xLSTM's ``blocks_list``, the ``mtp`` head when
+    ``cfg.mtp``, ``final_norm``, and ``lm_head`` unless the embeddings are
+    tied (audio always has one)."""
     _check_family(cfg)
     device = resolve_device(device)
     pd = cfg.p_dtype
@@ -226,13 +246,27 @@ def init_params(gen: Optional[torch.Generator], cfg: ArchConfig,
                                  device),
                 "w2": dense_init(gen, cfg.d_model, cfg.d_model, pd, device),
             }
-    init_block = {"dense": _init_dense_block, "vlm": _init_dense_block,
-                  "audio": _init_dense_block, "moe": _init_moe_block,
-                  "hybrid": _init_mamba_block}[cfg.family]
-    params["blocks"] = tree_stack([init_block(gen, cfg, device)
-                                   for _ in range(cfg.n_layers)])
+    if cfg.family == "ssm":
+        if len(cfg.xlstm_pattern) != cfg.n_layers:
+            raise ValueError(f"xlstm_pattern {cfg.xlstm_pattern} has not "
+                             f"n_layers={cfg.n_layers} entries")
+        params["blocks_list"] = [_init_xlstm_block(gen, cfg, kind, device)
+                                 for kind in cfg.xlstm_pattern]
+    else:
+        init_block = {"dense": _init_dense_block, "vlm": _init_dense_block,
+                      "audio": _init_dense_block, "moe": _init_moe_block,
+                      "hybrid": _init_mamba_block}[cfg.family]
+        params["blocks"] = tree_stack([init_block(gen, cfg, device)
+                                       for _ in range(cfg.n_layers)])
     if cfg.family == "hybrid":
         params["shared_attn"] = _init_dense_block(gen, cfg, device)
+    if cfg.mtp:
+        params["mtp"] = {
+            "proj": dense_init(gen, 2 * cfg.d_model, cfg.d_model, pd, device),
+            "norm_h": init_rmsnorm(cfg.d_model, pd, device),
+            "norm_e": init_rmsnorm(cfg.d_model, pd, device),
+            "block": _init_dense_block(gen, _mtp_block_cfg(cfg), device),
+        }
     params["final_norm"] = init_rmsnorm(cfg.d_model, pd, device)
     if cfg.family == "audio" or not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.padded_vocab,
@@ -257,10 +291,22 @@ def _dense_block_fwd(cfg: ArchConfig, p, x, positions):
                          cfg.mlp_act)
 
 
+def _mla_kw(cfg: ArchConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
+                v_dim=cfg.v_head_dim, kv_rank=cfg.kv_rank,
+                rope_theta=cfg.rope_theta, window=cfg.window)
+
+
 def _moe_block_fwd(cfg: ArchConfig, p, x, positions):
-    h = x + attn.attention_fwd(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                               causal=cfg.causal, positions=positions,
-                               **_attn_kw(cfg))
+    xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.mla:
+        a = attn.mla_fwd(p["attn"], xn, causal=cfg.causal,
+                         positions=positions, q_chunk=cfg.attn_q_chunk,
+                         **_mla_kw(cfg))
+    else:
+        a = attn.attention_fwd(p["attn"], xn, causal=cfg.causal,
+                               positions=positions, **_attn_kw(cfg))
+    h = x + a
     moe_fn = (moe_lib.moe_apply_grouped if cfg.moe_impl == "grouped"
               else moe_lib.moe_apply)
     y, aux = moe_fn(p["moe"], rmsnorm(p["ln2"], h, cfg.norm_eps),
@@ -273,6 +319,25 @@ def _mamba_block_fwd(cfg: ArchConfig, p, x):
     return x + ssm_lib.mamba2_fwd(
         p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), d_state=cfg.ssm_state,
         expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk)
+
+
+def _xlstm_block_fwd(cfg: ArchConfig, kind: str, p, x):
+    if kind == "s":
+        return xlstm_lib.slstm_block_fwd(p, x, n_heads=cfg.n_heads,
+                                         chunk=cfg.xlstm_chunk)
+    return xlstm_lib.mlstm_block_fwd(p, x, n_heads=cfg.n_heads,
+                                     proj_factor=cfg.mlstm_proj_factor,
+                                     chunk=cfg.xlstm_chunk,
+                                     impl=cfg.mlstm_impl)
+
+
+def _pattern_period(pattern) -> int:
+    """Smallest p such that pattern repeats every p layers."""
+    L = len(pattern)
+    for p in range(1, L + 1):
+        if L % p == 0 and pattern == pattern[:p] * (L // p):
+            return p
+    return L
 
 
 # ===========================================================================
@@ -324,7 +389,7 @@ def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False):
     positions = torch.arange(S, device=x.device)[None, :]
     aux = {"load_balance_loss": torch.zeros((), device=x.device),
            "router_z_loss": torch.zeros((), device=x.device)}
-    blocks = params["blocks"]
+    blocks = params.get("blocks")
     if cfg.family in ("dense", "vlm", "audio"):
         for i in range(cfg.n_layers):
             x = _dense_block_fwd(cfg, tree_index(blocks, i), x, positions)
@@ -336,13 +401,23 @@ def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False):
             zl.append(a.router_z_loss)
         aux["load_balance_loss"] = torch.mean(torch.stack(lb))
         aux["router_z_loss"] = torch.mean(torch.stack(zl))
-    else:                                                   # hybrid
+    elif cfg.family == "hybrid":
         shared = params["shared_attn"]
         period = cfg.shared_attn_period
         for i in range(cfg.n_layers):
             x = _mamba_block_fwd(cfg, tree_index(blocks, i), x)
             if period > 0 and (i + 1) % period == 0:
                 x = _dense_block_fwd(cfg, shared, x, positions)
+    else:                                                   # ssm (xLSTM)
+        # xlstm_scan_units: the JAX package scans n_layers / period units of
+        # `period` blocks, to bound its backward's live buffers to one
+        # unit. Units run in layer order, so here they are the same loop.
+        period = (_pattern_period(cfg.xlstm_pattern) if cfg.xlstm_scan_units
+                  else cfg.n_layers)
+        for u in range(cfg.n_layers // period):
+            for i in range(u * period, (u + 1) * period):
+                x = _xlstm_block_fwd(cfg, cfg.xlstm_pattern[i],
+                                     params["blocks_list"][i], x)
     if return_hidden:
         aux["hidden"] = x
     return _logits(params, cfg, x), aux
@@ -356,8 +431,21 @@ def loss_fn(*args, **kw):
 train_step = init_train_state = loss_fn
 
 
-def mtp_logits(*args, **kw):
-    raise _not_ported("the MTP head (mtp_logits)", "mla")
+def mtp_logits(params, cfg: ArchConfig, hidden, tokens):
+    """DeepSeek-V3's multi-token-prediction head (one extra depth):
+    position t joins its final hidden state (``forward(...,
+    return_hidden=True)``'s, before the final norm) with the embedding of
+    token t+1 (not scaled) to predict token t+2, through one dense block
+    at positions 0..S−2. hidden: (B, S, D); tokens: (B, S). Returns logits
+    (B, S−1, V)."""
+    mtp = params["mtp"]
+    h = rmsnorm(mtp["norm_h"], hidden[:, :-1], cfg.norm_eps)
+    e = params["embed"].to(hidden.dtype)[tokens[:, 1:]]
+    e = rmsnorm(mtp["norm_e"], e, cfg.norm_eps)
+    x = torch.cat([h, e], dim=-1) @ mtp["proj"].to(hidden.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _dense_block_fwd(cfg.replace(mla=False), mtp["block"], x, positions)
+    return _logits(params, cfg, x)
 
 
 # ===========================================================================
@@ -369,14 +457,27 @@ def _stacked(tree, n: int):
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
-    """Decode caches: a KV cache per layer (dense, VLM, MoE), or Zamba2's
-    Mamba2 states and one KV cache per shared-block application. ``max_len``
-    slots; with a window, a ring of ``max_len`` (== window) slots."""
+    """Decode caches: a KV cache per layer (dense, VLM, MoE), MLA's
+    compressed ``c_kv`` (B, L, kv_rank) and ``k_pe`` (B, L, qk_rope) per
+    layer, Zamba2's Mamba2 states and one KV cache per shared-block
+    application, or xLSTM's per-layer states (``{"xlstm": [...]}``).
+    ``max_len`` slots; with a window, a ring of ``max_len`` (== window)
+    slots."""
     _check_family(cfg)
     if cfg.family == "audio":
         raise ValueError(f"{cfg.family} has no decode cache (encoder-only?)")
     device = resolve_device(device)
     dt = cfg.act_dtype
+    if cfg.family == "ssm":
+        return {"xlstm": [
+            xlstm_lib.init_slstm_cache(batch, cfg.d_model, dt, device)
+            if kind == "s" else xlstm_lib.init_mlstm_cache(
+                batch, cfg.d_model, cfg.n_heads, cfg.mlstm_proj_factor, dt,
+                device) for kind in cfg.xlstm_pattern]}
+    if cfg.mla:
+        return _stacked(attn.init_mla_cache(batch, max_len, cfg.kv_rank,
+                                            cfg.qk_rope, dt, device),
+                        cfg.n_layers)
     kv = attn.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.hd, dt,
                             device)
     if cfg.family in ("dense", "vlm", "moe"):
@@ -404,14 +505,31 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None):
     if not cfg.decode_supported:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     x = _embed_tokens(params, cfg, tokens)
+    if cfg.family == "ssm":
+        new_list = []
+        for kind, p, c in zip(cfg.xlstm_pattern, params["blocks_list"],
+                              cache["xlstm"]):
+            if kind == "s":
+                x, c2 = xlstm_lib.slstm_block_step(p, c, x,
+                                                   n_heads=cfg.n_heads)
+            else:
+                x, c2 = xlstm_lib.mlstm_block_step(
+                    p, c, x, n_heads=cfg.n_heads,
+                    proj_factor=cfg.mlstm_proj_factor)
+            new_list.append(c2)
+        return _logits(params, cfg, x)[:, 0], {"xlstm": new_list}
     blocks = params["blocks"]
     if cfg.family in ("dense", "vlm", "moe"):
         new = []
         for i in range(cfg.n_layers):
             p = tree_index(blocks, i)
-            y, c2 = attn.attention_decode(
-                p["attn"], tree_index(cache, i),
-                rmsnorm(p["ln1"], x, cfg.norm_eps), pos, **_attn_kw(cfg))
+            xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
+            if cfg.mla:
+                y, c2 = attn.mla_decode(p["attn"], tree_index(cache, i), xn,
+                                        pos, **_mla_kw(cfg))
+            else:
+                y, c2 = attn.attention_decode(p["attn"], tree_index(cache, i),
+                                              xn, pos, **_attn_kw(cfg))
             x = x + y
             xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
             if cfg.family == "moe":

@@ -48,7 +48,8 @@ SLICE_MODULES = [
     "repro_torch.configs.gemma_2b", "repro_torch.configs.glm4_9b",
     "repro_torch.configs.granite_20b", "repro_torch.configs.nemotron_4_15b",
     "repro_torch.configs.internvl2_1b", "repro_torch.configs.hubert_xlarge",
-    "repro_torch.configs.granite_moe_1b",
+    "repro_torch.configs.granite_moe_1b", "repro_torch.models.xlstm",
+    "repro_torch.configs.deepseek_v3_671b", "repro_torch.configs.xlstm_350m",
 ]
 
 

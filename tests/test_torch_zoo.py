@@ -287,31 +287,29 @@ def test_serve_step_leaves_its_cache_unchanged(zamba):
 # ---------------------------------------------------------------------------
 
 def test_unported_archs_and_families_raise():
-    """What stays unported names its ROADMAP item: DeepSeek-V3 (MLA and
-    the MTP head, 17c′) and xLSTM (17d) in the registry, ``mla=True``,
-    ``mtp=True``, the ``ssm`` family, and the training step (17f)."""
-    with pytest.raises(KeyError, match="ROADMAP.*17c′"):
-        registry.get("deepseek-v3-671b")
-    with pytest.raises(KeyError, match="ROADMAP.*17d"):
-        registry.get("xlstm-350m")
+    """Every arch of the JAX package's registry resolves (DeepSeek-V3 and
+    xLSTM-350M too); what stays unported names its ROADMAP item: the
+    training step (17f) and a sharded KV cache (16)."""
+    assert set(registry.ARCHS) == set(jreg.ARCHS)
+    for arch in ("deepseek-v3-671b", "xlstm-350m"):
+        assert registry.get(arch).__dict__ == jreg.get(arch).__dict__
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get("no-such-arch")
-    moe = registry.smoke_variant(registry.get("granite-moe-1b-a400m"))
-    for cfg, item in ((moe.replace(mla=True), "17c′"),
-                      (moe.replace(mtp=True), "17c′"),
-                      (_cfg().replace(family="ssm"), "17d")):
-        for call in (lambda: zoo.init_params(torch.Generator(), cfg,
-                                             device="cpu"),
-                     lambda: zoo.init_cache(cfg, 1, 4, device="cpu"),
-                     lambda: zoo.forward({}, cfg, {})):
-            with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-                call()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*17f"):
-        zoo.train_step()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*17c′"):
-        zoo.mtp_logits()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.init_mla()
+    for call in (zoo.train_step, zoo.loss_fn, zoo.init_train_state):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*17f"):
+            call()
+    for arch in ("deepseek-v3-671b", "xlstm-350m"):
+        cfg = registry.smoke_variant(registry.get(arch))
+        tp = zoo.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+        cache = zoo.init_cache(cfg, 1, 4, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.*16"):
+            zoo.serve_step(tp, cfg, cache,
+                           torch.ones((1, 1), dtype=torch.long),
+                           torch.zeros(1, dtype=torch.long),
+                           kv_spec=("data", None))
+    with pytest.raises(ValueError):
+        zoo.init_params(None, _cfg().replace(family="rnn"), device="meta")
 
 
 def test_serve_cli_runs_on_cpu_and_prints_its_timing_line():
@@ -326,6 +324,21 @@ def test_serve_cli_runs_on_cpu_and_prints_its_timing_line():
     assert lines[0].startswith("# served zamba2-1.2b: batch=2 prompt=8 gen=4")
     assert lines[1].startswith("prefill ") and "ms  decode " in lines[1]
     assert lines[1].endswith("tok/s)")
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "deepseek-v3-671b"])
+def test_serve_cli_runs_the_last_two_families_on_cpu(arch):
+    """xLSTM's smoke variant decodes through its recurrent states,
+    DeepSeek's through MLA's compressed cache and the MoE layer."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+         "--gen", "4"], env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == f"# served {arch}: batch=2 prompt=8 gen=4 device=cpu"
+    assert lines[1].startswith("prefill ") and lines[1].endswith("tok/s)")
 
 
 @pytest.mark.parametrize("extra", [[], ["--window", "4"]])
