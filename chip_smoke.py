@@ -252,7 +252,7 @@ with no final ``ok`` line):
                 swa_attention, on the fp32 route at hd 56), fp32 B=1,
                 S=2048 with ``attn_q_chunk=512`` against no chunking (the
                 first layer's ``mla_fwd`` within 1e-5 with its ms and peak
-                memory, the logits within 1e-4), a profiled prefill and
+                memory, the logits equal exactly), a profiled prefill and
                 decode step, fp32 B=1, S=256 ``forward`` against 256
                 ``serve_step`` calls (the absorbed decode over the
                 compressed cache) within 2e-3 with and without a 64
@@ -272,14 +272,44 @@ with no final ``ok`` line):
                 decode step; the serve CLI with
                 ``--arch xlstm-350m``. The xLSTM forwards' launches are
                 their ATen ops (a dispatch-mode count).
+  6d. training — the backward kernels (``csrc/swa_attention_bwd.cu``,
+                ``csrc/ssd_chunk_bwd.cu``) against their plain versions
+                and ``torch.autograd.grad`` through the plain forward, on
+                the same CUDA tensors, each called twice and equal bit
+                for bit: swa_attention_bwd at Zamba2's shape (B4 S2048
+                H32 hd64 bf16), Gemma's (H8 KV1 hd256), HuBERT's (hd80,
+                bidirectional), a 64 window with Sq < Sk, and fp32 (within
+                2e-2 bf16 / 1e-4 fp32 of each gradient's largest
+                magnitude), ms, plain ms, bound (10·hd FLOPs a kept pair,
+                2.5 × the forward's) and the library's (``autograd.grad``
+                through SDPA); ssd_intra_chunk_bwd at Zamba2's (b4, 16
+                chunks, 64 heads, Q128, P = N = 64, B and C one stride-0
+                group; bf16 and fp32; elementwise 2e-4), no library call.
+                Then one ``train_step`` of every registry arch's smoke
+                variant (remat on) on the card against the CPU's (loss
+                1e-4, gradients 1e-4 of each leaf's largest, params 1e-3
+                Frobenius over the tree), a MoE arch's forward and
+                step twice, equal bit for bit; Zamba2-1.2B at published
+                widths (fp32 params and moments, bf16 activations, remat,
+                B4 S2048): three steps, each 6 swa_attention_bwd and 38
+                ssd_intra_chunk_bwd launches (else the run fails), step
+                ms, loss, peak memory, a fourth step under torch.profiler
+                (busy share, the backward kernels' device ms, GEMMs,
+                casts); the same cut to 6 layers with remat
+                on and off: loss and gradients equal bit for bit, both
+                peaks; Gemma-2B whole (B1 S2048): three steps, 18
+                swa_attention_bwd launches each, step ms and peak, and a
+                profiled fourth.
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
      of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
-     ``<name>.fp32``; edc_cosine's launches count phase 4's EDC, MADC,
-     20-group and shift runs and phase 4d's, 4e's, 4f's, 4g's and 4h's
-     FedGroup runs; swa_attention's count Zamba2's and phase 6b's counted
-     forwards and phase 6c's counted MTP call, not phase 2's
-     comparisons), then
-     the ``{"ok": true, ...}`` line.
+     ``<name>.fp32``, and the two backward kernels, ``swa_attention_bwd``
+     and ``ssd_intra_chunk_bwd``, whose ``replaces`` names the jnp
+     function whose ``jax.vjp`` each matches; edc_cosine's launches count
+     phase 4's EDC, MADC, 20-group and shift runs and phase 4d's, 4e's,
+     4f's, 4g's and 4h's FedGroup runs; swa_attention's count Zamba2's and
+     phase 6b's counted forwards and phase 6c's counted MTP call, not
+     phase 2's comparisons; the backward kernels' count phase 6d's
+     counted train steps), then the ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -289,6 +319,7 @@ import json
 import math
 import re
 import resource
+import statistics
 import subprocess
 import sys
 import time
@@ -376,8 +407,27 @@ FAMILY_PARAMS = {"gemma-2b": 2_506_172_416, "glm4-9b": 9_399_951_360,
 DEEPSEEK_CUT = dict(n_layers=3, n_experts=16, mtp=True)
 DEEPSEEK_CUT_PARAMS = 5_013_474_304
 DEEPSEEK_B = 2                 # bf16 prefill batch (S = FAMILY_S)
-# MLA's query chunks at fp32, B=1: a layer within 1e-5, the logits 1e-4
-Q_CHUNK, Q_CHUNK_S, Q_CHUNK_TOL, Q_CHUNK_LOGIT_TOL = 512, 2048, 1e-5, 1e-4
+# MLA's query chunks at fp32, B=1: a layer within 1e-5, the logits equal
+# exactly (chunking changes no sum; the MoE combine adds in a fixed order)
+Q_CHUNK, Q_CHUNK_S, Q_CHUNK_TOL, Q_CHUNK_LOGIT_TOL = 512, 2048, 1e-5, 0.0
+# phase 6d: LM training. The backward kernels against their plain
+# versions within TRAIN_TOL of each gradient's largest magnitude (SSD
+# elementwise within SSD_TOL), at the training shapes: label -> (B, Sq,
+# Sk, H, KV, hd, window, causal, dtype)
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_SWA = {"zamba2-train": (4, 2048, 2048, 32, 32, 64, None, True,
+                              "bfloat16"),
+             "gemma-train": (1, 2048, 2048, 8, 1, 256, None, True,
+                             "bfloat16"),
+             "hubert-train": (4, 1024, 1024, 16, 16, 80, None, False,
+                              "bfloat16"),
+             "window64-sq<sk": (2, 512, 1024, 8, 2, 64, 64, True,
+                                "bfloat16"),
+             "fp32": (1, 256, 256, 32, 32, 64, None, True, "float32")}
+TRAIN_SSD_SHAPE = (4, 16, 128, 64, 64, 64)    # b, chunks, Q, h, P, N
+TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 64           # every arch's smoke variant
+TRAIN_S, TRAIN_STEPS = 2048, 3                 # published widths
+ZAMBA_TRAIN_B, GEMMA_TRAIN_B, ZAMBA_CUT_LAYERS = 4, 1, 6
 XLSTM_B = 4                    # chunkwise bf16 prefill batch (S = FAMILY_S)
 XLSTM_REC_S, XLSTM_IMPL_TOL = 512, 1e-4   # recurrent vs chunkwise, fp32 B=1
 
@@ -3492,7 +3542,8 @@ def deepseek_q_chunk(torch, cfg, params):
     """Phase 6c: fp32, B=1, S=2048, MLA's prefill in query chunks of 512
     against no chunking: the first layer's ``mla_fwd`` within 1e-5 (its
     ms, CUDA events, and peak memory each), and the whole forward's logits
-    within 1e-4 (the CPU tests' bounds for a layer and for a model)."""
+    equal exactly (the chunks sum nothing in another order, and the MoE
+    combine uses no atomics)."""
     from repro_torch.models import attention as attn
     from repro_torch.models import zoo
     from repro_torch.models.modules import rmsnorm, tree_index
@@ -3742,6 +3793,452 @@ def last_families_phase(torch) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 6d: LM training
+# ---------------------------------------------------------------------------
+def grad_rel_err(torch, got, want) -> float:
+    """The largest |got − want| over the largest |want|, of any pair."""
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def sdpa_grad_call(torch, q, k, v, do, window, causal):
+    """The library yardstick of ``swa_attention_bwd``: one
+    ``torch.autograd.grad`` through ``F.scaled_dot_product_attention``
+    (``enable_gqa`` for KV < H; a bool mask for a window or Sq < Sk) on
+    leaves of q, k, v's values in (B, H, S, hd), the graph kept."""
+    import torch.nn.functional as F
+
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    gqa = {"enable_gqa": True} if KV != H else {}
+    if causal and not window and Sq == Sk:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             **gqa)
+    elif not causal and not window:
+        out = F.scaled_dot_product_attention(qt, kt, vt, **gqa)
+    else:
+        qpos = torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq)
+        kpos = torch.arange(Sk, device="cuda")[None, :]
+        keep = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+        if causal:
+            keep &= kpos <= qpos
+        if window:
+            keep &= kpos > qpos - window
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                             **gqa)
+    dot = do.transpose(1, 2).to(q.dtype)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def check_train_kernels(torch) -> dict:
+    """Phase 6d-i: ``swa_attention_bwd`` and ``ssd_intra_chunk_bwd`` on the
+    card against their plain versions (``*_bwd_ref``) and against
+    ``torch.autograd.grad`` through the plain forward, on the same CUDA
+    tensors, each kernel called twice and equal bit for bit; ms, plain ms,
+    bound, and for SWA the library's (``autograd.grad`` through SDPA)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd_mod
+    from repro_torch.kernels import swa_attention as swa_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for label, (B, Sq, Sk, H, KV, hd, window, causal, dt) in TRAIN_SWA.items():
+        dtype = getattr(torch, dt)
+        q = randn((B, Sq, H, hd), dtype)
+        k, v = randn((B, Sk, KV, hd), dtype), randn((B, Sk, KV, hd), dtype)
+        do = randn((B, Sq, H, hd))
+        o = ref.swa_attention_ref(q, k, v, window=window, causal=causal)
+
+        def bwd():
+            return swa_mod.swa_attention_bwd(q, k, v, o, do, window=window,
+                                             causal=causal)
+        before = swa_mod.launches_bwd
+        got, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        if swa_mod.launches_bwd != before + 2:
+            raise AssertionError(f"swa_attention_bwd {label}: not launched")
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        want = ref.swa_attention_bwd_ref(q, k, v, o, do, window=window,
+                                         causal=causal)
+        err = grad_rel_err(torch, got, want)
+        abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        del want
+        leaves = [t.detach().float().requires_grad_(True)
+                  for t in (q, k, v)]
+        auto = torch.autograd.grad(ref.swa_attention_ref(
+            *leaves, window=window, causal=causal), leaves, do)
+        err_auto = grad_rel_err(torch, got, auto)
+        del auto, leaves
+        tol = TRAIN_TOL[dt]
+        bf16 = dtype == torch.bfloat16
+        pairs = kept_pairs(Sq, Sk, window, causal)
+        n_in = B * Sq * H * hd + 2 * B * Sk * KV * hd
+        n_bytes = n_in * q.element_size() + 2 * B * Sq * H * hd * 4 + n_in * 4
+        flops = 10.0 * B * H * hd * pairs          # 2.5 × the forward's
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_OPS_PER_S if bf16 else
+                              FP32_OPS_PER_S)
+        lib = sdpa_grad_call(torch, q, k, v, do, window, causal)
+        row = {"phase": "train_kernel", "name": "swa_attention_bwd",
+               "case": label, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV,
+               "hd": hd, "window": window, "causal": causal, "dtype": dt,
+               "kept_pairs": pairs, "max_abs_err": abs_err,
+               "max_rel_err": err, "max_rel_err_autograd": err_auto,
+               "tol": tol, "bit_repeatable": repeat,
+               "ms": cuda_ms(torch, bwd, 10, warmup=1),
+               "plain_ms": cuda_ms(torch, lambda: ref.swa_attention_bwd_ref(
+                   q, k, v, o, do, window=window, causal=causal), 2,
+                   warmup=1),
+               "library_ms": cuda_ms(torch, lib, 10, warmup=2),
+               "library_call": "torch.autograd.grad through "
+                               "F.scaled_dot_product_attention"
+                               + (" (enable_gqa=True)" if KV != H else ""),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
+        emit(row)
+        del lib, got
+        if not (repeat and err <= tol and err_auto <= tol):
+            raise AssertionError(f"swa_attention_bwd {label}: rel err {err} "
+                                 f"(autograd {err_auto}), repeatable "
+                                 f"{repeat}")
+        rows.setdefault("swa_attention_bwd", row)
+
+    b, c, Q, h, p, n = TRAIN_SSD_SHAPE
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        X = randn((b, c, Q, h, p), dtype)
+        A_cs = torch.cumsum(-0.1 * torch.rand((b, h, c, Q), generator=gen,
+                                              device="cuda"), -1)
+        Bg, Cg = randn((b, c, Q, 1, n), dtype), randn((b, c, Q, 1, n), dtype)
+        Bc, Cc = (t.expand(b, c, Q, h, n) for t in (Bg, Cg))
+        dY, dS = randn((b, c, Q, h, p)), randn((b, c, h, p, n))
+
+        def bwd():
+            return ssd_mod.ssd_intra_chunk_bwd(X, A_cs, Bc, Cc, dY, dS)
+        before = ssd_mod.launches_bwd
+        got, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        if ssd_mod.launches_bwd != before + 2:
+            raise AssertionError(f"ssd_intra_chunk_bwd {dt}: not launched")
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        want = ref.ssd_intra_chunk_bwd_ref(X, A_cs, Bc, Cc, dY, dS)
+        checks = [allclose_err(torch, g, w, SSD_TOL, SSD_TOL)
+                  for g, w in zip(got, want)]
+        mags = [float(w.abs().max()) for w in want]
+        del want
+        leaves = [t.detach().float().requires_grad_(True)
+                  for t in (X, A_cs, Bg, Cg)]
+        Y, St = ref.ssd_intra_chunk_ref(
+            leaves[0], leaves[1], leaves[2].expand(b, c, Q, h, n),
+            leaves[3].expand(b, c, Q, h, n))
+        auto = torch.autograd.grad((Y, St), leaves, (dY, dS))
+        del Y, St, leaves
+        # the kernel writes dB, dC per head; a group's gradient is their sum
+        mine = (got[0], got[1], got[2].sum(3, keepdim=True),
+                got[3].sum(3, keepdim=True))
+        checks_auto = [allclose_err(torch, g, w, SSD_TOL, SSD_TOL)
+                       for g, w in zip(mine, auto)]
+        del auto, mine
+        uniq = lambda t: t.untyped_storage().nbytes()  # noqa: E731
+        n_bytes = (sum(uniq(t) for t in (X, A_cs, Bg, Cg, dY, dS))
+                   + sum(t.numel() for t in got) * 4)
+        flops = b * c * h * (Q * Q * (3 * n + 2 * p) + 4 * Q * p * n)
+        bf16 = dtype == torch.bfloat16
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_OPS_PER_S if bf16 else
+                              FP32_OPS_PER_S)
+        ok = repeat and all(k[1] for k in checks + checks_auto)
+        row = {"phase": "train_kernel", "name": "ssd_intra_chunk_bwd",
+               "case": f"zamba2-train-{dt}", "b": b, "chunks": c, "Q": Q,
+               "h": h, "P": p, "N": n, "dtype": dt, "bc": "one group, "
+               "stride 0 over the heads",
+               "max_abs_err": max(k[0] for k in checks),
+               "max_abs_err_by_output": dict(zip(("dX", "dA_cs", "dB", "dC"),
+                                                 (k[0] for k in checks))),
+               "max_abs_by_output": dict(zip(("dX", "dA_cs", "dB", "dC"),
+                                             mags)),
+               "max_abs_err_autograd": max(k[0] for k in checks_auto),
+               "tol": SSD_TOL, "bit_repeatable": repeat,
+               "ms": cuda_ms(torch, bwd, 10, warmup=1),
+               "plain_ms": cuda_ms(torch, lambda: ref.ssd_intra_chunk_bwd_ref(
+                   X, A_cs, Bc, Cc, dY, dS), 2, warmup=1),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
+        emit(row)
+        del got
+        if not ok:
+            raise AssertionError(f"ssd_intra_chunk_bwd {dt}: {row}")
+        rows.setdefault("ssd_intra_chunk_bwd", row)
+    return rows
+
+
+def loss_and_grads(torch, params, cfg, batch):
+    """(loss, gradients of every leaf) of ``zoo.loss_fn``."""
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import tree_leaves
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = zoo.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    for t in leaves:
+        t.requires_grad_(False)
+    return loss.detach(), grads
+
+
+def train_smoke_steps(torch) -> dict:
+    """Phase 6d-ii: one ``train_step`` of every registry arch's smoke
+    variant (remat on) on the card against the same step on the CPU: loss
+    within 1e-4; the gradients, read as ``mu`` (0.1 · g after one step from
+    zero), within 1e-4 of each leaf's largest; the params after the update
+    within 1e-3 in Frobenius norm over the whole tree (an element whose
+    gradient is ~0 steps by up to lr either way, as AdamW normalises it);
+    a MoE arch's forward twice and its step twice, equal bit for bit.
+    Returns the backward kernels' launches of the card's counted steps."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import tree_leaves, tree_map
+
+    total = {"swa_attention_bwd": 0, "ssd_intra_chunk_bwd": 0}
+    for arch in sorted(registry.ARCHS):
+        cfg = registry.smoke_variant(registry.get(arch)).replace(remat=True)
+        st_cpu = zoo.init_train_state(torch.Generator().manual_seed(0), cfg,
+                                      device="cpu")
+        st = tree_map(lambda t: t.cuda(), st_cpu)
+        batch = lm_batch(torch.Generator().manual_seed(1), cfg,
+                         TRAIN_SMOKE_B, TRAIN_SMOKE_S, "cpu")
+        gb = tree_map(lambda t: t.cuda(), batch)
+        moe = cfg.family == "moe"
+        twin = tree_map(torch.clone, st) if moe else None
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = zoo.train_step(st, gb, cfg)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = ops.backward_launch_counts()
+        for key in total:
+            total[key] += counts[key]
+        st_cpu, m_cpu = zoo.train_step(st_cpu, batch, cfg)
+        loss_err = abs(float(m["loss"]) - float(m_cpu["loss"]))
+        grad_err = grad_rel_err(torch, [t.cpu() for t in tree_leaves(
+            st["mu"])], tree_leaves(st_cpu["mu"]))
+        params = list(zip(tree_leaves(st["params"]),
+                          tree_leaves(st_cpu["params"])))
+        fro = math.sqrt(sum(float(torch.sum((a.cpu() - b_) ** 2))
+                            for a, b_ in params)
+                        / sum(float(torch.sum(b_ ** 2)) for _, b_ in params))
+        rec = {"phase": "train_smoke", "arch": arch, "family": cfg.family,
+               "B": TRAIN_SMOKE_B, "S": TRAIN_SMOKE_S, "remat": True,
+               "loss": float(m["loss"]), "loss_cpu": float(m_cpu["loss"]),
+               "loss_abs_err": loss_err, "grad_rel_err": grad_err,
+               "params_fro_err": fro, "card_step_s": card_s,
+               "backward_launches": counts}
+        ok = loss_err <= 1e-4 and grad_err <= 1e-4 and fro <= 1e-3
+        if moe:
+            with torch.no_grad():
+                f1 = zoo.forward(twin["params"], cfg, gb)[0]
+                f2 = zoo.forward(twin["params"], cfg, gb)[0]
+            twin, m2 = zoo.train_step(twin, gb, cfg)
+            rec["forward_bit_repeatable"] = bool(torch.equal(f1, f2))
+            rec["step_bit_repeatable"] = bool(
+                torch.equal(m["loss"], m2["loss"])
+                and all(torch.equal(a, b_) for a, b_ in
+                        zip(tree_leaves(st), tree_leaves(twin))))
+            ok = ok and rec["forward_bit_repeatable"] \
+                and rec["step_bit_repeatable"]
+            del f1, f2, twin
+        rec["ok"] = ok
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"train step {arch}: {rec}")
+    return total
+
+
+def train_full(torch, arch: str, B: int, want_params: int,
+               want_bwd: dict) -> dict:
+    """Phase 6d-iii: ``arch`` at its published widths (fp32 params and
+    moments, bf16 activations, remat on), random from seed 0, TRAIN_STEPS
+    ``train_step``s at B × TRAIN_S on one batch: each step's ms (host
+    clock, synchronised), loss and backward launches (``want_bwd`` a step,
+    else the run fails), the peak memory of the steps; then a profiled
+    step (``train_profile``). Returns the state and the launches."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import param_count
+
+    cfg = registry.get(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # earlier phases' live tensors
+    t0 = time.perf_counter()
+    st = zoo.init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    torch.cuda.synchronize()
+    n = param_count(st["params"])
+    if n != want_params:
+        raise AssertionError(f"{arch} has {n} params, not {want_params:,}")
+    batch = lm_batch(torch.Generator(device="cuda").manual_seed(1), cfg, B,
+                     TRAIN_S, "cuda")
+    state_bytes = torch.cuda.memory_allocated() - base
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    steps, total = [], dict.fromkeys(want_bwd, 0)
+    for _ in range(TRAIN_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = zoo.train_step(st, batch, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        bwd = ops.backward_launch_counts()
+        fwd = {k: v for k, v in ops.launch_counts().items() if v}
+        steps.append({"ms": ms, "loss": float(m["loss"]), "backward": bwd,
+                      "forward": fwd})
+        if bwd != want_bwd:
+            raise AssertionError(f"{arch} train step: backward launches "
+                                 f"{bwd}, not {want_bwd}")
+        for key in total:
+            total[key] += bwd[key]
+    rec = {"phase": "train_full", "arch": arch, "source": cfg.source,
+           "params": n, "param_dtype": cfg.param_dtype,
+           "act_dtype": cfg.dtype, "remat": cfg.remat, "B": B, "S": TRAIN_S,
+           "steps": steps,
+           "step_ms_median_2_3": statistics.median(s["ms"]
+                                                   for s in steps[1:]),
+           "state_bytes": state_bytes, "peak_device_bytes":
+           torch.cuda.max_memory_allocated(), "peak_bytes_over_base":
+           torch.cuda.max_memory_allocated() - base, "base_bytes": base,
+           "init_s": init_s,
+           "losses_finite": all(math.isfinite(s["loss"]) for s in steps),
+           "note": "weights and tokens random from seeds 0 and 1; no cut; "
+                   "forward launches count remat's recompute too"}
+    emit(rec)
+    if not rec["losses_finite"]:
+        raise AssertionError(f"{arch} train step: a loss is not finite")
+    train_profile(torch, arch, st, batch, cfg)
+    return st, total
+
+
+def train_profile(torch, arch: str, st, batch, cfg):
+    """Phase 6d-iii: one more ``train_step`` under torch.profiler: the
+    device's busy share, the backward kernels' device ms, GEMMs, casts
+    and copies, the top kernels (not counted in the launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import zoo
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        zoo.train_step(st, batch, cfg)
+        torch.cuda.synchronize()
+    summary = device_summary(torch, prof, (time.perf_counter() - t0) * 1e3)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    bwd = {name: sum(e.self_device_time_total for e in kern
+                     if match in e.key) / 1e3
+           for name, match in (("swa_attention_bwd_ms", "swa_bwd_"),
+                               ("ssd_intra_chunk_bwd_ms", "ssd_bwd_kernel"))}
+    emit({"phase": "train_profile", "arch": arch, **summary, **bwd})
+
+
+def zamba2_remat_cut(torch) -> dict:
+    """Phase 6d-iii: Zamba2-1.2B cut to ZAMBA_CUT_LAYERS layers, the same
+    seed, loss and every gradient with remat on and off: equal bit for bit,
+    and each one's peak memory."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import zoo
+
+    cut = registry.get("zamba2-1.2b").replace(n_layers=ZAMBA_CUT_LAYERS)
+    batch = lm_batch(torch.Generator(device="cuda").manual_seed(1), cut,
+                     ZAMBA_TRAIN_B, TRAIN_S, "cuda")
+    out, peaks = {}, {}
+    for remat in (True, False):
+        cfg = cut.replace(remat=remat)
+        params = zoo.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg,
+            device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out[remat] = loss_and_grads(torch, params, cfg, batch)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+        del params
+    (l_on, g_on), (l_off, g_off) = out[True], out[False]
+    equal = bool(torch.equal(l_on, l_off)) and all(
+        torch.equal(a, b) for a, b in zip(g_on, g_off))
+    rec = {"phase": "train_remat", "arch": "zamba2-1.2b",
+           "n_layers": ZAMBA_CUT_LAYERS, "B": ZAMBA_TRAIN_B, "S": TRAIN_S,
+           "loss": float(l_on), "bit_equal": equal,
+           "max_abs_grad_diff": max(float((a - b).abs().max())
+                                    for a, b in zip(g_on, g_off)),
+           "peak_bytes_over_params_remat_on": peaks[True],
+           "peak_bytes_over_params_remat_off": peaks[False],
+           "reduced": [f"n_layers 38 -> {ZAMBA_CUT_LAYERS}: remat off keeps "
+                       "every layer's activations"]}
+    emit(rec)
+    del out, g_on, g_off
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError(f"Zamba2 remat on != off: {rec}")
+    return rec
+
+
+def training_phase(torch) -> tuple:
+    """Phase 6d: the backward kernels, a train step of every smoke variant,
+    Zamba2-1.2B and Gemma-2B at published widths. Returns (the kernels'
+    rows, the backward kernels' launches of the counted steps)."""
+    import gc
+
+    t_phase = time.perf_counter()
+    rows = check_train_kernels(torch)
+    torch.cuda.empty_cache()
+    total = train_smoke_steps(torch)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    st, counts = train_full(torch, "zamba2-1.2b", ZAMBA_TRAIN_B,
+                            1_170_473_856, {"swa_attention_bwd": 6,
+                                            "ssd_intra_chunk_bwd": 38})
+    add(counts)
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    zamba2_remat_cut(torch)
+    st, counts = train_full(torch, "gemma-2b", GEMMA_TRAIN_B,
+                            2_506_172_416, {"swa_attention_bwd": 18,
+                                            "ssd_intra_chunk_bwd": 0})
+    add(counts)
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "training_phase", "backward_launches": total,
+          "seconds": time.perf_counter() - t_phase})
+    return rows, total
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -3877,6 +4374,10 @@ def main() -> int:
     counts_fam = family_phase(torch)
     # phase 6c: the zoo's last two families (DeepSeek-V3 cut, xLSTM-350M)
     counts_last = last_families_phase(torch)
+    # phase 6d: LM training (the backward kernels, every smoke variant,
+    # Zamba2-1.2B and Gemma-2B at published widths)
+    train_rows, counts_train = training_phase(torch)
+    rows.update(train_rows)
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
@@ -3885,7 +4386,8 @@ def main() -> int:
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes); phase 6b's counted
     # bf16 prefills and fp32 consistency forwards (swa_attention, both
-    # routes); phase 6c's counted MTP call (the fp32 route)
+    # routes); phase 6c's counted MTP call (the fp32 route); phase 6d's
+    # counted train steps (the backward kernels)
     launches = {"edc_cosine": counts_edc["edc_cosine"]
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
@@ -3899,7 +4401,9 @@ def main() -> int:
                 + counts_fam["swa_attention.fp32"]
                 + counts_last["swa_attention.fp32"],
                 "ssd_intra_chunk.tc": counts_zoo["ssd_intra_chunk.tc"],
-                "ssd_intra_chunk.fp32": counts_f32["ssd_intra_chunk.fp32"]}
+                "ssd_intra_chunk.fp32": counts_f32["ssd_intra_chunk.fp32"],
+                "swa_attention_bwd": counts_train["swa_attention_bwd"],
+                "ssd_intra_chunk_bwd": counts_train["ssd_intra_chunk_bwd"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",
                              "src/repro/kernels/edc_cosine.py:49"),
               "madc": ("src/repro_torch/csrc/madc.cu",
@@ -3911,7 +4415,14 @@ def main() -> int:
               "ssd_intra_chunk.tc": ("src/repro_torch/csrc/ssd_chunk_tc.cu",
                                      "src/repro/kernels/ssd_chunk.py:49"),
               "ssd_intra_chunk.fp32": ("src/repro_torch/csrc/ssd_chunk.cu",
-                                       "src/repro/kernels/ssd_chunk.py:49")}
+                                       "src/repro/kernels/ssd_chunk.py:49"),
+              # the backward kernels replace no Pallas kernel: the jnp
+              # function whose jax.vjp each matches
+              "swa_attention_bwd": ("src/repro_torch/csrc/"
+                                    "swa_attention_bwd.cu",
+                                    "src/repro/kernels/ref.py:23"),
+              "ssd_intra_chunk_bwd": ("src/repro_torch/csrc/ssd_chunk_bwd.cu",
+                                      "src/repro/models/ssm.py:86")}
     kernels = []
     for name, (source, replaces) in src_of.items():
         row = rows[name]

@@ -62,11 +62,18 @@ def _crc(arr: np.ndarray) -> int:
 
 
 def _flatten_leaves(tree, prefix: str = "") -> dict:
-    """{"a/b": leaf} in sorted-key order, nested dicts joined."""
+    """{"a/b": leaf} in sorted-key order, nested dicts joined; a list's
+    items are keyed by their index ("blocks_list/0/ln/scale"), as the
+    reference's ``_path_str`` keys a sequence."""
     if isinstance(tree, dict):
         flat = {}
         for k in sorted(tree):
             flat.update(_flatten_leaves(tree[k], f"{prefix}{k}/"))
+        return flat
+    if isinstance(tree, list):
+        flat = {}
+        for i, v in enumerate(tree):
+            flat.update(_flatten_leaves(v, f"{prefix}{i}/"))
         return flat
     return {prefix[:-1]: tree}
 
@@ -96,8 +103,8 @@ def _read_meta(path: str, data) -> dict:
 
 
 def save_pytree(path: str, params: dict, metadata: dict | None = None):
-    """Atomically write ``params`` (nested ``dict[str, Tensor | ndarray]``)
-    and the JSON-able ``metadata`` to exactly ``path``."""
+    """Atomically write ``params`` (nested ``dict[str, Tensor | ndarray]``,
+    lists among them) and the JSON-able ``metadata`` to exactly ``path``."""
     flat = _flatten(params)
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -135,6 +142,9 @@ def _unflatten_into(template, prefix: str, flat: dict):
     if isinstance(template, dict):
         return {k: _unflatten_into(v, f"{prefix}{k}/", flat)
                 for k, v in template.items()}
+    if isinstance(template, list):
+        return [_unflatten_into(v, f"{prefix}{i}/", flat)
+                for i, v in enumerate(template)]
     return flat[prefix[:-1]]
 
 
@@ -146,7 +156,8 @@ def load_pytree(path: str, template: dict | None = None, device="cuda"):
     asks for the CPU, and asking for it without a card raises
     (``repro_torch.resolve_device``).
 
-    With ``template`` (a nested dict of tensors and numpy arrays): strict.
+    With ``template`` (a nested dict, lists among them, of tensors and
+    numpy arrays): strict.
     The archive's keys must be the template's flattened keys exactly, and
     each array's shape and dtype its leaf's, else ``ValueError``. A numpy
     leaf comes back as host numpy; a tensor leaf lands on that tensor's

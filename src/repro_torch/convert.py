@@ -3,7 +3,9 @@
 ``jax.random`` and ``torch.Generator`` give different numbers from one
 seed, so a parity test builds the JAX package's params (as numpy arrays)
 and loads them here. Nested dicts are kept nested, lists (xLSTM's
-``blocks_list``, its cache's ``"xlstm"``) stay lists in their order.
+``blocks_list``, its cache's ``"xlstm"``) stay lists in their order. A
+training state (``zoo.init_train_state``'s: params, ``mu``, ``nu``,
+``step``) carries across the same way.
 """
 from __future__ import annotations
 
@@ -28,3 +30,24 @@ def params_to_numpy(params):
     if isinstance(params, list):
         return [params_to_numpy(v) for v in params]
     return params.detach().cpu().numpy()
+
+
+TRAIN_STATE_KEYS = ("mu", "nu", "params", "step")
+
+
+def train_state_from_numpy(state, device="cpu"):
+    """A JAX ``zoo.init_train_state`` tree (params, fp32 ``mu`` and ``nu``
+    of the params' shapes, an int32 ``step``), as numpy arrays or
+    array-likes -> the port's, tensors on device."""
+    if tuple(sorted(state)) != TRAIN_STATE_KEYS:
+        raise ValueError(f"a train state has the keys {TRAIN_STATE_KEYS}, "
+                         f"not {tuple(sorted(state))}")
+    return params_from_numpy(dict(state), device)
+
+
+def train_state_to_numpy(state):
+    """Inverse of ``train_state_from_numpy``."""
+    if tuple(sorted(state)) != TRAIN_STATE_KEYS:
+        raise ValueError(f"a train state has the keys {TRAIN_STATE_KEYS}, "
+                         f"not {tuple(sorted(state))}")
+    return params_to_numpy(dict(state))

@@ -59,6 +59,8 @@ copies nothing of the carry once the graph is captured.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import time
 from typing import NamedTuple
@@ -66,6 +68,24 @@ from typing import NamedTuple
 import torch
 
 WARMUP = 2          # eager iterations on a side stream before the capture
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic GC run first, then held off while a graph captures.
+    A dropped trainer can leave its CUDAGraphs in a reference cycle; a
+    collection during a capture would destroy one, which CUDA does not
+    permit while a stream captures (the capture then fails in whatever
+    kernel runs next), and ``torch.cuda.graph`` collects first only when
+    ``torch.compiler.config.force_cudagraph_gc`` is set."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def _leaves(carry: dict) -> list:
@@ -209,12 +229,13 @@ class GraphBlockExecutor:
                 eval_body()
         torch.cuda.current_stream().wait_stream(side)
         try:
-            round_graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(round_graph):
-                round_body()
-            eval_graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(eval_graph, pool=round_graph.pool()):
-                eval_body()
+            with gc_paused():
+                round_graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(round_graph):
+                    round_body()
+                eval_graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(eval_graph, pool=round_graph.pool()):
+                    eval_body()
         except Exception as e:
             raise RuntimeError(
                 "CUDA graph capture of the fused round failed (a host sync "
@@ -367,9 +388,10 @@ class GraphDispatchExecutor:
                 body()
         torch.cuda.current_stream().wait_stream(side)
         try:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                output, metrics = body()
+            with gc_paused():
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    output, metrics = body()
         except Exception as e:
             raise RuntimeError(
                 "CUDA graph capture of the async dispatch failed (a host "

@@ -143,6 +143,11 @@ def _declare(lib):
     lib.ssd_intra_chunk_tc_smem.restype = i
     lib.ssd_intra_chunk_tc_heads_per_cta.argtypes = [i, i, i, i]
     lib.ssd_intra_chunk_tc_heads_per_cta.restype = i
+    lib.swa_attention_bwd_launch.argtypes = [vp] * 10 + [ll, vp]
+    lib.swa_attention_bwd_launch.restype = i
+    lib.ssd_intra_chunk_bwd_launch.argtypes = ([vp] * 10 + [ll] + [i] * 7
+                                               + [vp])
+    lib.ssd_intra_chunk_bwd_launch.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

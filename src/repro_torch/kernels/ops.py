@@ -28,9 +28,16 @@ def launch_counts() -> dict:
     return counts
 
 
+def backward_launch_counts() -> dict:
+    """{``swa_attention_bwd``, ``ssd_intra_chunk_bwd``: launches of the
+    backward kernels since the last reset}."""
+    return {f"{name}_bwd": mod.launches_bwd for name, mod in _ROUTED.items()}
+
+
 def reset_launch_counts():
     for mod in KERNELS.values():
         mod.launches = 0
     for mod in _ROUTED.values():
         for route in mod.launches_by_route:
             mod.launches_by_route[route] = 0
+        mod.launches_bwd = 0

@@ -36,6 +36,23 @@ def madc_ref(M: torch.Tensor) -> torch.Tensor:
 NEG_INF = -1e30
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or float64 left as it is (a gradcheck's inputs)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _swa_kept(Sq: int, Sk: int, window, causal: bool, device):
+    """(Sq, Sk) bool: query i (at position i + Sk − Sq) keeps key j."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return ok
+
+
 def swa_attention_ref(q, k, v, *, window: int | None, causal: bool = True,
                       scale: float | None = None) -> torch.Tensor:
     """Dense masked softmax attention (``repro.kernels.ref
@@ -49,21 +66,48 @@ def swa_attention_ref(q, k, v, *, window: int | None, causal: bool = True,
     Sk = k.shape[1]
     if scale is None:
         scale = 1.0 / hd ** 0.5
-    dev = q.device
-    qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
-    kpos = torch.arange(Sk, device=dev)[None, :]
-    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
-    if causal:
-        ok &= kpos <= qpos
-    if window is not None:
-        ok &= kpos > qpos - window
+    ok = _swa_kept(Sq, Sk, window, causal, q.device)
     # kv head j serves heads j·(H/KV) .. (j+1)·(H/KV) − 1 (``jnp.repeat``)
-    k32 = k.float().repeat_interleave(H // k.shape[2], dim=2)
-    v32 = v.float().repeat_interleave(H // k.shape[2], dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k32) * scale
+    k32 = _f32(k).repeat_interleave(H // k.shape[2], dim=2)
+    v32 = _f32(v).repeat_interleave(H // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", _f32(q), k32) * scale
     s = torch.where(ok[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v32)
+
+
+def swa_attention_bwd_ref(q, k, v, o, do, *, window: int | None,
+                          causal: bool = True, scale: float | None = None):
+    """The backward of ``swa_attention_ref`` written out, as the kernel
+    ``csrc/swa_attention_bwd.cu`` computes it: the row log-sum-exp is
+    recomputed from q and k, P = exp(S − lse) (0 where masked),
+    D_i = Σ_d dO_i·O_i, dS = P ⊙ (dP − D) with dP = dO Vᵀ, then
+    dQ = scale·dS K, dK = scale·dSᵀ Q and dV = Pᵀ dO, dK and dV summed
+    over the H/KV query heads of each kv head.
+
+    q, o, do: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); o is the forward's
+    output. Returns (dq, dk, dv) in fp32 (float64 inputs stay float64)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if scale is None:
+        scale = 1.0 / hd ** 0.5
+    ok = _swa_kept(Sq, Sk, window, causal, q.device)
+    q32, o32, do32 = _f32(q), _f32(o), _f32(do)
+    k32 = _f32(k).repeat_interleave(G, dim=2)
+    v32 = _f32(v).repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
+    s = torch.where(ok[None, None], s, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse)
+    d_row = torch.sum(do32 * o32, dim=-1).permute(0, 2, 1)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+    ds = p * (dp - d_row)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    return (dq, dk.reshape(B, Sk, KV, G, hd).sum(3),
+            dv.reshape(B, Sk, KV, G, hd).sum(3))
 
 
 def ssd_intra_chunk_ref(Xc, A_cs, Bc, Cc):
@@ -77,15 +121,61 @@ def ssd_intra_chunk_ref(Xc, A_cs, Bc, Cc):
       state  = Σ_k exp(a_Q − a_k) X_k ⊗ B_k.
     L is a select on −1e30 before the exp, never a 0/1 multiply: for
     j > i, exp(a_i − a_j) overflows and inf·0 would be NaN."""
-    Q = A_cs.shape[-1]
-    X32, B32, C32 = Xc.float(), Bc.float(), Cc.float()
-    diff = A_cs[..., :, None] - A_cs[..., None, :]           # (b,h,c,Q,Q)
-    tril = torch.ones((Q, Q), dtype=torch.bool, device=A_cs.device).tril()
-    L = torch.exp(torch.where(tril, diff, NEG_INF))
+    X32, B32, C32 = _f32(Xc), _f32(Bc), _f32(Cc)
+    L, tril = _ssd_L(A_cs)
     Y_diag = torch.einsum("bcqhn,bckhn,bhcqk,bckhp->bcqhp", C32, B32, L, X32)
     decay_states = torch.exp(A_cs[..., -1:] - A_cs)            # (b,h,c,Q)
     states = torch.einsum("bckhn,bhck,bckhp->bchpn", B32, decay_states, X32)
     return Y_diag, states
+
+
+def _ssd_L(A_cs):
+    """(L (b,h,c,Q,Q), the causal mask (Q,Q)): L_ij = exp(a_i − a_j) for
+    j <= i, else 0, by a select on −1e30 before the exp."""
+    Q = A_cs.shape[-1]
+    diff = A_cs[..., :, None] - A_cs[..., None, :]           # (b,h,c,Q,Q)
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=A_cs.device).tril()
+    return torch.exp(torch.where(tril, diff, NEG_INF)), tril
+
+
+def ssd_intra_chunk_bwd_ref(Xc, A_cs, Bc, Cc, dY, dS):
+    """The backward of ``ssd_intra_chunk_ref`` written out, as the kernel
+    ``csrc/ssd_chunk_bwd.cu`` computes it per (batch, chunk, head) cell.
+    With G = C Bᵀ, M = G ⊙ L, dM = dY Xᵀ (kept where j <= i),
+    W = dM ⊙ L and decay_k = exp(a_Q − a_k):
+      dX = Mᵀ dY + decay ⊙ (B dSᵀ)
+      dC = W B
+      dB = Wᵀ C + decay ⊙ (X dS)
+      dA_cs = rowsum(dM ⊙ M) − colsum(dM ⊙ M) − h, plus Σ h at the last
+              position, with h_k = decay_k · X_kᵀ dS B_k (the state's).
+    L keeps its select on −1e30 before the exp here too: exp(a_i − a_j)
+    for j > i overflows, and inf · 0 would be NaN.
+
+    Xc (b, c, Q, h, p), A_cs (b, h, c, Q), Bc, Cc (b, c, Q, h, n); dY
+    (b, c, Q, h, p) and dS (b, c, h, p, n), the gradients of Y_diag and of
+    the states. Returns (dX, dA_cs, dB, dC) in fp32 (float64 stays), dB
+    and dC dense per head."""
+    X32, B32, C32 = _f32(Xc), _f32(Bc), _f32(Cc)
+    A = _f32(A_cs)
+    dY32, dS32 = _f32(dY), _f32(dS)
+    L, tril = _ssd_L(A)
+    G = torch.einsum("bcihn,bcjhn->bhcij", C32, B32)
+    M = G * L
+    dM = torch.where(tril, torch.einsum("bcihp,bcjhp->bhcij", dY32, X32),
+                     0.0)
+    W = dM * L
+    decay = torch.exp(A[..., -1:] - A).permute(0, 2, 3, 1)[..., None]
+    U = torch.einsum("bckhn,bchpn->bckhp", B32, dS32)         # B dSᵀ
+    dX = torch.einsum("bhcij,bcihp->bcjhp", M, dY32) + decay * U
+    dC = torch.einsum("bhcij,bcjhn->bcihn", W, B32)
+    dB = (torch.einsum("bhcij,bcihn->bcjhn", W, C32)
+          + decay * torch.einsum("bckhp,bchpn->bckhn", X32, dS32))
+    T = dM * M
+    h = (decay * torch.sum(X32 * U, dim=-1, keepdim=True))[..., 0]
+    h = h.permute(0, 3, 1, 2)                                  # (b,h,c,Q)
+    dA = T.sum(-1) - T.sum(-2) - h
+    dA[..., -1] += h.sum(-1)
+    return dX, dA, dB, dC
 
 
 def ssd_chunk_ref(X, dtA, B, C):

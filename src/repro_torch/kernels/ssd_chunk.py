@@ -22,6 +22,11 @@ takes the Pallas kernel's (BH, NC, Q, ·) layout. Both reach one launch. A
 CPU tensor runs the plain version (``kernels.ref.ssd_intra_chunk_ref``); a
 CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
 ``launches_by_route`` each route's.
+
+The backward (``SsdIntraChunkFn``, ``ssd_intra_chunk_bwd``) is
+``csrc/ssd_chunk_bwd.cu`` on the card and
+``kernels.ref.ssd_intra_chunk_bwd_ref`` on the CPU; ``launches_bwd``
+counts its launches. Without grad the call is exactly the forward above.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.kernels import build, ref
 
 launches = 0
 launches_by_route = {"tc": 0, "fp32": 0}
+launches_bwd = 0
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q, MAX_P, MAX_N = 128, 64, 128
 TC_Q, TC_P, TC_N = (64, 128), 64, 64
@@ -143,7 +149,16 @@ def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
     ``heads_per_cta`` overrides ``ssd_heads_per_cta`` on the fp32 route
     (the sweep in ``chip_smoke.py`` that sets it). A signature (shapes,
     strides, dtypes, devices) is checked and planned once; later calls
-    with it only allocate and launch."""
+    with it only allocate and launch. With grad enabled and an input that
+    requires it, the call goes through ``SsdIntraChunkFn`` (the same
+    forward; its backward is ``ssd_intra_chunk_bwd``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (Xc, A_cs, Bc, Cc)):
+        return SsdIntraChunkFn.apply(Xc, A_cs, Bc, Cc, heads_per_cta)
+    return _forward(Xc, A_cs, Bc, Cc, heads_per_cta)
+
+
+def _forward(Xc, A_cs, Bc, Cc, heads_per_cta):
     key = (Xc.shape, Bc.shape, Cc.shape, A_cs.shape, Xc.stride(),
            A_cs.stride(), Bc.stride(), Cc.stride(), Xc.dtype, Bc.dtype,
            Cc.dtype, A_cs.dtype, Xc.device, A_cs.device, Bc.device,
@@ -188,6 +203,88 @@ def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
     launches += 1
     launches_by_route[route] += 1
     return Y, S
+
+
+class SsdIntraChunkFn(torch.autograd.Function):
+    """``ssd_intra_chunk`` with a backward: the forward is the kernel (or
+    the plain version on the CPU) as without grad; it saves its inputs
+    (a stride-0 head expansion of B or C stays a view), and the backward
+    is ``ssd_intra_chunk_bwd``. Gradients come back in the inputs' dtypes,
+    dB and dC dense per head (the expansion's backward sums a group)."""
+
+    @staticmethod
+    def forward(ctx, Xc, A_cs, Bc, Cc, heads_per_cta):
+        Y, S = _forward(Xc, A_cs, Bc, Cc, heads_per_cta)
+        ctx.save_for_backward(Xc, A_cs, Bc, Cc)
+        return Y, S
+
+    @staticmethod
+    def backward(ctx, dY, dS):
+        Xc, A_cs, Bc, Cc = ctx.saved_tensors
+        dX, dA, dB, dC = ssd_intra_chunk_bwd(Xc, A_cs, Bc, Cc, dY, dS)
+        return (dX.to(Xc.dtype), dA.to(A_cs.dtype), dB.to(Bc.dtype),
+                dC.to(Cc.dtype), None)
+
+
+def ssd_intra_chunk_bwd(Xc: torch.Tensor, A_cs: torch.Tensor,
+                        Bc: torch.Tensor, Cc: torch.Tensor,
+                        dY: torch.Tensor, dS: torch.Tensor):
+    """The gradients (dX, dA_cs, dB, dC), all fp32 and dB, dC dense per
+    head, of ``ssd_intra_chunk`` at its inputs, given the gradients dY
+    (b, c, Q, h, p) and dS (b, c, h, p, n) of its two outputs. A CPU
+    tensor runs the plain version (``kernels.ref.ssd_intra_chunk_bwd_ref``);
+    a CUDA tensor launches ``csrc/ssd_chunk_bwd.cu`` (one CTA a cell, no
+    atomics) or raises. ``launches_bwd`` counts its calls on the card."""
+    b, c, Q, h, p = Xc.shape
+    n = Bc.shape[-1]
+    if (Bc.shape != (b, c, Q, h, n) or Cc.shape != Bc.shape
+            or A_cs.shape != (b, h, c, Q) or dY.shape != Xc.shape
+            or dS.shape != (b, c, h, p, n)):
+        raise ValueError(f"ssd_intra_chunk_bwd: X {tuple(Xc.shape)}, A_cs "
+                         f"{tuple(A_cs.shape)}, B {tuple(Bc.shape)}, C "
+                         f"{tuple(Cc.shape)}, dY {tuple(dY.shape)}, dS "
+                         f"{tuple(dS.shape)}; want X and dY (b, c, Q, h, "
+                         "p), A_cs (b, h, c, Q), B and C (b, c, Q, h, n), "
+                         "dS (b, c, h, p, n)")
+    devs = {t.device for t in (Xc, A_cs, Bc, Cc, dY, dS)}
+    if devs == {torch.device("cpu")}:
+        return ref.ssd_intra_chunk_bwd_ref(Xc, A_cs, Bc, Cc, dY, dS)
+    if len(devs) != 1 or Xc.device.type != "cuda":
+        raise ValueError(f"ssd_intra_chunk_bwd: inputs on "
+                         f"{sorted(map(str, devs))}; all must be on one "
+                         "CUDA device (or the CPU)")
+    if (Xc.dtype not in _DTYPES or Bc.dtype != Xc.dtype
+            or Cc.dtype != Xc.dtype or A_cs.dtype != torch.float32):
+        raise TypeError(f"ssd_intra_chunk_bwd: X, B, C {Xc.dtype}, "
+                        f"{Bc.dtype}, {Cc.dtype} (fp32 or bf16, alike) and "
+                        f"A_cs {A_cs.dtype} (fp32)")
+    if not (0 < Q <= MAX_Q and 0 < p <= MAX_P and 0 < n <= MAX_N) or \
+            b * c * h == 0 or b * c * h >= 2 ** 31:
+        raise ValueError(f"ssd_intra_chunk_bwd: Q={Q}, P={p}, N={n}, cells="
+                         f"{b * c * h} outside the kernel's range (Q <= "
+                         f"{MAX_Q}, P <= {MAX_P}, N <= {MAX_N})")
+    if any(t.stride(-1) != 1 for t in (Xc, Bc, Cc)):
+        raise ValueError("ssd_intra_chunk_bwd: the last dim of X, B, C must "
+                         "be contiguous")
+    dY = dY.float().contiguous()
+    dS = dS.float().contiguous()
+    dev = Xc.device
+    dX = torch.empty((b, c, Q, h, p), dtype=torch.float32, device=dev)
+    dA = torch.empty((b, h, c, Q), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, c, Q, h, n), dtype=torch.float32, device=dev)
+    dC = torch.empty_like(dB)
+    st = build.strides(Xc.stride()[:4], Bc.stride()[:4], Cc.stride()[:4],
+                       A_cs.stride())
+    lib = build.library()
+    err = build.launch(Xc, lib.ssd_intra_chunk_bwd_launch, Xc.data_ptr(),
+                       A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
+                       dY.data_ptr(), dS.data_ptr(), dX.data_ptr(),
+                       dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), st, b, c,
+                       Q, h, p, n, int(Xc.dtype == torch.bfloat16))
+    build.check(err, "ssd_intra_chunk_bwd launch")
+    global launches_bwd
+    launches_bwd += 1
+    return dX, dA, dB, dC
 
 
 def ssd_intra_chunk_cells(X: torch.Tensor, A_cs: torch.Tensor,

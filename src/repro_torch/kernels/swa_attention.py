@@ -20,6 +20,11 @@ route an input that breaks TMA's rules raises; it never switches route. A
 CPU tensor runs the plain version (``kernels.ref.swa_attention_ref``); a
 CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
 ``launches_by_route`` each route's.
+
+The backward (``SwaAttentionFn``, ``swa_attention_bwd``) is
+``csrc/swa_attention_bwd.cu`` on the card and
+``kernels.ref.swa_attention_bwd_ref`` on the CPU; ``launches_bwd`` counts
+its launches. Without grad the call is exactly the forward above.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.kernels import build, ref
 
 launches = 0
 launches_by_route = {"tc": 0, "fp32": 0}
+launches_bwd = 0
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128)
@@ -172,7 +178,16 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq, H, hd) fp32. Query i sits at absolute position i + (Sk − Sq);
     the window keeps keys with kpos > qpos − window. A signature (shapes,
     strides, dtypes, devices, window, causal) is checked and planned once;
-    later calls with it only allocate and launch."""
+    later calls with it only allocate and launch. With grad enabled and an
+    input that requires it, the call goes through ``SwaAttentionFn``
+    (the same forward; its backward is ``swa_attention_bwd``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return SwaAttentionFn.apply(q, k, v, window, causal)
+    return _forward(q, k, v, window, causal)
+
+
+def _forward(q, k, v, window, causal) -> torch.Tensor:
     key = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
            q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, window,
            causal)
@@ -213,3 +228,80 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launches += 1
     launches_by_route[route] += 1
     return out
+
+
+class SwaAttentionFn(torch.autograd.Function):
+    """``swa_attention`` with a backward: the forward is the kernel (or the
+    plain version on the CPU) as without grad; it saves q, k, v and the
+    fp32 output, and the backward is ``swa_attention_bwd``. Gradients come
+    back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        out = _forward(q, k, v, window, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.window, ctx.causal = window, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = swa_attention_bwd(q, k, v, out, dout,
+                                       window=ctx.window, causal=ctx.causal)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *,
+                      window: int | None = None, causal: bool = True):
+    """The gradients (dq, dk, dv), all fp32, of ``swa_attention`` at q, k,
+    v, given its output ``o`` and the output's gradient ``do`` (both
+    (B, Sq, H, hd)). A CPU tensor runs the plain version
+    (``kernels.ref.swa_attention_bwd_ref``); a CUDA tensor launches
+    ``csrc/swa_attention_bwd.cu`` (three kernels: the rows' log-sum-exp
+    and D, then dK / dV per key tile, then dQ per query tile; no atomics)
+    or raises. ``launches_bwd`` counts its calls on the card."""
+    _check_shapes(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"swa_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}; want q's {tuple(q.shape)}")
+    devs = {t.device for t in (q, k, v, o, do)}
+    if devs == {torch.device("cpu")}:
+        return ref.swa_attention_bwd_ref(q, k, v, o, do, window=window,
+                                         causal=causal)
+    if len(devs) != 1 or q.device.type != "cuda":
+        raise ValueError(f"swa_attention_bwd: inputs on "
+                         f"{sorted(map(str, devs))}; all must be on one "
+                         "CUDA device (or the CPU)")
+    if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"swa_attention_bwd: dtypes {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}; fp32 or bf16, k and v alike")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if hd > MAX_HEAD_DIM or B * H > 65535:
+        raise ValueError(f"swa_attention_bwd: hd={hd}, B·H={B * H} outside "
+                         f"the kernel's range (hd <= {MAX_HEAD_DIM}, "
+                         "B·H <= 65535)")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("swa_attention_bwd: the head dim of q, k, v must "
+                         "be contiguous")
+    o = o.float().contiguous()
+    do = do.float().contiguous()
+    dev = q.device
+    ws = torch.empty((2, B * H * Sq), dtype=torch.float32, device=dev)
+    dq = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=dev)
+    dk = torch.empty((B, Sk, KV, hd), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(dk)
+    prm = build.strides(q.stride()[:3], k.stride()[:3], v.stride()[:3],
+                        (B, Sq, Sk, H, KV, hd, window or 0, int(causal),
+                         int(q.dtype == torch.bfloat16),
+                         int(k.dtype == torch.bfloat16)))
+    lib = build.library()
+    err = build.launch(q, lib.swa_attention_bwd_launch, q.data_ptr(),
+                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                       do.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), prm)
+    build.check(err, "swa_attention_bwd launch")
+    global launches_bwd
+    launches_bwd += 1
+    return dq, dk, dv

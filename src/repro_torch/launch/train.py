@@ -1,9 +1,12 @@
 """Training launcher of the PyTorch/CUDA port: ``--mode fed``, federated
-training on the synthetic federated datasets (``repro.launch.train``'s
-fed flags and datasets, plus ``--device``).
+training on the synthetic federated datasets, and ``--mode lm``, language-
+model training of a zoo arch (``repro.launch.train``'s flags and
+datasets, plus ``--device``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode fed \
       --framework fedgroup --dataset femnist --rounds 30
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+      --arch zamba2-1.2b --smoke --steps 10 --seq 128 --batch 4
 
 Frameworks: fedavg, fedprox, fedgroup, fedgrouprox, ifca, fesem. Runs on
 ``cuda`` unless ``--device cpu``. ``--async-depth D`` (with
@@ -12,7 +15,18 @@ dispatches in flight; ``--async-depth 1`` prints the synchronous run's
 ``acc=`` / ``disc=`` lines exactly. ``--telemetry-dir DIR`` traces the run
 and streams its round records into DIR (``metrics.jsonl``, ``trace.json``,
 ``run_summary.json``), which ``python -m repro_torch.launch.inspect DIR``
-renders. Not yet ported (it raises): ``--mode lm``.
+renders.
+
+``--mode lm`` (``--arch``, default gemma-2b; ``--smoke`` for the reduced
+same-family variant; ``--steps``, ``--seq``, ``--batch``) trains from
+random weights on uniform random tokens, drawn in that order from one
+``torch.Generator`` on the device seeded by ``--seed``, with
+``zoo.train_step`` (AdamW). An
+audio arch also gets random frames and a VLM random patch embeddings (the
+reference's batch has tokens only, which those two families cannot
+read). It prints the reference's step lines; ``--out DIR`` writes
+``DIR/state.npz`` (params, ``mu``, ``nu``, ``step``) with ``{"arch",
+"steps"}``, in the reference's archive format.
 """
 from __future__ import annotations
 
@@ -111,6 +125,56 @@ def run_fed(args) -> int:
     return 0
 
 
+def lm_batch(gen, cfg, B: int, S: int, device) -> dict:
+    """Uniform random tokens (B, S + 1) from ``gen``: inputs the first S,
+    labels the last S; an audio arch's frames (B, S, frontend_dim) and a
+    VLM's ``n_patches`` patch embeddings, standard normal."""
+    import torch
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, S, cfg.frontend_dim),
+                                      generator=gen, device=device)
+    elif cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (B, cfg.n_patches, cfg.frontend_dim), generator=gen,
+            device=device)
+    return batch
+
+
+def run_lm(args) -> int:
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import param_count
+
+    device = resolve_device(args.device)
+    cfg = registry.get(args.arch)
+    if args.smoke:
+        cfg = registry.smoke_variant(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    state = zoo.init_train_state(gen, cfg, device=device)
+    print(f"# LM training {cfg.name} ({'smoke' if args.smoke else 'full'}): "
+          f"{param_count(state['params']):,} params")
+    t0 = time.time()
+    for step in range(args.steps):
+        batch = lm_batch(gen, cfg, args.batch, args.seq, device)
+        state, metrics = zoo.train_step(state, batch, cfg)
+        if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
+            print(f"step {step:4d} loss={float(metrics['loss']):.4f} "
+                  f"({time.time()-t0:.1f}s)")
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        save_pytree(os.path.join(args.out, "state.npz"), state,
+                    {"arch": cfg.name, "steps": args.steps})
+        print(f"saved to {args.out}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("fed", "lm"), default="fed")
@@ -138,15 +202,16 @@ def main(argv=None) -> int:
                     help="trace the run and stream per-round records "
                          "into this dir (render with python -m "
                          "repro_torch.launch.inspect DIR)")
+    ap.add_argument("--arch", default="gemma-2b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain kernel versions)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
-    if args.mode == "lm":
-        raise NotImplementedError("--mode lm (the model zoo) is not yet "
-                                  "ported to repro_torch (ROADMAP.md)")
-    return run_fed(args)
+    return run_fed(args) if args.mode == "fed" else run_lm(args)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ outside any kernel: its q/k head dim (192) differs from v's (128).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.models.modules import apply_rope, dense_init, rmsnorm
@@ -209,12 +210,15 @@ def _mla_qkv(params, x, positions, *, n_heads, qk_nope, qk_rope, kv_rank,
 def mla_fwd(params, x, *, n_heads: int, qk_nope: int, qk_rope: int,
             v_dim: int, kv_rank: int, rope_theta: float,
             causal: bool = True, window: int | None = None, positions=None,
-            q_chunk: int | None = None):
+            q_chunk: int | None = None, remat: bool = False):
     """x (B, S, D) -> (B, S, D). Scores in fp32 (the products of the
     activation dtype summed in fp32, as ``preferred_element_type``), masked
     by −1e30, probabilities cast to the activation dtype before P·V.
     ``q_chunk``: queries in chunks of that many rows, one after another, so
-    the live scores are (B, H, q_chunk, S) instead of (B, H, S, S)."""
+    the live scores are (B, H, q_chunk, S) instead of (B, H, S, S); with
+    ``remat`` and grad enabled each chunk is ``torch.utils.checkpoint``ed
+    (the reference's ``jax.checkpoint`` of a chunk), so its backward keeps
+    no chunk's scores but the one it recomputes."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -243,8 +247,12 @@ def mla_fwd(params, x, *, n_heads: int, qk_nope: int, qk_rope: int,
         if S % q_chunk:
             raise ValueError(f"mla_fwd: S={S} is not a multiple of "
                              f"q_chunk={q_chunk}")
-        out = torch.cat([block(q_nope[:, i:i + q_chunk],
-                               q_pe[:, i:i + q_chunk], i)
+        run = block
+        if remat and torch.is_grad_enabled():
+            def run(qn, qp, q_off):
+                return checkpoint(block, qn, qp, q_off, use_reentrant=False)
+        out = torch.cat([run(q_nope[:, i:i + q_chunk],
+                             q_pe[:, i:i + q_chunk], i)
                          for i in range(0, S, q_chunk)], dim=1)
     return out.reshape(B, S, n_heads * v_dim) @ params["wo"].to(x.dtype)
 

@@ -12,6 +12,9 @@
     the JAX package computes them outside any Pallas kernel.
   * aux losses: Switch load-balance loss, router z-loss, and each
     expert's share of the assignments.
+  * determinism on the card: no sum goes through atomics, in the forward
+    (the combine is a sum over each token's k slots) or the backward (a
+    token's copies are gathered by indexing, whose backward sorts).
 
 The capacity is ``int(round(tokens · k / E · capacity_factor))`` (Python's
 round, half to even), at least 1, rounded up to a multiple of 8, exactly
@@ -138,11 +141,12 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
 
     out_buf = _experts(params, buf, act)
 
-    # combine back with the gate weights
+    # combine back with the gate weights: a token's k slots are rows
+    # t·k .. t·k + k − 1, so the combine is a sum over k in a fixed order
+    # (an index_add_ adds them with atomics on the card, in any order)
     gathered = out_buf[flat_e, safe_rank]                        # (N*k, D)
     w = (gate_vals.reshape(-1) * keep).to(xt.dtype)
-    y = torch.zeros((N, D), dtype=xt.dtype, device=x.device)
-    y.index_add_(0, tok_idx, gathered * w[:, None])
+    y = (gathered * w[:, None]).reshape(N, top_k, D).sum(1)
     if "shared" in params:
         y = y + _shared(params, xt, act)
     return y.reshape(B, S, D), MoEAux(*_aux(logits, probs, expert_ids, E))
@@ -180,7 +184,10 @@ def moe_apply_grouped(params, x: torch.Tensor, *, top_k: int,
     cell_valid = cells < torch.clamp(counts, max=C)[:, :, None]
     slot_idx = torch.clamp(src_slot, 0, TK - 1).reshape(G, E * C)
     tok_for_buf = torch.gather(sorted_tok, 1, slot_idx)          # (G, E*C)
-    buf = torch.gather(x, 1, tok_for_buf[..., None].expand(G, E * C, D))
+    # advanced indexing, not torch.gather: a token fills up to k cells, and
+    # gather's backward (scatter_add_) would sum their gradients with
+    # atomics on the card; indexing's backward sums them in a fixed order
+    buf = x[torch.arange(G, device=dev)[:, None], tok_for_buf]
     buf = buf * cell_valid.reshape(G, E * C, 1).to(buf.dtype)
 
     ebuf = buf.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)

@@ -2,11 +2,13 @@
 gating) and mLSTM (matrix memory), Beck et al. 2024 (arXiv:2405.04517),
 stabilized formulations.
 
-Both recurrent scans are a plain loop over time: the JAX package's
+Both recurrent scans are a plain loop over time. The JAX package's
 ``jax.checkpoint`` chunks of ``chunk`` steps bound only the memory of a
-backward pass and change no value, so ``chunk`` stays in the signatures
-and picks nothing here. The chunkwise-parallel mLSTM (``mlstm_chunkwise``)
-is the reference's SSD-like form: an intra-chunk masked (Q × Q) product
+backward pass and change no value: here they are
+``torch.utils.checkpoint``ed chunks when ``remat`` is set and grad is
+enabled (the zoo passes ``cfg.remat``), and ``chunk`` picks nothing else.
+The chunkwise-parallel mLSTM (``mlstm_chunkwise``) is the reference's
+SSD-like form: an intra-chunk masked (Q × Q) product
 and a loop over chunks carrying the stabilized (C, n, m) state. The JAX
 package runs both in jnp, outside any kernel, and so does the port.
 
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.modules import (dense_init, init_layernorm,
                                         layernorm, randn)
@@ -88,15 +91,41 @@ def _slstm_init(B: int, d: int, dtype, device):
             _zeros32(B, d, device=device) + M_INIT)
 
 
-def slstm_scan(params, x, n_heads: int, chunk: int = 64, init=None):
+def _time_loop(step, carry: tuple, S: int, chunk: int, remat: bool):
+    """carry, h_t = step(carry, t) for t < S -> (final carry, the h_t
+    stacked on dim 1). With ``remat`` and grad enabled, each run of q steps
+    (q = ``chunk`` cut to divide S, as the reference cuts it) goes under
+    ``torch.utils.checkpoint``: the reference's ``jax.checkpoint`` around
+    each chunk's scan. The values do not change."""
+    def run(t0: int, q: int, *carry):
+        hs = []
+        for t in range(t0, t0 + q):
+            carry, h = step(carry, t)
+            hs.append(h)
+        return (*carry, torch.stack(hs, dim=1))
+
+    if not (remat and torch.is_grad_enabled()):
+        *carry, h = run(0, S, *carry)
+        return tuple(carry), h
+    q = min(chunk, S)
+    while S % q:
+        q -= 1
+    chunks = []
+    for t0 in range(0, S, q):
+        *carry, h = checkpoint(run, t0, q, *carry, use_reentrant=False)
+        chunks.append(h)
+    return tuple(carry), torch.cat(chunks, dim=1)
+
+
+def slstm_scan(params, x, n_heads: int, chunk: int = 64, init=None,
+               remat: bool = False):
     """x: (B, S, d) -> (h_seq (B, S, d), final carry)."""
     B, S, d = x.shape
     carry = _slstm_init(B, d, x.dtype, x.device) if init is None else init
-    hs = []
-    for t in range(S):
-        carry, h = slstm_cell(params, carry, x[:, t], n_heads)
-        hs.append(h)
-    return torch.stack(hs, dim=1), carry
+    carry, h = _time_loop(
+        lambda c, t: slstm_cell(params, c, x[:, t], n_heads), tuple(carry),
+        S, chunk, remat)
+    return h, carry
 
 
 def _slstm_ffn(params, x):
@@ -106,9 +135,11 @@ def _slstm_ffn(params, x):
     return x + (g * up) @ params["w_down"].to(x.dtype)
 
 
-def slstm_block_fwd(params, x, *, n_heads: int, chunk: int = 64):
+def slstm_block_fwd(params, x, *, n_heads: int, chunk: int = 64,
+                    remat: bool = False):
     """Full pre-norm sLSTM block with the post-FFN."""
-    h, _ = slstm_scan(params, layernorm(params["ln"], x), n_heads, chunk)
+    h, _ = slstm_scan(params, layernorm(params["ln"], x), n_heads, chunk,
+                      remat=remat)
     return _slstm_ffn(params, x + layernorm(params["gn"], h))
 
 
@@ -194,19 +225,19 @@ def _mlstm_qkv_if(x_inner, params, n_heads: int):
     return q, k, v, if_r[:, :, 0], if_r[:, :, 1]
 
 
-def mlstm_scan(x_inner, params, n_heads: int, chunk: int = 32, init=None):
+def mlstm_scan(x_inner, params, n_heads: int, chunk: int = 32, init=None,
+               remat: bool = False):
     """Recurrent mLSTM. x_inner: (B, S, di) pre-projected. Returns
     (h (B, S, di), carry)."""
     B, S, di = x_inner.shape
     q, k, v, i_r, f_r = _mlstm_qkv_if(x_inner, params, n_heads)
     carry = (_mlstm_init(B, n_heads, di // n_heads, x_inner.device)
              if init is None else init)
-    hs = []
-    for t in range(S):
-        carry, h = mlstm_cell(carry, (q[:, t], k[:, t], v[:, t], i_r[:, t],
-                                      f_r[:, t]))
-        hs.append(h)
-    return torch.stack(hs, dim=1).reshape(B, S, di), carry
+    carry, h = _time_loop(
+        lambda c, t: mlstm_cell(c, (q[:, t], k[:, t], v[:, t], i_r[:, t],
+                                    f_r[:, t])), tuple(carry), S, chunk,
+        remat)
+    return h.reshape(B, S, di), carry
 
 
 def k_scale(P: int, dtype) -> float:
@@ -279,11 +310,12 @@ def mlstm_chunkwise(q, k, v, i_r, f_r, chunk: int, init=None):
 
 
 def mlstm_seq(x_inner, params, n_heads: int, chunk: int = 32,
-              impl: str = "recurrent"):
-    """Dispatch: the recurrent scan, or the chunkwise-parallel form (chunk
-    ``min(chunk, S)``, which must divide S)."""
+              impl: str = "recurrent", remat: bool = False):
+    """Dispatch: the recurrent scan (``remat``: checkpointed chunks), or the
+    chunkwise-parallel form (chunk ``min(chunk, S)``, which must divide
+    S)."""
     if impl == "recurrent":
-        return mlstm_scan(x_inner, params, n_heads, chunk)
+        return mlstm_scan(x_inner, params, n_heads, chunk, remat=remat)
     if impl != "chunkwise":
         raise ValueError(f"mlstm_impl {impl!r}: recurrent or chunkwise")
     B, S, di = x_inner.shape
@@ -300,9 +332,10 @@ def _mlstm_in(params, x):
 
 
 def mlstm_block_fwd(params, x, *, n_heads: int, proj_factor: int = 2,
-                    chunk: int = 32, impl: str = "recurrent"):
+                    chunk: int = 32, impl: str = "recurrent",
+                    remat: bool = False):
     inner, gate = _mlstm_in(params, x)
-    h, _ = mlstm_seq(inner, params, n_heads, chunk, impl=impl)
+    h, _ = mlstm_seq(inner, params, n_heads, chunk, impl=impl, remat=remat)
     h = layernorm(params["gn"], h) * gate
     return x + h @ params["w_down"].to(x.dtype)
 

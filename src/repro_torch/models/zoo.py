@@ -14,9 +14,18 @@ is the ``swa_attention`` kernel (the MTP head's dense block too); MLA and
 xLSTM are plain PyTorch, as the JAX package computes them outside any
 kernel.
 
-Not yet ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item, queue 1): the training step (``loss_fn``, ``train_step``; 17f) and a
-sharded KV cache (``serve_step``'s ``kv_spec``; 16).
+Training (``loss_fn``, ``init_train_state``, ``train_step``) is the JAX
+package's: cross-entropy with masked labels plus the MoE aux losses and
+the MTP head's, and AdamW with bias correction and fp32 moments. The
+backward runs through autograd, and through the kernels' own backward
+kernels (``SwaAttentionFn``, ``SsdIntraChunkFn``) on the card. With
+``cfg.remat`` each layer body (xLSTM: each block, and each unit of
+``xlstm_scan_units``) is ``torch.utils.checkpoint``ed, as the reference
+wraps it in ``jax.checkpoint``. ``train_step`` updates the state in place,
+leaf by leaf, so a step never holds two copies of params and moments.
+
+Not yet ported (raises ``NotImplementedError`` naming its ROADMAP.md item,
+queue 1): a sharded KV cache (``serve_step``'s ``kv_spec``; 16).
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as attn
@@ -34,10 +44,12 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.modules import (dense_init, embed_init, init_mlp,
                                         init_rmsnorm, mlp_apply, rmsnorm,
-                                        tree_index, tree_map, tree_stack)
+                                        tree_index, tree_leaves, tree_map,
+                                        tree_stack)
+from repro_torch.optim.solvers import adamw_update
 
 
-_ROADMAP_ITEM = {"train": "17f (LM training)", "mesh": "16 (multi-GPU)"}
+_ROADMAP_ITEM = {"mesh": "16 (multi-GPU)"}
 
 
 def _not_ported(what: str, kind: str):
@@ -302,7 +314,7 @@ def _moe_block_fwd(cfg: ArchConfig, p, x, positions):
     if cfg.mla:
         a = attn.mla_fwd(p["attn"], xn, causal=cfg.causal,
                          positions=positions, q_chunk=cfg.attn_q_chunk,
-                         **_mla_kw(cfg))
+                         remat=cfg.remat, **_mla_kw(cfg))
     else:
         a = attn.attention_fwd(p["attn"], xn, causal=cfg.causal,
                                positions=positions, **_attn_kw(cfg))
@@ -324,11 +336,12 @@ def _mamba_block_fwd(cfg: ArchConfig, p, x):
 def _xlstm_block_fwd(cfg: ArchConfig, kind: str, p, x):
     if kind == "s":
         return xlstm_lib.slstm_block_fwd(p, x, n_heads=cfg.n_heads,
-                                         chunk=cfg.xlstm_chunk)
+                                         chunk=cfg.xlstm_chunk,
+                                         remat=cfg.remat)
     return xlstm_lib.mlstm_block_fwd(p, x, n_heads=cfg.n_heads,
                                      proj_factor=cfg.mlstm_proj_factor,
                                      chunk=cfg.xlstm_chunk,
-                                     impl=cfg.mlstm_impl)
+                                     impl=cfg.mlstm_impl, remat=cfg.remat)
 
 
 def _pattern_period(pattern) -> int:
@@ -379,56 +392,90 @@ def _logits(params, cfg: ArchConfig, h):
     return h @ params["lm_head"].to(h.dtype)
 
 
+def _remat(cfg: ArchConfig, fn, *args):
+    """fn(*args), under ``torch.utils.checkpoint`` when ``cfg.remat`` is set
+    and grad is enabled (the reference's ``jax.checkpoint``): the same
+    values, with only the inputs kept for the backward, which runs fn
+    again."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _layers(blocks, n: int) -> list:
+    """The stacked layer params as n per-layer dicts of views. One unbind
+    a leaf: its backward stacks the layers' gradients once, where a
+    select per layer would add a zero-filled copy of the whole stack's
+    gradient for every layer."""
+    if isinstance(blocks, dict):
+        per = {k: _layers(v, n) for k, v in blocks.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(blocks.unbind(0))
+
+
 def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False):
     """-> (logits (B,S,V), aux dict). return_hidden adds aux['hidden'].
     ``batch["tokens"]``: (B, S) integer tensor on the params' device (or
     ``"frames"``, or ``"patch_embeds"`` with the text, as the family
-    reads them). The MoE family's aux losses are the layers' means."""
+    reads them). The MoE family's aux losses are the layers' means. With
+    ``cfg.remat`` and grad enabled, each layer body is checkpointed."""
     x, _ = embed_inputs(params, cfg, batch)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     aux = {"load_balance_loss": torch.zeros((), device=x.device),
            "router_z_loss": torch.zeros((), device=x.device)}
-    blocks = params.get("blocks")
     if cfg.family in ("dense", "vlm", "audio"):
-        for i in range(cfg.n_layers):
-            x = _dense_block_fwd(cfg, tree_index(blocks, i), x, positions)
+        def body(h, p):
+            return _dense_block_fwd(cfg, p, h, positions)
+        for p in _layers(params["blocks"], cfg.n_layers):
+            x = _remat(cfg, body, x, p)
     elif cfg.family == "moe":
+        def body(h, p):
+            h, a = _moe_block_fwd(cfg, p, h, positions)
+            return h, a.load_balance_loss, a.router_z_loss
         lb, zl = [], []
-        for i in range(cfg.n_layers):
-            x, a = _moe_block_fwd(cfg, tree_index(blocks, i), x, positions)
-            lb.append(a.load_balance_loss)
-            zl.append(a.router_z_loss)
+        for p in _layers(params["blocks"], cfg.n_layers):
+            x, lb_i, zl_i = _remat(cfg, body, x, p)
+            lb.append(lb_i)
+            zl.append(zl_i)
         aux["load_balance_loss"] = torch.mean(torch.stack(lb))
         aux["router_z_loss"] = torch.mean(torch.stack(zl))
     elif cfg.family == "hybrid":
         shared = params["shared_attn"]
         period = cfg.shared_attn_period
-        for i in range(cfg.n_layers):
-            x = _mamba_block_fwd(cfg, tree_index(blocks, i), x)
-            if period > 0 and (i + 1) % period == 0:
-                x = _dense_block_fwd(cfg, shared, x, positions)
+
+        def body(h, p, shared_app: bool):
+            h = _mamba_block_fwd(cfg, p, h)
+            if shared_app:
+                h = _dense_block_fwd(cfg, shared, h, positions)
+            return h
+        for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
+            x = _remat(cfg, body, x, p,
+                       period > 0 and (i + 1) % period == 0)
     else:                                                   # ssm (xLSTM)
-        # xlstm_scan_units: the JAX package scans n_layers / period units of
-        # `period` blocks, to bound its backward's live buffers to one
-        # unit. Units run in layer order, so here they are the same loop.
-        period = (_pattern_period(cfg.xlstm_pattern) if cfg.xlstm_scan_units
-                  else cfg.n_layers)
-        for u in range(cfg.n_layers // period):
-            for i in range(u * period, (u + 1) * period):
-                x = _xlstm_block_fwd(cfg, cfg.xlstm_pattern[i],
-                                     params["blocks_list"][i], x)
+        pattern, blocks = cfg.xlstm_pattern, params["blocks_list"]
+
+        def block(h, i):
+            return _xlstm_block_fwd(cfg, pattern[i], blocks[i], h)
+
+        # xlstm_scan_units: the JAX package scans n_layers / period units,
+        # each checkpointed around its blocks' own checkpoints, to bound
+        # its backward's live buffers to one unit; units run in layer
+        # order, so here they are the same loop, nested the same way
+        period = _pattern_period(pattern)
+        if cfg.xlstm_scan_units and period < cfg.n_layers:
+            def unit(h, u):
+                for i in range(u * period, (u + 1) * period):
+                    h = _remat(cfg, block, h, i)
+                return h
+            for u in range(cfg.n_layers // period):
+                x = _remat(cfg, unit, x, u)
+        else:
+            for i in range(cfg.n_layers):
+                x = _remat(cfg, block, x, i)
     if return_hidden:
         aux["hidden"] = x
     return _logits(params, cfg, x), aux
-
-
-def loss_fn(*args, **kw):
-    raise _not_ported("LM training (loss_fn / train_step, --mode lm)",
-                      "train")
-
-
-train_step = init_train_state = loss_fn
 
 
 def mtp_logits(params, cfg: ArchConfig, hidden, tokens):
@@ -446,6 +493,103 @@ def mtp_logits(params, cfg: ArchConfig, hidden, tokens):
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x = _dense_block_fwd(cfg.replace(mla=False), mtp["block"], x, positions)
     return _logits(params, cfg, x)
+
+
+# ===========================================================================
+# Loss / train step
+# ===========================================================================
+
+def _ce(logits, labels):
+    """Mean cross-entropy in fp32 over the labels >= 0."""
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    ce = -torch.take_along_dim(torch.log_softmax(logits.float(), -1),
+                               safe[..., None], dim=-1)[..., 0]
+    return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1)
+
+
+def loss_fn(params, cfg: ArchConfig, batch):
+    """-> (total loss, metrics): the cross-entropy of ``batch["labels"]``
+    (B, S_text; < 0 masked; a VLM's on its last S_text positions, the
+    text), plus ``aux_loss_weight`` × load balance and ``z_loss_weight`` ×
+    router z-loss, and with ``cfg.mtp`` ``mtp_weight`` × the MTP head's
+    cross-entropy on ``labels[:, 1:]``. Metrics: ``ce`` (``mtp_ce``),
+    ``load_balance_loss``, ``router_z_loss``."""
+    logits, aux = forward(params, cfg, batch, return_hidden=cfg.mtp)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
+    ce = _ce(logits, labels)
+    total = (ce + cfg.aux_loss_weight * aux["load_balance_loss"]
+             + cfg.z_loss_weight * aux["router_z_loss"])
+    metrics = {"ce": ce}
+    hidden = aux.pop("hidden", None)
+    if cfg.mtp:
+        mtp_ce = _ce(mtp_logits(params, cfg, hidden, batch["tokens"]),
+                     labels[:, 1:])
+        total = total + cfg.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return total, {**metrics, **aux}
+
+
+def init_train_state(gen: Optional[torch.Generator], cfg: ArchConfig,
+                     device="cuda"):
+    """{"params", "mu", "nu", "step"}: ``init_params``, fp32 zeros of the
+    params' shapes for both moments, and an int32 step of 0."""
+    device = resolve_device(device)
+    params = init_params(gen, cfg, device)
+
+    def zeros():
+        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+    return {"params": params, "mu": zeros(), "nu": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+ADAM_SLICE = 1 << 24         # elements a slice of the in-place update
+
+
+def train_step(state, batch, cfg: ArchConfig, b1=0.9, b2=0.95, eps=1e-8):
+    """One AdamW step on the gradients of ``loss_fn``; returns (state,
+    metrics: ``loss`` and ``loss_fn``'s). The update is
+    ``optim.solvers.adamw_update`` (bias correction, eps outside the sqrt,
+    decoupled weight decay in fp32, fp32 moments, params cast back to their
+    dtype), applied IN PLACE to ``state``'s params, ``mu`` and ``nu``, leaf
+    by leaf in the reference's leaf order, in slices of ``ADAM_SLICE``
+    elements, each gradient freed once used: a functional update would
+    hold a second copy of params and moments (16 bytes a param; 40 GB for
+    Gemma-2B). ``state["step"]`` becomes step + 1."""
+    leaves = tree_leaves(state["params"])
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss, metrics = loss_fn(state["params"], cfg, batch)
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                             materialize_grads=True))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    step = state["step"]
+    with torch.no_grad():
+        for i, (p, mu, nu) in enumerate(zip(leaves, tree_leaves(state["mu"]),
+                                            tree_leaves(state["nu"]))):
+            pf, gf, mf, nf = p.view(-1), grads[i].reshape(-1), mu.view(-1), \
+                nu.view(-1)
+            for lo in range(0, pf.numel(), ADAM_SLICE):
+                sl = slice(lo, lo + ADAM_SLICE)
+                new_p, opt = adamw_update(
+                    {"w": pf[sl]}, {"w": gf[sl]},
+                    {"mu": {"w": mf[sl]}, "nu": {"w": nf[sl]}, "step": step},
+                    cfg.lr, b1=b1, b2=b2, eps=eps,
+                    weight_decay=cfg.weight_decay)
+                pf[sl].copy_(new_p["w"])
+                mf[sl].copy_(opt["mu"]["w"])
+                nf[sl].copy_(opt["nu"]["w"])
+            grads[i] = None
+    state["step"] = step + 1
+    return state, {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in metrics.items()}}
 
 
 # ===========================================================================

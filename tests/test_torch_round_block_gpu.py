@@ -108,3 +108,43 @@ def test_capture_failure_raises(cuda):
     with pytest.raises(RuntimeError, match="capture"):
         tr.run(4)
     assert ex.replays == 0
+
+
+def _capture_doubling(x):
+    g = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x * 2
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(g):
+        y = x * 2
+    return g, y
+
+
+def test_capture_under_gc_paused_survives_forced_collections(cuda):
+    """A graph left in a reference cycle is destroyed by the next cyclic
+    collection, which CUDA does not permit while a stream captures. Both
+    executors capture under ``fed.graphs.gc_paused`` (collect first, then
+    no collection until the capture ends): with a collection forced at
+    every allocation, a capture after such a cycle is dropped still
+    replays right."""
+    import gc
+
+    from repro_torch.fed.graphs import gc_paused
+
+    x = torch.ones(1024, device="cuda")
+    old, _ = _capture_doubling(x)
+    cycle = {"graph": old}
+    cycle["self"] = cycle
+    del old, cycle
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)              # a collection at every allocation
+    try:
+        with gc_paused():
+            g, y = _capture_doubling(x)
+    finally:
+        gc.set_threshold(*thresholds)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2)

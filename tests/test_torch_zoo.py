@@ -288,16 +288,18 @@ def test_serve_step_leaves_its_cache_unchanged(zamba):
 
 def test_unported_archs_and_families_raise():
     """Every arch of the JAX package's registry resolves (DeepSeek-V3 and
-    xLSTM-350M too); what stays unported names its ROADMAP item: the
-    training step (17f) and a sharded KV cache (16)."""
+    xLSTM-350M too); what stays unported names its ROADMAP item: a sharded
+    KV cache (16). The training step (17f) is ported: it no longer raises
+    (tests/test_torch_train_*.py hold it to the reference)."""
     assert set(registry.ARCHS) == set(jreg.ARCHS)
     for arch in ("deepseek-v3-671b", "xlstm-350m"):
         assert registry.get(arch).__dict__ == jreg.get(arch).__dict__
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get("no-such-arch")
-    for call in (zoo.train_step, zoo.loss_fn, zoo.init_train_state):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*17f"):
-            call()
+    assert "17f" not in str(zoo._ROADMAP_ITEM)
+    state = zoo.init_train_state(torch.Generator().manual_seed(0), _cfg(),
+                                 device="cpu")
+    assert int(state["step"]) == 0
     for arch in ("deepseek-v3-671b", "xlstm-350m"):
         cfg = registry.smoke_variant(registry.get(arch))
         tp = zoo.init_params(torch.Generator().manual_seed(0), cfg,
