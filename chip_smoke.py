@@ -272,19 +272,27 @@ with no final ``ok`` line):
                 decode step; the serve CLI with
                 ``--arch xlstm-350m``. The xLSTM forwards' launches are
                 their ATen ops (a dispatch-mode count).
-  6d. training — the backward kernels (``csrc/swa_attention_bwd.cu``,
-                ``csrc/ssd_chunk_bwd.cu``) against their plain versions
-                and ``torch.autograd.grad`` through the plain forward, on
-                the same CUDA tensors, each called twice and equal bit
-                for bit: swa_attention_bwd at Zamba2's shape (B4 S2048
-                H32 hd64 bf16), Gemma's (H8 KV1 hd256), HuBERT's (hd80,
-                bidirectional), a 64 window with Sq < Sk, and fp32 (within
-                2e-2 bf16 / 1e-4 fp32 of each gradient's largest
-                magnitude), ms, plain ms, bound (10·hd FLOPs a kept pair,
-                2.5 × the forward's) and the library's (``autograd.grad``
-                through SDPA); ssd_intra_chunk_bwd at Zamba2's (b4, 16
-                chunks, 64 heads, Q128, P = N = 64, B and C one stride-0
-                group; bf16 and fp32; elementwise 2e-4), no library call.
+  6d. training — the backward kernels (swa_attention_bwd's two routes,
+                ``tc``: ``csrc/swa_attention_bwd_tc.cu``, bf16 tensor
+                cores, and ``fp32``: ``csrc/swa_attention_bwd.cu``; and
+                ``csrc/ssd_chunk_bwd.cu``, 3xTF32) against their plain
+                versions and ``torch.autograd.grad`` through the plain
+                forward, on the same CUDA tensors, each called twice and
+                equal bit for bit, each case naming its route:
+                swa_attention_bwd at Zamba2's shape (B4 S2048 H32 hd64
+                bf16), Gemma's (H8 KV1 hd256), HuBERT's (hd80,
+                bidirectional), a 64 window with Sq < Sk (all ``tc``), and
+                fp32 (``fp32``) (within 2e-2 bf16 / 1e-4 fp32 of each
+                gradient's largest magnitude; the ``tc`` cases also
+                against the plain version that rounds as they round), ms,
+                plain ms, bound (10·hd FLOPs a kept pair, 2.5 × the
+                forward's) and the library's (``autograd.grad`` through
+                SDPA); ssd_intra_chunk_bwd at Zamba2's (b4, 16 chunks, 64
+                heads, Q128, P = N = 64, B and C one group; bf16 and fp32;
+                elementwise 2e-4 of the plain version and of autograd
+                through the plain forward, both in float64, with the
+                fp32 plain version's distances recorded; dB, dC one a
+                group), no library call.
                 Then one ``train_step`` of every registry arch's smoke
                 variant (remat on) on the card against the CPU's (loss
                 1e-4, gradients 1e-4 of each leaf's largest, params 1e-3
@@ -295,15 +303,18 @@ with no final ``ok`` line):
                 ssd_intra_chunk_bwd launches (else the run fails), step
                 ms, loss, peak memory, a fourth step under torch.profiler
                 (busy share, the backward kernels' device ms, GEMMs,
-                casts); the same cut to 6 layers with remat
+                casts), a fifth under a dispatch mode that fails the run
+                on any sum of a per-head (…, h, n) tensor over its heads
+                (a dense per-head dB or dC); the same cut to 6 layers with
+                remat
                 on and off: loss and gradients equal bit for bit, both
                 peaks; Gemma-2B whole (B1 S2048): three steps, 18
                 swa_attention_bwd launches each, step ms and peak, and a
                 profiled fourth.
-  7. the ``{"kernels": [...]}`` line (the two routes of swa_attention and
-     of ssd_intra_chunk as rows of their own, ``<name>.tc`` and
-     ``<name>.fp32``, and the two backward kernels, ``swa_attention_bwd``
-     and ``ssd_intra_chunk_bwd``, whose ``replaces`` names the jnp
+  7. the ``{"kernels": [...]}`` line (the two routes of swa_attention, of
+     ssd_intra_chunk and of swa_attention_bwd as rows of their own,
+     ``<name>.tc`` and ``<name>.fp32``, and ``ssd_intra_chunk_bwd``; the
+     backward kernels' ``replaces`` names the jnp
      function whose ``jax.vjp`` each matches; edc_cosine's launches count
      phase 4's EDC, MADC, 20-group and shift runs and phase 4d's, 4e's,
      4f's, 4g's and 4h's FedGroup runs; swa_attention's count Zamba2's and
@@ -415,6 +426,11 @@ Q_CHUNK, Q_CHUNK_S, Q_CHUNK_TOL, Q_CHUNK_LOGIT_TOL = 512, 2048, 1e-5, 0.0
 # elementwise within SSD_TOL), at the training shapes: label -> (B, Sq,
 # Sk, H, KV, hd, window, causal, dtype)
 TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# swa_attention_bwd's tc route against the plain version that rounds dO, P
+# and dS to bf16 where it does: its fp32 scores differ from the plain
+# version's in the last bits, which can flip a P or dS element by one bf16
+# step
+SWA_TC_RND_TOL = 5e-3
 TRAIN_SWA = {"zamba2-train": (4, 2048, 2048, 32, 32, 64, None, True,
                               "bfloat16"),
              "gemma-train": (1, 2048, 2048, 8, 1, 256, None, True,
@@ -3861,11 +3877,13 @@ def check_train_kernels(torch) -> dict:
         def bwd():
             return swa_mod.swa_attention_bwd(q, k, v, o, do, window=window,
                                              causal=causal)
-        before = swa_mod.launches_bwd
+        route = swa_mod._bwd_route(q.dtype, k.dtype, hd)
+        before = swa_mod.launches_bwd_by_route[route]
         got, again = bwd(), bwd()
         torch.cuda.synchronize()
-        if swa_mod.launches_bwd != before + 2:
-            raise AssertionError(f"swa_attention_bwd {label}: not launched")
+        if swa_mod.launches_bwd_by_route[route] != before + 2:
+            raise AssertionError(f"swa_attention_bwd {label}: the {route} "
+                                 "route was not launched")
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         want = ref.swa_attention_bwd_ref(q, k, v, o, do, window=window,
@@ -3873,6 +3891,13 @@ def check_train_kernels(torch) -> dict:
         err = grad_rel_err(torch, got, want)
         abs_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         del want
+        # the tc route against the plain version that rounds where it does
+        err_rnd = None
+        if route == "tc":
+            rnd = ref.swa_attention_bwd_ref(q, k, v, o, do, window=window,
+                                            causal=causal, rounded=True)
+            err_rnd = grad_rel_err(torch, got, rnd)
+            del rnd
         leaves = [t.detach().float().requires_grad_(True)
                   for t in (q, k, v)]
         auto = torch.autograd.grad(ref.swa_attention_ref(
@@ -3889,11 +3914,14 @@ def check_train_kernels(torch) -> dict:
                               FP32_OPS_PER_S)
         lib = sdpa_grad_call(torch, q, k, v, do, window, causal)
         row = {"phase": "train_kernel", "name": "swa_attention_bwd",
-               "case": label, "B": B, "Sq": Sq, "Sk": Sk, "H": H, "KV": KV,
-               "hd": hd, "window": window, "causal": causal, "dtype": dt,
-               "kept_pairs": pairs, "max_abs_err": abs_err,
-               "max_rel_err": err, "max_rel_err_autograd": err_auto,
-               "tol": tol, "bit_repeatable": repeat,
+               "route": route, "case": label, "B": B, "Sq": Sq, "Sk": Sk,
+               "H": H, "KV": KV, "hd": hd, "window": window,
+               "causal": causal, "dtype": dt, "kept_pairs": pairs,
+               "max_abs_err": abs_err, "max_rel_err": err,
+               "max_rel_err_autograd": err_auto,
+               "max_rel_err_rounded_plain": err_rnd,
+               "tol": tol, "tol_rounded_plain": SWA_TC_RND_TOL,
+               "bit_repeatable": repeat,
                "ms": cuda_ms(torch, bwd, 10, warmup=1),
                "plain_ms": cuda_ms(torch, lambda: ref.swa_attention_bwd_ref(
                    q, k, v, o, do, window=window, causal=causal), 2,
@@ -3906,11 +3934,12 @@ def check_train_kernels(torch) -> dict:
                "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
         emit(row)
         del lib, got
-        if not (repeat and err <= tol and err_auto <= tol):
+        if not (repeat and err <= tol and err_auto <= tol
+                and (err_rnd is None or err_rnd <= SWA_TC_RND_TOL)):
             raise AssertionError(f"swa_attention_bwd {label}: rel err {err} "
-                                 f"(autograd {err_auto}), repeatable "
-                                 f"{repeat}")
-        rows.setdefault("swa_attention_bwd", row)
+                                 f"(autograd {err_auto}, rounded plain "
+                                 f"{err_rnd}), repeatable {repeat}")
+        rows.setdefault(f"swa_attention_bwd.{route}", row)
 
     b, c, Q, h, p, n = TRAIN_SSD_SHAPE
     for dt in ("bfloat16", "float32"):
@@ -3919,11 +3948,10 @@ def check_train_kernels(torch) -> dict:
         A_cs = torch.cumsum(-0.1 * torch.rand((b, h, c, Q), generator=gen,
                                               device="cuda"), -1)
         Bg, Cg = randn((b, c, Q, 1, n), dtype), randn((b, c, Q, 1, n), dtype)
-        Bc, Cc = (t.expand(b, c, Q, h, n) for t in (Bg, Cg))
         dY, dS = randn((b, c, Q, h, p)), randn((b, c, h, p, n))
 
         def bwd():
-            return ssd_mod.ssd_intra_chunk_bwd(X, A_cs, Bc, Cc, dY, dS)
+            return ssd_mod.ssd_intra_chunk_bwd(X, A_cs, Bg, Cg, dY, dS)
         before = ssd_mod.launches_bwd
         got, again = bwd(), bwd()
         torch.cuda.synchronize()
@@ -3931,48 +3959,69 @@ def check_train_kernels(torch) -> dict:
             raise AssertionError(f"ssd_intra_chunk_bwd {dt}: not launched")
         repeat = all(torch.equal(x, y) for x, y in zip(got, again))
         del again
-        want = ref.ssd_intra_chunk_bwd_ref(X, A_cs, Bc, Cc, dY, dS)
+        # the plain version on the same inputs in float64 (the exact
+        # answer to ~1e-15): each group's dB, dC sums 64 heads x 128 rows,
+        # so the plain version in fp32 is itself ~0.9 of SSD_TOL away from
+        # it at this shape; its distance is recorded beside the kernel's
+        want = ref.ssd_intra_chunk_bwd_ref(*(t.double() for t in (
+            X, A_cs, Bg, Cg, dY, dS)))
+        got64 = [g.double() for g in got]
         checks = [allclose_err(torch, g, w, SSD_TOL, SSD_TOL)
-                  for g, w in zip(got, want)]
+                  for g, w in zip(got64, want)]
         mags = [float(w.abs().max()) for w in want]
-        del want
-        leaves = [t.detach().float().requires_grad_(True)
+        plain32 = ref.ssd_intra_chunk_bwd_ref(X, A_cs, Bg, Cg, dY, dS)
+        ratio = lambda g, w: float(((g.double() - w).abs()  # noqa: E731
+                                    / (SSD_TOL + SSD_TOL * w.abs())).max())
+        ratios = {"kernel_vs_float64": [ratio(g, w) for g, w in
+                                        zip(got, want)],
+                  "kernel_vs_fp32_plain": [ratio(g, w.double()) for g, w in
+                                           zip(got, plain32)],
+                  "fp32_plain_vs_float64": [ratio(p_, w) for p_, w in
+                                            zip(plain32, want)]}
+        del plain32
+        leaves = [t.detach().double().requires_grad_(True)
                   for t in (X, A_cs, Bg, Cg)]
-        Y, St = ref.ssd_intra_chunk_ref(
-            leaves[0], leaves[1], leaves[2].expand(b, c, Q, h, n),
-            leaves[3].expand(b, c, Q, h, n))
-        auto = torch.autograd.grad((Y, St), leaves, (dY, dS))
-        del Y, St, leaves
-        # the kernel writes dB, dC per head; a group's gradient is their sum
-        mine = (got[0], got[1], got[2].sum(3, keepdim=True),
-                got[3].sum(3, keepdim=True))
+        Y, St = ref.ssd_intra_chunk_ref(*leaves)
+        auto = torch.autograd.grad((Y, St), leaves, (dY.double(),
+                                                     dS.double()))
+        del Y, St, leaves, want
+        # the kernel writes dB, dC once a group, as autograd sums them
         checks_auto = [allclose_err(torch, g, w, SSD_TOL, SSD_TOL)
-                       for g, w in zip(mine, auto)]
-        del auto, mine
+                       for g, w in zip(got64, auto)]
+        del auto, got64
         uniq = lambda t: t.untyped_storage().nbytes()  # noqa: E731
         n_bytes = (sum(uniq(t) for t in (X, A_cs, Bg, Cg, dY, dS))
                    + sum(t.numel() for t in got) * 4)
-        flops = b * c * h * (Q * Q * (3 * n + 2 * p) + 4 * Q * p * n)
-        bf16 = dtype == torch.bfloat16
-        b_ms, b_by = bound_ms(n_bytes, flops, BF16_OPS_PER_S if bf16 else
-                              FP32_OPS_PER_S)
+        # the products this call needs over the causal triangle: per head
+        # dY Xᵀ and Mᵀ dY (Q²·P each) and B dSᵀ, X dS (2·Q·P·N each); per
+        # group C Bᵀ, (ΣW) B and (ΣW)ᵀ C (Q²·N each); fp32 accuracy as
+        # three TF32 products on the tensor cores
+        g = Bg.shape[3]
+        flops = b * c * (h * (2 * Q * Q * p + 4 * Q * p * n)
+                         + g * 3 * Q * Q * n)
+        b_ms, b_by = bound_ms(n_bytes, 3 * flops, TF32_OPS_PER_S)
         ok = repeat and all(k[1] for k in checks + checks_auto)
         row = {"phase": "train_kernel", "name": "ssd_intra_chunk_bwd",
                "case": f"zamba2-train-{dt}", "b": b, "chunks": c, "Q": Q,
-               "h": h, "P": p, "N": n, "dtype": dt, "bc": "one group, "
-               "stride 0 over the heads",
+               "h": h, "P": p, "N": n, "dtype": dt, "bc": "one group "
+               "(b, c, Q, 1, n); dB, dC one a group",
                "max_abs_err": max(k[0] for k in checks),
                "max_abs_err_by_output": dict(zip(("dX", "dA_cs", "dB", "dC"),
                                                  (k[0] for k in checks))),
                "max_abs_by_output": dict(zip(("dX", "dA_cs", "dB", "dC"),
                                              mags)),
                "max_abs_err_autograd": max(k[0] for k in checks_auto),
+               "err_over_tol_by_output (dX, dA_cs, dB, dC)": ratios,
+               "reference": "the plain version in float64; autograd "
+                            "through the plain forward in float64",
                "tol": SSD_TOL, "bit_repeatable": repeat,
                "ms": cuda_ms(torch, bwd, 10, warmup=1),
                "plain_ms": cuda_ms(torch, lambda: ref.ssd_intra_chunk_bwd_ref(
-                   X, A_cs, Bc, Cc, dY, dS), 2, warmup=1),
+                   X, A_cs, Bg, Cg, dY, dS), 2, warmup=1),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-               "peak": "bf16 989 TFLOP/s" if bf16 else "fp32 67 TFLOP/s"}
+               "flops": flops, "bytes": n_bytes,
+               "peak": "3 x TF32 495 TFLOP/s (fp32 accuracy), HBM 3.35 TB/s",
+               "bound_fp32_cores_ms": flops / FP32_OPS_PER_S * 1e3}
         emit(row)
         del got
         if not ok:
@@ -4012,7 +4061,8 @@ def train_smoke_steps(torch) -> dict:
     from repro_torch.models import zoo
     from repro_torch.models.modules import tree_leaves, tree_map
 
-    total = {"swa_attention_bwd": 0, "ssd_intra_chunk_bwd": 0}
+    total = {"swa_attention_bwd": 0, "ssd_intra_chunk_bwd": 0,
+             "swa_attention_bwd.tc": 0, "swa_attention_bwd.fp32": 0}
     for arch in sorted(registry.ARCHS):
         cfg = registry.smoke_variant(registry.get(arch)).replace(remat=True)
         st_cpu = zoo.init_train_state(torch.Generator().manual_seed(0), cfg,
@@ -4029,7 +4079,8 @@ def train_smoke_steps(torch) -> dict:
         st, m = zoo.train_step(st, gb, cfg)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        counts = ops.backward_launch_counts()
+        counts = {**ops.backward_launch_counts(),
+                  **ops.backward_route_counts()}
         for key in total:
             total[key] += counts[key]
         st_cpu, m_cpu = zoo.train_step(st_cpu, batch, cfg)
@@ -4098,7 +4149,9 @@ def train_full(torch, arch: str, B: int, want_params: int,
     state_bytes = torch.cuda.memory_allocated() - base
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    steps, total = [], dict.fromkeys(want_bwd, 0)
+    routes_want = {"swa_attention_bwd.tc": want_bwd["swa_attention_bwd"],
+                   "swa_attention_bwd.fp32": 0}
+    steps, total = [], dict.fromkeys([*want_bwd, *routes_want], 0)
     for _ in range(TRAIN_STEPS):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
@@ -4107,14 +4160,16 @@ def train_full(torch, arch: str, B: int, want_params: int,
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         bwd = ops.backward_launch_counts()
+        routes = ops.backward_route_counts()
         fwd = {k: v for k, v in ops.launch_counts().items() if v}
         steps.append({"ms": ms, "loss": float(m["loss"]), "backward": bwd,
-                      "forward": fwd})
-        if bwd != want_bwd:
+                      "backward_routes": routes, "forward": fwd})
+        if bwd != want_bwd or routes != routes_want:
             raise AssertionError(f"{arch} train step: backward launches "
-                                 f"{bwd}, not {want_bwd}")
+                                 f"{bwd}, routes {routes}, not {want_bwd}, "
+                                 f"{routes_want}")
         for key in total:
-            total[key] += bwd[key]
+            total[key] += {**bwd, **routes}[key]
     rec = {"phase": "train_full", "arch": arch, "source": cfg.source,
            "params": n, "param_dtype": cfg.param_dtype,
            "act_dtype": cfg.dtype, "remat": cfg.remat, "B": B, "S": TRAIN_S,
@@ -4132,6 +4187,7 @@ def train_full(torch, arch: str, B: int, want_params: int,
     if not rec["losses_finite"]:
         raise AssertionError(f"{arch} train step: a loss is not finite")
     train_profile(torch, arch, st, batch, cfg)
+    per_head_bc_sums(torch, arch, st, batch, cfg)
     return st, total
 
 
@@ -4156,8 +4212,52 @@ def train_profile(torch, arch: str, st, batch, cfg):
     bwd = {name: sum(e.self_device_time_total for e in kern
                      if match in e.key) / 1e3
            for name, match in (("swa_attention_bwd_ms", "swa_bwd_"),
-                               ("ssd_intra_chunk_bwd_ms", "ssd_bwd_kernel"))}
+                               ("swa_attention_bwd_tc_ms", "swa_bwd_tc_"),
+                               ("ssd_intra_chunk_bwd_ms", "ssd_bwd_"))}
     emit({"phase": "train_profile", "arch": arch, **summary, **bwd})
+
+
+def per_head_bc_sums(torch, arch: str, st, batch, cfg):
+    """Phase 6d-iii: one more ``train_step`` under a dispatch mode that
+    records every sum of a tensor whose last two dims are (SSM heads,
+    d_state) over the heads alone: a dense per-head dB or dC summed over
+    a group's heads. The SSD backward writes them by group, so a step has
+    none; the run fails on any."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import zoo
+
+    if cfg.family != "hybrid":            # no Mamba2 block
+        return None
+    h = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    n, hits, sums = cfg.ssm_state, [], [0]
+    aten = torch.ops.aten
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in (aten.sum.dim_IntList, aten.sum.default):
+                sums[0] += 1
+                x = args[0]
+                dims = args[1] if len(args) > 1 else kwargs.get("dim")
+                if dims is not None and x.dim() >= 3 \
+                        and tuple(x.shape[-2:]) == (h, n):
+                    norm = sorted(d % x.dim() for d in dims)
+                    if norm == [x.dim() - 2]:
+                        hits.append({"shape": list(x.shape),
+                                     "dtype": str(x.dtype)})
+            return func(*args, **kwargs)
+
+    with Watch():
+        zoo.train_step(st, batch, cfg)
+    torch.cuda.synchronize()
+    rec = {"phase": "train_per_head_bc", "arch": arch, "ssm_heads": h,
+           "d_state": n, "sums_seen": sums[0], "per_head_sums": hits}
+    emit(rec)
+    if hits:
+        raise AssertionError(f"{arch} train step sums dense per-head B/C "
+                             f"gradients over the heads: {hits}")
+    return rec
 
 
 def zamba2_remat_cut(torch) -> dict:
@@ -4287,6 +4387,23 @@ def main() -> int:
     emit(ptxas_report(log, "ssd_chunk.cu", "ssd_cell_kernel",
                       "registers at entry (launch bound 256 threads, two "
                       "CTAs an SM); 3xTF32 mma.sync"))
+    for pass_, kern, note in (
+            (0, "swa_bwd_tc_rows_kernel", "registers at entry (launch bound "
+             "256 threads); mma.sync m16n8k16 bf16, one instance per DM 64, "
+             "80, 128, 256"),
+            (1, "swa_bwd_tc_dkv_kernel", "registers at entry (256 threads, "
+             "2 CTAs an SM at DM <= 80, else 1); a warp's dK and dV: 16 keys "
+             "x the head dim (its half at 256)"),
+            (2, "swa_bwd_tc_dq_kernel", "registers at entry (256 threads, 2 "
+             "CTAs an SM at DM <= 80, else 1)")):
+        emit({**ptxas_report(log, "swa_attention_bwd_tc.cu", kern, note),
+              "dynamic_smem": {hd: kernels_lib.swa_attention_bwd_tc_smem(
+                  hd, pass_) for hd in (56, 64, 80, 128, 256)}})
+    emit(ptxas_report(log, "ssd_chunk_bwd.cu", "ssd_bwd_kernel",
+                      "registers at entry (launch bound 128 threads, one "
+                      "CTA an SM); 3xTF32 mma.sync, one instance per dtype"))
+    emit(ptxas_report(log, "ssd_chunk_bwd.cu", "ssd_bwd_group_kernel",
+                      "registers at entry (launch bound 256 threads)"))
     emit(ptxas_report(log, "edc_cosine.cu", "edc_part_kernel",
                       "registers at entry (launch bound 256 threads, two "
                       "CTAs an SM); one instance per dtype pair and column "
@@ -4402,7 +4519,9 @@ def main() -> int:
                 + counts_last["swa_attention.fp32"],
                 "ssd_intra_chunk.tc": counts_zoo["ssd_intra_chunk.tc"],
                 "ssd_intra_chunk.fp32": counts_f32["ssd_intra_chunk.fp32"],
-                "swa_attention_bwd": counts_train["swa_attention_bwd"],
+                "swa_attention_bwd.tc": counts_train["swa_attention_bwd.tc"],
+                "swa_attention_bwd.fp32":
+                    counts_train["swa_attention_bwd.fp32"],
                 "ssd_intra_chunk_bwd": counts_train["ssd_intra_chunk_bwd"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",
                              "src/repro/kernels/edc_cosine.py:49"),
@@ -4418,9 +4537,12 @@ def main() -> int:
                                        "src/repro/kernels/ssd_chunk.py:49"),
               # the backward kernels replace no Pallas kernel: the jnp
               # function whose jax.vjp each matches
-              "swa_attention_bwd": ("src/repro_torch/csrc/"
-                                    "swa_attention_bwd.cu",
-                                    "src/repro/kernels/ref.py:23"),
+              "swa_attention_bwd.tc": ("src/repro_torch/csrc/"
+                                       "swa_attention_bwd_tc.cu",
+                                       "src/repro/kernels/ref.py:23"),
+              "swa_attention_bwd.fp32": ("src/repro_torch/csrc/"
+                                         "swa_attention_bwd.cu",
+                                         "src/repro/kernels/ref.py:23"),
               "ssd_intra_chunk_bwd": ("src/repro_torch/csrc/ssd_chunk_bwd.cu",
                                       "src/repro/models/ssm.py:86")}
     kernels = []

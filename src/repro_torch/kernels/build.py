@@ -145,9 +145,15 @@ def _declare(lib):
     lib.ssd_intra_chunk_tc_heads_per_cta.restype = i
     lib.swa_attention_bwd_launch.argtypes = [vp] * 10 + [ll, vp]
     lib.swa_attention_bwd_launch.restype = i
-    lib.ssd_intra_chunk_bwd_launch.argtypes = ([vp] * 10 + [ll] + [i] * 7
+    lib.swa_attention_bwd_tc_launch.argtypes = [vp] * 12 + [ll, vp]
+    lib.swa_attention_bwd_tc_launch.restype = i
+    lib.swa_attention_bwd_tc_smem.argtypes = [i, i]
+    lib.swa_attention_bwd_tc_smem.restype = i
+    lib.ssd_intra_chunk_bwd_launch.argtypes = ([vp] * 11 + [ll] + [i] * 9
                                                + [vp])
     lib.ssd_intra_chunk_bwd_launch.restype = i
+    lib.ssd_intra_chunk_bwd_part_floats.argtypes = []
+    lib.ssd_intra_chunk_bwd_part_floats.restype = i
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -34,6 +34,13 @@ def backward_launch_counts() -> dict:
     return {f"{name}_bwd": mod.launches_bwd for name, mod in _ROUTED.items()}
 
 
+def backward_route_counts() -> dict:
+    """{``swa_attention_bwd.tc``, ``swa_attention_bwd.fp32``: launches of
+    each route of the SWA backward since the last reset}."""
+    return {f"swa_attention_bwd.{route}": n
+            for route, n in _swa.launches_bwd_by_route.items()}
+
+
 def reset_launch_counts():
     for mod in KERNELS.values():
         mod.launches = 0
@@ -41,3 +48,5 @@ def reset_launch_counts():
         for route in mod.launches_by_route:
             mod.launches_by_route[route] = 0
         mod.launches_bwd = 0
+    for route in _swa.launches_bwd_by_route:
+        _swa.launches_bwd_by_route[route] = 0

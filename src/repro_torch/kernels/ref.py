@@ -77,13 +77,20 @@ def swa_attention_ref(q, k, v, *, window: int | None, causal: bool = True,
 
 
 def swa_attention_bwd_ref(q, k, v, o, do, *, window: int | None,
-                          causal: bool = True, scale: float | None = None):
-    """The backward of ``swa_attention_ref`` written out, as the kernel
-    ``csrc/swa_attention_bwd.cu`` computes it: the row log-sum-exp is
-    recomputed from q and k, P = exp(S − lse) (0 where masked),
-    D_i = Σ_d dO_i·O_i, dS = P ⊙ (dP − D) with dP = dO Vᵀ, then
-    dQ = scale·dS K, dK = scale·dSᵀ Q and dV = Pᵀ dO, dK and dV summed
-    over the H/KV query heads of each kv head.
+                          causal: bool = True, scale: float | None = None,
+                          rounded: bool = False):
+    """The backward of ``swa_attention_ref`` written out, as the kernels
+    compute it: the row log-sum-exp is recomputed from q and k,
+    P = exp(S − lse) (0 where masked), D_i = Σ_d dO_i·O_i,
+    dS = P ⊙ (dP − D) with dP = dO Vᵀ, then dQ = scale·dS K,
+    dK = scale·dSᵀ Q and dV = Pᵀ dO, dK and dV summed over the H/KV query
+    heads of each kv head.
+
+    ``rounded`` rounds where the ``tc`` route (``csrc/swa_attention_bwd_tc
+    .cu``) rounds: dO to bf16 before every use (D too), and P and dS to
+    bf16 before the products that take them (dV, dK, dQ); every product of
+    bf16 values is exact in fp32 and every sum fp32, as on the tensor
+    cores. Without it everything is fp32 (``csrc/swa_attention_bwd.cu``).
 
     q, o, do: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); o is the forward's
     output. Returns (dq, dk, dv) in fp32 (float64 inputs stay float64)."""
@@ -93,7 +100,8 @@ def swa_attention_bwd_ref(q, k, v, o, do, *, window: int | None,
     if scale is None:
         scale = 1.0 / hd ** 0.5
     ok = _swa_kept(Sq, Sk, window, causal, q.device)
-    q32, o32, do32 = _f32(q), _f32(o), _f32(do)
+    q32, o32 = _f32(q), _f32(o)
+    do32 = _f32(do.to(torch.bfloat16) if rounded else do)
     k32 = _f32(k).repeat_interleave(G, dim=2)
     v32 = _f32(v).repeat_interleave(G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q32, k32) * scale
@@ -103,6 +111,8 @@ def swa_attention_bwd_ref(q, k, v, o, do, *, window: int | None,
     d_row = torch.sum(do32 * o32, dim=-1).permute(0, 2, 1)[..., None]
     dp = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
     ds = p * (dp - d_row)
+    if rounded:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k32) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q32) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
@@ -110,18 +120,38 @@ def swa_attention_bwd_ref(q, k, v, o, do, *, window: int | None,
             dv.reshape(B, Sk, KV, G, hd).sum(3))
 
 
+def _ssd_heads(t, h: int):
+    """B or C by group (b, c, Q, g, n) -> by head (b, c, Q, h, n): head j
+    reads group j // (h/g), as ``mamba2_fwd``'s expansion does."""
+    g = t.shape[3]
+    if h % g:
+        raise ValueError(f"ssd_intra_chunk: {g} B/C groups do not divide "
+                         f"{h} heads")
+    return t if g == h else t.repeat_interleave(h // g, dim=3)
+
+
+def _ssd_groups(t, g: int):
+    """A per-head gradient (b, c, Q, h, n) summed over each group's heads
+    -> (b, c, Q, g, n)."""
+    b, c, Q, h, n = t.shape
+    return t if g == h else t.reshape(b, c, Q, g, h // g, n).sum(4)
+
+
 def ssd_intra_chunk_ref(Xc, A_cs, Bc, Cc):
     """Steps 1-2 of the chunked SSD (``repro.models.ssm.ssd_chunked``,
     ``ssm.py:104-110``): the intra-chunk output and each chunk's state.
 
     Xc (b, c, Q, h, p); A_cs (b, h, c, Q) fp32, the inclusive cumsum of
-    dt·A within each chunk; Bc, Cc (b, c, Q, h, n). Returns
+    dt·A within each chunk; Bc, Cc (b, c, Q, g, n), g dividing h (head j
+    reads group j // (h/g); g = h is one B/C a head). Returns
     (Y_diag (b, c, Q, h, p) fp32, states (b, c, h, p, n) fp32), where
       Y_diag = (C Bᵀ ⊙ L) X,  L_ij = exp(a_i − a_j) for j <= i, else 0
       state  = Σ_k exp(a_Q − a_k) X_k ⊗ B_k.
     L is a select on −1e30 before the exp, never a 0/1 multiply: for
     j > i, exp(a_i − a_j) overflows and inf·0 would be NaN."""
-    X32, B32, C32 = _f32(Xc), _f32(Bc), _f32(Cc)
+    h = Xc.shape[3]
+    X32 = _f32(Xc)
+    B32, C32 = (_ssd_heads(_f32(t), h) for t in (Bc, Cc))
     L, tril = _ssd_L(A_cs)
     Y_diag = torch.einsum("bcqhn,bckhn,bhcqk,bckhp->bcqhp", C32, B32, L, X32)
     decay_states = torch.exp(A_cs[..., -1:] - A_cs)            # (b,h,c,Q)
@@ -139,10 +169,11 @@ def _ssd_L(A_cs):
 
 
 def ssd_intra_chunk_bwd_ref(Xc, A_cs, Bc, Cc, dY, dS):
-    """The backward of ``ssd_intra_chunk_ref`` written out, as the kernel
-    ``csrc/ssd_chunk_bwd.cu`` computes it per (batch, chunk, head) cell.
-    With G = C Bᵀ, M = G ⊙ L, dM = dY Xᵀ (kept where j <= i),
-    W = dM ⊙ L and decay_k = exp(a_Q − a_k):
+    """The backward of ``ssd_intra_chunk_ref`` written out, per (batch,
+    chunk, head) cell, with each group's dB and dC summed over its heads as
+    the kernel ``csrc/ssd_chunk_bwd.cu`` sums them. With G = C Bᵀ,
+    M = G ⊙ L, dM = dY Xᵀ (kept where j <= i), W = dM ⊙ L and
+    decay_k = exp(a_Q − a_k):
       dX = Mᵀ dY + decay ⊙ (B dSᵀ)
       dC = W B
       dB = Wᵀ C + decay ⊙ (X dS)
@@ -151,11 +182,13 @@ def ssd_intra_chunk_bwd_ref(Xc, A_cs, Bc, Cc, dY, dS):
     L keeps its select on −1e30 before the exp here too: exp(a_i − a_j)
     for j > i overflows, and inf · 0 would be NaN.
 
-    Xc (b, c, Q, h, p), A_cs (b, h, c, Q), Bc, Cc (b, c, Q, h, n); dY
+    Xc (b, c, Q, h, p), A_cs (b, h, c, Q), Bc, Cc (b, c, Q, g, n); dY
     (b, c, Q, h, p) and dS (b, c, h, p, n), the gradients of Y_diag and of
     the states. Returns (dX, dA_cs, dB, dC) in fp32 (float64 stays), dB
-    and dC dense per head."""
-    X32, B32, C32 = _f32(Xc), _f32(Bc), _f32(Cc)
+    and dC (b, c, Q, g, n): one gradient a group."""
+    h, g = Xc.shape[3], Bc.shape[3]
+    X32 = _f32(Xc)
+    B32, C32 = (_ssd_heads(_f32(t), h) for t in (Bc, Cc))
     A = _f32(A_cs)
     dY32, dS32 = _f32(dY), _f32(dS)
     L, tril = _ssd_L(A)
@@ -171,11 +204,11 @@ def ssd_intra_chunk_bwd_ref(Xc, A_cs, Bc, Cc, dY, dS):
     dB = (torch.einsum("bhcij,bcihn->bcjhn", W, C32)
           + decay * torch.einsum("bckhp,bchpn->bckhn", X32, dS32))
     T = dM * M
-    h = (decay * torch.sum(X32 * U, dim=-1, keepdim=True))[..., 0]
-    h = h.permute(0, 3, 1, 2)                                  # (b,h,c,Q)
-    dA = T.sum(-1) - T.sum(-2) - h
-    dA[..., -1] += h.sum(-1)
-    return dX, dA, dB, dC
+    hk = (decay * torch.sum(X32 * U, dim=-1, keepdim=True))[..., 0]
+    hk = hk.permute(0, 3, 1, 2)                                # (b,h,c,Q)
+    dA = T.sum(-1) - T.sum(-2) - hk
+    dA[..., -1] += hk.sum(-1)
+    return dX, dA, _ssd_groups(dB, g), _ssd_groups(dC, g)
 
 
 def ssd_chunk_ref(X, dtA, B, C):

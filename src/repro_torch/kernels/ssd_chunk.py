@@ -17,14 +17,20 @@ replace the Pallas kernel ``repro.kernels.ssd_chunk.ssd_intra_chunk``:
 The route depends on dtype and shape only (``_route``). On the ``tc``
 route an input that breaks TMA's rules raises; it never switches route.
 ``ssd_intra_chunk`` takes the model's chunked layout, as
-``repro_torch.models.ssm.ssd_chunked`` holds it; ``ssd_intra_chunk_cells``
+``repro_torch.models.ssm.ssd_chunked`` holds it, with B and C by group
+(b, c, Q, g, n), g dividing h: the forward reads one group as a stride-0
+expansion over the heads (a per-head copy only for 1 < g < h);
+``ssd_intra_chunk_cells``
 takes the Pallas kernel's (BH, NC, Q, ·) layout. Both reach one launch. A
 CPU tensor runs the plain version (``kernels.ref.ssd_intra_chunk_ref``); a
 CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
 ``launches_by_route`` each route's.
 
 The backward (``SsdIntraChunkFn``, ``ssd_intra_chunk_bwd``) is
-``csrc/ssd_chunk_bwd.cu`` on the card and
+``csrc/ssd_chunk_bwd.cu`` on the card, one route for bf16 and fp32
+(TF32 ``mma.sync`` at fp32 accuracy; a CTA forms C·Bᵀ once for a block
+of a group's heads, ``ssd_bwd_heads_per_cta``; dB and dC are summed over
+each group's heads in the kernel and written once a group), and
 ``kernels.ref.ssd_intra_chunk_bwd_ref`` on the CPU; ``launches_bwd``
 counts its launches. Without grad the call is exactly the forward above.
 """
@@ -65,6 +71,47 @@ def ssd_heads_per_cta(b: int, c: int, h: int, per_head: bool,
     while 2 * hb <= h and b * c * -(-h // (2 * hb)) >= n_sm:
         hb *= 2
     return hb
+
+
+def ssd_bwd_heads_per_cta(b: int, c: int, g: int, rep: int,
+                          n_sm: int) -> int:
+    """Heads per CTA of the backward's first kernel, all of one B/C group
+    (``rep`` = h/g heads each), which share one C·Bᵀ: the largest power of
+    two dividing ``rep`` whose grid of b·c·g·rep/hb CTAs still gives every
+    SM one (16 at Zamba2's training shape: b·c = 64, one group of 64
+    heads, 256 CTAs)."""
+    hb = 1
+    while rep % (2 * hb) == 0 and b * c * g * (rep // (2 * hb)) >= n_sm:
+        hb *= 2
+    return hb
+
+
+def _group_heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """B or C by group (b, c, Q, g, n) -> by head (b, c, Q, h, n) for the
+    forward kernels: itself for g = h, a stride-0 view for g = 1, a copy
+    (head j reads group j // (h/g)) otherwise."""
+    g = t.shape[3]
+    if g == h:
+        return t
+    if g == 1:
+        return t.expand(*t.shape[:3], h, t.shape[4])
+    return t.repeat_interleave(h // g, dim=3)
+
+
+def _check_groups(name: str, Xc, A_cs, Bc, Cc):
+    if Xc.ndim != 5 or Bc.ndim != 5:
+        raise ValueError(f"{name}: X {tuple(Xc.shape)}, B {tuple(Bc.shape)}"
+                         "; want X (b, c, Q, h, p) and B, C (b, c, Q, g, n)")
+    b, c, Q, h, p = Xc.shape
+    g, n = Bc.shape[3], Bc.shape[4]
+    if (Bc.shape[:3] != (b, c, Q) or Cc.shape != Bc.shape or g < 1
+            or h % g or A_cs.shape != (b, h, c, Q)):
+        raise ValueError(f"{name}: X {tuple(Xc.shape)}, A_cs "
+                         f"{tuple(A_cs.shape)}, B {tuple(Bc.shape)}, C "
+                         f"{tuple(Cc.shape)}; want X (b, c, Q, h, p), "
+                         "A_cs (b, h, c, Q), B and C (b, c, Q, g, n) with g "
+                         "dividing h")
+    return b, c, Q, h, p, g, n
 
 
 def _tma_strides(name: str, t: torch.Tensor, ndims: int,
@@ -143,8 +190,9 @@ _plans: dict = {}
 def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
                     Cc: torch.Tensor, heads_per_cta: int | None = None):
     """Xc (b, c, Q, h, p); A_cs (b, h, c, Q) fp32, the inclusive cumsum of
-    dt·A within each chunk; Bc, Cc (b, c, Q, h, n). Any strides with the
-    last dim contiguous (a head expansion may be a stride-0 view).
+    dt·A within each chunk; Bc, Cc (b, c, Q, g, n), g dividing h (head j
+    reads group j // (h/g); g = h is one B/C a head, which may be a
+    stride-0 expansion). Any strides with the last dim contiguous.
     Returns (Y_diag (b, c, Q, h, p) fp32, states (b, c, h, p, n) fp32).
     ``heads_per_cta`` overrides ``ssd_heads_per_cta`` on the fp32 route
     (the sweep in ``chip_smoke.py`` that sets it). A signature (shapes,
@@ -159,6 +207,16 @@ def ssd_intra_chunk(Xc: torch.Tensor, A_cs: torch.Tensor, Bc: torch.Tensor,
 
 
 def _forward(Xc, A_cs, Bc, Cc, heads_per_cta):
+    """The forward kernels (or the plain version) on B and C by head (a
+    call with one B/C a head goes straight to them)."""
+    if Bc.ndim == 5 and Xc.ndim == 5 and Bc.shape[3] != Xc.shape[3]:
+        _check_groups("ssd_intra_chunk", Xc, A_cs, Bc, Cc)
+        h = Xc.shape[3]
+        Bc, Cc = _group_heads(Bc, h), _group_heads(Cc, h)
+    return _forward_heads(Xc, A_cs, Bc, Cc, heads_per_cta)
+
+
+def _forward_heads(Xc, A_cs, Bc, Cc, heads_per_cta):
     key = (Xc.shape, Bc.shape, Cc.shape, A_cs.shape, Xc.stride(),
            A_cs.stride(), Bc.stride(), Cc.stride(), Xc.dtype, Bc.dtype,
            Cc.dtype, A_cs.dtype, Xc.device, A_cs.device, Bc.device,
@@ -207,10 +265,9 @@ def _forward(Xc, A_cs, Bc, Cc, heads_per_cta):
 
 class SsdIntraChunkFn(torch.autograd.Function):
     """``ssd_intra_chunk`` with a backward: the forward is the kernel (or
-    the plain version on the CPU) as without grad; it saves its inputs
-    (a stride-0 head expansion of B or C stays a view), and the backward
-    is ``ssd_intra_chunk_bwd``. Gradients come back in the inputs' dtypes,
-    dB and dC dense per head (the expansion's backward sums a group)."""
+    the plain version on the CPU) as without grad; it saves its inputs (B
+    and C by group), and the backward is ``ssd_intra_chunk_bwd``. Gradients
+    come back in the inputs' dtypes, dB and dC one a group."""
 
     @staticmethod
     def forward(ctx, Xc, A_cs, Bc, Cc, heads_per_cta):
@@ -229,23 +286,23 @@ class SsdIntraChunkFn(torch.autograd.Function):
 def ssd_intra_chunk_bwd(Xc: torch.Tensor, A_cs: torch.Tensor,
                         Bc: torch.Tensor, Cc: torch.Tensor,
                         dY: torch.Tensor, dS: torch.Tensor):
-    """The gradients (dX, dA_cs, dB, dC), all fp32 and dB, dC dense per
-    head, of ``ssd_intra_chunk`` at its inputs, given the gradients dY
-    (b, c, Q, h, p) and dS (b, c, h, p, n) of its two outputs. A CPU
-    tensor runs the plain version (``kernels.ref.ssd_intra_chunk_bwd_ref``);
-    a CUDA tensor launches ``csrc/ssd_chunk_bwd.cu`` (one CTA a cell, no
-    atomics) or raises. ``launches_bwd`` counts its calls on the card."""
+    """The gradients (dX, dA_cs, dB, dC), all fp32, of ``ssd_intra_chunk``
+    at its inputs, given the gradients dY (b, c, Q, h, p) and dS
+    (b, c, h, p, n) of its two outputs; B, C and so dB, dC by group
+    (b, c, Q, g, n). A CPU tensor runs the plain version
+    (``kernels.ref.ssd_intra_chunk_bwd_ref``); a CUDA tensor launches
+    ``csrc/ssd_chunk_bwd.cu`` (two kernels: per block of a group's heads,
+    ``ssd_bwd_heads_per_cta``, then per group; no atomics) or raises.
+    ``launches_bwd`` counts its calls on the card."""
     b, c, Q, h, p = Xc.shape
-    n = Bc.shape[-1]
-    if (Bc.shape != (b, c, Q, h, n) or Cc.shape != Bc.shape
-            or A_cs.shape != (b, h, c, Q) or dY.shape != Xc.shape
+    n = Bc.shape[-1] if Bc.ndim == 5 else 0
+    if (Xc.ndim != 5 or Bc.ndim != 5 or dY.shape != Xc.shape
             or dS.shape != (b, c, h, p, n)):
-        raise ValueError(f"ssd_intra_chunk_bwd: X {tuple(Xc.shape)}, A_cs "
-                         f"{tuple(A_cs.shape)}, B {tuple(Bc.shape)}, C "
-                         f"{tuple(Cc.shape)}, dY {tuple(dY.shape)}, dS "
+        raise ValueError(f"ssd_intra_chunk_bwd: X {tuple(Xc.shape)}, B "
+                         f"{tuple(Bc.shape)}, dY {tuple(dY.shape)}, dS "
                          f"{tuple(dS.shape)}; want X and dY (b, c, Q, h, "
-                         "p), A_cs (b, h, c, Q), B and C (b, c, Q, h, n), "
-                         "dS (b, c, h, p, n)")
+                         "p), B and C (b, c, Q, g, n), dS (b, c, h, p, n)")
+    g = _check_groups("ssd_intra_chunk_bwd", Xc, A_cs, Bc, Cc)[5]
     devs = {t.device for t in (Xc, A_cs, Bc, Cc, dY, dS)}
     if devs == {torch.device("cpu")}:
         return ref.ssd_intra_chunk_bwd_ref(Xc, A_cs, Bc, Cc, dY, dS)
@@ -266,21 +323,28 @@ def ssd_intra_chunk_bwd(Xc: torch.Tensor, A_cs: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (Xc, Bc, Cc)):
         raise ValueError("ssd_intra_chunk_bwd: the last dim of X, B, C must "
                          "be contiguous")
+    rep = h // g
+    hb = ssd_bwd_heads_per_cta(b, c, g, rep, build.sm_count(Xc.device.index))
     dY = dY.float().contiguous()
     dS = dS.float().contiguous()
     dev = Xc.device
+    lib = build.library()
     dX = torch.empty((b, c, Q, h, p), dtype=torch.float32, device=dev)
     dA = torch.empty((b, h, c, Q), dtype=torch.float32, device=dev)
-    dB = torch.empty((b, c, Q, h, n), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, c, Q, g, n), dtype=torch.float32, device=dev)
     dC = torch.empty_like(dB)
+    # each first-kernel CTA's Σ_h Wᵀ, summed per group by the second
+    part = torch.empty(b * c * g * (rep // hb)
+                       * lib.ssd_intra_chunk_bwd_part_floats(),
+                       dtype=torch.float32, device=dev)
     st = build.strides(Xc.stride()[:4], Bc.stride()[:4], Cc.stride()[:4],
                        A_cs.stride())
-    lib = build.library()
     err = build.launch(Xc, lib.ssd_intra_chunk_bwd_launch, Xc.data_ptr(),
                        A_cs.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
                        dY.data_ptr(), dS.data_ptr(), dX.data_ptr(),
-                       dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), st, b, c,
-                       Q, h, p, n, int(Xc.dtype == torch.bfloat16))
+                       dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                       part.data_ptr(), st, b, c, Q, h, g, p, n, hb,
+                       int(Xc.dtype == torch.bfloat16))
     build.check(err, "ssd_intra_chunk_bwd launch")
     global launches_bwd
     launches_bwd += 1

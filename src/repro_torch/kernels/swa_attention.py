@@ -21,10 +21,23 @@ CPU tensor runs the plain version (``kernels.ref.swa_attention_ref``); a
 CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
 ``launches_by_route`` each route's.
 
-The backward (``SwaAttentionFn``, ``swa_attention_bwd``) is
-``csrc/swa_attention_bwd.cu`` on the card and
-``kernels.ref.swa_attention_bwd_ref`` on the CPU; ``launches_bwd`` counts
-its launches. Without grad the call is exactly the forward above.
+The backward (``SwaAttentionFn``, ``swa_attention_bwd``) has two routes
+of its own, picked by ``_bwd_route`` from the dtypes alone:
+
+- route ``tc``, ``csrc/swa_attention_bwd_tc.cu``: q, k, v all bf16, any
+  head dim up to 256 (padded to a multiple of 16 in shared memory).
+  ``mma.sync`` bf16 tensor cores with fp32 accumulators; dO is cast to
+  bf16 once here, and P and dS are rounded to bf16 before their products,
+  as SDPA's backward rounds (``kernels.ref.swa_attention_bwd_ref(...,
+  rounded=True)`` is its plain version). With H > KV each query head's
+  dK / dV goes to a workspace that a last kernel sums per kv head.
+- route ``fp32``, ``csrc/swa_attention_bwd.cu``: fp32 or mixed inputs
+  (the smoke variants' fp32 training steps); SIMT fp32.
+
+A CPU tensor runs ``kernels.ref.swa_attention_bwd_ref``; a CUDA tensor
+launches its route or raises, never the other route. ``launches_bwd``
+counts every backward launch, ``launches_bwd_by_route`` each route's.
+Without grad the call is exactly the forward above.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from repro_torch.kernels import build, ref
 launches = 0
 launches_by_route = {"tc": 0, "fp32": 0}
 launches_bwd = 0
+launches_bwd_by_route = {"tc": 0, "fp32": 0}
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128)
@@ -85,6 +99,15 @@ def _route(dtype_q, dtype_kv, hd: int) -> str:
     """``"tc"`` for bf16 q and k/v with hd 64 or 128, else ``"fp32"``."""
     if (dtype_q == torch.bfloat16 and dtype_kv == torch.bfloat16
             and hd in TC_HEAD_DIMS):
+        return "tc"
+    return "fp32"
+
+
+def _bwd_route(dtype_q, dtype_kv, hd: int) -> str:
+    """The backward's route: ``"tc"`` for bf16 q and k/v at any head dim up
+    to ``MAX_HEAD_DIM``, else ``"fp32"``."""
+    if (dtype_q == torch.bfloat16 and dtype_kv == torch.bfloat16
+            and 0 < hd <= MAX_HEAD_DIM):
         return "tc"
     return "fp32"
 
@@ -257,8 +280,8 @@ def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq, dk, dv), all fp32, of ``swa_attention`` at q, k,
     v, given its output ``o`` and the output's gradient ``do`` (both
     (B, Sq, H, hd)). A CPU tensor runs the plain version
-    (``kernels.ref.swa_attention_bwd_ref``); a CUDA tensor launches
-    ``csrc/swa_attention_bwd.cu`` (three kernels: the rows' log-sum-exp
+    (``kernels.ref.swa_attention_bwd_ref``); a CUDA tensor launches the
+    route ``_bwd_route`` picks (each three passes: the rows' log-sum-exp
     and D, then dK / dV per key tile, then dQ per query tile; no atomics)
     or raises. ``launches_bwd`` counts its calls on the card."""
     _check_shapes(q, k, v, window)
@@ -285,23 +308,39 @@ def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("swa_attention_bwd: the head dim of q, k, v must "
                          "be contiguous")
+    route = _bwd_route(q.dtype, k.dtype, hd)
     o = o.float().contiguous()
-    do = do.float().contiguous()
+    do = do.to(torch.bfloat16 if route == "tc" else torch.float32)
+    do = do.contiguous()
     dev = q.device
     ws = torch.empty((2, B * H * Sq), dtype=torch.float32, device=dev)
     dq = torch.empty((B, Sq, H, hd), dtype=torch.float32, device=dev)
     dk = torch.empty((B, Sk, KV, hd), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
-    prm = build.strides(q.stride()[:3], k.stride()[:3], v.stride()[:3],
-                        (B, Sq, Sk, H, KV, hd, window or 0, int(causal),
-                         int(q.dtype == torch.bfloat16),
-                         int(k.dtype == torch.bfloat16)))
+    shape = (B, Sq, Sk, H, KV, hd, window or 0, int(causal))
     lib = build.library()
-    err = build.launch(q, lib.swa_attention_bwd_launch, q.data_ptr(),
-                       k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       do.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
-                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), prm)
-    build.check(err, "swa_attention_bwd launch")
+    if route == "tc":
+        # GQA / MQA: each query head's dK, dV, summed per kv head at the end
+        part = (torch.empty((2, B, Sk, H, hd), dtype=torch.float32,
+                            device=dev) if H != KV else None)
+        prm = build.strides(q.stride()[:3], k.stride()[:3], v.stride()[:3],
+                            shape)
+        err = build.launch(q, lib.swa_attention_bwd_tc_launch, q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                           o.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                           None if part is None else part[0].data_ptr(),
+                           None if part is None else part[1].data_ptr(), prm)
+    else:
+        prm = build.strides(q.stride()[:3], k.stride()[:3], v.stride()[:3],
+                            shape, (int(q.dtype == torch.bfloat16),
+                                    int(k.dtype == torch.bfloat16)))
+        err = build.launch(q, lib.swa_attention_bwd_launch, q.data_ptr(),
+                           k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                           do.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), prm)
+    build.check(err, f"swa_attention_bwd launch ({route} route)")
     global launches_bwd
     launches_bwd += 1
+    launches_bwd_by_route[route] += 1
     return dq, dk, dv

@@ -96,17 +96,19 @@ def ssd_chunked(X, dtA, B, C, chunk: int, init_state=None):
 
     X   (b, l, h, p)   dt-scaled inputs
     dtA (b, l, h)      log decay per step (dt * A, A < 0), fp32
-    B,C (b, l, h, n)   input/output projections (head-expanded; a stride-0
-                       expansion is read in place by the kernel)
+    B,C (b, l, g, n)   input/output projections by group, g dividing h
+                       (head j reads group j // (h/g); g = h is one a head):
+                       the kernels read a group in place for all its heads
+                       and sum its heads' gradients themselves
     Returns (Y (b,l,h,p) fp32, final_state (b,h,p,n) fp32).
     """
     b, l, h, p = X.shape
-    n = B.shape[-1]
+    g, n = B.shape[-2], B.shape[-1]
     assert l % chunk == 0, (l, chunk)
     c = l // chunk
     Xc = X.reshape(b, c, chunk, h, p)
-    Bc = B.reshape(b, c, chunk, h, n)
-    Cc = C.reshape(b, c, chunk, h, n)
+    Bc = B.reshape(b, c, chunk, g, n)
+    Cc = C.reshape(b, c, chunk, g, n)
     A = dtA.reshape(b, c, chunk, h).permute(0, 3, 1, 2)         # (b,h,c,Q)
     A_cs = torch.cumsum(A, dim=-1)                              # (b,h,c,Q)
 
@@ -123,10 +125,15 @@ def ssd_chunked(X, dtA, B, C, chunk: int, init_state=None):
         carry = chunk_decay[:, :, j, None, None] * carry + states[:, j]
     prev_states = torch.stack(prev, dim=1)                      # (b,c,h,p,n)
 
-    # 4) state -> output within each chunk
+    # 4) state -> output within each chunk: one product per (b, c, group)
+    # over n, the group's heads r side by side, so C's gradient comes out
+    # by group (no per-head copy of C or of its gradient)
+    r = h // g
     state_decay_out = torch.exp(A_cs)                           # (b,h,c,Q)
-    Y_off = torch.einsum("bcqhn,bchpn,bhcq->bcqhp", Cc.float(), prev_states,
-                         state_decay_out)
+    Y_off = torch.einsum("bcqgn,bcgrpn->bcqgrp", Cc.float(),
+                         prev_states.reshape(b, c, g, r, p, n))
+    Y_off = (Y_off.reshape(b, c, chunk, h, p)
+             * state_decay_out.permute(0, 2, 3, 1)[..., None])
     return (Y_diag + Y_off).reshape(b, l, h, p), carry
 
 
@@ -170,14 +177,9 @@ def mamba2_fwd(params, x, *, d_state: int, expand: int, head_dim: int,
     dtA = dt * A[None, None, :]                                         # log decay
 
     X = xs.reshape(B_, S, H, P) * dt[..., None].to(dt_)
-    rep = H // n_groups
-    # the group -> head expansion is a view (stride 0) when n_groups == 1
-    Bh = Bm.reshape(B_, S, n_groups, 1, N).expand(
-        B_, S, n_groups, rep, N).reshape(B_, S, H, N)
-    Ch = Cm.reshape(B_, S, n_groups, 1, N).expand(
-        B_, S, n_groups, rep, N).reshape(B_, S, H, N)
-
-    Y, _ = ssd_chunked(X, dtA, Bh, Ch, chunk)
+    # B and C stay by group: the kernels expand them over the heads
+    Y, _ = ssd_chunked(X, dtA, Bm.reshape(B_, S, n_groups, N),
+                       Cm.reshape(B_, S, n_groups, N), chunk)
     Y = Y.to(dt_) + params["D"].to(dt_)[None, None, :, None] * xs.reshape(
         B_, S, H, P)
     y = Y.reshape(B_, S, di)
