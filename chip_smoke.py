@@ -311,14 +311,43 @@ with no final ``ok`` line):
                 peaks; Gemma-2B whole (B1 S2048): three steps, 18
                 swa_attention_bwd launches each, step ms and peak, and a
                 profiled fourth.
+  6e. dry runs — the dry runs without a mesh (``launch/fed_dryrun.py``,
+                ``launch/dryrun.py``) on the card. 6e-i: one
+                ``make_parallel_round`` at the reference's production
+                size, K = 1,024 clients, max_n = 256, ``mlp(784, 512,
+                62)``, m = 5, E = 20, B = 10, lr 0.03 (after a first call
+                at E = 1): round ms, peak memory, finite outputs; the same
+                round at K = 16 on the CPU and on the card from the same
+                draws, each leaf of each output within 1e-3 in the
+                Frobenius norm, and at E = 1 (26 local steps) also within
+                1e-3 elementwise (|card − CPU| over the leaf's largest
+                magnitude). 6e-ii: Alg. 3 on ΔW (64, 103,814,656) fp32
+                (the reference's d_w of 415,258,624 cut by 4), built on the
+                card as a decaying spectrum plus noise: ``run_coldstart``'s
+                step with each QR, Householder and CholeskyQR2 (E from
+                edc_cosine: the phase's counted launches; labels in [0,
+                5)), each step's and each randomized SVD's ms, the two V's
+                one subspace (the singular values of |V₁ᵀV₂| within 1e-3 of
+                1), E from the kernel within 3e-5 of the plain version on
+                the same ΔW and V, its ms, device ms, plain ms, bound (ΔW's
+                and V's bytes at 3.35 TB/s), F.cosine_similarity's ms over
+                chunks of rows and columns that fit, the peak. 6e-iii: the
+                zoo's dry-run records on meta at a batch cut held to the
+                same step on the card: Zamba2-1.2B ``train_4k`` (B 2),
+                Gemma-2B ``prefill_32k`` (B 1), Zamba2-1.2B ``decode_32k``
+                (B 8): the record's argument bytes equal to the real
+                tensors' (else fails), the step's ms (the median of three
+                after a first call, which is timed apart), peak and the
+                temporaries meta cannot give (peak minus what was live).
   7. the ``{"kernels": [...]}`` line (the two routes of swa_attention, of
      ssd_intra_chunk and of swa_attention_bwd as rows of their own,
      ``<name>.tc`` and ``<name>.fp32``, and ``ssd_intra_chunk_bwd``; the
      backward kernels' ``replaces`` names the jnp
      function whose ``jax.vjp`` each matches; edc_cosine's launches count
-     phase 4's EDC, MADC, 20-group and shift runs and phase 4d's, 4e's,
-     4f's, 4g's and 4h's FedGroup runs; swa_attention's count Zamba2's and
-     phase 6b's counted forwards and phase 6c's counted MTP call, not
+     phase 4's EDC, MADC, 20-group and shift runs, phase 4d's, 4e's,
+     4f's, 4g's and 4h's FedGroup runs and phase 6e's two cold starts;
+     swa_attention's count Zamba2's and phase 6b's counted forwards and
+     phase 6c's counted MTP call, not
      phase 2's comparisons; the backward kernels' count phase 6d's
      counted train steps), then the ``{"ok": true, ...}`` line.
 
@@ -446,6 +475,25 @@ TRAIN_S, TRAIN_STEPS = 2048, 3                 # published widths
 ZAMBA_TRAIN_B, GEMMA_TRAIN_B, ZAMBA_CUT_LAYERS = 4, 1, 6
 XLSTM_B = 4                    # chunkwise bf16 prefill batch (S = FAMILY_S)
 XLSTM_REC_S, XLSTM_IMPL_TOL = 512, 1e-4   # recurrent vs chunkwise, fp32 B=1
+# phase 6e: the dry runs without a mesh. The federated round at the
+# reference's production size (launch/fed_dryrun.py's run_round), card vs
+# CPU at FED_CHECK_K clients: each leaf of each output (group models,
+# global model, group deltas) within FED_RTOL in the Frobenius norm. At
+# E = 20 (520 SGD steps) the two devices drift apart elementwise as a 1e-7
+# nudge of X moves one device's run (ReLU units flip), so the elementwise
+# check, FED_RTOL of each leaf's largest magnitude, runs at
+# FED_ELEM_EPOCHS, before the flips build up. Alg. 3 on
+# ΔW (64, FED_DW): the reference's d_w of 415,258,624 cut by 4 (106.3 GB
+# fp32 whole; 26.6 GB at the cut); the two QRs' subspaces within
+# SUBSPACE_TOL. The zoo pairs held to the card at a batch cut: (arch,
+# shape, batch)
+FED_ROUND = dict(n_clients=1024, max_n=256, dim=784, n_groups=5, epochs=20,
+                 batch=10)
+FED_CHECK_K, FED_RTOL, FED_ELEM_EPOCHS = 16, 1e-3, 1
+FED_DW, FED_NPRE, FED_M, SUBSPACE_TOL = 103_814_656, 64, 5, 1e-3
+HELD_PAIRS = (("zamba2-1.2b", "train_4k", 2), ("gemma-2b", "prefill_32k", 1),
+              ("zamba2-1.2b", "decode_32k", 8))
+HELD_STEPS = 3                 # timed steps of a held pair after its first
 
 
 def emit(obj):
@@ -4339,6 +4387,250 @@ def training_phase(torch) -> tuple:
     return rows, total
 
 
+def leaf_errs(got: dict, want: dict) -> dict:
+    """{leaf: (‖got − want‖ / ‖want‖, max |got − want| / max |want|)}, each
+    leaf on its own."""
+    out = {}
+    for k in sorted(want):
+        g, w = got[k].cpu(), want[k]
+        out[k] = (float((g - w).norm() / w.norm().clamp(min=1e-30)),
+                  float((g - w).abs().max() / w.abs().max().clamp(
+                      min=1e-30)))
+    return out
+
+
+def card_vs_cpu(torch, **kw) -> list:
+    """The round at ``kw`` on the CPU and on the card from the same draws:
+    for each output (group models, global model, group deltas), its
+    ``leaf_errs``."""
+    from repro_torch.launch import fed_dryrun
+
+    fc, ac = fed_dryrun.run_round("cpu", **kw)
+    fg, ag = fed_dryrun.run_round("cuda", **kw)
+    return [leaf_errs(g, c) for g, c in zip(fg(*ag), fc(*ac))]
+
+
+def fed_round_card(torch):
+    """Phase 6e-i: one ``make_parallel_round`` at the reference's size on
+    the card (round ms, peak, finite outputs), then the same round at
+    FED_CHECK_K clients on the CPU and on the card from the same draws."""
+    from repro_torch.launch import fed_dryrun
+
+    t0 = time.perf_counter()
+    fn, args = fed_dryrun.run_round("cuda", **FED_ROUND)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # a first call at E = 1 takes the card's one-off costs (the round's
+    # kernels loaded, its ~9 GB allocated) out of the timed round
+    warm, _ = fed_dryrun.run_round("meta", **dict(FED_ROUND, epochs=1))
+    t0 = time.perf_counter()
+    warm(*args[:5], args[5][:, :warm.max_steps])
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3
+    finite = all(bool(torch.isfinite(t).all()) for part in out
+                 for t in part.values())
+    row = {"phase": "fed_dryrun", "part": "round", **FED_ROUND,
+           "model": "mlp(784, 512, 62)", "lr": fed_dryrun.LR,
+           "local_steps": fn.max_steps, "setup_s": setup_s,
+           "first_call_ms_at_E1": warm_ms, "round_ms": round_ms,
+           "finite": finite,
+           "argument_bytes": sum(t.nbytes for t in [*args[0].values(),
+                                                    *args[1:]]),
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    del out, args
+    small = dict(FED_ROUND, n_clients=FED_CHECK_K)
+    full = card_vs_cpu(torch, **small)
+    short = card_vs_cpu(torch, **dict(small, epochs=FED_ELEM_EPOCHS))
+    outs = ("group_params", "global_params", "agg_delta")
+    row.update({
+        "check_clients": FED_CHECK_K, "rtol": FED_RTOL,
+        "card_vs_cpu_leaf_rel_norm": {o: {k: e[0] for k, e in t.items()}
+                                      for o, t in zip(outs, full)},
+        "card_vs_cpu_leaf_elementwise_not_held": {
+            o: {k: e[1] for k, e in t.items()} for o, t in zip(outs, full)},
+        "elementwise_epochs": FED_ELEM_EPOCHS,
+        "card_vs_cpu_leaf_rel_norm_at_elementwise_epochs": {
+            o: {k: e[0] for k, e in t.items()} for o, t in zip(outs, short)},
+        "card_vs_cpu_leaf_elementwise": {
+            o: {k: e[1] for k, e in t.items()} for o, t in zip(outs, short)}})
+    emit(row)
+    worst_norm = max(e[0] for t in full + short for e in t.values())
+    worst_elem = max(e[1] for t in short for e in t.values())
+    if not (finite and worst_norm <= FED_RTOL and worst_elem <= FED_RTOL):
+        raise AssertionError(
+            f"fed round: finite {finite}, card vs CPU per leaf: norm "
+            f"{worst_norm}, elementwise at E = {FED_ELEM_EPOCHS} "
+            f"{worst_elem} (rtol {FED_RTOL})")
+    torch.cuda.empty_cache()
+
+
+def fed_coldstart_card(torch) -> dict:
+    """Phase 6e-ii: Alg. 3 on ΔW (FED_NPRE, FED_DW) built on the card:
+    ``run_coldstart``'s step with each QR (E from edc_cosine: the counted
+    launches), the two V's one subspace, the kernel's E against the plain
+    version on the same ΔW and V, its times beside the bound. Returns the
+    launch counts of the two counted steps."""
+    import torch.nn.functional as F
+
+    from repro_torch.fed import parallel as fp
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import edc_cosine as edc_mod
+    from repro_torch.launch import fed_dryrun
+
+    n, d, m = FED_NPRE, FED_DW, FED_M
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn, (dW, omega) = fed_dryrun.run_coldstart(
+        "cuda", n_pre=n, d_w=d, m=m, qr_impl="householder")
+    torch.cuda.synchronize()
+    row = {"phase": "fed_dryrun", "part": "coldstart", "n": n, "d": d, "m": m,
+           "dtype": "float32", "reduced": "d_w 415,258,624 -> 103,814,656 "
+           "(64 x 415,258,624 fp32 is 106.3 GB)",
+           "spectrum": list(fed_dryrun.SPECTRUM), "noise": fed_dryrun.NOISE,
+           "build_dW_s": time.perf_counter() - t0, "dW_bytes": dW.nbytes,
+           "plan": edc_mod.plan(n, d, m, build.sm_count(0))._asdict()}
+    # the main path: run_coldstart's step with each QR, counted
+    ops.reset_launch_counts()
+    for qr in ("householder", "cholesky"):
+        if qr == "cholesky":
+            fn = fed_dryrun.coldstart_step(m, qr)
+        t0 = time.perf_counter()
+        assign, centers, E = fn(dW, omega)
+        torch.cuda.synchronize()
+        row[f"coldstart_ms_{qr}"] = (time.perf_counter() - t0) * 1e3
+        ok = (bool(torch.isfinite(E).all()) and bool(
+            torch.isfinite(centers).all()) and 0 <= int(assign.min())
+            and int(assign.max()) < m)
+        row[f"labels_{qr}"] = assign.tolist()
+        if not ok:
+            raise AssertionError(f"coldstart {qr}: non-finite E / centers "
+                                 "or a label outside [0, m)")
+    counts = ops.launch_counts()
+    if counts["edc_cosine"] != 2:
+        raise AssertionError(f"coldstart: {counts['edc_cosine']} edc_cosine "
+                             "launches, want 2 (one a QR)")
+    # the two QRs' V, timed apart
+    V = {}
+    for qr in ("householder", "cholesky"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        V[qr] = fp.rsvd_sharded(dW, m, omega=omega, qr_impl=qr)
+        torch.cuda.synchronize()
+        row[f"rsvd_ms_{qr}"] = (time.perf_counter() - t0) * 1e3
+    sv = torch.linalg.svdvals((V["householder"].T @ V["cholesky"]).abs())
+    row["subspace_singular_values"] = sv.tolist()
+    row["subspace_err"] = float((sv - 1).abs().max())
+    Vh = V["householder"]
+    got = edc_mod.edc_cosine(dW, Vh)
+    want = ref.cosine_block_ref(dW, Vh)
+    err = float((got - want).abs().max())
+    b_ms, b_by = bound_ms(4.0 * (n * d + d * m + n * m),
+                          2.0 * n * d * (m + 1))
+    # F.cosine_similarity broadcasts (rows, d, columns) fp32: over chunks
+    # of ΔW's rows and V's columns whose broadcast fits EDC_LIBRARY_BYTES
+    rstep = max(1, int(EDC_LIBRARY_BYTES // (4 * d)))
+    chunks = [(i, min(i + rstep, n), j) for i in range(0, n, rstep)
+              for j in range(m)]
+    fn = lambda: edc_mod.edc_cosine(dW, Vh)  # noqa: E731
+    row.update({
+        "max_abs_err": err, "tol": TOL, "ms": cuda_ms(torch, fn, 10),
+        "device_ms": profiled_ms(torch, fn, "edc_", iters=5),
+        "plain_ms": cuda_ms(torch, lambda: ref.cosine_block_ref(dW, Vh), 3,
+                            warmup=1),
+        "library_ms": sum(cuda_ms(
+            torch, lambda i0=i0, i1=i1, j=j: F.cosine_similarity(
+                dW[i0:i1, :, None], Vh[None, :, j:j + 1], dim=1), 1,
+            warmup=1) for i0, i1, j in chunks),
+        "library_chunks": f"{len(chunks)} calls: rows of {rstep}, one "
+                          "column each",
+        "read_dW_ms": cuda_ms(torch, lambda: dW.sum(), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "launches": counts["edc_cosine"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    row["share_of_bound_events"] = b_ms / row["ms"]
+    emit(row)
+    if not (err <= TOL and row["subspace_err"] <= SUBSPACE_TOL):
+        raise AssertionError(f"coldstart: E max abs err {err} (tol {TOL}), "
+                             f"subspace {row['subspace_err']} (tol "
+                             f"{SUBSPACE_TOL})")
+    del dW, V, Vh, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def held_pair(torch, arch: str, shape_name: str, batch: int):
+    """Phase 6e-iii: one zoo pair's dry-run record on meta at a batch cut,
+    then the same step on the card: the record's argument bytes against
+    the real tensors', and the step's peak (the temp meta cannot give)."""
+    import gc
+
+    from repro_torch.configs import shapes as shp
+    from repro_torch.launch import dryrun
+
+    full = shp.SHAPES[shape_name]
+    shape = shp.InputShape(shape_name, full.seq_len, batch, full.kind)
+    rec = dryrun.run_one(arch, shape_name, shape=shape, save=False,
+                         verbose=False)
+    cfg = shp.config_for(dryrun.arch_config(arch), shape)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fn, args = dryrun.build_step(cfg, shape, device="cuda", gen=gen)
+    real = dryrun.nbytes(args)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(1 + HELD_STEPS):          # a first call, then the timed
+        out = None
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    logits = out[1]["loss"] if full.kind == "train" else (
+        out if full.kind == "prefill" else out[0])
+    finite = bool(torch.isfinite(logits).all())
+    mem = rec["memory_analysis"]
+    row = {"phase": "fed_dryrun", "part": "zoo", "arch": arch,
+           "shape": shape_name, "seq_len": full.seq_len, "batch": batch,
+           "reduced": f"global_batch {full.global_batch} -> {batch}",
+           "status": rec["status"], "trace_s": rec["trace_s"],
+           "flops": rec["cost_analysis"]["flops"], **mem,
+           "real_argument_bytes": real,
+           "arguments_equal": mem["argument_size_in_bytes"] == real,
+           "first_call_ms": times[0],
+           "step_ms": statistics.median(times[1:]), "step_ms_each": times[1:],
+           "peak_device_bytes": peak,
+           "live_before_bytes": live, "temp_bytes_measured": peak - live,
+           "finite": finite}
+    emit(row)
+    del out, args, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (row["arguments_equal"] and finite and rec["status"] == "ok"):
+        raise AssertionError(
+            f"{arch} x {shape_name}: record {rec['status']}, argument "
+            f"bytes {mem['argument_size_in_bytes']} vs {real}, finite "
+            f"{finite}")
+
+
+def dryrun_phase(torch) -> dict:
+    """Phase 6e: the dry runs without a mesh. Returns the launch counts of
+    the counted cold starts."""
+    t_phase = time.perf_counter()
+    fed_round_card(torch)
+    counts = fed_coldstart_card(torch)
+    for arch, shape_name, batch in HELD_PAIRS:
+        held_pair(torch, arch, shape_name, batch)
+    emit({"phase": "dryrun_phase", "launches": counts,
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -4495,11 +4787,14 @@ def main() -> int:
     # Zamba2-1.2B and Gemma-2B at published widths)
     train_rows, counts_train = training_phase(torch)
     rows.update(train_rows)
+    # phase 6e: the dry runs without a mesh (the federated round and Alg. 3
+    # at production size, the zoo's dry-run records held to the card)
+    counts_dry = dryrun_phase(torch)
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
     # block phase's FedGroup runs, the population phase's FedGroup runs,
-    # phase 4f's, 4g's and 4h's FedGroup runs;
+    # phase 4f's, 4g's and 4h's FedGroup runs, phase 6e's two cold starts;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes); phase 6b's counted
     # bf16 prefills and fp32 consistency forwards (swa_attention, both
@@ -4509,7 +4804,8 @@ def main() -> int:
                 + counts_madc["edc_cosine"] + counts_many["edc_cosine"]
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
                 + counts_stream["edc_cosine"] + counts_ft["edc_cosine"]
-                + counts_async["edc_cosine"] + counts_fleet["edc_cosine"],
+                + counts_async["edc_cosine"] + counts_fleet["edc_cosine"]
+                + counts_dry["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"]
                 + counts_fam["swa_attention.tc"]

@@ -10,8 +10,9 @@ fixed order. A call signature (shapes, strides, dtypes, devices) is
 checked and planned once; later calls with it allocate the output and
 launch. The partials live in a workspace kept per device and stream.
 
-A CPU tensor runs the plain version (``kernels.ref.cosine_block_ref``); a
-CUDA tensor launches the kernel or raises. ``launches`` counts the kernel's
+A CPU tensor runs the plain version (``kernels.ref.cosine_block_ref``),
+and so does a ``meta`` tensor (shapes only: the dry run); a CUDA tensor
+launches the kernel or raises. ``launches`` counts the kernel's
 launches.
 """
 from __future__ import annotations
@@ -129,12 +130,13 @@ def warp_steps(groups: int, nb: int) -> list:
 
 
 def _plan_call(dW: torch.Tensor, V: torch.Tensor) -> tuple:
-    """Checks a call's signature: ``("cpu",)``, or ``("cuda", params,
+    """Checks a call's signature: ``("cpu",)`` (the plain version, for CPU
+    or ``meta`` tensors), or ``("cuda", params,
     scratch floats, out shape)``, params the C launcher's arguments."""
     if dW.ndim != 2 or V.ndim != 2 or dW.shape[1] != V.shape[0]:
         raise ValueError(f"edc_cosine: shapes {tuple(dW.shape)} and "
                          f"{tuple(V.shape)} do not chain (n, d) @ (d, m)")
-    if dW.device.type == "cpu" and V.device.type == "cpu":
+    if ref.runs_plain(dW, V):
         return ("cpu",)
     if dW.device.type != "cuda" or V.device != dW.device:
         raise ValueError(f"edc_cosine: dW on {dW.device}, V on {V.device}; "

@@ -1,10 +1,19 @@
-"""Plain PyTorch versions of the ported kernels: what a CPU tensor runs,
-and what ``chip_smoke.py`` holds each CUDA kernel against on the card."""
+"""Plain PyTorch versions of the ported kernels: what a CPU tensor runs
+(and a ``meta`` tensor, shapes only, as the dry run builds them), and what
+``chip_smoke.py`` holds each CUDA kernel against on the card."""
 from __future__ import annotations
 
 import torch
 
 _EPS = 1e-12
+_PLAIN = {torch.device("cpu"), torch.device("meta")}
+
+
+def runs_plain(*tensors: torch.Tensor) -> bool:
+    """Whether a wrapper runs its plain version: every tensor on the CPU,
+    or every one on ``meta``; anything else is the kernel's or raises."""
+    devs = {t.device for t in tensors}
+    return len(devs) == 1 and devs <= _PLAIN
 
 
 def cosine_block_ref(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,9 @@ route an input that breaks TMA's rules raises; it never switches route.
 expansion over the heads (a per-head copy only for 1 < g < h);
 ``ssd_intra_chunk_cells``
 takes the Pallas kernel's (BH, NC, Q, ·) layout. Both reach one launch. A
-CPU tensor runs the plain version (``kernels.ref.ssd_intra_chunk_ref``); a
-CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
+CPU tensor runs the plain version (``kernels.ref.ssd_intra_chunk_ref``),
+and so does a ``meta`` tensor (shapes only: the dry run); a CUDA tensor
+launches a kernel or raises. ``launches`` counts every launch,
 ``launches_by_route`` each route's.
 
 The backward (``SsdIntraChunkFn``, ``ssd_intra_chunk_bwd``) is
@@ -141,7 +142,7 @@ def _plan(Xc, A_cs, Bc, Cc, heads_per_cta) -> tuple:
                          f"{tuple(Cc.shape)}; want X (b, c, Q, h, p), A_cs "
                          "(b, h, c, Q), B and C (b, c, Q, h, n)")
     devs = {t.device for t in (Xc, A_cs, Bc, Cc)}
-    if devs == {torch.device("cpu")}:
+    if ref.runs_plain(Xc, A_cs, Bc, Cc):
         return ("cpu",)
     if len(devs) != 1 or Xc.device.type != "cuda":
         raise ValueError(f"ssd_intra_chunk: inputs on "
@@ -304,7 +305,7 @@ def ssd_intra_chunk_bwd(Xc: torch.Tensor, A_cs: torch.Tensor,
                          "p), B and C (b, c, Q, g, n), dS (b, c, h, p, n)")
     g = _check_groups("ssd_intra_chunk_bwd", Xc, A_cs, Bc, Cc)[5]
     devs = {t.device for t in (Xc, A_cs, Bc, Cc, dY, dS)}
-    if devs == {torch.device("cpu")}:
+    if ref.runs_plain(Xc, A_cs, Bc, Cc, dY, dS):
         return ref.ssd_intra_chunk_bwd_ref(Xc, A_cs, Bc, Cc, dY, dS)
     if len(devs) != 1 or Xc.device.type != "cuda":
         raise ValueError(f"ssd_intra_chunk_bwd: inputs on "

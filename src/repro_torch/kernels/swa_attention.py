@@ -17,8 +17,9 @@ kernels that replace the Pallas kernel
 
 The route depends on dtype and head dim only (``_route``). On the ``tc``
 route an input that breaks TMA's rules raises; it never switches route. A
-CPU tensor runs the plain version (``kernels.ref.swa_attention_ref``); a
-CUDA tensor launches a kernel or raises. ``launches`` counts every launch,
+CPU tensor runs the plain version (``kernels.ref.swa_attention_ref``), and
+so does a ``meta`` tensor (shapes only: the dry run); a CUDA tensor
+launches a kernel or raises. ``launches`` counts every launch,
 ``launches_by_route`` each route's.
 
 The backward (``SwaAttentionFn``, ``swa_attention_bwd``) has two routes
@@ -34,7 +35,8 @@ of its own, picked by ``_bwd_route`` from the dtypes alone:
 - route ``fp32``, ``csrc/swa_attention_bwd.cu``: fp32 or mixed inputs
   (the smoke variants' fp32 training steps); SIMT fp32.
 
-A CPU tensor runs ``kernels.ref.swa_attention_bwd_ref``; a CUDA tensor
+A CPU (or ``meta``) tensor runs ``kernels.ref.swa_attention_bwd_ref``; a
+CUDA tensor
 launches its route or raises, never the other route. ``launches_bwd``
 counts every backward launch, ``launches_bwd_by_route`` each route's.
 Without grad the call is exactly the forward above.
@@ -144,7 +146,7 @@ def _plan(q, k, v, window, causal) -> tuple:
     partials without a split)."""
     _check_shapes(q, k, v, window)
     devs = {q.device, k.device, v.device}
-    if devs == {torch.device("cpu")}:
+    if ref.runs_plain(q, k, v):
         return ("cpu",)
     if len(devs) != 1 or q.device.type != "cuda":
         raise ValueError(f"swa_attention: q, k, v on {sorted(map(str, devs))}"
@@ -289,7 +291,7 @@ def swa_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"swa_attention_bwd: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}; want q's {tuple(q.shape)}")
     devs = {t.device for t in (q, k, v, o, do)}
-    if devs == {torch.device("cpu")}:
+    if ref.runs_plain(q, k, v, o, do):
         return ref.swa_attention_bwd_ref(q, k, v, o, do, window=window,
                                          causal=causal)
     if len(devs) != 1 or q.device.type != "cuda":

@@ -49,7 +49,10 @@ class ModelSpec:
 
 def _normal(generator, shape, device, scale):
     # drawn on the generator's device (the CPU by default) so one seed gives
-    # the same weights whichever device the model is then placed on
+    # the same weights whichever device the model is then placed on; on
+    # meta nothing is drawn (shapes only, for the dry run)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta")
     gdev = generator.device if generator is not None else "cpu"
     return (torch.randn(shape, generator=generator, device=gdev)
             * scale).to(device)

@@ -2,7 +2,8 @@
 gating) and mLSTM (matrix memory), Beck et al. 2024 (arXiv:2405.04517),
 stabilized formulations.
 
-Both recurrent scans are a plain loop over time. The JAX package's
+Both recurrent scans are a plain loop over time (on ``meta``, the dry
+run's tensors, one folded step: ``_folded``). The JAX package's
 ``jax.checkpoint`` chunks of ``chunk`` steps bound only the memory of a
 backward pass and change no value: here they are
 ``torch.utils.checkpoint``ed chunks when ``remat`` is set and grad is
@@ -91,16 +92,22 @@ def _slstm_init(B: int, d: int, dtype, device):
             _zeros32(B, d, device=device) + M_INIT)
 
 
-def _time_loop(step, carry: tuple, S: int, chunk: int, remat: bool):
-    """carry, h_t = step(carry, t) for t < S -> (final carry, the h_t
-    stacked on dim 1). With ``remat`` and grad enabled, each run of q steps
-    (q = ``chunk`` cut to divide S, as the reference cuts it) goes under
+def _time_loop(cell, carry: tuple, xs: tuple, chunk: int, remat: bool):
+    """carry, h_t = cell(carry, *(x[:, t] for x in xs)) for t < S (xs:
+    (B, S, ...) inputs) -> (final carry, the h_t stacked on dim 1). With
+    ``remat`` and grad enabled, each run of q steps (q = ``chunk`` cut to
+    divide S, as the reference cuts it) goes under
     ``torch.utils.checkpoint``: the reference's ``jax.checkpoint`` around
-    each chunk's scan. The values do not change."""
+    each chunk's scan. The values do not change. On ``meta`` the loop is
+    ``_folded``."""
+    S = xs[0].shape[1]
+    if xs[0].is_meta and S > 1:
+        return _folded(cell, carry, xs, remat)
+
     def run(t0: int, q: int, *carry):
         hs = []
         for t in range(t0, t0 + q):
-            carry, h = step(carry, t)
+            carry, h = cell(carry, *(x[:, t] for x in xs))
             hs.append(h)
         return (*carry, torch.stack(hs, dim=1))
 
@@ -117,14 +124,45 @@ def _time_loop(step, carry: tuple, S: int, chunk: int, remat: bool):
     return tuple(carry), torch.cat(chunks, dim=1)
 
 
+def _folded(cell, carry: tuple, xs: tuple, remat: bool):
+    """``_time_loop`` on ``meta`` (shapes only: the dry run). No value flows
+    from step to step, so steps 1 … S−1 run as one step over B·(S − 1)
+    rows from step 1's carry, expanded: the loop's ops on the same shapes,
+    so the same FLOPs forward and backward (``FlopCounterMode``: each
+    counted op's FLOPs grow with its rows), without S − 1 Python steps.
+    Step 0 runs alone: its carry needs no gradient, the later ones do.
+    With ``remat`` the whole scan is one checkpoint: recomputed once, as
+    the loop's chunks are."""
+    B, S = xs[0].shape[:2]
+
+    def rows(a):
+        return a[:, None].expand(B, S - 1, *a.shape[1:]).reshape(
+            B * (S - 1), *a.shape[1:])
+
+    def run(*carry):
+        carry, h0 = cell(carry, *(x[:, 0] for x in xs))
+        carry, h = cell(tuple(rows(a) for a in carry),
+                        *(x[:, 1:].reshape(B * (S - 1), *x.shape[2:])
+                          for x in xs))
+        last = tuple(a.reshape(B, S - 1, *a.shape[1:])[:, -1] for a in carry)
+        return (*last, torch.cat([h0[:, None],
+                                  h.reshape(B, S - 1, *h.shape[1:])], dim=1))
+
+    if remat and torch.is_grad_enabled():
+        *carry, h = checkpoint(run, *carry, use_reentrant=False)
+    else:
+        *carry, h = run(*carry)
+    return tuple(carry), h
+
+
 def slstm_scan(params, x, n_heads: int, chunk: int = 64, init=None,
                remat: bool = False):
     """x: (B, S, d) -> (h_seq (B, S, d), final carry)."""
     B, S, d = x.shape
     carry = _slstm_init(B, d, x.dtype, x.device) if init is None else init
     carry, h = _time_loop(
-        lambda c, t: slstm_cell(params, c, x[:, t], n_heads), tuple(carry),
-        S, chunk, remat)
+        lambda c, x_t: slstm_cell(params, c, x_t, n_heads), tuple(carry),
+        (x,), chunk, remat)
     return h, carry
 
 
@@ -233,10 +271,8 @@ def mlstm_scan(x_inner, params, n_heads: int, chunk: int = 32, init=None,
     q, k, v, i_r, f_r = _mlstm_qkv_if(x_inner, params, n_heads)
     carry = (_mlstm_init(B, n_heads, di // n_heads, x_inner.device)
              if init is None else init)
-    carry, h = _time_loop(
-        lambda c, t: mlstm_cell(c, (q[:, t], k[:, t], v[:, t], i_r[:, t],
-                                    f_r[:, t])), tuple(carry), S, chunk,
-        remat)
+    carry, h = _time_loop(lambda c, *inp: mlstm_cell(c, inp), tuple(carry),
+                          (q, k, v, i_r, f_r), chunk, remat)
     return h.reshape(B, S, di), carry
 
 

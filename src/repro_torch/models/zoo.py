@@ -558,7 +558,8 @@ def train_step(state, batch, cfg: ArchConfig, b1=0.9, b2=0.95, eps=1e-8):
     by leaf in the reference's leaf order, in slices of ``ADAM_SLICE``
     elements, each gradient freed once used: a functional update would
     hold a second copy of params and moments (16 bytes a param; 40 GB for
-    Gemma-2B). ``state["step"]`` becomes step + 1."""
+    Gemma-2B). On ``meta`` (the dry run: no memory to bound) a leaf is
+    one slice. ``state["step"]`` becomes step + 1."""
     leaves = tree_leaves(state["params"])
     for p in leaves:
         p.requires_grad_(True)
@@ -576,8 +577,9 @@ def train_step(state, batch, cfg: ArchConfig, b1=0.9, b2=0.95, eps=1e-8):
                                             tree_leaves(state["nu"]))):
             pf, gf, mf, nf = p.view(-1), grads[i].reshape(-1), mu.view(-1), \
                 nu.view(-1)
-            for lo in range(0, pf.numel(), ADAM_SLICE):
-                sl = slice(lo, lo + ADAM_SLICE)
+            n_sl = max(pf.numel(), 1) if pf.is_meta else ADAM_SLICE
+            for lo in range(0, pf.numel(), n_sl):
+                sl = slice(lo, lo + n_sl)
                 new_p, opt = adamw_update(
                     {"w": pf[sl]}, {"w": gf[sl]},
                     {"mu": {"w": mf[sl]}, "nu": {"w": nf[sl]}, "step": step},

@@ -50,6 +50,8 @@ SLICE_MODULES = [
     "repro_torch.configs.internvl2_1b", "repro_torch.configs.hubert_xlarge",
     "repro_torch.configs.granite_moe_1b", "repro_torch.models.xlstm",
     "repro_torch.configs.deepseek_v3_671b", "repro_torch.configs.xlstm_350m",
+    "repro_torch.launch.dryrun", "repro_torch.fed.parallel",
+    "repro_torch.launch.fed_dryrun",
 ]
 
 
