@@ -191,6 +191,35 @@ with no final ``ok`` line):
                 (expected 0), spawn and build s, round ms, payload bytes
                 each way a dispatch, the kill's recovery ms; the phase's
                 seconds.
+     4i         the client axis over torch.distributed ranks (a 1-D data
+                mesh, ``launch/mesh.py``, ``fed/parallel.py``) at phase
+                4's width: FedAvg's and IFCA's first round (m = 5), and
+                FedGroup (EDC) for MESH_ROUNDS rounds, α = 20 per round, α
+                = 40 (every client a founder) in blocks of MESH_BLOCK, α =
+                20 streamed. 4i-i: an NCCL world of one in this process,
+                every pinned path against mesh=None: equal bit for bit
+                (histories, labels, membership, max |Δ| 0), block replays
+                = the blocked rounds with the NCCL all_reduce inside the
+                graphs; cold-start and round ms of both. 4i-ii: two
+                spawned ranks sharing the card over gloo (the library
+                built by this process first; each rank warms up on a
+                small run), every path (streamed through
+                ``ShardedClientStore(…, 2)``) against one device
+                (streamed: ``ShardedClientStore(…, 1)``): the first
+                rounds within the CPU mesh tests' tolerances (accuracy
+                MESH_ACC_ATOL, loss and discrepancy MESH_RTOL, each leaf
+                MESH_LEAF_RTOL in relative Frobenius norm); FedGroup's
+                runs with labels, founders and membership equal and
+                accuracy and discrepancy within the reference's own
+                bound, MESH_ACC_ATOL absolute (the card rounds a
+                client's update by the rank's batch, and three rounds
+                amplify it: loss and leaves reported); the two ranks'
+                replicas equal bit for bit; each rank's edc_cosine
+                launches; a rank's streamed cohort's x and y bytes half
+                of one device's; replays 0 (gloo runs the block
+                eagerly); cold-start and round ms at S = 1 and 2. 4i-iii:
+                one rank a card over NCCL where the machine has two
+                cards, else a line saying it has one.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -345,7 +374,8 @@ with no final ``ok`` line):
      backward kernels' ``replaces`` names the jnp
      function whose ``jax.vjp`` each matches; edc_cosine's launches count
      phase 4's EDC, MADC, 20-group and shift runs, phase 4d's, 4e's,
-     4f's, 4g's and 4h's FedGroup runs and phase 6e's two cold starts;
+     4f's, 4g's, 4h's and 4i's FedGroup runs (4i's ranks' too) and phase
+     6e's two cold starts;
      swa_attention's count Zamba2's and phase 6b's counted forwards and
      phase 6c's counted MTP call, not
      phase 2's comparisons; the backward kernels' count phase 6d's
@@ -416,6 +446,22 @@ FLEET_CHAOS = dict(heartbeat_interval=0.05, heartbeat_miss=10,
 PROC_ROUNDS, PROC_KILL_ROUND = 4, 2   # phase 4h-iii: spawned workers
 PROC_BUILDER = "chip_smoke:fleet_worker_trainer"   # their replica builder
 PROC_BEAT = (0.1, 50)          # heartbeat interval s and misses: 5 s window
+# phase 4i: FedGroup (EDC) at phase 4's width on a data mesh, MESH_ROUNDS
+# rounds a run, the blocked run in blocks of MESH_BLOCK; ranks against one
+# device at the CPU mesh tests' tolerances (accuracy absolute, loss and
+# discrepancy relative, each group-parameter leaf in the Frobenius norm)
+MESH_ROUNDS, MESH_BLOCK = 3, 2
+MESH_ACC_ATOL, MESH_RTOL, MESH_LEAF_RTOL = 2e-3, 1e-4, 1e-5
+# the card's batched products round a client's update by the batch's
+# size (a rank's K / S against K: ~1e-6 relative) and three rounds of
+# training amplify that far past MESH_RTOL, as a 1e-7 nudge of the data
+# does (phase 6e): a first round (FedAvg, IFCA: the same inputs on every
+# rank) is held at the CPU tests' tolerances, FedGroup's runs at the
+# reference's own bound of a sharded run (accuracy and discrepancy within
+# MESH_ACC_ATOL absolute), their loss and leaves reported
+MESH_FIRST = ("fedavg", "ifca")
+MESH_PATHS = MESH_FIRST + ("round", "block", "stream")
+MESH_TIMEOUT_S = 400           # a spawned rank's whole run
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
 # phase 2's swa_attention cases at the zoo families' shapes: label ->
@@ -1561,8 +1607,9 @@ def traced_h2d_bytes(torch, fn, trace_path: Path) -> list:
     enabled in the warm-up and capture starts at the traced step (a
     profiler started cold in a process that profiled before missed the
     first half second of phase 4f's run on the H100). Marker copies of
-    H2D_MARK bytes open the traced step, the last one two seconds after
-    the first (a trace that opened late in the step still holds it). Returns,
+    H2D_MARK bytes open the traced step, the last one five seconds after
+    the first (a trace that opened late in the step still holds it: one
+    opened 2.5 s late on the H100). Returns,
     in start order, the bytes of the host-to-device copies after the last
     marker on streams that ran no kernel (the population's copy stream).
     Raises when the trace lacks a marker or the byte counts."""
@@ -1579,7 +1626,7 @@ def traced_h2d_bytes(torch, fn, trace_path: Path) -> list:
         prof.step()
         mark.to("cuda")
         torch.cuda.synchronize()
-        time.sleep(2.0)
+        time.sleep(5.0)
         mark.to("cuda")
         torch.cuda.synchronize()
         fn()
@@ -2804,6 +2851,391 @@ def fleet_phase(torch, data, model) -> dict:
     if counts["edc_cosine"] < 1:
         raise AssertionError("phase 4h's FedGroup runs launched no "
                              "edc_cosine kernel")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4i: the client axis over torch.distributed ranks (a data mesh)
+# ---------------------------------------------------------------------------
+
+def mesh_trainer(model, data, mesh, alpha: int = 20, block_size: int = 1,
+                 population=None, framework: str = "fedgroup"):
+    """FedGroup (EDC), FedAvg or IFCA at phase 4's width on ``mesh``
+    (None: one device)."""
+    from repro_torch.fed import strategies
+    from repro_torch.fed.engine import FedAvgTrainer, FedConfig
+
+    cfg = FedConfig(n_rounds=MESH_ROUNDS, clients_per_round=20,
+                    local_epochs=2, batch_size=10, lr=0.03, n_groups=5,
+                    pretrain_scale=alpha, measure="edc", seed=0,
+                    block_size=block_size)
+    kw = dict(device="cuda", mesh=mesh, population=population)
+    if framework == "fedavg":
+        return FedAvgTrainer(model, data, cfg, **kw)
+    return strategies.make_trainer(
+        "static" if framework == "fedgroup" else framework, model, data,
+        cfg, **kw)
+
+
+def mesh_run(torch, model, data, mesh, path: str, population=None) -> dict:
+    """One phase-4i run on ``path``: "fedavg" / "ifca", FedAvg's / IFCA's
+    first round from the initial parameters (the ranks' inputs equal one
+    device's, so their round differs by the card's rounding alone; IFCA's
+    has m = 5 groups and its assignment stage); "round", FedGroup's Alg.
+    3 cold start, then MESH_ROUNDS rounds (α = 20); "block", the same at α
+    = 40 (every client a founder) in blocks of MESH_BLOCK; "stream", as
+    "round" through ``population``. Host clock ended by synchronize; a
+    blocked run then times one more block (``block_round_ms_steady``).
+    Returns the run's record and its state (CPU copies) for comparison."""
+    from repro_torch.kernels import ops
+
+    alpha, bs = (40, MESH_BLOCK) if path == "block" else (20, 1)
+    first = path in MESH_FIRST
+    tr = mesh_trainer(model, data, mesh, alpha, bs, population,
+                      path if first else "fedgroup")
+    h2d = []
+    if population is not None:
+        nxt = population.next_cohort
+
+        def seen():
+            c = nxt()
+            h2d.append({"xy": c.x.nbytes + c.y.nbytes, "n": c.n.nbytes,
+                        "rows": int(c.x.shape[0]), "cohort": len(c.idx)})
+            return c
+        population.next_cohort = seen
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    pre_idx, labels, cold_ms = [], [], None
+    if not first:
+        t0 = time.perf_counter()
+        pre_idx, labels = tr.group_cold_start()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+    round_ms = []
+    rounds = 1 if first else MESH_ROUNDS
+    for _ in range(1 if path == "block" else rounds):
+        t1 = time.perf_counter()
+        tr.run(rounds if path == "block" else 1)
+        torch.cuda.synchronize()
+        round_ms.append((time.perf_counter() - t1) * 1e3)
+    if path == "block":
+        round_ms = [round_ms[0] / rounds]      # the run's rounds, averaged
+    counts = ops.launch_counts()
+    blk = tr._block_exec
+    params = tr.params if path == "fedavg" else tr.group_params
+    state = {f"params/{k}": v.detach().cpu().clone()
+             for k, v in params.items()}
+    if not first:
+        state["group_delta"] = tr.group_delta.detach().cpu().clone()
+    rec = {"path": path, "alpha": alpha, "cold_ms": cold_ms,
+           "round_ms": round_ms, "block_round_ms_steady": None,
+           "launches": counts,
+           "replays": 0 if blk is None else blk.replays,
+           "labels": [int(x) for x in labels],
+           "pre_idx": [int(x) for x in pre_idx],
+           "membership": [int(x) for x in getattr(tr, "membership", [])],
+           "hist": [[r.weighted_acc, r.mean_loss, r.discrepancy]
+                    for r in tr.history.rounds],
+           "h2d": h2d}
+    if path == "block":
+        # one more block after the compared run: its rounds' ms, no capture
+        # in it (the graphs exist; gloo runs it eagerly)
+        t1 = time.perf_counter()
+        tr.run(MESH_BLOCK)
+        torch.cuda.synchronize()
+        rec["block_round_ms_steady"] = ((time.perf_counter() - t1) * 1e3
+                                        / MESH_BLOCK)
+    tr.close()
+    return rec, state
+
+
+def mesh_compare(ref: dict, ref_state: dict, got: dict, got_state: dict,
+                 hold: str) -> dict:
+    """``got`` against ``ref``: labels, founders and membership equal; each
+    history column's largest deviation (accuracy and discrepancy absolute
+    and relative, loss relative); each parameter leaf's relative Frobenius
+    distance. ``hold``: "exact" (all 0, max |Δ| too), "tight" (the CPU
+    mesh tests' tolerances: accuracy MESH_ACC_ATOL, loss and discrepancy
+    MESH_RTOL, leaves MESH_LEAF_RTOL) or "reference" (the reference's own
+    bound of a sharded run, ``tests/test_trainer_sharding.py``: accuracy and
+    discrepancy within MESH_ACC_ATOL absolute;
+    the loss and leaves reported)."""
+    same = {k: got[k] == ref[k] for k in ("labels", "pre_idx", "membership")}
+    h, hr = np.asarray(got["hist"]), np.asarray(ref["hist"])
+    dev = {"acc": float(np.nanmax(np.abs(h[:, 0] - hr[:, 0]))),
+           "disc_abs": float(np.max(np.abs(h[:, 2] - hr[:, 2]))),
+           "loss": float(np.max(np.abs(h[:, 1] - hr[:, 1]) / np.abs(hr[:, 1]))),
+           "disc": float(np.max(np.abs(h[:, 2] - hr[:, 2]) / np.abs(hr[:, 2])))}
+    leaf = {k: float((got_state[k] - v).norm() / v.norm())
+            for k, v in ref_state.items()}
+    max_abs = max(float((got_state[k] - v).abs().max())
+                  for k, v in ref_state.items())
+    ok = all(same.values()) and h.shape == hr.shape
+    if hold == "exact":
+        ok = ok and max_abs == 0.0 and max(dev.values()) == 0.0
+    elif hold == "tight":
+        ok = (ok and dev["acc"] <= MESH_ACC_ATOL
+              and max(dev["loss"], dev["disc"]) <= MESH_RTOL
+              and max(leaf.values()) <= MESH_LEAF_RTOL)
+    else:
+        ok = ok and max(dev["acc"], dev["disc_abs"]) <= MESH_ACC_ATOL
+    return {"hold": hold, "equal": same, "max_dev": dev, "leaf_rel_fro": leaf,
+            "leaf_rel_fro_max": max(leaf.values()), "max_abs_dev": max_abs,
+            "ok": ok}
+
+
+def mesh_warmup(torch, mesh):
+    """A small FedGroup run on ``mesh`` (the Alg. 3 cold start, a round
+    and a block): a fresh process's first cuBLAS, cuSOLVER, torch.func and
+    collective calls, kept out of the timed runs."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.data.generators import mnist_like
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.models.paper_models import mclr
+
+    data = mnist_like(seed=0, n_clients=16, classes_per_client=2,
+                      total_train=1200, dim=16)
+    cfg = FedConfig(clients_per_round=8, local_epochs=1, batch_size=10,
+                    lr=0.05, n_groups=2, pretrain_scale=8, seed=0,
+                    block_size=2)
+    tr = FedGroupTrainer(mclr(16, 10), data, cfg, device="cuda", mesh=mesh)
+    tr.run(3)
+    torch.cuda.synchronize()
+    tr.close()
+
+
+def mesh_rank_main(rank: int, world: int, store: str, out: str,
+                   local_world: int) -> int:
+    """A phase-4i rank (run in a process of its own): joins the world
+    through the FileStore at ``store`` with the backend ``launch.mesh``
+    picks for ``local_world`` ranks on this host's cards, warms up, runs
+    MESH_PATHS (streamed through a ``ShardedClientStore`` of ``world``
+    shards) and writes its records to ``out``.json and its state to
+    ``out``.pt."""
+    import torch
+
+    from repro_torch.data.generators import femnist_like
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.fed.store import ArrayClientStore, ShardedClientStore
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.paper_models import mlp
+
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                local_rank=rank, local_world=local_world)
+    try:
+        mesh = mesh_lib.make_fed_mesh(world)
+        t0 = time.perf_counter()
+        mesh_warmup(torch, mesh)
+        recs, states = {"warmup_s": time.perf_counter() - t0}, {}
+        data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
+        model = mlp(784, 512, 26)
+        for path in MESH_PATHS:
+            pop = None
+            if path == "stream":
+                pop = Population(ShardedClientStore(ArrayClientStore(data),
+                                                    world),
+                                 PopulationConfig(prefetch=2))
+            recs[path], states[path] = mesh_run(
+                torch, model, None if pop else data, mesh, path, pop)
+        recs["backend"], recs["device"] = mesh.backend, str(mesh.device)
+        Path(out + ".json").write_text(json.dumps(recs))
+        torch.save(states, out + ".pt")
+    finally:
+        mesh_lib.destroy_process_group()
+    return 0
+
+
+def mesh_ranks(torch, world: int, local_world: int, tag: str) -> list:
+    """Spawn ``world`` phase-4i ranks (each its own process and CUDA
+    context; the kernels were built by this process already, so the ranks
+    only load the library) and wait for all: any rank's failure fails the
+    phase, and every rank still running is killed. Returns each rank's
+    (records, state)."""
+    d = ROOT / "build" / f"mesh_{tag}"
+    d.mkdir(parents=True, exist_ok=True)
+    for f in d.iterdir():
+        f.unlink()
+    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']; "
+            "import chip_smoke; sys.exit(chip_smoke.mesh_rank_main("
+            "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], "
+            "int(sys.argv[6])))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(r), str(world),
+         str(d / "store"), str(d / f"rank{r}"), str(local_world)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * world:
+        for r, log in enumerate(logs):
+            print(f"--- mesh rank {r} (exit {rcs[r]}):\n{log[-4000:]}",
+                  file=sys.stderr)
+        raise AssertionError(f"phase 4i {tag}: rank exit codes {rcs}")
+    return [(json.loads((d / f"rank{r}.json").read_text()),
+             torch.load(d / f"rank{r}.pt")) for r in range(world)]
+
+
+def mesh_check_ranks(torch, tag: str, ranks: list, ref: dict,
+                     ref_state: dict) -> int:
+    """Phase 4i-ii / iii: each rank against the run of one device (FedAvg's
+    first round at the CPU tests' tolerances, FedGroup's runs at the
+    reference's own bound: ``mesh_compare``), the ranks' replicas bit for
+    bit, each rank's ``edc_cosine`` launches, the streamed cohort's H2D
+    bytes a rank (x and y: one device's over the world), graph replays (0
+    over gloo). Emits a record per path; returns the ranks' ``edc_cosine``
+    launches."""
+    launches = 0
+    world = len(ranks)
+    gloo = ranks[0][0]["backend"] == "gloo"
+    for path in MESH_PATHS:
+        rows = []
+        for r, (recs, states) in enumerate(ranks):
+            cmp = mesh_compare(ref[path], ref_state[path], recs[path],
+                               states[path],
+                               "tight" if path in MESH_FIRST else "reference")
+            rows.append({"rank": r, **cmp,
+                         "cold_ms": recs[path]["cold_ms"],
+                         "round_ms": recs[path]["round_ms"],
+                         "block_round_ms_steady":
+                             recs[path]["block_round_ms_steady"],
+                         "edc_cosine": recs[path]["launches"]["edc_cosine"],
+                         "replays": recs[path]["replays"]})
+            launches += recs[path]["launches"]["edc_cosine"]
+        replicas = all(
+            recs[path][k] == ranks[0][0][path][k]
+            for recs, _ in ranks[1:] for k in ("labels", "membership", "hist"))
+        replicas = replicas and all(
+            torch.equal(states[path][k], ranks[0][1][path][k])
+            for _, states in ranks[1:] for k in states[path])
+        rec = {"phase": "mesh", "part": tag, "path": path, "world": world,
+               "backend": ranks[0][0]["backend"],
+               "devices": [recs["device"] for recs, _ in ranks],
+               "warmup_s": [recs["warmup_s"] for recs, _ in ranks],
+               "ranks": rows, "replicas_equal": replicas,
+               "world1_cold_ms": ref[path]["cold_ms"],
+               "world1_round_ms": ref[path]["round_ms"],
+               "world1_block_round_ms_steady":
+                   ref[path]["block_round_ms_steady"],
+               "world1_replays": ref[path]["replays"],
+               "hist": ranks[0][0][path]["hist"],
+               "world1_hist": ref[path]["hist"],
+               "tolerances": {"acc": MESH_ACC_ATOL, "rtol": MESH_RTOL,
+                              "leaf_rel_fro": MESH_LEAF_RTOL}}
+        if path == "stream":
+            rec["h2d_per_cohort"] = [recs[path]["h2d"] for recs, _ in ranks]
+            rec["world1_h2d_per_cohort"] = ref[path]["h2d"]
+            share = all(c["xy"] * world == w["xy"] and c["n"] == w["n"]
+                        for recs, _ in ranks
+                        for c, w in zip(recs[path]["h2d"], ref[path]["h2d"],
+                                        strict=True))
+            rec["xy_bytes_a_rank_are_world1_over_world"] = share
+            if not share:
+                raise AssertionError(f"phase 4i {tag}: a rank's streamed "
+                                     "cohort is not its share")
+        emit(rec)
+        if not all(x["ok"] for x in rows):
+            raise AssertionError(f"phase 4i {tag} {path}: a rank differs "
+                                 "from the run of one device")
+        if not replicas:
+            raise AssertionError(f"phase 4i {tag} {path}: the ranks' "
+                                 "replicas differ")
+        if path not in MESH_FIRST and any(x["edc_cosine"] < 1 for x in rows):
+            raise AssertionError(f"phase 4i {tag} {path}: a rank launched "
+                                 "no edc_cosine")
+        if path == "block" and any(
+                x["replays"] != (0 if gloo else MESH_ROUNDS - 1)
+                for x in rows):
+            raise AssertionError(f"phase 4i {tag}: block replays "
+                                 f"{[x['replays'] for x in rows]}")
+    return launches
+
+
+def mesh_phase(torch, data, model) -> dict:
+    """Phase 4i; returns the kernels' launch counts of the phase (this
+    process's world-of-one runs and, as ``edc_cosine``, every rank's)."""
+    from repro_torch.fed.population import Population, PopulationConfig
+    from repro_torch.fed.store import ArrayClientStore, ShardedClientStore
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    # 4i-i: an NCCL world of one in this process, against mesh=None
+    store = ROOT / "build" / "mesh_nccl1_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    ref, ref_state = {}, {}
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=0, world_size=1, local_rank=0,
+                                local_world=1)
+    try:
+        mesh = mesh_lib.make_fed_mesh(1)
+        for path in MESH_FIRST + ("round", "block"):
+            ref[path], ref_state[path] = mesh_run(torch, model, data, None,
+                                                  path)
+            got, got_state = mesh_run(torch, model, data, mesh, path)
+            add(got["launches"])
+            cmp = mesh_compare(ref[path], ref_state[path], got, got_state,
+                               "exact")
+            rec = {"phase": "mesh", "part": "nccl_world_of_one",
+                   "path": path, "backend": mesh.backend, **cmp,
+                   "cold_ms": got["cold_ms"], "round_ms": got["round_ms"],
+                   "none_cold_ms": ref[path]["cold_ms"],
+                   "none_round_ms": ref[path]["round_ms"],
+                   "block_round_ms_steady": got["block_round_ms_steady"],
+                   "none_block_round_ms_steady":
+                       ref[path]["block_round_ms_steady"],
+                   "replays": got["replays"],
+                   "none_replays": ref[path]["replays"],
+                   "launches": got["launches"]}
+            emit(rec)
+            if mesh.backend != "nccl" or not cmp["ok"]:
+                raise AssertionError(f"phase 4i-i {path}: a mesh of one "
+                                     f"differs from mesh=None: {cmp}")
+            if path == "block" and not (
+                    got["replays"] == ref[path]["replays"]
+                    == MESH_ROUNDS - 1):
+                raise AssertionError("phase 4i-i: block replays "
+                                     f"{got['replays']}")
+    finally:
+        mesh_lib.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # world 1 streamed, the reference of the ranks' streamed runs
+    pop = Population(ShardedClientStore(ArrayClientStore(data), 1),
+                     PopulationConfig(prefetch=2))
+    ref["stream"], ref_state["stream"] = mesh_run(torch, model, None, None,
+                                                  "stream", pop)
+
+    # 4i-ii: two ranks sharing the card over gloo
+    ranks = mesh_ranks(torch, 2, 2, "gloo2")
+    counts["edc_cosine"] = counts.get("edc_cosine", 0) + mesh_check_ranks(
+        torch, "gloo_two_ranks_one_card", ranks, ref, ref_state)
+
+    # 4i-iii: one rank a card over NCCL, where the machine has the cards
+    n = torch.cuda.device_count()
+    if n >= 2:
+        ranks = mesh_ranks(torch, 2, 2, "nccl2")
+        counts["edc_cosine"] += mesh_check_ranks(
+            torch, "nccl_rank_a_card", ranks, ref, ref_state)
+    else:
+        emit({"phase": "mesh", "part": "nccl_rank_a_card", "skipped":
+              f"this machine has {n} card: NCCL takes one rank a card"})
+    emit({"phase": "mesh_phase", "launches": counts,
+          "seconds": time.perf_counter() - t0})
     return counts
 
 
@@ -4763,6 +5195,9 @@ def main() -> int:
     # phase 4h: telemetry and the elastic control plane (coordinator and
     # workers over threads and spawned processes)
     counts_fleet = fleet_phase(torch, data, model)
+    # phase 4i: the client axis over torch.distributed ranks (an NCCL world
+    # of one in this process; two spawned ranks sharing the card over gloo)
+    counts_mesh = mesh_phase(torch, data, model)
 
     # phase 5: where the time goes
     breakdown(torch, tr_edc, pre_idx)
@@ -4794,7 +5229,8 @@ def main() -> int:
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
     # block phase's FedGroup runs, the population phase's FedGroup runs,
-    # phase 4f's, 4g's and 4h's FedGroup runs, phase 6e's two cold starts;
+    # phase 4f's, 4g's, 4h's and 4i's FedGroup runs (4i's ranks' too),
+    # phase 6e's two cold starts;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes); phase 6b's counted
     # bf16 prefills and fp32 consistency forwards (swa_attention, both
@@ -4805,7 +5241,7 @@ def main() -> int:
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
                 + counts_stream["edc_cosine"] + counts_ft["edc_cosine"]
                 + counts_async["edc_cosine"] + counts_fleet["edc_cosine"]
-                + counts_dry["edc_cosine"],
+                + counts_mesh["edc_cosine"] + counts_dry["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"]
                 + counts_fam["swa_attention.tc"]

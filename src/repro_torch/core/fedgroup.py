@@ -35,6 +35,12 @@ before the cold start), the cold-start flags and the shift detector's
 clock, and the pinned direction cache as ``state/fg_dir_*``: a resumed
 trainer does not run Alg. 3 again.
 
+On a data mesh (``mesh=``, ``fed.engine``) the cold starts' pre-training
+solves run sharded over the ranks and ΔW (at FEMNIST MLP-512, n_pre ×
+415,258 fp32) is gathered onto every rank; EDC (``edc_cosine``) or MADC
+(``madc``) then runs on every rank with the same injected draws, and the
+labels are checked equal to rank 0's.
+
 With a streamed population (``population=``) the Alg. 3 founders are
 drawn from the scheduler's active clients only, the newcomers its arrival
 process activates are routed by eq. 9 in the round they arrive, and every
@@ -165,6 +171,13 @@ class FedGroupTrainer(GroupedTrainer):
             labels = cluster_lib.hierarchical(Mp.cpu().numpy(), self.m)
         else:
             raise ValueError(cfg.measure)
+        if self.mesh is not None:
+            # every rank clustered the gathered ΔW with the same injected
+            # draws; a rank that reached other labels has diverged
+            self.mesh.same_on_every_rank("the group cold start's labels",
+                                         torch.as_tensor(
+                                             np.asarray(labels, np.int64),
+                                             device=self.device))
 
         self._adopt_membership(pre_idx, labels)
         # segment mean over pre-trained clients: W[j, i] = 1/|G_j| for

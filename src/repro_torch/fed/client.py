@@ -118,7 +118,7 @@ def make_eval_fn(model: ModelSpec):
     return vmap(_correct_one(model), in_dims=(None, 0, 0, 0))
 
 
-def grouped_eval_correct(model: ModelSpec):
+def grouped_eval_correct(model: ModelSpec, mesh=None):
     """Fused grouped eval: ONE pass for all m groups.
 
     fn(group_params, membership, Xt, Yt, nt) -> (correct, total) int
@@ -127,10 +127,21 @@ def grouped_eval_correct(model: ModelSpec):
     assigned, excluded from both counts) — the paper's §5.1 weighted
     accuracy. Each client gathers its own group's parameters and is scored
     once: N forward passes.
+
+    With ``mesh`` the test stack may hold only this rank's block of the N
+    clients (``mesh.cohort_rows(N)``, fewer rows than ``membership``):
+    each rank scores its block and the two counts are summed over the
+    ranks as int64, exactly.
     """
     one = vmap(_correct_one(model))
 
     def fn(group_params, membership, Xt, Yt, nt):
+        if mesh is not None and Xt.shape[0] != membership.shape[0]:
+            lo, hi = mesh.cohort_rows(membership.shape[0])
+            counts = torch.stack(fn(group_params, membership[lo:hi], Xt, Yt,
+                                    nt)).long()
+            mesh.all_reduce(counts)
+            return counts[0], counts[1]
         membership = membership.long()
         valid = membership >= 0
         m = next(iter(group_params.values())).shape[0]

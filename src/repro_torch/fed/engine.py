@@ -67,8 +67,19 @@ The executors are wrapped in ``dispatch`` spans (``obs.wrap``, which
 keeps the executor objects' attributes), and a coordinator
 (``launch.coordinator``) may replace them with fleet proxies.
 
-Not yet ported, and refused with ``NotImplementedError`` (``ROADMAP.md``):
-a device mesh.
+A data mesh (``mesh=``, a ``launch.mesh.FedMesh``; by default
+``fed.parallel.default_fed_mesh()``, None unless a process group of more
+than one rank is initialised): every rank runs the same trainer from the
+same seed, draws the same cohorts and draws on its host generators, and
+computes its contiguous block of each cohort's clients; the round's sums
+are ``all_reduce``s (``fed.rounds``) and the trainer's state is whole on
+every rank. The pinned train stack is whole on every rank, the test
+stack this rank's block of the clients when the ranks divide N. The
+pre-training solves (Alg. 3, eq. 9, the shift probes) run sharded and
+their updates are gathered; the measures then run on every rank. The
+device is the mesh's. Refused with ``NotImplementedError`` (``ROADMAP.md``
+queue 1): a model axis or a mesh that is not a ``FedMesh`` (16c), and the
+async runtime, checkpoints, telemetry and the fleet under a mesh (16b).
 """
 from __future__ import annotations
 
@@ -87,10 +98,11 @@ from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.data.federated import FederatedData
 from repro_torch.draws import TorchDraws
 from repro_torch.fed import client as client_lib
-from repro_torch.fed import graphs as graphs_lib
 from repro_torch.fed import leases as leases_lib
+from repro_torch.fed import parallel as parallel_lib
 from repro_torch.fed import rounds as rounds_lib
 from repro_torch.fed import server as server_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.modules import param_count
 from repro_torch.models.paper_models import ModelSpec
 from repro_torch.obs import telemetry as obs_lib
@@ -165,15 +177,25 @@ class FedConfig:
     telemetry_dir: str | None = None
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not yet ported to repro_torch (see ROADMAP.md, "
-        "queue 1); use the JAX package repro for it")
-
-
 def _check_ported(cfg: FedConfig, mesh):
-    if mesh is not None:
-        _not_ported("a device mesh")
+    """Refuse what is not ported under a mesh (``ROADMAP.md`` queue 1):
+    anything but a 1-D ``FedMesh`` (16c), and the async runtime,
+    checkpoints and telemetry under one (16b)."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, mesh_lib.FedMesh):
+        raise mesh_lib.not_ported_16(
+            "16c", f"a device mesh of type {type(mesh).__name__} (the port "
+            "takes a launch.mesh.FedMesh, a 1-D data mesh)")
+    if int(mesh.shape.get(mesh_lib.MP_AXIS, 1)) > 1:
+        raise mesh_lib.not_ported_16("16c", "a model axis > 1")
+    if cfg.async_depth >= 1:
+        raise mesh_lib.not_ported_16("16b", "the async runtime under a mesh")
+    if cfg.checkpoint_every or cfg.checkpoint_dir:
+        raise mesh_lib.not_ported_16("16b", "checkpoints under a mesh")
+    if cfg.telemetry_dir:
+        # every rank would write the one directory's streams
+        raise mesh_lib.not_ported_16("16b", "telemetry under a mesh")
 
 
 @dataclass
@@ -232,15 +254,29 @@ class FedAvgTrainer:
     ``population=`` (a ``fed.population.Population``) streams the cohorts
     from a host store instead; ``data`` may then be None. The population
     is attached to this trainer and runs on its device; ``close()`` stops
-    its prefetcher and state writer."""
+    its prefetcher and state writer.
+
+    ``mesh`` (a 1-D ``launch.mesh.FedMesh``; default
+    ``fed.parallel.default_fed_mesh(device=device)``) shards the client
+    axis over its ranks; the device is then the mesh's, whose type must be
+    ``device``'s."""
 
     framework = "fedavg"
 
     def __init__(self, model: ModelSpec, data: FederatedData | None,
                  cfg: FedConfig, device="cuda", mesh=None, population=None,
                  init_params=None, draws=None):
+        if mesh is None:
+            mesh = parallel_lib.default_fed_mesh(device=device)
         _check_ported(cfg, mesh)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device={device!r} but the mesh's rank "
+                                 f"device is {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device)
         self.model, self.cfg, self.data = model, cfg, data
         self.population = population
         self.rng = np.random.default_rng(cfg.seed)
@@ -280,10 +316,13 @@ class FedAvgTrainer:
         self._block_exec = None     # lazily-built round-block executor
         self._async_exec = None     # lazily-built async dispatch executor
         self.group_version = None   # (m,) per-group staleness clock (async)
-        self._grouped_eval = client_lib.grouped_eval_correct(model)
+        self._grouped_eval = client_lib.grouped_eval_correct(model, mesh)
         self._eval_fn = client_lib.make_eval_fn(model)
+        # the rows of the test stack this rank holds (all without a mesh)
+        self._test_rows = (0, self.n_clients)
         if population is not None:
-            population.attach(cfg, self.device)
+            population.attach(cfg, self.mesh if self.mesh is not None
+                              else self.device)
             self._train_stack = self._test_stack = None
         else:
             # pin the padded per-client stacks on the device once —
@@ -293,10 +332,17 @@ class FedAvgTrainer:
                 torch.as_tensor(data.x_train, device=dev),
                 torch.as_tensor(data.y_train, device=dev).long(),
                 torch.as_tensor(data.n_train, device=dev).long())
-            self._test_stack = (
-                torch.as_tensor(data.x_test, device=dev),
-                torch.as_tensor(data.y_test, device=dev).long(),
-                torch.as_tensor(data.n_test, device=dev).long())
+            test = (data.x_test, np.asarray(data.y_test, np.int64),
+                    np.asarray(data.n_test, np.int64))
+            if self.mesh is not None:
+                # this rank's block of the clients when the ranks divide N
+                rows = self.mesh.cohort_rows(self.n_clients)
+                self._test_rows = rows or self._test_rows
+                self._test_stack = parallel_lib.shard_client_axis(
+                    self.mesh, test)
+            else:
+                self._test_stack = tuple(torch.as_tensor(t, device=dev)
+                                         for t in test)
             self._eval_zero_mem = torch.zeros(
                 self.n_clients, dtype=torch.long, device=dev)
 
@@ -351,13 +397,15 @@ class FedAvgTrainer:
     def _round_executor(self):
         if self._round_exec is None:
             cfg = self.cfg
+            fn = rounds_lib.make_round_executor(
+                self.model, epochs=cfg.local_epochs,
+                batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
+                max_samples=self._max_samples, quarantine=cfg.quarantine,
+                quarantine_mult=cfg.quarantine_mult, mesh=self.mesh,
+                **self._exec_spec())
             self._round_exec = self.obs.wrap(
-                "dispatch", rounds_lib.make_round_executor(
-                    self.model, epochs=cfg.local_epochs,
-                    batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
-                    max_samples=self._max_samples, quarantine=cfg.quarantine,
-                    quarantine_mult=cfg.quarantine_mult,
-                    **self._exec_spec()), exec="round")
+                "dispatch", parallel_lib.make_sharded_executor(fn, self.mesh),
+                exec="round")
         return self._round_exec
 
     # -- round blocks ------------------------------------------------------
@@ -374,9 +422,11 @@ class FedAvgTrainer:
                 self.model, epochs=cfg.local_epochs,
                 batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
                 max_samples=self._max_samples, quarantine=cfg.quarantine,
-                quarantine_mult=cfg.quarantine_mult, **self._block_kwargs())
+                quarantine_mult=cfg.quarantine_mult, mesh=self.mesh,
+                **self._block_kwargs())
             self._block_exec = self.obs.wrap(
-                "dispatch", graphs_lib.GraphBlockExecutor(fn), exec="block")
+                "dispatch", parallel_lib.make_sharded_block_executor(
+                    fn, self.mesh), exec="block")
         return self._block_exec
 
     def _host_round_pre(self) -> bool:
@@ -515,10 +565,24 @@ class FedAvgTrainer:
 
     @torch.no_grad()
     def _solve(self, params, idx, solver=None):
+        """One local solve of the ``idx`` clients from ``params`` ->
+        (deltas, finals, n). Under a mesh each rank solves its rows of
+        ``idx`` (the minibatch rows drawn for all of them on every rank)
+        and the updates are gathered; a set the ranks do not divide is
+        solved whole on every rank."""
         solver = self.solver if solver is None else solver
         x, y, n = self._client_batch(idx)
         bidx = self._batch_indices(n, solver.max_steps)
-        deltas, finals = solver(params, x, y, n, bidx)
+        rows = None if self.mesh is None else self.mesh.cohort_rows(len(n))
+        if rows is None:
+            deltas, finals = solver(params, x, y, n, bidx)
+            return deltas, finals, n
+        lo, hi = rows
+        if x.shape[0] == len(n):
+            x, y = x[lo:hi], y[lo:hi]
+        deltas, finals = solver(params, x, y, n[lo:hi], bidx[lo:hi])
+        deltas, finals = parallel_lib.gather_client_axis(
+            self.mesh, (deltas, finals), len(n))
         return deltas, finals, n
 
     def _should_eval(self, t: int) -> bool:
@@ -545,8 +609,12 @@ class FedAvgTrainer:
         correct = torch.zeros((), dtype=torch.long, device=self.device)
         total = 0
         for block, x, y, n in pop.eval_batches(idx):
-            correct += torch.sum(self._eval_fn(params, x, y, n))
+            if len(n):      # a mesh rank's share of a block may be empty
+                correct += torch.sum(self._eval_fn(params, x, y, n))
             total += int(pop.store.n_test[block].sum())
+        if self.mesh is not None:
+            # each rank scored its rows of every block
+            self.mesh.all_reduce(correct)
         return int(correct), total
 
     def _round_eval(self, t: int) -> float:
@@ -566,17 +634,24 @@ class FedAvgTrainer:
             correct, total = self._eval_correct(params, client_idx)
             return correct / max(total, 1)
         xt, yt, nt = self._test_stack
+        lo, hi = self._test_rows
         if client_idx is None:
             idx = np.arange(self.n_clients)
         else:
             idx = np.asarray(client_idx)
             if len(idx) == 0:
                 return 0.0
-            sel = torch.as_tensor(idx.astype(np.int64), device=self.device)
+            # the ids among this rank's rows (all of them without a mesh)
+            mine = idx[(idx >= lo) & (idx < hi)] - lo
+            sel = torch.as_tensor(mine.astype(np.int64), device=self.device)
             xt, yt, nt = xt[sel], yt[sel], nt[sel]
-        correct = self._eval_fn(params, xt, yt, nt)
+        correct = (torch.sum(self._eval_fn(params, xt, yt, nt)) if len(nt)
+                   else torch.zeros((), dtype=torch.long, device=self.device))
+        if hi - lo != self.n_clients:
+            # the test stack is this rank's block: sum the ranks' counts
+            correct = self.mesh.all_reduce(correct.long())
         total = self.data.n_test[idx].sum()
-        return float(int(torch.sum(correct)) / max(total, 1))
+        return float(int(correct) / max(total, 1))
 
     def _add_round(self, t, acc, out) -> RoundMetrics:
         return self._record(t, acc, float(out.mean_loss),
@@ -690,8 +765,9 @@ class FedAvgTrainer:
                 max_samples=self._max_samples, quarantine=cfg.quarantine,
                 quarantine_mult=cfg.quarantine_mult, **self._block_kwargs())
             self._async_exec = self.obs.wrap(
-                "dispatch", graphs_lib.GraphDispatchExecutor(
-                    fn, max(1, int(cfg.async_depth))), exec="async")
+                "dispatch", parallel_lib.make_async_dispatch_executor(
+                    fn, self.mesh, max(1, int(cfg.async_depth))),
+                exec="async")
         return self._async_exec
 
     def _async_host_pre(self):
@@ -832,10 +908,12 @@ class FedAvgTrainer:
         if pinned:
             exec_ = self._async_executor()
             carry = exec_.bind(self._async_carry())
-            fold = rounds_lib.make_staleness_fold()
+            fold = parallel_lib.make_async_fold(
+                rounds_lib.make_staleness_fold(), self.mesh)
         else:
             carry, exec_ = None, self._round_executor()
-            fold = rounds_lib.make_param_fold()
+            fold = parallel_lib.make_async_fold(rounds_lib.make_param_fold(),
+                                                self.mesh)
         policy = leases_lib.RetryPolicy(
             cfg.async_lease_timeout, cfg.async_max_retries,
             cfg.async_backoff, cfg.async_backoff_cap)
@@ -1026,7 +1104,10 @@ class FedAvgTrainer:
         population's scheduler arrays and table rows, framework arrays) and
         the metadata (both numpy streams, history, comm accounting,
         ``extra``, ``group_version``, ``obs`` = the registry's snapshot,
-        ``population``). Then prunes to ``checkpoint_keep``."""
+        ``population``). Then prunes to ``checkpoint_keep``. Not under a
+        mesh (16b)."""
+        if self.mesh is not None:
+            raise mesh_lib.not_ported_16("16b", "checkpoints under a mesh")
         t = len(self.history.rounds)
         if path is None:
             if not self.cfg.checkpoint_dir:
@@ -1081,7 +1162,10 @@ class FedAvgTrainer:
         after which ``run(n)`` continues as the uninterrupted run would.
         Refuses another framework, another client count, a trainer that
         has trained, and a pinned archive in a streamed trainer or the
-        reverse. The tensors land on this trainer's device."""
+        reverse. The tensors land on this trainer's device. Not under a
+        mesh (16b)."""
+        if self.mesh is not None:
+            raise mesh_lib.not_ported_16("16b", "checkpoints under a mesh")
         path = path_or_dir
         if os.path.isdir(path):
             path = ckpt_io.latest_checkpoint(path)

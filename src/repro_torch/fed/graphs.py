@@ -36,6 +36,13 @@ On CPU tensors the executor runs ``block_fn`` eagerly (the plain version).
 On the card it replays graphs or raises: a capture failure is raised, and
 nothing runs eagerly on the card in its place.
 
+On a data mesh (``launch.mesh.FedMesh``) the route is the mesh's backend,
+chosen up front. Over NCCL the round's collectives are captured in the
+graphs (one collective runs on the group first, so that its communicator
+exists before the capture). Over gloo, whose collectives a graph cannot
+hold, the block runs ``block_fn`` eagerly on the card, as on the CPU, and
+``replays`` stays 0.
+
 ``GraphDispatchExecutor`` does the same for the async runtime
 (``FedConfig.async_depth``): one dispatch is one replay of a captured
 ``make_async_dispatch_executor`` step, which reads the carry and writes
@@ -105,10 +112,14 @@ class GraphBlockExecutor:
     alive and the carry's membership as host tensors, do_eval as host
     bools. ``replays`` / ``eval_replays`` count the graphs' replays,
     ``captures`` the captures and ``capture_ms`` the host time of the
-    one-time warm-up and capture (warm-up included)."""
+    one-time warm-up and capture (warm-up included). ``mesh``: the data mesh
+    ``block_fn`` was built for (its backend picks the route on the card).
+    """
 
-    def __init__(self, block_fn):
+    def __init__(self, block_fn, mesh=None):
         self.block_fn = block_fn
+        self.mesh = mesh
+        self.eager_on_card = mesh is not None and mesh.backend == "gloo"
         self.captures = 0
         self.replays = 0
         self.eval_replays = 0
@@ -117,10 +128,17 @@ class GraphBlockExecutor:
 
     def __call__(self, carry, train_stack, test_stack, idx, bidx, alive,
                  do_eval):
-        if train_stack[0].device.type != "cuda":
+        dev = train_stack[0].device
+        if dev.type != "cuda":
             return self.block_fn(carry, train_stack, test_stack, idx, bidx,
                                  alive, do_eval)
-        with torch.cuda.device(train_stack[0].device):
+        if self.eager_on_card:
+            # gloo: the staged rounds and the membership column to the card
+            idx, bidx, alive = (t.to(dev) for t in (idx, bidx, alive))
+            carry = dict(carry, membership=carry["membership"].to(dev))
+            return self.block_fn(carry, train_stack, test_stack, idx, bidx,
+                                 alive, do_eval)
+        with torch.cuda.device(dev):
             return self._replay_block(carry, train_stack, test_stack, idx,
                                       bidx, alive, do_eval)
 
@@ -191,6 +209,10 @@ class GraphBlockExecutor:
         K, rows, _ = g["shape"]
         step, evaluate = self.block_fn.step, self.block_fn.evaluate
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            # NCCL makes its communicator at a group's first collective,
+            # which must not happen inside the capture
+            self.mesh.all_reduce(torch.zeros(1, device=first.device))
 
         def scratch(v):
             if isinstance(v, dict):

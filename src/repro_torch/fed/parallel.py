@@ -1,6 +1,34 @@
-"""Mesh-parallel FedGroup, its mesh-free half (``repro.fed.parallel``,
-``parallel.py:336-447``): the pure functions of tensors that the
-federated dry run (``launch/fed_dryrun.py``) drives at production size.
+"""Mesh-parallel FedGroup (``repro.fed.parallel``): the client axis of the
+synchronous trainers over a 1-D data mesh of ``torch.distributed`` ranks
+(``parallel.py:58-330``), and the pure functions of tensors that the
+federated dry run (``launch/fed_dryrun.py``) drives at production size
+(``parallel.py:336-447``).
+
+The mesh helpers. The reference places arrays on a single controller's
+mesh and XLA inserts the reductions; here every rank is a process of its
+own (``launch.mesh.FedMesh``) and the reductions are explicit in the
+fused round (``fed.rounds``, ``fed.client``):
+
+  default_data_mesh     a 1-D ("data",) mesh over the process group's
+                        ranks, or None without one or on a world of one
+                        (the reference's ``jax.device_count() <= 1``).
+  default_fed_mesh      the same, or with ``REPRO_MODEL_AXIS`` > 1 a
+                        refusal (16c).
+  mesh_data_shards, shard_client_axis, put_sharded_cohort
+                        this rank's contiguous block of a K-leading leaf
+                        on its device when the shards divide K, the whole
+                        leaf (replicated) otherwise.
+  make_sharded_executor, make_sharded_block_executor
+                        the trainers' round and block executors over the
+                        mesh: the first hands a round its rank's rows of
+                        X and Y, the second is ``fed.graphs``'
+                        ``GraphBlockExecutor`` with the mesh (captured
+                        graphs over NCCL, the eager block over gloo).
+  make_async_dispatch_executor, make_async_fold
+                        the async runtime's executors on one device; under
+                        a mesh they raise (16b).
+
+The dry run's functions:
 
   make_parallel_round   one FedGroup round: K clients, each E epochs of
                         local SGD from its group's parameters, then
@@ -13,20 +41,199 @@ federated dry run (``launch/fed_dryrun.py``) drives at production size.
                         tall-skinny Householder QR by CholeskyQR2.
 
 On the reference's mesh ΔW is sharded over "model" along d_w and the
-small Gram products become all-reduces; on one device they are plain
-products. As everywhere in the port, the randomized SVD's test matrix Ω
-is an input (``repro_torch.draws``), not drawn from a key.
+small Gram products become all-reduces; here they are plain products on
+one device (the d_w-sharded cold start is 16c). As everywhere in the
+port, the randomized SVD's test matrix Ω is an input
+(``repro_torch.draws``), not drawn from a key.
 
-Not yet ported (ROADMAP.md queue 1, item 16): the mesh helpers,
-``default_data_mesh`` … ``make_async_fold`` (``parallel.py:58-330``).
+Not yet ported (``ROADMAP.md`` queue 1): the async runtime, checkpoints
+and the fleet under a mesh (16b); a model axis, with
+``sharding.specs.group_param_pspec`` sharding the group parameters and
+``group_cold_start_distributed`` (16c).
 """
 from __future__ import annotations
 
-import torch
+import os
 
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.fed import graphs as graphs_lib
 from repro_torch.fed.rounds import make_round_executor
 from repro_torch.kernels.edc_cosine import edc_cosine
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.sharding.specs import data_axis_names
 
+
+# ---------------------------------------------------------------------------
+# Client-axis sharding for the synchronous trainers
+# ---------------------------------------------------------------------------
+
+def default_data_mesh(device=None):
+    """A 1-D ("data",) mesh over the default process group's ranks, or None
+    when no group is initialised or its world is one rank: the trainers'
+    detected sharding (None selects the path of one device). ``device``
+    is this rank's (``make_fed_mesh``'s default otherwise)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    n = dist.get_world_size()
+    if n <= 1:
+        return None
+    return mesh_lib.make_fed_mesh(n, 1, device=device)
+
+
+def default_fed_mesh(model_axis: int | None = None, device=None):
+    """The trainers' detected mesh. ``model_axis`` (default:
+    ``REPRO_MODEL_AXIS``, 1) > 1 asks for a (data, model) layout, which is
+    not ported (16c); 1 is ``default_data_mesh()``."""
+    if model_axis is None:
+        model_axis = int(os.environ.get("REPRO_MODEL_AXIS", "1"))
+    if model_axis <= 1:
+        return default_data_mesh(device)
+    raise mesh_lib.not_ported_16(
+        "16c", f"a model axis of {model_axis} (REPRO_MODEL_AXIS)")
+
+
+def mesh_data_shards(mesh) -> int:
+    """Number of data-axis slices of ``mesh`` (1 for mesh=None): the shard
+    count of the client axis and of ``ShardedClientStore`` cohorts."""
+    if mesh is None:
+        return 1
+    total = 1
+    for a in data_axis_names(mesh):
+        total *= int(mesh.shape[a])
+    return total
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of same-structure dicts / lists / tuples
+    (None stays None)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_tree_map(fn, *xs) for xs in zip(*trees))
+    if t is None:
+        return None
+    return fn(*trees)
+
+
+def shard_client_axis(mesh, tree):
+    """Every leaf of ``tree`` as a tensor; with a mesh, on the mesh's device
+    and, where the data shards divide its leading (client) axis, only this
+    rank's contiguous block of it (sliced before the copy, so the copy
+    moves K/S rows), the whole leaf otherwise. ``mesh=None`` leaves each
+    tensor where it is."""
+    if mesh is None:
+        return _tree_map(torch.as_tensor, tree)
+
+    def put(leaf):
+        t = torch.as_tensor(leaf)
+        rows = mesh.cohort_rows(t.shape[0]) if t.ndim >= 1 and t.shape[0] \
+            else None
+        if rows is not None:
+            t = t[rows[0]:rows[1]]
+        return t.to(mesh.device)
+
+    return _tree_map(put, tree)
+
+
+def put_sharded_cohort(mesh, parts):
+    """This rank's part of a cohort gathered per data shard.
+
+    ``parts`` is a list of same-structure trees, one per data shard
+    (``ShardedClientStore.gather_train_shards``): shard ``s`` holds the
+    rows rank s owns. This rank's part goes to its device, one copy of
+    its rows; nothing is concatenated. Falls back to ``shard_client_axis``
+    over the concatenation when the parts are not one per shard of equal
+    size (a non-divisible cohort, which is then replicated) or without a
+    mesh."""
+    n_shards = mesh_data_shards(mesh)
+    cat = lambda *ls: np.concatenate([np.asarray(x) for x in ls])  # noqa: E731
+    if mesh is None or n_shards != len(parts):
+        return shard_client_axis(mesh, _tree_map(cat, *parts))
+
+    def one(*leaf_parts):
+        rows = {len(x) for x in leaf_parts}
+        if len(rows) != 1 or not rows.pop():
+            return shard_client_axis(mesh, cat(*leaf_parts))
+        return torch.as_tensor(leaf_parts[mesh.data_index]).to(mesh.device)
+
+    return _tree_map(one, *parts)
+
+
+def gather_client_axis(mesh, tree, k: int):
+    """The whole k-row cohort of a tree whose leaves hold this rank's rows
+    (``FedMesh.gather_rows``), on every rank."""
+    return _tree_map(lambda t: mesh.gather_rows(t, k), tree)
+
+
+def _same_mesh(fn, mesh, what: str):
+    if getattr(fn, "mesh", None) is not mesh:
+        raise ValueError(f"{what} was built for another mesh: pass mesh= "
+                         "to fed.rounds' executor factory too")
+
+
+def make_sharded_executor(round_fn, mesh=None):
+    """``round_fn`` (``fed.rounds.make_round_executor(..., mesh=mesh)``)
+    with the cohort's X and Y cut to this rank's rows.
+
+    mesh=None is ``round_fn`` itself. With a mesh the call takes the
+    round's arguments as the trainers pass them (X and Y the whole cohort,
+    or already this rank's rows, as a sharded population stages them;
+    membership or assignment state, n and the minibatch rows the whole
+    cohort) and returns the whole round's output on every rank. The group
+    parameters stay whole on every rank (``group_param_pspec`` at a model
+    axis of 1)."""
+    _same_mesh(round_fn, mesh, "round_fn")
+    if mesh is None:
+        return round_fn
+
+    def call(group_params, assign, X, Y, n, idx):
+        rows = mesh.cohort_rows(n.shape[0])
+        if rows is not None and X.shape[0] == n.shape[0]:
+            X, Y = X[rows[0]:rows[1]], Y[rows[0]:rows[1]]
+        return round_fn(group_params, assign, X, Y, n, idx)
+
+    call.max_steps = round_fn.max_steps
+    call.mesh = mesh
+    return call
+
+
+def make_sharded_block_executor(block_fn, mesh=None):
+    """The block executor of ``block_fn`` (``fed.rounds
+    .make_block_executor(..., mesh=mesh)``): ``fed.graphs
+    .GraphBlockExecutor``, which replays captured graphs of a round on the
+    card (over NCCL with the round's collectives inside the graphs) and
+    runs the block eagerly on the CPU and over gloo, whose collectives a
+    graph cannot hold. Each round gathers its rank's rows of the cohort
+    from the (whole) pinned train stack; the carry is whole on every
+    rank."""
+    _same_mesh(block_fn, mesh, "block_fn")
+    return graphs_lib.GraphBlockExecutor(block_fn, mesh)
+
+
+def make_async_dispatch_executor(dispatch_fn, mesh=None, depth: int = 1):
+    """The async runtime's dispatch executor (``fed.graphs
+    .GraphDispatchExecutor`` with ``depth`` dispatches in flight); under a
+    mesh not ported (16b)."""
+    if mesh is not None:
+        raise mesh_lib.not_ported_16("16b", "the async runtime under a mesh")
+    return graphs_lib.GraphDispatchExecutor(dispatch_fn, depth)
+
+
+def make_async_fold(fold_fn, mesh=None):
+    """The async runtime's staleness fold as it is (it writes the live
+    carry in place: nothing to donate); under a mesh not ported (16b)."""
+    if mesh is not None:
+        raise mesh_lib.not_ported_16("16b", "the async fold under a mesh")
+    return fold_fn
+
+
+# ---------------------------------------------------------------------------
+# One round, client-parallel; Algorithm 3 at scale (the dry run)
+# ---------------------------------------------------------------------------
 
 def make_parallel_round(model, *, epochs: int, batch_size: int, lr: float,
                         mu: float, n_groups: int, max_samples: int):

@@ -58,8 +58,20 @@ The population owns the run's telemetry bundle (``obs``,
 ``repro_torch.obs``), which a trainer built on it shares: ``stats`` is a
 view of the ``pop.*`` counters of its registry, and its tracer records the
 cohorts' ``stage`` and ``h2d`` spans (on the producer thread when
-prefetching) and the writer thread's ``state-write`` spans. Not yet
-ported (``ROADMAP.md`` item 16): the per-shard gather over a mesh.
+prefetching) and the writer thread's ``state-write`` spans.
+
+On a data mesh (``attach(cfg, mesh)`` with a ``launch.mesh.FedMesh``)
+every rank's population draws the same cohorts and gathers only its
+shard's rows of each: rows ``mesh.cohort_rows(K)`` of the cohort, from
+the inner store of a ``ShardedClientStore`` (the rank's partition), into
+its pinned slot and onto its own device, so a rank's H2D bytes are ∝ K /
+S; n comes whole (the minibatch draws read it). A cohort the ranks do
+not divide is gathered whole on every rank. Eval blocks split over the
+ranks, whose counts the trainer sums. The per-client state writes take
+the cohort's gathered rows, so every rank's host table stays a whole
+replica. The deadline and scripted faults under a mesh are not ported
+(16b): a deadline fires by each rank's clock, which would tear the
+ranks' cohorts apart.
 """
 from __future__ import annotations
 
@@ -74,7 +86,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.fed.store import (SELECT_STREAM, ClientStateTable,
-                                   ClientStore, _host_rows)
+                                   ClientStore, ShardedClientStore,
+                                   _host_rows)
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import telemetry as obs_lib
 from repro_torch.obs import trace as obs_trace
@@ -658,6 +672,7 @@ class Population:
         self.state = ClientStateTable(store.n_clients)
         self.scheduler = None
         self.device = None
+        self.mesh = None               # a data mesh: this rank's shard
         self._cuda_index = None
         self._copy_stream = None
         self._rings = {}
@@ -706,13 +721,21 @@ class Population:
         self._set_stats({})
 
     # -- trainer binding ---------------------------------------------------
-    def attach(self, fed_cfg, device="cuda"):
+    def attach(self, fed_cfg, device_or_mesh="cuda"):
         """Bind to a trainer: its cohort size, dropout and seed, and its
-        device (``cuda`` unless the caller asks for the CPU). A trainer
-        that checkpoints makes every cohort keep its scheduler snapshot."""
+        device (``cuda`` unless the caller asks for the CPU) or data mesh
+        (a ``launch.mesh.FedMesh``: this rank's shard on the mesh's
+        device). A trainer that checkpoints makes every cohort keep its
+        scheduler snapshot."""
         if self.scheduler is not None:
             raise RuntimeError("Population is already attached to a trainer")
-        self.device = resolve_device(device)
+        if isinstance(device_or_mesh, mesh_lib.FedMesh):
+            if self.cfg.deadline is not None or self.cfg.faults is not None:
+                raise mesh_lib.not_ported_16(
+                    "16b", "the deadline and scripted faults under a mesh")
+            self.mesh = device_or_mesh
+            device_or_mesh = self.mesh.device
+        self.device = resolve_device(device_or_mesh)
         self.scheduler = Scheduler(self.store, self.cfg, seed=fed_cfg.seed)
         self._k = fed_cfg.clients_per_round
         self._dropout = fed_cfg.dropout_rate
@@ -796,25 +819,28 @@ class Population:
 
     @staticmethod
     def _fill(slot, lo: int, arrays):
-        """Host arrays into the slot's rows ``[lo, lo + len(n))``."""
+        """Host arrays into the slot's rows from ``lo`` on (x and y may hold
+        fewer rows than n: a mesh rank's share of a cohort)."""
         x, y, n = arrays
-        hi = lo + len(n)
-        slot.x[lo:hi].numpy()[...] = x
-        slot.y[lo:hi].numpy()[...] = y
-        slot.n[lo:hi].numpy()[...] = n
+        slot.x[lo:lo + len(x)].numpy()[...] = x
+        slot.y[lo:lo + len(y)].numpy()[...] = y
+        slot.n[lo:lo + len(n)].numpy()[...] = n
 
-    def _copy(self, slot, k: int):
-        """The slot's rows ``[0, k)`` on the device -> ((x, y, n) tensors,
-        event). On the CPU the tensors view the slot (event None). On the
-        card the copy and then its event are enqueued on the copy stream:
-        the tensors must not be read before ``_ready`` made the reader's
-        stream wait."""
-        with self.obs.span("h2d", rows=int(k)):
+    def _copy(self, slot, k: int, kx: int | None = None):
+        """The slot's rows ``[0, kx)`` of x and y and ``[0, k)`` of n (kx =
+        k but for a mesh rank's share) on the device -> ((x, y, n)
+        tensors, event). On the CPU the tensors view the slot (event
+        None). On the card the copy and then its event are enqueued on the
+        copy stream: the tensors must not be read before ``_ready`` made
+        the reader's stream wait."""
+        kx = k if kx is None else kx
+        with self.obs.span("h2d", rows=int(kx)):
             if self._copy_stream is None:
-                return (slot.x[:k], slot.y[:k], slot.n[:k]), None
+                return (slot.x[:kx], slot.y[:kx], slot.n[:k]), None
             with torch.cuda.stream(self._copy_stream):
-                out = tuple(h[:k].to(self.device, non_blocking=True)
-                            for h in (slot.x, slot.y, slot.n))
+                out = tuple(h[:r].to(self.device, non_blocking=True)
+                            for h, r in ((slot.x, kx), (slot.y, kx),
+                                         (slot.n, k)))
                 slot.event = torch.cuda.Event()
                 slot.event.record(self._copy_stream)
             return out, slot.event
@@ -823,12 +849,24 @@ class Population:
         """Host (x, y, n) -> (tensors, event), through a slot of ``ring``."""
         slot = self._slot(ring, len(arrays[2]))
         self._fill(slot, 0, arrays)
-        return self._copy(slot, len(arrays[2]))
+        return self._copy(slot, len(arrays[2]), len(arrays[0]))
 
     def _gather_put(self, ring: str, split: str, idx, t=None):
         """Store gather, shift and copy enqueue of ``idx``; ``t`` is the
-        shift clock of the round this gather feeds (None = no shift)."""
-        return self._put(ring, self._host(split, idx, t))
+        shift clock of the round this gather feeds (None = no shift).
+        Under a mesh a train gather the ranks divide takes this rank's
+        rows of x and y (from a ``ShardedClientStore``'s inner store, this
+        rank's partition) and the whole n."""
+        idx = np.asarray(idx, np.int64)
+        rows = (self.mesh.cohort_rows(len(idx))
+                if self.mesh is not None and split == "train" else None)
+        if rows is None:
+            return self._put(ring, self._host(split, idx, t))
+        store = self.store
+        inner = store.inner if isinstance(store, ShardedClientStore) else store
+        mine = idx[rows[0]:rows[1]]
+        x, y, _ = self._shift_host(t, mine, inner._gather(split, mine))
+        return self._put(ring, (x, y, store.n_train[idx]))
 
     def device_batch(self, idx):
         """(x, y, n) on the device for any id set. Ids inside the live
@@ -838,6 +876,12 @@ class Population:
         c = self._cohort
         if c is not None:
             pos = c.positions(idx)
+            if pos is not None and c.x.shape[0] != len(c.idx):
+                # a mesh rank's share of the cohort: the whole cohort as it
+                # is, any other set gathered afresh
+                if len(pos) != len(c.idx) or \
+                        not np.array_equal(pos, np.arange(len(pos))):
+                    pos = None
             if pos is not None:
                 if len(pos) == len(c.idx) and \
                         np.array_equal(pos, np.arange(len(pos))):
@@ -937,10 +981,14 @@ class Population:
         t0 = time.perf_counter()
         with self.obs.span("stage", t=t):
             idx, n_new, spec, snap = self._pre_round_faults(t)
-            if spec is not None and spec.straggle > 0:
-                time.sleep(spec.straggle)
-            arrays, event = self._put("train", self._corrupt(
-                t, spec, self._host("train", idx, t), 0, len(idx)))
+            if self.mesh is not None:
+                # this rank's shard (no faults under a mesh)
+                arrays, event = self._gather_put("train", "train", idx, t)
+            else:
+                if spec is not None and spec.straggle > 0:
+                    time.sleep(spec.straggle)
+                arrays, event = self._put("train", self._corrupt(
+                    t, spec, self._host("train", idx, t), 0, len(idx)))
         return Cohort(t, idx, *arrays, n_new,
                       stage_ms=(time.perf_counter() - t0) * 1e3,
                       sched_state=snap, _event=event)
@@ -1197,6 +1245,12 @@ class Population:
         B = max(int(self.cfg.eval_batch), 1)
         for lo in range(0, len(idx), B):
             block = idx[lo:lo + B]
+            mine = block
+            if self.mesh is not None:
+                # this rank's contiguous share (possibly empty): the
+                # trainer sums the ranks' integer counts
+                mine = np.array_split(block, self.mesh.data_shards)[
+                    self.mesh.data_index]
             x, y, n = self._ready(*self._gather_put(
-                "eval", "test", block, t=self.rounds_streamed - 1))
+                "eval", "test", mine, t=self.rounds_streamed - 1))
             yield block, x, y, n

@@ -32,6 +32,17 @@ when pinned, ``make_param_fold`` when streamed). None of these is a Pallas
 kernel in the reference; they are plain torch functions here, on the CPU
 and on the card.
 
+On a data mesh (``mesh=``, a ``launch.mesh.FedMesh``) every rank runs the
+same round on its contiguous block of the cohort's rows (``_CohortShard``)
+and the cohort-global sums become ``all_reduce``s: the per-group weights
+and the aggregation numerator, the mean-loss and discrepancy sums and the
+quarantine count; the quarantine median is taken over the gathered norms,
+and the membership and an assignment state's per-client rows are gathered
+before anything replicated is written. The group parameters, membership
+and FeSEM's ``local_flat`` stay whole on every rank. A cohort whose size
+the shards do not divide is computed whole on every rank, with no
+collective. ``mesh=None`` runs the code of one device as before.
+
 ``serial_reference_round`` / ``serial_ifca_round`` / ``serial_fesem_round``
 keep the per-group loop as the oracles the fused round is tested against.
 """
@@ -73,6 +84,42 @@ def _bcast(v, t):
     return v.reshape((-1,) + (1,) * (t.ndim - 1))
 
 
+class _CohortShard:
+    """This rank's rows ``[lo, hi)`` of a K-row cohort and the collectives
+    over them; the identity (rows ``[0, K)``, no collective) without a
+    mesh, or when the mesh's data shards do not divide K."""
+
+    def __init__(self, mesh, K: int):
+        rows = None if mesh is None else mesh.cohort_rows(K)
+        self.mesh = None if rows is None else mesh
+        self.K = K
+        self.lo, self.hi = rows if rows is not None else (0, K)
+
+    def rows(self, t):
+        return t if self.mesh is None else t[self.lo:self.hi]
+
+    def state(self, state):
+        """An assignment state's rows: a tensor state's (LCFL's cohort
+        membership), a dict state's ``idx`` (FeSEM's; its ``local_flat``
+        stays whole), None as it is."""
+        if self.mesh is None or state is None:
+            return state
+        if isinstance(state, dict):
+            return dict(state, idx=self.rows(state["idx"]))
+        return self.rows(state)
+
+    def sum(self, t):
+        return t if self.mesh is None else self.mesh.all_reduce(t)
+
+    def gather(self, t):
+        return t if self.mesh is None else self.mesh.gather_rows(t, self.K)
+
+    def gather_tree(self, tree: dict) -> dict:
+        if self.mesh is None:
+            return tree
+        return {k: self.gather(v) for k, v in tree.items()}
+
+
 def _row_sq(tree: dict, K: int) -> torch.Tensor:
     """Per-row squared norm over all leaves of a K-stacked dict -> (K,)."""
     return sum(torch.sum(torch.square(tree[k].reshape(K, -1)), dim=1)
@@ -83,7 +130,7 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
                      mu: float, n_groups: int, max_samples: int,
                      eta_g: float = 0.0, assign_fn=None,
                      state_update_fn=None, quarantine: bool = False,
-                     quarantine_mult: float = 10.0):
+                     quarantine_mult: float = 10.0, mesh=None):
     """The fused round as a function with an explicit per-client ``alive``
     weight. A client with ``alive == 0`` still runs the batched solver but
     contributes nothing to the aggregation, the mean loss, or the
@@ -100,7 +147,12 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
     the zero-weight path: its delta is zeroed, its final local model is
     replaced by its group's round-start parameters, and its alive weight
     drops to 0 before any reduction (``0 * NaN = NaN``, so zero weight
-    alone is not enough)."""
+    alone is not enough).
+
+    With ``mesh`` X and Y hold this rank's rows of the cohort
+    (``_CohortShard``) and every other argument the whole cohort; the
+    outputs are whole on every rank. ``state_update_fn`` then gets the
+    whole state with the gathered membership, deltas and finals."""
     m = n_groups
     solve = client_lib.make_local_solver(
         model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
@@ -108,11 +160,16 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
     loss_many = vmap(client_lib.client_mean_loss(model))
 
     def core(group_params, membership, X, Y, n, idx, alive) -> RoundOutput:
+        sh = _CohortShard(mesh, n.shape[0])
         state = None
         if assign_fn is not None:
             state = membership
-            membership = assign_fn(group_params, X, Y, n, state)
+            membership = assign_fn(group_params, X, Y, sh.rows(n),
+                                   sh.state(state))
+        else:
+            membership = sh.rows(membership)
         membership = membership.long()
+        n, idx, alive = sh.rows(n), sh.rows(idx), sh.rows(alive)
         # each client trains from ITS group's parameters (one gather)
         my_params = {k: g[membership] for k, g in group_params.items()}
         deltas, finals = solve(my_params, X, Y, n, idx)
@@ -127,9 +184,9 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
             # median over the alive, finite updates. jnp.nanmedian averages
             # the two middle values of an even count; torch.nanmedian
             # returns the lower one, nanquantile(0.5) interpolates like jnp
-            med = torch.nanquantile(
+            med = torch.nanquantile(sh.gather(
                 torch.where((alive > 0) & finite, norms,
-                            torch.full_like(norms, float("nan"))), 0.5)
+                            torch.full_like(norms, float("nan")))), 0.5)
             outlier = norms > quarantine_mult * torch.clamp(med, min=1e-12)
             ok = finite & ~outlier
             n_quarantined = torch.sum((alive > 0) & ~ok).to(torch.int32)
@@ -143,11 +200,18 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
         # normalized within each group
         onehot = torch.nn.functional.one_hot(membership, m).float()  # (K, m)
         w = n.float() * alive
-        group_tot = onehot.T @ w                                    # (m,)
+        group_tot = sh.sum(onehot.T @ w)                            # (m,)
         norm_w = w[:, None] * onehot / torch.clamp(group_tot[None],
                                                    min=1e-9)
         agg_delta = {k: (norm_w.T @ d.reshape(K, -1)).reshape(
             (m,) + tuple(d.shape[1:])) for k, d in deltas.items()}
+        if sh.mesh is not None:
+            # every leaf's numerator in one all_reduce
+            flat = sh.sum(torch.cat([v.reshape(-1)
+                                     for v in agg_delta.values()]))
+            parts = torch.split(flat, [v.numel() for v in agg_delta.values()])
+            agg_delta = {k: f.view_as(v) for (k, v), f in
+                         zip(agg_delta.items(), parts)}
         occupied = (group_tot > 0).float()
         tilde = {k: gp + _bcast(occupied, gp) * agg_delta[k]
                  for k, gp in group_params.items()}
@@ -157,15 +221,20 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
         if ok is not None:
             # a quarantined client's batch may itself be poisoned
             per_client_loss = torch.where(ok, per_client_loss, 0.0)
-        mean_loss = torch.sum(per_client_loss * w) / torch.clamp(
-            torch.sum(w), min=1e-9)
 
         # eq. 4 discrepancy: each client vs its group's aggregated model
         disc_sq = sum(torch.sum(torch.square(
             (finals[k] - tilde[k][membership]).reshape(K, -1)), dim=1)
             for k in leaf_keys(finals))
-        discrepancy = torch.sum(torch.sqrt(disc_sq) * alive) / torch.clamp(
-            torch.sum(alive), min=1e-9)
+        sums = [torch.sum(per_client_loss * w), torch.sum(w),
+                torch.sum(torch.sqrt(disc_sq) * alive), torch.sum(alive)]
+        if sh.mesh is not None:
+            # one all_reduce of the cohort's scalar sums (the count exact
+            # in float32 far past any cohort size)
+            sums = sh.sum(torch.stack(sums + [n_quarantined.float()]))
+            n_quarantined = sums[4].to(torch.int32)
+        mean_loss = sums[0] / torch.clamp(sums[1], min=1e-9)
+        discrepancy = sums[2] / torch.clamp(sums[3], min=1e-9)
 
         # inter-group aggregation (Alg. 2 lines 17-19), stacked form
         if eta_g > 0.0 and m > 1:
@@ -183,8 +252,11 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
                          for k, g in new_groups.items()}
         group_delta_flat = flatten_stacked(
             {k: new_groups[k] - group_params[k] for k in new_groups})
+        membership = sh.gather(membership)
         if assign_fn is not None and state_update_fn is not None:
-            state = state_update_fn(state, membership, deltas, finals)
+            state = state_update_fn(state, membership,
+                                    sh.gather_tree(deltas),
+                                    sh.gather_tree(finals))
         return RoundOutput(new_groups, global_params, agg_delta,
                            group_delta_flat, discrepancy, membership, state,
                            mean_loss, n_quarantined)
@@ -197,7 +269,7 @@ def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
                         mu: float, n_groups: int, max_samples: int,
                         eta_g: float = 0.0, assign_fn=None,
                         state_update_fn=None, quarantine: bool = False,
-                        quarantine_mult: float = 10.0):
+                        quarantine_mult: float = 10.0, mesh=None):
     """Returns round_fn(group_params, membership, X, Y, n, idx) ->
     RoundOutput.
 
@@ -214,12 +286,16 @@ def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
     ``RoundOutput.assign_state``.
 
     ``quarantine=True`` screens non-finite / norm-outlier client updates
-    into the zero-weight path (see ``_make_round_core``)."""
+    into the zero-weight path (see ``_make_round_core``).
+
+    With ``mesh`` X and Y are this rank's rows of the cohort and the rest
+    the whole cohort (``fed.parallel.make_sharded_executor`` slices them);
+    ``round_fn.mesh`` is the mesh."""
     core = _make_round_core(
         model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
         n_groups=n_groups, max_samples=max_samples, eta_g=eta_g,
         assign_fn=assign_fn, state_update_fn=state_update_fn,
-        quarantine=quarantine, quarantine_mult=quarantine_mult)
+        quarantine=quarantine, quarantine_mult=quarantine_mult, mesh=mesh)
 
     @torch.no_grad()
     def round_fn(group_params, membership, X, Y, n, idx) -> RoundOutput:
@@ -227,6 +303,7 @@ def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
         return core(group_params, membership, X, Y, n, idx, alive)
 
     round_fn.max_steps = core.max_steps
+    round_fn.mesh = mesh
     return round_fn
 
 
@@ -235,7 +312,7 @@ def make_block_executor(model, *, epochs: int, batch_size: int, lr: float,
                         eta_g: float = 0.0, assign_fn=None,
                         state_update_fn=None, make_state=None,
                         state_to_aux=None, quarantine: bool = False,
-                        quarantine_mult: float = 10.0):
+                        quarantine_mult: float = 10.0, mesh=None):
     """Returns block_fn(carry, train_stack, test_stack, idx, bidx, alive,
     do_eval) -> (carry, metrics): B fused rounds, run eagerly one after
     another (the plain version of ``fed.graphs``' replayed block).
@@ -272,17 +349,24 @@ def make_block_executor(model, *, epochs: int, batch_size: int, lr: float,
     ``block_fn.step(carry, train_stack, idx, bidx, alive)`` -> (carry,
     (mean_loss, discrepancy, n_quarantined)) is one round and
     ``block_fn.evaluate(carry, test_stack)`` -> (correct, total) one
-    grouped eval: ``fed.graphs`` captures each of them once."""
+    grouped eval: ``fed.graphs`` captures each of them once.
+
+    With ``mesh`` the train stack is whole on every rank and a round
+    gathers only this rank's rows of its cohort from it; the test stack
+    may hold this rank's block of the clients (``fed.parallel
+    .shard_client_axis``), whose counts the eval sums over the ranks. The
+    carry is whole on every rank."""
     core = _make_round_core(
         model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
         n_groups=n_groups, max_samples=max_samples, eta_g=eta_g,
         assign_fn=assign_fn, state_update_fn=state_update_fn,
-        quarantine=quarantine, quarantine_mult=quarantine_mult)
-    eval_correct = client_lib.grouped_eval_correct(model)
+        quarantine=quarantine, quarantine_mult=quarantine_mult, mesh=mesh)
+    eval_correct = client_lib.grouped_eval_correct(model, mesh)
 
     def step(carry, train_stack, ix, bix, al):
         X_all, Y_all, n_all = train_stack
-        x, y, n = X_all[ix], Y_all[ix], n_all[ix]
+        mine = _CohortShard(mesh, ix.shape[0]).rows(ix)
+        x, y, n = X_all[mine], Y_all[mine], n_all[ix]
         mem = carry["membership"]
         trash = mem.shape[0] - 1                    # row N: padded lanes
         ix_eff = torch.where(al > 0, ix, torch.full_like(ix, trash))
@@ -323,6 +407,7 @@ def make_block_executor(model, *, epochs: int, batch_size: int, lr: float,
     block_fn.step = torch.no_grad()(step)
     block_fn.evaluate = torch.no_grad()(evaluate)
     block_fn.max_steps = core.max_steps
+    block_fn.mesh = mesh
     return block_fn
 
 

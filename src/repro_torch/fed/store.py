@@ -19,8 +19,12 @@ pre-training directions. The row tables are ``_LazyRows`` over a CPU
 default row, so memory scales with the clients ever touched, not N.
 
 The table checkpoints its row tables (``ckpt_arrays`` / ``ckpt_restore``)
-in the reference's key names. Not ported here: ``ShardedClientStore`` and
-``shard_cohort_slices`` (the multi-host gather, ``ROADMAP.md`` item 16).
+in the reference's key names.
+
+``ShardedClientStore`` and ``shard_cohort_slices`` are the per-shard
+gather over a data mesh: shard s's cohort rows are the s-th contiguous
+block, the rows rank s of a ``launch.mesh.FedMesh`` holds, and each rank
+gathers only its own (``fed.population``).
 """
 from __future__ import annotations
 
@@ -251,6 +255,67 @@ class VirtualClientStore(ClientStore):
                 x[r], y[r] = c[pick[xk]], c[pick[yk]]
         n = (self.n_train if split == "train" else self.n_test)[idx]
         return x, y, n
+
+
+def shard_cohort_slices(K: int, n_shards: int):
+    """Contiguous equal (lo, hi) cohort slices, one per data shard: the
+    row blocks each rank of a data mesh holds. None when ``n_shards`` does
+    not divide ``K`` (the cohort is then replicated, as
+    ``fed.parallel.shard_client_axis`` places a non-divisible leaf)."""
+    if n_shards <= 0 or K % n_shards:
+        return None
+    block = K // n_shards
+    return [(s * block, (s + 1) * block) for s in range(n_shards)]
+
+
+class ShardedClientStore(ClientStore):
+    """Host-sharded population view: ``n_shards`` hosts, each gathering
+    only its cohort slice.
+
+    Wraps any inner ``ClientStore`` and keeps its metadata and size
+    vectors; gathers decompose per shard. ``gather_train_shards`` /
+    ``gather_test_shards`` return the per-shard padded host arrays (shard
+    ``s`` covers cohort rows ``[s*K/S, (s+1)*K/S)``), and the plain
+    ``ClientStore`` API is the concatenation of the shard gathers, so a
+    ``ShardedClientStore`` is drop-in wherever a store is accepted, with
+    bit-identical cohorts. Under a mesh each rank's population gathers
+    only its own shard (``inner._gather`` of its slice)."""
+
+    def __init__(self, inner: ClientStore, n_shards: int):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.inner = inner
+        self.n_shards = int(n_shards)
+        self.name = f"{inner.name}@sharded{n_shards}"
+        self.n_clients = inner.n_clients
+        self.n_classes = inner.n_classes
+        self.max_train = inner.max_train
+        self.max_test = inner.max_test
+        self.feat = inner.feat
+        self.n_train = inner.n_train
+        self.n_test = inner.n_test
+
+    def _gather_shards(self, split: str, idx, n_shards: int | None = None):
+        """-> list of per-shard (x, y, n) host tuples, or None when the
+        shard count does not divide the cohort size."""
+        idx = np.asarray(idx, np.int64)
+        slices = shard_cohort_slices(len(idx), n_shards or self.n_shards)
+        if slices is None:
+            return None
+        return [self.inner._gather(split, idx[lo:hi]) for lo, hi in slices]
+
+    def gather_train_shards(self, idx, n_shards: int | None = None):
+        return self._gather_shards("train", idx, n_shards)
+
+    def gather_test_shards(self, idx, n_shards: int | None = None):
+        return self._gather_shards("test", idx, n_shards)
+
+    def _gather(self, split, idx):
+        parts = self._gather_shards(split, idx)
+        if parts is None:                     # non-divisible cohort
+            return self.inner._gather(split, idx)
+        return tuple(np.concatenate([p[i] for p in parts])
+                     for i in range(3))
 
 
 class _LazyRows:

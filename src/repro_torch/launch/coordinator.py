@@ -62,7 +62,8 @@ result slots (a slot is given back by the coordinator's fold, or here
 when its result is superseded), and FeSEM's pinned rows on every device.
 Message chaos is for the other per-round jobs. A process worker is its
 own CUDA context: its payloads are numpy trees, and its results land on
-the coordinator trainer's device.
+the coordinator trainer's device. A trainer on a data mesh is refused
+(``ROADMAP.md`` queue 1, 16b).
 """
 from __future__ import annotations
 
@@ -74,6 +75,7 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.fed import leases as leases_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import worker as worker_lib
 from repro_torch.launch.transport import (ChaosRouter, HeartbeatMonitor,
                                           InProcTransport, Message,
@@ -147,6 +149,8 @@ class Coordinator:
     dispatches through the worker fleet. See the module docstring."""
 
     def __init__(self, trainer, fleet: FleetConfig | None = None):
+        if getattr(trainer, "mesh", None) is not None:
+            raise mesh_lib.not_ported_16("16b", "the fleet under a mesh")
         self.trainer = trainer
         self.fleet = fleet or FleetConfig()
         self.obs = trainer.obs

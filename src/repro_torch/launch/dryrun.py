@@ -31,8 +31,8 @@ names under ``differences``:
     ``cost_analysis`` counts a scan's body once (``repro/launch/
     dryrun.py:15-18``);
   - no collective inventory, and the flags whose only effect is a
-    sharding raise ``NotImplementedError``: the mesh is ROADMAP.md queue
-    1, item 16.
+    sharding raise ``NotImplementedError``: the zoo's tensor parallelism
+    is ROADMAP.md queue 1, item 16d.
 
 ``serve_step`` returns a new cache rather than writing the donated one, so
 on a card a decode step holds both; ``alias_size_in_bytes`` is the cache
@@ -61,7 +61,7 @@ DIFFERENCES = {
     "temp_size_in_bytes": "not available: meta tensors have no allocator",
     "flops": "every layer counted, and only the ops FlopCounterMode knows; "
              "the reference counts scan bodies once",
-    "collectives": "no mesh: ROADMAP.md queue 1, item 16",
+    "collectives": "no mesh: ROADMAP.md queue 1, item 16d",
 }
 
 # flags whose only effect is a sharding: (argparse dest, what it shards)
@@ -76,13 +76,14 @@ SHARDING_FLAGS = {
 
 
 def refuse_sharding(**flags):
-    """Raises ``NotImplementedError`` naming ROADMAP item 16 for the first
+    """Raises ``NotImplementedError`` naming ROADMAP item 16d for the first
     sharding flag that is set."""
     for name, what in SHARDING_FLAGS.items():
         if flags.get(name):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} ({what}) is not yet ported to "
-                "repro_torch: ROADMAP.md queue 1, item 16 (multi-GPU)")
+                "repro_torch: ROADMAP.md queue 1, item 16d (the zoo's "
+                "tensor parallelism)")
 
 
 def arch_config(arch: str, *, smoke: bool = False, bf16_params: bool = False,
@@ -249,7 +250,7 @@ def run_one(arch: str, shape_name: str, *, shape: shp.InputShape | None = None,
     mem_d = rec["memory_analysis"]
     if xlstm_opt:
         rec["sharding_left_out"] = SHARDING_FLAGS["batch_over_model"] + \
-            " (--xlstm-opt): ROADMAP.md queue 1, item 16"
+            " (--xlstm-opt): ROADMAP.md queue 1, item 16d"
     if verbose:
         print(f"OK {arch} x {shape_name} mesh=1 trace={rec['trace_s']:.1f}s")
         print(f"   memory: args={mem_d['argument_size_in_bytes'] / 2**30:.2f}"

@@ -25,8 +25,10 @@ its products only. On a real device ``run_round`` / ``run_coldstart``
 build the same functions on real tensors (``chip_smoke.py`` runs both on
 the card).
 
-Not yet ported (ROADMAP.md queue 1, item 16): the mesh (``--multi-pod``
-raises) and the collective inventory.
+Not yet ported (ROADMAP.md queue 1): the (data, model) mesh, with
+``--multi-pod`` (raises) and the d_w-sharded cold start (16c), and the
+collective inventory (16d). The synchronous trainers' 1-D data mesh is
+``launch/mesh.py`` (16a).
 """
 from __future__ import annotations
 
@@ -165,7 +167,8 @@ def main(argv=None) -> int:
     if args.multi_pod:
         raise NotImplementedError(
             "--multi-pod (the 2x16x16 multi-pod mesh) is not yet ported to "
-            "repro_torch: ROADMAP.md queue 1, item 16 (multi-GPU)")
+            "repro_torch: ROADMAP.md queue 1, item 16c (the 2-D (data, "
+            "model) layout)")
 
     if args.workload == "round":
         fn, fargs = run_round()

@@ -17,6 +17,15 @@ and streams its round records into DIR (``metrics.jsonl``, ``trace.json``,
 ``run_summary.json``), which ``python -m repro_torch.launch.inspect DIR``
 renders.
 
+Under torchrun (``WORLD_SIZE`` > 1) ``--mode fed`` runs on a data mesh of
+the world's ranks (``launch.mesh``): the process group's backend is NCCL
+when each rank has a card of its own, gloo when ranks share one or run
+on the CPU; every rank trains its block of each cohort's clients, and
+rank 0 alone prints and writes ``--out``:
+
+  torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.train \
+      --mode fed --device cpu --framework fedgroup --dataset synthetic
+
 ``--mode lm`` (``--arch``, default gemma-2b; ``--smoke`` for the reduced
 same-family variant; ``--steps``, ``--seq``, ``--batch``) trains from
 random weights on uniform random tokens, drawn in that order from one
@@ -38,6 +47,21 @@ import time
 
 
 def run_fed(args) -> int:
+    from repro_torch.launch import mesh as mesh_lib
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return _run_fed(args, print)
+    mesh_lib.init_process_group(args.device)
+    try:
+        import torch.distributed as dist
+        say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+        return _run_fed(args, say)
+    finally:
+        mesh_lib.destroy_process_group()
+
+
+def _run_fed(args, say) -> int:
+    """``--mode fed`` with ``say`` for print (a no-op on ranks > 0, which
+    also write nothing)."""
     from repro_torch.checkpoint import save_pytree
     from repro_torch.core.fedgroup import FedGrouProxTrainer, FedGroupTrainer
     from repro_torch.data import generators as gen
@@ -87,7 +111,7 @@ def run_fed(args) -> int:
                     async_alpha=args.async_alpha, async_beta=args.async_beta,
                     telemetry_dir=args.telemetry_dir)
     tr = frameworks[args.framework](model, data, cfg, device=args.device)
-    print(f"# {args.framework} on {data.name} ({tr.device}): "
+    say(f"# {args.framework} on {data.name} ({tr.device}): "
           f"{data.n_clients} clients, m={cfg.n_groups}, "
           f"K={cfg.clients_per_round}, E={cfg.local_epochs}"
           + (f", async_depth={cfg.async_depth}" if cfg.async_depth else ""))
@@ -96,19 +120,19 @@ def run_fed(args) -> int:
         # the async loop folds inside run(): the per-fold lines come after
         tr.run(cfg.n_rounds)
         for t, m in enumerate(tr.history.rounds):
-            print(f"round {t:3d} acc={m.weighted_acc:.4f} "
-                  f"disc={m.discrepancy:.4f}")
+            say(f"round {t:3d} acc={m.weighted_acc:.4f} "
+                f"disc={m.discrepancy:.4f}")
         st = tr.history.async_stats
-        print(f"async: folds={st['folds']} "
+        say(f"async: folds={st['folds']} "
               f"max_in_flight={st['max_in_flight']} "
               f"staleness={st['staleness_hist']} ({time.time()-t0:.1f}s)")
     else:
         for t in range(cfg.n_rounds):
             m = tr.round(t)
-            print(f"round {t:3d} acc={m.weighted_acc:.4f} "
-                  f"disc={m.discrepancy:.4f} ({time.time()-t0:.1f}s)")
-    print(f"max_acc={tr.history.max_acc:.4f}")
-    if args.out:
+            say(f"round {t:3d} acc={m.weighted_acc:.4f} "
+                f"disc={m.discrepancy:.4f} ({time.time()-t0:.1f}s)")
+    say(f"max_acc={tr.history.max_acc:.4f}")
+    if args.out and (tr.mesh is None or tr.mesh.rank == 0):
         os.makedirs(args.out, exist_ok=True)
         params = (tree_index(tr.group_params, 0)
                   if hasattr(tr, "group_params") else tr.params)
@@ -117,10 +141,10 @@ def run_fed(args) -> int:
                      "max_acc": tr.history.max_acc})
         with open(os.path.join(args.out, "history.json"), "w") as f:
             json.dump([r.__dict__ for r in tr.history.rounds], f, indent=1)
-        print(f"saved to {args.out}")
+        say(f"saved to {args.out}")
     tr.close()          # flush telemetry (trace.json + run_summary.json)
     if args.telemetry_dir:
-        print(f"telemetry in {args.telemetry_dir} — render with "
+        say(f"telemetry in {args.telemetry_dir} — render with "
               f"python -m repro_torch.launch.inspect {args.telemetry_dir}")
     return 0
 

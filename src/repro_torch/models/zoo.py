@@ -25,7 +25,8 @@ wraps it in ``jax.checkpoint``. ``train_step`` updates the state in place,
 leaf by leaf, so a step never holds two copies of params and moments.
 
 Not yet ported (raises ``NotImplementedError`` naming its ROADMAP.md item,
-queue 1): a sharded KV cache (``serve_step``'s ``kv_spec``; 16).
+queue 1): a sharded KV cache (``serve_step``'s ``kv_spec``; 16d, the zoo's
+tensor parallelism).
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ from repro_torch.models.modules import (dense_init, embed_init, init_mlp,
 from repro_torch.optim.solvers import adamw_update
 
 
-_ROADMAP_ITEM = {"mesh": "16 (multi-GPU)"}
+_ROADMAP_ITEM = {"mesh": "16d (the zoo's tensor parallelism)"}
 
 
 def _not_ported(what: str, kind: str):

@@ -51,7 +51,8 @@ SLICE_MODULES = [
     "repro_torch.configs.granite_moe_1b", "repro_torch.models.xlstm",
     "repro_torch.configs.deepseek_v3_671b", "repro_torch.configs.xlstm_350m",
     "repro_torch.launch.dryrun", "repro_torch.fed.parallel",
-    "repro_torch.launch.fed_dryrun",
+    "repro_torch.launch.fed_dryrun", "repro_torch.launch.mesh",
+    "repro_torch.sharding", "repro_torch.sharding.specs",
 ]
 
 
