@@ -219,7 +219,26 @@ with no final ``ok`` line):
                 of one device's; replays 0 (gloo runs the block
                 eagerly); cold-start and round ms at S = 1 and 2. 4i-iii:
                 one rank a card over NCCL where the machine has two
-                cards, else a line saying it has one.
+                cards, else a line saying it has one. 4i-iv: the runtime
+                services on the mesh (``"phase": "services"`` lines),
+                FedGroup (EDC) at phase 4's width for SVC_ROUNDS rounds.
+                On an NCCL world of one in this process: an archive every
+                2 rounds, a run killed after round SVC_KILL and resumed
+                from its archive equal bit for bit to the uninterrupted
+                one (save / load ms, archive bytes); telemetry on equal to
+                off (``check_dir`` clean); async D = 1 equal to the
+                blocked run, every dispatch a replay with the all-reduces
+                captured (replays = dispatches, the block's = its
+                rounds), D = 2's round ms; a fleet of one equal to
+                ``run()`` per round and in blocks (replays). On two
+                spawned ranks sharing the card over gloo: both killed
+                (SIGKILL) after round SVC_KILL's archive and respawned,
+                equal bit for bit to the uninterrupted two-rank run; a
+                streamed run with SVC_FAULTS (a kill, two poisoned lanes
+                quarantined, a straggle past a 0.3 s deadline): the same
+                degraded prefix, membership and ``Population.stats`` on
+                both ranks, exactly the scripted counts. Every line
+                carries nvidia-smi's name and power limit.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -387,8 +406,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import resource
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -462,6 +484,16 @@ MESH_ACC_ATOL, MESH_RTOL, MESH_LEAF_RTOL = 2e-3, 1e-4, 1e-5
 MESH_FIRST = ("fedavg", "ifca")
 MESH_PATHS = MESH_FIRST + ("round", "block", "stream")
 MESH_TIMEOUT_S = 400           # a spawned rank's whole run
+# phase 4i-iv: the runtime services on the data mesh, FedGroup (EDC) at
+# phase 4's width for SVC_ROUNDS rounds, killed after SVC_KILL; the
+# streamed run's faults: round 1 kills a client and poisons two lanes
+# (quarantined), round 2 straggles 0.6 s a chunk of 4 clients against a
+# 0.3 s deadline (phase 4f's), which fires before the second chunk
+SVC_ROUNDS, SVC_KILL = 4, 2
+SVC_FAULTS = {1: dict(kill=1, corrupt=2), 2: dict(straggle=3.0)}
+SVC_POP = dict(prefetch=0, deadline=0.3, stage_chunks=5)
+SVC_ASYNC2 = dict(async_depth=2, async_alpha=0.8, async_beta=0.5)
+SVC_TIMEOUT_S = 300            # a spawned rank's whole run
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
 # phase 2's swa_attention cases at the zoo families' shapes: label ->
@@ -3239,6 +3271,375 @@ def mesh_phase(torch, data, model) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 4i-iv: the runtime services on the data mesh
+# ---------------------------------------------------------------------------
+
+def svc_trainer(model, data, mesh, alpha: int = 40, population=None, **over):
+    """Phase 4i-iv's FedGroup (EDC) at phase 4's width on ``mesh`` (None:
+    one device), SVC_ROUNDS rounds; α = 40 makes every client a founder
+    (no newcomer breaks a block)."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.fed.engine import FedConfig
+
+    cfg = FedConfig(n_rounds=SVC_ROUNDS, clients_per_round=20,
+                    local_epochs=2, batch_size=10, lr=0.03, n_groups=5,
+                    pretrain_scale=alpha, measure="edc", seed=0, **over)
+    return FedGroupTrainer(model, None if population is not None else data,
+                           cfg, device="cuda", mesh=mesh,
+                           population=population)
+
+
+def svc_state(torch, tr) -> dict:
+    """CPU copies of what a services run must reproduce: the model state,
+    the group directions, membership, the history."""
+    out = {k: v.detach().cpu().clone() for k, v in model_state(tr).items()}
+    out["group_delta"] = tr.group_delta.detach().cpu().clone()
+    out["membership"] = torch.as_tensor(np.asarray(tr.membership).copy())
+    out["hist"] = torch.tensor([[r.round, r.weighted_acc, r.mean_loss,
+                                 r.discrepancy, r.quarantined]
+                                for r in tr.history.rounds],
+                               dtype=torch.float64)
+    return out
+
+
+def svc_same(a: dict, b: dict) -> bool:
+    """Bit for bit (NaN and -0.0 included)."""
+    return sorted(a) == sorted(b) and all(
+        a[k].shape == b[k].shape and a[k].numpy().tobytes()
+        == b[k].numpy().tobytes() for k in a)
+
+
+def svc_dir(name: str) -> Path:
+    d = ROOT / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def svc_timed(torch, tr, rounds: int):
+    """``tr.run(rounds)`` ended by a synchronize -> (state, round ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.run(rounds)
+    torch.cuda.synchronize()
+    return svc_state(torch, tr), (time.perf_counter() - t0) * 1e3 / rounds
+
+
+def svc_nccl1(torch, data, model, smi: str) -> dict:
+    """Phase 4i-iv in this process on an NCCL world of one: save and load
+    with resume bit-equal, telemetry on equal to off, async D = 1 equal to
+    the synchronous (blocked) run, D = 2's round ms, a fleet of one equal
+    to ``run()`` per round and in blocks. Every blocked round and every
+    dispatch is a replay of a captured graph with the NCCL all-reduces
+    inside. Returns the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.coordinator import Coordinator, FleetConfig
+    from repro_torch.launch.inspect import check_dir
+
+    store = svc_dir("svc_nccl1") / "store"
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=0, world_size=1, local_rank=0,
+                                local_world=1)
+    ops.reset_launch_counts()
+    try:
+        mesh = mesh_lib.make_fed_mesh(1)
+        base = {"phase": "services", "world": 1, "backend": mesh.backend,
+                "nvidia_smi": smi}
+        if mesh.backend != "nccl":
+            raise AssertionError(f"phase 4i-iv: backend {mesh.backend}")
+        # the synchronous reference: α = 40 in blocks of 4 (round 0 runs
+        # the cold start per round, rounds 1-3 one block of replays)
+        tr = svc_trainer(model, data, mesh, block_size=4)
+        sync, sync_ms = svc_timed(torch, tr, SVC_ROUNDS)
+        sync_replays = tr._block_exec.replays
+        tr.close()
+        # checkpoints: blocks of 2, an archive every 2 rounds; the killed
+        # run stops at SVC_KILL and a fresh trainer resumes its archive
+        full_dir, kill_dir = svc_dir("svc_ckpt_full"), svc_dir("svc_ckpt_kill")
+        tr = svc_trainer(model, data, mesh, block_size=2,
+                         checkpoint_every=SVC_KILL,
+                         checkpoint_dir=str(full_dir))
+        full, _ = svc_timed(torch, tr, SVC_ROUNDS)
+        tr.close()
+        tr = svc_trainer(model, data, mesh, block_size=2,
+                         checkpoint_every=SVC_KILL,
+                         checkpoint_dir=str(kill_dir))
+        tr.run(SVC_KILL)
+        probe = kill_dir.parent / "svc_ckpt_probe.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.save_checkpoint(str(probe))
+        save_ms = (time.perf_counter() - t0) * 1e3
+        del tr
+        back = svc_trainer(model, data, mesh, block_size=2,
+                           checkpoint_every=SVC_KILL,
+                           checkpoint_dir=str(kill_dir))
+        t0 = time.perf_counter()
+        back.load_checkpoint(str(kill_dir))
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        resumed, _ = svc_timed(torch, back, SVC_ROUNDS - SVC_KILL)
+        back.close()
+        ok = svc_same(full, resumed)
+        emit({**base, "part": "checkpoint", "resume_equal": ok,
+              "max_abs_dev": max_abs_dev(full, resumed),
+              "save_ms": save_ms, "load_ms": load_ms,
+              "archive_bytes": probe.stat().st_size})
+        if not ok:
+            raise AssertionError("phase 4i-iv: the resumed run differs")
+        # telemetry on == off (the blocked reference), check_dir clean
+        tel = svc_dir("svc_telemetry")
+        tr = svc_trainer(model, data, mesh, block_size=4,
+                         telemetry_dir=str(tel))
+        on, on_ms = svc_timed(torch, tr, SVC_ROUNDS)
+        tr.close()
+        errors = check_dir(str(tel))
+        ok = svc_same(on, sync) and not errors
+        emit({**base, "part": "telemetry", "on_equals_off": svc_same(on,
+                                                                     sync),
+              "check_dir": errors, "files": sorted(os.listdir(tel)),
+              "round_ms_on": on_ms, "round_ms_off": sync_ms})
+        if not ok:
+            raise AssertionError("phase 4i-iv: telemetry changed the run "
+                                 f"or its directory is bad: {errors}")
+        # async D = 1 == the blocked run; every dispatch a replay
+        tr = svc_trainer(model, data, mesh, async_depth=1)
+        d1, d1_ms = svc_timed(torch, tr, SVC_ROUNDS)
+        d1_replays = tr._async_exec.replays
+        tr.close()
+        tr = svc_trainer(model, data, mesh, **SVC_ASYNC2)
+        _, d2_ms = svc_timed(torch, tr, SVC_ROUNDS)
+        st = dict(tr.history.async_stats)
+        d2_replays = tr._async_exec.replays
+        tr.close()
+        ok = (svc_same(d1, sync) and d1_replays == SVC_ROUNDS
+              and d2_replays == st["dispatches"]
+              and sync_replays == SVC_ROUNDS - 1)
+        emit({**base, "part": "async", "d1_equals_sync": svc_same(d1, sync),
+              "d1_replays": d1_replays, "d2_replays": d2_replays,
+              "block_replays": sync_replays, "d1_round_ms": d1_ms,
+              "d2_round_ms": d2_ms, "blocked_round_ms": sync_ms,
+              "d2_async_stats": st,
+              "note": "round ms: run() time over its rounds, the cold "
+                      "start's round included, ended by a synchronize"})
+        if not ok:
+            raise AssertionError("phase 4i-iv: async D = 1 differs from the "
+                                 "synchronous run or a dispatch ran eagerly")
+        # a fleet of one == run(): per round (α = 20: eq. 9 newcomers) and
+        # in blocks (the worker thread captures the NCCL graphs)
+        fleet = {}
+        for path, over in (("round", dict(alpha=20)),
+                           ("block", dict(block_size=4))):
+            plain = sync                  # the blocked reference
+            if path == "round":
+                tr = svc_trainer(model, data, mesh, **over)
+                plain, _ = svc_timed(torch, tr, SVC_ROUNDS)
+                tr.close()
+            tr = svc_trainer(model, data, mesh, **over)
+            coord = Coordinator(tr, FleetConfig(n_workers=1,
+                                                **FLEET_CALM))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coord.run(SVC_ROUNDS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / SVC_ROUNDS
+            got = svc_state(torch, tr)
+            fleet[path] = {"equal": svc_same(got, plain), "round_ms": ms,
+                           "replays": (0 if tr._block_exec is None else
+                                       tr._block_exec.replays),
+                           "jobs": tr.registry.get("fleet.jobs")}
+            coord.close()
+        emit({**base, "part": "fleet", **fleet})
+        if not all(v["equal"] for v in fleet.values()) \
+                or fleet["block"]["replays"] != SVC_ROUNDS - 1:
+            raise AssertionError("phase 4i-iv: a fleet of one differs from "
+                                 "run()")
+    finally:
+        mesh_lib.destroy_process_group()
+    torch.cuda.empty_cache()
+    return ops.launch_counts()
+
+
+def svc_rank_main(rank: int, world: int, store: str, out: str,
+                  mode: str) -> int:
+    """A phase-4i-iv rank on the card over gloo (a process of its own).
+    ``run``: the uninterrupted checkpointing run (blocks of 2), the
+    streamed run with SVC_FAULTS and a deadline that fires, then the
+    killed run's first SVC_KILL rounds, and SIGKILL. ``resume``: the
+    killed run resumed from its archive. Writes ``out``.json / ``out``.pt
+    (``.resume`` before the suffix when resuming)."""
+    import torch
+
+    from repro_torch.data.generators import femnist_like
+    from repro_torch.fed.population import (FaultConfig, FaultSpec,
+                                            Population, PopulationConfig)
+    from repro_torch.fed.store import ArrayClientStore, ShardedClientStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.paper_models import mlp
+
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                local_rank=rank, local_world=world)
+    mesh = mesh_lib.make_fed_mesh(world)
+    data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
+    model = mlp(784, 512, 26)
+    kill_dir = Path(out).parent / "ckpt_kill"
+    ops.reset_launch_counts()
+    if mode == "resume":
+        tr = svc_trainer(model, data, mesh, block_size=2,
+                         checkpoint_every=SVC_KILL,
+                         checkpoint_dir=str(kill_dir))
+        t0 = time.perf_counter()
+        tr.load_checkpoint(str(kill_dir))
+        load_ms = (time.perf_counter() - t0) * 1e3
+        state, ms = svc_timed(torch, tr, SVC_ROUNDS - SVC_KILL)
+        tr.close()
+        Path(out + ".resume.json").write_text(json.dumps(
+            {"load_ms": load_ms, "round_ms": ms,
+             "launches": ops.launch_counts()}))
+        torch.save(state, out + ".resume.pt")
+        mesh_lib.destroy_process_group()
+        return 0
+    tr = svc_trainer(model, data, mesh, block_size=2,
+                     checkpoint_every=SVC_KILL,
+                     checkpoint_dir=str(Path(out).parent / "ckpt_full"))
+    full, full_ms = svc_timed(torch, tr, SVC_ROUNDS)
+    tr.close()
+    pop = Population(
+        ShardedClientStore(ArrayClientStore(data), world),
+        PopulationConfig(**SVC_POP, faults=FaultConfig(
+            {t: FaultSpec(**kw) for t, kw in SVC_FAULTS.items()})))
+    cohorts = []
+    nxt = pop.next_cohort
+
+    def seen():
+        c = nxt()
+        cohorts.append({"rows": int(c.x.shape[0]),
+                        "idx": [int(i) for i in c.idx]})
+        return c
+    pop.next_cohort = seen
+    tr = svc_trainer(model, None, mesh, alpha=20, population=pop,
+                     quarantine=True)
+    stream, stream_ms = svc_timed(torch, tr, SVC_ROUNDS)
+    stats = {k: int(v) for k, v in pop.stats.items()}
+    tr.close()
+    rec = {"backend": mesh.backend, "device": str(mesh.device),
+           "full_round_ms": full_ms, "stream_round_ms": stream_ms,
+           "cohorts": cohorts, "stats": stats,
+           "launches": ops.launch_counts()}
+    Path(out + ".json").write_text(json.dumps(rec))
+    torch.save({"full": full, "stream": stream}, out + ".pt")
+    tr = svc_trainer(model, data, mesh, block_size=2,
+                     checkpoint_every=SVC_KILL, checkpoint_dir=str(kill_dir))
+    tr.run(SVC_KILL)
+    torch.cuda.synchronize()
+    sys.stdout.flush()
+    os.kill(os.getpid(), signal.SIGKILL)      # the world dies here
+    return 1
+
+
+def svc_spawn(world: int, d: Path, mode: str, rc: int) -> None:
+    """Spawn ``world`` phase-4i-iv ranks in ``mode`` and wait for all: each
+    must exit ``rc`` (``run`` kills itself); any other exit fails the
+    phase and every rank still running is killed."""
+    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']; "
+            "import chip_smoke; sys.exit(chip_smoke.svc_rank_main("
+            "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], "
+            "sys.argv[6]))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(r), str(world),
+         str(d / f"store_{mode}"), str(d / f"rank{r}"), mode],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=SVC_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if rcs != [rc] * world:
+        for r, log in enumerate(logs):
+            print(f"--- services rank {r} (exit {rcs[r]}):\n{log[-4000:]}",
+                  file=sys.stderr)
+        raise AssertionError(f"phase 4i-iv {mode}: rank exit codes {rcs}")
+
+
+def svc_gloo2(torch, smi: str) -> int:
+    """Phase 4i-iv on two spawned ranks sharing the card over gloo: kill
+    both after round SVC_KILL's archive and respawn them, bit-equal to the
+    uninterrupted two-rank run; the streamed faulted run's degraded prefix,
+    membership and ``Population.stats`` the same on both ranks. Returns the
+    ranks' edc_cosine launches."""
+    world = 2
+    d = svc_dir("svc_gloo2")
+    t0 = time.perf_counter()
+    svc_spawn(world, d, "run", -signal.SIGKILL)
+    t1 = time.perf_counter()
+    svc_spawn(world, d, "resume", 0)
+    t2 = time.perf_counter()
+    recs = [json.loads((d / f"rank{r}.json").read_text())
+            for r in range(world)]
+    states = [torch.load(d / f"rank{r}.pt") for r in range(world)]
+    back = [json.loads((d / f"rank{r}.resume.json").read_text())
+            for r in range(world)]
+    resumed = [torch.load(d / f"rank{r}.resume.pt") for r in range(world)]
+    resume_ok = all(svc_same(states[r]["full"], resumed[r])
+                    for r in range(world))
+    replicas = all(svc_same(states[r][k], states[0][k])
+                   for r in range(1, world) for k in ("full", "stream"))
+    prefix_same = all(recs[r]["cohorts"] == recs[0]["cohorts"]
+                      for r in range(1, world))
+    stats_same = all(recs[r]["stats"] == recs[0]["stats"]
+                     for r in range(1, world))
+    degraded = [len(c["idx"]) for c in recs[0]["cohorts"]]
+    emit({"phase": "services", "part": "gloo_two_ranks_one_card",
+          "world": world, "backend": recs[0]["backend"],
+          "devices": [r["device"] for r in recs], "nvidia_smi": smi,
+          "resume_equal": resume_ok, "replicas_equal": replicas,
+          "max_abs_dev_resume": max(max_abs_dev(states[r]["full"],
+                                                resumed[r])
+                                    for r in range(world)),
+          "cohort_clients": degraded,
+          "cohort_rows_a_rank": [[c["rows"] for c in r["cohorts"]]
+                                 for r in recs],
+          "prefix_same": prefix_same, "stats": recs[0]["stats"],
+          "stats_same": stats_same,
+          "full_round_ms": [r["full_round_ms"] for r in recs],
+          "stream_round_ms": [r["stream_round_ms"] for r in recs],
+          "resume_round_ms": [r["round_ms"] for r in back],
+          "load_ms": [r["load_ms"] for r in back],
+          "run_spawn_s": t1 - t0, "resume_spawn_s": t2 - t1})
+    st = recs[0]["stats"]
+    if not (resume_ok and replicas and prefix_same and stats_same):
+        raise AssertionError("phase 4i-iv: the two ranks' services differ")
+    if not (st["deadline_rounds"] == 1 and st["killed_clients"] == 1
+            and st["corrupted_clients"] == 2 and degraded[2] == 4):
+        raise AssertionError(f"phase 4i-iv: faults and deadline {st}, "
+                             f"cohorts {degraded}")
+    return sum(r["launches"]["edc_cosine"] for r in recs + back)
+
+
+def services_phase(torch, data, model, smi: str) -> dict:
+    """Phase 4i-iv; returns the launch counts of the phase (this process's
+    NCCL world of one and, as ``edc_cosine``, both ranks')."""
+    t0 = time.perf_counter()
+    counts = dict(svc_nccl1(torch, data, model, smi))
+    counts["edc_cosine"] = counts.get("edc_cosine", 0) + svc_gloo2(torch,
+                                                                   smi)
+    if counts["edc_cosine"] < 1:
+        raise AssertionError("phase 4i-iv launched no edc_cosine")
+    emit({"phase": "services_phase", "launches": counts,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return counts
+
+
 def population_run(torch, prefetch: int):
     """Phase 4e-ii: the reference population bench's setup on the card:
     ``virtual_synthetic(alpha=1, beta=1, seed=0, n_clients=100_000)`` (LRU
@@ -5198,6 +5599,9 @@ def main() -> int:
     # phase 4i: the client axis over torch.distributed ranks (an NCCL world
     # of one in this process; two spawned ranks sharing the card over gloo)
     counts_mesh = mesh_phase(torch, data, model)
+    # phase 4i-iv: the runtime services on the data mesh (checkpoints,
+    # telemetry, async, the fleet; faults and the deadline on two ranks)
+    counts_svc = services_phase(torch, data, model, smi)
 
     # phase 5: where the time goes
     breakdown(torch, tr_edc, pre_idx)
@@ -5229,7 +5633,8 @@ def main() -> int:
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
     # block phase's FedGroup runs, the population phase's FedGroup runs,
-    # phase 4f's, 4g's, 4h's and 4i's FedGroup runs (4i's ranks' too),
+    # phase 4f's, 4g's, 4h's, 4i's and 4i-iv's FedGroup runs (their
+    # ranks' too),
     # phase 6e's two cold starts;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes); phase 6b's counted
@@ -5241,7 +5646,8 @@ def main() -> int:
                 + counts_shift["edc_cosine"] + counts_block["edc_cosine"]
                 + counts_stream["edc_cosine"] + counts_ft["edc_cosine"]
                 + counts_async["edc_cosine"] + counts_fleet["edc_cosine"]
-                + counts_mesh["edc_cosine"] + counts_dry["edc_cosine"],
+                + counts_mesh["edc_cosine"] + counts_svc["edc_cosine"]
+                + counts_dry["edc_cosine"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"]
                 + counts_fam["swa_attention.tc"]

@@ -175,9 +175,7 @@ class FedGroupTrainer(GroupedTrainer):
             # every rank clustered the gathered ΔW with the same injected
             # draws; a rank that reached other labels has diverged
             self.mesh.same_on_every_rank("the group cold start's labels",
-                                         torch.as_tensor(
-                                             np.asarray(labels, np.int64),
-                                             device=self.device))
+                                         np.asarray(labels, np.int64))
 
         self._adopt_membership(pre_idx, labels)
         # segment mean over pre-trained clients: W[j, i] = 1/|G_j| for

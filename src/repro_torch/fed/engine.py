@@ -78,8 +78,22 @@ stack this rank's block of the clients when the ranks divide N. The
 pre-training solves (Alg. 3, eq. 9, the shift probes) run sharded and
 their updates are gathered; the measures then run on every rank. The
 device is the mesh's. Refused with ``NotImplementedError`` (``ROADMAP.md``
-queue 1): a model axis or a mesh that is not a ``FedMesh`` (16c), and the
-async runtime, checkpoints, telemetry and the fleet under a mesh (16b).
+queue 1): a model axis or a mesh that is not a ``FedMesh`` (16c).
+
+The runtime services run on the mesh too. Each decision the reference's
+single controller takes by its clock is taken once here, by rank 0, and
+followed by every rank through ``FedMesh.agree`` (the host group, never a
+CUDA stream): a lease's readiness or expiry and the backoff of a requeued
+one (the async runtime), a straggler deadline's prefix (``fed
+.population``), a fleet job's outcome (``launch.coordinator``). An async
+dispatch computes the rank's rows of its cohort (its all-reduces inside
+the dispatch graph over NCCL, eager over gloo) and the fold is
+replicated. A checkpoint holds the replicas every rank has whole: rank 0
+checks the model tree is the same on every rank, writes the one archive
+in the reference's layout, the ranks meet at a barrier on the host group
+and rank 0 alone prunes; every rank resumes from the same archive.
+Telemetry: rank 0 alone writes ``telemetry_dir``; the other ranks keep
+their tracer and registry in memory.
 """
 from __future__ import annotations
 
@@ -177,10 +191,9 @@ class FedConfig:
     telemetry_dir: str | None = None
 
 
-def _check_ported(cfg: FedConfig, mesh):
+def _check_ported(mesh):
     """Refuse what is not ported under a mesh (``ROADMAP.md`` queue 1):
-    anything but a 1-D ``FedMesh`` (16c), and the async runtime,
-    checkpoints and telemetry under one (16b)."""
+    anything but a 1-D ``FedMesh`` (16c)."""
     if mesh is None:
         return
     if not isinstance(mesh, mesh_lib.FedMesh):
@@ -189,13 +202,6 @@ def _check_ported(cfg: FedConfig, mesh):
             "takes a launch.mesh.FedMesh, a 1-D data mesh)")
     if int(mesh.shape.get(mesh_lib.MP_AXIS, 1)) > 1:
         raise mesh_lib.not_ported_16("16c", "a model axis > 1")
-    if cfg.async_depth >= 1:
-        raise mesh_lib.not_ported_16("16b", "the async runtime under a mesh")
-    if cfg.checkpoint_every or cfg.checkpoint_dir:
-        raise mesh_lib.not_ported_16("16b", "checkpoints under a mesh")
-    if cfg.telemetry_dir:
-        # every rank would write the one directory's streams
-        raise mesh_lib.not_ported_16("16b", "telemetry under a mesh")
 
 
 @dataclass
@@ -268,7 +274,7 @@ class FedAvgTrainer:
                  init_params=None, draws=None):
         if mesh is None:
             mesh = parallel_lib.default_fed_mesh(device=device)
-        _check_ported(cfg, mesh)
+        _check_ported(mesh)
         self.mesh = mesh
         if mesh is not None:
             if torch.device(device).type != mesh.device.type:
@@ -304,7 +310,7 @@ class FedAvgTrainer:
         # one telemetry bundle per runtime: a population owns one (its
         # degradation counters live there), which the trainer shares
         self.obs = (population.obs if population is not None
-                    else obs_lib.from_config(cfg))
+                    else obs_lib.from_config(cfg, write=mesh_lib.writes(mesh)))
         self.registry = self.obs.registry
         self._last_staleness = None  # the last async fold's max staleness
         self._last_weights = None    # and group weights (round record)
@@ -763,7 +769,8 @@ class FedAvgTrainer:
                 self.model, epochs=cfg.local_epochs,
                 batch_size=cfg.batch_size, lr=cfg.lr, mu=cfg.mu,
                 max_samples=self._max_samples, quarantine=cfg.quarantine,
-                quarantine_mult=cfg.quarantine_mult, **self._block_kwargs())
+                quarantine_mult=cfg.quarantine_mult, mesh=self.mesh,
+                **self._block_kwargs())
             self._async_exec = self.obs.wrap(
                 "dispatch", parallel_lib.make_async_dispatch_executor(
                     fn, self.mesh, max(1, int(cfg.async_depth))),
@@ -831,15 +838,37 @@ class FedAvgTrainer:
         """Poll a lease until ready or past its deadline, the pause backing
         off from 1e-4 s to 5e-3 s; never a synchronize. Readiness is
         checked before the deadline, so a finished dispatch is never
-        expired."""
+        expired.
+
+        On a mesh each poll's reading is rank 0's (``FedMesh.agree``): a
+        lease rank 0 abandons is abandoned by every rank, and one rank 0
+        folds is folded by every rank, whose own dispatch then completes
+        (its collectives paired with rank 0's)."""
         pause = 1e-4
         while True:
-            if self._lease_ready(lease):
+            ready = self._lease_ready(lease)
+            expired = not ready and time.monotonic() >= lease.deadline
+            if self.mesh is not None:
+                state = self.mesh.agree(1 if ready else 2 if expired else 0)
+                if state == 1 and not ready and lease.metrics is not None:
+                    lease.metrics.synchronize()
+                ready, expired = state == 1, state == 2
+            if ready:
                 return True
-            if time.monotonic() >= lease.deadline:
+            if expired:
                 return False
             time.sleep(pause)
             pause = min(pause * 2.0, 0.005)
+
+    def _pop_requeued(self, requeued):
+        """The first requeued lease whose backoff has elapsed, by rank 0's
+        clock on a mesh, or None."""
+        if not requeued:
+            return None
+        i = requeued.ready_index(time.monotonic())
+        if self.mesh is not None:
+            i = self.mesh.agree(i)
+        return None if i < 0 else requeued.pop(i)
 
     def _async_carry(self) -> dict:
         """The live carry of a pinned async run on the trainer's device.
@@ -938,7 +967,7 @@ class FedAvgTrainer:
         def fill(fresh):
             nonlocal t_stage
             while len(pending) < depth:
-                ready = requeued.pop_ready(time.monotonic())
+                ready = self._pop_requeued(requeued)
                 if ready is not None:
                     dispatch(*ready)
                 elif fresh and t_stage < total:
@@ -1104,10 +1133,13 @@ class FedAvgTrainer:
         population's scheduler arrays and table rows, framework arrays) and
         the metadata (both numpy streams, history, comm accounting,
         ``extra``, ``group_version``, ``obs`` = the registry's snapshot,
-        ``population``). Then prunes to ``checkpoint_keep``. Not under a
-        mesh (16b)."""
-        if self.mesh is not None:
-            raise mesh_lib.not_ported_16("16b", "checkpoints under a mesh")
+        ``population``). Then prunes to ``checkpoint_keep``.
+
+        On a mesh every rank holds the whole state, so every rank calls
+        this at the same point: each drains its population's writer, rank
+        0 checks that the model tree is the same on every rank (raising
+        otherwise) and writes the one archive, the ranks meet at a barrier
+        on the host group, and rank 0 alone prunes."""
         t = len(self.history.rounds)
         if path is None:
             if not self.cfg.checkpoint_dir:
@@ -1142,9 +1174,17 @@ class FedAvgTrainer:
                     # a coordinator's control-plane snapshot (None alone)
                     "fleet": self._fleet_meta(),
                     "population": pop_meta}
-            ckpt_io.save_pytree(path, {"model": self._ckpt_model_tree(),
-                                       "state": state}, meta)
-        if self.cfg.checkpoint_keep > 0 and self.cfg.checkpoint_dir:
+            tree = {"model": self._ckpt_model_tree(), "state": state}
+            if self.mesh is not None:
+                self.mesh.same_on_every_rank(
+                    f"checkpoint at round {t}",
+                    ckpt_io._flatten(tree["model"]))
+            if mesh_lib.writes(self.mesh):
+                ckpt_io.save_pytree(path, tree, meta)
+            if self.mesh is not None:
+                self.mesh.barrier()       # the archive exists for every rank
+        if self.cfg.checkpoint_keep > 0 and self.cfg.checkpoint_dir \
+                and mesh_lib.writes(self.mesh):
             # after the atomic write: the newest archive always survives
             ckpt_io.prune_checkpoints(self.cfg.checkpoint_dir,
                                       self.cfg.checkpoint_keep)
@@ -1162,10 +1202,8 @@ class FedAvgTrainer:
         after which ``run(n)`` continues as the uninterrupted run would.
         Refuses another framework, another client count, a trainer that
         has trained, and a pinned archive in a streamed trainer or the
-        reverse. The tensors land on this trainer's device. Not under a
-        mesh (16b)."""
-        if self.mesh is not None:
-            raise mesh_lib.not_ported_16("16b", "checkpoints under a mesh")
+        reverse. The tensors land on this trainer's device. On a mesh every
+        rank reads the same archive (every replica is whole)."""
         path = path_or_dir
         if os.path.isdir(path):
             path = ckpt_io.latest_checkpoint(path)

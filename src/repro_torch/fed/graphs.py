@@ -1,7 +1,7 @@
 """Round blocks and async dispatches on the card: one fused round captured
 once as a CUDA graph and replayed, the counterparts of
 ``repro.fed.parallel.make_sharded_block_executor`` and
-``make_async_dispatch_executor`` with ``mesh=None``.
+``make_async_dispatch_executor``.
 
 The reference fuses B rounds into one ``lax.scan`` dispatch with a donated
 carry. Here ``GraphBlockExecutor(block_fn)`` (``block_fn`` from
@@ -63,6 +63,13 @@ live carry in place) after. The graph's inputs are the live carry's own
 buffers: the staleness fold writes them in place, so they keep their
 addresses, and a later run's carry is bound to them (``bind``): step 1
 copies nothing of the carry once the graph is captured.
+
+On a data mesh a dispatch takes the block's route: over NCCL its
+all-reduces are captured in the dispatch graph (every rank replays its
+dispatches in the same order, so the collectives of two dispatches in
+flight on one stream pair up in stream order); over gloo the dispatch
+runs eagerly on the card, ``replays`` stays 0 and the result's metrics
+are host values at once.
 """
 from __future__ import annotations
 
@@ -292,23 +299,27 @@ class GraphDispatchExecutor:
     captured step (see the module docstring) or raises. ``release(d)``
     gives a dispatch's result slot back once its fold is enqueued (or its
     lease abandoned). ``replays`` counts the replays, ``captures`` the
-    captures, ``capture_ms`` the one-time warm-up and capture."""
+    captures, ``capture_ms`` the one-time warm-up and capture. ``mesh``:
+    the data mesh ``dispatch_fn`` was built for (its backend picks the
+    route on the card)."""
 
-    def __init__(self, dispatch_fn, depth: int):
+    def __init__(self, dispatch_fn, depth: int, mesh=None):
         self.dispatch_fn = dispatch_fn
         self.slots = int(depth) + 1
+        self.mesh = mesh
+        self.eager_on_card = mesh is not None and mesh.backend == "gloo"
         self.captures = 0
         self.replays = 0
         self.capture_ms = None
         self._g = None
 
     def __call__(self, carry, train_stack, idx, bidx, alive) -> Dispatch:
-        if train_stack[0].device.type != "cuda":
-            dev = train_stack[0].device
+        dev = train_stack[0].device
+        if dev.type != "cuda" or self.eager_on_card:
             idx, bidx, alive = (t.to(dev) for t in (idx, bidx, alive))
             result, metrics = self.dispatch_fn(carry, train_stack, idx,
                                                bidx, alive)
-            return Dispatch(result, metrics, idx, alive)
+            return Dispatch(result, metrics.cpu(), idx, alive)
         with torch.cuda.device(train_stack[0].device):
             return self._replay(carry, train_stack, idx, bidx, alive)
 
@@ -397,6 +408,10 @@ class GraphDispatchExecutor:
         K, rows, _ = g["shape"]
         s_in = g["input"]
         t0 = time.perf_counter()
+        if self.mesh is not None:
+            # NCCL makes its communicator at a group's first collective,
+            # which must not happen inside the capture
+            self.mesh.all_reduce(torch.zeros(1, device=s_in.device))
 
         def body():
             return self.dispatch_fn(carry, train_stack, s_in[:K],

@@ -108,11 +108,21 @@ class RequeueBuffer:
         """``(staged, attempts)`` of the first backoff-elapsed entry, or
         None when every entry is still backing off (or the buffer is
         empty)."""
-        for i, (ready_at, staged, attempts) in enumerate(self._items):
+        i = self.ready_index(now)
+        return None if i < 0 else self.pop(i)
+
+    def ready_index(self, now: float) -> int:
+        """The position of the first backoff-elapsed entry, -1 for none:
+        on a data mesh rank 0's reading, which every rank then pops."""
+        for i, (ready_at, _, _) in enumerate(self._items):
             if ready_at <= now:
-                self._items.pop(i)
-                return staged, attempts
-        return None
+                return i
+        return -1
+
+    def pop(self, i: int):
+        """``(staged, attempts)`` of entry ``i``, removed."""
+        _, staged, attempts = self._items.pop(i)
+        return staged, attempts
 
     def earliest(self):
         """Soonest ready-at time, or None when empty."""

@@ -25,8 +25,10 @@ fused round (``fed.rounds``, ``fed.client``):
                         ``GraphBlockExecutor`` with the mesh (captured
                         graphs over NCCL, the eager block over gloo).
   make_async_dispatch_executor, make_async_fold
-                        the async runtime's executors on one device; under
-                        a mesh they raise (16b).
+                        the async runtime's executors: a dispatch computes
+                        its rank's rows of the cohort (captured graphs
+                        over NCCL, eager over gloo) and the fold is
+                        replicated on every rank.
 
 The dry run's functions:
 
@@ -46,8 +48,7 @@ one device (the d_w-sharded cold start is 16c). As everywhere in the
 port, the randomized SVD's test matrix Ω is an input
 (``repro_torch.draws``), not drawn from a key.
 
-Not yet ported (``ROADMAP.md`` queue 1): the async runtime, checkpoints
-and the fleet under a mesh (16b); a model axis, with
+Not yet ported (``ROADMAP.md`` queue 1): a model axis, with
 ``sharding.specs.group_param_pspec`` sharding the group parameters and
 ``group_cold_start_distributed`` (16c).
 """
@@ -215,19 +216,22 @@ def make_sharded_block_executor(block_fn, mesh=None):
 
 
 def make_async_dispatch_executor(dispatch_fn, mesh=None, depth: int = 1):
-    """The async runtime's dispatch executor (``fed.graphs
-    .GraphDispatchExecutor`` with ``depth`` dispatches in flight); under a
-    mesh not ported (16b)."""
-    if mesh is not None:
-        raise mesh_lib.not_ported_16("16b", "the async runtime under a mesh")
-    return graphs_lib.GraphDispatchExecutor(dispatch_fn, depth)
+    """The async runtime's dispatch executor of ``dispatch_fn`` (``fed
+    .rounds.make_async_dispatch_executor(..., mesh=mesh)``): ``fed.graphs
+    .GraphDispatchExecutor`` with ``depth`` dispatches in flight. Under a
+    mesh each dispatch gathers its rank's rows of the cohort and returns
+    the whole result on every rank; on the card its all-reduces are
+    captured in the dispatch graph over NCCL, and it runs eagerly over
+    gloo."""
+    _same_mesh(dispatch_fn, mesh, "dispatch_fn")
+    return graphs_lib.GraphDispatchExecutor(dispatch_fn, depth, mesh)
 
 
 def make_async_fold(fold_fn, mesh=None):
     """The async runtime's staleness fold as it is (it writes the live
-    carry in place: nothing to donate); under a mesh not ported (16b)."""
-    if mesh is not None:
-        raise mesh_lib.not_ported_16("16b", "the async fold under a mesh")
+    carry in place: nothing to donate). Under a mesh every rank holds the
+    whole carry and the whole dispatch result, so the fold is replicated:
+    each rank runs it on its own replica."""
     return fold_fn
 
 

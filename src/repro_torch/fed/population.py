@@ -69,9 +69,19 @@ S; n comes whole (the minibatch draws read it). A cohort the ranks do
 not divide is gathered whole on every rank. Eval blocks split over the
 ranks, whose counts the trainer sums. The per-client state writes take
 the cohort's gathered rows, so every rank's host table stays a whole
-replica. The deadline and scripted faults under a mesh are not ported
-(16b): a deadline fires by each rank's clock, which would tear the
-ranks' cohorts apart.
+replica.
+
+Scripted faults and the deadline run on the mesh as on one device. Kills
+and the corrupted lanes are drawn over the whole cohort from ``(seed,
+t)``, as one device draws them; each rank poisons the lanes among its own
+rows and counts them all, so ``stats`` agrees across ranks. A deadline
+fires by rank 0's clock alone: every rank stages the whole cohort in
+chunks on its host (the prefix the ranks agree on must exist on each),
+rank 0 decides the prefix, every rank takes it through ``FedMesh.agree``
+(inline, a decision before each chunk; prefetching, the prefix length,
+which each rank's consumer then claims from its producer's staging) and
+copies its rows of that prefix. A corrupted lane counts when it lies in
+the prefix.
 """
 from __future__ import annotations
 
@@ -476,6 +486,7 @@ class Cohort:
     n_new: int = 0                  # newcomers activated this round
     stage_ms: float = 0.0
     sched_state: dict | None = None
+    total: int | None = None        # clients drawn (> K after a deadline)
     _event: object = field(default=None, repr=False)
     _pos: dict = field(default_factory=dict, repr=False)
 
@@ -634,14 +645,16 @@ class _Staging:
     under ``cond``, so exactly one side owns the cohort."""
 
     def __init__(self, t: int, idx: np.ndarray, n_new: int,
-                 sched_state: dict | None, slot, t0: float):
+                 sched_state: dict | None, slot, t0: float, spec=None):
         self.t = t
         self.idx = idx
+        self.spec = spec
         self.n_new = n_new
         self.sched_state = sched_state
         self.slot = slot
         self.t0 = t0
         self.n_staged = 0
+        self.cohort = None              # the producer's copy of all of it
         self.done = False
         self.claimed = False
         self.cond = threading.Condition()
@@ -730,9 +743,6 @@ class Population:
         if self.scheduler is not None:
             raise RuntimeError("Population is already attached to a trainer")
         if isinstance(device_or_mesh, mesh_lib.FedMesh):
-            if self.cfg.deadline is not None or self.cfg.faults is not None:
-                raise mesh_lib.not_ported_16(
-                    "16b", "the deadline and scripted faults under a mesh")
             self.mesh = device_or_mesh
             device_or_mesh = self.mesh.device
         self.device = resolve_device(device_or_mesh)
@@ -742,14 +752,21 @@ class Population:
         self._track_sched = bool(fed_cfg.checkpoint_every
                                  or fed_cfg.checkpoint_dir)
         if fed_cfg.telemetry_dir:
-            self.obs.configure(fed_cfg.telemetry_dir)
+            # on a mesh rank 0 alone writes the directory
+            self.obs.configure(fed_cfg.telemetry_dir
+                               if mesh_lib.writes(self.mesh) else None)
         if self.device.type == "cuda":
             self._cuda_index = (self.device.index
                                 if self.device.index is not None
                                 else torch.cuda.current_device())
             self._copy_stream = torch.cuda.Stream(device=self._cuda_index)
             k = min(self._k, self.store.n_clients)
-            train = _SlotRing(max(self.cfg.prefetch, 0) + 1, k,
+            # on a mesh with a deadline a rank may copy again a prefix of
+            # a finished staging waiting on the queue: one slot more, so
+            # that its rows are not refilled first
+            extra = 2 if (self.mesh is not None
+                          and self.cfg.deadline is not None) else 1
+            train = _SlotRing(max(self.cfg.prefetch, 0) + extra, k,
                               self.store.max_train, self.store.feat)
             train.fill()
             self._rings["train"] = train
@@ -826,21 +843,23 @@ class Population:
         slot.y[lo:lo + len(y)].numpy()[...] = y
         slot.n[lo:lo + len(n)].numpy()[...] = n
 
-    def _copy(self, slot, k: int, kx: int | None = None):
-        """The slot's rows ``[0, kx)`` of x and y and ``[0, k)`` of n (kx =
-        k but for a mesh rank's share) on the device -> ((x, y, n)
-        tensors, event). On the CPU the tensors view the slot (event
-        None). On the card the copy and then its event are enqueued on the
-        copy stream: the tensors must not be read before ``_ready`` made
-        the reader's stream wait."""
+    def _copy(self, slot, k: int, kx: int | None = None, lo: int = 0):
+        """The slot's rows ``[lo, lo + kx)`` of x and y and ``[0, k)`` of n
+        (kx = k, lo = 0 but for a mesh rank's share) on the device ->
+        ((x, y, n) tensors, event). On the CPU the tensors view the slot
+        (event None). On the card the copy and then its event are enqueued
+        on the copy stream: the tensors must not be read before ``_ready``
+        made the reader's stream wait."""
         kx = k if kx is None else kx
         with self.obs.span("h2d", rows=int(kx)):
             if self._copy_stream is None:
-                return (slot.x[:kx], slot.y[:kx], slot.n[:k]), None
+                return (slot.x[lo:lo + kx], slot.y[lo:lo + kx],
+                        slot.n[:k]), None
             with torch.cuda.stream(self._copy_stream):
-                out = tuple(h[:r].to(self.device, non_blocking=True)
-                            for h, r in ((slot.x, kx), (slot.y, kx),
-                                         (slot.n, k)))
+                out = tuple(h[a:b].to(self.device, non_blocking=True)
+                            for h, a, b in ((slot.x, lo, lo + kx),
+                                            (slot.y, lo, lo + kx),
+                                            (slot.n, 0, k)))
                 slot.event = torch.cuda.Event()
                 slot.event.record(self._copy_stream)
             return out, slot.event
@@ -851,45 +870,62 @@ class Population:
         self._fill(slot, 0, arrays)
         return self._copy(slot, len(arrays[2]), len(arrays[0]))
 
-    def _gather_put(self, ring: str, split: str, idx, t=None):
-        """Store gather, shift and copy enqueue of ``idx``; ``t`` is the
-        shift clock of the round this gather feeds (None = no shift).
-        Under a mesh a train gather the ranks divide takes this rank's
-        rows of x and y (from a ``ShardedClientStore``'s inner store, this
-        rank's partition) and the whole n."""
+    def _gather_put(self, ring: str, split: str, idx, t=None, spec=None,
+                    pos=None, total=None):
+        """Store gather, shift, the scripted corruption of ``spec`` and copy
+        enqueue of ``idx``; ``t`` is the shift clock of the round this
+        gather feeds (None = no shift). ``idx`` is a cohort of ``total``
+        clients (default: all of it, whose poisoned lanes are counted) or
+        the clients at its positions ``pos`` (a re-gather: nothing is
+        counted). Under a mesh a train gather the ranks divide takes this
+        rank's rows of x and y (from a ``ShardedClientStore``'s inner
+        store, this rank's partition) and the whole n."""
         idx = np.asarray(idx, np.int64)
+        if pos is None:
+            self._count_corrupt(t, spec, len(idx), len(idx))
+        pos = np.arange(len(idx)) if pos is None else np.asarray(pos)
+        total = len(idx) if total is None else total
         rows = (self.mesh.cohort_rows(len(idx))
                 if self.mesh is not None and split == "train" else None)
         if rows is None:
-            return self._put(ring, self._host(split, idx, t))
+            return self._put(ring, self._corrupt(
+                t, spec, self._host(split, idx, t), pos, total))
         store = self.store
         inner = store.inner if isinstance(store, ShardedClientStore) else store
-        mine = idx[rows[0]:rows[1]]
-        x, y, _ = self._shift_host(t, mine, inner._gather(split, mine))
+        lo, hi = rows
+        mine = idx[lo:hi]
+        x, y, n = self._shift_host(t, mine, inner._gather(split, mine))
+        # the lanes among this rank's rows poisoned
+        x, y, n = self._corrupt(t, spec, (x, y, n), pos[lo:hi], total)
         return self._put(ring, (x, y, store.n_train[idx]))
 
     def device_batch(self, idx):
         """(x, y, n) on the device for any id set. Ids inside the live
         cohort are sliced from its tensors (the cold-start subset case);
-        anything else is a fresh gather at the live cohort's shift clock."""
+        anything else is a fresh gather at the live cohort's shift clock.
+        A mesh rank holds only its share of the cohort: a subset of it is
+        gathered afresh, poisoned as the cohort's lanes were (drawn over
+        all the clients of its round, ``total``, also when a deadline cut
+        the cohort)."""
         idx = np.asarray(idx)
         c = self._cohort
+        pos = spec = total = None
         if c is not None:
             pos = c.positions(idx)
-            if pos is not None and c.x.shape[0] != len(c.idx):
-                # a mesh rank's share of the cohort: the whole cohort as it
-                # is, any other set gathered afresh
-                if len(pos) != len(c.idx) or \
-                        not np.array_equal(pos, np.arange(len(pos))):
-                    pos = None
-            if pos is not None:
-                if len(pos) == len(c.idx) and \
-                        np.array_equal(pos, np.arange(len(pos))):
-                    return c.x, c.y, c.n
+            whole = pos is not None and len(pos) == len(c.idx) and \
+                np.array_equal(pos, np.arange(len(pos)))
+            if pos is not None and c.x.shape[0] != len(c.idx) and not whole:
+                # a mesh rank's share of the cohort: the subset afresh
+                spec = self._fault_spec(c.t)
+                total = len(c.idx) if c.total is None else c.total
+            elif whole:
+                return c.x, c.y, c.n
+            elif pos is not None:
                 sel = torch.as_tensor(pos, device=c.x.device)
                 return c.x[sel], c.y[sel], c.n[sel]
         return self._ready(*self._gather_put(
-            "batch", "train", idx, t=self.rounds_streamed - 1))
+            "batch", "train", idx, t=self.rounds_streamed - 1, spec=spec,
+            pos=pos if spec is not None else None, total=total))
 
     # -- persistent state --------------------------------------------------
     def gather_local_flat(self, idx) -> torch.Tensor:
@@ -921,19 +957,36 @@ class Population:
         self._count(killed_clients=len(idx) - keep)
         return idx[:keep]
 
-    def _corrupt(self, t: int, spec: FaultSpec | None, arrays,
-                 lane0: int, total: int):
+    def _corrupt_lanes(self, t: int, spec: FaultSpec | None,
+                       total: int) -> np.ndarray:
+        """Round t's seeded poisoned lanes of a ``total``-client cohort (the
+        reference's numpy draw)."""
+        if spec is None or spec.corrupt <= 0:
+            return np.empty(0, np.int64)
+        rng = np.random.default_rng([self.cfg.faults.seed, 0xFA017, t])
+        return rng.choice(total, min(int(spec.corrupt), total),
+                          replace=False)
+
+    def _count_corrupt(self, t: int, spec, k: int, total: int):
+        """Count the poisoned lanes of a ``total``-client cohort that lie in
+        its first ``k`` (the cohort's count, the same on every rank of a
+        mesh, whichever rows each holds)."""
+        hit = int(np.sum(self._corrupt_lanes(t, spec, total) < k))
+        if hit:
+            self._count(corrupted_clients=hit)
+
+    def _corrupt(self, t: int, spec: FaultSpec | None, arrays, pos,
+                 total: int):
         """Poison the train features of this round's seeded cohort lanes
-        that fall in ``[lane0, lane0 + len(n))``, on the host before the
-        copy: the device sees exactly a poisoned upload. The lanes are the
-        reference's (the same numpy draw)."""
+        among the rows of ``arrays``, on the host before the copy: the
+        device sees exactly a poisoned upload. Row i is the cohort's lane
+        ``pos[i]``; the lanes are the reference's (the same numpy draw).
+        The caller counts them (``_count_corrupt``)."""
         if spec is None or spec.corrupt <= 0:
             return arrays
-        rng = np.random.default_rng([self.cfg.faults.seed, 0xFA017, t])
-        lanes = rng.choice(total, min(int(spec.corrupt), total),
-                           replace=False)
+        lanes = self._corrupt_lanes(t, spec, total)
         x, y, n = arrays
-        hit = lanes[(lanes >= lane0) & (lanes < lane0 + len(n))] - lane0
+        hit = np.flatnonzero(np.isin(pos, lanes))
         if len(hit) == 0:
             return arrays
         x = np.array(x, copy=True)
@@ -945,7 +998,6 @@ class Population:
             x[hit] *= spec.corrupt_scale
         else:
             raise ValueError(f"unknown corrupt_mode {spec.corrupt_mode!r}")
-        self._count(corrupted_clients=len(hit))
         return (x, y, n)
 
     def _pre_round_faults(self, t: int):
@@ -968,9 +1020,11 @@ class Population:
         return step, (straggle / -(-n // step) if straggle > 0 else 0.0)
 
     def _chunk(self, t: int, spec, idx: np.ndarray, lo: int, step: int):
-        """Gathered, shifted and corrupted host chunk ``idx[lo:lo+step]``."""
-        return self._corrupt(t, spec, self._host("train", idx[lo:lo + step],
-                                                 t), lo, len(idx))
+        """Gathered, shifted and corrupted host chunk ``idx[lo:lo+step]``
+        (its poisoned lanes count when the cohort is taken)."""
+        part = idx[lo:lo + step]
+        return self._corrupt(t, spec, self._host("train", part, t),
+                             np.arange(lo, lo + len(part)), len(idx))
 
     # -- streamed cohorts --------------------------------------------------
     def _sync_cohort(self, t: int) -> Cohort:
@@ -981,39 +1035,45 @@ class Population:
         t0 = time.perf_counter()
         with self.obs.span("stage", t=t):
             idx, n_new, spec, snap = self._pre_round_faults(t)
-            if self.mesh is not None:
-                # this rank's shard (no faults under a mesh)
-                arrays, event = self._gather_put("train", "train", idx, t)
-            else:
-                if spec is not None and spec.straggle > 0:
-                    time.sleep(spec.straggle)
-                arrays, event = self._put("train", self._corrupt(
-                    t, spec, self._host("train", idx, t), 0, len(idx)))
+            if spec is not None and spec.straggle > 0:
+                time.sleep(spec.straggle)
+            # on a mesh this rank's shard of the cohort
+            arrays, event = self._gather_put("train", "train", idx, t, spec)
         return Cohort(t, idx, *arrays, n_new,
                       stage_ms=(time.perf_counter() - t0) * 1e3,
-                      sched_state=snap, _event=event)
+                      sched_state=snap, total=len(idx), _event=event)
 
-    def _stage_chunked(self, t: int, inline: bool) -> Cohort | None:
+    def _stage_chunked(self, t: int, inline: bool):
         """Round t's cohort with a deadline: staged chunk by chunk into the
         rows of its slot. ``inline`` (``prefetch=0``): the cohort stops at
         the first chunk past the deadline. On the producer: the record is
         published as ``_staging``, so a consumer whose deadline fired can
         claim the staged prefix; the producer then abandons the round (its
-        prefix is being trained on) and returns None."""
+        prefix is being trained on) and returns None, else it queues the
+        finished record (``_take_staged``)."""
         with self.obs.span("stage", t=t):
             return self._chunked_cohort(t, inline)
 
-    def _chunked_cohort(self, t: int, inline: bool) -> Cohort | None:
+    def _chunked_cohort(self, t: int, inline: bool):
+        """Inline: round t's cohort, cut at the first chunk past the
+        deadline. On the producer: the finished ``_Staging``, the copy of
+        the whole cohort enqueued (overlapping the round in flight), or
+        None when a consumer claimed a prefix first."""
         t0 = time.perf_counter()
         idx, n_new, spec, snap = self._pre_round_faults(t)
-        st = _Staging(t, idx, n_new, snap, self._slot("train", len(idx)), t0)
+        st = _Staging(t, idx, n_new, snap, self._slot("train", len(idx)), t0,
+                      spec)
         step, delay = self._chunking(spec, len(idx))
         end = time.monotonic() + self.cfg.deadline if inline else None
         if not inline:
             self._staging = st
         for lo in range(0, len(idx), step):
-            if inline and lo > 0 and time.monotonic() >= end:
-                return self._staged_cohort(st, lo, degraded=True)
+            if inline and lo > 0:
+                late = time.monotonic() >= end
+                if self.mesh is not None:
+                    late = self.mesh.agree(late)     # rank 0's clock
+                if late:
+                    return self._take(st, lo)
             if delay:
                 time.sleep(delay)
             if self._stop.is_set():
@@ -1024,23 +1084,41 @@ class Population:
                 if st.claimed:
                     return None
                 st.n_staged = min(lo + step, len(idx))
+                # done with the last chunk, in one step: a claim always
+                # takes a strict prefix
+                st.done = st.n_staged == len(idx)
                 st.cond.notify_all()
-        with st.cond:
-            if st.claimed:
-                return None
-            st.done = True
-        return self._staged_cohort(st, len(idx), degraded=False)
+        if inline:
+            return self._take(st, len(idx))
+        st.cohort = self._staged_cohort(st, len(idx))
+        return st
 
-    def _staged_cohort(self, st: _Staging, k: int, degraded: bool) -> Cohort:
-        """Round ``st.t``'s cohort from its slot's rows ``[0, k)``, the
-        copy enqueued; a degraded round counts its dropped clients."""
-        if degraded:
-            self._count(deadline_rounds=1,
-                        deadline_dropped_clients=len(st.idx) - k)
-        arrays, event = self._copy(st.slot, k)
+    def _staged_cohort(self, st: _Staging, k: int) -> Cohort:
+        """Round ``st.t``'s cohort of its first ``k`` clients from its
+        slot's rows (on a mesh this rank's rows of them), the copy
+        enqueued."""
+        rows = None if self.mesh is None else self.mesh.cohort_rows(k)
+        if rows is None:
+            arrays, event = self._copy(st.slot, k)
+        else:
+            arrays, event = self._copy(st.slot, k, rows[1] - rows[0], rows[0])
         return Cohort(st.t, st.idx[:k], *arrays, min(st.n_new, k),
                       stage_ms=(time.perf_counter() - st.t0) * 1e3,
-                      sched_state=st.sched_state, _event=event)
+                      sched_state=st.sched_state, total=len(st.idx),
+                      _event=event)
+
+    def _take(self, st: _Staging, k: int) -> Cohort:
+        """Round ``st.t``'s cohort of its first ``k`` clients, counted: a
+        degraded round's dropped clients, the poisoned lanes among the k.
+        The producer's copy when it holds all of them, else a copy of the
+        prefix's rows."""
+        if k < len(st.idx):
+            self._count(deadline_rounds=1,
+                        deadline_dropped_clients=len(st.idx) - k)
+        self._count_corrupt(st.t, st.spec, k, len(st.idx))
+        if st.cohort is not None and k == len(st.idx):
+            return st.cohort
+        return self._staged_cohort(st, k)
 
     def _produce(self):
         try:
@@ -1048,12 +1126,12 @@ class Population:
                 torch.cuda.set_device(self._cuda_index)   # per thread
             t = self.rounds_streamed
             while not self._stop.is_set():
-                cohort = (self._sync_cohort(t) if self.cfg.deadline is None
-                          else self._stage_chunked(t, inline=False))
+                item = (self._sync_cohort(t) if self.cfg.deadline is None
+                        else self._stage_chunked(t, inline=False))
                 t += 1
-                while cohort is not None and not self._stop.is_set():
+                while item is not None and not self._stop.is_set():
                     try:
-                        self._queue.put(cohort, timeout=0.2)
+                        self._queue.put(item, timeout=0.2)
                         break
                     except queue.Full:
                         continue
@@ -1066,49 +1144,62 @@ class Population:
                 except queue.Full:
                     continue
 
-    def _claim_degraded(self, t: int, st: _Staging) -> Cohort | None:
-        """The deadline fired with round t's gather in flight: claim the
-        staged prefix (waiting, bounded by chunk progress, for at least one
-        client) and make it the cohort. Returns None if the producer
-        finished the whole cohort first (it is on the queue). On the card
-        only the prefix's rows of the slot are copied, on the copy stream;
-        the copy and its event are enqueued before the claim is released,
-        so the producer cannot refill the slot before the copy's event."""
-        with st.cond:
-            while not st.done and st.n_staged == 0:
-                if self._producer_error is not None:
-                    raise RuntimeError("population prefetch thread failed"
-                                       ) from self._producer_error
-                st.cond.wait(0.05)
-            if st.done:
-                return None
-            st.claimed = True
-            return self._staged_cohort(st, st.n_staged, degraded=True)
+    def _deadline_cohort(self, t: int) -> Cohort:
+        """Round t's cohort with a deadline, prefetching. Rank 0 (one
+        device: the only rank) waits for its whole cohort until the
+        deadline, else claims the staged prefix of the gather in flight,
+        and tells the ranks its length; every other rank takes exactly
+        that many clients of its own producer's staging."""
+        mesh = self.mesh
+        if mesh is None or mesh.rank == 0:
+            cohort = self._take_staged(
+                t, end=time.monotonic() + self.cfg.deadline)
+            if mesh is not None:
+                mesh.agree(len(cohort.idx))
+            return cohort
+        return self._take_staged(t, k=mesh.agree(0))
 
-    def _get_with_deadline(self, t: int) -> Cohort | None:
-        """The queue get bounded by ``cfg.deadline``: when the whole cohort
-        is not ready in time, degrade to the staged prefix of the gather in
-        flight instead of waiting for the stragglers."""
-        end = time.monotonic() + self.cfg.deadline
+    def _take_staged(self, t: int, end: float | None = None,
+                     k: int | None = None) -> Cohort:
+        """Round t's cohort from its ``_Staging``: ``k`` clients of it (all
+        with k None), from the queue once the producer finished it (before
+        ``end`` when given), else claimed from the gather in flight once
+        ``k`` clients (past ``end``: at least one chunk) are staged. A
+        claimed prefix's copy is enqueued before the claim's lock is
+        released, so the producer cannot refill the slot before the
+        copy's event."""
         while True:
-            remaining = end - time.monotonic()
-            if remaining <= 0:
+            if end is not None and time.monotonic() < end:
+                try:
+                    st = self._queue.get(
+                        timeout=min(end - time.monotonic(), 0.05))
+                except queue.Empty:
+                    continue
                 break
-            try:
-                return self._queue.get(timeout=min(remaining, 0.05))
-            except queue.Empty:
-                continue
-        while True:
-            st = self._staging
-            if st is not None and st.t == t:
-                cohort = self._claim_degraded(t, st)
-                return cohort if cohort is not None else self._queue.get()
-            # round t's staging is not visible yet (the producer is between
-            # rounds, or the cohort is already on the queue)
-            try:
-                return self._queue.get(timeout=0.05)
-            except queue.Empty:
-                continue
+            live = self._staging
+            if live is None or live.t != t:
+                # not visible yet, or already finished and on the queue
+                try:
+                    st = self._queue.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                break
+            with live.cond:
+                while not live.done and live.n_staged < (k or 1):
+                    if self._producer_error is not None:
+                        raise RuntimeError("population prefetch thread "
+                                           "failed") from self._producer_error
+                    live.cond.wait(0.05)
+                if not live.done:
+                    live.claimed = True     # the producer abandons it
+                    return self._take(live,
+                                      live.n_staged if k is None else k)
+            st = self._queue.get()
+            break
+        if st is None:                      # the producer died
+            raise RuntimeError("population prefetch thread failed"
+                               ) from self._producer_error
+        return self._take(st, len(st.idx) if k is None else k)
 
     def next_cohort(self) -> Cohort:
         """The next scheduled round batch, its tensors safe to read on the
@@ -1132,10 +1223,8 @@ class Population:
                     target=self._produce, name="population-prefetch",
                     daemon=True)
                 self._thread.start()
-            if self.cfg.deadline is not None:
-                cohort = self._get_with_deadline(self.rounds_streamed)
-            else:
-                cohort = self._queue.get()
+            cohort = (self._queue.get() if self.cfg.deadline is None
+                      else self._deadline_cohort(self.rounds_streamed))
             if cohort is None:          # producer died: raise its error
                 raise RuntimeError(
                     "population prefetch thread failed"

@@ -454,7 +454,7 @@ def make_async_dispatch_executor(model, *, epochs: int, batch_size: int,
                                  assign_fn=None, state_update_fn=None,
                                  make_state=None, state_to_aux=None,
                                  quarantine: bool = False,
-                                 quarantine_mult: float = 10.0):
+                                 quarantine_mult: float = 10.0, mesh=None):
     """Returns dispatch_fn(carry, train_stack, idx, bidx, alive) ->
     (result, metrics): ONE staged round computed against a *snapshot*
     carry, for the async runtime's in-flight window
@@ -481,17 +481,22 @@ def make_async_dispatch_executor(model, *, epochs: int, batch_size: int,
 
     metrics: (3 + K,) float64: mean_loss, discrepancy, n_quarantined, then
     the K post-assignment group ids (the fold's version clocks read them
-    on the host)."""
+    on the host).
+
+    With ``mesh`` a dispatch gathers only this rank's rows of the cohort
+    from the (whole) train stack, as the block step does, and its result
+    is whole on every rank: the fold is replicated."""
     core = _make_round_core(
         model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
         n_groups=n_groups, max_samples=max_samples, eta_g=eta_g,
         assign_fn=assign_fn, state_update_fn=state_update_fn,
-        quarantine=quarantine, quarantine_mult=quarantine_mult)
+        quarantine=quarantine, quarantine_mult=quarantine_mult, mesh=mesh)
 
     @torch.no_grad()
     def dispatch_fn(carry, train_stack, idx, bidx, alive):
         X_all, Y_all, n_all = train_stack
-        x, y, n = X_all[idx], Y_all[idx], n_all[idx]
+        mine = _CohortShard(mesh, idx.shape[0]).rows(idx)
+        x, y, n = X_all[mine], Y_all[mine], n_all[idx]
         mem = carry["membership"]
         trash = mem.shape[0] - 1                    # row N: padded lanes
         ix_eff = torch.where(alive > 0, idx, torch.full_like(idx, trash))
@@ -519,6 +524,7 @@ def make_async_dispatch_executor(model, *, epochs: int, batch_size: int,
         return result, metrics
 
     dispatch_fn.max_steps = core.max_steps
+    dispatch_fn.mesh = mesh
     return dispatch_fn
 
 

@@ -62,8 +62,23 @@ result slots (a slot is given back by the coordinator's fold, or here
 when its result is superseded), and FeSEM's pinned rows on every device.
 Message chaos is for the other per-round jobs. A process worker is its
 own CUDA context: its payloads are numpy trees, and its results land on
-the coordinator trainer's device. A trainer on a data mesh is refused
-(``ROADMAP.md`` queue 1, 16b).
+the coordinator trainer's device.
+
+On a data mesh (the trainer's ``launch.mesh.FedMesh``) each rank's
+coordinator wraps that rank's trainer, and its thread workers run the
+rank's executors inside the rank's process group, so a job's collectives
+pair with the same job's on the other ranks. Every rank dispatches the
+same jobs in the same order on the same dispatch clock, so scripted kills,
+heartbeat delays and message faults hit the same job on every rank. Each
+decision that reads a clock or a local delivery is taken by rank 0 and
+followed by every rank (``FedMesh.agree``): a job's worker (picked from
+rank 0's live set) and a lease's outcome (a result, or a requeue on
+expiry, a lost message or the holder's death). A requeue waits until
+this rank's abandoned attempt is over (it never ran, or its result came
+back), so that no two jobs' collectives ever run at once on a rank. The
+heartbeat counters are each rank's own. A process worker is not a member
+of the rank's process group: under a mesh it is refused (``ROADMAP.md``
+queue 1, 16b′).
 """
 from __future__ import annotations
 
@@ -149,10 +164,13 @@ class Coordinator:
     dispatches through the worker fleet. See the module docstring."""
 
     def __init__(self, trainer, fleet: FleetConfig | None = None):
-        if getattr(trainer, "mesh", None) is not None:
-            raise mesh_lib.not_ported_16("16b", "the fleet under a mesh")
         self.trainer = trainer
         self.fleet = fleet or FleetConfig()
+        self.mesh = getattr(trainer, "mesh", None)
+        if self.mesh is not None and self.fleet.transport == "proc":
+            raise mesh_lib.not_ported_16(
+                "16b′", "process workers under a mesh (a spawned worker is "
+                "not a member of the rank's process group)")
         self.obs = trainer.obs
         self.obs.registry.declare(metrics_lib.FLEET_SCHEMA)
         self._policy = leases_lib.RetryPolicy(
@@ -170,6 +188,8 @@ class Coordinator:
         self._done: set = set()      # completed/abandoned job ids (so a
         #                              late or duplicated result is ignored)
         self._async_jobs: set = set()  # job ids of async dispatches
+        self._killed: set = set()    # workers hard-killed (run no more jobs)
+        self._names: list = []       # every worker spawned, in spawn order
         self._closed = False
         if self.fleet.transport == "inproc":
             self._transport = InProcTransport()
@@ -231,6 +251,7 @@ class Coordinator:
         trainer replica from the ``WorkerSpec`` (their cold start) and
         join once it is up. Adoption happens when the ``join`` message is
         pumped — dispatches only ever go to adopted workers."""
+        self._names.append(name)
         if self.fleet.transport == "inproc":
             ep = self._transport.add_worker(name)
             w = worker_lib.InProcWorker(name, ep, self._table,
@@ -255,6 +276,7 @@ class Coordinator:
         """Hard-kill a worker (the chaos primitive): SIGKILL in process
         mode, a no-reply hard-stop in-process. Detection is the heartbeat
         monitor's job (or the closed pipe's), not ours."""
+        self._killed.add(name)
         if self.fleet.transport == "inproc":
             w = self._workers.get(name)
             if w is not None:
@@ -353,6 +375,11 @@ class Coordinator:
             self.retire(name)
 
     def _pick_worker(self) -> str:
+        """The next live worker, round robin. On a mesh rank 0 picks and
+        every rank takes its pick (by spawn order, the same on every
+        rank): a rank's own live set follows its own heartbeat clock."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return self._names[self.mesh.agree(0)]
         deadline = time.monotonic() + self.fleet.join_timeout
         while not self._live:
             if time.monotonic() > deadline:
@@ -363,24 +390,69 @@ class Coordinator:
             self._pump(0.01)
         w = self._live[self._rr % len(self._live)]
         self._rr += 1
+        if self.mesh is not None:
+            self.mesh.agree(self._names.index(w))
         return w
 
-    def _await_result(self, job_id: int, holder: str, deadline: float):
+    def _lease_state(self, job_id: int, holder: str, deadline: float,
+                     sent: bool) -> int:
+        """This rank's reading of a lease: 1 its result is here, 2 it must
+        requeue (not sent, timeout, dropped message, or the holder died),
+        0 wait."""
+        if job_id in self._results:
+            return 1
+        if not sent or job_id in self._chaos.dropped:
+            # no inbox, or the transport lost the result: informationally
+            # a timeout, resolved now instead of stalling out the lease
+            return 2
+        if holder not in self._live:
+            return 2                     # holder died: requeue immediately
+        return 2 if time.monotonic() >= deadline else 0
+
+    def _await_result(self, job_id: int, holder: str, deadline: float,
+                      sent: bool):
         """The lease wait: the result, or ``_MISSING`` when the lease must
-        requeue (timeout, dropped message, or the holder died)."""
+        requeue. On a mesh rank 0's reading decides for every rank."""
         while True:
             self._pump(0.005)
-            if job_id in self._results:
+            state = self._lease_state(job_id, holder, deadline, sent)
+            if self.mesh is not None:
+                state = self.mesh.agree(state)
+                if state:
+                    # on 1 rank 0 has its result: this rank's attempt ran
+                    # too (its collectives paired), so its result comes
+                    self._settle(job_id, holder, sent, state == 1)
+            if state == 1:
                 return self._results.pop(job_id)
-            if job_id in self._chaos.dropped:
-                # the transport lost the result: informationally a timeout,
-                # resolved now instead of stalling out the full lease
+            if state == 2:
                 self._chaos.dropped.discard(job_id)
                 return _MISSING
-            if holder not in self._live:
-                return _MISSING          # holder died: requeue immediately
-            if time.monotonic() >= deadline:
-                return _MISSING
+
+    def _settle(self, job_id: int, holder: str, sent: bool, arrived: bool):
+        """On a mesh, after rank 0's decision: with ``arrived`` wait for
+        this rank's result; else wait until this rank's abandoned attempt
+        is over (it was never sent, its holder was killed before the job,
+        or its result came back or was dropped), so that a requeued
+        attempt never runs beside it, and drop a result that came back as
+        stale, as ``_route`` drops a late one."""
+        def over():
+            return job_id in self._results or (not arrived and (
+                not sent or holder in self._killed
+                or job_id in self._chaos.dropped))
+        limit = time.monotonic() + self.fleet.lease_timeout
+        while not over():
+            if time.monotonic() >= limit:
+                raise RuntimeError(
+                    f"rank {self.mesh.rank}: fleet job {job_id} did not "
+                    f"settle within lease_timeout={self.fleet.lease_timeout}"
+                    "s of rank 0's decision: the ranks have diverged")
+            self._pump(0.005)
+        if not arrived and job_id in self._results:
+            payload = self._results.pop(job_id)
+            self.obs.registry.inc("fleet.stale_results")
+            if job_id in self._async_jobs:
+                self._async_jobs.discard(job_id)
+                self._real["async"].release(payload)
 
     def _dispatch(self, fn_name: str, args: tuple, remote: bool):
         """One train dispatch through the fleet (an ``_ExecutorProxy``
@@ -432,8 +504,8 @@ class Coordinator:
                 sent = self._transport.send(
                     holder, Message("job", job_id=job_id,
                                     payload=lease.staged))
-                result = (self._await_result(job_id, holder, lease.deadline)
-                          if sent else _MISSING)
+                result = self._await_result(job_id, holder, lease.deadline,
+                                            sent)
             self._done.add(job_id)
             if result is not _MISSING:
                 self._async_jobs.discard(job_id)

@@ -24,15 +24,28 @@ The backend is chosen up front (``choose_backend``), never by catching a
 failure: NCCL when every rank of a host has a card of its own, gloo when
 ranks share a card or run on the CPU.
 
+Beside the compute group every rank holds a *host group*: a gloo group
+over CPU tensors, made once per process group (``host_group``), in the
+same order on every rank and before any graph capture. The runtime
+services decide things by the clock (a straggler deadline, a lease's
+expiry, a backoff, a fleet worker's death); the reference decides each
+once, on its single controller, where the port's ranks would each decide
+by their own clock and tear apart. ``FedMesh.agree`` gives every rank
+rank 0's decision over the host group: it never touches a CUDA stream,
+so it never waits behind the dispatch whose lateness it decides, and a
+thread may call it while another runs the compute group's collectives.
+
 Not ported (``ROADMAP.md`` queue 1, 16c): a model axis > 1, and with it
 ``make_production_mesh``'s 2-D and multi-pod layouts. The reference's TPU
 roofline constants have no counterpart here.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -42,12 +55,14 @@ DATA_AXIS, MP_AXIS = "data", "model"
 
 # the device ``init_process_group`` chose for this rank (None before)
 _RANK_DEVICE = None
+# the host group of the current default process group (``host_group``)
+_HOST_GROUP = None
 
 
 def not_ported_16(item: str, what: str):
     """The ``NotImplementedError`` of a mesh feature left to ROADMAP.md
-    queue 1, item 16b (async, checkpoints, the fleet under a mesh), 16c
-    (a model axis) or 16d (the zoo's tensor parallelism)."""
+    queue 1, item 16b′ (the fleet's process workers under a mesh), 16c (a
+    model axis) or 16d (the zoo's tensor parallelism)."""
     return NotImplementedError(
         f"{what} is not yet ported to repro_torch: ROADMAP.md queue 1, item "
         f"{item}")
@@ -67,6 +82,7 @@ class FedMesh:
     backend: str
     device: torch.device
     axis_names: tuple = (DATA_AXIS, MP_AXIS)
+    host: object = None        # the host group (``host_group``)
 
     @property
     def data_shards(self) -> int:
@@ -102,13 +118,50 @@ class FedMesh:
         buf[lo:hi] = t
         return self.all_reduce(buf)
 
-    def same_on_every_rank(self, what: str, t: torch.Tensor):
-        """Raise unless ``t`` equals rank 0's bit for bit (a replicated
-        result every rank computed on its own)."""
-        ref = self.broadcast(t.clone(), 0)
-        if not torch.equal(ref, t):
+    def agree(self, value, src: int = 0):
+        """Rank ``src``'s small integer or boolean ``value`` on every rank,
+        over the host group (a CPU tensor: no CUDA stream is touched). The
+        ranks call it at the same points, so each decision is taken once,
+        by ``src``, and followed by all."""
+        t = torch.tensor([int(value)], dtype=torch.int64)
+        if self.world > 1:
+            dist.broadcast(t, src=src, group=self.host)
+        v = int(t[0])
+        return bool(v) if isinstance(value, bool) else v
+
+    def barrier(self):
+        """Every rank meets here, over the host group."""
+        if self.world > 1:
+            dist.barrier(group=self.host)
+
+    def same_on_every_rank(self, what: str, value):
+        """Raise unless ``value`` (a tensor, or {name: numpy array or
+        tensor}) equals rank 0's byte for byte (NaN and -0.0 included): a
+        replicated result every rank computed on its own. Each rank's
+        SHA-256 digest of the bytes, read on the host, is held against rank
+        0's over the host group."""
+        if self.world <= 1:
+            return
+        items = value.items() if isinstance(value, dict) else [("", value)]
+        h = hashlib.sha256()
+        for k, a in items:
+            a = (a.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                 .numpy() if isinstance(a, torch.Tensor) else
+                 np.ascontiguousarray(a).reshape(-1).view(np.uint8))
+            h.update(f"{k}:{a.size};".encode())
+            h.update(a.tobytes())
+        mine = torch.tensor(list(h.digest()), dtype=torch.uint8)
+        ref = mine.clone()
+        dist.broadcast(ref, src=0, group=self.host)
+        if not torch.equal(ref, mine):
             raise RuntimeError(f"{what} differs between rank 0 and rank "
                                f"{self.rank}: the ranks have diverged")
+
+
+def writes(mesh) -> bool:
+    """True in the process that writes a run's files (checkpoints, the
+    telemetry directory): the only one without a mesh, rank 0 on one."""
+    return mesh is None or mesh.rank == 0
 
 
 def choose_backend(device_type: str, local_world: int,
@@ -165,15 +218,30 @@ def init_process_group(device="cuda", *, init_method: str = "env://",
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size, **kw)
     _RANK_DEVICE = dev
+    host_group()
     return dev
+
+
+def host_group():
+    """The default process group's host group: a gloo group of every rank
+    over CPU tensors, made at the first call (a collective call: every rank
+    makes it, in the same order, before any graph capture) and kept until
+    ``destroy_process_group``. Always a group of its own, also on a gloo
+    world, so that ``FedMesh.agree`` on one thread never interleaves with
+    the compute group's collectives on another."""
+    global _HOST_GROUP
+    if _HOST_GROUP is None:
+        _HOST_GROUP = dist.new_group(backend="gloo")
+    return _HOST_GROUP
 
 
 def destroy_process_group():
     """Tear the default process group down (a no-op without one)."""
-    global _RANK_DEVICE
+    global _RANK_DEVICE, _HOST_GROUP
     if dist.is_initialized():
         dist.destroy_process_group()
     _RANK_DEVICE = None
+    _HOST_GROUP = None
 
 
 def make_fed_mesh(data: int, model: int = 1, *, device=None) -> FedMesh:
@@ -204,7 +272,7 @@ def make_fed_mesh(data: int, model: int = 1, *, device=None) -> FedMesh:
         raise ValueError(f"the NCCL backend needs a CUDA device, not {dev}")
     return FedMesh(group=dist.group.WORLD, rank=dist.get_rank(), world=world,
                    shape={DATA_AXIS: int(data), MP_AXIS: int(model)},
-                   backend=backend, device=dev)
+                   backend=backend, device=dev, host=host_group())
 
 
 def make_local_mesh(*, device=None) -> FedMesh:

@@ -21,10 +21,12 @@ Under torchrun (``WORLD_SIZE`` > 1) ``--mode fed`` runs on a data mesh of
 the world's ranks (``launch.mesh``): the process group's backend is NCCL
 when each rank has a card of its own, gloo when ranks share one or run
 on the CPU; every rank trains its block of each cohort's clients, and
-rank 0 alone prints and writes ``--out``:
+rank 0 alone prints and writes ``--out`` and ``--telemetry-dir``;
+``--async-depth`` runs the async runtime on the mesh:
 
   torchrun --standalone --nproc_per_node 2 -m repro_torch.launch.train \
-      --mode fed --device cpu --framework fedgroup --dataset synthetic
+      --mode fed --device cpu --framework fedgroup --dataset synthetic \
+      --async-depth 1 --telemetry-dir tel
 
 ``--mode lm`` (``--arch``, default gemma-2b; ``--smoke`` for the reduced
 same-family variant; ``--steps``, ``--seq``, ``--batch``) trains from

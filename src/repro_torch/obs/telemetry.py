@@ -12,6 +12,11 @@ Layout of a telemetry dir (``FedConfig.telemetry_dir``):
   trace.json          Chrome trace-event export of the span ring buffer
   run_summary.json    final counters + per-stage totals + slowest rounds
 
+On a data mesh rank 0 alone writes the directory; the other ranks' bundles
+trace and count in memory. The round records are functions of the
+replicated training state, so rank 0's equal a run's without a mesh; the
+spans of staging (``stage``, ``h2d`` with its ``rows``) are rank 0's own.
+
 The engine truncates ``metrics.jsonl`` on checkpoint resume
 (:meth:`Telemetry.resume_at`) so records for rounds >= the restore point
 are dropped before the resumed run re-emits them — no duplicates, and
@@ -253,13 +258,16 @@ def get_default() -> Telemetry | None:
     return _DEFAULT
 
 
-def from_config(cfg) -> Telemetry:
+def from_config(cfg, write: bool = True) -> Telemetry:
     """Telemetry for a trainer: always a FRESH bundle (own registry), but
     sharing the process default's *tracer* when one is installed — span
     collection crosses object boundaries, metric counts never do.
-    ``cfg.telemetry_dir`` additionally opens the JSONL stream."""
+    ``cfg.telemetry_dir`` additionally opens the JSONL stream; with
+    ``write=False`` (a data mesh's ranks > 0) it only turns the tracer on,
+    and the bundle writes nothing."""
     shared = _DEFAULT.tracer if _DEFAULT is not None else None
     tdir = getattr(cfg, "telemetry_dir", None)
     if tdir:
-        return Telemetry(enabled=True, directory=tdir, tracer=shared)
+        return Telemetry(enabled=True, directory=tdir if write else None,
+                         tracer=shared)
     return Telemetry(enabled=False, tracer=shared)

@@ -6,8 +6,10 @@ against ``repro.fed.store``'s (a sharded store's gather equals the plain
 store's bit for bit); ``launch/mesh.py`` and ``fed/parallel.py``'s mesh
 half on a gloo world of one rank made in this process (a FileStore in a
 temporary directory); and the refusals that name their ROADMAP items:
-a model axis (16c), and the async runtime, checkpoints, telemetry, the
-fleet and a population's deadline and faults under a mesh (16b).
+a model axis (16c) and the fleet's process workers under a mesh (16b′); the
+runtime services of 16b (the async executors, checkpoints, telemetry, a
+thread-worker fleet, a population's deadline and faults) built on a mesh
+of one, and ``FedMesh.agree``, ``barrier`` and the byte check.
 """
 import dataclasses
 import types
@@ -226,27 +228,44 @@ def test_sharded_executors_check_their_mesh(mesh1):
 
 
 def test_async_executors_raise_16b_under_a_mesh(mesh1):
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        parallel.make_async_dispatch_executor(lambda *a: None, mesh1)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        parallel.make_async_fold(lambda *a: None, mesh1)
+    """Ported (16b): the dispatch executor takes a dispatch built for its
+    mesh, the fold is replicated as it is (the name is the refusal's it
+    replaced)."""
+    from repro_torch.fed import rounds
+    kw = dict(epochs=1, batch_size=5, lr=0.1, mu=0.0, n_groups=2,
+              max_samples=10)
+    on = rounds.make_async_dispatch_executor(mclr(4, 3), mesh=mesh1, **kw)
+    ex = parallel.make_async_dispatch_executor(on, mesh1, 2)
+    # gloo: a dispatch runs eagerly on the card (no graph holds gloo's
+    # collectives)
+    assert ex.mesh is mesh1 and ex.slots == 3 and ex.eager_on_card
+    with pytest.raises(ValueError, match="another mesh"):
+        parallel.make_async_dispatch_executor(on, None)
     fold = object()
     assert parallel.make_async_fold(fold) is fold
+    assert parallel.make_async_fold(fold, mesh1) is fold
 
 
 def _data():
     return tgen.synthetic(seed=0, n_clients=4)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("async_depth", 1, "16b"), ("checkpoint_every", 2, "16b"),
-    ("checkpoint_dir", "ckpt", "16b"), ("telemetry_dir", "tel", "16b")])
-def test_trainer_refuses_under_a_mesh(mesh1, tmp_path, field, value, item):
+# the ids of the refusals these cases replaced (each named item 16b)
+@pytest.mark.parametrize("field,value", [
+    pytest.param(f, v, id=f"{f}-{v}-16b") for f, v in (
+        ("async_depth", 1), ("checkpoint_every", 2),
+        ("checkpoint_dir", "ckpt"), ("telemetry_dir", "tel"))])
+def test_trainer_refuses_under_a_mesh(mesh1, tmp_path, field, value):
+    """Ported (16b): each service's option builds a trainer on the mesh
+    that runs a round (the name is the refusal's it replaced)."""
     if isinstance(value, str):
         value = str(tmp_path / value)
-    cfg = dataclasses.replace(FedConfig(), **{field: value})
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        FedAvgTrainer(mclr(60, 10), _data(), cfg, device="cpu", mesh=mesh1)
+    cfg = dataclasses.replace(FedConfig(clients_per_round=2, local_epochs=1),
+                              **{field: value})
+    tr = FedAvgTrainer(mclr(60, 10), _data(), cfg, device="cpu", mesh=mesh1)
+    assert tr.mesh is mesh1
+    assert len(tr.run(1).rounds) == 1
+    tr.close()
 
 
 def test_foreign_mesh_and_device_mismatch(mesh1):
@@ -259,27 +278,51 @@ def test_foreign_mesh_and_device_mismatch(mesh1):
 
 
 def test_checkpoints_and_fleet_raise_16b_under_a_mesh(mesh1, tmp_path):
-    from repro_torch.launch.coordinator import Coordinator
-    tr = FedAvgTrainer(mclr(60, 10), _data(), FedConfig(clients_per_round=2,
-                                                        local_epochs=1),
-                       device="cpu", mesh=mesh1)
+    """Checkpoints and a thread-worker fleet run on the mesh (16b); process
+    workers under a mesh still raise, naming 16b′ (the name is the
+    refusals' it replaced)."""
+    from repro_torch.launch.coordinator import Coordinator, FleetConfig
+    from repro_torch.launch.worker import WorkerSpec
+
+    def fresh():
+        return FedAvgTrainer(mclr(60, 10), _data(), FedConfig(
+            clients_per_round=2, local_epochs=1), device="cpu", mesh=mesh1)
+    tr = fresh()
     assert tr.mesh is mesh1 and tr.device == torch.device("cpu")
     tr.run(1)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        tr.save_checkpoint(str(tmp_path / "c.npz"))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        tr.load_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        Coordinator(tr)
+    path = tr.save_checkpoint(str(tmp_path / "ckpt_000001.npz"))
+    back = fresh()
+    assert back.load_checkpoint(str(tmp_path)) == 1
+    assert all(torch.equal(back.params[k], v) for k, v in tr.params.items())
+    coord = Coordinator(back)
+    coord.run(1)
+    coord.close()
+    assert path.endswith("ckpt_000001.npz")
+    with pytest.raises(NotImplementedError, match="item 16b′"):
+        Coordinator(fresh(), FleetConfig(
+            transport="proc", worker_spec=WorkerSpec("m:f")))
 
 
 @pytest.mark.parametrize("kw", [{"deadline": 0.5}, {"faults": "kill"}])
 def test_population_deadline_and_faults_raise_16b(mesh1, kw):
+    """Ported (16b): a population with a deadline or scripted faults
+    attaches to the mesh and streams its cohorts (the name is the
+    refusal's it replaced)."""
     from repro_torch.fed.population import (FaultConfig, FaultSpec,
                                             Population, PopulationConfig)
     if "faults" in kw:
         kw = {"faults": FaultConfig({0: FaultSpec(kill=1)})}
     pop = Population(tstore.ArrayClientStore(_data()),
                      PopulationConfig(prefetch=0, **kw))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        pop.attach(FedConfig(), mesh1)
+    pop.attach(FedConfig(clients_per_round=2), mesh1)
+    assert pop.mesh is mesh1
+    c = pop.next_cohort()
+    assert len(c.idx) == (1 if "faults" in kw else 2)
+    pop.close()
+
+
+def test_agree_barrier_and_byte_check_on_a_world_of_one(mesh1):
+    assert mesh1.agree(7) == 7 and mesh1.agree(True) is True
+    mesh1.barrier()
+    mesh1.same_on_every_rank("x", {"a": np.arange(3), "t": torch.ones(2)})
+    assert mesh1.host is mesh_lib.host_group()
