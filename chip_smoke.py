@@ -13,7 +13,7 @@ with no final ``ok`` line):
                 warnings for the tensor-core kernels, swa_tc_kernel and
                 ssd_tc_kernel, and the fp32 routes' 3xTF32 kernels,
                 swa_kernel (with swa_combine_kernel), ssd_kernel,
-                ssd_cell_kernel and edc_part_kernel.
+                ssd_cell_kernel, edc_part_kernel and edc_sums_kernel.
   2. kernels  — each hand-written kernel against its plain PyTorch version
                 on the same inputs at the main paths' shapes and ragged ones:
                 max abs error (within atol + rtol·|plain|, elementwise:
@@ -40,8 +40,16 @@ with no final ``ok`` line):
                 passes 8 GB, the sum of its times over column chunks of V
                 that fit, with the chunks and the whole broadcast's
                 bytes), and
-                the time of dW.sum(), a pass that only reads ΔW; madc's
-                device time at each tile edge over a sweep of n. The fp32
+                the time of dW.sum(), a pass that only reads ΔW;
+                edc_cosine's partial-sum entry (``edc_cosine_partial``:
+                the packed dots and sums of squares of a d-block, nothing
+                divided) at a rank's block of phase 6e's ΔW, n 64, d
+                51,907,328, m 5, fp32 and bf16, against its plain version
+                (E finished from each's sums within 3e-5 / 2e-2, the raw
+                sums' largest relative error reported, bit-repeatable),
+                its ms, device ms, plain ms and byte bound (no library
+                call gives the packed sums); madc's device time at each
+                tile edge over a sweep of n. The fp32
                 routes are checked at Zamba2's fp32 forward (B=1, S=256)
                 and prefill (B=4, S=2048) shapes, SSD in the model's
                 layout (stride-0 B/C group) in both decay regimes and in
@@ -239,6 +247,29 @@ with no final ``ok`` line):
                 degraded prefix, membership and ``Population.stats`` on
                 both ranks, exactly the scripted counts. Every line
                 carries nvidia-smi's name and power limit.
+     4j         the 2-D (data, model) layout (``launch/mesh.py``'s model
+                axis; run after phase 6e, whose Alg. 3 it is held to): two
+                spawned ranks sharing the card over gloo as a (1, 2)
+                mesh. FedGroup (EDC) at phase 4's width, MESH_ROUNDS
+                rounds per round and at α = 40 in blocks of MESH_BLOCK,
+                each rank solving half of each cohort with the group
+                parameters gathered over the model group and keeping its
+                blocks of them (``group_param_pspec``; the blocks joined
+                must have the spec's shapes), its Alg. 3 on its half of
+                ΔW's d_w through ``edc_cosine_partial``: labels, founders
+                and membership equal to phase 4i's runs of one device,
+                accuracy and discrepancy within 2e-3 (the card's mesh
+                tolerance; loss and leaves reported), the two ranks'
+                replicas equal; each rank's cold-start and round ms, peak
+                memory, partial-entry launches. Then Alg. 3 on phase 6e's
+                ΔW (64, 103,814,656) with its columns split over the two
+                ranks (each builds its 13.3 GB block from the same
+                generators; phase 6e's 26.6 GB was freed first), each QR
+                (Householder as TSQR over the model group, CholeskyQR2
+                with its Grams all-reduced): labels equal to phase 6e's,
+                E within 3e-5 after matching column signs, V's subspace
+                (the ranks' rows stacked) within 1e-3, ms beside phase
+                6e's, one partial-entry launch a rank and QR.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -394,7 +425,8 @@ with no final ``ok`` line):
      function whose ``jax.vjp`` each matches; edc_cosine's launches count
      phase 4's EDC, MADC, 20-group and shift runs, phase 4d's, 4e's,
      4f's, 4g's, 4h's and 4i's FedGroup runs (4i's ranks' too) and phase
-     6e's two cold starts;
+     6e's two cold starts; edc_cosine_partial's phase 4j's ranks' cold
+     starts;
      swa_attention's count Zamba2's and phase 6b's counted forwards and
      phase 6c's counted MTP call, not
      phase 2's comparisons; the backward kernels' count phase 6d's
@@ -426,6 +458,13 @@ BF16_OPS_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
 TF32_OPS_PER_S = 495e12        # H100 SXM TF32 dense tensor cores
 TF32_TERMS = 3                 # the fp32 routes: 3 TF32 products a product
 TOL = 3e-5                     # kernel vs plain: fp32 sums in another order
+TOL_BF16 = 2e-2                # a bf16 input's kernel vs plain
+# edc_cosine's partial-sum entry vs plain, on its packed output: both sum
+# fp32 products of the same inputs (bf16 ones widened exactly) in other
+# orders, ~1e-7 relative over 5.2e7 terms; the dots are held relative to
+# ‖ΔW_i‖·‖V_j‖ (a typical |E| is 1/√d ≈ 1.4e-4, so a wrong dot shows), the
+# row and column squares relative to themselves, for fp32 and bf16 alike
+PARTIAL_RTOL = 1e-5
 SWA_TC_TOL = 1e-2              # P rounded to bf16: 2^-9 per p, over |v| <~ 4
 SSD_TOL = 2e-4                 # SSD outputs are sums of ~Q products of ~N
 EDC_LIBRARY_BYTES = 8e9        # F.cosine_similarity's broadcast, at most
@@ -494,6 +533,17 @@ SVC_FAULTS = {1: dict(kill=1, corrupt=2), 2: dict(straggle=3.0)}
 SVC_POP = dict(prefetch=0, deadline=0.3, stage_chunks=5)
 SVC_ASYNC2 = dict(async_depth=2, async_alpha=0.8, async_beta=0.5)
 SVC_TIMEOUT_S = 300            # a spawned rank's whole run
+# phase 4j: the 2-D (data, model) layout on two ranks sharing the card
+# over gloo as a (1, 2) mesh: FedGroup (EDC) at phase 4's width per round
+# and in blocks (MESH_ROUNDS, MESH_BLOCK), and Alg. 3 on ΔW (FED_NPRE,
+# FED_DW) with its d_w columns split over the two ranks, against phase 4i's
+# and phase 6e's runs of one device
+MESH2D_MODEL = 2
+MESH2D_PATHS = ("round", "block")
+MESH2D_TIMEOUT_S = 400         # a spawned rank's whole run
+# phase 2: edc_cosine's partial-sum entry at a rank's d_w block of phase
+# 6e's ΔW (FED_DW over MESH2D_MODEL)
+PARTIAL_N, PARTIAL_D, PARTIAL_M = 64, 51_907_328, 5
 ZAMBA_B, ZAMBA_S = 4, 2048     # prefill batch and length
 CONSIST_S, CONSIST_TOL = 256, 2e-3
 # phase 2's swa_attention cases at the zoo families' shapes: label ->
@@ -808,7 +858,66 @@ def check_kernels(torch):
                                       20)
             emit(row)
 
+    def partial_case(n, d, m, dtype, label):
+        """edc_cosine's partial-sum entry against its plain version
+        (``ref.cosine_sums_ref``), on the packed output itself: the dots
+        relative to ‖ΔW_i‖·‖V_j‖, the row and column squares relative to
+        themselves, each within PARTIAL_RTOL; E from the sums within TOL
+        (fp32) / TOL_BF16 (bf16) as well."""
+        dW = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+        V = (torch.randn((d, m), generator=gen, device="cuda")
+             / math.sqrt(d)).to(dtype)
+        got = edc_mod.edc_cosine_partial(dW, V)
+        want = ref.cosine_sums_ref(dW, V)
+        torch.cuda.synchronize()
+        e_want = edc_mod.cosine_from_sums(want, n, m)
+        e_err = float((edc_mod.cosine_from_sums(got, n, m)
+                       - e_want).abs().max())
+        (gd, gr, gc), (wd, wr, wc) = (edc_mod.split_sums(t, n, m)
+                                      for t in (got, want))
+        errs = {"dots_err_of_norms": float(((gd - wd).abs() / (
+                    wr.sqrt()[:, None] * wc.sqrt()[None])).max()),
+                "row_sq_max_rel_err": float(((gr - wr).abs() / wr).max()),
+                "col_sq_max_rel_err": float(((gc - wc).abs() / wc).max())}
+        repeat = bool(torch.equal(got, edc_mod.edc_cosine_partial(dW, V)))
+        tol = TOL if dtype == torch.float32 else TOL_BF16
+        es = dW.element_size()
+        b_ms, b_by = bound_ms(n * d * es + d * m * V.element_size()
+                              + (n * m + n + m) * 4,
+                              2.0 * n * d * (m + 1) + 2.0 * d * m)
+        fn = lambda: edc_mod.edc_cosine_partial(dW, V)  # noqa: E731
+        row = {"phase": "kernel", "name": "edc_cosine_partial",
+               "case": label, "n": n, "d": d, "m": m,
+               "dtype": str(dtype).split(".")[-1],
+               "plan": edc_mod.plan(n, d, m, build.sm_count(0))._asdict(),
+               "max_abs_err": e_err, "max_abs_err_of": "E from the sums",
+               "E_max_abs_ref": float(e_want.abs().max()), **errs,
+               "sums_rtol": PARTIAL_RTOL, "tol": tol,
+               "bit_repeatable": repeat, "ms": cuda_ms(torch, fn, 10),
+               "device_ms": profiled_ms(torch, fn, "edc_", iters=5),
+               "plain_ms": cuda_ms(torch, lambda: ref.cosine_sums_ref(dW, V),
+                                   3, warmup=1),
+               "library_ms": None,
+               "library_note": "no single PyTorch call gives the packed "
+                               "dots and both sums of squares",
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["share_of_bound_events"] = b_ms / row["ms"]
+        emit(row)
+        del dW, V, got, want
+        torch.cuda.empty_cache()
+        if not (e_err <= tol and repeat
+                and max(errs.values()) <= PARTIAL_RTOL):
+            raise AssertionError(f"edc_cosine_partial {label}: E max abs err "
+                                 f"{e_err} (tol {tol}), packed sums {errs} "
+                                 f"(rtol {PARTIAL_RTOL}), bit-repeatable "
+                                 f"{repeat}")
+        return row
+
     rows["edc_cosine"] = edc_case(100, 415_258, 5, torch.float32, "main")
+    rows["edc_cosine_partial"] = partial_case(
+        PARTIAL_N, PARTIAL_D, PARTIAL_M, torch.float32, "rank-block")
+    partial_case(PARTIAL_N, PARTIAL_D, PARTIAL_M, torch.bfloat16,
+                 "rank-block-bf16")
     edc_case(200, 415_258, 17, torch.float32, "m17")
     edc_case(200, 415_258, 32, torch.float32, "m32")
     edc_case(130, 4_097, 100, torch.bfloat16, "m100-bf16")
@@ -1146,8 +1255,8 @@ def edc_cold_start_many_groups(torch, data, model):
     seen = {}
     embed = measures.edc_embed
 
-    def capture(dW, m, omega):
-        E, V = embed(dW, m, omega)
+    def capture(dW, m, omega, mesh=None):
+        E, V = embed(dW, m, omega, mesh=mesh)
         seen.update(dW=dW, E=E, V=V)
         return E, V
 
@@ -2952,7 +3061,7 @@ def mesh_run(torch, model, data, mesh, path: str, population=None) -> dict:
         round_ms.append((time.perf_counter() - t1) * 1e3)
     if path == "block":
         round_ms = [round_ms[0] / rounds]      # the run's rounds, averaged
-    counts = ops.launch_counts()
+    counts = {**ops.launch_counts(), **ops.partial_launch_counts()}
     blk = tr._block_exec
     params = tr.params if path == "fedavg" else tr.group_params
     state = {f"params/{k}": v.detach().cpu().clone()
@@ -2961,6 +3070,7 @@ def mesh_run(torch, model, data, mesh, path: str, population=None) -> dict:
         state["group_delta"] = tr.group_delta.detach().cpu().clone()
     rec = {"path": path, "alpha": alpha, "cold_ms": cold_ms,
            "round_ms": round_ms, "block_round_ms_steady": None,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
            "launches": counts,
            "replays": 0 if blk is None else blk.replays,
            "labels": [int(x) for x in labels],
@@ -3191,6 +3301,11 @@ def mesh_check_ranks(torch, tag: str, ranks: list, ref: dict,
     return launches
 
 
+# phase 4i's runs of one device that phase 4j holds its ranks to, and
+# phase 6e's cold start of one device: {path or "coldstart": ...}
+MESH2D_REF = {}
+
+
 def mesh_phase(torch, data, model) -> dict:
     """Phase 4i; returns the kernels' launch counts of the phase (this
     process's world-of-one runs and, as ``edc_cosine``, every rank's)."""
@@ -3268,6 +3383,7 @@ def mesh_phase(torch, data, model) -> dict:
               f"this machine has {n} card: NCCL takes one rank a card"})
     emit({"phase": "mesh_phase", "launches": counts,
           "seconds": time.perf_counter() - t0})
+    MESH2D_REF.update({p: (ref[p], ref_state[p]) for p in MESH2D_PATHS})
     return counts
 
 
@@ -3637,6 +3753,244 @@ def services_phase(torch, data, model, smi: str) -> dict:
         raise AssertionError("phase 4i-iv launched no edc_cosine")
     emit({"phase": "services_phase", "launches": counts,
           "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4j: the 2-D (data, model) layout on two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def mesh2d_rank_main(rank: int, world: int, store: str, out: str) -> int:
+    """A phase-4j rank (a process of its own) of a (1, MESH2D_MODEL) mesh
+    over gloo: warms up, runs MESH2D_PATHS of FedGroup (EDC) at phase 4's
+    width (the group parameters this rank's blocks, each cohort's clients
+    split over the ranks), then Alg. 3 on its d_w columns of phase 6e's
+    ΔW (built from ``decaying_update_matrix``'s generators: the one-device
+    matrix's columns) with each QR. Writes ``out``.json (records),
+    ``out``.pt (the FedGroup runs' state) and ``out``.V_<qr>.pt (its rows
+    of V)."""
+    import torch
+
+    from repro_torch.data.generators import femnist_like
+    from repro_torch.fed import parallel as fp
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.paper_models import mlp
+
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                local_rank=rank, local_world=world)
+    try:
+        mesh = mesh_lib.make_fed_mesh(world // MESH2D_MODEL, MESH2D_MODEL)
+        t0 = time.perf_counter()
+        mesh_warmup(torch, mesh)
+        recs = {"warmup_s": time.perf_counter() - t0,
+                "backend": mesh.backend, "device": str(mesh.device),
+                "model_index": mesh.model_index}
+        states = {}
+        data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
+        model = mlp(784, 512, 26)
+        for path in MESH2D_PATHS:
+            torch.cuda.reset_peak_memory_stats()
+            recs[path], states[path] = mesh_run(torch, model, data, mesh,
+                                                path)
+        torch.save(states, out + ".pt")
+        del data
+        torch.cuda.empty_cache()
+        # Alg. 3 on this rank's columns of phase 6e's ΔW
+        n, d, m = FED_NPRE, FED_DW, FED_M
+        lo, hi = mesh.model_cols(d)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dW = fed_dryrun.decaying_update_matrix(n, d, "cuda", cols=(lo, hi))
+        torch.cuda.synchronize()
+        cold = {"cols": [lo, hi], "dW_bytes": dW.nbytes,
+                "build_dW_s": time.perf_counter() - t0}
+        # run_coldstart's draw of Ω
+        omega = torch.randn((n, min(m + 8, n)), generator=torch.Generator()
+                            .manual_seed(0)).cuda()
+        for qr in ("householder", "cholesky"):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            E, V = fp.edc_embedding_distributed(dW, m, omega=omega,
+                                                qr_impl=qr, mesh=mesh)
+            assign, _ = fp.kmeans_step(E, E[:m])
+            torch.cuda.synchronize()
+            cold[qr] = {"ms": (time.perf_counter() - t0) * 1e3,
+                        "E": E.cpu().tolist(), "labels": assign.tolist(),
+                        "launches": {**ops.launch_counts(),
+                                     **ops.partial_launch_counts()}}
+            torch.save(V.cpu(), f"{out}.V_{qr}.pt")
+            del E, V
+        cold["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        recs["coldstart"] = cold
+        del dW
+        Path(out + ".json").write_text(json.dumps(recs))
+    finally:
+        mesh_lib.destroy_process_group()
+    return 0
+
+
+def mesh2d_spawn(torch, world: int, d: Path) -> list:
+    """Spawn ``world`` phase-4j ranks and wait for all; any rank's failure
+    fails the phase and every rank still running is killed. Returns each
+    rank's (records, state)."""
+    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']; "
+            "import chip_smoke; sys.exit(chip_smoke.mesh2d_rank_main("
+            "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(r), str(world),
+         str(d / "store"), str(d / f"rank{r}")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MESH2D_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * world:
+        for r, log in enumerate(logs):
+            print(f"--- 2-D mesh rank {r} (exit {rcs[r]}):\n{log[-4000:]}",
+                  file=sys.stderr)
+        raise AssertionError(f"phase 4j: rank exit codes {rcs}")
+    return [(json.loads((d / f"rank{r}.json").read_text()),
+             torch.load(d / f"rank{r}.pt")) for r in range(world)]
+
+
+def mesh2d_whole(torch, ranks: list, path: str, ref_state: dict) -> dict:
+    """The ranks' stored blocks of each group-parameter leaf of ``path``'s
+    run joined along ``group_param_pspec``'s dim (in model-index order)
+    into whole leaves; fails unless each block has the spec's shape. What
+    is kept whole (a leaf the spec does not split, the update directions)
+    must be equal on every rank."""
+    from repro_torch.sharding.specs import model_dim
+
+    out = {}
+    for k, want in ref_state.items():
+        blocks = [st[path][k] for _, st in ranks]
+        dim = (model_dim(tuple(want.shape), MESH2D_MODEL)
+               if k.startswith("params/") else None)
+        if dim is None:
+            if not all(torch.equal(b, blocks[0]) for b in blocks):
+                raise AssertionError(f"phase 4j {path}: {k} differs across "
+                                     "the ranks")
+            out[k] = blocks[0]
+            continue
+        size = want.shape[dim] // MESH2D_MODEL
+        if any(b.shape[dim] != size for b in blocks):
+            raise AssertionError(f"phase 4j {path}: {k}'s blocks "
+                                 f"{[tuple(b.shape) for b in blocks]} are "
+                                 "not group_param_pspec's")
+        out[k] = torch.cat(blocks, dim=dim)
+    return out
+
+
+def mesh2d_phase(torch, smi: str) -> dict:
+    """Phase 4j: two spawned ranks sharing the card over gloo as a (1, 2)
+    mesh, held to the runs of one device (phase 4i's FedGroup runs, phase
+    6e's Alg. 3): labels and membership equal, accuracy and discrepancy
+    within MESH_ACC_ATOL (the card's mesh tolerance), E within TOL after
+    matching each column's sign, V's subspace within SUBSPACE_TOL. Returns
+    the ranks' launch counts (``edc_cosine_partial`` among them)."""
+    t_phase = time.perf_counter()
+    world = MESH2D_MODEL
+    d = ROOT / "build" / "mesh2d"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    torch.cuda.empty_cache()           # phase 6e's ΔW was freed: return it
+    t0 = time.perf_counter()
+    ranks = mesh2d_spawn(torch, world, d)
+    spawn_s = time.perf_counter() - t0
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    for path in MESH2D_PATHS:
+        ref, ref_state = MESH2D_REF[path]
+        whole = mesh2d_whole(torch, ranks, path, ref_state)
+        cmp = mesh_compare(ref, ref_state, ranks[0][0][path], whole,
+                           "reference")
+        replicas = all(recs[path][k] == ranks[0][0][path][k]
+                       for recs, _ in ranks[1:]
+                       for k in ("labels", "membership", "hist"))
+        for recs, _ in ranks:
+            add(recs[path]["launches"])
+        rec = {"phase": "mesh2d", "part": "fedgroup", "path": path,
+               "mesh": [world // MESH2D_MODEL, MESH2D_MODEL],
+               "backend": ranks[0][0]["backend"], "nvidia_smi": smi, **cmp,
+               "replicas_equal": replicas,
+               "cold_ms": [recs[path]["cold_ms"] for recs, _ in ranks],
+               "round_ms": [recs[path]["round_ms"] for recs, _ in ranks],
+               "block_round_ms_steady": [recs[path]["block_round_ms_steady"]
+                                         for recs, _ in ranks],
+               "peak_device_bytes": [recs[path]["peak_device_bytes"]
+                                     for recs, _ in ranks],
+               "partial_launches": [recs[path]["launches"][
+                   "edc_cosine_partial"] for recs, _ in ranks],
+               "world1_cold_ms": ref["cold_ms"],
+               "world1_round_ms": ref["round_ms"],
+               "world1_block_round_ms_steady": ref["block_round_ms_steady"],
+               "warmup_s": [recs["warmup_s"] for recs, _ in ranks],
+               "hist": ranks[0][0][path]["hist"], "world1_hist": ref["hist"],
+               "tolerances": {"acc_and_disc_abs": MESH_ACC_ATOL}}
+        emit(rec)
+        if not (cmp["ok"] and replicas):
+            raise AssertionError(f"phase 4j {path}: the ranks differ from "
+                                 "one device or from each other")
+        if any(x < 1 for x in rec["partial_launches"]):
+            raise AssertionError(f"phase 4j {path}: a rank's cold start "
+                                 "launched no edc_cosine_partial")
+    for qr in ("householder", "cholesky"):
+        ref = MESH2D_REF["coldstart"][qr]
+        E1 = ref["E"]
+        V = torch.cat([torch.load(d / f"rank{r}.V_{qr}.pt")
+                       for r in range(world)])
+        sv = torch.linalg.svdvals(ref["V"].T @ V)
+        sub_err = float((sv - 1).abs().max())
+        del V
+        rows = []
+        for recs, _ in ranks:
+            c = recs["coldstart"][qr]
+            E = torch.tensor(c["E"])
+            sign = torch.sign((E * E1).sum(0))
+            rows.append({"labels_equal": c["labels"] == ref["labels"],
+                         "E_max_abs_err": float((E * sign - E1).abs().max())
+                         if bool((sign != 0).all()) else float("inf"),
+                         "ms": c["ms"], "launches": c["launches"]})
+            add(c["launches"])
+        rec = {"phase": "mesh2d", "part": "coldstart", "qr": qr,
+               "n": FED_NPRE, "d": FED_DW, "m": FED_M,
+               "cols": [recs["coldstart"]["cols"] for recs, _ in ranks],
+               "dW_bytes_a_rank": [recs["coldstart"]["dW_bytes"]
+                                   for recs, _ in ranks],
+               "build_dW_s": [recs["coldstart"]["build_dW_s"]
+                              for recs, _ in ranks],
+               "peak_device_bytes": [recs["coldstart"]["peak_device_bytes"]
+                                     for recs, _ in ranks],
+               "ranks": rows, "subspace_singular_values": sv.tolist(),
+               "subspace_err": sub_err, "world1_ms": ref["ms"],
+               "tolerances": {"E": TOL, "subspace": SUBSPACE_TOL},
+               "nvidia_smi": smi, "backend": ranks[0][0]["backend"]}
+        emit(rec)
+        if not (all(r["labels_equal"] and r["E_max_abs_err"] <= TOL
+                    for r in rows) and sub_err <= SUBSPACE_TOL):
+            raise AssertionError(f"phase 4j coldstart {qr}: labels, E or "
+                                 "the subspace differ from one device")
+        if any(r["launches"]["edc_cosine_partial"] != 1 for r in rows):
+            raise AssertionError(f"phase 4j coldstart {qr}: want one "
+                                 "edc_cosine_partial launch a rank")
+    shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "mesh2d_phase", "launches": counts, "spawn_s": spawn_s,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
     return counts
 
 
@@ -5340,6 +5694,9 @@ def fed_coldstart_card(torch) -> dict:
             torch.isfinite(centers).all()) and 0 <= int(assign.min())
             and int(assign.max()) < m)
         row[f"labels_{qr}"] = assign.tolist()
+        MESH2D_REF.setdefault("coldstart", {})[qr] = {
+            "E": E.cpu(), "labels": assign.tolist(),
+            "ms": row[f"coldstart_ms_{qr}"]}
         if not ok:
             raise AssertionError(f"coldstart {qr}: non-finite E / centers "
                                  "or a label outside [0, m)")
@@ -5355,6 +5712,7 @@ def fed_coldstart_card(torch) -> dict:
         V[qr] = fp.rsvd_sharded(dW, m, omega=omega, qr_impl=qr)
         torch.cuda.synchronize()
         row[f"rsvd_ms_{qr}"] = (time.perf_counter() - t0) * 1e3
+        MESH2D_REF["coldstart"][qr]["V"] = V[qr].cpu()
     sv = torch.linalg.svdvals((V["householder"].T @ V["cholesky"]).abs())
     row["subspace_singular_values"] = sv.tolist()
     row["subspace_err"] = float((sv - 1).abs().max())
@@ -5533,6 +5891,9 @@ def main() -> int:
                       "registers at entry (launch bound 256 threads, two "
                       "CTAs an SM); one instance per dtype pair and column "
                       "tile width 4, 8, 12, 16"))
+    emit(ptxas_report(log, "edc_cosine.cu", "edc_sums_kernel",
+                      "registers at entry (256 threads): the partial-sum "
+                      "entry's second kernel"))
 
     # phase 2: kernels against their plain versions
     rows = check_kernels(torch)
@@ -5629,6 +5990,9 @@ def main() -> int:
     # phase 6e: the dry runs without a mesh (the federated round and Alg. 3
     # at production size, the zoo's dry-run records held to the card)
     counts_dry = dryrun_phase(torch)
+    # phase 4j: the 2-D (data, model) layout on two ranks sharing the card
+    # (after 6e, whose one-device Alg. 3 it is held to)
+    counts_2d = mesh2d_phase(torch, smi)
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
@@ -5647,7 +6011,8 @@ def main() -> int:
                 + counts_stream["edc_cosine"] + counts_ft["edc_cosine"]
                 + counts_async["edc_cosine"] + counts_fleet["edc_cosine"]
                 + counts_mesh["edc_cosine"] + counts_svc["edc_cosine"]
-                + counts_dry["edc_cosine"],
+                + counts_dry["edc_cosine"] + counts_2d["edc_cosine"],
+                "edc_cosine_partial": counts_2d["edc_cosine_partial"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"]
                 + counts_fam["swa_attention.tc"]
@@ -5663,6 +6028,11 @@ def main() -> int:
                 "ssd_intra_chunk_bwd": counts_train["ssd_intra_chunk_bwd"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",
                              "src/repro/kernels/edc_cosine.py:49"),
+              # the partial-sum entry: edc_cosine on a d-block, its sums
+              # all-reduced over the model axis (XLA's partitioning of the
+              # same Pallas kernel's products)
+              "edc_cosine_partial": ("src/repro_torch/csrc/edc_cosine.cu",
+                                     "src/repro/kernels/edc_cosine.py:49"),
               "madc": ("src/repro_torch/csrc/madc.cu",
                        "src/repro/kernels/madc.py:78"),
               "swa_attention.tc": ("src/repro_torch/csrc/swa_attention_tc.cu",

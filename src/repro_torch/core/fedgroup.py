@@ -36,10 +36,17 @@ clock, and the pinned direction cache as ``state/fg_dir_*``: a resumed
 trainer does not run Alg. 3 again.
 
 On a data mesh (``mesh=``, ``fed.engine``) the cold starts' pre-training
-solves run sharded over the ranks and ΔW (at FEMNIST MLP-512, n_pre ×
-415,258 fp32) is gathered onto every rank; EDC (``edc_cosine``) or MADC
-(``madc``) then runs on every rank with the same injected draws, and the
-labels are checked equal to rank 0's.
+solves run sharded over the ranks and, on a 1-D mesh, ΔW (at FEMNIST
+MLP-512, n_pre × 415,258 fp32) is gathered onto every rank; EDC
+(``edc_cosine``) or MADC (``madc``) then runs on every rank with the same
+injected draws, and the labels are checked equal to rank 0's. On a model
+axis each rank receives only its d_w block of ΔW (``FedMesh.model_cols``,
+``gather_cols``): the randomized SVD's products and E's packed sums
+(``edc_cosine``'s partial-sum entry), MADC's Gram, eq. 9's cosines
+against ``group_delta`` and the shift detector's drifts are summed over
+the model group, MADC's ``madc`` kernel runs on the replicated M, the
+groups' mean updates are gathered whole over the model group (m × d_w),
+and the cached eq.-9 directions are this rank's blocks.
 
 With a streamed population (``population=``) the Alg. 3 founders are
 drawn from the scheduler's active clients only, the newcomers its arrival
@@ -56,18 +63,28 @@ import torch
 
 from repro_torch.core import cluster as cluster_lib
 from repro_torch.core import measures
-from repro_torch.core.svd import OVERSAMPLE
+from repro_torch.core.svd import OVERSAMPLE, sharded
 from repro_torch.fed import client as client_lib
 from repro_torch.fed.engine import FedConfig, GroupedTrainer, RoundMetrics
 from repro_torch.fed.store import _LazyRows
-from repro_torch.models.modules import flatten_stacked
+from repro_torch.models.modules import unflatten_stacked
 
 
-def shift_drift(fresh: torch.Tensor, cached: torch.Tensor) -> torch.Tensor:
+def shift_drift(fresh: torch.Tensor, cached: torch.Tensor, mesh=None
+                ) -> torch.Tensor:
     """(c,) normalised cosine dissimilarity (1 − cos)/2 between each
-    client's fresh and cached update direction, 1e-12-guarded."""
-    dot = torch.sum(fresh * cached, dim=1)
-    den = torch.linalg.norm(fresh, dim=1) * torch.linalg.norm(cached, dim=1)
+    client's fresh and cached update direction, 1e-12-guarded. With a
+    model-axis ``mesh`` the rows are d-blocks: the dots and squared norms
+    are summed over the model group first."""
+    if not sharded(mesh):
+        dot = torch.sum(fresh * cached, dim=1)
+        den = (torch.linalg.norm(fresh, dim=1)
+               * torch.linalg.norm(cached, dim=1))
+    else:
+        dot, a, b = mesh.model_sum(torch.stack([
+            torch.sum(fresh * cached, dim=1), torch.sum(fresh * fresh, dim=1),
+            torch.sum(cached * cached, dim=1)]))
+        den = torch.sqrt(a) * torch.sqrt(b)
     return (1.0 - dot / torch.clamp(den, min=1e-12)) / 2.0
 
 
@@ -78,8 +95,9 @@ class FedGroupTrainer(GroupedTrainer):
         super().__init__(model, data, cfg, **kw)
         # group state: param dict stacked over the group axis + (m, d_w)
         # latest flattened update direction Δw^(g)
-        self.group_params = {k: torch.stack([p] * self.m)
-                             for k, p in self.params.items()}
+        self.group_params = self._block(
+            {k: torch.stack([p] * self.m)
+             for k, p in self._whole(self.params).items()})
         self.group_delta = None
         # 1-epoch pre-training solver for newcomer cold start (the paper:
         # pre-training does not occupy a whole round)
@@ -98,6 +116,21 @@ class FedGroupTrainer(GroupedTrainer):
 
     def _exec_spec(self) -> dict:
         return {"n_groups": self.m, "eta_g": self.cfg.eta_g}
+
+    @property
+    def _d_axis(self):
+        """The mesh the d-sharded measures sum over: the trainer's on a
+        model axis, None otherwise."""
+        return None if self._layout is None else self.mesh
+
+    def _cols(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole (·, d_w) tensor's block of this rank's d_w columns on a
+        model axis (the columns ``_solve_flat`` gives it); ``t``
+        otherwise."""
+        if self._layout is None:
+            return t
+        lo, hi = self.mesh.model_cols(t.shape[1])
+        return t[:, lo:hi].contiguous()
 
     # ------------------------------------------------------------------
     # Cached eq.-9 directions: the population's host state table when
@@ -152,28 +185,30 @@ class FedGroupTrainer(GroupedTrainer):
             pool = n_pool = self.n_clients
         n_pre = min(cfg.pretrain_scale * self.m, n_pool)
         pre_idx = self.rng.choice(pool, n_pre, replace=False)
-        deltas, _, _ = self._solve(self.params, pre_idx)
+        # (n_pre, d_w): this rank's d_w block of it on a model axis
+        dW = self._solve_flat(pre_idx)
         self.comm_params += 2 * len(pre_idx) * self.model_size
-        dW = flatten_stacked(deltas)                           # (n_pre, d_w)
 
         if cfg.rcc:                                            # ablation
             labels = self.rng.integers(0, self.m, n_pre)
         elif cfg.measure == "edc":
             omega = self.draws.svd_omega(
                 n_pre, min(self.m + OVERSAMPLE, n_pre), self.device)
-            E, _ = measures.edc_embed(dW, self.m, omega=omega)
+            E, _ = measures.edc_embed(dW, self.m, omega=omega,
+                                      mesh=self._d_axis)
             seeds = self.draws.kmeans_seeds(E, self.m)
             assign, _ = cluster_lib.kmeans_pp(E, self.m, seed_idx=seeds)
             labels = assign.cpu().numpy()
         elif cfg.measure == "madc":
-            M = measures.cosine_similarity_matrix(dW)
+            M = measures.cosine_similarity_matrix(dW, mesh=self._d_axis)
             Mp = measures.madc(M)
             labels = cluster_lib.hierarchical(Mp.cpu().numpy(), self.m)
         else:
             raise ValueError(cfg.measure)
         if self.mesh is not None:
-            # every rank clustered the gathered ΔW with the same injected
-            # draws; a rank that reached other labels has diverged
+            # every rank clustered ΔW (on a model axis its replicated
+            # sums) with the same injected draws; a rank that reached
+            # other labels has diverged
             self.mesh.same_on_every_rank("the group cold start's labels",
                                          np.asarray(labels, np.int64))
 
@@ -186,12 +221,16 @@ class FedGroupTrainer(GroupedTrainer):
             if len(members):
                 W[j, members] = 1.0 / len(members)
         Wj = torch.as_tensor(W, device=self.device)
-        mean_delta = {k: (Wj @ d.reshape(n_pre, -1)).reshape(
-            (self.m,) + tuple(d.shape[1:])) for k, d in deltas.items()}
-        self.group_params = {k: p[None] + mean_delta[k]
-                             for k, p in self.params.items()}
-        # flattening the aggregated per-leaf means equals Wj @ dW
-        self.group_delta = flatten_stacked(mean_delta)         # (m, d_w)
+        # the groups' mean updates (m, d_w), whole: on a model axis each
+        # rank's columns, gathered over the model group
+        mean = Wj @ dW
+        if self._layout is not None:
+            mean = self.mesh.model_gather(mean, 1, self.model_size)
+        self.group_delta = mean
+        params = self._whole(self.params)
+        mean_delta = unflatten_stacked(mean, params)
+        self.group_params = self._block(
+            {k: p[None] + mean_delta[k] for k, p in params.items()})
         if self._caches_dirs():
             # the Alg.-3 founders are as shift-detectable as newcomers
             self._set_dirs(pre_idx, dW)
@@ -210,12 +249,12 @@ class FedGroupTrainer(GroupedTrainer):
             self._adopt_membership(
                 cold_idx, self.rng.integers(0, self.m, len(cold_idx)))
             return
-        deltas, _, _ = self._solve(self.params, cold_idx,
-                                   solver=self.pretrain_solver)
-        dpre = flatten_stacked(deltas)                         # (c, d_w)
+        # (c, d_w): this rank's d_w block of it on a model axis
+        dpre = self._solve_flat(cold_idx, solver=self.pretrain_solver)
         if self._caches_dirs():
             self._set_dirs(cold_idx, dpre)
-        sim = measures.cosine_similarity_matrix(dpre, self.group_delta)
+        sim = measures.cosine_similarity_matrix(
+            dpre, self._cols(self.group_delta), mesh=self._d_axis)
         dis = (-sim + 1.0) / 2.0                               # (c, m)
         self._adopt_membership(cold_idx,
                                torch.argmin(dis, dim=1).cpu().numpy())
@@ -253,10 +292,9 @@ class FedGroupTrainer(GroupedTrainer):
             return none
         self.registry.inc("rounds.shift_checks", len(checked))
         self.comm_params += 2 * len(checked) * self.model_size
-        deltas, _, _ = self._solve(self.params, checked,
-                                   solver=self.pretrain_solver)
-        fresh = flatten_stacked(deltas)                        # (c, d_w)
-        drift = shift_drift(fresh, self._get_dirs(checked))
+        # (c, d_w): this rank's d_w block of it on a model axis
+        fresh = self._solve_flat(checked, solver=self.pretrain_solver)
+        drift = shift_drift(fresh, self._get_dirs(checked), self._d_axis)
         moved = (drift > float(cfg.shift_threshold)).cpu().numpy()
         shifted = checked[moved].astype(np.int64)
         self._shift_last = (len(checked), len(shifted))
@@ -266,8 +304,8 @@ class FedGroupTrainer(GroupedTrainer):
                                             device=fresh.device)]
         self._invalidate_dirs(shifted)
         self._set_dirs(shifted, fresh_moved)
-        sim = measures.cosine_similarity_matrix(fresh_moved,
-                                                self.group_delta)
+        sim = measures.cosine_similarity_matrix(
+            fresh_moved, self._cols(self.group_delta), mesh=self._d_axis)
         dis = (-sim + 1.0) / 2.0
         self._adopt_membership(shifted,
                                torch.argmin(dis, dim=1).cpu().numpy())

@@ -60,8 +60,8 @@ def evaluate_gated(trainer, temperature: float = 0.1,
                                   solver=trainer.pretrain_solver)
     G = trainer.group_delta                          # (m, d_w) directions
     w = gate_weights(flatten_stacked(deltas), G, temperature)
-    group_list = [server_lib.tree_index(trainer.group_params, j)
-                  for j in range(G.shape[0])]
+    groups = trainer.group_params_whole()
+    group_list = [server_lib.tree_index(groups, j) for j in range(G.shape[0])]
     xt, yt, nt = trainer._test_stack
     sel = torch.as_tensor(client_idx.astype(np.int64), device=trainer.device)
     correct = mixture_correct_counts(trainer.model, group_list, w, xt[sel],

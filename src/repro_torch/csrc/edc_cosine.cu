@@ -41,6 +41,11 @@
 //       two eps clamps (edc_cosine.py:63-64 and :43-44). Launched with
 //       programmatic dependent launch, so its launch overlaps the partial
 //       kernel's tail.
+//   edc_sums_kernel  the partial-sum entry's second kernel (a d-block of
+//       ΔW on a model axis): the same sums in the same order, written
+//       undivided as one packed buffer [dots (n, m) | row squares (n) |
+//       V's column squares (m)], which the caller all-reduces over the
+//       model axis before it divides. One CTA per row, one more for V.
 // ΔW and V may each be fp32 or bf16; all arithmetic is fp32. Rows past n
 // and columns past d or m are read as zeros (or clamped) and never
 // written. The TPU kernel's 128-lane padding of m and its VMEM scratch
@@ -308,9 +313,33 @@ edc_finalize_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
+// out = [dots (n, m) | row sums of squares (n) | V's column sums of
+// squares (m)]: edc_finalize_kernel's sums, nothing divided. CTA r < n
+// sums row r (a warp per dot, k = m its squares); CTA n sums V's columns.
+__global__ void __launch_bounds__(kThreads)
+edc_sums_kernel(const float* __restrict__ part, float* __restrict__ out,
+                int n, int m, int ns) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int r = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool vrow = r == n;
+  const float* p = vrow ? part + (long long)n * (m + 1) * ns
+                        : part + (long long)r * (m + 1) * ns;
+  for (int k = warp; k < (vrow ? m : m + 1); k += kWarps) {
+    const float* pk = p + (long long)k * ns;
+    float sum = 0.f;
+#pragma unroll 8
+    for (int x = lane; x < ns; x += 32) sum += pk[x];
+    sum = warp_sum(sum);
+    if (lane == 0)
+      out[vrow ? (long long)n * m + n + k
+               : (k < m ? (long long)r * m + k : (long long)n * m + r)] = sum;
+  }
+}
+
 template <typename TW, typename TV, int MB>
 cudaError_t run(const void* dW, const void* V, float* out, float* part,
-                const Args& a, cudaStream_t st) {
+                const Args& a, bool sums, cudaStream_t st) {
   const long long smem = smem_floats<MB>(a.slice) * (long long)sizeof(float);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
   auto kern = edc_part_kernel<TW, TV, MB>;
@@ -332,7 +361,7 @@ cudaError_t run(const void* dW, const void* V, float* out, float* part,
   if (e != cudaSuccess) return e;
 
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)a.n);
+  cfg.gridDim = dim3((unsigned)a.n + (sums ? 1u : 0u));
   cfg.blockDim = dim3(kThreads);
   cfg.stream = st;
   cudaLaunchAttribute at[1];
@@ -340,38 +369,27 @@ cudaError_t run(const void* dW, const void* V, float* out, float* part,
   at[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, edc_finalize_kernel,
+  return cudaLaunchKernelEx(&cfg, sums ? edc_sums_kernel : edc_finalize_kernel,
                             static_cast<const float*>(part), out, a.n, a.m,
                             a.ns);
 }
 
 template <typename TW, typename TV>
 cudaError_t run_mb(int MB, const void* dW, const void* V, float* out,
-                   float* part, const Args& a, cudaStream_t st) {
+                   float* part, const Args& a, bool sums, cudaStream_t st) {
   switch (MB) {
-    case 4: return run<TW, TV, 4>(dW, V, out, part, a, st);
-    case 8: return run<TW, TV, 8>(dW, V, out, part, a, st);
-    case 12: return run<TW, TV, 12>(dW, V, out, part, a, st);
-    case 16: return run<TW, TV, 16>(dW, V, out, part, a, st);
+    case 4: return run<TW, TV, 4>(dW, V, out, part, a, sums, st);
+    case 8: return run<TW, TV, 8>(dW, V, out, part, a, sums, st);
+    case 12: return run<TW, TV, 12>(dW, V, out, part, a, sums, st);
+    case 16: return run<TW, TV, 16>(dW, V, out, part, a, sums, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Floats of scratch a launch with this plan writes (per-slice partials of
-// the n·(m+1) row sums and of V's m column sums of squares).
-long long edc_cosine_scratch(int n, int m, int ns) {
-  return ((long long)n * (m + 1) + m) * ns;
-}
-
-// dW (n, d) and V (d, m), row-major; out (n, m) fp32. prm = {n, d, m,
-// dw_bf16, v_bf16, slice, ns, rows per CTA, nrb, MB, ncb}: the wrapper's
-// plan, checked here. Returns cudaGetLastError() after the launches.
-int edc_cosine_launch(const void* dW, const void* V, void* out,
-                      void* scratch, const long long* prm, void* stream) {
+// prm = {n, d, m, dw_bf16, v_bf16, slice, ns, rows per CTA, nrb, MB, ncb}:
+// the wrapper's plan, checked here.
+int launch(const void* dW, const void* V, void* out, void* scratch,
+           const long long* prm, bool sums, void* stream) {
   const Args a = {(int)prm[0], (int)prm[1], (int)prm[2], (int)prm[5],
                   (int)prm[6], (int)prm[8], (int)prm[7], (int)prm[10]};
   const int dw_bf16 = (int)prm[3], v_bf16 = (int)prm[4], MB = (int)prm[9];
@@ -385,14 +403,39 @@ int edc_cosine_launch(const void* dW, const void* V, void* out,
   float* p = static_cast<float*>(scratch);
   cudaError_t e;
   if (dw_bf16 && v_bf16)
-    e = run_mb<__nv_bfloat16, __nv_bfloat16>(MB, dW, V, o, p, a, st);
+    e = run_mb<__nv_bfloat16, __nv_bfloat16>(MB, dW, V, o, p, a, sums, st);
   else if (dw_bf16)
-    e = run_mb<__nv_bfloat16, float>(MB, dW, V, o, p, a, st);
+    e = run_mb<__nv_bfloat16, float>(MB, dW, V, o, p, a, sums, st);
   else if (v_bf16)
-    e = run_mb<float, __nv_bfloat16>(MB, dW, V, o, p, a, st);
+    e = run_mb<float, __nv_bfloat16>(MB, dW, V, o, p, a, sums, st);
   else
-    e = run_mb<float, float>(MB, dW, V, o, p, a, st);
+    e = run_mb<float, float>(MB, dW, V, o, p, a, sums, st);
   return (int)e;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch a launch with this plan writes (per-slice partials of
+// the n·(m+1) row sums and of V's m column sums of squares).
+long long edc_cosine_scratch(int n, int m, int ns) {
+  return ((long long)n * (m + 1) + m) * ns;
+}
+
+// dW (n, d) and V (d, m), row-major; out (n, m) fp32 cosines. prm: the
+// plan (see `launch`). Returns cudaGetLastError() after the launches.
+int edc_cosine_launch(const void* dW, const void* V, void* out,
+                      void* scratch, const long long* prm, void* stream) {
+  return launch(dW, V, out, scratch, prm, false, stream);
+}
+
+// The partial-sum entry: the same first kernel, then edc_sums_kernel;
+// out (n·m + n + m) fp32 = [dots | row squares | V's column squares].
+int edc_cosine_sums_launch(const void* dW, const void* V, void* out,
+                           void* scratch, const long long* prm,
+                           void* stream) {
+  return launch(dW, V, out, scratch, prm, true, stream);
 }
 
 const char* cuda_error_string(int err) {

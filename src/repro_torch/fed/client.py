@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch.func import grad, vmap
 
+from repro_torch.launch.mesh import param_layout
 from repro_torch.models.modules import leaf_keys
 from repro_torch.models.paper_models import ModelSpec
 
@@ -128,20 +129,17 @@ def grouped_eval_correct(model: ModelSpec, mesh=None):
     accuracy. Each client gathers its own group's parameters and is scored
     once: N forward passes.
 
-    With ``mesh`` the test stack may hold only this rank's block of the N
-    clients (``mesh.cohort_rows(N)``, fewer rows than ``membership``):
-    each rank scores its block and the two counts are summed over the
-    ranks as int64, exactly.
+    With ``mesh`` the test stack may hold only this data slice's block of
+    the N clients (``mesh.cohort_rows(N)``, fewer rows than
+    ``membership``): each slice scores its block and the two counts are
+    summed over the data group as int64, exactly. On a model axis the
+    group parameters come as this rank's blocks and are gathered whole
+    over the model group first.
     """
     one = vmap(_correct_one(model))
+    layout = param_layout(mesh, model)
 
-    def fn(group_params, membership, Xt, Yt, nt):
-        if mesh is not None and Xt.shape[0] != membership.shape[0]:
-            lo, hi = mesh.cohort_rows(membership.shape[0])
-            counts = torch.stack(fn(group_params, membership[lo:hi], Xt, Yt,
-                                    nt)).long()
-            mesh.all_reduce(counts)
-            return counts[0], counts[1]
+    def score(group_params, membership, Xt, Yt, nt):
         membership = membership.long()
         valid = membership >= 0
         m = next(iter(group_params.values())).shape[0]
@@ -151,6 +149,17 @@ def grouped_eval_correct(model: ModelSpec, mesh=None):
         correct = torch.sum(torch.where(valid, per_client, 0))
         total = torch.sum(torch.where(valid, nt.long(), 0))
         return correct, total
+
+    def fn(group_params, membership, Xt, Yt, nt):
+        if layout is not None:
+            group_params = layout.whole(group_params)
+        if mesh is None or Xt.shape[0] == membership.shape[0]:
+            return score(group_params, membership, Xt, Yt, nt)
+        lo, hi = mesh.cohort_rows(membership.shape[0])
+        counts = torch.stack(score(group_params, membership[lo:hi], Xt, Yt,
+                                   nt)).long()
+        mesh.data_sum(counts)
+        return counts[0], counts[1]
 
     return fn
 

@@ -77,8 +77,23 @@ every rank. The pinned train stack is whole on every rank, the test
 stack this rank's block of the clients when the ranks divide N. The
 pre-training solves (Alg. 3, eq. 9, the shift probes) run sharded and
 their updates are gathered; the measures then run on every rank. The
-device is the mesh's. Refused with ``NotImplementedError`` (``ROADMAP.md``
-queue 1): a model axis or a mesh that is not a ``FedMesh`` (16c).
+device is the mesh's.
+
+A mesh with a model axis (``make_fed_mesh(D, M)``, the reference's 2-D
+layout) keeps the group and global parameters at rest as this rank's
+blocks of ``sharding.specs.group_param_pspec`` (``launch.mesh
+.ParamLayout``); the executors gather them over the model group at the
+start of a round and keep the rank's blocks of the new ones at its end,
+and whatever else reads them (eval, the cold starts' solves, the CLI's
+model) gathers them first (``_whole``). A cohort is computed by rank
+(``FedMesh.compute_rows``: each data slice's rows split over its M ranks)
+and its sums run over the world. Alg. 3 and eq. 9 run on this rank's d_w
+block of the updates, the only part of them it receives (``_solve_flat``,
+``FedMesh.gather_cols``), their products all-reduced over the model group
+(``core.fedgroup``). Refused with ``NotImplementedError``
+(``ROADMAP.md`` queue 1, 16c′): the runtime services under a model axis
+(checkpoints, telemetry, the async runtime, a population's deadline or
+scripted faults, and the fleet).
 
 The runtime services run on the mesh too. Each decision the reference's
 single controller takes by its clock is taken once here, by rank 0, and
@@ -117,7 +132,7 @@ from repro_torch.fed import parallel as parallel_lib
 from repro_torch.fed import rounds as rounds_lib
 from repro_torch.fed import server as server_lib
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models.modules import param_count
+from repro_torch.models.modules import flatten_stacked, param_count
 from repro_torch.models.paper_models import ModelSpec
 from repro_torch.obs import telemetry as obs_lib
 
@@ -191,17 +206,30 @@ class FedConfig:
     telemetry_dir: str | None = None
 
 
-def _check_ported(mesh):
-    """Refuse what is not ported under a mesh (``ROADMAP.md`` queue 1):
-    anything but a 1-D ``FedMesh`` (16c)."""
+def _check_ported(mesh, cfg, population=None):
+    """Refuse what is not ported under a mesh (``ROADMAP.md`` queue 1): the
+    runtime services under a model axis (16c′). A mesh must be a
+    ``launch.mesh.FedMesh``."""
     if mesh is None:
         return
     if not isinstance(mesh, mesh_lib.FedMesh):
-        raise mesh_lib.not_ported_16(
-            "16c", f"a device mesh of type {type(mesh).__name__} (the port "
-            "takes a launch.mesh.FedMesh, a 1-D data mesh)")
-    if int(mesh.shape.get(mesh_lib.MP_AXIS, 1)) > 1:
-        raise mesh_lib.not_ported_16("16c", "a model axis > 1")
+        raise TypeError(f"a device mesh of type {type(mesh).__name__}: the "
+                        "trainers take a launch.mesh.FedMesh")
+    if mesh.model_shards == 1:
+        return
+    pcfg = None if population is None else population.cfg
+    services = {"async_depth >= 1": cfg.async_depth >= 1,
+                "checkpoints": cfg.checkpoint_every > 0
+                or bool(cfg.checkpoint_dir),
+                "telemetry_dir": bool(cfg.telemetry_dir),
+                "a population's deadline": pcfg is not None
+                and pcfg.deadline is not None,
+                "a population's scripted faults": pcfg is not None
+                and pcfg.faults is not None}
+    for what, on in services.items():
+        if on:
+            raise mesh_lib.not_ported_16(
+                "16c′", f"{what} under a model axis of {mesh.model_shards}")
 
 
 @dataclass
@@ -262,10 +290,10 @@ class FedAvgTrainer:
     is attached to this trainer and runs on its device; ``close()`` stops
     its prefetcher and state writer.
 
-    ``mesh`` (a 1-D ``launch.mesh.FedMesh``; default
+    ``mesh`` (a ``launch.mesh.FedMesh``; default
     ``fed.parallel.default_fed_mesh(device=device)``) shards the client
-    axis over its ranks; the device is then the mesh's, whose type must be
-    ``device``'s."""
+    axis over its ranks, and on a model axis the parameters; the device is
+    then the mesh's, whose type must be ``device``'s."""
 
     framework = "fedavg"
 
@@ -274,7 +302,7 @@ class FedAvgTrainer:
                  init_params=None, draws=None):
         if mesh is None:
             mesh = parallel_lib.default_fed_mesh(device=device)
-        _check_ported(mesh)
+        _check_ported(mesh, cfg, population)
         self.mesh = mesh
         if mesh is not None:
             if torch.device(device).type != mesh.device.type:
@@ -305,8 +333,12 @@ class FedAvgTrainer:
         if init_params is None:
             init_params = model.init(
                 torch.Generator().manual_seed(cfg.seed + 1), self.device)
-        self.params = {k: v.to(self.device, torch.float32)
-                       for k, v in init_params.items()}
+        params = {k: v.to(self.device, torch.float32)
+                  for k, v in init_params.items()}
+        self.model_size = param_count(params)
+        # at rest: this rank's blocks of the parameters on a model axis
+        self._layout = mesh_lib.param_layout(mesh, model)
+        self.params = self._block(params)
         # one telemetry bundle per runtime: a population owns one (its
         # degradation counters live there), which the trainer shares
         self.obs = (population.obs if population is not None
@@ -315,7 +347,6 @@ class FedAvgTrainer:
         self._last_staleness = None  # the last async fold's max staleness
         self._last_weights = None    # and group weights (round record)
         self._bind_history(History())
-        self.model_size = param_count(self.params)
         self.comm_params = 0        # cumulative parameters transferred
         self._resumed = False       # load_checkpoint ran; run() keeps stats
         self._round_exec = None     # lazily-built fused round
@@ -351,6 +382,22 @@ class FedAvgTrainer:
                                          for t in test)
             self._eval_zero_mem = torch.zeros(
                 self.n_clients, dtype=torch.long, device=dev)
+
+    def _whole(self, tree: dict) -> dict:
+        """A parameter tree kept as model-axis blocks, gathered whole over
+        the model group (a collective: every rank calls it); the tree
+        itself without a model axis."""
+        return tree if self._layout is None else self._layout.whole(tree)
+
+    def model_params(self) -> dict:
+        """The consensus (global) parameters, whole on every rank (a gather
+        over a model axis: every rank calls it)."""
+        return self._whole(self.params)
+
+    def _block(self, tree: dict) -> dict:
+        """This rank's model-axis blocks of a whole parameter tree (the
+        tree itself without a model axis)."""
+        return tree if self._layout is None else self._layout.block(tree)
 
     def _bind_history(self, h: History):
         """``h.async_stats`` becomes the registry's ``async.*`` view."""
@@ -492,7 +539,8 @@ class FedAvgTrainer:
         return np.zeros(self.n_clients, np.int64)    # consensus: one group
 
     def _stacked_group_params(self):
-        return {k: p[None] for k, p in self.params.items()}
+        return self._block({k: p[None]
+                            for k, p in self._whole(self.params).items()})
 
     def _carry_group_delta(self):
         m = self._exec_spec()["n_groups"]
@@ -569,27 +617,43 @@ class FedAvgTrainer:
     def _batch_indices(self, n, max_steps: int):
         return self.draws.batch_indices(n, max_steps, self.cfg.batch_size)
 
+    def _local_solve(self, params, idx, solver):
+        """This rank's share of one local solve of the ``idx`` clients from
+        ``params`` -> (deltas, finals, n of every client, its rows or None):
+        its ``compute_rows`` under a mesh (the minibatch rows drawn for all
+        of them on every rank), all of them without one or when the ranks
+        do not divide the set."""
+        solver = self.solver if solver is None else solver
+        params = self._whole(params)
+        x, y, n = self._client_batch(idx)
+        bidx = self._batch_indices(n, solver.max_steps)
+        rows = None if self.mesh is None else self.mesh.compute_rows(len(n))
+        if rows is None:
+            return (*solver(params, x, y, n, bidx), n, None)
+        lo, hi = rows
+        x, y = self.mesh.take_rows(x, len(n)), self.mesh.take_rows(y, len(n))
+        return (*solver(params, x, y, n[lo:hi], bidx[lo:hi]), n, rows)
+
     @torch.no_grad()
     def _solve(self, params, idx, solver=None):
         """One local solve of the ``idx`` clients from ``params`` ->
-        (deltas, finals, n). Under a mesh each rank solves its rows of
-        ``idx`` (the minibatch rows drawn for all of them on every rank)
-        and the updates are gathered; a set the ranks do not divide is
-        solved whole on every rank."""
-        solver = self.solver if solver is None else solver
-        x, y, n = self._client_batch(idx)
-        bidx = self._batch_indices(n, solver.max_steps)
-        rows = None if self.mesh is None else self.mesh.cohort_rows(len(n))
-        if rows is None:
-            deltas, finals = solver(params, x, y, n, bidx)
-            return deltas, finals, n
-        lo, hi = rows
-        if x.shape[0] == len(n):
-            x, y = x[lo:hi], y[lo:hi]
-        deltas, finals = solver(params, x, y, n[lo:hi], bidx[lo:hi])
-        deltas, finals = parallel_lib.gather_client_axis(
-            self.mesh, (deltas, finals), len(n))
+        (deltas, finals, n), whole on every rank (a mesh's ranks each solve
+        their rows and the updates are gathered)."""
+        deltas, finals, n, rows = self._local_solve(params, idx, solver)
+        if rows is not None:
+            deltas, finals = parallel_lib.gather_client_axis(
+                self.mesh, (deltas, finals), len(n))
         return deltas, finals, n
+
+    @torch.no_grad()
+    def _solve_flat(self, idx, solver=None) -> torch.Tensor:
+        """The flattened updates (c, d_w) of one local solve of the ``idx``
+        clients from the global parameters. On a model axis this rank's
+        d_w block of every row (``FedMesh.gather_cols``): the d-sharded ΔW
+        that Alg. 3 and eq. 9 take, whose whole rows no rank receives."""
+        deltas, _, n, _ = self._local_solve(self.params, idx, solver)
+        dW = flatten_stacked(deltas)
+        return dW if self.mesh is None else self.mesh.gather_cols(dW, len(n))
 
     def _should_eval(self, t: int) -> bool:
         e = self.cfg.eval_every
@@ -619,8 +683,8 @@ class FedAvgTrainer:
                 correct += torch.sum(self._eval_fn(params, x, y, n))
             total += int(pop.store.n_test[block].sum())
         if self.mesh is not None:
-            # each rank scored its rows of every block
-            self.mesh.all_reduce(correct)
+            # each data slice scored its rows of every block
+            self.mesh.data_sum(correct)
         return int(correct), total
 
     def _round_eval(self, t: int) -> float:
@@ -629,13 +693,12 @@ class FedAvgTrainer:
         with self.obs.span("eval", t=t):
             if self.population is not None:
                 return self.evaluate()
-            return self._fused_eval_acc({k: p[None] for k, p in
-                                         self.params.items()},
+            return self._fused_eval_acc(self._stacked_group_params(),
                                         self._eval_zero_mem)
 
     @torch.no_grad()
     def evaluate(self, params=None, client_idx=None) -> float:
-        params = self.params if params is None else params
+        params = self._whole(self.params if params is None else params)
         if self.population is not None:
             correct, total = self._eval_correct(params, client_idx)
             return correct / max(total, 1)
@@ -654,8 +717,8 @@ class FedAvgTrainer:
         correct = (torch.sum(self._eval_fn(params, xt, yt, nt)) if len(nt)
                    else torch.zeros((), dtype=torch.long, device=self.device))
         if hi - lo != self.n_clients:
-            # the test stack is this rank's block: sum the ranks' counts
-            correct = self.mesh.all_reduce(correct.long())
+            # the test stack is this data slice's block: sum the slices'
+            correct = self.mesh.data_sum(correct.long())
         total = self.data.n_test[idx].sum()
         return float(int(correct) / max(total, 1))
 
@@ -695,7 +758,7 @@ class FedAvgTrainer:
         bidx = self._batch_indices(n, ex.max_steps)
         # downlink: 1 model per client; uplink: 1 update per client
         self.comm_params += 2 * len(idx) * self.model_size
-        out = ex({k: p[None] for k, p in self.params.items()},
+        out = ex(self._stacked_group_params(),
                  torch.zeros(len(idx), dtype=torch.long, device=self.device),
                  x, y, n, bidx)
         self.params = out.global_params
@@ -860,12 +923,18 @@ class FedAvgTrainer:
             time.sleep(pause)
             pause = min(pause * 2.0, 0.005)
 
+    def _requeued_index(self, requeued) -> int:
+        """The position of the first requeued lease whose backoff has
+        elapsed by this process's clock, -1 for none (tests patch this to
+        script a backoff)."""
+        return requeued.ready_index(time.monotonic())
+
     def _pop_requeued(self, requeued):
         """The first requeued lease whose backoff has elapsed, by rank 0's
         clock on a mesh, or None."""
         if not requeued:
             return None
-        i = requeued.ready_index(time.monotonic())
+        i = self._requeued_index(requeued)
         if self.mesh is not None:
             i = self.mesh.agree(i)
         return None if i < 0 else requeued.pop(i)
@@ -1309,7 +1378,8 @@ class GroupedTrainer(FedAvgTrainer):
             gen = torch.Generator().manual_seed(self.cfg.seed + offset)
             given = rounds_lib.stack_trees(
                 [self.model.init(gen, "cpu") for _ in range(self.m)])
-        return {k: v.to(self.device, torch.float32) for k, v in given.items()}
+        return self._block({k: v.to(self.device, torch.float32)
+                            for k, v in given.items()})
 
     def _adopt_membership(self, idx, new):
         """Write a cohort's new group assignments, counting migrations
@@ -1333,9 +1403,15 @@ class GroupedTrainer(FedAvgTrainer):
             self._mig_last = None
         return rec
 
+    def group_params_whole(self) -> dict:
+        """The m-stacked group parameters, whole (gathered over a model
+        axis: every rank calls it; the stored state itself otherwise)."""
+        return self._whole(self.group_params)
+
     def group_param(self, j: int) -> dict:
-        """The j-th group's parameters (views into the stacked state)."""
-        return server_lib.tree_index(self.group_params, j)
+        """The j-th group's parameters, whole (one gather of the stack
+        over a model axis: to read several, index ``group_params_whole``)."""
+        return server_lib.tree_index(self.group_params_whole(), j)
 
     def evaluate_groups(self) -> float:
         """Weighted accuracy: each group model on the test data of all
@@ -1345,11 +1421,13 @@ class GroupedTrainer(FedAvgTrainer):
         if self.population is not None:
             eval_ids = self.population.eval_ids()
             mem = self.membership[eval_ids]
+            groups = self.group_params_whole()
             correct = total = 0
             for j in range(self.m):
                 members = eval_ids[mem == j]
                 if len(members):
-                    c, tot = self._eval_correct(self.group_param(j), members)
+                    c, tot = self._eval_correct(
+                        server_lib.tree_index(groups, j), members)
                     correct += c
                     total += tot
             return correct / max(total, 1)

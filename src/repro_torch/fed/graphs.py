@@ -219,7 +219,7 @@ class GraphBlockExecutor:
         if self.mesh is not None:
             # NCCL makes its communicator at a group's first collective,
             # which must not happen inside the capture
-            self.mesh.all_reduce(torch.zeros(1, device=first.device))
+            self.mesh.warm_up(first.device)
 
         def scratch(v):
             if isinstance(v, dict):
@@ -411,7 +411,7 @@ class GraphDispatchExecutor:
         if self.mesh is not None:
             # NCCL makes its communicator at a group's first collective,
             # which must not happen inside the capture
-            self.mesh.all_reduce(torch.zeros(1, device=s_in.device))
+            self.mesh.warm_up(s_in.device)
 
         def body():
             return self.dispatch_fn(carry, train_stack, s_in[:K],

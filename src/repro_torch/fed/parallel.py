@@ -1,8 +1,9 @@
 """Mesh-parallel FedGroup (``repro.fed.parallel``): the client axis of the
-synchronous trainers over a 1-D data mesh of ``torch.distributed`` ranks
-(``parallel.py:58-330``), and the pure functions of tensors that the
-federated dry run (``launch/fed_dryrun.py``) drives at production size
-(``parallel.py:336-447``).
+synchronous trainers over a data mesh or a 2-D ``(data, model)`` mesh of
+``torch.distributed`` ranks (``parallel.py:58-330``), and the functions of
+tensors that the federated dry run (``launch/fed_dryrun.py``) drives at
+production size (``parallel.py:336-447``), on one device or on a
+d_w-sharded ΔW.
 
 The mesh helpers. The reference places arrays on a single controller's
 mesh and XLA inserts the reductions; here every rank is a process of its
@@ -12,8 +13,8 @@ fused round (``fed.rounds``, ``fed.client``):
   default_data_mesh     a 1-D ("data",) mesh over the process group's
                         ranks, or None without one or on a world of one
                         (the reference's ``jax.device_count() <= 1``).
-  default_fed_mesh      the same, or with ``REPRO_MODEL_AXIS`` > 1 a
-                        refusal (16c).
+  default_fed_mesh      the same, or with ``REPRO_MODEL_AXIS`` = M > 1 a
+                        (world / M, M) mesh.
   mesh_data_shards, shard_client_axis, put_sharded_cohort
                         this rank's contiguous block of a K-leading leaf
                         on its device when the shards divide K, the whole
@@ -21,9 +22,13 @@ fused round (``fed.rounds``, ``fed.client``):
   make_sharded_executor, make_sharded_block_executor
                         the trainers' round and block executors over the
                         mesh: the first hands a round its rank's rows of
-                        X and Y, the second is ``fed.graphs``'
-                        ``GraphBlockExecutor`` with the mesh (captured
-                        graphs over NCCL, the eager block over gloo).
+                        X and Y (``FedMesh.take_rows``), the second is
+                        ``fed.graphs``' ``GraphBlockExecutor`` with the
+                        mesh (captured graphs over NCCL, the eager block
+                        over gloo). On a model axis the group parameters
+                        go in and come out as this rank's blocks of
+                        ``group_param_pspec`` (``fed.rounds`` gathers them
+                        over the model group).
   make_async_dispatch_executor, make_async_fold
                         the async runtime's executors: a dispatch computes
                         its rank's rows of the cohort (captured graphs
@@ -40,17 +45,21 @@ The dry run's functions:
                         (n_pre × d_w, d_w up to hundreds of millions):
                         the randomized SVD's heavy work is (d_w × small)
                         products; ``qr_impl="cholesky"`` replaces the
-                        tall-skinny Householder QR by CholeskyQR2.
+                        tall-skinny Householder QR by CholeskyQR2. The
+                        range finder and ``cholesky_qr2`` are
+                        ``core.svd``'s, the ones ``edc_embed`` runs.
 
-On the reference's mesh ΔW is sharded over "model" along d_w and the
-small Gram products become all-reduces; here they are plain products on
-one device (the d_w-sharded cold start is 16c). As everywhere in the
-port, the randomized SVD's test matrix Ω is an input
-(``repro_torch.draws``), not drawn from a key.
-
-Not yet ported (``ROADMAP.md`` queue 1): a model axis, with
-``sharding.specs.group_param_pspec`` sharding the group parameters and
-``group_cold_start_distributed`` (16c).
+On the reference's mesh ΔW is sharded over "model" along d_w
+(``P(None, "model")``) and XLA turns the small products into all-reduces.
+Here a ``mesh`` with a model axis makes the same explicit: a rank passes
+its d-block of ΔW; ``A @ Ω`` and ``A @ W`` are local, ``Aᵀ Q`` and ``Qᵀ A``
+and CholeskyQR2's two (k, k) Grams are summed over the model group, a
+Householder QR of a d-sharded Y runs as TSQR (``core.svd.tsqr``), and E
+comes from ``edc_cosine``'s partial-sum entry, its packed sums summed
+over the model group (``core.measures.edc_cosine_sharded``). With
+``qr_impl="cholesky"`` that is 16 all-reduces. As everywhere in the port,
+the randomized SVD's test matrix Ω is an input (``repro_torch.draws``),
+not drawn from a key.
 """
 from __future__ import annotations
 
@@ -60,9 +69,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.measures import edc_cosine_sharded
+from repro_torch.core.svd import (cholesky_qr2,  # noqa: F401 (API)
+                                  randomized_truncated_svd)
 from repro_torch.fed import graphs as graphs_lib
 from repro_torch.fed.rounds import make_round_executor
-from repro_torch.kernels.edc_cosine import edc_cosine
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.sharding.specs import data_axis_names
 
@@ -86,14 +97,20 @@ def default_data_mesh(device=None):
 
 def default_fed_mesh(model_axis: int | None = None, device=None):
     """The trainers' detected mesh. ``model_axis`` (default:
-    ``REPRO_MODEL_AXIS``, 1) > 1 asks for a (data, model) layout, which is
-    not ported (16c); 1 is ``default_data_mesh()``."""
+    ``REPRO_MODEL_AXIS``, 1) > 1 asks for the (data, model) layout: the
+    process group's ranks as a (world / model_axis, model_axis) mesh, None
+    without a process group; 1 is ``default_data_mesh()``."""
     if model_axis is None:
         model_axis = int(os.environ.get("REPRO_MODEL_AXIS", "1"))
     if model_axis <= 1:
         return default_data_mesh(device)
-    raise mesh_lib.not_ported_16(
-        "16c", f"a model axis of {model_axis} (REPRO_MODEL_AXIS)")
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    n = dist.get_world_size()
+    if n % model_axis:
+        raise ValueError(f"model_axis={model_axis} does not divide the "
+                         f"{n} ranks")
+    return mesh_lib.make_fed_mesh(n // model_axis, model_axis, device=device)
 
 
 def mesh_data_shards(mesh) -> int:
@@ -182,20 +199,19 @@ def make_sharded_executor(round_fn, mesh=None):
 
     mesh=None is ``round_fn`` itself. With a mesh the call takes the
     round's arguments as the trainers pass them (X and Y the whole cohort,
-    or already this rank's rows, as a sharded population stages them;
-    membership or assignment state, n and the minibatch rows the whole
-    cohort) and returns the whole round's output on every rank. The group
-    parameters stay whole on every rank (``group_param_pspec`` at a model
-    axis of 1)."""
+    or already this data slice's rows, as a sharded population stages
+    them; membership or assignment state, n and the minibatch rows the
+    whole cohort) and returns the whole round's output on every rank. The
+    group parameters go in and come out per ``group_param_pspec``: whole
+    on a model axis of 1, this rank's blocks on a larger one."""
     _same_mesh(round_fn, mesh, "round_fn")
     if mesh is None:
         return round_fn
 
     def call(group_params, assign, X, Y, n, idx):
-        rows = mesh.cohort_rows(n.shape[0])
-        if rows is not None and X.shape[0] == n.shape[0]:
-            X, Y = X[rows[0]:rows[1]], Y[rows[0]:rows[1]]
-        return round_fn(group_params, assign, X, Y, n, idx)
+        k = n.shape[0]
+        return round_fn(group_params, assign, mesh.take_rows(X, k),
+                        mesh.take_rows(Y, k), n, idx)
 
     call.max_steps = round_fn.max_steps
     call.mesh = mesh
@@ -210,7 +226,8 @@ def make_sharded_block_executor(block_fn, mesh=None):
     runs the block eagerly on the CPU and over gloo, whose collectives a
     graph cannot hold. Each round gathers its rank's rows of the cohort
     from the (whole) pinned train stack; the carry is whole on every
-    rank."""
+    rank, but for the group and global parameters on a model axis (this
+    rank's blocks)."""
     _same_mesh(block_fn, mesh, "block_fn")
     return graphs_lib.GraphBlockExecutor(block_fn, mesh)
 
@@ -240,7 +257,8 @@ def make_async_fold(fold_fn, mesh=None):
 # ---------------------------------------------------------------------------
 
 def make_parallel_round(model, *, epochs: int, batch_size: int, lr: float,
-                        mu: float, n_groups: int, max_samples: int):
+                        mu: float, n_groups: int, max_samples: int,
+                        mesh=None):
     """Returns round_fn(group_params_stacked, membership, X, Y, n, idx)
       -> (new group params stacked, auxiliary global params, group deltas).
 
@@ -254,10 +272,12 @@ def make_parallel_round(model, *, epochs: int, batch_size: int, lr: float,
     discrepancy, the mean loss, the flattened group deltas) are computed
     and dropped: eager PyTorch has no jit to eliminate them. The
     reference's ``quarantine`` pass-through is left to the executor's
-    callers: no round here screens its clients."""
-    core = make_round_executor(model, epochs=epochs, batch_size=batch_size,
-                               lr=lr, mu=mu, n_groups=n_groups,
-                               max_samples=max_samples, eta_g=0.0)
+    callers: no round here screens its clients. With a ``mesh`` it is a
+    rank's round (``make_sharded_executor``)."""
+    core = make_sharded_executor(make_round_executor(
+        model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
+        n_groups=n_groups, max_samples=max_samples, eta_g=0.0, mesh=mesh),
+        mesh)
 
     def round_fn(group_params, membership, X, Y, n, idx):
         out = core(group_params, membership, X, Y, n, idx)
@@ -267,58 +287,33 @@ def make_parallel_round(model, *, epochs: int, batch_size: int, lr: float,
     return round_fn
 
 
-def cholesky_qr2(Y: torch.Tensor):
-    """CholeskyQR2: (Q, R) of a tall-skinny (d, k) Y from two rounds of
-    Gram-matrix Cholesky. L⁻ᵀ is applied as a small (k, k) product, never
-    a triangular solve on the tall operand (on a mesh that solve would
-    gather Y)."""
-    def _cqr(A):
-        k = A.shape[1]
-        G = A.T @ A                                      # (k, k)
-        eye = torch.eye(k, dtype=G.dtype, device=G.device)
-        Lc = torch.linalg.cholesky(G + 1e-8 * eye)
-        Linv = torch.linalg.solve_triangular(Lc, eye, upper=False)
-        return A @ Linv.T, Lc.T
-    Q1, R1 = _cqr(Y)
-    Q2, R2 = _cqr(Q1)
-    return Q2, R2 @ R1
-
-
 def rsvd_sharded(dW: torch.Tensor, m: int, *, omega: torch.Tensor,
                  n_iter: int = 4, oversample: int = 8,
-                 qr_impl: str = "householder") -> torch.Tensor:
-    """Top-m left singular directions of ΔWᵀ -> V (d_w, m).
+                 qr_impl: str = "householder", mesh=None) -> torch.Tensor:
+    """Top-m left singular directions of ΔWᵀ -> V (d_w, m):
+    ``core.svd.randomized_truncated_svd`` of ``dW.T`` (n, d_w).
 
-    dW: (n, d_w); omega: the (n, min(m + oversample, n)) Gaussian test
-    matrix. qr_impl: ``"householder"`` (``torch.linalg.qr``) or
-    ``"cholesky"`` (``cholesky_qr2``)."""
-    n, d = dW.shape
-    k = min(m + oversample, n)
-    if tuple(omega.shape) != (n, k):
-        raise ValueError(f"omega {tuple(omega.shape)} != {(n, k)}")
-    if qr_impl not in ("householder", "cholesky"):
-        raise ValueError(f"qr_impl={qr_impl!r}: householder or cholesky")
-    qr = torch.linalg.qr if qr_impl == "householder" else cholesky_qr2
-    A = dW.float().T                                     # (d, n)
-    Q = qr(A @ omega.to(A.device, torch.float32))[0]
-    for _ in range(n_iter):
-        W = qr(A.T @ Q)[0]
-        Q = qr(A @ W)[0]
-    B = Q.T @ A                                          # (k, n)
-    Ub, _, _ = torch.linalg.svd(B, full_matrices=False)
-    return Q @ Ub[:, :m]                                 # (d, m), contiguous
+    omega: the (n, min(m + oversample, n)) Gaussian test matrix. qr_impl:
+    ``"householder"`` (TSQR on a model axis) or ``"cholesky"``
+    (``cholesky_qr2``). With a model-axis ``mesh`` dW is this rank's
+    d-block and V comes back as its rows."""
+    return randomized_truncated_svd(dW.T, m, omega, n_iter=n_iter,
+                                    oversample=oversample, qr_impl=qr_impl,
+                                    mesh=mesh)
 
 
 def edc_embedding_distributed(dW: torch.Tensor, m: int, *,
                               omega: torch.Tensor,
-                              qr_impl: str = "householder"):
+                              qr_impl: str = "householder", mesh=None):
     """ΔW -> (E (n, m) cosine embedding, V (d_w, m)): the group cold
     start's hot path. E comes from ``edc_cosine``: the Hopper kernel on
-    CUDA tensors, its plain version on the CPU and on ``meta``. The
-    reference's ``use_kernel`` switch has no counterpart, so the cold start
-    on the card always goes through the kernel."""
-    V = rsvd_sharded(dW, m, omega=omega, qr_impl=qr_impl)
-    return edc_cosine(dW, V), V
+    CUDA tensors, its plain version on the CPU and on ``meta``; with a
+    model-axis ``mesh`` (dW and V this rank's d-blocks) from its partial-sum
+    entry, summed over the model group. The reference's ``use_kernel``
+    switch has no counterpart, so the cold start on the card always goes
+    through the kernel."""
+    V = rsvd_sharded(dW, m, omega=omega, qr_impl=qr_impl, mesh=mesh)
+    return edc_cosine_sharded(dW, V, mesh), V
 
 
 def kmeans_step(E: torch.Tensor, centers: torch.Tensor):

@@ -1336,8 +1336,8 @@ class Population:
             block = idx[lo:lo + B]
             mine = block
             if self.mesh is not None:
-                # this rank's contiguous share (possibly empty): the
-                # trainer sums the ranks' integer counts
+                # this data slice's contiguous share (possibly empty):
+                # the trainer sums the slices' integer counts
                 mine = np.array_split(block, self.mesh.data_shards)[
                     self.mesh.data_index]
             x, y, n = self._ready(*self._gather_put(

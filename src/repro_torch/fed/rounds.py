@@ -38,10 +38,18 @@ and the cohort-global sums become ``all_reduce``s: the per-group weights
 and the aggregation numerator, the mean-loss and discrepancy sums and the
 quarantine count; the quarantine median is taken over the gathered norms,
 and the membership and an assignment state's per-client rows are gathered
-before anything replicated is written. The group parameters, membership
-and FeSEM's ``local_flat`` stay whole on every rank. A cohort whose size
-the shards do not divide is computed whole on every rank, with no
+before anything replicated is written. The membership and FeSEM's
+``local_flat`` stay whole on every rank. A cohort whose size the data
+shards do not divide is computed whole on every rank, with no
 collective. ``mesh=None`` runs the code of one device as before.
+
+On a 2-D ``(data, model)`` mesh a rank computes its ``compute_rows``: its
+data slice's rows split over the slice's M ranks, so no client is solved
+twice, and the sums run over the world as above. The group parameters
+come in as this rank's blocks of ``group_param_pspec``
+(``launch.mesh.ParamLayout``): a round gathers them over the model group
+first and hands back its rank's blocks of the new group and global
+parameters; everything else of the output is whole.
 
 ``serial_reference_round`` / ``serial_ifca_round`` / ``serial_fesem_round``
 keep the per-group loop as the oracles the fused round is tested against.
@@ -56,6 +64,7 @@ from torch.func import vmap
 
 from repro_torch.fed import client as client_lib
 from repro_torch.fed import server as server_lib
+from repro_torch.launch.mesh import param_layout
 from repro_torch.models.modules import (flatten_stacked, flatten_updates,
                                         leaf_keys)
 
@@ -85,12 +94,13 @@ def _bcast(v, t):
 
 
 class _CohortShard:
-    """This rank's rows ``[lo, hi)`` of a K-row cohort and the collectives
-    over them; the identity (rows ``[0, K)``, no collective) without a
-    mesh, or when the mesh's data shards do not divide K."""
+    """This rank's rows ``[lo, hi)`` of a K-row cohort's compute
+    (``FedMesh.compute_rows``) and the collectives over them; the identity
+    (rows ``[0, K)``, no collective) without a mesh, or when the mesh's
+    data shards do not divide K."""
 
     def __init__(self, mesh, K: int):
-        rows = None if mesh is None else mesh.cohort_rows(K)
+        rows = None if mesh is None else mesh.compute_rows(K)
         self.mesh = None if rows is None else mesh
         self.K = K
         self.lo, self.hi = rows if rows is not None else (0, K)
@@ -152,15 +162,20 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
     With ``mesh`` X and Y hold this rank's rows of the cohort
     (``_CohortShard``) and every other argument the whole cohort; the
     outputs are whole on every rank. ``state_update_fn`` then gets the
-    whole state with the gathered membership, deltas and finals."""
+    whole state with the gathered membership, deltas and finals. On a
+    model axis the group parameters in and the group and global
+    parameters out are this rank's blocks."""
     m = n_groups
     solve = client_lib.make_local_solver(
         model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
         max_samples=max_samples)
     loss_many = vmap(client_lib.client_mean_loss(model))
+    layout = param_layout(mesh, model)
 
     def core(group_params, membership, X, Y, n, idx, alive) -> RoundOutput:
         sh = _CohortShard(mesh, n.shape[0])
+        if layout is not None:
+            group_params = layout.whole(group_params)
         state = None
         if assign_fn is not None:
             state = membership
@@ -257,6 +272,9 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
             state = state_update_fn(state, membership,
                                     sh.gather_tree(deltas),
                                     sh.gather_tree(finals))
+        if layout is not None:
+            new_groups = layout.block(new_groups)
+            global_params = layout.block(global_params)
         return RoundOutput(new_groups, global_params, agg_delta,
                            group_delta_flat, discrepancy, membership, state,
                            mean_loss, n_quarantined)

@@ -121,6 +121,8 @@ def _declare(lib):
     ll = ctypes.POINTER(ctypes.c_longlong)
     lib.edc_cosine_launch.argtypes = [vp, vp, vp, vp, ll, vp]
     lib.edc_cosine_launch.restype = i
+    lib.edc_cosine_sums_launch.argtypes = [vp, vp, vp, vp, ll, vp]
+    lib.edc_cosine_sums_launch.restype = i
     lib.edc_cosine_scratch.argtypes = [i, i, i]
     lib.edc_cosine_scratch.restype = ctypes.c_longlong
     lib.madc_launch.argtypes = [vp, vp, i, i, vp]

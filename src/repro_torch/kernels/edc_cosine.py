@@ -10,10 +10,16 @@ fixed order. A call signature (shapes, strides, dtypes, devices) is
 checked and planned once; later calls with it allocate the output and
 launch. The partials live in a workspace kept per device and stream.
 
-A CPU tensor runs the plain version (``kernels.ref.cosine_block_ref``),
-and so does a ``meta`` tensor (shapes only: the dry run); a CUDA tensor
-launches the kernel or raises. ``launches`` counts the kernel's
-launches.
+The partial-sum entry ``edc_cosine_partial`` serves a d-block of ΔW on
+a model axis: the same first kernel, then ``edc_sums_kernel``, which
+writes the sums undivided as one packed buffer ``[dots (n, m) | row sums
+of squares (n) | V's column sums of squares (m)]``; the caller sums it
+over the model axis and divides (``cosine_from_sums``).
+
+A CPU tensor runs the plain version (``kernels.ref.cosine_block_ref``,
+``cosine_sums_ref``), and so does a ``meta`` tensor (shapes only: the dry
+run); a CUDA tensor launches the kernel or raises. ``launches`` and
+``partial_launches`` count the two entries' launches.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 launches = 0
+partial_launches = 0
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_TILE = 16           # V columns per CTA
 TILE_WIDTHS = (4, 8, 12, 16)   # the widths the kernel is built for
@@ -174,8 +181,8 @@ def _workspace(device: torch.device, floats: int) -> int:
     return ws.data_ptr()
 
 
-def edc_cosine(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """dW: (n, d), V: (d, m), fp32 or bf16 -> (n, m) fp32 cosines."""
+def _planned(dW: torch.Tensor, V: torch.Tensor) -> tuple:
+    """``_plan_call`` of this call's signature, checked once and cached."""
     key = (dW.shape, V.shape, dW.stride(), V.stride(), dW.dtype, V.dtype,
            dW.device, V.device)
     call = _plans.get(key)
@@ -184,6 +191,12 @@ def edc_cosine(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
         if len(_plans) >= 512:
             _plans.clear()
         _plans[key] = call
+    return call
+
+
+def edc_cosine(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """dW: (n, d), V: (d, m), fp32 or bf16 -> (n, m) fp32 cosines."""
+    call = _planned(dW, V)
     if call[0] == "cpu":
         return ref.cosine_block_ref(dW, V)
     _, prm, floats, shape = call
@@ -195,3 +208,37 @@ def edc_cosine(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     global launches
     launches += 1
     return out
+
+
+def edc_cosine_partial(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """The partial-sum entry. dW: (n, d), V: (d, m), fp32 or bf16 (a
+    d-block of each) -> (n·m + n + m,) fp32 ``[dots | row squares | V's
+    column squares]``, summed over d in the kernel's fixed slice order,
+    nothing divided."""
+    call = _planned(dW, V)
+    if call[0] == "cpu":
+        return ref.cosine_sums_ref(dW, V)
+    _, prm, floats, (n, m) = call
+    out = torch.empty(n * m + n + m, dtype=torch.float32, device=dW.device)
+    err = build.launch(dW, build.library().edc_cosine_sums_launch,
+                       dW.data_ptr(), V.data_ptr(), out.data_ptr(),
+                       _workspace(dW.device, floats), prm)
+    build.check(err, "edc_cosine_partial launch")
+    global partial_launches
+    partial_launches += 1
+    return out
+
+
+def split_sums(packed: torch.Tensor, n: int, m: int) -> tuple:
+    """(dots (n, m), row squares (n,), column squares (m,)) views of a
+    packed ``edc_cosine_partial`` buffer."""
+    return (packed[:n * m].view(n, m), packed[n * m:n * m + n],
+            packed[n * m + n:])
+
+
+def cosine_from_sums(packed: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """E (n, m) from the packed sums over all of d: the two ε clamps of
+    ``ref.cosine_block_ref``, norms as square roots of the sums."""
+    dots, rsq, csq = split_sums(packed, n, m)
+    cn = torch.clamp(torch.sqrt(csq), min=ref.EPS)
+    return dots / torch.clamp(torch.sqrt(rsq)[:, None] * cn[None], min=ref.EPS)

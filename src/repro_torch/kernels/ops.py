@@ -28,6 +28,12 @@ def launch_counts() -> dict:
     return counts
 
 
+def partial_launch_counts() -> dict:
+    """{``edc_cosine_partial``: launches of ``edc_cosine``'s partial-sum
+    entry (a d-block on a model axis) since the last reset}."""
+    return {"edc_cosine_partial": _edc.partial_launches}
+
+
 def backward_launch_counts() -> dict:
     """{``swa_attention_bwd``, ``ssd_intra_chunk_bwd``: launches of the
     backward kernels since the last reset}."""
@@ -44,6 +50,7 @@ def backward_route_counts() -> dict:
 def reset_launch_counts():
     for mod in KERNELS.values():
         mod.launches = 0
+    _edc.partial_launches = 0
     for mod in _ROUTED.values():
         for route in mod.launches_by_route:
             mod.launches_by_route[route] = 0

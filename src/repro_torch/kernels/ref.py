@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-_EPS = 1e-12
+EPS = _EPS = 1e-12
 _PLAIN = {torch.device("cpu"), torch.device("meta")}
 
 
@@ -28,6 +28,19 @@ def cosine_block_ref(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     rn = torch.linalg.norm(dW32, dim=1, keepdim=True)
     cn = torch.clamp(torch.linalg.norm(V32, dim=0, keepdim=True), min=_EPS)
     return dots / torch.clamp(rn * cn, min=_EPS)
+
+
+def cosine_sums_ref(dW: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``edc_cosine_partial``: ``[dots (n, m) | row
+    sums of squares (n) | V's column sums of squares (m)]`` of a d-block,
+    packed, in fp32, nothing divided. Summed over the blocks of d and
+    finished by ``kernels.edc_cosine.cosine_from_sums`` it is
+    ``cosine_block_ref`` of the whole."""
+    dW32 = dW.float()
+    V32 = V.float()
+    return torch.cat([(dW32 @ V32).reshape(-1),
+                      torch.sum(dW32 * dW32, dim=1),
+                      torch.sum(V32 * V32, dim=0)])
 
 
 def madc_ref(M: torch.Tensor) -> torch.Tensor:

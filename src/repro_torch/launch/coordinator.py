@@ -171,6 +171,10 @@ class Coordinator:
             raise mesh_lib.not_ported_16(
                 "16b′", "process workers under a mesh (a spawned worker is "
                 "not a member of the rank's process group)")
+        if self.mesh is not None and self.mesh.model_shards > 1:
+            raise mesh_lib.not_ported_16(
+                "16c′", "a fleet under a model axis of "
+                f"{self.mesh.model_shards}")
         self.obs = trainer.obs
         self.obs.registry.declare(metrics_lib.FLEET_SCHEMA)
         self._policy = leases_lib.RetryPolicy(

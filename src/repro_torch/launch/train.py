@@ -28,6 +28,17 @@ rank 0 alone prints and writes ``--out`` and ``--telemetry-dir``;
       --mode fed --device cpu --framework fedgroup --dataset synthetic \
       --async-depth 1 --telemetry-dir tel
 
+``--model-axis M`` (default ``REPRO_MODEL_AXIS``, else 1) makes it the 2-D
+``(world / M, M)`` mesh: the group parameters sharded over M ranks
+(``launch.mesh.ParamLayout``), each data slice's clients split over them;
+``--out`` gathers the model on every rank and rank 0 writes it. The
+runtime services (``--async-depth``, ``--telemetry-dir``) are refused
+under a model axis (``ROADMAP.md`` queue 1, 16c′):
+
+  torchrun --standalone --nproc_per_node 4 -m repro_torch.launch.train \
+      --mode fed --device cpu --framework fedgroup --dataset synthetic \
+      --model-axis 2
+
 ``--mode lm`` (``--arch``, default gemma-2b; ``--smoke`` for the reduced
 same-family variant; ``--steps``, ``--seq``, ``--batch``) trains from
 random weights on uniform random tokens, drawn in that order from one
@@ -71,7 +82,7 @@ def _run_fed(args, say) -> int:
                                         FedProxTrainer)
     from repro_torch.fed.fesem import FeSEMTrainer
     from repro_torch.fed.ifca import IFCATrainer
-    from repro_torch.fed.server import tree_index
+    from repro_torch.fed.parallel import default_fed_mesh
     from repro_torch.models.paper_models import lstm_classifier, mclr, mlp
 
     datasets = {
@@ -112,7 +123,9 @@ def _run_fed(args, say) -> int:
                     async_depth=args.async_depth,
                     async_alpha=args.async_alpha, async_beta=args.async_beta,
                     telemetry_dir=args.telemetry_dir)
-    tr = frameworks[args.framework](model, data, cfg, device=args.device)
+    mesh = default_fed_mesh(args.model_axis, device=args.device)
+    tr = frameworks[args.framework](model, data, cfg, device=args.device,
+                                    mesh=mesh)
     say(f"# {args.framework} on {data.name} ({tr.device}): "
           f"{data.n_clients} clients, m={cfg.n_groups}, "
           f"K={cfg.clients_per_round}, E={cfg.local_epochs}"
@@ -134,10 +147,12 @@ def _run_fed(args, say) -> int:
             say(f"round {t:3d} acc={m.weighted_acc:.4f} "
                 f"disc={m.discrepancy:.4f} ({time.time()-t0:.1f}s)")
     say(f"max_acc={tr.history.max_acc:.4f}")
+    # whole on every rank (a gather over a model axis), written by rank 0
+    params = None if not args.out else (
+        tr.group_param(0) if hasattr(tr, "group_params")
+        else tr.model_params())
     if args.out and (tr.mesh is None or tr.mesh.rank == 0):
         os.makedirs(args.out, exist_ok=True)
-        params = (tree_index(tr.group_params, 0)
-                  if hasattr(tr, "group_params") else tr.params)
         save_pytree(os.path.join(args.out, "model.npz"), params,
                     {"framework": args.framework, "dataset": args.dataset,
                      "max_acc": tr.history.max_acc})
@@ -224,6 +239,11 @@ def main(argv=None) -> int:
                     dest="async_alpha")
     ap.add_argument("--async-beta", type=float, default=0.0,
                     dest="async_beta")
+    ap.add_argument("--model-axis", type=int, default=None,
+                    dest="model_axis",
+                    help="under torchrun: shard the group parameters over "
+                         "M ranks, a (world / M, M) mesh (default "
+                         "REPRO_MODEL_AXIS, else 1)")
     ap.add_argument("--telemetry-dir", default=None, dest="telemetry_dir",
                     help="trace the run and stream per-round records "
                          "into this dir (render with python -m "

@@ -207,7 +207,22 @@ def flatten_stacked(params: dict) -> torch.Tensor:
     (L, d_w)."""
     keys = [k for k in leaf_keys(params) if params[k].is_floating_point()]
     lead = params[keys[0]].shape[0]
-    return torch.cat([params[k].reshape(lead, -1) for k in keys], dim=1)
+    return torch.cat([params[k].reshape(lead, math.prod(params[k].shape[1:]))
+                      for k in keys], dim=1)
+
+
+def unflatten_stacked(flat: torch.Tensor, params: dict) -> dict:
+    """Inverse of ``flatten_stacked`` given a template param dict of
+    unstacked leaves: (L, d_w) -> (L, ...) leaves."""
+    out, off = {}, 0
+    lead = flat.shape[0]
+    for k in leaf_keys(params):
+        p = params[k]
+        if p.is_floating_point():
+            out[k] = flat[:, off:off + p.numel()].reshape(
+                (lead,) + tuple(p.shape)).to(p.dtype)
+            off += p.numel()
+    return out
 
 
 def unflatten_like(vec: torch.Tensor, params: dict) -> dict:

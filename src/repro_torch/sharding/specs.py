@@ -49,7 +49,7 @@ def group_param_pspec(shape: tuple, model_size: int,
     """Spec of one m-stacked group-parameter leaf: the group axis
     replicated, and the largest trailing dim that ``model_size`` divides
     over the model axis. No divisible dim, or ``model_size == 1`` (the
-    1-D data mesh, the only one the port builds), replicates it whole."""
+    1-D data mesh), replicates it whole."""
     nd = len(shape)
     parts = [None] * nd
     if model_size > 1 and nd >= 2:
@@ -60,6 +60,13 @@ def group_param_pspec(shape: tuple, model_size: int,
         if best_dim >= 0:
             parts[best_dim] = model_axis
     return tuple(parts)
+
+
+def model_dim(shape: tuple, model_size: int):
+    """The dim of a leaf of ``shape`` that ``group_param_pspec`` shards
+    over the model axis, or None (whole on every rank)."""
+    spec = group_param_pspec(tuple(shape), model_size)
+    return spec.index(MP_AXIS) if MP_AXIS in spec else None
 
 
 def group_param_specs(group_params: dict, mesh) -> dict:

@@ -4,9 +4,12 @@
     python tests/_torch_mesh_driver.py RANK WORLD STORE OUT services|resume
     python tests/_torch_mesh_driver.py RANK WORLD STORE OUT xload ARCHIVE \
         DRAWS
+    python tests/_torch_mesh_driver.py RANK WORLD STORE OUT coldstart INPUTS
 
 joins a gloo world of WORLD ranks through the FileStore at STORE (no
-ports, so no races between test workers), runs every scenario of
+ports, so no races between test workers) as a ``(WORLD / M, M)`` mesh,
+M the model axis of ``REPRO_MODEL_AXIS`` (1 unless set), runs every
+scenario (or those named in ``MESH_SCENARIOS``) of
 ``SCENARIOS`` at the reference's small fixture (``tests/
 test_trainer_sharding.py``: ``mnist_like(n_clients=16, dim=16)``,
 ``mclr(16, 10)``, K = 8, E = 3, m = 2) on the CPU with one torch thread,
@@ -27,7 +30,11 @@ respawned world: each kill-and-resume scenario from its archive to round
 4, into ``rank<r>.resume.npz``. ``xload`` resumes the JAX trainer's
 archive ARCHIVE with the draws recorded in DRAWS (``ListDraws``, whose
 state is the archive's key) into ``rank<r>.xload.npz``. A world of one
-also runs each scenario without a mesh (``<name>@none``).
+also runs each scenario without a mesh (``<name>@none``). ``coldstart``
+runs Alg. 3 (``fed.parallel.edc_embedding_distributed`` and one
+``kmeans_step``) on this rank's d_w block of the ΔW in INPUTS (an
+``.npz`` of ``dW``, ``m`` and an ``omega`` per name), with each QR, into
+``rank<r>.coldstart.npz``.
 
 Imports no JAX: a rank is a process of the port.
 """
@@ -259,7 +266,8 @@ SERVICES = {
                                         **STRAGGLE)}))),
     "fedgroup_async_d1": ({"async_depth": 1}, None),
     # the first lease never reports ready on rank 0: it expires, every rank
-    # requeues it, and it folds last (its backoff outlasts the others)
+    # requeues it, and it folds last (rank 0 holds its retry until the
+    # other cohorts have folded, ``_script_expiry``)
     "fedgroup_async_d2": ({"async_depth": 2, "async_alpha": 0.8,
                            "async_beta": 0.5, "async_lease_timeout": 0.05,
                            "async_backoff": 1.0, "async_backoff_cap": 1.0},
@@ -349,7 +357,10 @@ class _HeldUntilDeath:
 
 
 def _script_expiry(tr):
-    """The first lease this trainer dispatches never reports ready."""
+    """The first lease this trainer dispatches never reports ready, and its
+    requeued retry waits until the other SERVICE_ROUNDS - 1 cohorts have
+    folded: its backoff outlasts them on any clock, however long their
+    dispatches take."""
     real, doomed = tr._lease_ready, []
 
     def scripted(lease):
@@ -357,6 +368,13 @@ def _script_expiry(tr):
             doomed.append(lease)
         return False if lease is doomed[0] else real(lease)
     tr._lease_ready = scripted
+    real_index = tr._requeued_index
+
+    def held(requeued):
+        if tr.history.async_stats["folds"] < SERVICE_ROUNDS - 1:
+            return -1
+        return real_index(requeued)
+    tr._requeued_index = held
 
 
 def service_state(tr, pop, rows) -> dict:
@@ -470,6 +488,28 @@ def xload_run(mesh, data, model, archive: str, draws: str) -> dict:
     return out
 
 
+def coldstart_run(mesh, inputs: str) -> dict:
+    """Alg. 3 on this rank's d_w block of ``inputs``' ΔW, for each QR and
+    each Ω of ``inputs`` (``omega/<name>``) -> {"<qr>/<name>/E" | V | assign}."""
+    from repro_torch.fed import parallel as fp
+    z = np.load(inputs)
+    dW, m = torch.as_tensor(z["dW"]), int(z["m"])
+    lo, hi = mesh.model_cols(dW.shape[1])
+    mine = dW[:, lo:hi].contiguous()
+    out = {}
+    for qr in ("householder", "cholesky"):
+        for key in (k for k in z.files if k.startswith("omega/")):
+            E, V = fp.edc_embedding_distributed(
+                mine, m, omega=torch.as_tensor(z[key]), qr_impl=qr,
+                mesh=mesh)
+            assign, _ = fp.kmeans_step(E, E[:m])
+            tag = f"{qr}/{key[6:]}"
+            out[f"{tag}/E"] = E.numpy()
+            out[f"{tag}/V"] = V.numpy()
+            out[f"{tag}/assign"] = assign.numpy()
+    return out
+
+
 def _tagged(res: dict, tag: str, out: dict):
     for k, v in out.items():
         res[f"{tag}/{k}"] = v
@@ -569,11 +609,15 @@ def assert_sharded_close(got: dict, ref: dict):
 
 
 def spawn_world(S: int, outdir: Path, extra=(), rc: int = 0,
-                suffix: str = "") -> list:
-    """Run the driver on S ranks; every rank must exit with ``rc`` (0; the
-    ``services`` mode kills itself, -SIGKILL) and a failed rank fails the
-    world (the others are killed) -> each rank's ``rank<r><suffix>.npz``."""
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+                suffix: str = "", model: int = 1, names=None) -> list:
+    """Run the driver on S ranks as an (S / model, model) mesh (the
+    default mode over ``names`` of ``SCENARIOS``, all of them by default);
+    every rank must exit with ``rc`` (0; the ``services`` mode kills
+    itself, -SIGKILL) and a failed rank fails the world (the others are
+    killed) -> each rank's ``rank<r><suffix>.npz``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               REPRO_MODEL_AXIS=str(model),
+               MESH_SCENARIOS=",".join(names or SCENARIOS))
     store = outdir / f"store{suffix}"      # a fresh FileStore a world
     procs = [subprocess.Popen(
         [sys.executable, str(DRIVER), str(r), str(S), str(store),
@@ -596,14 +640,15 @@ def spawn_world(S: int, outdir: Path, extra=(), rc: int = 0,
 def main(argv) -> int:
     rank, world, store, outdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
     mode = argv[4] if len(argv) > 4 and argv[4] in (
-        "services", "resume", "xload") else None
+        "services", "resume", "xload", "coldstart") else None
     draws_path = argv[4] if len(argv) > 4 and mode is None else None
     torch.set_num_threads(1)
     from repro_torch.launch import mesh as mesh_lib
     mesh_lib.init_process_group("cpu", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
     try:
-        mesh = mesh_lib.make_fed_mesh(world, device="cpu")
+        M = int(os.environ.get("REPRO_MODEL_AXIS", "1"))
+        mesh = mesh_lib.make_fed_mesh(world // M, M, device="cpu")
         data, model = fixture()
         out = Path(outdir)
         if mode == "services":
@@ -613,6 +658,10 @@ def main(argv) -> int:
         if mode == "resume":
             run_resumed(rank, world, mesh, data, model, out)
             return 0
+        if mode == "coldstart":
+            np.savez(out / f"rank{rank}.coldstart.npz",
+                     **coldstart_run(mesh, argv[5]))
+            return 0
         if mode == "xload":
             res = {}
             _tagged(res, "xload", xload_run(mesh, data, model, argv[5],
@@ -620,7 +669,8 @@ def main(argv) -> int:
             np.savez(out / f"rank{rank}.xload.npz", **res)
             return 0
         res = {}
-        names = (list(SCENARIOS) if draws_path is None
+        names = (os.environ.get("MESH_SCENARIOS", ",".join(SCENARIOS))
+                 .split(",") if draws_path is None
                  else ["fedgroup_edc_round"])
         init = None
         if draws_path:

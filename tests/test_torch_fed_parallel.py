@@ -272,5 +272,12 @@ def test_run_coldstart_small_on_the_cpu_finds_the_spectrum():
 
 
 def test_multi_pod_raises_naming_item_16():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        fed_dryrun.main(["--multi-pod"])
+    """Ported (16c): ``fed_dryrun --multi-pod`` runs on the 2 × 16 × 16
+    mesh (``tests/test_torch_mesh2d_dryrun.py``) and is refused only
+    without a mesh; the zoo's dry run still refuses ``--multi-pod``,
+    naming item 16d."""
+    with pytest.raises(SystemExit):
+        fed_dryrun.main(["--mesh", "1", "--multi-pod"])
+    from repro_torch.launch import dryrun
+    with pytest.raises(NotImplementedError, match="item 16d"):
+        dryrun.refuse_sharding(multi_pod=True)

@@ -6,7 +6,8 @@ against ``repro.fed.store``'s (a sharded store's gather equals the plain
 store's bit for bit); ``launch/mesh.py`` and ``fed/parallel.py``'s mesh
 half on a gloo world of one rank made in this process (a FileStore in a
 temporary directory); and the refusals that name their ROADMAP items:
-a model axis (16c) and the fleet's process workers under a mesh (16b′); the
+the runtime services under a model axis (16c′, ``tests/test_torch_mesh2d_
+refusals.py``) and the fleet's process workers under a mesh (16b′); the
 runtime services of 16b (the async executors, checkpoints, telemetry, a
 thread-worker fleet, a population's deadline and faults) built on a mesh
 of one, and ``FedMesh.agree``, ``barrier`` and the byte check.
@@ -127,15 +128,18 @@ def test_no_process_group_means_no_mesh(monkeypatch):
 
 
 def test_model_axis_raises_16c(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 16c"):
+    """Ported (16c): a model axis builds over a process group (``tests/
+    test_torch_mesh2d_specs.py``); without one each constructor asks for
+    it, and the trainers' default is no mesh (the name is the refusal's
+    it replaced)."""
+    with pytest.raises(RuntimeError, match="process group"):
         mesh_lib.make_fed_mesh(1, 2)
-    with pytest.raises(NotImplementedError, match="item 16c"):
+    with pytest.raises(RuntimeError, match="process group"):
         mesh_lib.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="item 16c"):
+    with pytest.raises(RuntimeError, match="process group"):
         mesh_lib.make_production_mesh(multi_pod=True)
     monkeypatch.setenv("REPRO_MODEL_AXIS", "2")
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        parallel.default_fed_mesh()
+    assert parallel.default_fed_mesh() is None
 
 
 @pytest.mark.parametrize("dev,local_world,cards,want", [
@@ -269,7 +273,7 @@ def test_trainer_refuses_under_a_mesh(mesh1, tmp_path, field, value):
 
 
 def test_foreign_mesh_and_device_mismatch(mesh1):
-    with pytest.raises(NotImplementedError, match="item 16c"):
+    with pytest.raises(TypeError, match="FedMesh"):
         FedAvgTrainer(mclr(60, 10), _data(), FedConfig(), device="cpu",
                       mesh=object())
     with pytest.raises(ValueError, match="rank device"):

@@ -100,19 +100,23 @@ def test_serve_on_cuda_without_a_card_raises(monkeypatch):
 ])
 def test_unported_options_raise(field, value, tmp_path):
     # telemetry is ported now: the option opens its stream under the given
-    # name (made relative to a scratch dir); a mesh is still refused
+    # name (made relative to a scratch dir); a mesh that is not a FedMesh
+    # is refused (a model axis is ported: what stays refused under one is
+    # tests/test_torch_mesh2d_refusals.py's)
     data = tgen.synthetic(seed=0, n_clients=4)
     value = str(tmp_path) + value
     cfg = dataclasses.replace(FedConfig(), **{field: value})
     tr = FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu")
     assert tr.obs.recording and os.path.isdir(value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="FedMesh"):
         FedAvgTrainer(mclr(60, 10), data, cfg, device="cpu", mesh=object())
 
 
 def test_a_mesh_raises():
+    """A mesh that is not a ``launch.mesh.FedMesh`` is refused (the 2-D
+    layout is a FedMesh with a model axis, ported)."""
     data = tgen.synthetic(seed=0, n_clients=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="FedMesh"):
         FedAvgTrainer(mclr(60, 10), data, FedConfig(), device="cpu",
                       mesh=object())
 
