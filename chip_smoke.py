@@ -193,8 +193,10 @@ with no final ``ok`` line):
                 run, each fault counted, ``fleet.*`` and recovery ms.
                 4h-iii: PROC_ROUNDS rounds through two spawned workers
                 (``ProcTransport``; each builds its replica with
-                ``fleet_worker_trainer``), unkilled and with round
-                PROC_KILL_ROUND's holder SIGKILLed: the two equal exactly
+                ``fleet_worker_replica``, a local solve run at build so
+                that a job is not its process's first use of the card),
+                unkilled and with round PROC_KILL_ROUND's holder
+                SIGKILLed: the two equal exactly
                 (else fails), their deviation from the in-process run
                 (expected 0), spawn and build s, round ms, payload bytes
                 each way a dispatch, the kill's recovery ms; the phase's
@@ -248,8 +250,8 @@ with no final ``ok`` line):
                 both ranks, exactly the scripted counts. Every line
                 carries nvidia-smi's name and power limit.
      4j         the 2-D (data, model) layout (``launch/mesh.py``'s model
-                axis; run after phase 6e, whose Alg. 3 it is held to): two
-                spawned ranks sharing the card over gloo as a (1, 2)
+                axis; checked after phase 6e, whose Alg. 3 it is held
+                to): two spawned ranks sharing the card over gloo as a (1, 2)
                 mesh. FedGroup (EDC) at phase 4's width, MESH_ROUNDS
                 rounds per round and at α = 40 in blocks of MESH_BLOCK,
                 each rank solving half of each cohort with the group
@@ -264,12 +266,42 @@ with no final ``ok`` line):
                 memory, partial-entry launches. Then Alg. 3 on phase 6e's
                 ΔW (64, 103,814,656) with its columns split over the two
                 ranks (each builds its 13.3 GB block from the same
-                generators; phase 6e's 26.6 GB was freed first), each QR
+                generators), each QR
                 (Householder as TSQR over the model group, CholeskyQR2
                 with its Grams all-reduced): labels equal to phase 6e's,
                 E within 3e-5 after matching column signs, V's subspace
                 (the ranks' rows stacked) within 1e-3, ms beside phase
                 6e's, one partial-entry launch a rank and QR.
+     4k         the runtime services under a model axis and process
+                workers under a mesh (its ranks run after 4j's): two
+                spawned ranks sharing the card over gloo, FedGroup (EDC)
+                at phase 4's
+                width and α = 20 for SVC_ROUNDS rounds on a (1, 2) mesh
+                (``"phase": "services2d"`` lines), each rank's cold starts
+                through ``edc_cosine_partial``. Kill-and-resume (both
+                ranks SIGKILLed after round SVC_KILL's archive and
+                respawned) equal bit for bit to the uninterrupted run,
+                save / load ms, archive bytes, the archive's leaves whole
+                and resumed on one device in this process (membership
+                equal, accuracy and discrepancy within 2e-3 of the ranks'
+                run); telemetry on equal to off (rank 0 writes,
+                ``check_dir`` clean); async D = 1 equal to the synchronous
+                run, D = 2's round ms, and phase 4g-ii's small D = 2 run
+                on the ranks against the CPU at 4g's tolerances; a thread
+                fleet of one equal to ``run()`` and one of two with a
+                holder declared dead while its job is held and one killed
+                (the CPU's ``fedgroup_fleet2``); a streamed run with
+                SVC_FAULTS and a deadline, and one whose deadline cuts a
+                round with two poisoned lanes (the CPU's
+                ``fedgroup_streamed_corrupt_deadline``), each with the
+                same prefix and ``stats`` on both ranks. Then the two
+                ranks as a 1-D mesh: a process fleet of two workers a rank
+                (each its own CUDA context, warmed up by one local solve
+                as it is built, computing its rank's rows' local
+                solves), the last rank's holder of dispatch
+                SVC2D_PROC_KILL SIGKILLed, equal bit for bit to the ranks'
+                run without a fleet, with the same job counters on both
+                ranks; round and recovery ms.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -432,6 +464,25 @@ with no final ``ok`` line):
      phase 2's comparisons; the backward kernels' count phase 6d's
      counted train steps), then the ``{"ok": true, ...}`` line.
 
+Order. Phase 1, then phase 2 with every kernel check (the zoo's forward
+and the backward kernels' too), 3, 4 and 5 run one after another in
+this process, alone on the card: every kernel time and phase 4's and
+5's times are the card's alone. Then three lanes run beside this
+process's zoo phases 6, 6b, 6c and 6d: phases 4c to 4h with 4i-i /
+4i-iv's NCCL worlds of one in a forked process (``fed_phases``; its
+lines are printed here when it ends); the mesh phases' spawned ranks,
+one rank set after another (4j's, 4k's, 4i-ii's, 4i-iv's); and the
+serving CLIs but the default one (~17 GB), one after another. 4j's Alg.
+3 holds ~24 GB a rank: the families and the serving CLIs start after
+it; 6d waits for the serving CLIs, 6e (~57 GB) for every lane, and the
+mesh phases' checks run after 6e. The ranks and the forked process
+start as forks of one fork server that imported torch and the port
+once. So the lines of 4c to 4k, 6 to 6d and the serving CLIs were
+measured beside each other (``lanes`` gives each job's seconds and how
+long 6e waited for them). Each line goes to stderr too, after the
+seconds since the start (the forked process's own clock in its stderr,
+copied here).
+
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -446,6 +497,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -505,7 +557,7 @@ FLEET_CALM = dict(heartbeat_interval=0.05, heartbeat_miss=100)
 FLEET_CHAOS = dict(heartbeat_interval=0.05, heartbeat_miss=10,
                    backoff=0.005, backoff_cap=0.02)
 PROC_ROUNDS, PROC_KILL_ROUND = 4, 2   # phase 4h-iii: spawned workers
-PROC_BUILDER = "chip_smoke:fleet_worker_trainer"   # their replica builder
+PROC_BUILDER = "chip_smoke:fleet_worker_replica"   # their replica builder
 PROC_BEAT = (0.1, 50)          # heartbeat interval s and misses: 5 s window
 # phase 4i: FedGroup (EDC) at phase 4's width on a data mesh, MESH_ROUNDS
 # rounds a run, the blocked run in blocks of MESH_BLOCK; ranks against one
@@ -541,6 +593,20 @@ SVC_TIMEOUT_S = 300            # a spawned rank's whole run
 MESH2D_MODEL = 2
 MESH2D_PATHS = ("round", "block")
 MESH2D_TIMEOUT_S = 400         # a spawned rank's whole run
+# phase 4k: the runtime services on a (1, MESH2D_MODEL) mesh and process
+# workers on the 1-D mesh of the same two ranks sharing the card over
+# gloo; FedGroup (EDC) at phase 4's width, α = 20, SVC_ROUNDS rounds. The
+# CPU's fedgroup_fleet2 (a holder muted past a 0.5 s heartbeat window
+# while its job is held, then one killed) and
+# fedgroup_streamed_corrupt_deadline (round 2: two lanes poisoned, a 3 s
+# straggle over 2 chunks of 10 against the deadline: a prefix of 10)
+SVC2D_FLEET2 = {1: dict(heartbeat_delay=1.5), 2: dict(worker_kill=True)}
+SVC2D_CORRUPT = {2: dict(corrupt=2, corrupt_mode="scale", straggle=3.0)}
+SVC2D_CORRUPT_POP = dict(prefetch=0, deadline=0.3, stage_chunks=2)
+SVC2D_PROC_KILL = 1            # the dispatch whose holder is SIGKILLed
+SVC2D_PROC_BUILDER = "chip_smoke:svc2d_worker_trainer"
+SVC2D_TIMEOUT_S = 400          # a spawned rank's whole run
+FED_CHILD_TIMEOUT_S = 900      # fed_phases' whole run, once 6d is over
 # phase 2: edc_cosine's partial-sum entry at a rank's d_w block of phase
 # 6e's ΔW (FED_DW over MESH2D_MODEL)
 PARTIAL_N, PARTIAL_D, PARTIAL_M = 64, 51_907_328, 5
@@ -624,8 +690,21 @@ HELD_PAIRS = (("zamba2-1.2b", "train_4k", 2), ("gemma-2b", "prefill_32k", 1),
 HELD_STEPS = 3                 # timed steps of a held pair after its first
 
 
+T_START = time.perf_counter()
+EMIT_LOCK = threading.Lock()    # the lanes' threads emit too
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print ``obj`` as a JSON line; stderr gets the seconds since the
+    script started beside the line's phase, the run's clock."""
+    line = json.dumps(obj) + "\n"
+    mark = (f"[{time.perf_counter() - T_START:8.1f} s] "
+            f"{obj.get('phase', next(iter(obj), ''))}\n")
+    with EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
+        sys.stderr.write(mark)
+        sys.stderr.flush()
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -2818,11 +2897,9 @@ def fleet_chaos(torch, data, model) -> dict:
 
 def fleet_worker_trainer(data=None, model=None, rounds: int = PROC_ROUNDS):
     """Phase 4h-iii's trainer (FedGroup, EDC, α = 40, phase 4's width,
-    per round), also the process workers' replica builder
-    (``WorkerSpec("chip_smoke:fleet_worker_trainer")``; a spawned worker
-    inherits this process's ``sys.path``, ``src/`` included): without
-    ``data`` and ``model`` it makes phase 4's from seed 0, as every worker
-    does."""
+    per round), also the process workers' replica (``fleet_worker_replica``):
+    without ``data`` and ``model`` it makes phase 4's from seed 0, as every
+    worker does."""
     from repro_torch.core.fedgroup import FedGroupTrainer
     from repro_torch.data.generators import femnist_like
     from repro_torch.fed.engine import FedConfig
@@ -2836,6 +2913,14 @@ def fleet_worker_trainer(data=None, model=None, rounds: int = PROC_ROUNDS):
                     batch_size=10, lr=0.03, n_groups=5,
                     pretrain_scale=FLEET_ALPHA, seed=0)
     return FedGroupTrainer(model, data, cfg, device="cuda")
+
+
+def fleet_worker_replica():
+    """Phase 4h-iii's process workers' replica (``PROC_BUILDER``; a spawned
+    worker inherits this process's ``sys.path``, ``src/`` included):
+    ``fleet_worker_trainer`` on phase 4's data from seed 0, warmed up by a
+    local solve of a cohort's 20 clients."""
+    return warm_replica(fleet_worker_trainer(), 20)
 
 
 def first_difference(a, b) -> dict | None:
@@ -2914,8 +2999,9 @@ def proc_fleet(torch, data, model) -> dict:
     (histories, max |Δ| 0, membership) and the death was detected and
     recovered. Prints the deviation of the process runs from the
     in-process run (expected 0; else the first metric that differs), the
-    spawn and replica-build s, each worker's first job (its process's
-    first use of the card) and the later rounds' ms, payload bytes each
+    spawn and replica-build s (a replica's build runs one local solve: the
+    process's first use of the card), each worker's first job and the
+    later rounds' ms, payload bytes each
     way a dispatch and the kill's recovery ms."""
     plain = fleet_worker_trainer(data, model)
     plain.run()
@@ -2938,8 +3024,8 @@ def proc_fleet(torch, data, model) -> dict:
     hist_equal = kill.history.rounds == clean.history.rounds
     mem_equal = same_membership(clean, kill)
     dev_inproc = max_abs_dev(plain_state, kill_state)
-    # rounds 0 and 1 are each worker's first job; the killed round's
-    # requeue lands on a warm worker
+    # rounds 0 and 1 are each worker's first job (warmed at build, yet
+    # slower); the killed round's requeue lands on the other worker
     calm = [m for i, m in enumerate(ms) if i >= 2 and i != PROC_KILL_ROUND]
     rec = {"phase": "fleet", "part": "process", "trainer": "fedgroup",
            "workers": 2, "rounds": PROC_ROUNDS,
@@ -3146,6 +3232,172 @@ def mesh_warmup(torch, mesh):
     tr.close()
 
 
+# The modules a rank imports, loaded once by the fork server the ranks
+# start from (no CUDA is initialised there): ``import torch`` alone takes
+# ~10 s on the card's host
+RANK_PRELOAD = ("numpy", "torch", "torch.distributed", "repro_torch",
+                "repro_torch.core.fedgroup", "repro_torch.data.generators",
+                "repro_torch.fed.engine", "repro_torch.fed.population",
+                "repro_torch.launch.coordinator", "repro_torch.launch.mesh",
+                "repro_torch.models.paper_models")
+RANK_CTX: list = []             # the fork-server context, made at first use
+LIVE_RANKS: list = []           # every rank started, killed on the way out
+SPAWN_S: dict = {}              # a lane job's (run s, resume s)
+
+
+def rank_context():
+    """The multiprocessing context every spawned rank starts from: a fork
+    server that imported RANK_PRELOAD once, so a rank is a fork of it (a
+    process of its own, with its own CUDA context) instead of a fresh
+    interpreter."""
+    import multiprocessing as mp
+
+    if not RANK_CTX:
+        ctx = mp.get_context("forkserver")
+        ctx.set_forkserver_preload(list(RANK_PRELOAD))
+        RANK_CTX.append(ctx)
+    return RANK_CTX[0]
+
+
+def rank_entry(fn: str, log: str, *args):
+    """A spawned rank's body: its stdout and stderr to ``log``, then this
+    script's ``fn(*args)``, whose return is the rank's exit code."""
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    sys.exit(globals()[fn](*args))
+
+
+def run_ranks(fn: str, world: int, d: Path, store: str, extra: tuple,
+              timeout: float, rc: int, what: str) -> None:
+    """Start ``world`` ranks, rank r running ``fn(r, world, d/store,
+    d/rank<r>, *extra)``, and wait for all: each must exit ``rc``. Any
+    other exit, or a rank still running after ``timeout`` s, fails
+    ``what``: every rank still running is killed and each rank's log tail
+    goes to stderr."""
+    ctx = rank_context()
+    logs = [d / f"rank{r}.{store}.log" for r in range(world)]
+    procs = [ctx.Process(target=rank_entry, args=(
+        fn, str(logs[r]), r, world, str(d / store), str(d / f"rank{r}"),
+        *extra)) for r in range(world)]
+    for p in procs:
+        p.start()
+        LIVE_RANKS.append(p)
+    end = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    rcs = [p.exitcode for p in procs]
+    if rcs != [rc] * world:
+        for r, log in enumerate(logs):
+            tail = (log.read_text(errors="replace")[-4000:]
+                    if log.exists() else "")
+            print(f"--- {what} rank {r} (exit {rcs[r]}):\n{tail}",
+                  file=sys.stderr)
+        raise AssertionError(f"{what}: rank exit codes {rcs}")
+
+
+def kill_live_ranks() -> None:
+    for p in LIVE_RANKS:
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def child_entry(fn: str, d: str, *args):
+    """A forked phase's body: stdout (its JSON lines) to ``d``/out.jsonl,
+    stderr to ``d``/err.log, then this script's ``fn(*args)``, whose
+    return goes to ``d``/result.pt."""
+    import torch
+
+    for fd, name in ((1, "out.jsonl"), (2, "err.log")):
+        f = os.open(f"{d}/{name}", os.O_WRONLY | os.O_CREAT | os.O_TRUNC,
+                    0o644)
+        os.dup2(f, fd)
+        os.close(f)
+    torch.save(globals()[fn](*args), f"{d}/result.pt")
+    sys.exit(0)
+
+
+def start_child(fn: str, name: str, *args):
+    """Start ``fn(*args)`` as a fork of the ranks' fork server (a process
+    of its own, with its own CUDA context) in ``build/child_<name>``."""
+    d = ROOT / "build" / f"child_{name}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    p = rank_context().Process(target=child_entry, args=(fn, str(d), *args))
+    p.start()
+    LIVE_RANKS.append(p)
+    return p, d
+
+
+def join_child(torch, child, timeout: float, what: str):
+    """Wait for ``start_child``'s process (killed past ``timeout`` s), emit
+    its JSON lines here in their order, copy its stderr (its own clock
+    among it) to this process's, and return its result; fail ``what`` on
+    any exit but 0."""
+    p, d = child
+    p.join(timeout)
+    if p.is_alive():
+        p.kill()
+        p.join()
+    out = d / "out.jsonl"
+    for line in (out.read_text().splitlines() if out.exists() else []):
+        try:
+            emit(json.loads(line))
+        except ValueError:
+            print(line, file=sys.stderr)
+    err = d / "err.log"
+    if err.exists():
+        sys.stderr.write(f"--- {what} (exit {p.exitcode}), its stderr:\n"
+                         + err.read_text(errors="replace"))
+        sys.stderr.flush()
+    if p.exitcode != 0:
+        raise AssertionError(f"{what}: exit code {p.exitcode}")
+    return torch.load(d / "result.pt", weights_only=False)
+
+
+class Lane(threading.Thread):
+    """The mesh phases' spawned ranks (4j, 4k, 4i-ii, 4i-iv), one job after
+    another on a thread of this process, while this process goes on with
+    the phases that need the card little beside them. A job's records
+    stay in its directory under ``build/`` for its phase's checks, which
+    run in this process after ``wait``; a job is skipped once one failed."""
+
+    def __init__(self, jobs: list):
+        super().__init__(daemon=True)
+        self.jobs = jobs
+        self.done = {name: threading.Event() for name, _ in jobs}
+        self.seconds, self.error = {}, None
+
+    def run(self):
+        for name, job in self.jobs:
+            try:
+                if self.error is None:
+                    t0 = time.perf_counter()
+                    job()
+                    self.seconds[name] = time.perf_counter() - t0
+            except BaseException as e:          # noqa: BLE001 (re-raised)
+                self.error = (name, e)
+            finally:
+                self.done[name].set()
+
+    def wait(self, name: str) -> float:
+        """Block until job ``name`` is over; its seconds, or raise if it
+        (or a job before it) failed."""
+        self.done[name].wait()
+        if self.error is not None:
+            raise AssertionError(f"mesh lane job {self.error[0]} failed: "
+                                 f"{self.error[1]}") from self.error[1]
+        return self.seconds[name]
+
+
 def mesh_rank_main(rank: int, world: int, store: str, out: str,
                    local_world: int) -> int:
     """A phase-4i rank (run in a process of its own): joins the world
@@ -3188,40 +3440,21 @@ def mesh_rank_main(rank: int, world: int, store: str, out: str,
     return 0
 
 
-def mesh_ranks(torch, world: int, local_world: int, tag: str) -> list:
-    """Spawn ``world`` phase-4i ranks (each its own process and CUDA
-    context; the kernels were built by this process already, so the ranks
-    only load the library) and wait for all: any rank's failure fails the
-    phase, and every rank still running is killed. Returns each rank's
-    (records, state)."""
+def mesh_ranks(world: int, local_world: int, tag: str) -> None:
+    """Run ``world`` phase-4i ranks (each its own process and CUDA context;
+    the kernels were built by this process already, so the ranks only
+    load the library) in ``build/mesh_<tag>``: any rank's failure fails
+    the phase (``run_ranks``)."""
     d = ROOT / "build" / f"mesh_{tag}"
-    d.mkdir(parents=True, exist_ok=True)
-    for f in d.iterdir():
-        f.unlink()
-    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']; "
-            "import chip_smoke; sys.exit(chip_smoke.mesh_rank_main("
-            "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], "
-            "int(sys.argv[6])))")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(ROOT), str(r), str(world),
-         str(d / "store"), str(d / f"rank{r}"), str(local_world)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=MESH_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    rcs = [p.returncode for p in procs]
-    if rcs != [0] * world:
-        for r, log in enumerate(logs):
-            print(f"--- mesh rank {r} (exit {rcs[r]}):\n{log[-4000:]}",
-                  file=sys.stderr)
-        raise AssertionError(f"phase 4i {tag}: rank exit codes {rcs}")
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    run_ranks("mesh_rank_main", world, d, "store", (local_world,),
+              MESH_TIMEOUT_S, 0, f"phase 4i {tag}")
+
+
+def mesh_ranks_out(torch, world: int, tag: str) -> list:
+    """Each phase-4i rank's (records, state) from ``build/mesh_<tag>``."""
+    d = ROOT / "build" / f"mesh_{tag}"
     return [(json.loads((d / f"rank{r}.json").read_text()),
              torch.load(d / f"rank{r}.pt")) for r in range(world)]
 
@@ -3306,9 +3539,10 @@ def mesh_check_ranks(torch, tag: str, ranks: list, ref: dict,
 MESH2D_REF = {}
 
 
-def mesh_phase(torch, data, model) -> dict:
-    """Phase 4i; returns the kernels' launch counts of the phase (this
-    process's world-of-one runs and, as ``edc_cosine``, every rank's)."""
+def mesh_refs(torch, data, model) -> dict:
+    """Phase 4i-i in this process (an NCCL world of one against
+    mesh=None) and the runs of one device the ranks are held to ->
+    {"ref", "ref_state", "counts" (launches), "seconds"}."""
     from repro_torch.fed.population import Population, PopulationConfig
     from repro_torch.fed.store import ArrayClientStore, ShardedClientStore
     from repro_torch.launch import mesh as mesh_lib
@@ -3366,24 +3600,35 @@ def mesh_phase(torch, data, model) -> dict:
                      PopulationConfig(prefetch=2))
     ref["stream"], ref_state["stream"] = mesh_run(torch, model, None, None,
                                                   "stream", pop)
+    MESH2D_REF.update({p: (ref[p], ref_state[p]) for p in MESH2D_PATHS})
+    return {"ref": ref, "ref_state": ref_state, "counts": counts,
+            "seconds": time.perf_counter() - t0}
 
-    # 4i-ii: two ranks sharing the card over gloo
-    ranks = mesh_ranks(torch, 2, 2, "gloo2")
+
+def mesh_phase(torch, refs: dict, lane: Lane) -> dict:
+    """Phase 4i: the ranks held to ``refs`` (``mesh_refs``); returns the
+    kernels' launch counts of the phase (this process's world-of-one runs
+    and, as ``edc_cosine``, every rank's)."""
+    t0 = time.perf_counter()
+    ref, ref_state, counts = refs["ref"], refs["ref_state"], refs["counts"]
+    # 4i-ii: two ranks sharing the card over gloo (run on the lane)
+    ranks_s = lane.wait("mesh_gloo2")
+    ranks = mesh_ranks_out(torch, 2, "gloo2")
     counts["edc_cosine"] = counts.get("edc_cosine", 0) + mesh_check_ranks(
         torch, "gloo_two_ranks_one_card", ranks, ref, ref_state)
 
     # 4i-iii: one rank a card over NCCL, where the machine has the cards
     n = torch.cuda.device_count()
     if n >= 2:
-        ranks = mesh_ranks(torch, 2, 2, "nccl2")
+        mesh_ranks(2, 2, "nccl2")
+        ranks = mesh_ranks_out(torch, 2, "nccl2")
         counts["edc_cosine"] += mesh_check_ranks(
             torch, "nccl_rank_a_card", ranks, ref, ref_state)
     else:
         emit({"phase": "mesh", "part": "nccl_rank_a_card", "skipped":
               f"this machine has {n} card: NCCL takes one rank a card"})
-    emit({"phase": "mesh_phase", "launches": counts,
-          "seconds": time.perf_counter() - t0})
-    MESH2D_REF.update({p: (ref[p], ref_state[p]) for p in MESH2D_PATHS})
+    emit({"phase": "mesh_phase", "launches": counts, "ranks_s": ranks_s,
+          "seconds": refs["seconds"] + time.perf_counter() - t0})
     return counts
 
 
@@ -3657,34 +3902,17 @@ def svc_rank_main(rank: int, world: int, store: str, out: str,
     return 1
 
 
-def svc_spawn(world: int, d: Path, mode: str, rc: int) -> None:
-    """Spawn ``world`` phase-4i-iv ranks in ``mode`` and wait for all: each
-    must exit ``rc`` (``run`` kills itself); any other exit fails the
-    phase and every rank still running is killed."""
-    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']; "
-            "import chip_smoke; sys.exit(chip_smoke.svc_rank_main("
-            "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], "
-            "sys.argv[6]))")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(ROOT), str(r), str(world),
-         str(d / f"store_{mode}"), str(d / f"rank{r}"), mode],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=SVC_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    rcs = [p.returncode for p in procs]
-    if rcs != [rc] * world:
-        for r, log in enumerate(logs):
-            print(f"--- services rank {r} (exit {rcs[r]}):\n{log[-4000:]}",
-                  file=sys.stderr)
-        raise AssertionError(f"phase 4i-iv {mode}: rank exit codes {rcs}")
+def svc_ranks() -> tuple:
+    """Phase 4i-iv's two ranks in ``build/svc_gloo2``: ``run`` (which kills
+    itself) then ``resume`` -> (run s, resume s)."""
+    d = svc_dir("svc_gloo2")
+    t0 = time.perf_counter()
+    run_ranks("svc_rank_main", 2, d, "store_run", ("run",), SVC_TIMEOUT_S,
+              -signal.SIGKILL, "phase 4i-iv run")
+    t1 = time.perf_counter()
+    run_ranks("svc_rank_main", 2, d, "store_resume", ("resume",),
+              SVC_TIMEOUT_S, 0, "phase 4i-iv resume")
+    SPAWN_S["svc_gloo2"] = (t1 - t0, time.perf_counter() - t1)
 
 
 def svc_gloo2(torch, smi: str) -> int:
@@ -3694,12 +3922,8 @@ def svc_gloo2(torch, smi: str) -> int:
     membership and ``Population.stats`` the same on both ranks. Returns the
     ranks' edc_cosine launches."""
     world = 2
-    d = svc_dir("svc_gloo2")
-    t0 = time.perf_counter()
-    svc_spawn(world, d, "run", -signal.SIGKILL)
-    t1 = time.perf_counter()
-    svc_spawn(world, d, "resume", 0)
-    t2 = time.perf_counter()
+    d = ROOT / "build" / "svc_gloo2"
+    run_s, resume_s = SPAWN_S["svc_gloo2"]
     recs = [json.loads((d / f"rank{r}.json").read_text())
             for r in range(world)]
     states = [torch.load(d / f"rank{r}.pt") for r in range(world)]
@@ -3731,7 +3955,7 @@ def svc_gloo2(torch, smi: str) -> int:
           "stream_round_ms": [r["stream_round_ms"] for r in recs],
           "resume_round_ms": [r["round_ms"] for r in back],
           "load_ms": [r["load_ms"] for r in back],
-          "run_spawn_s": t1 - t0, "resume_spawn_s": t2 - t1})
+          "run_spawn_s": run_s, "resume_spawn_s": resume_s})
     st = recs[0]["stats"]
     if not (resume_ok and replicas and prefix_same and stats_same):
         raise AssertionError("phase 4i-iv: the two ranks' services differ")
@@ -3742,17 +3966,21 @@ def svc_gloo2(torch, smi: str) -> int:
     return sum(r["launches"]["edc_cosine"] for r in recs + back)
 
 
-def services_phase(torch, data, model, smi: str) -> dict:
-    """Phase 4i-iv; returns the launch counts of the phase (this process's
-    NCCL world of one and, as ``edc_cosine``, both ranks')."""
+def services_phase(torch, nccl1: dict, lane: Lane, smi: str) -> dict:
+    """Phase 4i-iv: ``nccl1`` is {"counts": ``svc_nccl1``'s launches,
+    "seconds"}, run before the two ranks (on the lane) are checked here;
+    returns the launch counts of the phase (this process's NCCL world of
+    one and, as ``edc_cosine``, both ranks')."""
     t0 = time.perf_counter()
-    counts = dict(svc_nccl1(torch, data, model, smi))
+    ranks_s = lane.wait("svc_gloo2")
+    counts = dict(nccl1["counts"])
     counts["edc_cosine"] = counts.get("edc_cosine", 0) + svc_gloo2(torch,
                                                                    smi)
     if counts["edc_cosine"] < 1:
         raise AssertionError("phase 4i-iv launched no edc_cosine")
-    emit({"phase": "services_phase", "launches": counts,
-          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    emit({"phase": "services_phase", "launches": counts, "ranks_s": ranks_s,
+          "seconds": nccl1["seconds"] + time.perf_counter() - t0,
+          "nvidia_smi": smi})
     return counts
 
 
@@ -3833,35 +4061,14 @@ def mesh2d_rank_main(rank: int, world: int, store: str, out: str) -> int:
     return 0
 
 
-def mesh2d_spawn(torch, world: int, d: Path) -> list:
-    """Spawn ``world`` phase-4j ranks and wait for all; any rank's failure
-    fails the phase and every rank still running is killed. Returns each
-    rank's (records, state)."""
-    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']; "
-            "import chip_smoke; sys.exit(chip_smoke.mesh2d_rank_main("
-            "int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))")
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(ROOT), str(r), str(world),
-         str(d / "store"), str(d / f"rank{r}")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=MESH2D_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    rcs = [p.returncode for p in procs]
-    if rcs != [0] * world:
-        for r, log in enumerate(logs):
-            print(f"--- 2-D mesh rank {r} (exit {rcs[r]}):\n{log[-4000:]}",
-                  file=sys.stderr)
-        raise AssertionError(f"phase 4j: rank exit codes {rcs}")
-    return [(json.loads((d / f"rank{r}.json").read_text()),
-             torch.load(d / f"rank{r}.pt")) for r in range(world)]
+def mesh2d_ranks() -> None:
+    """Phase 4j's (1, MESH2D_MODEL) ranks in ``build/mesh2d``; any rank's
+    failure fails the phase (``run_ranks``)."""
+    d = ROOT / "build" / "mesh2d"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    run_ranks("mesh2d_rank_main", MESH2D_MODEL, d, "store", (),
+              MESH2D_TIMEOUT_S, 0, "phase 4j")
 
 
 def mesh2d_whole(torch, ranks: list, path: str, ref_state: dict) -> dict:
@@ -3892,7 +4099,7 @@ def mesh2d_whole(torch, ranks: list, path: str, ref_state: dict) -> dict:
     return out
 
 
-def mesh2d_phase(torch, smi: str) -> dict:
+def mesh2d_phase(torch, lane: Lane, smi: str) -> dict:
     """Phase 4j: two spawned ranks sharing the card over gloo as a (1, 2)
     mesh, held to the runs of one device (phase 4i's FedGroup runs, phase
     6e's Alg. 3): labels and membership equal, accuracy and discrepancy
@@ -3902,12 +4109,9 @@ def mesh2d_phase(torch, smi: str) -> dict:
     t_phase = time.perf_counter()
     world = MESH2D_MODEL
     d = ROOT / "build" / "mesh2d"
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    torch.cuda.empty_cache()           # phase 6e's ΔW was freed: return it
-    t0 = time.perf_counter()
-    ranks = mesh2d_spawn(torch, world, d)
-    spawn_s = time.perf_counter() - t0
+    spawn_s = lane.wait("mesh2d")
+    ranks = [(json.loads((d / f"rank{r}.json").read_text()),
+              torch.load(d / f"rank{r}.pt")) for r in range(world)]
     counts = {}
 
     def add(c):
@@ -3991,6 +4195,513 @@ def mesh2d_phase(torch, smi: str) -> dict:
     shutil.rmtree(d, ignore_errors=True)
     emit({"phase": "mesh2d_phase", "launches": counts, "spawn_s": spawn_s,
           "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4k: the runtime services under a model axis, process workers under
+# a mesh
+# ---------------------------------------------------------------------------
+
+class HeldUntilDeath:
+    """The round executor with its second call (dispatch 1's first
+    attempt) held until this rank's coordinator declared a worker dead, so
+    that attempt's result comes back only after its lease was given up
+    (the CPU tests' ``fedgroup_fleet2``)."""
+
+    def __init__(self, real, registry):
+        self.real, self.registry, self.calls = real, registry, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        end = time.monotonic() + 60.0
+        while self.calls == 2 and not self.registry.get(
+                "fleet.worker_deaths"):
+            if time.monotonic() > end:
+                raise AssertionError("no worker was declared dead")
+            time.sleep(0.005)
+        return self.real(*args)
+
+
+def warm_replica(tr, rows: int):
+    """One local solve of ``tr``'s first ``rows`` clients, synchronised: a
+    spawned worker's first use of the card (its CUDA libraries loaded),
+    run while it builds its replica so that its first job is not."""
+    import torch
+
+    ex = tr._round_executor()
+    x, y, n = tr._client_batch(np.arange(rows))
+    _, args = ex.prepare(tr.group_params, torch.zeros(
+        rows, dtype=torch.long, device=tr.device), x, y, n,
+        tr._batch_indices(n, ex.max_steps))
+    ex.local(*args)
+    torch.cuda.synchronize()
+    return tr
+
+
+def svc2d_worker_trainer(rows: int = 10):
+    """Phase 4k's process workers' replica (``SVC2D_PROC_BUILDER``): the
+    ranks' FedGroup at α = 20 on the card with phase 4's data from seed 0,
+    without a mesh (a spawned worker is in no process group), warmed up by
+    a local solve of ``rows`` clients (a rank's share of a cohort)."""
+    from repro_torch.data.generators import femnist_like
+    from repro_torch.models.paper_models import mlp
+
+    return warm_replica(svc_trainer(mlp(784, 512, 26), femnist_like(
+        seed=0, dim=784, n_classes=26, n_clients=200), None, alpha=20),
+        rows)
+
+
+def svc2d_streamed(torch, model, data, mesh, faults: dict, pop_kw: dict):
+    """A streamed FedGroup run (α = 20, the quarantine on) with scripted
+    ``faults`` -> (state, round ms, the consumed cohorts' rows held and
+    ids, ``Population.stats``)."""
+    from repro_torch.fed.population import (FaultConfig, FaultSpec,
+                                            Population, PopulationConfig)
+    from repro_torch.fed.store import ArrayClientStore, ShardedClientStore
+
+    pop = Population(
+        ShardedClientStore(ArrayClientStore(data), mesh.data_shards),
+        PopulationConfig(**pop_kw, faults=FaultConfig(
+            {t: FaultSpec(**kw) for t, kw in faults.items()})))
+    cohorts = []
+    nxt = pop.next_cohort
+
+    def seen():
+        c = nxt()
+        cohorts.append({"rows": int(c.x.shape[0]),
+                        "idx": [int(i) for i in c.idx]})
+        return c
+    pop.next_cohort = seen
+    tr = svc_trainer(model, None, mesh, alpha=20, population=pop,
+                     quarantine=True)
+    state, ms = svc_timed(torch, tr, SVC_ROUNDS)
+    stats = {k: int(v) for k, v in pop.stats.items()}
+    tr.close()
+    return state, ms, cohorts, stats
+
+
+def svc2d_small_async(mesh, device: str) -> dict:
+    """Phase 4g-ii's small FedGroup run at D = 2 (α = 0.8, β = 0.5; 40
+    clients, mclr(16, 10), K = 8, E = 2) on ``mesh`` (None: one device)."""
+    from repro_torch.core.fedgroup import FedGroupTrainer
+    from repro_torch.data.generators import mnist_like
+    from repro_torch.fed.engine import FedConfig
+    from repro_torch.models.paper_models import mclr
+
+    data = mnist_like(seed=0, n_clients=40, classes_per_client=2,
+                      total_train=2000, dim=16)
+    cfg = FedConfig(n_rounds=6, clients_per_round=8, local_epochs=2,
+                    batch_size=5, lr=0.05, n_groups=3, pretrain_scale=4,
+                    seed=0, async_depth=2, **ASYNC_WEIGHTS)
+    tr = FedGroupTrainer(mclr(16, 10), data, cfg, device=device, mesh=mesh)
+    h = tr.run()
+    tr.close()
+    return {"hist": [[r.weighted_acc, r.mean_loss, r.discrepancy]
+                     for r in h.rounds],
+            "membership": [int(v) for v in tr.membership],
+            "group_version": [int(v) for v in tr.group_version],
+            "async_stats": dict(h.async_stats)}
+
+
+def svc2d_fleet(torch, model, data, mesh, fleet_kw: dict, held: bool):
+    """FedGroup (α = 20) per round through a thread fleet on ``mesh``;
+    with ``held`` rank 0 holds dispatch 1's first attempt until it has
+    declared a worker dead -> (state, round ms, ``fleet.*``)."""
+    from repro_torch.launch.coordinator import Coordinator, FleetConfig
+
+    tr = svc_trainer(model, data, mesh, alpha=20)
+    coord = Coordinator(tr, FleetConfig(**fleet_kw))
+    if held and mesh.rank == 0:
+        coord._table["round"] = HeldUntilDeath(coord._table["round"],
+                                               tr.registry)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coord.run(SVC_ROUNDS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / SVC_ROUNDS
+    state = svc_state(torch, tr)
+    coord.close()                  # a stale result has come back by then
+    reg = tr.registry
+    return state, ms, {k: reg.get(k) for k in reg.names("fleet.")}
+
+
+def svc2d_proc(torch, model, data, mesh) -> tuple:
+    """FedGroup (α = 20) per round through a process fleet of two workers
+    a rank on ``mesh``, the last rank's holder of dispatch
+    SVC2D_PROC_KILL SIGKILLed -> (state, record: spawn s, each round's
+    ms, ``fleet.*``, children left after close)."""
+    from repro_torch.fed.population import FaultConfig, FaultSpec
+    from repro_torch.launch.coordinator import Coordinator, FleetConfig
+    from repro_torch.launch.worker import WorkerSpec
+
+    last = mesh.rank == mesh.world - 1
+    faults = (FaultConfig({SVC2D_PROC_KILL: FaultSpec(worker_kill=True)})
+              if last else None)
+    tr = svc_trainer(model, data, mesh, alpha=20)
+    t0 = time.perf_counter()
+    coord = Coordinator(tr, FleetConfig(
+        n_workers=2, transport="proc", faults=faults,
+        worker_spec=WorkerSpec(SVC2D_PROC_BUILDER, {}),
+        heartbeat_interval=PROC_BEAT[0], heartbeat_miss=PROC_BEAT[1],
+        lease_timeout=600.0, join_timeout=600.0))
+    rec = {}
+    try:
+        end = time.monotonic() + 600.0
+        while len(coord._live) < 2:
+            if time.monotonic() > end:
+                raise AssertionError("phase 4k: process workers did not "
+                                     "join")
+            coord._pump(0.02)
+        rec["spawn_and_build_s"] = time.perf_counter() - t0
+        ms = []
+        for _ in range(SVC_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            coord.run(1)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        state = svc_state(torch, tr)
+        reg = tr.registry
+        rec["fleet"] = {k: reg.get(k) for k in reg.names("fleet.")}
+    finally:
+        coord.close()
+    rec["round_ms"] = ms
+    rec["children_left"] = len(coord._transport._procs)
+    return state, rec
+
+
+def svc2d_rank_main(rank: int, world: int, store: str, out: str,
+                    mode: str) -> int:
+    """A phase-4k rank (a process of its own) on the card over gloo.
+    ``run``: on the (1, MESH2D_MODEL) mesh the synchronous run, telemetry,
+    the uninterrupted checkpointing run, async D = 1 and 2, 4g-ii's small
+    D = 2 run, two thread fleets and two faulted streamed runs, then the
+    killed run's first SVC_KILL rounds (a timed save), and SIGKILL.
+    ``resume``: the killed run resumed from its archive, then on the
+    ranks' 1-D mesh the run without a fleet and with a process fleet.
+    Writes ``out``.json / ``out``.pt (``.resume`` before the suffix when
+    resuming; ``.save.json`` the save)."""
+    import torch
+
+    from repro_torch.data.generators import femnist_like
+    from repro_torch.fed.population import FaultConfig, FaultSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.paper_models import mlp
+
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                local_rank=rank, local_world=world)
+    mesh = mesh_lib.make_fed_mesh(world // MESH2D_MODEL, MESH2D_MODEL)
+    data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
+    model = mlp(784, 512, 26)
+    d = Path(out).parent
+    kill_dir = d / "ckpt_kill"
+    mesh_warmup(torch, mesh)
+    ops.reset_launch_counts()
+    rec = {"backend": mesh.backend, "device": str(mesh.device),
+           "model_index": mesh.model_index}
+    states = {}
+    if mode == "resume":
+        tr = svc_trainer(model, data, mesh, alpha=20,
+                         checkpoint_every=SVC_KILL,
+                         checkpoint_dir=str(kill_dir))
+        t0 = time.perf_counter()
+        tr.load_checkpoint(str(kill_dir))
+        torch.cuda.synchronize()
+        rec["load_ms"] = (time.perf_counter() - t0) * 1e3
+        states["resumed"], rec["resume_round_ms"] = svc_timed(
+            torch, tr, SVC_ROUNDS - SVC_KILL)
+        tr.close()
+        rec["launches_2d"] = {**ops.launch_counts(),
+                              **ops.partial_launch_counts()}
+        # the same ranks as a 1-D mesh: a process fleet against run()
+        flat = mesh_lib.make_fed_mesh(world)
+        ops.reset_launch_counts()
+        tr = svc_trainer(model, data, flat, alpha=20)
+        states["plain"], rec["plain_round_ms"] = svc_timed(torch, tr,
+                                                           SVC_ROUNDS)
+        tr.close()
+        states["proc"], rec["proc"] = svc2d_proc(torch, model, data, flat)
+        rec["launches_1d"] = ops.launch_counts()
+        Path(out + ".resume.json").write_text(json.dumps(rec))
+        torch.save(states, out + ".resume.pt")
+        mesh_lib.destroy_process_group()
+        return 0
+    tr = svc_trainer(model, data, mesh, alpha=20)
+    states["sync"], rec["sync_round_ms"] = svc_timed(torch, tr, SVC_ROUNDS)
+    tr.close()
+    tr = svc_trainer(model, data, mesh, alpha=20,
+                     telemetry_dir=str(d / "telemetry"))
+    states["telemetry"], rec["telemetry_round_ms"] = svc_timed(
+        torch, tr, SVC_ROUNDS)
+    tr.close()
+    tr = svc_trainer(model, data, mesh, alpha=20, checkpoint_every=SVC_KILL,
+                     checkpoint_dir=str(d / "ckpt_full"))
+    states["full"], rec["full_round_ms"] = svc_timed(torch, tr, SVC_ROUNDS)
+    tr.close()
+    tr = svc_trainer(model, data, mesh, alpha=20, async_depth=1)
+    states["d1"], rec["d1_round_ms"] = svc_timed(torch, tr, SVC_ROUNDS)
+    tr.close()
+    tr = svc_trainer(model, data, mesh, alpha=20, **SVC_ASYNC2)
+    _, rec["d2_round_ms"] = svc_timed(torch, tr, SVC_ROUNDS)
+    rec["d2_async_stats"] = dict(tr.history.async_stats)
+    tr.close()
+    rec["small_d2"] = svc2d_small_async(mesh, "cuda")
+    for name, kw, held in (
+            ("fleet1", dict(n_workers=1, **FLEET_CALM), False),
+            ("fleet2", dict(n_workers=2, heartbeat_interval=0.05,
+                            heartbeat_miss=10, lease_timeout=60.0,
+                            faults=FaultConfig({t: FaultSpec(**f) for t, f
+                                                in SVC2D_FLEET2.items()})),
+             True)):
+        states[name], ms, fleet = svc2d_fleet(torch, model, data, mesh, kw,
+                                              held)
+        rec[name] = {"round_ms": ms, "fleet": fleet}
+    for name, faults, pop_kw in (("faults", SVC_FAULTS, SVC_POP),
+                                 ("corrupt", SVC2D_CORRUPT,
+                                  SVC2D_CORRUPT_POP)):
+        states[name], ms, cohorts, stats = svc2d_streamed(
+            torch, model, data, mesh, faults, pop_kw)
+        rec[name] = {"round_ms": ms, "cohorts": cohorts, "stats": stats}
+    rec["launches"] = {**ops.launch_counts(), **ops.partial_launch_counts()}
+    Path(out + ".json").write_text(json.dumps(rec))
+    torch.save(states, out + ".pt")
+    tr = svc_trainer(model, data, mesh, alpha=20, checkpoint_every=SVC_KILL,
+                     checkpoint_dir=str(kill_dir))
+    tr.run(SVC_KILL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe = d / "ckpt_probe.npz"
+    tr.save_checkpoint(str(probe))
+    Path(out + ".save.json").write_text(json.dumps(
+        {"save_ms": (time.perf_counter() - t0) * 1e3}))
+    sys.stdout.flush()
+    os.kill(os.getpid(), signal.SIGKILL)      # the world dies here
+    return 1
+
+
+def svc2d_ranks() -> None:
+    """Phase 4k's two ranks in ``build/svc2d``: ``run`` (which kills
+    itself) then ``resume``."""
+    d = svc_dir("svc2d")
+    t0 = time.perf_counter()
+    run_ranks("svc2d_rank_main", MESH2D_MODEL, d, "store_run", ("run",),
+              SVC2D_TIMEOUT_S, -signal.SIGKILL, "phase 4k run")
+    t1 = time.perf_counter()
+    run_ranks("svc2d_rank_main", MESH2D_MODEL, d, "store_resume",
+              ("resume",), SVC2D_TIMEOUT_S, 0, "phase 4k resume")
+    SPAWN_S["svc2d"] = (t1 - t0, time.perf_counter() - t1)
+
+
+def svc2d_join(torch, blocks: list, whole):
+    """The ranks' blocks of a parameter leaf joined along
+    ``group_param_pspec``'s dim (model-index order) into ``whole``'s
+    shape; a leaf the spec keeps whole is the first rank's."""
+    from repro_torch.sharding.specs import model_dim
+
+    dim = model_dim(tuple(whole.shape), MESH2D_MODEL)
+    return blocks[0] if dim is None else torch.cat(blocks, dim=dim)
+
+
+def svc2d_replicas(a: dict, b: dict) -> bool:
+    """Two ranks' whole state (membership, history, update directions) bit
+    for bit; the parameters are each rank's blocks."""
+    keys = ("membership", "hist", "group_delta")
+    return svc_same({k: a[k] for k in keys}, {k: b[k] for k in keys})
+
+
+def services2d_phase(torch, lane: Lane, smi: str) -> dict:
+    """Phase 4k: two spawned ranks sharing the card over gloo; see the
+    module docstring. Returns the ranks' launch counts (each rank's cold
+    starts on the (1, 2) mesh launch ``edc_cosine_partial``; on the 1-D
+    mesh ``edc_cosine``)."""
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.data.generators import femnist_like
+    from repro_torch.fed.population import FaultConfig
+    from repro_torch.launch.inspect import check_dir
+    from repro_torch.models.paper_models import mlp
+
+    t_phase = time.perf_counter()
+    world = MESH2D_MODEL
+    d = ROOT / "build" / "svc2d"
+    lane.wait("svc2d")
+    run_s, resume_s = SPAWN_S["svc2d"]
+    recs = [json.loads((d / f"rank{r}.json").read_text())
+            for r in range(world)]
+    states = [torch.load(d / f"rank{r}.pt") for r in range(world)]
+    saves = [json.loads((d / f"rank{r}.save.json").read_text())
+             for r in range(world)]
+    backs = [json.loads((d / f"rank{r}.resume.json").read_text())
+             for r in range(world)]
+    bstates = [torch.load(d / f"rank{r}.resume.pt") for r in range(world)]
+    base = {"phase": "services2d", "mesh": [1, MESH2D_MODEL],
+            "backend": recs[0]["backend"],
+            "devices": [r["device"] for r in recs], "nvidia_smi": smi}
+    failed = []
+
+    def gate(ok: bool, what: str):
+        if not ok:
+            failed.append(what)
+
+    # checkpoints: kill-and-resume bit-equal on both ranks; the archive's
+    # leaves whole; the archive resumed on one device in this process
+    data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
+    model = mlp(784, 512, 26)
+    resume_ok = all(svc_same(states[r]["full"], bstates[r]["resumed"])
+                    for r in range(world))
+    archive = d / "ckpt_kill" / f"ckpt_{SVC_KILL:08d}.npz"
+    specs = ckpt_io.saved_array_specs(str(archive))
+    shapes = {k: tuple(v.shape) for k, v in model.init(None, "meta").items()}
+    whole = all(specs[f"model/params/{k}"][0] == v and
+                specs[f"model/group_params/{k}"][0] == (5,) + v
+                for k, v in shapes.items())
+    tr = svc_trainer(model, data, None, alpha=20, checkpoint_every=SVC_KILL,
+                     checkpoint_dir=str(svc_dir("svc2d_one")))
+    tr.load_checkpoint(str(archive))
+    one, one_ms = svc_timed(torch, tr, SVC_ROUNDS - SVC_KILL)
+    tr.close()
+    full = {k: (svc2d_join(torch, [st["full"][k] for st in states], v)
+                if "params/" in k else states[0]["full"][k])
+            for k, v in one.items()}
+    hist_dev = (full["hist"] - one["hist"]).abs()
+    one_ok = (torch.equal(full["membership"], one["membership"])
+              and float(hist_dev[:, [1, 3]].max()) <= MESH_ACC_ATOL)
+    leaf_err = max(float((full[k] - one[k]).norm() / one[k].norm())
+                   for k in one if "params/" in k)
+    emit({**base, "part": "checkpoint", "resume_equal": resume_ok,
+          "max_abs_dev_resume": max(max_abs_dev(
+              {k: v for k, v in states[r]["full"].items()},
+              bstates[r]["resumed"]) for r in range(world)),
+          "save_ms": [s["save_ms"] for s in saves],
+          "load_ms": [b["load_ms"] for b in backs],
+          "archive_bytes": archive.stat().st_size,
+          "archive_leaves_whole": whole,
+          "one_device_resume_ok": one_ok,
+          "one_device_max_hist_dev_acc_disc": float(
+              hist_dev[:, [1, 3]].max()),
+          "one_device_max_leaf_rel_err": leaf_err,
+          "one_device_round_ms": one_ms,
+          "resume_round_ms": [b["resume_round_ms"] for b in backs],
+          "tolerances": {"acc_and_disc_abs": MESH_ACC_ATOL}})
+    gate(resume_ok and whole and one_ok, "checkpoint")
+    # telemetry on == off; rank 0 writes a clean directory
+    tel = d / "telemetry"
+    errors = check_dir(str(tel))
+    on_ok = all(svc_same(st["telemetry"], st["sync"]) for st in states)
+    emit({**base, "part": "telemetry", "on_equals_off": on_ok,
+          "check_dir": errors, "files": sorted(os.listdir(tel)),
+          "round_ms_on": [r["telemetry_round_ms"] for r in recs],
+          "round_ms_off": [r["sync_round_ms"] for r in recs]})
+    gate(on_ok and not errors, "telemetry")
+    # async: D = 1 == sync; 4g-ii's small D = 2 run against the CPU
+    cpu = svc2d_small_async(None, "cpu")
+    small_ok = True
+    for r in recs:
+        got = r["small_d2"]
+        small_ok &= (got["membership"] == cpu["membership"]
+                     and got["group_version"] == cpu["group_version"]
+                     and got["async_stats"] == cpu["async_stats"])
+        for (ac, lc, dc), (ag, lg, dg) in zip(cpu["hist"], got["hist"],
+                                               strict=True):
+            small_ok &= (math.isclose(lc, lg, rel_tol=1e-3)
+                         and math.isclose(dc, dg, rel_tol=1e-3)
+                         and abs(ac - ag) <= 0.01)
+    d1_ok = all(svc_same(st["d1"], st["sync"]) for st in states)
+    emit({**base, "part": "async", "d1_equals_sync": d1_ok,
+          "d1_round_ms": [r["d1_round_ms"] for r in recs],
+          "d2_round_ms": [r["d2_round_ms"] for r in recs],
+          "sync_round_ms": [r["sync_round_ms"] for r in recs],
+          "d2_async_stats": recs[0]["d2_async_stats"],
+          "small_d2_matches_cpu": small_ok,
+          "small_d2_cuda": recs[0]["small_d2"]["hist"],
+          "small_d2_cpu": cpu["hist"],
+          "tolerances": {"loss_and_disc_rel": 1e-3, "acc_abs": 0.01},
+          "note": "round ms: run() time over its rounds, the cold start's "
+                  "round included, ended by a synchronize"})
+    gate(d1_ok and small_ok, "async")
+    # thread fleets: of one, and of two with a death and a kill
+    f2 = [r["fleet2"]["fleet"] for r in recs]
+    fleet_ok = all(svc_same(st["fleet1"], st["sync"])
+                   and svc_same(st["fleet2"], st["sync"]) for st in states)
+    counts_ok = all((f["fleet.jobs"], f["fleet.results"],
+                     f["fleet.lease_expiries"], f["fleet.requeues"])
+                    == (6, 4, 2, 2) for f in f2)
+    emit({**base, "part": "fleet", "fleet1_equals_run": all(
+              svc_same(st["fleet1"], st["sync"]) for st in states),
+          "fleet2_equals_run": all(svc_same(st["fleet2"], st["sync"])
+                                   for st in states),
+          "fleet1_round_ms": [r["fleet1"]["round_ms"] for r in recs],
+          "fleet2_round_ms": [r["fleet2"]["round_ms"] for r in recs],
+          "fleet1": recs[0]["fleet1"]["fleet"], "fleet2": f2})
+    gate(fleet_ok and counts_ok, "thread fleets")
+    # the faulted streamed runs: the same prefix and stats on both ranks
+    lanes = np.random.default_rng([FaultConfig({}).seed, 0xFA017, 2]).choice(
+        20, 2, replace=False)
+    for name, k_cut in (("faults", 4), ("corrupt", 10)):
+        rows = [r[name] for r in recs]
+        same = all(x["cohorts"] == rows[0]["cohorts"]
+                   and x["stats"] == rows[0]["stats"] for x in rows[1:])
+        replicas = all(svc2d_replicas(st[name], states[0][name])
+                       for st in states[1:])
+        st = rows[0]["stats"]
+        clients = [len(c["idx"]) for c in rows[0]["cohorts"]]
+        want = ({"deadline_rounds": 1, "killed_clients": 1,
+                 "corrupted_clients": 2} if name == "faults" else
+                {"deadline_rounds": 1,
+                 "corrupted_clients": int(np.sum(lanes < k_cut))})
+        counts = all(st[k] == v for k, v in want.items())
+        emit({**base, "part": "faults", "run": name, "prefix_same": same,
+              "replicas_equal": replicas, "stats": st,
+              "cohort_clients": clients,
+              "cohort_rows_a_rank": [[c["rows"] for c in x["cohorts"]]
+                                     for x in rows],
+              "round_ms": [x["round_ms"] for x in rows]})
+        gate(same and replicas and counts and clients[2] == k_cut,
+             f"streamed {name}")
+    # process workers on the 1-D mesh: the SIGKILLed worker recovered
+    procs = [b["proc"] for b in backs]
+    dev = max(max_abs_dev(st["proc"], st["plain"]) for st in bstates)
+    proc_ok = (all(svc_same(st["proc"], st["plain"]) for st in bstates)
+               and svc_same(bstates[1]["proc"], bstates[0]["proc"]))
+    job_counts = [(p["fleet"]["fleet.jobs"], p["fleet"]["fleet.results"],
+                   p["fleet"]["fleet.lease_expiries"],
+                   p["fleet"]["fleet.requeues"]) for p in procs]
+    deaths = [p["fleet"]["fleet.worker_deaths"] for p in procs]
+    ms = procs[-1]["round_ms"]
+    emit({**base, "part": "process", "mesh": [world, 1],
+          "max_abs_dev_vs_run": dev, "equal_to_run": proc_ok,
+          "job_counters": job_counts, "worker_deaths": deaths,
+          "children_left": [p["children_left"] for p in procs],
+          "spawn_and_build_s": [p["spawn_and_build_s"] for p in procs],
+          "round_ms": [p["round_ms"] for p in procs],
+          "plain_round_ms": [b["plain_round_ms"] for b in backs],
+          "killed_dispatch": SVC2D_PROC_KILL,
+          "kill_recovery_ms": (ms[SVC2D_PROC_KILL] + ms[SVC2D_PROC_KILL + 1]
+                               - 2 * ms[-1]),
+          "note": "recovery ms: the killed rank's killed round and the "
+                  "next (whose worker may still run the superseded "
+                  "attempt) less twice its last round"})
+    gate(proc_ok and all(c == (5, 4, 1, 1) for c in job_counts)
+         and deaths == [0] * (world - 1) + [1]
+         and all(p["children_left"] == 0 for p in procs), "process fleet")
+    counts = {"edc_cosine": 0, "edc_cosine_partial": 0}
+    for r, b in zip(recs, backs):
+        counts["edc_cosine"] += b["launches_1d"]["edc_cosine"]
+        counts["edc_cosine_partial"] += (
+            r["launches"]["edc_cosine_partial"]
+            + b["launches_2d"]["edc_cosine_partial"])
+    emit({"phase": "services2d_phase", "launches": counts,
+          "partial_launches_a_rank": [r["launches"]["edc_cosine_partial"]
+                                      for r in recs],
+          "run_spawn_s": run_s, "resume_spawn_s": resume_s,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    if any(r["launches"]["edc_cosine_partial"] < 1 for r in recs):
+        failed.append("a rank's cold starts launched no edc_cosine_partial")
+    if failed:
+        raise AssertionError(f"phase 4k: {failed}")
+    shutil.rmtree(d, ignore_errors=True)
     return counts
 
 
@@ -4196,15 +4907,17 @@ def zamba2_prefill(torch, cfg, params):
     return total
 
 
-def device_summary(torch, prof, wall_ms: float) -> dict:
-    """Device time by kernel from a torch.profiler run: busy share, the two
-    zoo kernels' share, launches, the top kernels, and the host ops with
-    the most self CPU time. None where the profiler saw no device activity
+def device_summary(torch, prof, wall_ms: float, avgs=None) -> dict:
+    """Device time by kernel from a torch.profiler run (``avgs`` its
+    ``key_averages()`` where the caller has them): busy share, the two zoo
+    kernels' share, launches, the top kernels, and the host ops with the
+    most self CPU time. None where the profiler saw no device activity
     (not measured)."""
     from torch.autograd import DeviceType
 
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    if avgs is None:
+        avgs = prof.key_averages()
+    kern = [e for e in avgs if e.device_type == DeviceType.CUDA]
     if not kern:
         return {"wall_ms": wall_ms, "device_busy_ms": None}
     busy = sum(e.self_device_time_total for e in kern) / 1e3
@@ -4215,8 +4928,7 @@ def device_summary(torch, prof, wall_ms: float) -> dict:
         return t, t / busy
 
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU),
+    host = sorted((e for e in avgs if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:6]
     swa_tc_ms, swa_tc_share = share("swa_tc_kernel")
     swa_f32_ms, swa_f32_share = share("swa_kernel", "swa_combine_kernel")
@@ -4703,7 +5415,7 @@ def family_phase(torch) -> dict:
     add(family_consistency(torch, cfg, params, CONSIST_S))
     add(family_consistency(torch, cfg, params, CONSIST_S, window=64))
     family_done(torch, cfg, params, t0)
-    serve_cli("family_serve")                        # the default arch
+    serve_cli("family_serve")     # the default arch (~17 GB: not on a lane)
     # Granite-MoE whole: both dispatches, forward vs serve without drops
     t0 = time.perf_counter()
     cfg, params = family_params(torch, "granite-moe-1b-a400m")
@@ -4716,7 +5428,6 @@ def family_phase(torch) -> dict:
     add(family_consistency(torch, cfg, params, CONSIST_S,
                            capacity_factor=100.0))
     family_done(torch, cfg, params, t0)
-    serve_cli("family_serve", "granite-moe-1b-a400m")
     # InternVL2-1B and HuBERT-XLarge whole
     t0 = time.perf_counter()
     cfg, params = family_params(torch, "internvl2-1b")
@@ -5024,7 +5735,6 @@ def last_families_phase(torch) -> dict:
         add(family_consistency(torch, cfg, params, CONSIST_S, window=window,
                                capacity_factor=100.0))
     family_done(torch, cfg, params, t0)
-    serve_cli("family_serve", "deepseek-v3-671b", ["--smoke"])
 
     t0 = time.perf_counter()
     cfg, params = family_params(torch, "xlstm-350m")
@@ -5038,7 +5748,6 @@ def last_families_phase(torch) -> dict:
     family_profile(torch, chunkwise, params, XLSTM_B, FAMILY_S,
                    "prefill-chunkwise", prefill=False)
     family_done(torch, cfg, params, t0)
-    serve_cli("family_serve", "xlstm-350m")
     emit({"phase": "last_families_phase", "launches": total,
           "seconds": time.perf_counter() - t_phase})
     return total
@@ -5441,9 +6150,10 @@ def train_profile(torch, arch: str, st, batch, cfg):
                              ProfilerActivity.CUDA]) as prof:
         zoo.train_step(st, batch, cfg)
         torch.cuda.synchronize()
-    summary = device_summary(torch, prof, (time.perf_counter() - t0) * 1e3)
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    summary = device_summary(torch, prof, wall_ms, avgs)
+    kern = [e for e in avgs if e.device_type == DeviceType.CUDA]
     bwd = {name: sum(e.self_device_time_total for e in kern
                      if match in e.key) / 1e3
            for name, match in (("swa_attention_bwd_ms", "swa_bwd_"),
@@ -5539,15 +6249,14 @@ def zamba2_remat_cut(torch) -> dict:
     return rec
 
 
-def training_phase(torch) -> tuple:
-    """Phase 6d: the backward kernels, a train step of every smoke variant,
-    Zamba2-1.2B and Gemma-2B at published widths. Returns (the kernels'
-    rows, the backward kernels' launches of the counted steps)."""
+def training_phase(torch) -> dict:
+    """Phase 6d: a train step of every smoke variant, Zamba2-1.2B and
+    Gemma-2B at published widths (the backward kernels' checks,
+    ``check_train_kernels``, run in phase 2). Returns the backward
+    kernels' launches of the counted steps."""
     import gc
 
     t_phase = time.perf_counter()
-    rows = check_train_kernels(torch)
-    torch.cuda.empty_cache()
     total = train_smoke_steps(torch)
 
     def add(counts):
@@ -5571,7 +6280,7 @@ def training_phase(torch) -> tuple:
     torch.cuda.empty_cache()
     emit({"phase": "training_phase", "backward_launches": total,
           "seconds": time.perf_counter() - t_phase})
-    return rows, total
+    return total
 
 
 def leaf_errs(got: dict, want: dict) -> dict:
@@ -5822,6 +6531,70 @@ def dryrun_phase(torch) -> dict:
     return counts
 
 
+def fed_phases(smi: str) -> dict:
+    """Phases 4c to 4h, and 4i-i's and 4i-iv's worlds of one, in a forked
+    process of their own (``start_child``) beside the zoo phases: phase
+    4's data and model made again from seed 0, a process's first runs
+    kept out of the timed ones by ``mesh_warmup``. Returns each phase's
+    launch counts, the runs of one device the mesh ranks are held to
+    (``mesh_refs``) and 4i-iv's world of one (``svc_nccl1``)."""
+    import torch
+
+    import repro_torch  # noqa: F401  (sets the fp32 matmul policy)
+    from repro_torch.data.generators import femnist_like
+    from repro_torch.kernels import ops
+    from repro_torch.models.paper_models import mlp
+
+    mesh_warmup(torch, None)
+    data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
+    model = mlp(784, 512, 26)
+    out = {}
+    # phase 4c: the dynamic-assignment strategies and the shift detector
+    for name in STRATEGIES:
+        strategy_run(torch, data, model, name)
+    out["shift"] = strategy_run(torch, data, model, "shift")
+    if out["shift"]["edc_cosine"] < 1:
+        raise AssertionError("shift run launched no edc_cosine kernel")
+    # phase 4d: round blocks, each fused round a replayed CUDA graph
+    ops.reset_launch_counts()
+    blocked_ms = {}
+    for name, alpha in BLOCK_RUNS:
+        rec = block_run(torch, data, model, name, alpha)
+        blocked_ms[(name, alpha)] = rec["blocked_round_ms_steady"]
+        torch.cuda.empty_cache()
+    out["block"] = ops.launch_counts()
+    if out["block"]["edc_cosine"] < 2:
+        raise AssertionError("the block phase's FedGroup runs launched "
+                             "no edc_cosine kernel")
+    # phase 4e: streamed populations (prefetcher, state table, arrivals)
+    ops.reset_launch_counts()
+    for name in STREAM_RUNS:
+        stream_run(torch, data, model, name)
+        torch.cuda.empty_cache()
+    population_phase(torch)
+    out["stream"] = ops.launch_counts()
+    if out["stream"]["edc_cosine"] < 1:
+        raise AssertionError("the population phase launched no edc_cosine "
+                             "kernel")
+    # phase 4f: checkpoints with kill-and-resume, faults and the deadline
+    out["ft"] = fault_tolerance_phase(torch, data, model)
+    # phase 4g: the async runtime (leases, staleness folds, graph dispatch)
+    out["async"] = async_phase(torch, data, model, blocked_ms)
+    # phase 4h: telemetry and the elastic control plane (coordinator and
+    # workers over threads and spawned processes)
+    out["fleet"] = fleet_phase(torch, data, model)
+    torch.cuda.empty_cache()
+    # phase 4i-i: the client axis, an NCCL world of one in this process,
+    # and the runs of one device the ranks are held to
+    out["mesh_refs"] = mesh_refs(torch, data, model)
+    # phase 4i-iv in this process: the runtime services on an NCCL world
+    # of one (checkpoints, telemetry, async, the fleet)
+    t0 = time.perf_counter()
+    out["nccl1"] = {"counts": svc_nccl1(torch, data, model, smi)}
+    out["nccl1"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "__init__.py").is_file():
@@ -5895,8 +6668,12 @@ def main() -> int:
                       "registers at entry (256 threads): the partial-sum "
                       "entry's second kernel"))
 
-    # phase 2: kernels against their plain versions
+    # phase 2: kernels against their plain versions (the federated ones,
+    # the zoo's forward ones, the backward ones), each alone on the card
     rows = check_kernels(torch)
+    rows.update(check_zoo_kernels(torch))
+    rows.update(check_train_kernels(torch))
+    torch.cuda.empty_cache()
 
     # phase 3: the port on the card agrees with the port on the CPU; this
     # tiny run is also the warm-up (first use of cuBLAS / cuSOLVER /
@@ -5905,7 +6682,6 @@ def main() -> int:
 
     # phase 4: the main path at full width (FEMNIST MLP-512, paper Table 2)
     from repro_torch.data.generators import femnist_like
-    from repro_torch.kernels import ops
     from repro_torch.models.paper_models import mlp
     t0 = time.perf_counter()
     data = femnist_like(seed=0, dim=784, n_classes=26, n_clients=200)
@@ -5919,86 +6695,88 @@ def main() -> int:
     tr_edc, pre_idx, counts_edc = fedgroup_run(torch, data, model, "edc")
     _, _, counts_madc = fedgroup_run(torch, data, model, "madc")
     counts_many = edc_cold_start_many_groups(torch, data, model)
-    # phase 4c: the dynamic-assignment strategies and the shift detector
-    for name in STRATEGIES:
-        strategy_run(torch, data, model, name)
-    counts_shift = strategy_run(torch, data, model, "shift")
-    # phase 4d: round blocks, each fused round a replayed CUDA graph
-    ops.reset_launch_counts()
-    blocked_ms = {}
-    for name, alpha in BLOCK_RUNS:
-        rec = block_run(torch, data, model, name, alpha)
-        blocked_ms[(name, alpha)] = rec["blocked_round_ms_steady"]
-        torch.cuda.empty_cache()
-    counts_block = ops.launch_counts()
-    if counts_block["edc_cosine"] < 2:
-        raise AssertionError("the block phase's FedGroup runs launched "
-                             "no edc_cosine kernel")
-    if counts_shift["edc_cosine"] < 1:
-        raise AssertionError("shift run launched no edc_cosine kernel")
     if counts_edc["edc_cosine"] < 1:
         raise AssertionError("EDC run launched no edc_cosine kernel")
     if counts_madc["madc"] < 1:
         raise AssertionError("MADC run launched no madc kernel")
-    # phase 4e: streamed populations (prefetcher, state table, arrivals)
-    ops.reset_launch_counts()
-    for name in STREAM_RUNS:
-        stream_run(torch, data, model, name)
-        torch.cuda.empty_cache()
-    population_phase(torch)
-    counts_stream = ops.launch_counts()
-    if counts_stream["edc_cosine"] < 1:
-        raise AssertionError("the population phase launched no edc_cosine "
-                             "kernel")
-    # phase 4f: checkpoints with kill-and-resume, faults and the deadline
-    counts_ft = fault_tolerance_phase(torch, data, model)
-    # phase 4g: the async runtime (leases, staleness folds, graph dispatch)
-    counts_async = async_phase(torch, data, model, blocked_ms)
-    # phase 4h: telemetry and the elastic control plane (coordinator and
-    # workers over threads and spawned processes)
-    counts_fleet = fleet_phase(torch, data, model)
-    # phase 4i: the client axis over torch.distributed ranks (an NCCL world
-    # of one in this process; two spawned ranks sharing the card over gloo)
-    counts_mesh = mesh_phase(torch, data, model)
-    # phase 4i-iv: the runtime services on the data mesh (checkpoints,
-    # telemetry, async, the fleet; faults and the deadline on two ranks)
-    counts_svc = services_phase(torch, data, model, smi)
-
     # phase 5: where the time goes
     breakdown(torch, tr_edc, pre_idx)
     round_profile(torch, tr_edc)
     del tr_edc, data, model
     torch.cuda.empty_cache()
 
-    # phase 6: Zamba2-1.2B prefill and serving, the zoo's two kernels
-    rows.update(check_zoo_kernels(torch))
+    # Three lanes beside this process's zoo phases (see Order above): the
+    # federated phases 4c to 4h and 4i-i / 4i-iv's worlds of one in a
+    # forked process; the mesh phases' spawned ranks, 4j first (its Alg. 3
+    # holds ~24 GB a rank: the families' weights and the serving CLIs wait
+    # for it); the serving CLIs but the ~17 GB default one, each in a
+    # child process. 6e, whose Alg. 3 holds ~57 GB, waits for all three
+    fed = start_child("fed_phases", "fed", smi)
+    lane = Lane([("mesh2d", mesh2d_ranks), ("svc2d", svc2d_ranks),
+                 ("mesh_gloo2", lambda: mesh_ranks(2, 2, "gloo2")),
+                 ("svc_gloo2", svc_ranks)])
+    lane.start()
+    serve = Lane([("after_mesh2d", lambda: lane.wait("mesh2d")),
+                  ("zamba2", zamba2_serve),
+                  ("granite_moe", lambda: serve_cli(
+                      "family_serve", "granite-moe-1b-a400m")),
+                  ("deepseek_smoke", lambda: serve_cli(
+                      "family_serve", "deepseek-v3-671b", ["--smoke"])),
+                  ("xlstm", lambda: serve_cli("family_serve",
+                                              "xlstm-350m"))])
+    serve.start()
+
+    # phase 6: Zamba2-1.2B prefill and serving
     cfg, params = zamba2_params(torch)
     counts_zoo = zamba2_prefill(torch, cfg, params)
     zamba2_profile(torch, cfg, params)
     counts_f32 = zamba2_consistency(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
-    zamba2_serve()
+    lane.wait("mesh2d")
     # phase 6b: the zoo's attention families (dense, VLM, audio, MoE)
     counts_fam = family_phase(torch)
     # phase 6c: the zoo's last two families (DeepSeek-V3 cut, xLSTM-350M)
     counts_last = last_families_phase(torch)
-    # phase 6d: LM training (the backward kernels, every smoke variant,
-    # Zamba2-1.2B and Gemma-2B at published widths)
-    train_rows, counts_train = training_phase(torch)
-    rows.update(train_rows)
+    serve.wait("xlstm")
+    serve.join()
+    # phase 6d: LM training (every smoke variant, Zamba2-1.2B and Gemma-2B
+    # at published widths)
+    counts_train = training_phase(torch)
+    t0 = time.perf_counter()
+    lane.wait("svc_gloo2")
+    lane.join()
+    fed_out = join_child(torch, fed, FED_CHILD_TIMEOUT_S, "phases 4c-4h")
+    emit({"phase": "lanes", "mesh_jobs_s": lane.seconds,
+          "serve_jobs_s": serve.seconds, "waited_s":
+          time.perf_counter() - t0})
     # phase 6e: the dry runs without a mesh (the federated round and Alg. 3
     # at production size, the zoo's dry-run records held to the card)
     counts_dry = dryrun_phase(torch)
+
+    # the lanes' checks
+    counts_shift, counts_block = fed_out["shift"], fed_out["block"]
+    counts_stream, counts_ft = fed_out["stream"], fed_out["ft"]
+    counts_async, counts_fleet = fed_out["async"], fed_out["fleet"]
+    refs = fed_out["mesh_refs"]
+    MESH2D_REF.update({p: (refs["ref"][p], refs["ref_state"][p])
+                       for p in MESH2D_PATHS})
+    # phase 4i-ii: two spawned ranks sharing the card over gloo, checked
+    counts_mesh = mesh_phase(torch, refs, lane)
+    # phase 4i-iv: faults and the deadline on two ranks, checked
+    counts_svc = services_phase(torch, fed_out["nccl1"], lane, smi)
     # phase 4j: the 2-D (data, model) layout on two ranks sharing the card
-    # (after 6e, whose one-device Alg. 3 it is held to)
-    counts_2d = mesh2d_phase(torch, smi)
+    # (checked after 6e, whose one-device Alg. 3 it is held to)
+    counts_2d = mesh2d_phase(torch, lane, smi)
+    # phase 4k: the runtime services under a model axis and process workers
+    # under a mesh, on two ranks sharing the card
+    counts_2k = services2d_phase(torch, lane, smi)
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
     # block phase's FedGroup runs, the population phase's FedGroup runs,
-    # phase 4f's, 4g's, 4h's, 4i's and 4i-iv's FedGroup runs (their
-    # ranks' too),
+    # phase 4f's, 4g's, 4h's, 4i's, 4i-iv's and 4k's FedGroup runs (their
+    # ranks' too; 4j's and 4k's model axis through the partial-sum entry),
     # phase 6e's two cold starts;
     # Zamba2's two counted bf16 prefills (the tensor-core routes) and its
     # two fp32 consistency forwards (the fp32 routes); phase 6b's counted
@@ -6011,8 +6789,10 @@ def main() -> int:
                 + counts_stream["edc_cosine"] + counts_ft["edc_cosine"]
                 + counts_async["edc_cosine"] + counts_fleet["edc_cosine"]
                 + counts_mesh["edc_cosine"] + counts_svc["edc_cosine"]
-                + counts_dry["edc_cosine"] + counts_2d["edc_cosine"],
-                "edc_cosine_partial": counts_2d["edc_cosine_partial"],
+                + counts_dry["edc_cosine"] + counts_2d["edc_cosine"]
+                + counts_2k["edc_cosine"],
+                "edc_cosine_partial": counts_2d["edc_cosine_partial"]
+                + counts_2k["edc_cosine_partial"],
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"]
                 + counts_fam["swa_attention.tc"]
@@ -6073,4 +6853,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        kill_live_ranks()
+    sys.exit(rc)

@@ -46,7 +46,9 @@ axis each rank receives only its d_w block of ΔW (``FedMesh.model_cols``,
 against ``group_delta`` and the shift detector's drifts are summed over
 the model group, MADC's ``madc`` kernel runs on the replicated M, the
 groups' mean updates are gathered whole over the model group (m × d_w),
-and the cached eq.-9 directions are this rank's blocks.
+and the cached eq.-9 directions are this rank's blocks; a checkpoint
+gathers them whole (the archive holds whole rows, as one device's) and a
+resumed rank keeps its columns.
 
 With a streamed population (``population=``) the Alg. 3 founders are
 drawn from the scheduler's active clients only, the newcomers its arrival
@@ -400,6 +402,44 @@ class FedGroupTrainer(GroupedTrainer):
             self._pin_dirs = _LazyRows.from_ckpt(
                 {k: arrays[f"fg_dir_{k}"] for k in ("ids", "rows", "default")},
                 device=self.device)
+
+    # the direction tables a checkpoint holds: the pinned cache
+    # (``fg_dir_*``) and a streamed population's state table's
+    # (``pretrain_dir_*``), each {ids, rows, default}
+    _DIR_TABLES = ("fg_dir", "pretrain_dir")
+
+    def _ckpt_state_whole(self, state: dict) -> dict:
+        # on a model axis a rank caches its d_w block of each direction
+        # (the same ids on every rank): the rows and the default gathered
+        # whole over the model group, in one collective a table
+        state = super()._ckpt_state_whole(state)
+        if self._layout is None:
+            return state
+        out = dict(state)
+        for t in self._DIR_TABLES:
+            if f"{t}_rows" not in state:
+                continue
+            rows = torch.as_tensor(np.concatenate(
+                [state[f"{t}_default"][None], state[f"{t}_rows"]]),
+                device=self.device)
+            whole = self.mesh.model_gather(rows, 1,
+                                           self.model_size).cpu().numpy()
+            out[f"{t}_default"], out[f"{t}_rows"] = whole[0], whole[1:]
+        return out
+
+    def _ckpt_state_block(self, state: dict) -> dict:
+        state = super()._ckpt_state_block(state)
+        if self._layout is None:
+            return state
+        out = dict(state)
+        lo, hi = self.mesh.model_cols(self.model_size)
+        for t in self._DIR_TABLES:
+            if f"{t}_rows" in state:
+                out[f"{t}_rows"] = np.ascontiguousarray(
+                    state[f"{t}_rows"][:, lo:hi])
+                out[f"{t}_default"] = np.ascontiguousarray(
+                    state[f"{t}_default"][lo:hi])
+        return out
 
     def _round_fields(self) -> dict:
         rec = super()._round_fields()

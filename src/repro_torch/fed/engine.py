@@ -90,10 +90,7 @@ model) gathers them first (``_whole``). A cohort is computed by rank
 and its sums run over the world. Alg. 3 and eq. 9 run on this rank's d_w
 block of the updates, the only part of them it receives (``_solve_flat``,
 ``FedMesh.gather_cols``), their products all-reduced over the model group
-(``core.fedgroup``). Refused with ``NotImplementedError``
-(``ROADMAP.md`` queue 1, 16c′): the runtime services under a model axis
-(checkpoints, telemetry, the async runtime, a population's deadline or
-scripted faults, and the fleet).
+(``core.fedgroup``).
 
 The runtime services run on the mesh too. Each decision the reference's
 single controller takes by its clock is taken once here, by rank 0, and
@@ -103,12 +100,17 @@ one (the async runtime), a straggler deadline's prefix (``fed
 .population``), a fleet job's outcome (``launch.coordinator``). An async
 dispatch computes the rank's rows of its cohort (its all-reduces inside
 the dispatch graph over NCCL, eager over gloo) and the fold is
-replicated. A checkpoint holds the replicas every rank has whole: rank 0
-checks the model tree is the same on every rank, writes the one archive
-in the reference's layout, the ranks meet at a barrier on the host group
-and rank 0 alone prunes; every rank resumes from the same archive.
-Telemetry: rank 0 alone writes ``telemetry_dir``; the other ranks keep
-their tracer and registry in memory.
+replicated; on a model axis the live carry holds the rank's blocks, a
+dispatch gathers them as a round does, and the fold mixes the blocks as
+they are (only the mean of the folded groups gathers them). A checkpoint
+holds whole leaves in the reference's layout: on a model axis the ranks
+gather their blocks over the model group first; rank 0 checks the whole
+model tree is the same on every rank, writes the one archive, the ranks
+meet at a barrier on the host group and rank 0 alone prunes; every rank
+resumes from the same archive and keeps its blocks of it, so an archive
+resumes on any mesh shape and without a mesh. Telemetry: rank 0 alone
+writes ``telemetry_dir``; the other ranks keep their tracer and registry
+in memory.
 """
 from __future__ import annotations
 
@@ -206,30 +208,11 @@ class FedConfig:
     telemetry_dir: str | None = None
 
 
-def _check_ported(mesh, cfg, population=None):
-    """Refuse what is not ported under a mesh (``ROADMAP.md`` queue 1): the
-    runtime services under a model axis (16c′). A mesh must be a
-    ``launch.mesh.FedMesh``."""
-    if mesh is None:
-        return
-    if not isinstance(mesh, mesh_lib.FedMesh):
+def _check_mesh(mesh):
+    """A mesh must be a ``launch.mesh.FedMesh`` (or None)."""
+    if mesh is not None and not isinstance(mesh, mesh_lib.FedMesh):
         raise TypeError(f"a device mesh of type {type(mesh).__name__}: the "
                         "trainers take a launch.mesh.FedMesh")
-    if mesh.model_shards == 1:
-        return
-    pcfg = None if population is None else population.cfg
-    services = {"async_depth >= 1": cfg.async_depth >= 1,
-                "checkpoints": cfg.checkpoint_every > 0
-                or bool(cfg.checkpoint_dir),
-                "telemetry_dir": bool(cfg.telemetry_dir),
-                "a population's deadline": pcfg is not None
-                and pcfg.deadline is not None,
-                "a population's scripted faults": pcfg is not None
-                and pcfg.faults is not None}
-    for what, on in services.items():
-        if on:
-            raise mesh_lib.not_ported_16(
-                "16c′", f"{what} under a model axis of {mesh.model_shards}")
 
 
 @dataclass
@@ -302,7 +285,7 @@ class FedAvgTrainer:
                  init_params=None, draws=None):
         if mesh is None:
             mesh = parallel_lib.default_fed_mesh(device=device)
-        _check_ported(mesh, cfg, population)
+        _check_mesh(mesh)
         self.mesh = mesh
         if mesh is not None:
             if torch.device(device).type != mesh.device.type:
@@ -1007,11 +990,11 @@ class FedAvgTrainer:
             exec_ = self._async_executor()
             carry = exec_.bind(self._async_carry())
             fold = parallel_lib.make_async_fold(
-                rounds_lib.make_staleness_fold(), self.mesh)
+                rounds_lib.make_staleness_fold(self._layout), self.mesh)
         else:
             carry, exec_ = None, self._round_executor()
-            fold = parallel_lib.make_async_fold(rounds_lib.make_param_fold(),
-                                                self.mesh)
+            fold = parallel_lib.make_async_fold(
+                rounds_lib.make_param_fold(self._layout), self.mesh)
         policy = leases_lib.RetryPolicy(
             cfg.async_lease_timeout, cfg.async_max_retries,
             cfg.async_backoff, cfg.async_backoff_cap)
@@ -1169,12 +1152,16 @@ class FedAvgTrainer:
             self.save_checkpoint()
 
     def _ckpt_model_tree(self) -> dict:
-        """The model state a checkpoint holds; also the strict load's
+        """The model state a checkpoint holds, every leaf whole (gathered
+        over a model axis: every rank calls it); also the strict load's
         template (a fresh same-config trainer has the same shapes)."""
-        return {"params": self.params, "key": self.draws.get_state()}
+        return {"params": self._whole(self.params),
+                "key": self.draws.get_state()}
 
     def _ckpt_load_model(self, tree: dict):
-        self.params = tree["params"]
+        """Adopt a loaded model tree (whole leaves): this rank keeps its
+        blocks on a model axis."""
+        self.params = self._block(tree["params"])
         self.draws.set_state(tree["key"])
 
     def _ckpt_meta_extra(self) -> dict:
@@ -1194,6 +1181,17 @@ class FedAvgTrainer:
     def _ckpt_apply_state(self, arrays: dict):
         pass
 
+    def _ckpt_state_whole(self, state: dict) -> dict:
+        """The ``state`` sub-tree with whatever a rank keeps as its block
+        of the model axis gathered whole (a collective on a model axis;
+        FedGroup: the cached eq.-9 directions)."""
+        return state
+
+    def _ckpt_state_block(self, state: dict) -> dict:
+        """``_ckpt_state_whole``'s inverse: this rank's blocks of a loaded
+        ``state`` sub-tree."""
+        return state
+
     def save_checkpoint(self, path: str | None = None) -> str:
         """Atomically write the state after ``len(history.rounds)``
         completed rounds to ``path`` (default: ``checkpoint_dir``'s
@@ -1204,11 +1202,14 @@ class FedAvgTrainer:
         ``extra``, ``group_version``, ``obs`` = the registry's snapshot,
         ``population``). Then prunes to ``checkpoint_keep``.
 
-        On a mesh every rank holds the whole state, so every rank calls
-        this at the same point: each drains its population's writer, rank
-        0 checks that the model tree is the same on every rank (raising
-        otherwise) and writes the one archive, the ranks meet at a barrier
-        on the host group, and rank 0 alone prunes."""
+        On a mesh every rank calls this at the same point: each drains its
+        population's writer and, on a model axis, gathers its blocks whole
+        over the model group (the parameters and FedGroup's cached
+        directions), so the archive holds whole leaves as a single
+        controller's does; rank 0 checks that the whole model tree is the
+        same on every rank (raising otherwise) and writes the one archive,
+        the ranks meet at a barrier on the host group, and rank 0 alone
+        prunes."""
         t = len(self.history.rounds)
         if path is None:
             if not self.cfg.checkpoint_dir:
@@ -1223,7 +1224,8 @@ class FedAvgTrainer:
             if self.population is not None:
                 # drains the writer and syncs writer_retries into stats first
                 state, pop_meta = self.population.ckpt_state()
-            state = dict(state, **self._ckpt_state_arrays())
+            state = self._ckpt_state_whole(
+                dict(state, **self._ckpt_state_arrays()))
             meta = {"framework": self.framework, "t": t,
                     "n_clients": int(self.n_clients),
                     "rng": self.rng.bit_generator.state,
@@ -1272,7 +1274,9 @@ class FedAvgTrainer:
         Refuses another framework, another client count, a trainer that
         has trained, and a pinned archive in a streamed trainer or the
         reverse. The tensors land on this trainer's device. On a mesh every
-        rank reads the same archive (every replica is whole)."""
+        rank reads the same archive of whole leaves and keeps its blocks of
+        them on a model axis, so an archive resumes on any mesh shape and
+        without a mesh."""
         path = path_or_dir
         if os.path.isdir(path):
             path = ckpt_io.latest_checkpoint(path)
@@ -1306,6 +1310,7 @@ class FedAvgTrainer:
             if k.startswith("state/")}
         tree = ckpt_io.load_pytree(
             path, {"model": self._ckpt_model_tree(), "state": state_tmpl})
+        state = self._ckpt_state_block(tree["state"])
         self._ckpt_load_model(tree["model"])
         self._ckpt_apply_extra(meta.get("extra") or {})
         self.rng.bit_generator.state = meta["rng"]
@@ -1319,8 +1324,8 @@ class FedAvgTrainer:
         if gv is not None:
             self._group_version()[:] = np.asarray(gv, np.int64)
         if self.population is not None:
-            self.population.ckpt_restore(tree["state"], meta["population"])
-        self._ckpt_apply_state(tree["state"])
+            self.population.ckpt_restore(state, meta["population"])
+        self._ckpt_apply_state(state)
         # the registry's snapshot (pop.* too, the values the population
         # restored); an archive older than the registry carried only its
         # async_stats
@@ -1471,12 +1476,12 @@ class GroupedTrainer(FedAvgTrainer):
     # -- checkpoint: m-stacked groups + membership -------------------------
     def _ckpt_model_tree(self) -> dict:
         tree = super()._ckpt_model_tree()
-        tree["group_params"] = self.group_params
+        tree["group_params"] = self.group_params_whole()
         tree["membership"] = np.asarray(self.membership)
         return tree
 
     def _ckpt_load_model(self, tree: dict):
         super()._ckpt_load_model(tree)
-        self.group_params = tree["group_params"]
+        self.group_params = self._block(tree["group_params"])
         # in place: a population's state table shares this array
         self.membership[:] = tree["membership"]

@@ -33,7 +33,8 @@ fused round (``fed.rounds``, ``fed.client``):
                         the async runtime's executors: a dispatch computes
                         its rank's rows of the cohort (captured graphs
                         over NCCL, eager over gloo) and the fold is
-                        replicated on every rank.
+                        replicated on every rank (on a model axis, over
+                        the rank's blocks).
 
 The dry run's functions:
 
@@ -213,8 +214,15 @@ def make_sharded_executor(round_fn, mesh=None):
         return round_fn(group_params, assign, mesh.take_rows(X, k),
                         mesh.take_rows(Y, k), n, idx)
 
+    def prepare(group_params, assign, X, Y, n, idx):
+        k = n.shape[0]
+        return round_fn.prepare(group_params, assign, mesh.take_rows(X, k),
+                                mesh.take_rows(Y, k), n, idx)
+
     call.max_steps = round_fn.max_steps
     call.mesh = mesh
+    call.prepare, call.local, call.finish = (prepare, round_fn.local,
+                                             round_fn.finish)
     return call
 
 
@@ -246,9 +254,10 @@ def make_async_dispatch_executor(dispatch_fn, mesh=None, depth: int = 1):
 
 def make_async_fold(fold_fn, mesh=None):
     """The async runtime's staleness fold as it is (it writes the live
-    carry in place: nothing to donate). Under a mesh every rank holds the
-    whole carry and the whole dispatch result, so the fold is replicated:
-    each rank runs it on its own replica."""
+    carry in place: nothing to donate). Under a mesh every rank runs it on
+    its own replica of the carry and of the dispatch result; on a model
+    axis their parameters are this rank's blocks, which the fold built
+    with the trainer's ``ParamLayout`` mixes as they are."""
     return fold_fn
 
 

@@ -56,6 +56,7 @@ keep the per-group loop as the oracles the fused round is tested against.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -130,9 +131,15 @@ class _CohortShard:
         return {k: self.gather(v) for k, v in tree.items()}
 
 
+def _flat_rows(t: torch.Tensor) -> torch.Tensor:
+    """(K, ...) -> (K, d): also for K = 0 (a mesh rank's empty piece of a
+    cohort), which ``reshape(K, -1)`` cannot size."""
+    return t.reshape(t.shape[0], math.prod(t.shape[1:]))
+
+
 def _row_sq(tree: dict, K: int) -> torch.Tensor:
     """Per-row squared norm over all leaves of a K-stacked dict -> (K,)."""
-    return sum(torch.sum(torch.square(tree[k].reshape(K, -1)), dim=1)
+    return sum(torch.sum(torch.square(_flat_rows(tree[k])), dim=1)
                for k in leaf_keys(tree))
 
 
@@ -164,7 +171,14 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
     outputs are whole on every rank. ``state_update_fn`` then gets the
     whole state with the gathered membership, deltas and finals. On a
     model axis the group parameters in and the group and global
-    parameters out are this rank's blocks."""
+    parameters out are this rank's blocks.
+
+    The round is three functions, split at its first collective after
+    the solves: ``core.prepare`` (the model-axis gather, the rows cut),
+    ``core.local`` (the assignment and the local solves of those rows,
+    no collective) and ``core.finish`` (the rest). ``core`` calls them
+    in that order; a process fleet runs ``local`` in its worker and the
+    other two on the rank (``launch.coordinator``)."""
     m = n_groups
     solve = client_lib.make_local_solver(
         model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
@@ -172,27 +186,44 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
     loss_many = vmap(client_lib.client_mean_loss(model))
     layout = param_layout(mesh, model)
 
-    def core(group_params, membership, X, Y, n, idx, alive) -> RoundOutput:
+    def prepare(group_params, membership, X, Y, n, idx, alive):
+        """The round up to its local solves -> (ctx, args of ``local``):
+        the group parameters gathered whole over a model axis (the one
+        collective before the solves) and this rank's rows cut."""
         sh = _CohortShard(mesh, n.shape[0])
         if layout is not None:
             group_params = layout.whole(group_params)
-        state = None
         if assign_fn is not None:
-            state = membership
-            membership = assign_fn(group_params, X, Y, sh.rows(n),
-                                   sh.state(state))
+            state, arg = membership, sh.state(membership)
         else:
-            membership = sh.rows(membership)
-        membership = membership.long()
+            state, arg = None, sh.rows(membership)
         n, idx, alive = sh.rows(n), sh.rows(idx), sh.rows(alive)
+        return ((sh, group_params, state, X, Y, n, idx, alive),
+                (group_params, arg, X, Y, n, idx))
+
+    def local(group_params, arg, X, Y, n, idx):
+        """The local solves of one set of rows, with no collective and no
+        mesh: the rows' group ids (``arg`` itself, or the assignment
+        stage's on its state rows ``arg``), then each client's update and
+        final model from its group's parameters -> (membership, deltas,
+        finals). A process worker runs it on its rank's rows."""
+        membership = (assign_fn(group_params, X, Y, n, arg)
+                      if assign_fn is not None else arg).long()
         # each client trains from ITS group's parameters (one gather)
         my_params = {k: g[membership] for k, g in group_params.items()}
         deltas, finals = solve(my_params, X, Y, n, idx)
+        return membership, deltas, finals
 
+    def finish(ctx, part) -> RoundOutput:
+        """The round from its local solves on: the quarantine, the sums
+        over the ranks, the aggregation and the gathers."""
+        sh, group_params, state, X, Y, n, idx, alive = ctx
+        membership, deltas, finals = part
         K = membership.shape[0]
         ok = None
         n_quarantined = torch.zeros((), dtype=torch.int32, device=X.device)
         if quarantine:
+            my_params = {k: g[membership] for k, g in group_params.items()}
             d_sq = _row_sq(deltas, K)
             finite = torch.isfinite(d_sq)
             norms = torch.sqrt(torch.where(finite, d_sq, 0.0))
@@ -218,7 +249,7 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
         group_tot = sh.sum(onehot.T @ w)                            # (m,)
         norm_w = w[:, None] * onehot / torch.clamp(group_tot[None],
                                                    min=1e-9)
-        agg_delta = {k: (norm_w.T @ d.reshape(K, -1)).reshape(
+        agg_delta = {k: (norm_w.T @ _flat_rows(d)).reshape(
             (m,) + tuple(d.shape[1:])) for k, d in deltas.items()}
         if sh.mesh is not None:
             # every leaf's numerator in one all_reduce
@@ -239,7 +270,7 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
 
         # eq. 4 discrepancy: each client vs its group's aggregated model
         disc_sq = sum(torch.sum(torch.square(
-            (finals[k] - tilde[k][membership]).reshape(K, -1)), dim=1)
+            _flat_rows(finals[k] - tilde[k][membership])), dim=1)
             for k in leaf_keys(finals))
         sums = [torch.sum(per_client_loss * w), torch.sum(w),
                 torch.sum(torch.sqrt(disc_sq) * alive), torch.sum(alive)]
@@ -279,7 +310,12 @@ def _make_round_core(model, *, epochs: int, batch_size: int, lr: float,
                            group_delta_flat, discrepancy, membership, state,
                            mean_loss, n_quarantined)
 
+    def core(group_params, membership, X, Y, n, idx, alive) -> RoundOutput:
+        ctx, args = prepare(group_params, membership, X, Y, n, idx, alive)
+        return finish(ctx, local(*args))
+
     core.max_steps = solve.max_steps
+    core.prepare, core.local, core.finish = prepare, local, finish
     return core
 
 
@@ -308,7 +344,11 @@ def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
 
     With ``mesh`` X and Y are this rank's rows of the cohort and the rest
     the whole cohort (``fed.parallel.make_sharded_executor`` slices them);
-    ``round_fn.mesh`` is the mesh."""
+    ``round_fn.mesh`` is the mesh.
+
+    ``round_fn`` is ``round_fn.finish(ctx, round_fn.local(*args))`` with
+    ``ctx, args = round_fn.prepare(...)`` (its arguments): the halves a
+    process fleet runs apart (``_make_round_core``)."""
     core = _make_round_core(
         model, epochs=epochs, batch_size=batch_size, lr=lr, mu=mu,
         n_groups=n_groups, max_samples=max_samples, eta_g=eta_g,
@@ -316,12 +356,20 @@ def make_round_executor(model, *, epochs: int, batch_size: int, lr: float,
         quarantine=quarantine, quarantine_mult=quarantine_mult, mesh=mesh)
 
     @torch.no_grad()
-    def round_fn(group_params, membership, X, Y, n, idx) -> RoundOutput:
+    def prepare(group_params, membership, X, Y, n, idx):
         alive = torch.ones(n.shape[0], dtype=torch.float32, device=X.device)
-        return core(group_params, membership, X, Y, n, idx, alive)
+        return core.prepare(group_params, membership, X, Y, n, idx, alive)
+
+    @torch.no_grad()
+    def round_fn(group_params, membership, X, Y, n, idx) -> RoundOutput:
+        ctx, args = prepare(group_params, membership, X, Y, n, idx)
+        return core.finish(ctx, core.local(*args))
 
     round_fn.max_steps = core.max_steps
     round_fn.mesh = mesh
+    round_fn.prepare = prepare
+    round_fn.local = torch.no_grad()(core.local)
+    round_fn.finish = torch.no_grad()(core.finish)
     return round_fn
 
 
@@ -546,7 +594,18 @@ def make_async_dispatch_executor(model, *, epochs: int, batch_size: int,
     return dispatch_fn
 
 
-def make_staleness_fold():
+def _group_mean(groups: dict, layout=None) -> dict:
+    """The auxiliary global model of m-stacked groups, the mean over the
+    group axis. On a model axis (``layout``) the groups and the result are
+    this rank's blocks, whose dims differ (``group_param_pspec``): the
+    mean is taken of the groups gathered whole, then blocked."""
+    if layout is None:
+        return {k: torch.mean(g, dim=0) for k, g in groups.items()}
+    return layout.block({k: torch.mean(g, dim=0)
+                         for k, g in layout.whole(groups).items()})
+
+
+def make_staleness_fold(layout=None):
     """Returns fold_fn(current, result, idx, alive, weights) -> current:
     fold a completed async dispatch (``make_async_dispatch_executor``'s
     result) into the live carry with per-group staleness weights
@@ -567,7 +626,10 @@ def make_staleness_fold():
         merge row-wise (the last fold wins on a shared row).
 
     idx / alive: the staged cohort (K,) (any device); weights: (m,) host
-    numpy or tensor."""
+    numpy or tensor. On a model axis (``layout``, a ``launch.mesh
+    .ParamLayout``) the carry's parameters and the result's are this
+    rank's blocks: the mix is elementwise, and only the mean of the
+    folded groups gathers them (``_group_mean``)."""
     @torch.no_grad()
     def fold_fn(current, result, idx, alive, weights):
         mem = current["membership"]
@@ -583,24 +645,26 @@ def make_staleness_fold():
         groups = current["group_params"]
         for k, g in groups.items():
             g.copy_(mix(g, result["group_params"][k]))
-        all_one = bool(np.all(host == 1.0))
+        glob = (result["global_params"] if bool(np.all(host == 1.0))
+                else _group_mean(groups, layout))
         for k, p in current["global_params"].items():
-            p.copy_(result["global_params"][k] if all_one
-                    else torch.mean(groups[k], dim=0))
+            p.copy_(glob[k])
         current["group_delta"].copy_(result["group_delta"])
         return current
 
     return fold_fn
 
 
-def make_param_fold():
+def make_param_fold(layout=None):
     """Returns fold_fn(current_groups, result_groups, result_global,
     weights) -> (folded_groups, folded_global): the carry-less staleness
     fold of the *streamed* async path, where membership and FeSEM's rows
     stay on the host and only the m-stacked group parameters live on the
     device. The same mixing as ``make_staleness_fold`` (w == 1.0 a bitwise
     passthrough, so the equivalence mode adopts the dispatch result as the
-    synchronous round does); the current groups are not written."""
+    synchronous round does); the current groups are not written. On a
+    model axis (``layout``) the parameters are this rank's blocks, as in
+    ``make_staleness_fold``."""
     @torch.no_grad()
     def fold_fn(current_groups, result_groups, result_global, weights):
         dev = next(iter(current_groups.values())).device
@@ -610,7 +674,7 @@ def make_param_fold():
                   for k, g in current_groups.items()}
         if bool(np.all(host == 1.0)):
             return groups, result_global
-        return groups, {k: torch.mean(g, dim=0) for k, g in groups.items()}
+        return groups, _group_mean(groups, layout)
 
     return fold_fn
 

@@ -64,21 +64,37 @@ Message chaos is for the other per-round jobs. A process worker is its
 own CUDA context: its payloads are numpy trees, and its results land on
 the coordinator trainer's device.
 
-On a data mesh (the trainer's ``launch.mesh.FedMesh``) each rank's
-coordinator wraps that rank's trainer, and its thread workers run the
-rank's executors inside the rank's process group, so a job's collectives
-pair with the same job's on the other ranks. Every rank dispatches the
-same jobs in the same order on the same dispatch clock, so scripted kills,
-heartbeat delays and message faults hit the same job on every rank. Each
-decision that reads a clock or a local delivery is taken by rank 0 and
-followed by every rank (``FedMesh.agree``): a job's worker (picked from
-rank 0's live set) and a lease's outcome (a result, or a requeue on
-expiry, a lost message or the holder's death). A requeue waits until
-this rank's abandoned attempt is over (it never ran, or its result came
-back), so that no two jobs' collectives ever run at once on a rank. The
-heartbeat counters are each rank's own. A process worker is not a member
-of the rank's process group: under a mesh it is refused (``ROADMAP.md``
-queue 1, 16b′).
+On a mesh (the trainer's ``launch.mesh.FedMesh``, a data mesh or a
+``(data, model)`` one) each rank's coordinator wraps that rank's trainer.
+Its thread workers run the rank's executors inside the rank's process
+group, so a job's collectives (over the data group, the model group and
+the world) pair with the same job's on the other ranks. Every rank
+dispatches the same jobs in the same order on the same dispatch clock, so
+scripted kills, heartbeat delays and message faults hit the same job on
+every rank. Each decision that reads a clock or a local delivery is taken
+by rank 0 and followed by every rank (``FedMesh.agree``): a job's worker
+(picked from rank 0's live set) and a lease's outcome (a result, or a
+requeue on expiry, a lost message or the holder's death). A requeue waits
+until this rank's abandoned attempt is over (it never ran, or its result
+came back), so that no two jobs' collectives ever run at once on a rank.
+The heartbeat counters are each rank's own.
+
+A process worker is not a member of any process group, so it runs no
+collective: a per-round job is split at the round's first collective
+after the solves (``fed.rounds``' ``prepare`` / ``local`` / ``finish``).
+The rank's coordinator runs ``prepare`` (on a model axis the gather of
+the group parameters), its worker ``local`` on the rank's rows (the
+assignment and the local solves, most of a round's time, with numpy
+payloads both ways), and the coordinator ``finish`` (the sums over the
+ranks, the aggregation, the gathers), so a process fleet's round is the
+in-process round's computation in the same order, bit for bit. Without a
+mesh the split is the same, on all the rows. Under a mesh each rank picks
+from its own workers (their deaths are its own), and a lease's outcome is
+the ranks' joint reading (``FedMesh.most``): the job is done when every
+rank has its result, and requeued on every rank when any rank's lease
+expired, lost its message or lost its holder. A SIGKILLed worker thus
+never holds a rank in a collective: the ranks meet only in the
+coordinators' own ``prepare`` and ``finish``.
 """
 from __future__ import annotations
 
@@ -90,7 +106,6 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.fed import leases as leases_lib
-from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import worker as worker_lib
 from repro_torch.launch.transport import (ChaosRouter, HeartbeatMonitor,
                                           InProcTransport, Message,
@@ -107,7 +122,7 @@ class FleetConfig:
     transport           "inproc" (thread workers, bit-identity mode) or
                         "proc" (spawned processes, real fault domains —
                         requires ``worker_spec``; per-round pinned path
-                        only).
+                        only; a worker runs a round's local solves).
     heartbeat_interval  worker beat period (seconds).
     heartbeat_miss      beats missed before a worker is declared dead.
     lease_timeout /     the fleet job lease's ``fed.leases.RetryPolicy``:
@@ -167,14 +182,10 @@ class Coordinator:
         self.trainer = trainer
         self.fleet = fleet or FleetConfig()
         self.mesh = getattr(trainer, "mesh", None)
-        if self.mesh is not None and self.fleet.transport == "proc":
-            raise mesh_lib.not_ported_16(
-                "16b′", "process workers under a mesh (a spawned worker is "
-                "not a member of the rank's process group)")
-        if self.mesh is not None and self.mesh.model_shards > 1:
-            raise mesh_lib.not_ported_16(
-                "16c′", "a fleet under a model axis of "
-                f"{self.mesh.model_shards}")
+        # under a mesh: thread workers follow rank 0's pick and outcome; a
+        # process fleet's ranks pick their own and read the outcome jointly
+        self._joint = (self.mesh is not None
+                       and self.fleet.transport == "proc")
         self.obs = trainer.obs
         self.obs.registry.declare(metrics_lib.FLEET_SCHEMA)
         self._policy = leases_lib.RetryPolicy(
@@ -204,7 +215,8 @@ class Coordinator:
             self._transport = ProcTransport()
             self._table = None
             # the coordinator's own executor: its attributes (max_steps)
-            # for the engine, never called
+            # for the engine, and the halves of a job the coordinator runs
+            # (prepare, finish); never called whole
             self._real = {"round": trainer._round_executor()}
         else:
             raise ValueError(
@@ -379,10 +391,12 @@ class Coordinator:
             self.retire(name)
 
     def _pick_worker(self) -> str:
-        """The next live worker, round robin. On a mesh rank 0 picks and
-        every rank takes its pick (by spawn order, the same on every
-        rank): a rank's own live set follows its own heartbeat clock."""
-        if self.mesh is not None and self.mesh.rank != 0:
+        """The next live worker, round robin. With thread workers on a
+        mesh rank 0 picks and every rank takes its pick (by spawn order,
+        the same on every rank): a rank's own live set follows its own
+        heartbeat clock. A process fleet's rank picks from its own."""
+        agreed = self.mesh is not None and not self._joint
+        if agreed and self.mesh.rank != 0:
             return self._names[self.mesh.agree(0)]
         deadline = time.monotonic() + self.fleet.join_timeout
         while not self._live:
@@ -394,7 +408,7 @@ class Coordinator:
             self._pump(0.01)
         w = self._live[self._rr % len(self._live)]
         self._rr += 1
-        if self.mesh is not None:
+        if agreed:
             self.mesh.agree(self._names.index(w))
         return w
 
@@ -416,11 +430,19 @@ class Coordinator:
     def _await_result(self, job_id: int, holder: str, deadline: float,
                       sent: bool):
         """The lease wait: the result, or ``_MISSING`` when the lease must
-        requeue. On a mesh rank 0's reading decides for every rank."""
+        requeue. With thread workers on a mesh rank 0's reading decides
+        for every rank; a process fleet's ranks decide jointly: done when
+        every rank has its result, requeued when any rank must requeue."""
         while True:
             self._pump(0.005)
             state = self._lease_state(job_id, holder, deadline, sent)
-            if self.mesh is not None:
+            if self._joint:
+                # as severities (result here 0, wait 1, requeue 2): the
+                # largest is the ranks' joint state
+                state = (1, 0, 2)[self.mesh.most((1, 0, 2)[state])]
+                if state == 2:
+                    self._drop_stale(job_id)
+            elif self.mesh is not None:
                 state = self.mesh.agree(state)
                 if state:
                     # on 1 rank 0 has its result: this rank's attempt ran
@@ -451,7 +473,13 @@ class Coordinator:
                     f"settle within lease_timeout={self.fleet.lease_timeout}"
                     "s of rank 0's decision: the ranks have diverged")
             self._pump(0.005)
-        if not arrived and job_id in self._results:
+        if not arrived:
+            self._drop_stale(job_id)
+
+    def _drop_stale(self, job_id: int):
+        """Drop this rank's result of an attempt the ranks gave up (a
+        stale result, as ``_route`` drops a late one)."""
+        if job_id in self._results:
             payload = self._results.pop(job_id)
             self.obs.registry.inc("fleet.stale_results")
             if job_id in self._async_jobs:
@@ -462,14 +490,17 @@ class Coordinator:
         """One train dispatch through the fleet (an ``_ExecutorProxy``
         call): the chaos and membership scripts of this clock tick, then
         the lease. An in-process job carries the calling thread's CUDA
-        stream; a remote one its arguments as numpy, its result coming
-        back on the trainer's device."""
+        stream. A remote job is the round's ``local`` half: the
+        coordinator runs ``prepare`` first and ``finish`` on the result,
+        which comes back as numpy and lands on the trainer's device."""
         spec = (self.fleet.faults.spec(self._clock)
                 if self.fleet.faults is not None else None)
         self._elastic()
         self._clock += 1
         if remote:
-            payload = (fn_name, worker_lib._to_numpy(args))
+            real = self._real[fn_name]
+            ctx, local_args = real.prepare(*args)
+            payload = (fn_name, worker_lib._to_numpy(local_args))
         else:
             dev = self.trainer.device
             stream = (torch.cuda.current_stream(dev)
@@ -478,7 +509,8 @@ class Coordinator:
         lease = leases_lib.Lease(staged=payload)
         result = self._dispatch_lease(lease, spec, fn_name == "async")
         if remote:
-            result = worker_lib._to_device(result, self.trainer.device)
+            result = real.finish(ctx, worker_lib._to_device(
+                result, self.trainer.device))
         return result
 
     def _dispatch_lease(self, lease, spec, is_async: bool = False):

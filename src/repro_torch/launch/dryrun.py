@@ -52,6 +52,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import registry, shapes as shp
+from repro_torch.launch.mesh import not_ported_16
 from repro_torch.models import zoo
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -80,10 +81,7 @@ def refuse_sharding(**flags):
     sharding flag that is set."""
     for name, what in SHARDING_FLAGS.items():
         if flags.get(name):
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} ({what}) is not yet ported to "
-                "repro_torch: ROADMAP.md queue 1, item 16d (the zoo's "
-                "tensor parallelism)")
+            raise not_ported_16(f"--{name.replace('_', '-')} ({what})")
 
 
 def arch_config(arch: str, *, smoke: bool = False, bf16_params: bool = False,

@@ -77,14 +77,12 @@ _RANK_DEVICE = None
 _HOST_GROUP = None
 
 
-def not_ported_16(item: str, what: str):
+def not_ported_16(what: str):
     """The ``NotImplementedError`` of a mesh feature left to ROADMAP.md
-    queue 1, item 16b′ (the fleet's process workers under a mesh), 16c′
-    (the runtime services under a model axis) or 16d (the zoo's tensor
-    parallelism)."""
+    queue 1, item 16d (the zoo's tensor parallelism)."""
     return NotImplementedError(
         f"{what} is not yet ported to repro_torch: ROADMAP.md queue 1, item "
-        f"{item}")
+        "16d (the zoo's tensor parallelism)")
 
 
 @dataclass(eq=False)
@@ -322,6 +320,16 @@ class FedMesh:
             dist.broadcast(t, src=src, group=self.host)
         v = int(t[0])
         return bool(v) if isinstance(value, bool) else v
+
+    def most(self, value: int) -> int:
+        """The largest of the ranks' small integers ``value``, on every
+        rank, over the host group: a decision that waits for the rank
+        furthest behind (a process fleet's lease, whose outcome each rank
+        reads off its own worker)."""
+        t = torch.tensor([int(value)], dtype=torch.int64)
+        if self.world > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host)
+        return int(t[0])
 
     def barrier(self):
         """Every rank meets here, over the host group."""

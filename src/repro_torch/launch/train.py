@@ -28,16 +28,22 @@ rank 0 alone prints and writes ``--out`` and ``--telemetry-dir``;
       --mode fed --device cpu --framework fedgroup --dataset synthetic \
       --async-depth 1 --telemetry-dir tel
 
+``--checkpoint-dir DIR`` writes an archive into DIR after every round, in
+the reference's layout; ``--resume`` first restores DIR's latest archive
+and runs the rounds left of ``--rounds`` (the rounds before it are not
+printed again).
+
 ``--model-axis M`` (default ``REPRO_MODEL_AXIS``, else 1) makes it the 2-D
 ``(world / M, M)`` mesh: the group parameters sharded over M ranks
 (``launch.mesh.ParamLayout``), each data slice's clients split over them;
 ``--out`` gathers the model on every rank and rank 0 writes it. The
-runtime services (``--async-depth``, ``--telemetry-dir``) are refused
-under a model axis (``ROADMAP.md`` queue 1, 16c′):
+runtime services run on it too: ``--checkpoint-dir`` / ``--resume`` (an
+archive of whole leaves, resumable on any mesh shape), ``--telemetry-dir``
+(rank 0 writes) and ``--async-depth``:
 
   torchrun --standalone --nproc_per_node 4 -m repro_torch.launch.train \
       --mode fed --device cpu --framework fedgroup --dataset synthetic \
-      --model-axis 2
+      --model-axis 2 --checkpoint-dir ckpt --telemetry-dir tel
 
 ``--mode lm`` (``--arch``, default gemma-2b; ``--smoke`` for the reduced
 same-family variant; ``--steps``, ``--seq``, ``--batch``) trains from
@@ -122,19 +128,28 @@ def _run_fed(args, say) -> int:
                     measure=args.measure, seed=args.seed,
                     async_depth=args.async_depth,
                     async_alpha=args.async_alpha, async_beta=args.async_beta,
-                    telemetry_dir=args.telemetry_dir)
+                    telemetry_dir=args.telemetry_dir,
+                    checkpoint_dir=args.checkpoint_dir,
+                    checkpoint_every=1 if args.checkpoint_dir else 0)
     mesh = default_fed_mesh(args.model_axis, device=args.device)
     tr = frameworks[args.framework](model, data, cfg, device=args.device,
                                     mesh=mesh)
+    t_start = 0
+    if args.resume:
+        if not args.checkpoint_dir:
+            raise ValueError("--resume needs --checkpoint-dir")
+        t_start = tr.load_checkpoint(args.checkpoint_dir)
     say(f"# {args.framework} on {data.name} ({tr.device}): "
           f"{data.n_clients} clients, m={cfg.n_groups}, "
           f"K={cfg.clients_per_round}, E={cfg.local_epochs}"
           + (f", async_depth={cfg.async_depth}" if cfg.async_depth else ""))
     t0 = time.time()
+    if args.resume:
+        say(f"resumed from {args.checkpoint_dir} after round {t_start}")
     if cfg.async_depth:
         # the async loop folds inside run(): the per-fold lines come after
-        tr.run(cfg.n_rounds)
-        for t, m in enumerate(tr.history.rounds):
+        tr.run(max(cfg.n_rounds - t_start, 0))
+        for t, m in enumerate(tr.history.rounds[t_start:], t_start):
             say(f"round {t:3d} acc={m.weighted_acc:.4f} "
                 f"disc={m.discrepancy:.4f}")
         st = tr.history.async_stats
@@ -142,8 +157,9 @@ def _run_fed(args, say) -> int:
               f"max_in_flight={st['max_in_flight']} "
               f"staleness={st['staleness_hist']} ({time.time()-t0:.1f}s)")
     else:
-        for t in range(cfg.n_rounds):
+        for t in range(t_start, cfg.n_rounds):
             m = tr.round(t)
+            tr._maybe_checkpoint(t, t + 1)
             say(f"round {t:3d} acc={m.weighted_acc:.4f} "
                 f"disc={m.discrepancy:.4f} ({time.time()-t0:.1f}s)")
     say(f"max_acc={tr.history.max_acc:.4f}")
@@ -244,6 +260,12 @@ def main(argv=None) -> int:
                     help="under torchrun: shard the group parameters over "
                          "M ranks, a (world / M, M) mesh (default "
                          "REPRO_MODEL_AXIS, else 1)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    dest="checkpoint_dir",
+                    help="write an archive here after every round (the "
+                         "latest is what --resume restores)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore --checkpoint-dir's latest archive first")
     ap.add_argument("--telemetry-dir", default=None, dest="telemetry_dir",
                     help="trace the run and stream per-round records "
                          "into this dir (render with python -m "

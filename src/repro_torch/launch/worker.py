@@ -25,9 +25,12 @@ Two flavors:
   — the observable signature of a process death, used by the chaos path.
 * :func:`worker_entry` — the spawned-process body (``ProcTransport``):
   builds its own trainer replica from a :class:`WorkerSpec` (its own CUDA
-  context on the card), then serves jobs whose arguments and results
-  cross the pipe as numpy trees (``_to_numpy``) and go to the replica's
-  device for each job.
+  context on the card; outside any process group, so mesh-free), then
+  serves jobs whose arguments and results cross the pipe as numpy trees
+  (``_to_numpy``) and go to the replica's device for each job. A job is
+  the ``local`` half of a round (``local_fn_table``): the local solves of
+  the rows the coordinator sends, which need no collective, so a worker
+  serves a rank of a mesh as it serves a trainer alone.
 
 Both beat a heartbeat every ``heartbeat_interval`` seconds from a side
 thread, and announce themselves with a ``join`` message once ready.
@@ -35,6 +38,7 @@ thread, and announce themselves with a ``join`` message once ready.
 from __future__ import annotations
 
 import importlib
+import queue
 import threading
 import traceback
 from dataclasses import dataclass, field
@@ -99,6 +103,14 @@ def worker_fn_table(trainer) -> dict:
     return {"round": trainer._round_executor(),
             "block": trainer._block_executor(),
             "async": trainer._async_executor()}
+
+
+def local_fn_table(trainer) -> dict:
+    """The jobs a process worker serves: the ``local`` half of the
+    trainer's per-round dispatch (``fed.rounds``), the assignment and the
+    local solves of the rows it is sent, with no collective; the
+    coordinator runs the rest of the round."""
+    return {"round": trainer._round_executor().local}
 
 
 def _to_numpy(tree):
@@ -225,16 +237,17 @@ class InProcWorker:
 def worker_entry(conn, name: str, spec: WorkerSpec,
                  heartbeat_interval: float = 0.05):
     """Process-worker main: build the trainer replica from ``spec`` (the
-    newcomer cold start; a graph executor captures lazily on its first
-    job), join the fleet, then serve jobs until ``stop`` or pipe close.
-    Payloads are numpy trees both ways; a job's arguments go to the
-    replica's device."""
+    newcomer cold start), join the fleet, then serve ``local_fn_table``'s
+    jobs until ``stop`` or pipe close. Payloads are numpy trees both ways;
+    a job's arguments go to the replica's device. A reader thread takes
+    every message off the pipe as it comes, so neither end ever blocks
+    writing to the other."""
     from repro_torch.launch.transport import PipeEndpoint
 
     ep = PipeEndpoint(name, conn)
     try:
         trainer = resolve_builder(spec)(**spec.kwargs)
-        table = worker_fn_table(trainer)
+        table = local_fn_table(trainer)
     except Exception:
         try:
             ep.send(Message("error", name, -1, traceback.format_exc()))
@@ -251,16 +264,30 @@ def worker_entry(conn, name: str, spec: WorkerSpec,
                 return
             stop.wait(heartbeat_interval)
 
+    inbox = queue.Queue()
+
+    def read():
+        # drain the pipe as messages come: a coordinator sending a job
+        # while this worker still runs one (a superseded attempt) must not
+        # wait for it, for the job's result send would then wait for the
+        # coordinator to read, each blocked in a write to the other
+        try:
+            while not stop.is_set():
+                msg = ep.recv(timeout=0.05)
+                if msg is not None:
+                    inbox.put(msg)
+        except (EOFError, OSError):
+            pass                         # coordinator went away
+        inbox.put(None)
+
     threading.Thread(target=beat, daemon=True).start()
+    threading.Thread(target=read, daemon=True).start()
     ep.send(Message("join", name))
     try:
         while True:
-            try:
-                msg = ep.recv(timeout=0.05)
-            except (EOFError, OSError):
-                break                    # coordinator went away
+            msg = inbox.get()
             if msg is None:
-                continue
+                break
             if msg.kind == "stop":
                 ep.send(Message("leave", name))
                 break

@@ -9,7 +9,9 @@ A rank r sits at data slice r // M and model index r % M. Its stored
 group and global parameters are its blocks of
 ``sharding.specs.group_param_pspec``, its cached pre-training directions
 its block of the d_w columns (``FedMesh.model_cols``); everything else it
-keeps whole.
+keeps whole. The runtime services' scenarios
+(``_torch_mesh_driver.SERVICES``) are held the same way against their
+runs of one made here (``service_references``).
 """
 import numpy as np
 
@@ -102,5 +104,59 @@ def assert_replicas(ranks: list, M: int, name: str):
                 continue
             peer = (runs[r % M] if k.startswith("gp/") or k in COLS
                     else runs[0])
+            assert v.shape == peer[k].shape and \
+                v.tobytes() == peer[k].tobytes(), (r, k)
+
+
+# ---------------------------------------------------------------------------
+# the runtime services (``_torch_mesh_driver.SERVICES``) on a model axis
+# ---------------------------------------------------------------------------
+# a services run's per-rank arrays: the rows a rank holds, whether its
+# telemetry bundle records and writes
+PER_RANK = ("cohort_rows", "obs")
+
+
+def service_references(names, work) -> dict:
+    """{scenario: its arrays} of the services' scenarios ``names`` run in
+    this process on one device (``mesh=None``), their files under
+    ``work``."""
+    from _torch_mesh_driver import run_service
+    data, model = fixture()
+    return {name: run_service(name, None, data, model, work / name)
+            for name in names}
+
+
+def assert_service_matches_one(got: dict, ref: dict, M: int, i: int):
+    """A services run at model index i against the run of one: counts,
+    membership and the replicated host state equal, the histories at the
+    1-D mesh tests' tolerances, each stored parameter leaf its block of the
+    one-device leaf (``group_param_pspec``) in shape exactly and within
+    ``LEAF_RTOL``, the update directions whole and a streamed table's
+    cached directions its columns, both within ``LEAF_RTOL``."""
+    from _torch_mesh_driver import assert_sharded_close
+    blocked = dict(got)
+    whole = dict(ref)
+    for k in ref:
+        if k.startswith(("gp/", "params/")):
+            want = block_of(ref[k], M, i)
+            assert got[k].shape == want.shape, (k, got[k].shape, want.shape)
+            whole[k] = want
+        elif k in COLS:
+            whole[k] = cols_of(ref[k], M, i)
+    assert rel_err(got["group_delta"], ref["group_delta"]) <= LEAF_RTOL
+    assert_sharded_close(blocked, whole)
+
+
+def assert_service_replicas(ranks: list, M: int, name: str):
+    """Every rank's whole state equal bit for bit (but what is per rank by
+    design); each stored block equal on the ranks of one model index."""
+    runs = [run_of(z, name) for z in ranks]
+    for r, z in enumerate(runs[1:], 1):
+        assert sorted(z) == sorted(runs[0])
+        for k, v in z.items():
+            if k in PER_RANK:
+                continue
+            peer = (runs[r % M] if k.startswith(("gp/", "params/"))
+                    or k in COLS else runs[0])
             assert v.shape == peer[k].shape and \
                 v.tobytes() == peer[k].tobytes(), (r, k)

@@ -2,6 +2,7 @@
 
     python tests/_torch_mesh_driver.py RANK WORLD STORE OUT [DRAWS]
     python tests/_torch_mesh_driver.py RANK WORLD STORE OUT services|resume
+    python tests/_torch_mesh_driver.py RANK WORLD STORE OUT reload ROOT
     python tests/_torch_mesh_driver.py RANK WORLD STORE OUT xload ARCHIVE \
         DRAWS
     python tests/_torch_mesh_driver.py RANK WORLD STORE OUT coldstart INPUTS
@@ -22,13 +23,15 @@ initial parameters, ``init/<leaf>``) only ``fedgroup_edc_round`` runs,
 replaying them.
 
 ``services`` runs the runtime services' scenarios (``SERVICES``: four
-rounds of FedGroup with EDC at the same fixture) into
-``rank<r>.services.npz``, then the first two rounds of each
-kill-and-resume scenario (an archive at round 2 in OUT/work), and then
-kills its own process (SIGKILL: the world dies). ``resume`` is the
-respawned world: each kill-and-resume scenario from its archive to round
-4, into ``rank<r>.resume.npz``. ``xload`` resumes the JAX trainer's
-archive ARCHIVE with the draws recorded in DRAWS (``ListDraws``, whose
+rounds of FedGroup with EDC at the same fixture; the process fleets'
+workers built by ``proc_builder``) into ``rank<r>.services.npz``, then
+the first two rounds of each kill-and-resume scenario (an archive at
+round 2 in OUT/work), and then kills its own process (SIGKILL: the world
+dies). ``resume`` is the respawned world: each kill-and-resume scenario
+from its archive to round 4, into ``rank<r>.resume.npz``. ``reload
+ROOT`` resumes the round-2 archives another world left under ROOT (a
+mesh of another shape) into ``rank<r>.reload.npz``. ``xload`` resumes
+the JAX trainer's archive ARCHIVE with the draws recorded in DRAWS (``ListDraws``, whose
 state is the archive's key) into ``rank<r>.xload.npz``. A world of one
 also runs each scenario without a mesh (``<name>@none``). ``coldstart``
 runs Alg. 3 (``fed.parallel.edc_embedding_distributed`` and one
@@ -46,6 +49,7 @@ import os
 import signal
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -277,6 +281,10 @@ SERVICES = {
     # two workers: dispatch 1's holder muted and declared dead while its
     # job is held (its late result stale), dispatch 2's holder killed
     "fedgroup_fleet2": ({}, None),
+    # process fleets (``transport="proc"``): one spawned worker a rank;
+    # two a rank, the last rank's holder of dispatch 1 SIGKILLed
+    "fedgroup_proc1": ({}, None),
+    "fedgroup_proc_kill": ({}, None),
 }
 RESUMED = ("fedgroup_ckpt_resume", "fedgroup_streamed_ckpt_resume")
 FLEET_FAULTS = {
@@ -293,6 +301,12 @@ FLEET_COUNTERS = ("fleet.jobs", "fleet.results", "fleet.lease_expiries",
                   "fleet.requeues", "fleet.msgs_dropped",
                   "fleet.msgs_duplicated", "fleet.msgs_reordered",
                   "fleet.stale_results")
+# process fleets: name -> workers a rank; the kill hits the last rank only
+PROC_FLEETS = {"fedgroup_proc1": 1, "fedgroup_proc_kill": 2}
+PROC_KILL = {1: dict(worker_kill=True)}
+# a process fleet's counters, then the killed rank's own
+PROC_COUNTERS = ("fleet.jobs", "fleet.results", "fleet.lease_expiries",
+                 "fleet.requeues", "fleet.worker_deaths")
 
 
 def _faults(spec):
@@ -324,6 +338,33 @@ def service_trainer(name, mesh, data, model, work: Path, draws=None):
     tr = FedGroupTrainer(model, None if pop else data, cfg, device="cpu",
                          mesh=mesh, population=pop, draws=draws)
     return tr, pop
+
+
+def proc_builder(name: str):
+    """A process worker's trainer replica of service scenario ``name``:
+    the scenario's trainer on one device (a spawned worker is in no
+    process group), built as every rank builds its own."""
+    data, model = fixture()
+    tr, _ = service_trainer(name, None, data, model, Path("."))
+    return tr
+
+
+def proc_fleet_config(name, mesh):
+    """Scenario ``name``'s process fleet on this rank: its workers built by
+    ``proc_builder``; the kill scripted on the last rank alone (every
+    other rank's workers live). A 5 s heartbeat window: a death is found
+    by its closed pipe."""
+    from repro_torch.fed.population import FaultConfig, FaultSpec
+    from repro_torch.launch.coordinator import FleetConfig
+    from repro_torch.launch.worker import WorkerSpec
+    last = mesh is None or mesh.rank == mesh.world - 1
+    faults = (FaultConfig({t: FaultSpec(**kw) for t, kw in PROC_KILL.items()})
+              if name == "fedgroup_proc_kill" and last else None)
+    return FleetConfig(n_workers=PROC_FLEETS[name], transport="proc",
+                       worker_spec=WorkerSpec(
+                           "_torch_mesh_driver:proc_builder", {"name": name}),
+                       heartbeat_interval=0.05, heartbeat_miss=100,
+                       lease_timeout=120.0, join_timeout=200.0, faults=faults)
 
 
 def _watch_cohorts(pop, rows: list):
@@ -429,7 +470,12 @@ def run_service(name, mesh, data, model, work: Path) -> dict:
     if name == "fedgroup_async_d2" and (mesh is None or mesh.rank == 0):
         _script_expiry(tr)
     fleet = None
-    if name in FLEET_FAULTS:
+    if name in PROC_FLEETS:
+        fleet = Coordinator(tr, proc_fleet_config(name, mesh))
+        t0 = time.monotonic()
+        fleet.run(SERVICE_ROUNDS)
+        run_s = time.monotonic() - t0
+    elif name in FLEET_FAULTS:
         from repro_torch.fed.population import FaultConfig, FaultSpec
         fleet = Coordinator(tr, FleetConfig(
             **FLEET_KW[name], faults=FaultConfig(
@@ -443,7 +489,13 @@ def run_service(name, mesh, data, model, work: Path) -> dict:
     else:
         tr.run(SERVICE_ROUNDS)
     out = service_state(tr, pop, rows)
-    if fleet is not None:
+    if name in PROC_FLEETS:
+        out["proc"] = np.array([tr.registry.get(k) for k in PROC_COUNTERS],
+                               np.int64)
+        out["proc_run_s"] = np.array([run_s])
+        fleet.close()
+        out["proc_left"] = np.array([len(fleet._transport._procs)], np.int64)
+    elif fleet is not None:
         # after close: a stale result has come back by then
         fleet.close()
         out["fleet"] = np.array([tr.registry.get(k) for k in FLEET_COUNTERS],
@@ -472,6 +524,27 @@ def resume_half(name, mesh, data, model, work: Path) -> dict:
     out = service_state(tr, pop, rows)
     tr.close()
     return out
+
+
+def reload_half(name, mesh, data, model, work: Path, archive: str) -> dict:
+    """A fresh trainer of scenario ``name`` (its own checkpoints under
+    ``work``) resumed from ``archive``, another world's file of round
+    KILL_AT, to SERVICE_ROUNDS rounds."""
+    tr, pop = service_trainer(name, mesh, data, model, work)
+    rows = []
+    if pop is not None:
+        _watch_cohorts(pop, rows)
+    assert tr.load_checkpoint(archive) == KILL_AT
+    tr.run(SERVICE_ROUNDS - KILL_AT)
+    out = service_state(tr, pop, rows)
+    tr.close()
+    return out
+
+
+def kill_archive(root: Path, name: str) -> str:
+    """The round-KILL_AT archive a ``services`` world left for ``name``."""
+    return str(root / "work" / (name + "@kill") / "ckpt"
+               / f"ckpt_{KILL_AT:08d}.npz")
 
 
 def xload_run(mesh, data, model, archive: str, draws: str) -> dict:
@@ -549,13 +622,16 @@ def run_resumed(rank, world, mesh, data, model, outdir: Path):
     np.savez(outdir / f"rank{rank}.resume.npz", **res)
 
 
-def services_world(d: Path, S: int, names) -> tuple:
-    """Spawn the ``services`` world of S ranks over ``names`` and, when any
-    of them resumes, the respawned ``resume`` world -> (d, each rank's
-    services arrays, each rank's resumed arrays or None)."""
+def services_world(d: Path, S: int, names, model: int = 1) -> tuple:
+    """Spawn the ``services`` world of S ranks (an (S / model, model)
+    mesh) over ``names`` and, when any of them resumes, the respawned
+    ``resume`` world -> (d, each rank's services arrays, each rank's
+    resumed arrays or None)."""
     services = spawn_world(S, d, extra=("services", ",".join(names)),
-                           rc=-signal.SIGKILL, suffix=".services")
-    resumed = (spawn_world(S, d, extra=("resume",), suffix=".resume")
+                           rc=-signal.SIGKILL, suffix=".services",
+                           model=model)
+    resumed = (spawn_world(S, d, extra=("resume",), suffix=".resume",
+                           model=model)
                if any(n in RESUMED for n in names) else None)
     return d, services, resumed
 
@@ -640,7 +716,7 @@ def spawn_world(S: int, outdir: Path, extra=(), rc: int = 0,
 def main(argv) -> int:
     rank, world, store, outdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
     mode = argv[4] if len(argv) > 4 and argv[4] in (
-        "services", "resume", "xload", "coldstart") else None
+        "services", "resume", "reload", "xload", "coldstart") else None
     draws_path = argv[4] if len(argv) > 4 and mode is None else None
     torch.set_num_threads(1)
     from repro_torch.launch import mesh as mesh_lib
@@ -657,6 +733,14 @@ def main(argv) -> int:
                          list(SERVICES))
         if mode == "resume":
             run_resumed(rank, world, mesh, data, model, out)
+            return 0
+        if mode == "reload":
+            res = {}
+            for name in RESUMED:
+                _tagged(res, name, reload_half(
+                    name, mesh, data, model, out / "work" / (name + "@reload"),
+                    kill_archive(Path(argv[5]), name)))
+            np.savez(out / f"rank{rank}.reload.npz", **res)
             return 0
         if mode == "coldstart":
             np.savez(out / f"rank{rank}.coldstart.npz",

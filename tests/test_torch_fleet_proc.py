@@ -11,6 +11,9 @@ this file keeps to three tests:
     pinned trainers on the per-round path are taken.
   * A bad builder spec: no ``module:function`` is refused, and a builder
     that fails in the child surfaces with its traceback.
+  * A job sent to a worker still busy with another, both payloads larger
+    than the pipe's buffer: the worker's reader thread takes it off the
+    pipe, so its result send never waits on a sender that waits on it.
 """
 import pytest
 
@@ -93,3 +96,59 @@ def test_bad_builder_spec_is_rejected():
             coord.run(1)
     finally:
         coord.close()
+
+
+def test_a_job_sent_to_a_busy_worker_does_not_deadlock(monkeypatch):
+    """Two ``local`` jobs of several MB each sent back to back while the
+    worker computes the first (a coordinator re-dispatching to a worker
+    that still runs a superseded attempt): both results come back."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import worker as worker_lib
+    from repro_torch.launch.transport import Message, ProcTransport
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    kw = dict(framework="fedavg", n_clients=16, dim=4096, seed=0,
+              clients_per_round=8, local_epochs=2, device="cpu")
+    tr = synthetic_builder(**kw)
+    x, y, n = tr._client_batch(np.arange(8))
+    ex = tr._round_executor()
+    bidx = tr._batch_indices(n, ex.max_steps)
+    _, args = ex.prepare(tr._stacked_group_params(),
+                         torch.zeros(8, dtype=torch.long), x, y, n, bidx)
+    payload = ("round", worker_lib._to_numpy(args))
+    transport = ProcTransport()
+    transport.add_worker("w0", worker_lib.worker_entry,
+                         WorkerSpec(BUILDER, kw), 0.05)
+    try:
+        joined = False
+        while not joined:
+            msg = transport.recv(300.0)
+            assert msg is not None and msg.kind != "error", msg
+            joined = msg.kind == "join"
+        sent = []
+        sender = threading.Thread(target=lambda: sent.extend(
+            transport.send("w0", Message("job", job_id=j, payload=payload))
+            for j in range(2)), daemon=True)
+        sender.start()
+        sender.join(120.0)
+        assert not sender.is_alive(), "the second send never completed"
+        assert sent == [True, True]
+        results = {}
+        while len(results) < 2:
+            msg = transport.recv(120.0)
+            assert msg is not None and msg.kind != "error", msg
+            if msg.kind == "result":
+                results[msg.job_id] = msg.payload
+        mem, deltas, finals = worker_lib._to_numpy(ex.local(*args))
+        for got in results.values():
+            assert np.array_equal(got[0], mem)
+            for want, leaves in ((deltas, got[1]), (finals, got[2])):
+                assert all(np.array_equal(leaves[k], v)
+                           for k, v in want.items())
+    finally:
+        transport.close()
+        tr.close()

@@ -5,12 +5,10 @@
 against ``repro.fed.store``'s (a sharded store's gather equals the plain
 store's bit for bit); ``launch/mesh.py`` and ``fed/parallel.py``'s mesh
 half on a gloo world of one rank made in this process (a FileStore in a
-temporary directory); and the refusals that name their ROADMAP items:
-the runtime services under a model axis (16c′, ``tests/test_torch_mesh2d_
-refusals.py``) and the fleet's process workers under a mesh (16b′); the
-runtime services of 16b (the async executors, checkpoints, telemetry, a
-thread-worker fleet, a population's deadline and faults) built on a mesh
-of one, and ``FedMesh.agree``, ``barrier`` and the byte check.
+temporary directory); the runtime services of 16b (the async executors,
+checkpoints, telemetry, a thread-worker fleet, a population's deadline
+and faults) and a process fleet (16b′) on a mesh of one, and
+``FedMesh.agree``, ``barrier`` and the byte check.
 """
 import dataclasses
 import types
@@ -281,10 +279,12 @@ def test_foreign_mesh_and_device_mismatch(mesh1):
                       mesh=mesh1)
 
 
-def test_checkpoints_and_fleet_raise_16b_under_a_mesh(mesh1, tmp_path):
-    """Checkpoints and a thread-worker fleet run on the mesh (16b); process
-    workers under a mesh still raise, naming 16b′ (the name is the
-    refusals' it replaced)."""
+def test_checkpoints_and_fleet_raise_16b_under_a_mesh(mesh1, tmp_path,
+                                                     monkeypatch):
+    """Checkpoints, a thread-worker fleet (16b) and a process fleet (16b′)
+    run on the mesh; the process fleet's round equals the thread fleet's
+    bit for bit (the name is the refusals' it replaced)."""
+    from repro_torch.data.generators import mnist_like
     from repro_torch.launch.coordinator import Coordinator, FleetConfig
     from repro_torch.launch.worker import WorkerSpec
 
@@ -302,9 +302,31 @@ def test_checkpoints_and_fleet_raise_16b_under_a_mesh(mesh1, tmp_path):
     coord.run(1)
     coord.close()
     assert path.endswith("ckpt_000001.npz")
-    with pytest.raises(NotImplementedError, match="item 16b′"):
-        Coordinator(fresh(), FleetConfig(
-            transport="proc", worker_spec=WorkerSpec("m:f")))
+    # synthetic_builder's fedavg trainer on the mesh, its replica in the
+    # spawned worker (one torch thread there too)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    kw = dict(framework="fedavg", n_clients=8, dim=8, seed=0,
+              clients_per_round=4, local_epochs=1, device="cpu")
+
+    def on_mesh():
+        data = mnist_like(seed=0, n_clients=8, classes_per_client=2,
+                          total_train=400, dim=8)
+        return FedAvgTrainer(mclr(8, 10), data, FedConfig(
+            n_rounds=4, clients_per_round=4, local_epochs=1, batch_size=5,
+            lr=0.05, n_groups=3, pretrain_scale=4, seed=0), device="cpu",
+            mesh=mesh1)
+    runs = []
+    for fleet in (FleetConfig(), FleetConfig(
+            transport="proc", join_timeout=300.0, worker_spec=WorkerSpec(
+                "repro_torch.launch.worker:synthetic_builder", kw))):
+        coord = Coordinator(on_mesh(), fleet)
+        try:
+            coord.run(1)
+            runs.append({k: v.clone() for k, v in
+                         coord.trainer.params.items()})
+        finally:
+            coord.close()
+    assert all(torch.equal(runs[1][k], v) for k, v in runs[0].items())
 
 
 @pytest.mark.parametrize("kw", [{"deadline": 0.5}, {"faults": "kill"}])
