@@ -302,6 +302,29 @@ with no final ``ok`` line):
                 SVC2D_PROC_KILL SIGKILLed, equal bit for bit to the ranks'
                 run without a fleet, with the same job counters on both
                 ranks; round and recovery ms.
+     4l         the zoo's tensor parallelism for serving (its ranks run
+                after 4k's): two spawned ranks sharing the card over gloo
+                as a (1, 2) mesh, each holding only its blocks of the
+                params (``zoo.shard_params``) and of the decode cache
+                (``zoo.init_cache(mesh=)``), rank 0 first running each
+                model whole on its own while the other waits
+                (``"phase": "zoo_tp"`` lines). Zamba2-1.2B whole: fp32
+                B=1, S=256 ``forward`` and 32 ``serve_step`` calls within
+                2e-3 of one device's (max |Δ| over max |logit|), the bf16
+                B=4, S=2048 prefill's ms (CUDA events, median of 3 after a
+                warm-up) and peak against one device's, each rank's
+                counted bf16 forward launching 6 swa_attention and 38
+                ssd_intra_chunk on the tensor-core routes on its 16 and 32
+                local heads (else the run fails); Gemma-2B at its widths
+                cut to 4 layers: 32 fp32 decode steps at B=1 through the
+                slot-split cache (``kv_spec``: kv 1 < 2 ranks), the
+                vocab-parallel embedding and tied head over 256,000 rows,
+                within 2e-3; Granite-MoE-1B whole: fp32 B=1, S=256
+                prefill with 16 experts a rank, within 2e-3. The gathered
+                logits equal on both ranks (a digest). In phase 4i-iv's
+                NCCL world of one (the forked process): Zamba2-1.2B's
+                (1, 1) path (fp32 prefill and 32 decode steps) equal to
+                ``mesh=None`` bit for bit.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -459,8 +482,9 @@ with no final ``ok`` line):
      4f's, 4g's, 4h's and 4i's FedGroup runs (4i's ranks' too) and phase
      6e's two cold starts; edc_cosine_partial's phase 4j's ranks' cold
      starts;
-     swa_attention's count Zamba2's and phase 6b's counted forwards and
-     phase 6c's counted MTP call, not
+     swa_attention's count Zamba2's and phase 6b's counted forwards,
+     phase 6c's counted MTP call and phase 4l's ranks' counted bf16
+     forwards (ssd_intra_chunk's too), not
      phase 2's comparisons; the backward kernels' count phase 6d's
      counted train steps), then the ``{"ok": true, ...}`` line.
 
@@ -471,13 +495,13 @@ this process, alone on the card: every kernel time and phase 4's and
 process's zoo phases 6, 6b, 6c and 6d: phases 4c to 4h with 4i-i /
 4i-iv's NCCL worlds of one in a forked process (``fed_phases``; its
 lines are printed here when it ends); the mesh phases' spawned ranks,
-one rank set after another (4j's, 4k's, 4i-ii's, 4i-iv's); and the
+one rank set after another (4j's, 4k's, 4l's, 4i-ii's, 4i-iv's); and the
 serving CLIs but the default one (~17 GB), one after another. 4j's Alg.
 3 holds ~24 GB a rank: the families and the serving CLIs start after
 it; 6d waits for the serving CLIs, 6e (~57 GB) for every lane, and the
 mesh phases' checks run after 6e. The ranks and the forked process
 start as forks of one fork server that imported torch and the port
-once. So the lines of 4c to 4k, 6 to 6d and the serving CLIs were
+once. So the lines of 4c to 4l, 6 to 6d and the serving CLIs were
 measured beside each other (``lanes`` gives each job's seconds and how
 long 6e waited for them). Each line goes to stderr too, after the
 seconds since the start (the forked process's own clock in its stderr,
@@ -606,6 +630,16 @@ SVC2D_CORRUPT_POP = dict(prefetch=0, deadline=0.3, stage_chunks=2)
 SVC2D_PROC_KILL = 1            # the dispatch whose holder is SIGKILLed
 SVC2D_PROC_BUILDER = "chip_smoke:svc2d_worker_trainer"
 SVC2D_TIMEOUT_S = 400          # a spawned rank's whole run
+# phase 4l: the zoo over a model axis, two ranks sharing the card over
+# gloo as (1, ZOO_TP_MODEL): Zamba2-1.2B, Gemma-2B (the slot-split decode)
+# and Granite-MoE-1B at published widths, fp32 runs of ZOO_TP_S positions
+# or ZOO_TP_STEPS decode steps held to one device within ZOO_TP_TOL (the
+# card's forward-vs-decode rule)
+ZOO_TP_MODEL = 2
+ZOO_TP_S, ZOO_TP_STEPS, ZOO_TP_TOL = 256, 32, 2e-3
+ZOO_TP_GEMMA_LAYERS = 4        # Gemma-2B's depth cut (of 18): the phase
+                               # runs beside the zoo phases' ~40 GB
+ZOO_TP_TIMEOUT_S = 300         # a spawned rank's whole run
 FED_CHILD_TIMEOUT_S = 900      # fed_phases' whole run, once 6d is over
 # phase 2: edc_cosine's partial-sum entry at a rank's d_w block of phase
 # 6e's ΔW (FED_DW over MESH2D_MODEL)
@@ -3364,9 +3398,9 @@ def join_child(torch, child, timeout: float, what: str):
 
 
 class Lane(threading.Thread):
-    """The mesh phases' spawned ranks (4j, 4k, 4i-ii, 4i-iv), one job after
-    another on a thread of this process, while this process goes on with
-    the phases that need the card little beside them. A job's records
+    """The mesh phases' spawned ranks (4j, 4k, 4l, 4i-ii, 4i-iv), one job
+    after another on a thread of this process, while this process goes on
+    with the phases that need the card little beside them. A job's records
     stay in its directory under ``build/`` for its phase's checks, which
     run in this process after ``wait``; a job is skipped once one failed."""
 
@@ -3817,6 +3851,8 @@ def svc_nccl1(torch, data, model, smi: str) -> dict:
                 or fleet["block"]["replays"] != SVC_ROUNDS - 1:
             raise AssertionError("phase 4i-iv: a fleet of one differs from "
                                  "run()")
+        # phase 4l's world of one: the zoo's (1, 1) path == mesh=None
+        zoo_nccl1(torch, mesh, smi)
     finally:
         mesh_lib.destroy_process_group()
     torch.cuda.empty_cache()
@@ -4703,6 +4739,318 @@ def services2d_phase(torch, lane: Lane, smi: str) -> dict:
         raise AssertionError(f"phase 4k: {failed}")
     shutil.rmtree(d, ignore_errors=True)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 4l: the zoo over a model axis (tensor parallelism for serving) on two
+# ranks sharing the card, and its world of one over NCCL
+# ---------------------------------------------------------------------------
+
+def zoo_tp_blocks(torch, mesh, cfg, one_device):
+    """A rank's blocks of ``cfg``'s params (random from seed 0 on the
+    card, cut by ``zoo.shard_params``), each rank in turn (the whole tree
+    is on the card for one rank at a time), and rank 0's ``one_device(
+    whole)`` first, the other ranks waiting: -> (blocks, one_device's
+    return on rank 0, else None)."""
+    import gc
+
+    from repro_torch.models import zoo
+
+    blocks = ref = None
+    for r in range(mesh.world):
+        if mesh.rank == r:
+            whole = zoo.init_params(torch.Generator(device="cuda")
+                                    .manual_seed(0), cfg, device="cuda")
+            if r == 0:
+                ref = one_device(whole)
+            blocks = zoo.shard_params(whole, cfg, mesh)
+            del whole
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    return blocks, ref
+
+
+def zoo_decode(torch, params, cfg, tok, mesh=None, kv_spec=None,
+               seq_shard=False):
+    """ZOO_TP_STEPS ``serve_step`` calls over ``tok``'s positions from an
+    empty cache (the rank's blocks of it on a mesh) -> (logits (B, steps,
+    V), each step's host ms ended by a synchronize)."""
+    from repro_torch.models import zoo
+
+    B = tok.shape[0]
+    cache = zoo.init_cache(cfg, B, ZOO_TP_STEPS, device="cuda", mesh=mesh,
+                           seq_shard=seq_shard)
+    outs, ms = [], []
+    for t in range(ZOO_TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = zoo.serve_step(params, cfg, cache, tok[:, t:t + 1],
+                                   torch.full((B,), t, device="cuda"),
+                                   kv_spec=kv_spec, mesh=mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg.float())
+    return torch.stack(outs, 1), ms
+
+
+def zoo_tp_zamba2(torch, mesh) -> dict:
+    """Zamba2-1.2B whole on (1, 2): the fp32 prefill at B1 S ZOO_TP_S and
+    ZOO_TP_STEPS decode steps against one device's (rank 0's whole params
+    while the other rank waits), the bf16 B4 S2048 prefill's ms (median of
+    3 after a warm-up) and peak against one device's, a counted bf16
+    forward's launches."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import tree_leaves
+
+    cfg = registry.get("zamba2-1.2b")
+    f32 = cfg.replace(dtype="float32")
+    g = torch.Generator(device="cuda")
+    tok_f = torch.randint(0, cfg.vocab_size, (1, ZOO_TP_S), device="cuda",
+                          generator=g.manual_seed(3))
+    tok_b = torch.randint(0, cfg.vocab_size, (ZAMBA_B, ZAMBA_S),
+                          device="cuda", generator=g.manual_seed(2))
+
+    def runs(params, mesh):
+        out = {}
+        with torch.inference_mode():
+            out["prefill"] = zoo.forward(params, f32, {"tokens": tok_f},
+                                         mesh=mesh)[0].float()
+            out["decode"], ms = zoo_decode(torch, params, f32, tok_f, mesh)
+            out["decode_step_ms"] = statistics.median(ms)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+            def fwd():
+                return zoo.forward(params, cfg, {"tokens": tok_b},
+                                   mesh=mesh)[0]
+            fwd()                                       # warm-up
+            out["prefill_bf16_ms_each"] = [cuda_ms(torch, fwd, 1, warmup=0)
+                                           for _ in range(3)]
+            out["prefill_bf16_ms"] = statistics.median(
+                out["prefill_bf16_ms_each"])
+            ops.reset_launch_counts()
+            logits = fwd()
+            torch.cuda.synchronize()
+            out["launches"] = ops.launch_counts()
+            out["finite"] = bool(torch.isfinite(logits).all())
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+            del logits
+        return out
+
+    blocks, ref = zoo_tp_blocks(torch, mesh, cfg, lambda p: runs(p, None))
+    got = runs(blocks, mesh)
+    for k in ("prefill", "decode"):
+        mesh.same_on_every_rank(f"zamba2 {k} logits", got[k])
+    rec = {k: v for k, v in got.items() if k not in ("prefill", "decode")}
+    rec["param_bytes"] = sum(t.nbytes for t in tree_leaves(blocks))
+    if ref is not None:
+        rec["one_device"] = {k: v for k, v in ref.items()
+                             if k not in ("prefill", "decode")}
+        for k in ("prefill", "decode"):
+            rec[f"{k}_rel_err"] = grad_rel_err(torch, [got[k]], [ref[k]])
+    return rec
+
+
+def zoo_tp_gemma(torch, mesh) -> dict:
+    """Gemma-2B at its published widths cut to ZOO_TP_GEMMA_LAYERS layers,
+    fp32, on (1, 2): ZOO_TP_STEPS decode steps at B1 with the slot-split
+    cache (kv 1 < 2 ranks: ``cache_specs(seq_shard=True)``, ``kv_spec``),
+    the vocab-parallel embedding and tied head over 256,000 rows, against
+    one device's steps."""
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+    from repro_torch.sharding import specs as sh
+
+    published = registry.get("gemma-2b")
+    cfg = published.replace(dtype="float32", n_layers=ZOO_TP_GEMMA_LAYERS)
+    tok = torch.randint(0, cfg.vocab_size, (1, ZOO_TP_STEPS), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(4))
+    whole = zoo.init_cache(cfg, 1, ZOO_TP_STEPS, device="meta")
+    kv_spec = tuple(sh.cache_specs(whole, cfg, mesh, mp=mesh.model_shards,
+                                   seq_shard=True)["k"][1:])
+
+    def one_device(params):
+        with torch.inference_mode():
+            logits, ms = zoo_decode(torch, params, cfg, tok)
+        return {"decode": logits, "decode_step_ms": statistics.median(ms)}
+
+    blocks, ref = zoo_tp_blocks(torch, mesh, cfg, one_device)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        logits, ms = zoo_decode(torch, blocks, cfg, tok, mesh, kv_spec, True)
+    mesh.same_on_every_rank("gemma decode logits", logits)
+    rec = {"reduced": f"n_layers {published.n_layers} -> {cfg.n_layers}",
+           "kv_spec": list(kv_spec), "decode_step_ms": statistics.median(ms),
+           "cache_slots_a_rank": ZOO_TP_STEPS // mesh.model_shards,
+           "embed_rows_a_rank": int(blocks["embed"].shape[0]),
+           "finite": bool(torch.isfinite(logits).all()),
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    if ref is not None:
+        rec["one_device_decode_step_ms"] = ref["decode_step_ms"]
+        rec["decode_rel_err"] = grad_rel_err(torch, [logits],
+                                             [ref["decode"]])
+    return rec
+
+
+def zoo_tp_granite(torch, mesh) -> dict:
+    """Granite-MoE-1B whole, fp32, on (1, 2): the prefill at B1 S ZOO_TP_S
+    with half the experts a rank, against one device's."""
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+
+    cfg = registry.get("granite-moe-1b-a400m").replace(dtype="float32")
+    tok = torch.randint(0, cfg.vocab_size, (1, ZOO_TP_S), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(5))
+
+    def prefill(params, mesh=None):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = zoo.forward(params, cfg, {"tokens": tok},
+                                 mesh=mesh)[0].float()
+            torch.cuda.synchronize()
+        return {"prefill": logits,
+                "prefill_ms": (time.perf_counter() - t0) * 1e3}
+
+    blocks, ref = zoo_tp_blocks(torch, mesh, cfg, prefill)
+    got = prefill(blocks, mesh)
+    mesh.same_on_every_rank("granite-moe prefill logits", got["prefill"])
+    rec = {"prefill_ms": got["prefill_ms"],
+           "experts_a_rank": int(blocks["blocks"]["moe"]["w_up"].shape[1]),
+           "finite": bool(torch.isfinite(got["prefill"]).all())}
+    if ref is not None:
+        rec["one_device_prefill_ms"] = ref["prefill_ms"]
+        rec["prefill_rel_err"] = grad_rel_err(torch, [got["prefill"]],
+                                              [ref["prefill"]])
+    return rec
+
+
+def zoo_tp_rank_main(rank: int, world: int, store: str, out: str) -> int:
+    """A phase-4l rank (a process of its own) of a (1, ZOO_TP_MODEL) mesh
+    over gloo: Zamba2-1.2B, Gemma-2B (the slot-split decode) and
+    Granite-MoE-1B on its blocks (``zoo_tp_zamba2`` / ``_gemma`` /
+    ``_granite``), rank 0 also running each whole on its own first; the
+    gathered logits must be equal on every rank. Writes ``out``.json."""
+    import torch
+
+    import repro_torch  # noqa: F401  (sets the fp32 matmul policy)
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                local_rank=rank, local_world=world)
+    try:
+        mesh = mesh_lib.make_fed_mesh(world // ZOO_TP_MODEL, ZOO_TP_MODEL)
+        recs = {"backend": mesh.backend, "device": str(mesh.device),
+                "model_index": mesh.model_index}
+        for name, fn in (("zamba2", zoo_tp_zamba2), ("gemma", zoo_tp_gemma),
+                         ("granite_moe", zoo_tp_granite)):
+            t0 = time.perf_counter()
+            recs[name] = fn(torch, mesh)
+            recs[name]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        Path(out + ".json").write_text(json.dumps(recs))
+    finally:
+        mesh_lib.destroy_process_group()
+    return 0
+
+
+def zoo_tp_ranks() -> None:
+    """Phase 4l's (1, ZOO_TP_MODEL) ranks in ``build/zoo_tp``; any rank's
+    failure fails the phase (``run_ranks``)."""
+    d = ROOT / "build" / "zoo_tp"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    run_ranks("zoo_tp_rank_main", ZOO_TP_MODEL, d, "store", (),
+              ZOO_TP_TIMEOUT_S, 0, "phase 4l")
+
+
+def zoo_tp_phase(torch, lane: Lane, smi: str) -> dict:
+    """Phase 4l: the ranks' records checked here: rank 0's logits within
+    ZOO_TP_TOL of one device's (max |Δ| over max |logit|), every output
+    finite, the gloo backend on one card, each rank's counted bf16 Zamba2
+    forward launching swa_attention (``tc``) once a shared-block
+    application and ssd_intra_chunk (``tc``) once a layer on its local
+    heads. Returns the launch counts of the ranks' counted forwards."""
+    t_phase = time.perf_counter()
+    spawn_s = lane.wait("zoo_tp")
+    d = ROOT / "build" / "zoo_tp"
+    recs = [json.loads((d / f"rank{r}.json").read_text())
+            for r in range(ZOO_TP_MODEL)]
+    from repro_torch.configs import registry
+    want = expected_launches(torch, registry.get("zamba2-1.2b"))
+    failed, counts = [], {}
+    for r, rec in enumerate(recs):
+        for name in ("zamba2", "gemma", "granite_moe"):
+            emit({"phase": "zoo_tp", "model": name, "rank": r,
+                  "mesh": f"1x{ZOO_TP_MODEL}", "backend": rec["backend"],
+                  "device": rec["device"], "nvidia_smi": smi, **rec[name]})
+            if not rec[name]["finite"]:
+                failed.append(f"rank {r} {name}: non-finite logits")
+        z = rec["zamba2"]
+        if z["launches"] != want:
+            failed.append(f"rank {r}: a bf16 Zamba2 forward launched "
+                          f"{z['launches']}, not {want}")
+        for k, v in z["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+        if rec["backend"] != "gloo":
+            failed.append(f"rank {r}: backend {rec['backend']}")
+    r0 = recs[0]
+    for name, keys in (("zamba2", ("prefill_rel_err", "decode_rel_err")),
+                       ("gemma", ("decode_rel_err",)),
+                       ("granite_moe", ("prefill_rel_err",))):
+        for k in keys:
+            if not r0[name][k] <= ZOO_TP_TOL:
+                failed.append(f"{name} {k} {r0[name][k]} > {ZOO_TP_TOL}")
+    emit({"phase": "zoo_tp_phase", "launches": counts, "spawn_s": spawn_s,
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    if failed:
+        raise AssertionError(f"phase 4l: {failed}")
+    return counts
+
+
+def zoo_nccl1(torch, mesh, smi: str) -> dict:
+    """Phase 4l on an NCCL world of one (``mesh``, in ``svc_nccl1``):
+    Zamba2-1.2B whole, the fp32 B1 S ZOO_TP_S prefill and ZOO_TP_STEPS
+    decode steps through the mesh's (1, 1) path against ``mesh=None``:
+    equal bit for bit (a model axis of one rank is the path of one
+    device)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import zoo
+
+    cfg = registry.get("zamba2-1.2b").replace(dtype="float32")
+    params = zoo.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             cfg, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (1, ZOO_TP_S), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(3))
+    with torch.inference_mode():
+        out = {}
+        for label, m in (("none", None), ("mesh", mesh)):
+            local = params if m is None else zoo.shard_params(params, cfg, m)
+            out[label] = (zoo.forward(local, cfg, {"tokens": tok},
+                                      mesh=m)[0],
+                          zoo_decode(torch, local, cfg, tok, m)[0])
+    rec = {"phase": "zoo_tp", "model": "zamba2", "world": 1,
+           "backend": mesh.backend, "nvidia_smi": smi,
+           "prefill_equal": bool(torch.equal(out["mesh"][0],
+                                             out["none"][0])),
+           "decode_equal": bool(torch.equal(out["mesh"][1],
+                                            out["none"][1]))}
+    emit(rec)
+    del params, out
+    torch.cuda.empty_cache()
+    if mesh.backend != "nccl" or not (rec["prefill_equal"]
+                                      and rec["decode_equal"]):
+        raise AssertionError(f"phase 4l: the NCCL world of one differs from "
+                             f"mesh=None: {rec}")
+    return rec
 
 
 def population_run(torch, prefetch: int):
@@ -6474,8 +6822,8 @@ def held_pair(torch, arch: str, shape_name: str, batch: int):
 
     full = shp.SHAPES[shape_name]
     shape = shp.InputShape(shape_name, full.seq_len, batch, full.kind)
-    rec = dryrun.run_one(arch, shape_name, shape=shape, save=False,
-                         verbose=False)
+    rec = dryrun.run_one(arch, shape_name, shape=shape, mesh="1",
+                         save=False, verbose=False)
     cfg = shp.config_for(dryrun.arch_config(arch), shape)
     gen = torch.Generator(device="cuda").manual_seed(0)
     fn, args = dryrun.build_step(cfg, shape, device="cuda", gen=gen)
@@ -6713,6 +7061,7 @@ def main() -> int:
     # child process. 6e, whose Alg. 3 holds ~57 GB, waits for all three
     fed = start_child("fed_phases", "fed", smi)
     lane = Lane([("mesh2d", mesh2d_ranks), ("svc2d", svc2d_ranks),
+                 ("zoo_tp", zoo_tp_ranks),
                  ("mesh_gloo2", lambda: mesh_ranks(2, 2, "gloo2")),
                  ("svc_gloo2", svc_ranks)])
     lane.start()
@@ -6771,6 +7120,8 @@ def main() -> int:
     # phase 4k: the runtime services under a model axis and process workers
     # under a mesh, on two ranks sharing the card
     counts_2k = services2d_phase(torch, lane, smi)
+    # phase 4l: the zoo over a model axis on two ranks sharing the card
+    counts_tp = zoo_tp_phase(torch, lane, smi)
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
@@ -6796,11 +7147,13 @@ def main() -> int:
                 "madc": counts_edc["madc"] + counts_madc["madc"],
                 "swa_attention.tc": counts_zoo["swa_attention.tc"]
                 + counts_fam["swa_attention.tc"]
-                + counts_last["swa_attention.tc"],
+                + counts_last["swa_attention.tc"]
+                + counts_tp["swa_attention.tc"],
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"]
                 + counts_fam["swa_attention.fp32"]
                 + counts_last["swa_attention.fp32"],
-                "ssd_intra_chunk.tc": counts_zoo["ssd_intra_chunk.tc"],
+                "ssd_intra_chunk.tc": counts_zoo["ssd_intra_chunk.tc"]
+                + counts_tp["ssd_intra_chunk.tc"],
                 "ssd_intra_chunk.fp32": counts_f32["ssd_intra_chunk.fp32"],
                 "swa_attention_bwd.tc": counts_train["swa_attention_bwd.tc"],
                 "swa_attention_bwd.fp32":

@@ -5,7 +5,9 @@ seed, so a parity test builds the JAX package's params (as numpy arrays)
 and loads them here. Nested dicts are kept nested, lists (xLSTM's
 ``blocks_list``, its cache's ``"xlstm"``) stay lists in their order. A
 training state (``zoo.init_train_state``'s: params, ``mu``, ``nu``,
-``step``) carries across the same way.
+``step``) carries across the same way. On a mesh a rank keeps its blocks
+of the whole tree (``params_from_numpy`` with ``cfg`` and ``mesh``:
+``zoo.shard_params``).
 """
 from __future__ import annotations
 
@@ -13,9 +15,15 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cpu", *, cfg=None, mesh=None):
     """Tree (dicts, lists) of numpy arrays (or array-likes) -> the same
-    tree of tensors on device."""
+    tree of tensors on device; with ``mesh`` (and the zoo's ``cfg``) the
+    rank's blocks of it by ``sharding.specs.param_specs``, each leaf cut
+    before it is copied to the device."""
+    if mesh is not None:
+        from repro_torch.models import zoo
+        return params_from_numpy(
+            zoo.shard_params(params_from_numpy(tree), cfg, mesh), device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, list):

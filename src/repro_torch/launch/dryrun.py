@@ -1,38 +1,50 @@
-"""The dry run without a mesh (``repro.launch.dryrun`` less the mesh):
-every (architecture × input shape) step built on ``meta`` tensors, run
-once, and recorded as far as one device can tell.
+"""The zoo's dry run (``repro.launch.dryrun``): every (architecture ×
+input shape) step built on ``meta`` tensors, run once, and recorded.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all     # 40 pairs
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b --shape decode_32k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all               # 16x16
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod   # 2x16x16
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 1      # no mesh
 
 The reference lowers and compiles each step for a 512-device host mesh and
 reads XLA's analyses. Here the step's inputs, params, train state and cache
 are ``meta`` tensors (shapes and dtypes: nothing is allocated on any
 device, as the reference's runs on placeholder host devices), and the step
-runs once under ``torch.utils.flop_counter.FlopCounterMode``. A record
-keeps the reference's keys where one device can give them:
+runs once under ``torch.utils.flop_counter.FlopCounterMode``.
 
-  mesh             "1";
+By default the CLI makes a ``fake`` process group of 256 ranks (512 with
+``--multi-pod``) in its own process, as ``launch/fed_dryrun.py`` does, and
+runs rank 0's program of a prefill or decode pair on the production mesh
+(``launch.mesh.make_production_mesh``: 16 × 16 as ("data", "model"), or 2 ×
+16 × 16 with a leading "pod"): its blocks of the params
+(``sharding.specs.param_specs``), its rows of the batch (``data_specs``)
+and its blocks of the cache (``cache_specs``, with ``--cache-seq-shard``
+the slot-split layout), through ``zoo.forward`` / ``zoo.serve_step`` with
+``mesh=``. A train pair on the mesh is a ``skip`` record: training under a
+model axis is ROADMAP.md item 16d-ii, and so are the flags that shard a
+train state or batch (``--zero``, ``--fsdp``, ``--batch-over-model``,
+``--moe-2d``), refused with ``NotImplementedError``. ``--mesh 1`` runs the
+step of one device, as before. A record keeps the reference's keys where
+the port can give them:
+
+  mesh             "16x16", "2x16x16" (and ``axes``), or "1";
   trace_s          the meta run's seconds (for ``lower_s`` / ``compile_s``);
   memory_analysis  ``argument_size_in_bytes`` (the inputs with the params,
-                   train state or cache), ``output_size_in_bytes`` and
-                   ``alias_size_in_bytes`` (the donated train state or
-                   cache), each the Σ ``nbytes`` of the meta tensors;
-  cost_analysis    ``flops``, and ``flops_by_op``: the ops counted.
+                   train state or cache: rank 0's blocks on a mesh),
+                   ``output_size_in_bytes`` and ``alias_size_in_bytes``
+                   (the donated train state or cache), each the Σ
+                   ``nbytes`` of the meta tensors;
+  cost_analysis    ``flops``, and ``flops_by_op``: the ops counted;
+  collectives      on a mesh: ``n_collectives``,
+                   ``collective_bytes_total`` / ``_by_kind`` (each
+                   collective's buffer on rank 0), ``collectives_by_op``
+                   and ``collectives_by_group`` (world, data, model),
+                   counted by ``CommDebugMode`` and logged by the mesh
+                   (``FedMesh.comm_log``), which must agree.
 
-It differs from the reference in three ways, which every record also
-names under ``differences``:
-  - no ``temp_size_in_bytes``: a ``meta`` tensor has no allocator, so a
-    step's temporaries are unknown here (``chip_smoke.py`` measures the
-    peak of three steps on the card);
-  - FLOPs count every layer, and only the ops FlopCounterMode knows
-    (matmuls, convolutions, attention); the reference's
-    ``cost_analysis`` counts a scan's body once (``repro/launch/
-    dryrun.py:15-18``);
-  - no collective inventory, and the flags whose only effect is a
-    sharding raise ``NotImplementedError``: the zoo's tensor parallelism
-    is ROADMAP.md queue 1, item 16d.
+How it differs from the reference, each record names under
+``differences`` (``DIFFERENCES``, ``MESH_DIFFERENCES``).
 
 ``serve_step`` returns a new cache rather than writing the donated one, so
 on a card a decode step holds both; ``alias_size_in_bytes`` is the cache
@@ -42,6 +54,7 @@ JSON a run.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -49,11 +62,14 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import registry, shapes as shp
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import not_ported_16
 from repro_torch.models import zoo
+from repro_torch.sharding import specs as sh
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -62,7 +78,30 @@ DIFFERENCES = {
     "temp_size_in_bytes": "not available: meta tensors have no allocator",
     "flops": "every layer counted, and only the ops FlopCounterMode knows; "
              "the reference counts scan bodies once",
-    "collectives": "no mesh: ROADMAP.md queue 1, item 16d",
+    "collectives": "no mesh (--mesh 1): the production mesh's records "
+                   "carry them",
+}
+# what a production-mesh record differs in from the reference's HLO parse
+MESH_DIFFERENCES = {
+    **DIFFERENCES,
+    "collectives": "the port's own collectives (FedMesh sums and gathers "
+                   "over the model and data groups, as the zoo's layers "
+                   "call them), counted by CommDebugMode and the mesh's "
+                   "log, not the ones XLA's partitioner inserts and the "
+                   "reference parses from partitioned HLO; bytes are each "
+                   "collective's buffer on rank 0 (a gather's whole "
+                   "output), every layer counted (no loop multipliers)",
+    "collective_dtype": "row-parallel partial sums and gathers move as fp32 "
+                        "(bf16 activations are summed in fp32, then cast "
+                        "back)",
+    "flops": "rank 0's program, every layer counted, only the ops "
+             "FlopCounterMode knows",
+    "argument_size_in_bytes": "rank 0's blocks: params by param_specs, "
+                              "batch by data_specs, cache by cache_specs",
+    "kv_spec": "with --cache-seq-shard an MLA cache takes the slot-split "
+               "decode too (the reference passes kv_spec for an attention "
+               "cache only and leaves MLA's to XLA)",
+    "train": "train pairs are skipped on a mesh: ROADMAP.md item 16d-ii",
 }
 
 # flags whose only effect is a sharding: (argparse dest, what it shards)
@@ -74,14 +113,21 @@ SHARDING_FLAGS = {
     "batch_over_model": "the train batch sharded over the model axis",
     "moe_2d": "experts sharded over data x model",
 }
+# those that shard a train state or a train batch: not ported (16d-ii);
+# --fsdp is ZeRO-3, so refused for prefill and decode too
+TRAIN_FLAGS = ("zero", "fsdp", "batch_over_model", "moe_2d")
+# those the production mesh runs; --mesh 1 has no mesh for them
+MESH_FLAGS = ("multi_pod", "cache_seq_shard")
 
 
 def refuse_sharding(**flags):
-    """Raises ``NotImplementedError`` naming ROADMAP item 16d for the first
-    sharding flag that is set."""
-    for name, what in SHARDING_FLAGS.items():
+    """Raises ``NotImplementedError`` naming ROADMAP item 16d-ii for the
+    first flag set that shards a train state or batch; the mesh flags
+    (``MESH_FLAGS``) are ported and pass."""
+    for name in TRAIN_FLAGS:
         if flags.get(name):
-            raise not_ported_16(f"--{name.replace('_', '-')} ({what})")
+            raise not_ported_16(f"--{name.replace('_', '-')} "
+                                f"({SHARDING_FLAGS[name]})")
 
 
 def arch_config(arch: str, *, smoke: bool = False, bf16_params: bool = False,
@@ -165,6 +211,98 @@ def build_step(cfg: zoo.ArchConfig, shape: shp.InputShape, device="meta",
     return decode, (params, ins["cache"], ins["tokens"], ins["pos"])
 
 
+def mesh_step(cfg: zoo.ArchConfig, shape: shp.InputShape, mesh,
+              cache_seq_shard: bool = False):
+    """(fn, args) of a rank's prefill or decode step on ``mesh``, on
+    ``meta``: its blocks of the params (``param_specs`` at the mesh's model
+    axis), of the batch or tokens and positions (``data_specs``) and of
+    the cache (``cache_specs(seq_shard=cache_seq_shard)``; ``kv_spec``, one
+    layer's spec of the attention or MLA cache, when it is slot-split)."""
+    if shape.kind == "train":
+        raise not_ported_16("a train step on a mesh")
+    M, gb = mesh.model_shards, shape.global_batch
+    whole = zoo.init_params(None, cfg, device="meta")
+    params = sh.tree_blocks(whole, sh.param_specs(whole, cfg, mp=M), mesh)
+    ins = input_specs(cfg, shape)
+    if shape.kind == "prefill":
+        batch = sh.tree_blocks(ins, sh.data_specs(ins, mesh), mesh)
+
+        def prefill(params, batch):
+            logits, _ = zoo.forward(params, cfg, batch, mesh=mesh,
+                                    global_batch=gb)
+            return logits
+        return prefill, (params, batch)
+    c_specs = sh.cache_specs(ins["cache"], cfg, mesh, mp=M,
+                             seq_shard=cache_seq_shard)
+    cache = sh.tree_blocks(ins["cache"], c_specs, mesh)
+    tp = {k: ins[k] for k in ("tokens", "pos")}
+    tp = sh.tree_blocks(tp, sh.data_specs(tp, mesh), mesh)
+    kv_spec = None
+    key = "k" if "k" in c_specs else ("c_kv" if "c_kv" in c_specs else None)
+    if cache_seq_shard and key is not None and \
+            zoo._slot_split(c_specs[key][1:]):
+        kv_spec = tuple(c_specs[key][1:])
+
+    def decode(params, cache, tokens, pos):
+        return zoo.serve_step(params, cfg, cache, tokens, pos,
+                              kv_spec=kv_spec, mesh=mesh, global_batch=gb)
+    return decode, (params, cache, tp["tokens"], tp["pos"])
+
+
+@contextlib.contextmanager
+def fake_world(multi_pod: bool = False):
+    """A ``fake`` process group of 256 ranks (512 with ``multi_pod``) made
+    here, this process rank 0, and its production mesh on ``meta``; the
+    group is destroyed on the way out. The caller must hold no process
+    group (the CLIs run in a process of their own)."""
+    if dist.is_initialized():
+        raise RuntimeError("a production-mesh record makes its own fake "
+                           "process group; run it in a process that holds "
+                           "none")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=512 if multi_pod else 256)
+    try:
+        yield mesh_lib.make_production_mesh(multi_pod=multi_pod,
+                                            device="meta")
+    finally:
+        mesh_lib.destroy_process_group()
+
+
+def measure_on_mesh(mesh, fn, args, *, alias: int = 0,
+                    differences=MESH_DIFFERENCES,
+                    t0: float | None = None) -> dict:
+    """``measure`` of rank 0's ``fn(*args)`` on ``mesh`` (a ``fake_world``
+    one), with its collective inventory: ``CommDebugMode``'s count must
+    equal the mesh's log (``FedMesh.comm_log``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    mesh.comm_log = []
+    try:
+        with CommDebugMode() as comm:
+            measured = measure(fn, args, alias=alias,
+                               differences=differences, t0=t0)
+        log = mesh.comm_log
+    finally:
+        mesh.comm_log = None
+    if comm.get_total_counts() != len(log):
+        raise RuntimeError(f"CommDebugMode counted {comm.get_total_counts()} "
+                           f"collectives, the mesh logged {len(log)}")
+    by_kind, by_group = {}, {}
+    for kind, group, nb in log:
+        by_kind[kind] = by_kind.get(kind, 0) + nb
+        g = by_group.setdefault(group, {"n": 0, "bytes": 0})
+        g["n"] += 1
+        g["bytes"] += nb
+    return {"mesh": "x".join(str(v) for v in mesh.shape.values()),
+            "axes": list(mesh.axis_names), **measured,
+            "collective_bytes_total": int(sum(by_kind.values())),
+            "collective_bytes_by_kind": by_kind,
+            "n_collectives": len(log),
+            "collectives_by_op": {str(k): int(v) for k, v in
+                                  comm.get_comm_counts().items()},
+            "collectives_by_group": by_group}
+
+
 def nbytes(tree) -> int:
     """Σ ``nbytes`` of the tensors of a nested dict / list / tuple."""
     if isinstance(tree, torch.Tensor):
@@ -213,24 +351,32 @@ def measure(fn, args, *, alias: int = 0, differences=DIFFERENCES,
 
 
 def run_one(arch: str, shape_name: str, *, shape: shp.InputShape | None = None,
-            smoke: bool = False, multi_pod: bool = False, zero: bool = False,
-            fsdp: bool = False, cache_seq_shard: bool = False,
-            mlstm_chunkwise: bool = False, xlstm_opt: bool = False,
-            batch_over_model: bool = False, moe_2d: bool = False,
-            bf16_params: bool = False, moe_grouped: bool = False,
-            attn_chunk: int | None = None, save: bool = True,
-            verbose: bool = True) -> dict:
-    """The record of one (arch, shape) pair on ``meta``. ``shape`` replaces
-    ``SHAPES[shape_name]`` (a batch cut, or a small shape for a smoke
-    variant, ``smoke=True``)."""
-    refuse_sharding(multi_pod=multi_pod, zero=zero, fsdp=fsdp,
-                    cache_seq_shard=cache_seq_shard,
-                    batch_over_model=batch_over_model, moe_2d=moe_2d)
+            smoke: bool = False, mesh: str = "production",
+            multi_pod: bool = False, zero: bool = False, fsdp: bool = False,
+            cache_seq_shard: bool = False, mlstm_chunkwise: bool = False,
+            xlstm_opt: bool = False, batch_over_model: bool = False,
+            moe_2d: bool = False, bf16_params: bool = False,
+            moe_grouped: bool = False, attn_chunk: int | None = None,
+            save: bool = True, verbose: bool = True) -> dict:
+    """The record of one (arch, shape) pair on ``meta``: rank 0's on the
+    production mesh in a ``fake_world`` made here (the caller must hold no
+    process group), or with ``mesh="1"`` the step of one device. ``shape``
+    replaces ``SHAPES[shape_name]`` (a batch cut, or a small shape for a
+    smoke variant, ``smoke=True``)."""
+    refuse_sharding(zero=zero, fsdp=fsdp, batch_over_model=batch_over_model,
+                    moe_2d=moe_2d)
+    on_mesh = mesh != "1"
+    if not on_mesh and (multi_pod or cache_seq_shard):
+        raise ValueError("--multi-pod and --cache-seq-shard run on the "
+                         "production mesh, not --mesh 1")
     base = arch_config(arch, smoke=smoke, bf16_params=bf16_params,
                        moe_grouped=moe_grouped, attn_chunk=attn_chunk,
                        mlstm_chunkwise=mlstm_chunkwise, xlstm_opt=xlstm_opt)
     shape = shape or shp.SHAPES[shape_name]
     ok, why = shp.supported(base, shape)
+    if ok and on_mesh and shape.kind == "train":
+        ok, why = False, ("a train step on a mesh is not yet ported: "
+                          "ROADMAP.md queue 1, item 16d-ii")
     if not ok:
         if verbose:
             print(f"SKIP {arch} x {shape_name}: {why}")
@@ -238,27 +384,42 @@ def run_one(arch: str, shape_name: str, *, shape: shp.InputShape | None = None,
                 "reason": why}
     cfg = shp.config_for(base, shape)
 
+    head = {"arch": arch, "shape": shape_name, "status": "ok",
+            "input_shape": dataclasses.asdict(shape), "smoke": smoke,
+            "window": cfg.window}
     t0 = time.time()
-    fn, args = build_step(cfg, shape)
-    # the donated bytes are read before a train step mutates its state
-    rec = {"arch": arch, "shape": shape_name, "mesh": "1", "status": "ok",
-           "input_shape": dataclasses.asdict(shape), "smoke": smoke,
-           "window": cfg.window,
-           **measure(fn, args, alias=donated(shape, args), t0=t0)}
+    if on_mesh:
+        with fake_world(multi_pod) as m:
+            fn, args = mesh_step(cfg, shape, m, cache_seq_shard)
+            rec = {**head, "multi_pod": multi_pod,
+                   "cache_seq_shard": cache_seq_shard,
+                   **measure_on_mesh(m, fn, args, alias=donated(shape, args),
+                                     t0=t0)}
+    else:
+        fn, args = build_step(cfg, shape)
+        # the donated bytes are read before a train step mutates its state
+        rec = {**head, "mesh": "1",
+               **measure(fn, args, alias=donated(shape, args), t0=t0)}
     mem_d = rec["memory_analysis"]
     if xlstm_opt:
         rec["sharding_left_out"] = SHARDING_FLAGS["batch_over_model"] + \
-            " (--xlstm-opt): ROADMAP.md queue 1, item 16d"
+            " (--xlstm-opt): ROADMAP.md queue 1, item 16d-ii"
     if verbose:
-        print(f"OK {arch} x {shape_name} mesh=1 trace={rec['trace_s']:.1f}s")
+        print(f"OK {arch} x {shape_name} mesh={rec['mesh']} "
+              f"trace={rec['trace_s']:.1f}s")
         print(f"   memory: args={mem_d['argument_size_in_bytes'] / 2**30:.2f}"
               f"GiB out={mem_d['output_size_in_bytes'] / 2**30:.2f}GiB "
               f"alias={mem_d['alias_size_in_bytes'] / 2**30:.2f}GiB (no temp "
               "on meta)")
-        print(f"   flops={rec['cost_analysis']['flops']:.3e}")
+        print(f"   flops={rec['cost_analysis']['flops']:.3e}"
+              + (f" collectives={rec['n_collectives']} "
+                 f"({rec['collective_bytes_total']:.3e} B)" if on_mesh
+                 else ""))
     if save:
         os.makedirs(OUT_DIR, exist_ok=True)
-        tag = f"{arch}_{shape_name}_1" + ("_smoke" if smoke else "") \
+        tag = f"{arch}_{shape_name}_{rec['mesh']}" \
+            + ("_seqshard" if cache_seq_shard else "") \
+            + ("_smoke" if smoke else "") \
             + ("_chunkwise" if mlstm_chunkwise else "") \
             + ("_xlstmopt" if xlstm_opt else "") \
             + ("_bf16p" if bf16_params else "") \
@@ -274,21 +435,26 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(shp.SHAPES))
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--mesh", choices=("production", "1"),
+                    default="production",
+                    help="the production mesh (16x16, or 2x16x16 with "
+                         "--multi-pod) in a fake world, or 1: no mesh")
     ap.add_argument("--multi-pod", action="store_true", dest="multi_pod")
     ap.add_argument("--zero", action="store_true",
                     help="shard optimizer moments over the data axis (ZeRO-1)"
-                         "; item 16")
+                         "; item 16d-ii")
     ap.add_argument("--fsdp", action="store_true",
                     help="also shard params over the data axis (ZeRO-3); "
-                         "item 16")
+                         "item 16d-ii")
     ap.add_argument("--mlstm-chunkwise", action="store_true",
                     dest="mlstm_chunkwise",
                     help="chunkwise-parallel mLSTM instead of recurrent scan")
     ap.add_argument("--xlstm-opt", action="store_true", dest="xlstm_opt",
                     help="optimized xLSTM config: chunkwise Q=256 + unit "
-                         "scan (its batch-over-model sharding is item 16)")
+                         "scan (its batch-over-model sharding is item "
+                         "16d-ii)")
     ap.add_argument("--moe-2d", action="store_true", dest="moe_2d",
-                    help="2-D expert parallelism; item 16")
+                    help="2-D expert parallelism; item 16d-ii")
     ap.add_argument("--attn-chunk", type=int, default=None, dest="attn_chunk",
                     help="query-chunked attention block size")
     ap.add_argument("--moe-grouped", action="store_true", dest="moe_grouped",
@@ -297,12 +463,17 @@ def main(argv=None) -> int:
                     help="bf16 parameter storage (fp32 moments)")
     ap.add_argument("--batch-over-model", action="store_true",
                     dest="batch_over_model",
-                    help="shard the train batch over the model axis; item 16")
+                    help="shard the train batch over the model axis; item "
+                         "16d-ii")
     ap.add_argument("--cache-seq-shard", action="store_true",
                     dest="cache_seq_shard",
-                    help="shard decode caches over sequence; item 16")
+                    help="shard decode caches over the slots where the kv "
+                         "heads do not divide the model axis")
     args = ap.parse_args(argv)
-    refuse_sharding(**{k: getattr(args, k) for k in SHARDING_FLAGS})
+    refuse_sharding(**{k: getattr(args, k) for k in TRAIN_FLAGS})
+    if args.mesh == "1" and any(getattr(args, f) for f in MESH_FLAGS):
+        ap.error("--multi-pod and --cache-seq-shard run on the production "
+                 "mesh, not --mesh 1")
 
     if args.all:
         pairs = [(a, s) for a in registry.ARCHS for s in shp.SHAPES]
@@ -314,7 +485,10 @@ def main(argv=None) -> int:
     results = []
     for a, s in pairs:
         try:
-            results.append(run_one(a, s, mlstm_chunkwise=args.mlstm_chunkwise,
+            results.append(run_one(a, s, mesh=args.mesh,
+                                   multi_pod=args.multi_pod,
+                                   cache_seq_shard=args.cache_seq_shard,
+                                   mlstm_chunkwise=args.mlstm_chunkwise,
                                    xlstm_opt=args.xlstm_opt,
                                    bf16_params=args.bf16_params,
                                    moe_grouped=args.moe_grouped,

@@ -52,7 +52,6 @@ import sys
 import time
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.fed import parallel as fp
 from repro_torch.fed.client import draw_batch_indices
@@ -220,51 +219,20 @@ def mesh_record(workload: str, *, multi_pod: bool = False,
                 qr: str = "householder", d_w: int = D_W) -> dict:
     """The record of rank 0's program of ``workload`` on the production
     mesh, inside a ``fake`` process group of 256 (512 with ``multi_pod``)
-    ranks made here and destroyed at the end: the caller must hold no
-    process group (the CLI runs in a process of its own)."""
-    if dist.is_initialized():
-        raise RuntimeError("mesh_record makes its own fake process group; "
-                           "run it in a process that holds none")
-    from torch.distributed.tensor.debug import CommDebugMode
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    world = 512 if multi_pod else 256
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=world)
-    try:
-        mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod,
-                                             device="meta")
+    ranks made here and destroyed at the end (``dryrun.fake_world``): the
+    caller must hold no process group (the CLI runs in a process of its
+    own)."""
+    with dryrun.fake_world(multi_pod) as mesh:
         if workload == "round":
             fn, fargs = run_round(mesh=mesh)
         else:
             fn, fargs = run_coldstart(d_w=d_w, qr_impl=qr, mesh=mesh)
-        mesh.comm_log = []
-        t0 = time.time()
-        with CommDebugMode() as comm:
-            measured = dryrun.measure(fn, fargs,
-                                      differences=MESH_DIFFERENCES, t0=t0)
-        log, mesh.comm_log = mesh.comm_log, None
-    finally:
-        mesh_lib.destroy_process_group()
-    if comm.get_total_counts() != len(log):
-        raise RuntimeError(f"CommDebugMode counted {comm.get_total_counts()} "
-                           f"collectives, the mesh logged {len(log)}")
-    by_kind, by_group = {}, {}
-    for kind, group, nb in log:
-        by_kind[kind] = by_kind.get(kind, 0) + nb
-        g = by_group.setdefault(group, {"n": 0, "bytes": 0})
-        g["n"] += 1
-        g["bytes"] += nb
-    name = "x".join(str(v) for v in mesh.shape.values())
-    return {"workload": f"fedgroup_{workload}", "mesh": name,
-            "axes": list(mesh.axis_names), "qr": qr, "status": "ok",
+        rec = dryrun.measure_on_mesh(mesh, fn, fargs,
+                                     differences=MESH_DIFFERENCES)
+    return {"workload": f"fedgroup_{workload}", "mesh": rec.pop("mesh"),
+            "axes": rec.pop("axes"), "qr": qr, "status": "ok",
             "argument_shapes": [list(t.shape) for t in tree_leaves(fargs)],
-            **measured,
-            "collective_bytes_total": int(sum(by_kind.values())),
-            "collective_bytes_by_kind": by_kind,
-            "n_collectives": len(log),
-            "collectives_by_op": {str(k): int(v) for k, v in
-                                  comm.get_comm_counts().items()},
-            "collectives_by_group": by_group}
+            **rec}
 
 
 def main(argv=None) -> int:

@@ -79,10 +79,11 @@ _HOST_GROUP = None
 
 def not_ported_16(what: str):
     """The ``NotImplementedError`` of a mesh feature left to ROADMAP.md
-    queue 1, item 16d (the zoo's tensor parallelism)."""
+    queue 1, item 16d-ii (the zoo's tensor parallelism for training: a
+    sharded train state and batch, collectives with gradients)."""
     return NotImplementedError(
         f"{what} is not yet ported to repro_torch: ROADMAP.md queue 1, item "
-        "16d (the zoo's tensor parallelism)")
+        "16d-ii (the zoo's tensor parallelism for training)")
 
 
 @dataclass(eq=False)
@@ -228,6 +229,20 @@ class FedMesh:
         out = self._stack(t, self.model_group, M, "model")
         return torch.cat([out[j].narrow(dim, 0, cuts[j + 1] - cuts[j])
                           for j in range(M)], dim)
+
+    def data_stack(self, t: torch.Tensor) -> torch.Tensor:
+        """(D, *t.shape): the data group's ``t`` (one rank a data slice,
+        equal shapes) in slice order; over gloo, a zero-filled buffer with
+        this slice's row written, summed over the data group."""
+        D = self.data_shards
+        if D == 1:
+            return t[None]
+        if self._gathers():
+            return self._stack(t[None], self.data_group, D, "data").reshape(
+                (D,) + tuple(t.shape))
+        buf = t.new_zeros((D,) + tuple(t.shape))
+        buf[self.data_index] = t
+        return self.data_sum(buf)
 
     def model_cols(self, d: int) -> tuple:
         """This rank's ``(lo, hi)`` block of d columns sharded over the

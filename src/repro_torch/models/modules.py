@@ -12,6 +12,12 @@ Init draws from an explicit ``torch.Generator`` on the target device. On
 the ``meta`` device nothing is drawn (``gen`` may be None): that builds a
 param tree of shapes only, for counting.
 
+Under a mesh with a model axis (the zoo's tensor parallelism) a layer's
+``*_apply`` takes ``tp``, a ``ModelAxis``: the rank's place on the axis,
+the specs of the layer's leaves (``sharding.specs.param_specs``) and the
+model group's collectives. A leaf the specs shard is the rank's block;
+``tp=None``, or an axis of one rank, is the path of one device.
+
 Leaf order follows ``jax.tree_util.tree_leaves``, which sorts dict keys:
 the MLP's leaves go ``b1, b2, w1, w2``. That order fixes the columns of
 every ``(·, d_w)`` matrix on the FedGroup path (ΔW, ``group_delta_flat``,
@@ -24,6 +30,91 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# The model axis (tensor parallelism over a FedMesh)
+# ---------------------------------------------------------------------------
+
+class ModelAxis:
+    """A rank's view of the model axis of a ``launch.mesh.FedMesh`` as the
+    zoo's layers read it: ``size`` ranks, this one at ``index``; ``specs``,
+    the spec dict of the leaves of the module at hand (``sub`` descends
+    into a child module); ``data_split``, whether the batch this rank
+    holds is its data slice's block (the MoE layer's routing then counts
+    the slices before it).
+
+    The collectives are the port's own (``FedMesh.model_sum`` /
+    ``model_gather`` over the model group), not a partitioner's: a
+    row-parallel product's partial sums are summed in fp32 and cast back
+    (exact for a sum with one nonzero term), a gather concatenates the
+    ranks' blocks in model-index order."""
+
+    def __init__(self, mesh, specs=None, data_split: bool = False):
+        self.mesh = mesh
+        self.size = mesh.model_shards
+        self.index = mesh.model_index
+        self.specs = specs or {}
+        self.data_split = bool(data_split) and mesh.data_shards > 1
+
+    def sub(self, key: str) -> "ModelAxis":
+        """The same axis, with the specs of child module ``key``."""
+        return self.with_specs(self.specs.get(key, {}))
+
+    def with_specs(self, specs: dict) -> "ModelAxis":
+        """The same axis, with ``specs`` for the module at hand."""
+        child = ModelAxis.__new__(ModelAxis)
+        child.__dict__.update(self.__dict__)
+        child.specs = specs
+        return child
+
+    def split(self, name: str, dim: int | None = None) -> bool:
+        """Whether leaf ``name`` (its ``dim``, any dim by default) is
+        sharded over the model axis: never on an axis of one rank."""
+        if self.size == 1 or name not in self.specs:
+            return False
+        spec = self.specs[name]
+        dims = range(len(spec)) if dim is None else (dim,)
+        return any(_has_model(spec[d]) for d in dims)
+
+    def span(self, n: int) -> tuple:
+        """This rank's ``(lo, hi)`` of ``n`` rows split evenly over the
+        axis (a sharded dim's block)."""
+        b = n // self.size
+        return self.index * b, (self.index + 1) * b
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The model group's sum of the partial sums ``t`` (fp32 on the
+        wire, cast back to ``t``'s dtype); an fp32 ``t`` is summed in
+        place."""
+        if self.size == 1:
+            return t
+        return self.mesh.model_sum(t.float()).to(t.dtype)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model group's equal blocks of ``t`` concatenated along
+        ``dim`` (a non-fp32 float moves as fp32: exact)."""
+        if self.size == 1:
+            return t
+        wire = t.float() if t.is_floating_point() else t
+        return self.mesh.model_gather(wire.contiguous(), dim).to(t.dtype)
+
+    def stack(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t`` in model-index order."""
+        return self.gather(t[None], 0)
+
+    def data_stack(self, t: torch.Tensor) -> torch.Tensor:
+        """(D, *t.shape): the data slices' ``t`` in slice order."""
+        return self.mesh.data_stack(t)
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The data slices' sum of ``t`` (one rank a slice), in place."""
+        return self.mesh.data_sum(t)
+
+
+def _has_model(entry) -> bool:
+    return entry == "model" or (isinstance(entry, tuple) and
+                                "model" in entry)
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +156,18 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def rmsnorm_split(params, x: torch.Tensor, tp, full: int,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """``rmsnorm`` over a dim of ``full`` channels of which ``x`` holds the
+    rank's block (``tp.span(full)``): the squares summed over the model
+    group, the replicated ``scale`` cut to the block."""
+    x32 = x.float()
+    ss = tp.sum(torch.sum(torch.square(x32), dim=-1, keepdim=True))
+    y = x32 * torch.rsqrt(ss / full + eps)
+    lo, hi = tp.span(full)
+    return (y * params["scale"][lo:hi].float()).to(x.dtype)
 
 
 def init_layernorm(dim: int, dtype=torch.float32, device="cpu"):
@@ -115,8 +218,16 @@ def init_mlp(gen, d_model: int, d_ff: int, gated: bool, dtype=torch.float32,
     return p
 
 
-def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """Gated (SwiGLU/GeGLU) if 'w_gate' present, else plain act(xW)W."""
+def mlp_apply(params, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
+    """Gated (SwiGLU/GeGLU) if 'w_gate' present, else plain act(xW)W.
+    With ``tp`` splitting d_ff: ``w_gate`` / ``w_up`` are the rank's
+    columns, ``w_down`` its rows, and the partial products are summed
+    over the model group."""
+    y = _mlp(params, x, act)
+    return tp.sum(y) if tp is not None and tp.split("w_down") else y
+
+
+def _mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
     a = act_fn(act)
     up = x @ params["w_up"].to(x.dtype)
     if "w_gate" in params:
@@ -124,6 +235,36 @@ def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = a(up)
     return h @ params["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Vocab-parallel embedding and head
+# ---------------------------------------------------------------------------
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, dtype,
+                 tp=None) -> torch.Tensor:
+    """``embed.to(dtype)[tokens]``. With ``tp`` splitting the vocab rows
+    (``embed`` is the rank's rows): the tokens outside them read zeros and
+    the model group sums, one nonzero term a token, so the rows are
+    exactly the whole table's."""
+    if tp is None or not tp.split("embed"):
+        return embed.to(dtype)[tokens]
+    lo = tp.index * embed.shape[0]
+    local = tokens - lo
+    mine = (local >= 0) & (local < embed.shape[0])
+    rows = embed.to(dtype)[torch.where(mine, local, 0)]
+    return tp.sum(torch.where(mine[..., None], rows, 0))
+
+
+def vocab_logits(h: torch.Tensor, w: torch.Tensor, name: str,
+                 tp=None) -> torch.Tensor:
+    """``h @ w`` for ``lm_head`` (d, V), or ``h @ w.T`` for a tied
+    ``embed`` (V, d). With ``tp`` splitting the vocab: the rank's columns,
+    gathered over the model group into the whole (…, V)."""
+    out = h @ (w.to(h.dtype).T if name == "embed" else w.to(h.dtype))
+    if tp is not None and tp.split(name):
+        out = tp.gather(out, out.ndim - 1)
+    return out
 
 
 # ---------------------------------------------------------------------------

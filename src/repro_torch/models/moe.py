@@ -19,6 +19,18 @@
 The capacity is ``int(round(tokens · k / E · capacity_factor))`` (Python's
 round, half to even), at least 1, rounded up to a multiple of 8, exactly
 as the JAX package computes it: any other rounding drops other tokens.
+
+Over a model axis (``tp``, ``modules.ModelAxis``) whose size divides E, a
+rank holds E / M experts (expert parallelism). The router is replicated:
+each rank routes its tokens whole (gates, experts, capacity, ranks, the
+same on the model group's ranks), fills and runs only its experts'
+buffers, combines their slots (a token's slots in their fixed order, the
+others adding zero) and the model group sums the combine; the shared
+experts split d_ff as an MLP does. When the batch is split over data
+slices (``tp.data_split``) the routing is the whole batch's, as one
+device's: the capacity counts every slice's tokens, a slot's rank counts
+the slices before it (each slice's per-expert counts, gathered over the
+data group) and the aux losses are means over every slice.
 """
 from __future__ import annotations
 
@@ -99,8 +111,10 @@ def _shared(params, x: torch.Tensor, act: str) -> torch.Tensor:
     return (g * (x @ sh["w_up"].to(x.dtype))) @ sh["w_down"].to(x.dtype)
 
 
-def _aux(logits, probs, expert_ids, n_experts: int) -> tuple:
+def _aux(logits, probs, expert_ids, n_experts: int, tp=None) -> tuple:
     E = n_experts
+    if tp is not None and tp.data_split:
+        return _aux_split(logits, probs, expert_ids, E, tp)
     me = torch.mean(probs.reshape(-1, E), dim=0)
     ce = torch.mean(F.one_hot(expert_ids[..., 0].reshape(-1), E).float(),
                     dim=0)
@@ -111,17 +125,60 @@ def _aux(logits, probs, expert_ids, n_experts: int) -> tuple:
     return load_balance, z_loss, load
 
 
+def _aux_split(logits, probs, expert_ids, E: int, tp) -> tuple:
+    """``_aux`` over every data slice's tokens: the sums summed over the
+    data group (one collective), then divided by the batch's counts."""
+    D = tp.mesh.data_shards
+    n = probs.reshape(-1, E).shape[0] * D
+    flat = expert_ids.reshape(-1)
+    sums = tp.data_sum(torch.cat([
+        torch.sum(probs.reshape(-1, E), dim=0),
+        torch.sum(F.one_hot(expert_ids[..., 0].reshape(-1), E).float(), 0),
+        torch.sum(F.one_hot(flat, E).float(), dim=0),
+        torch.sum(torch.square(torch.logsumexp(logits, dim=-1)))[None]]))
+    me, ce = sums[:E] / n, sums[E:2 * E] / n
+    load = sums[2 * E:3 * E] / (flat.numel() * D)
+    return E * torch.sum(me * ce), sums[3 * E] / n, load
+
+
+def _local_experts(params, tp) -> tuple:
+    """(the first expert this rank holds, how many): all of them unless
+    the model axis splits the expert stacks."""
+    El = params["w_up"].shape[0]
+    return (tp.index * El if tp is not None and tp.split("w_up") else 0,
+            El)
+
+
+def _combine(params, x, y, experts_split: bool, act: str, tp):
+    """y (the routed experts' combine, partial when ``experts_split``)
+    plus the shared experts, summed over the model group where either is
+    a partial sum."""
+    if "shared" not in params:
+        return tp.sum(y) if experts_split else y
+    sh_tp = tp.sub("shared") if tp is not None else None
+    sh_split = sh_tp is not None and sh_tp.split("w_down")
+    sh = _shared(params, x, act)
+    if experts_split and sh_split:
+        return tp.sum(y + sh)
+    if experts_split:
+        return tp.sum(y) + sh
+    return y + (tp.sum(sh) if sh_split else sh)
+
+
 def moe_apply(params, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, act: str = "silu",
-              normalize_gates: bool = True):
-    """x: (B, S, D) -> (y, MoEAux)."""
+              normalize_gates: bool = True, tp=None):
+    """x: (B, S, D) -> (y, MoEAux). With ``tp``: the rank's experts (see
+    the module's docstring)."""
     B, S, D = x.shape
     E = params["router"].shape[1]
     N = B * S
     xt = x.reshape(N, D)
     logits, probs, gate_vals, expert_ids = _route(params, xt, top_k,
                                                   normalize_gates)
-    capacity = _capacity(N, top_k, E, capacity_factor)
+    split_data = tp is not None and tp.data_split
+    capacity = _capacity(N * (tp.mesh.data_shards if split_data else 1),
+                         top_k, E, capacity_factor)
 
     # rank of each (token, slot) within its expert: a token-major running
     # count per expert, scanned along contiguous (E, N*k) rows (a scan down
@@ -130,33 +187,49 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
     flat_e = expert_ids.reshape(-1)                              # (N*k,)
     onehot = F.one_hot(flat_e, E).T.contiguous()                 # (E, N*k)
     rank = torch.sum(torch.cumsum(onehot, dim=1) * onehot, dim=0) - 1
+    if split_data:
+        # the slots of the data slices before this one come first
+        counts = tp.data_stack(torch.sum(onehot, dim=1))         # (D, E)
+        before = torch.sum(counts[:tp.mesh.data_index], dim=0)
+        rank = rank + before[flat_e]
     keep = rank < capacity
     safe_rank = torch.where(keep, rank, capacity - 1)
+
+    # this rank's experts e0 .. e0 + El − 1 (all of them without a split)
+    e0, El = _local_experts(params, tp)
+    split = El < E
+    if split:
+        mine = (flat_e >= e0) & (flat_e < e0 + El)
+        keep = keep & mine
+        local_e = torch.where(mine, flat_e - e0, 0)
+    else:
+        local_e = flat_e
 
     # scatter tokens into (E, C, D); a dropped slot adds zero to cell C-1
     tok_idx = torch.arange(N, device=x.device).repeat_interleave(top_k)
     src = torch.where(keep[:, None], xt[tok_idx], 0)
-    buf = torch.zeros((E, capacity, D), dtype=xt.dtype, device=x.device)
-    buf.index_put_((flat_e, safe_rank), src, accumulate=True)
+    buf = torch.zeros((El, capacity, D), dtype=xt.dtype, device=x.device)
+    buf.index_put_((local_e, safe_rank), src, accumulate=True)
 
     out_buf = _experts(params, buf, act)
 
     # combine back with the gate weights: a token's k slots are rows
     # t·k .. t·k + k − 1, so the combine is a sum over k in a fixed order
     # (an index_add_ adds them with atomics on the card, in any order)
-    gathered = out_buf[flat_e, safe_rank]                        # (N*k, D)
+    gathered = out_buf[local_e, safe_rank]                       # (N*k, D)
     w = (gate_vals.reshape(-1) * keep).to(xt.dtype)
     y = (gathered * w[:, None]).reshape(N, top_k, D).sum(1)
-    if "shared" in params:
-        y = y + _shared(params, xt, act)
-    return y.reshape(B, S, D), MoEAux(*_aux(logits, probs, expert_ids, E))
+    y = _combine(params, xt, y, split, act, tp)
+    return y.reshape(B, S, D), MoEAux(*_aux(logits, probs, expert_ids, E,
+                                            tp))
 
 
 def moe_apply_grouped(params, x: torch.Tensor, *, top_k: int,
                       capacity_factor: float = 1.25, act: str = "silu",
-                      normalize_gates: bool = True):
+                      normalize_gates: bool = True, tp=None):
     """x: (B, S, D) -> (y, MoEAux). Groups = batch rows; each group has
-    its own capacity of ``S · k / E · capacity_factor``."""
+    its own capacity of ``S · k / E · capacity_factor`` (so a data split
+    changes no routing). With ``tp``: the rank's experts."""
     B, S, D = x.shape
     E = params["router"].shape[1]
     G, T = B, S
@@ -190,9 +263,15 @@ def moe_apply_grouped(params, x: torch.Tensor, *, top_k: int,
     buf = x[torch.arange(G, device=dev)[:, None], tok_for_buf]
     buf = buf * cell_valid.reshape(G, E * C, 1).to(buf.dtype)
 
-    ebuf = buf.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
-    out_e = _experts(params, ebuf, act)
-    out_flat = out_e.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
+    e0, El = _local_experts(params, tp)
+    ebuf = buf.reshape(G, E, C, D)[:, e0:e0 + El].transpose(0, 1).reshape(
+        El, G * C, D)
+    out_e = _experts(params, ebuf, act).reshape(El, G, C, D).transpose(0, 1)
+    if El < E:
+        # the other ranks' experts read zeros here: their slots add zero
+        out_e = torch.cat([out_e.new_zeros((G, e0, C, D)), out_e,
+                           out_e.new_zeros((G, E - e0 - El, C, D))], dim=1)
+    out_flat = out_e.reshape(G, E * C, D)
 
     # combine: sorted slots read their buffer cell, then unsort
     dest = sorted_e * C + torch.clamp(rank_sorted, 0, C - 1)     # (G, TK)
@@ -202,6 +281,5 @@ def moe_apply_grouped(params, x: torch.Tensor, *, top_k: int,
     vals = torch.gather(vals_sorted, 1, inv[..., None].expand(G, TK, D))
     w = gate_vals.reshape(G, T, top_k).to(vals.dtype)
     y = torch.sum(vals.reshape(G, T, top_k, D) * w[..., None], dim=2)
-    if "shared" in params:
-        y = y + _shared(params, x, act)
-    return y, MoEAux(*_aux(logits, probs, expert_ids, E))
+    y = _combine(params, x, y, El < E, act, tp)
+    return y, MoEAux(*_aux(logits, probs, expert_ids, E, tp))

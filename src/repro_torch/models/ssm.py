@@ -11,6 +11,15 @@ jnp in the JAX package.
 The input projection is kept as separate kernels per segment
 (z / x / B / C / dt), with the JAX package's keys. Decode is the O(1)
 recurrent update on the carried state.
+
+Over a model axis (``tp``) that splits d_inner (``wz`` / ``wx`` /
+``conv_x``'s columns, ``out_proj``'s rows) a rank runs its block of
+d_inner channels, which is its block of SSD heads: the kernel runs on the
+rank's heads, ``dt_bias`` / ``A_log`` / ``D`` and the norm's scale (1-D,
+replicated) are cut to them, ``wB`` / ``wC`` / ``wdt`` stay whole, the
+gated norm over the whole d_inner sums its squares over the group and
+``out_proj``'s partial product is summed. A split that would cut a head
+in two is refused (``local_heads``).
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ssd_intra_chunk
-from repro_torch.models.modules import dense_init, randn, rmsnorm
+from repro_torch.models.modules import (dense_init, randn, rmsnorm,
+                                        rmsnorm_split)
 
 NEG_INF = -1e30
 
@@ -75,6 +85,41 @@ def mamba2_dims(d_model: int, d_state: int, expand: int, head_dim: int,
     d_inner = expand * d_model
     return dict(d_inner=d_inner, n_heads=d_inner // head_dim,
                 head_dim=head_dim, d_state=d_state, n_groups=n_groups)
+
+
+def local_heads(d_inner: int, head_dim: int, model: int) -> int:
+    """SSD heads a rank holds when the model axis (``model`` ranks) splits
+    d_inner; raises when the split would cut a head in two."""
+    if (d_inner // head_dim) % model:
+        raise ValueError(
+            f"the model axis of {model} splits d_inner = {d_inner} but not "
+            f"its {d_inner // head_dim} SSD heads of {head_dim}: a head "
+            "would be cut in two")
+    return d_inner // head_dim // model
+
+
+def _local(params, tp, di: int, H: int, P: int, n_groups: int):
+    """(channels, first channel, heads, first head, the per-head and
+    per-channel 1-D params cut to them) of this rank."""
+    if tp is None or not tp.split("wx"):
+        return di, 0, H, 0, params
+    if n_groups != 1:
+        raise ValueError("a split d_inner takes one B/C group (the zoo's)")
+    Hl = local_heads(di, P, tp.size)
+    h0, c0 = tp.index * Hl, tp.index * Hl * P
+    cut = dict(params)
+    for k in ("dt_bias", "A_log", "D"):
+        cut[k] = params[k][h0:h0 + Hl]
+    cut["conv_x_b"] = params["conv_x_b"][c0:c0 + Hl * P]
+    return Hl * P, c0, Hl, h0, cut
+
+
+def _gated_norm(params, y, z, tp, di: int):
+    """The gated rmsnorm over the whole d_inner (a split: squares summed
+    over the group)."""
+    if y.shape[-1] == di:
+        return rmsnorm(params["norm"], y * F.silu(z))
+    return rmsnorm_split(params["norm"], y * F.silu(z), tp, di)
 
 
 # ---------------------------------------------------------------------------
@@ -154,10 +199,12 @@ def _causal_conv(x, w, b):
 
 
 def mamba2_fwd(params, x, *, d_state: int, expand: int, head_dim: int,
-               chunk: int = 128, n_groups: int = 1):
+               chunk: int = 128, n_groups: int = 1, tp=None):
     B_, S, D = x.shape
     dims = mamba2_dims(D, d_state, expand, head_dim, n_groups)
-    di, H, P, N = dims["d_inner"], dims["n_heads"], head_dim, d_state
+    di_all, P, N = dims["d_inner"], head_dim, d_state
+    di, _, H, h0, params = _local(params, tp, di_all, dims["n_heads"], P,
+                                     n_groups)
 
     dt_ = x.dtype
     z = x @ params["wz"].to(dt_)
@@ -170,7 +217,7 @@ def mamba2_fwd(params, x, *, d_state: int, expand: int, head_dim: int,
     Cm = F.silu(_causal_conv(x @ params["wC"].to(dt_),
                              params["conv_C"].to(dt_),
                              params["conv_C_b"].to(dt_)))
-    dt_raw = x @ params["wdt"].to(dt_)
+    dt_raw = (x @ params["wdt"].to(dt_))[..., h0:h0 + H]
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])  # (B,S,H)
     A = -torch.exp(params["A_log"])                                     # (H,)
@@ -182,9 +229,9 @@ def mamba2_fwd(params, x, *, d_state: int, expand: int, head_dim: int,
                        Cm.reshape(B_, S, n_groups, N), chunk)
     Y = Y.to(dt_) + params["D"].to(dt_)[None, None, :, None] * xs.reshape(
         B_, S, H, P)
-    y = Y.reshape(B_, S, di)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    return y @ params["out_proj"].to(dt_)
+    y = _gated_norm(params, Y.reshape(B_, S, di), z, tp, di_all)
+    y = y @ params["out_proj"].to(dt_)
+    return tp.sum(y) if di < di_all else y
 
 
 # ---------------------------------------------------------------------------
@@ -216,11 +263,15 @@ def _conv_step(state, new, w, b):
 
 
 def mamba2_step(params, cache, x, *, d_state: int, expand: int,
-                head_dim: int, n_groups: int = 1):
-    """x: (B, 1, D) -> (y (B,1,D), new cache)."""
+                head_dim: int, n_groups: int = 1, tp=None):
+    """x: (B, 1, D) -> (y (B,1,D), new cache). With ``tp`` splitting
+    d_inner the cache holds the rank's ``conv_x`` channels and ``ssm``
+    heads."""
     B_, _, D = x.shape
     dims = mamba2_dims(D, d_state, expand, head_dim, n_groups)
-    di, H, P, N = dims["d_inner"], dims["n_heads"], head_dim, d_state
+    di_all, P, N = dims["d_inner"], head_dim, d_state
+    di, _, H, h0, params = _local(params, tp, di_all, dims["n_heads"], P,
+                                     n_groups)
     dt_ = x.dtype
     xt = x[:, 0]
 
@@ -235,7 +286,7 @@ def mamba2_step(params, cache, x, *, d_state: int, expand: int,
                             params["conv_C"].to(dt_),
                             params["conv_C_b"].to(dt_))
     xs, Bm, Cm = map(F.silu, (xs_raw, Bm_raw, Cm_raw))
-    dt_raw = xt @ params["wdt"].to(dt_)
+    dt_raw = (xt @ params["wdt"].to(dt_))[:, h0:h0 + H]
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, :])
     A = -torch.exp(params["A_log"])
@@ -250,7 +301,8 @@ def mamba2_step(params, cache, x, *, d_state: int, expand: int,
                + torch.einsum("bhp,bhn->bhpn", Xh, Bh))
     Yh = torch.einsum("bhpn,bhn->bhp", new_ssm, Ch)
     Yh = Yh + params["D"].to(dt_)[None, :, None] * xs.reshape(B_, H, P)
-    y = Yh.reshape(B_, di)
-    y = rmsnorm(params["norm"], y * F.silu(z))
+    y = _gated_norm(params, Yh.reshape(B_, di), z, tp, di_all)
     y = (y @ params["out_proj"].to(dt_))[:, None, :]
+    if di < di_all:
+        y = tp.sum(y)
     return y, {"conv_x": cx, "conv_B": cB, "conv_C": cC, "ssm": new_ssm}

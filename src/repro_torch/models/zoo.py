@@ -24,9 +24,20 @@ kernels (``SwaAttentionFn``, ``SsdIntraChunkFn``) on the card. With
 wraps it in ``jax.checkpoint``. ``train_step`` updates the state in place,
 leaf by leaf, so a step never holds two copies of params and moments.
 
+Tensor parallelism for serving (``mesh=``, a ``launch.mesh.FedMesh``): a
+rank holds its blocks of the parameters (``shard_params``, by
+``sharding.specs.param_specs``) and of the decode cache (``init_cache(...,
+mesh=)``, by ``cache_specs``) and its data slice's rows of the batch
+(``data_specs``); ``forward``, ``mtp_logits`` and ``serve_step`` run the
+rank's blocks, each layer summing or gathering over the model group where
+its specs split it (``modules.ModelAxis``), and return the whole logits
+of the rank's rows. ``serve_step``'s ``kv_spec`` (one layer's cache spec)
+with a slot dim over the model axis selects the slot-split decode. A
+mesh of one rank is the path of one device, bit for bit.
+
 Not yet ported (raises ``NotImplementedError`` naming its ROADMAP.md item,
-queue 1): a sharded KV cache (``serve_step``'s ``kv_spec``; 16d, the zoo's
-tensor parallelism).
+queue 1): training under a mesh (``loss_fn`` / ``train_step`` with
+``mesh=``; 16d-ii).
 """
 from __future__ import annotations
 
@@ -43,14 +54,17 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.modules import (dense_init, embed_init, init_mlp,
-                                        init_rmsnorm, mlp_apply, rmsnorm,
-                                        tree_index, tree_leaves, tree_map,
-                                        tree_stack)
+from repro_torch.models.modules import (ModelAxis, dense_init, embed_init,
+                                        embed_lookup, init_mlp, init_rmsnorm,
+                                        mlp_apply, rmsnorm, tree_index,
+                                        tree_leaves, tree_map, tree_stack,
+                                        vocab_logits)
 from repro_torch.optim.solvers import adamw_update
+from repro_torch.sharding import specs as sh
 
 
-_ROADMAP_ITEM = {"mesh": "16d (the zoo's tensor parallelism)"}
+_ROADMAP_ITEM = {"mesh": "16d-ii (the zoo's tensor parallelism for "
+                         "training)"}
 
 
 def _not_ported(what: str, kind: str):
@@ -296,12 +310,16 @@ def _attn_kw(cfg: ArchConfig) -> dict:
                 rope_theta=cfg.rope_theta, window=cfg.window)
 
 
-def _dense_block_fwd(cfg: ArchConfig, p, x, positions):
+def _sub(tp, key: str):
+    return None if tp is None else tp.sub(key)
+
+
+def _dense_block_fwd(cfg: ArchConfig, p, x, positions, tp=None):
     h = x + attn.attention_fwd(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                                causal=cfg.causal, positions=positions,
-                               **_attn_kw(cfg))
+                               tp=_sub(tp, "attn"), **_attn_kw(cfg))
     return h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps),
-                         cfg.mlp_act)
+                         cfg.mlp_act, _sub(tp, "mlp"))
 
 
 def _mla_kw(cfg: ArchConfig) -> dict:
@@ -310,28 +328,31 @@ def _mla_kw(cfg: ArchConfig) -> dict:
                 rope_theta=cfg.rope_theta, window=cfg.window)
 
 
-def _moe_block_fwd(cfg: ArchConfig, p, x, positions):
+def _moe_block_fwd(cfg: ArchConfig, p, x, positions, tp=None):
     xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.mla:
         a = attn.mla_fwd(p["attn"], xn, causal=cfg.causal,
                          positions=positions, q_chunk=cfg.attn_q_chunk,
-                         remat=cfg.remat, **_mla_kw(cfg))
+                         remat=cfg.remat, tp=_sub(tp, "attn"),
+                         **_mla_kw(cfg))
     else:
         a = attn.attention_fwd(p["attn"], xn, causal=cfg.causal,
-                               positions=positions, **_attn_kw(cfg))
+                               positions=positions, tp=_sub(tp, "attn"),
+                               **_attn_kw(cfg))
     h = x + a
     moe_fn = (moe_lib.moe_apply_grouped if cfg.moe_impl == "grouped"
               else moe_lib.moe_apply)
     y, aux = moe_fn(p["moe"], rmsnorm(p["ln2"], h, cfg.norm_eps),
                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                    act=cfg.mlp_act)
+                    act=cfg.mlp_act, tp=_sub(tp, "moe"))
     return h + y, aux
 
 
-def _mamba_block_fwd(cfg: ArchConfig, p, x):
+def _mamba_block_fwd(cfg: ArchConfig, p, x, tp=None):
     return x + ssm_lib.mamba2_fwd(
         p["mixer"], rmsnorm(p["ln"], x, cfg.norm_eps), d_state=cfg.ssm_state,
-        expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk)
+        expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim, chunk=cfg.ssd_chunk,
+        tp=_sub(tp, "mixer"))
 
 
 def _xlstm_block_fwd(cfg: ArchConfig, kind: str, p, x):
@@ -358,18 +379,19 @@ def _pattern_period(pattern) -> int:
 # Full forward (prefill)
 # ===========================================================================
 
-def _embed_tokens(params, cfg: ArchConfig, tokens):
+def _embed_tokens(params, cfg: ArchConfig, tokens, tp=None):
     """Token embeddings in the activation dtype; Gemma's scale √d_model is
     rounded to that dtype first, as the JAX package multiplies by
-    ``jnp.asarray(d ** 0.5, act_dtype)`` (bf16: 45.25, not 45.2548…)."""
-    tok = params["embed"].to(cfg.act_dtype)[tokens]
+    ``jnp.asarray(d ** 0.5, act_dtype)`` (bf16: 45.25, not 45.2548…), and
+    applied after a vocab-parallel lookup's sum."""
+    tok = embed_lookup(params["embed"], tokens, cfg.act_dtype, tp)
     if cfg.embed_scale:
         scale = torch.tensor(cfg.d_model ** 0.5, dtype=cfg.act_dtype)
         tok = tok * scale.item()
     return tok
 
 
-def embed_inputs(params, cfg: ArchConfig, batch):
+def embed_inputs(params, cfg: ArchConfig, batch, tp=None):
     """Returns (hidden (B,S,D), positions (B,S) or None). Audio reads
     ``batch["frames"]`` (B, S, frontend_dim); a VLM puts the projected
     ``batch["patch_embeds"]`` (B, P, frontend_dim) before the text."""
@@ -377,7 +399,7 @@ def embed_inputs(params, cfg: ArchConfig, batch):
     dt = cfg.act_dtype
     if cfg.family == "audio":
         return batch["frames"].to(dt) @ params["frontend_proj"].to(dt), None
-    tok = _embed_tokens(params, cfg, batch["tokens"])
+    tok = _embed_tokens(params, cfg, batch["tokens"], tp)
     if cfg.family == "vlm":
         proj = params["projector"]
         pe = batch["patch_embeds"].to(dt) @ proj["w1"].to(dt)
@@ -386,11 +408,40 @@ def embed_inputs(params, cfg: ArchConfig, batch):
     return tok, None
 
 
-def _logits(params, cfg: ArchConfig, h):
+def _logits(params, cfg: ArchConfig, h, tp=None):
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    if cfg.tie_embeddings and cfg.family != "audio":
-        return h @ params["embed"].to(h.dtype).T
-    return h @ params["lm_head"].to(h.dtype)
+    name = ("embed" if cfg.tie_embeddings and cfg.family != "audio"
+            else "lm_head")
+    return vocab_logits(h, params[name], name, tp)
+
+
+def _unstacked(specs):
+    """The specs of one layer of a stacked tree (the layer dim dropped)."""
+    if isinstance(specs, dict):
+        return {k: _unstacked(v) for k, v in specs.items()}
+    return specs[1:]
+
+
+def _model_axis(params, cfg: ArchConfig, mesh, rows: int, global_batch):
+    """The top-level ``ModelAxis`` of a rank's params on ``mesh`` (None
+    without one). ``rows``: the batch rows the rank holds; the batch is
+    split over the data slices unless ``global_batch`` equals them (by
+    default it is ``rows`` times the data slices: ``data_specs``'s split
+    of a batch they divide)."""
+    if mesh is None:
+        return None
+    if getattr(mesh, "model_shards", None) is None:
+        raise TypeError(f"mesh must be a launch.mesh.FedMesh, not "
+                        f"{type(mesh).__name__}")
+    gb = rows * mesh.data_shards if global_batch is None else global_batch
+    return ModelAxis(mesh, sh.param_specs(params, cfg, mp=mesh.model_shards),
+                     data_split=int(gb) != int(rows))
+
+
+def _block_axis(tp):
+    """The axis with the specs of one layer of ``params["blocks"]``."""
+    return None if tp is None else tp.with_specs(
+        _unstacked(tp.specs["blocks"]))
 
 
 def _remat(cfg: ArchConfig, fn, *args):
@@ -414,25 +465,35 @@ def _layers(blocks, n: int) -> list:
     return list(blocks.unbind(0))
 
 
-def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False):
+def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False, *,
+            mesh=None, global_batch: Optional[int] = None):
     """-> (logits (B,S,V), aux dict). return_hidden adds aux['hidden'].
     ``batch["tokens"]``: (B, S) integer tensor on the params' device (or
     ``"frames"``, or ``"patch_embeds"`` with the text, as the family
     reads them). The MoE family's aux losses are the layers' means. With
-    ``cfg.remat`` and grad enabled, each layer body is checkpointed."""
-    x, _ = embed_inputs(params, cfg, batch)
+    ``cfg.remat`` and grad enabled, each layer body is checkpointed.
+
+    With ``mesh`` (a ``FedMesh``): ``params`` are the rank's blocks
+    (``shard_params``) and ``batch`` its rows (the whole batch when the
+    data slices do not divide it: pass ``global_batch``, the batch's rows,
+    when it is not B times the data slices); the logits are the rank's
+    rows, whole over the vocab."""
+    first = next(iter(batch.values()))
+    tp = _model_axis(params, cfg, mesh, first.shape[0], global_batch)
+    x, _ = embed_inputs(params, cfg, batch, tp)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     aux = {"load_balance_loss": torch.zeros((), device=x.device),
            "router_z_loss": torch.zeros((), device=x.device)}
+    bt = _block_axis(tp) if "blocks" in params else None
     if cfg.family in ("dense", "vlm", "audio"):
         def body(h, p):
-            return _dense_block_fwd(cfg, p, h, positions)
+            return _dense_block_fwd(cfg, p, h, positions, bt)
         for p in _layers(params["blocks"], cfg.n_layers):
             x = _remat(cfg, body, x, p)
     elif cfg.family == "moe":
         def body(h, p):
-            h, a = _moe_block_fwd(cfg, p, h, positions)
+            h, a = _moe_block_fwd(cfg, p, h, positions, bt)
             return h, a.load_balance_loss, a.router_z_loss
         lb, zl = [], []
         for p in _layers(params["blocks"], cfg.n_layers):
@@ -443,12 +504,13 @@ def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False):
         aux["router_z_loss"] = torch.mean(torch.stack(zl))
     elif cfg.family == "hybrid":
         shared = params["shared_attn"]
+        st = _sub(tp, "shared_attn")
         period = cfg.shared_attn_period
 
         def body(h, p, shared_app: bool):
-            h = _mamba_block_fwd(cfg, p, h)
+            h = _mamba_block_fwd(cfg, p, h, bt)
             if shared_app:
-                h = _dense_block_fwd(cfg, shared, h, positions)
+                h = _dense_block_fwd(cfg, shared, h, positions, st)
             return h
         for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
             x = _remat(cfg, body, x, p,
@@ -476,24 +538,39 @@ def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False):
                 x = _remat(cfg, block, x, i)
     if return_hidden:
         aux["hidden"] = x
-    return _logits(params, cfg, x), aux
+    return _logits(params, cfg, x, tp), aux
 
 
-def mtp_logits(params, cfg: ArchConfig, hidden, tokens):
+def mtp_logits(params, cfg: ArchConfig, hidden, tokens, *, mesh=None,
+               global_batch: Optional[int] = None):
     """DeepSeek-V3's multi-token-prediction head (one extra depth):
     position t joins its final hidden state (``forward(...,
     return_hidden=True)``'s, before the final norm) with the embedding of
     token t+1 (not scaled) to predict token t+2, through one dense block
     at positions 0..S−2. hidden: (B, S, D); tokens: (B, S). Returns logits
-    (B, S−1, V)."""
+    (B, S−1, V). ``mesh`` / ``global_batch`` as ``forward``'s."""
+    tp = _model_axis(params, cfg, mesh, tokens.shape[0], global_batch)
     mtp = params["mtp"]
     h = rmsnorm(mtp["norm_h"], hidden[:, :-1], cfg.norm_eps)
-    e = params["embed"].to(hidden.dtype)[tokens[:, 1:]]
+    e = embed_lookup(params["embed"], tokens[:, 1:], hidden.dtype, tp)
     e = rmsnorm(mtp["norm_e"], e, cfg.norm_eps)
     x = torch.cat([h, e], dim=-1) @ mtp["proj"].to(hidden.dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _dense_block_fwd(cfg.replace(mla=False), mtp["block"], x, positions)
-    return _logits(params, cfg, x)
+    x = _dense_block_fwd(cfg.replace(mla=False), mtp["block"], x, positions,
+                         _sub(_sub(tp, "mtp"), "block"))
+    return _logits(params, cfg, x, tp)
+
+
+def shard_params(params, cfg: ArchConfig, mesh):
+    """The rank's blocks of a whole param tree on ``mesh``: each leaf cut
+    by ``sharding.specs.param_specs(params, cfg, mp=M)``, M the model
+    axis (a leaf the specs replicate stays whole, the same tensor).
+    Refuses a model axis that splits Mamba2's d_inner but not its heads."""
+    M = mesh.model_shards
+    di = cfg.ssm_expand * cfg.d_model
+    if cfg.family == "hybrid" and M > 1 and di % M == 0:
+        ssm_lib.local_heads(di, cfg.ssm_head_dim, M)
+    return sh.tree_blocks(params, sh.param_specs(params, cfg, mp=M), mesh)
 
 
 # ===========================================================================
@@ -509,13 +586,21 @@ def _ce(logits, labels):
     return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1)
 
 
-def loss_fn(params, cfg: ArchConfig, batch):
+def _no_train_mesh(mesh):
+    if mesh is not None:
+        raise _not_ported("training under a mesh (a sharded train state, "
+                          "collectives with gradients)", "mesh")
+
+
+def loss_fn(params, cfg: ArchConfig, batch, mesh=None):
     """-> (total loss, metrics): the cross-entropy of ``batch["labels"]``
     (B, S_text; < 0 masked; a VLM's on its last S_text positions, the
     text), plus ``aux_loss_weight`` × load balance and ``z_loss_weight`` ×
     router z-loss, and with ``cfg.mtp`` ``mtp_weight`` × the MTP head's
     cross-entropy on ``labels[:, 1:]``. Metrics: ``ce`` (``mtp_ce``),
-    ``load_balance_loss``, ``router_z_loss``."""
+    ``load_balance_loss``, ``router_z_loss``. Not under a ``mesh``
+    (ROADMAP.md item 16d-ii)."""
+    _no_train_mesh(mesh)
     logits, aux = forward(params, cfg, batch, return_hidden=cfg.mtp)
     labels = batch["labels"]
     if cfg.family == "vlm":
@@ -550,7 +635,8 @@ def init_train_state(gen: Optional[torch.Generator], cfg: ArchConfig,
 ADAM_SLICE = 1 << 24         # elements a slice of the in-place update
 
 
-def train_step(state, batch, cfg: ArchConfig, b1=0.9, b2=0.95, eps=1e-8):
+def train_step(state, batch, cfg: ArchConfig, b1=0.9, b2=0.95, eps=1e-8,
+               mesh=None):
     """One AdamW step on the gradients of ``loss_fn``; returns (state,
     metrics: ``loss`` and ``loss_fn``'s). The update is
     ``optim.solvers.adamw_update`` (bias correction, eps outside the sqrt,
@@ -560,7 +646,9 @@ def train_step(state, batch, cfg: ArchConfig, b1=0.9, b2=0.95, eps=1e-8):
     elements, each gradient freed once used: a functional update would
     hold a second copy of params and moments (16 bytes a param; 40 GB for
     Gemma-2B). On ``meta`` (the dry run: no memory to bound) a leaf is
-    one slice. ``state["step"]`` becomes step + 1."""
+    one slice. ``state["step"]`` becomes step + 1. Not under a ``mesh``
+    (ROADMAP.md item 16d-ii)."""
+    _no_train_mesh(mesh)
     leaves = tree_leaves(state["params"])
     for p in leaves:
         p.requires_grad_(True)
@@ -603,14 +691,18 @@ def _stacked(tree, n: int):
     return tree_map(lambda a: a.expand((n,) + a.shape).clone(), tree)
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda", *,
+               mesh=None, seq_shard: bool = False):
     """Decode caches: a KV cache per layer (dense, VLM, MoE), MLA's
     compressed ``c_kv`` (B, L, kv_rank) and ``k_pe`` (B, L, qk_rope) per
     layer, Zamba2's Mamba2 states and one KV cache per shared-block
     application, or xLSTM's per-layer states (``{"xlstm": [...]}``).
     ``max_len`` slots; with a window, a ring of ``max_len`` (== window)
-    slots."""
+    slots. With ``mesh``: the rank's blocks of the cache of ``batch``
+    rows by ``sharding.specs.cache_specs(..., seq_shard=seq_shard)``."""
     _check_family(cfg)
+    if mesh is not None:
+        return _cache_blocks(cfg, batch, max_len, device, mesh, seq_shard)
     if cfg.family == "audio":
         raise ValueError(f"{cfg.family} has no decode cache (encoder-only?)")
     device = resolve_device(device)
@@ -640,18 +732,64 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
             "shared_attn": _stacked(kv, max(n_apps, 1))}
 
 
-def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None):
+def _cache_blocks(cfg: ArchConfig, batch: int, max_len: int, device, mesh,
+                  seq_shard: bool):
+    whole = init_cache(cfg, batch, max_len, "meta")
+    specs = sh.cache_specs(whole, cfg, mesh, mp=mesh.model_shards,
+                           seq_shard=seq_shard)
+    if cfg.family == "ssm":
+        # xLSTM's states (not all zeros) are whole over the model axis:
+        # the block is the cache of the rank's rows
+        rows = sh.shard_shape(whole["xlstm"][0]["m"].shape,
+                              specs["xlstm"][0]["m"], mesh)[0]
+        return init_cache(cfg, rows, max_len, device)
+    return _zero_blocks(whole, specs, mesh, resolve_device(device))
+
+
+def _zero_blocks(whole, specs, mesh, device):
+    """Zeros of the blocks' shapes (every cache but xLSTM's starts at
+    zero)."""
+    if isinstance(whole, dict):
+        return {k: _zero_blocks(v, specs[k], mesh, device)
+                for k, v in whole.items()}
+    return torch.zeros(sh.shard_shape(whole.shape, specs, mesh),
+                       dtype=whole.dtype, device=device)
+
+
+def _slot_split(kv_spec) -> bool:
+    """Whether a layer's cache spec puts its slot dim (1) over the model
+    axis (``cache_specs(seq_shard=True)``)."""
+    if not isinstance(kv_spec, (tuple, list)) or len(kv_spec) < 2:
+        raise ValueError(f"kv_spec {kv_spec!r} is not one layer's cache "
+                         "spec (a tuple, an entry a dim)")
+    e = kv_spec[1]
+    return e == sh.MP_AXIS or (isinstance(e, tuple) and sh.MP_AXIS in e)
+
+
+def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None, *,
+               mesh=None, global_batch: Optional[int] = None):
     """Decode ONE token. tokens: (B,1) integers; pos: (B,) absolute
     positions. Returns (logits (B, V), new_cache); ``cache`` is not
-    changed. A VLM decodes text only. ``kv_spec`` is the JAX package's
-    sharding constraint for a sequence-sharded cache: only ``None`` (one
-    device) is ported."""
+    changed. A VLM decodes text only.
+
+    With ``mesh``: ``params`` and ``cache`` are the rank's blocks
+    (``shard_params``, ``init_cache(mesh=)``), tokens and pos its rows
+    (``global_batch`` as ``forward``'s). ``kv_spec``, the spec of one
+    layer's attention cache (B, S, KV, hd) or MLA latent (B, S, r) as
+    ``cache_specs`` places it, with its slot dim over the model axis
+    selects the slot-split decode (the reference's sequence-sharded
+    cache); it places a cache on a mesh, so it needs ``mesh``."""
     _check_family(cfg)
-    if kv_spec is not None:
-        raise _not_ported(f"a sharded KV cache (kv_spec={kv_spec!r})", "mesh")
+    if kv_spec is not None and mesh is None:
+        raise ValueError(f"kv_spec={kv_spec!r} places the cache on a mesh: "
+                         "pass mesh= (a FedMesh) with the rank's blocks")
+    # a slot split over an axis of one rank is the whole cache
+    seq = kv_spec is not None and _slot_split(kv_spec) and \
+        mesh.model_shards > 1
     if not cfg.decode_supported:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    x = _embed_tokens(params, cfg, tokens)
+    tp = _model_axis(params, cfg, mesh, tokens.shape[0], global_batch)
+    x = _embed_tokens(params, cfg, tokens, tp)
     if cfg.family == "ssm":
         new_list = []
         for kind, p, c in zip(cfg.xlstm_pattern, params["blocks_list"],
@@ -664,8 +802,11 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None):
                     p, c, x, n_heads=cfg.n_heads,
                     proj_factor=cfg.mlstm_proj_factor)
             new_list.append(c2)
-        return _logits(params, cfg, x)[:, 0], {"xlstm": new_list}
+        return _logits(params, cfg, x, tp)[:, 0], {"xlstm": new_list}
     blocks = params["blocks"]
+    bt = _block_axis(tp)
+    at = _sub(bt, "attn")
+    akw = {} if tp is None else {"tp": at, "seq_shard": seq}
     if cfg.family in ("dense", "vlm", "moe"):
         new = []
         for i in range(cfg.n_layers):
@@ -673,10 +814,10 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None):
             xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
             if cfg.mla:
                 y, c2 = attn.mla_decode(p["attn"], tree_index(cache, i), xn,
-                                        pos, **_mla_kw(cfg))
+                                        pos, **akw, **_mla_kw(cfg))
             else:
                 y, c2 = attn.attention_decode(p["attn"], tree_index(cache, i),
-                                              xn, pos, **_attn_kw(cfg))
+                                              xn, pos, **akw, **_attn_kw(cfg))
             x = x + y
             xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
             if cfg.family == "moe":
@@ -684,12 +825,12 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None):
                 # package decodes
                 y, _ = moe_lib.moe_apply(p["moe"], xn, top_k=cfg.top_k,
                                          capacity_factor=cfg.capacity_factor,
-                                         act=cfg.mlp_act)
+                                         act=cfg.mlp_act, tp=_sub(bt, "moe"))
                 x = x + y
             else:
-                x = x + mlp_apply(p["mlp"], xn, cfg.mlp_act)
+                x = x + mlp_apply(p["mlp"], xn, cfg.mlp_act, _sub(bt, "mlp"))
             new.append(c2)
-        return _logits(params, cfg, x)[:, 0], tree_stack(new)
+        return _logits(params, cfg, x, tp)[:, 0], tree_stack(new)
 
     # hybrid: shared-attn applications each own a cache slot
     new_mamba, new_shared = [], []
@@ -701,21 +842,25 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None):
                                     rmsnorm(p["ln"], x, cfg.norm_eps),
                                     d_state=cfg.ssm_state,
                                     expand=cfg.ssm_expand,
-                                    head_dim=cfg.ssm_head_dim)
+                                    head_dim=cfg.ssm_head_dim,
+                                    tp=_sub(bt, "mixer"))
         x = x + y
         new_mamba.append(c2)
         if cfg.shared_attn_period and (i + 1) % cfg.shared_attn_period == 0:
             sp = params["shared_attn"]
+            st = _sub(tp, "shared_attn")
+            skw = {} if tp is None else {"tp": st.sub("attn"),
+                                         "seq_shard": seq}
             sc = tree_index(cache["shared_attn"], app)
             y, sc2 = attn.attention_decode(
                 sp["attn"], sc, rmsnorm(sp["ln1"], x, cfg.norm_eps), pos,
-                **_attn_kw(cfg))
+                **skw, **_attn_kw(cfg))
             x = x + y
             x = x + mlp_apply(sp["mlp"], rmsnorm(sp["ln2"], x, cfg.norm_eps),
-                              cfg.mlp_act)
+                              cfg.mlp_act, _sub(st, "mlp"))
             new_shared.append(sc2)
             app += 1
     new_cache = {"mamba": tree_stack(new_mamba),
                  "shared_attn": tree_stack(new_shared) if new_shared
                  else cache["shared_attn"]}
-    return _logits(params, cfg, x)[:, 0], new_cache
+    return _logits(params, cfg, x, tp)[:, 0], new_cache

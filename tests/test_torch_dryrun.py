@@ -130,7 +130,7 @@ def test_smoke_variant_record_matches_a_real_cpu_step(arch, kind):
     bytes, FLOPs those of the same step run for real on the CPU."""
     shape = TINY[kind]
     rec = dryrun.run_one(arch, shape.name, shape=shape, smoke=True,
-                         save=False, verbose=False)
+                         mesh="1", save=False, verbose=False)
     if kind == "decode" and arch == "hubert-xlarge":
         assert rec["status"] == "skip"
         return
@@ -192,7 +192,8 @@ def test_xlstm_folded_time_loop_counts_the_loops_flops(impl, remat, seq,
 def test_published_width_step_on_meta():
     """One published-width pair end to end on meta: Gemma-2B decode over a
     32,768-slot cache (nothing is allocated)."""
-    rec = dryrun.run_one("gemma-2b", "decode_32k", save=False, verbose=False)
+    rec = dryrun.run_one("gemma-2b", "decode_32k", mesh="1", save=False,
+                         verbose=False)
     cfg = registry.get("gemma-2b")
     params = zoo.init_params(None, cfg, device="meta")
     cache = zoo.init_cache(cfg, 128, 32768, device="meta")
@@ -206,11 +207,26 @@ def test_published_width_step_on_meta():
 
 @pytest.mark.parametrize("flag", list(dryrun.SHARDING_FLAGS))
 def test_sharding_flags_raise_naming_item_16(flag):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        dryrun.run_one("gemma-2b", "train_4k", save=False, verbose=False,
-                       **{flag: True})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        dryrun.main(["--all", "--" + flag.replace("_", "-")])
+    """The flags that shard a train state or batch still raise, naming
+    item 16d-ii, from ``run_one`` and the CLI. The mesh flags are ported
+    (tests/test_torch_zoo_dryrun_mesh.py runs them in a child process):
+    a train pair on the mesh is a skip naming 16d-ii (no process group is
+    made for it), and ``--mesh 1`` has no mesh for them."""
+    if flag in dryrun.TRAIN_FLAGS:
+        with pytest.raises(NotImplementedError, match="item 16d-ii"):
+            dryrun.run_one("gemma-2b", "train_4k", save=False,
+                           verbose=False, **{flag: True})
+        with pytest.raises(NotImplementedError, match="item 16d-ii"):
+            dryrun.main(["--all", "--" + flag.replace("_", "-")])
+        return
+    rec = dryrun.run_one("gemma-2b", "train_4k", save=False, verbose=False,
+                         **{flag: True})
+    assert rec["status"] == "skip" and "item 16d-ii" in rec["reason"]
+    assert dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k",
+                        "--" + flag.replace("_", "-")]) == 0
+    with pytest.raises(ValueError, match="production mesh"):
+        dryrun.run_one("gemma-2b", "decode_32k", mesh="1", save=False,
+                       verbose=False, **{flag: True})
 
 
 def test_config_flags_and_xlstm_opt_record():
@@ -224,7 +240,7 @@ def test_config_flags_and_xlstm_opt_record():
     rec = dryrun.run_one("xlstm-350m", "tiny_prefill",
                          shape=shp.InputShape("tiny_prefill", 256, 1,
                                               "prefill"),
-                         smoke=True, xlstm_opt=True, save=False,
+                         smoke=True, xlstm_opt=True, mesh="1", save=False,
                          verbose=False)
     assert rec["status"] == "ok"
     assert "item 16" in rec["sharding_left_out"]
@@ -237,7 +253,7 @@ def test_main_summary_and_records(tmp_path, monkeypatch, capsys):
     assert "== dry-run summary: 0 ok, 1 skip, 0 fail ==" in \
         capsys.readouterr().out
     assert dryrun.main(["--arch", "granite-20b", "--shape",
-                        "long_500k"]) == 0
+                        "long_500k", "--mesh", "1"]) == 0
     assert "== dry-run summary: 1 ok, 0 skip, 0 fail ==" in \
         capsys.readouterr().out
     assert [p.name for p in tmp_path.iterdir()] == \

@@ -274,10 +274,14 @@ def test_run_coldstart_small_on_the_cpu_finds_the_spectrum():
 def test_multi_pod_raises_naming_item_16():
     """Ported (16c): ``fed_dryrun --multi-pod`` runs on the 2 × 16 × 16
     mesh (``tests/test_torch_mesh2d_dryrun.py``) and is refused only
-    without a mesh; the zoo's dry run still refuses ``--multi-pod``,
-    naming item 16d."""
+    without a mesh. The zoo's dry run takes ``--multi-pod`` too (16d-i,
+    ``tests/test_torch_zoo_dryrun_mesh.py``), refused likewise without a
+    mesh; what shards a train state still names item 16d-ii."""
     with pytest.raises(SystemExit):
         fed_dryrun.main(["--mesh", "1", "--multi-pod"])
     from repro_torch.launch import dryrun
-    with pytest.raises(NotImplementedError, match="item 16d"):
-        dryrun.refuse_sharding(multi_pod=True)
+    dryrun.refuse_sharding(multi_pod=True)
+    with pytest.raises(SystemExit):
+        dryrun.main(["--mesh", "1", "--multi-pod", "--all"])
+    with pytest.raises(NotImplementedError, match="item 16d-ii"):
+        dryrun.refuse_sharding(multi_pod=True, zero=True)

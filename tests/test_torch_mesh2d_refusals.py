@@ -6,9 +6,9 @@ scripted faults, and a fleet of thread workers (a trainer or coordinator
 built here on ``FedMesh`` values without a process group, none of which
 makes a collective at construction; the run on a (1, 2) world of two gloo
 ranks of ``tests/_torch_mesh_driver.py``), and a process fleet builds
-under a 1-D mesh and a model axis. Still refused: the zoo's sharding
-flags (ROADMAP.md item 16d), and a mesh that is not a ``FedMesh`` is a
-TypeError.
+under a 1-D mesh and a model axis. Still refused: the zoo's flags that
+shard a train state or batch (ROADMAP.md item 16d-ii), and a mesh that is
+not a ``FedMesh`` is a TypeError.
 """
 import dataclasses
 import json
@@ -143,7 +143,13 @@ def test_process_fleet_builds_on_both_meshes():
 
 @pytest.mark.parametrize("flag", list(dryrun.SHARDING_FLAGS))
 def test_zoo_sharding_flags_still_raise_16d(flag):
-    with pytest.raises(NotImplementedError, match="item 16d"):
+    """What shards a train state or batch names item 16d-ii; the mesh
+    flags (the multi-pod mesh, the slot-split cache) are ported (16d-i)
+    and pass."""
+    if flag in dryrun.MESH_FLAGS:
+        dryrun.refuse_sharding(**{flag: True})
+        return
+    with pytest.raises(NotImplementedError, match="item 16d-ii"):
         dryrun.refuse_sharding(**{flag: True})
 
 

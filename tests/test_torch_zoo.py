@@ -288,9 +288,13 @@ def test_serve_step_leaves_its_cache_unchanged(zamba):
 
 def test_unported_archs_and_families_raise():
     """Every arch of the JAX package's registry resolves (DeepSeek-V3 and
-    xLSTM-350M too); what stays unported names its ROADMAP item: a sharded
-    KV cache (16). The training step (17f) is ported: it no longer raises
-    (tests/test_torch_train_*.py hold it to the reference)."""
+    xLSTM-350M too); what stays unported names its ROADMAP item: training
+    under a mesh (16d-ii). A sharded KV cache (``kv_spec``, 16d-i) is
+    ported: without a mesh to place it on it is a ValueError
+    (tests/test_torch_zoo_tp*.py run it on gloo worlds). The training step
+    (17f) is ported: it no longer raises (tests/test_torch_train_*.py hold
+    it to the reference)."""
+    from repro_torch.launch.mesh import FedMesh
     assert set(registry.ARCHS) == set(jreg.ARCHS)
     for arch in ("deepseek-v3-671b", "xlstm-350m"):
         assert registry.get(arch).__dict__ == jreg.get(arch).__dict__
@@ -300,16 +304,26 @@ def test_unported_archs_and_families_raise():
     state = zoo.init_train_state(torch.Generator().manual_seed(0), _cfg(),
                                  device="cpu")
     assert int(state["step"]) == 0
+    mesh = FedMesh(group=None, rank=0, world=2, shape={"data": 1,
+                                                       "model": 2},
+                   backend="gloo", device=torch.device("cpu"))
     for arch in ("deepseek-v3-671b", "xlstm-350m"):
         cfg = registry.smoke_variant(registry.get(arch))
         tp = zoo.init_params(torch.Generator().manual_seed(0), cfg,
                              device="cpu")
         cache = zoo.init_cache(cfg, 1, 4, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.*16"):
+        with pytest.raises(ValueError, match="mesh"):
             zoo.serve_step(tp, cfg, cache,
                            torch.ones((1, 1), dtype=torch.long),
                            torch.zeros(1, dtype=torch.long),
                            kv_spec=("data", None))
+        batch = {"tokens": torch.ones((1, 4), dtype=torch.long),
+                 "labels": torch.ones((1, 4), dtype=torch.long)}
+        with pytest.raises(NotImplementedError, match="ROADMAP.*16d-ii"):
+            zoo.train_step(zoo.init_train_state(None, cfg, device="meta"),
+                           batch, cfg, mesh=mesh)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*16d-ii"):
+            zoo.loss_fn(tp, cfg, batch, mesh=mesh)
     with pytest.raises(ValueError):
         zoo.init_params(None, _cfg().replace(family="rnn"), device="meta")
 

@@ -134,11 +134,16 @@ def test_shape_tables_match_reference(arch):
 
 
 def test_kv_spec_other_than_none_raises():
+    """``kv_spec`` places a cache on a mesh (ported: the slot-split decode,
+    tests/test_torch_zoo_tp*.py): without ``mesh=`` it is a ValueError,
+    and a spec that is not one layer's is refused."""
     cfg, _ = cfgs("gemma-2b")
     _, tp = params("gemma-2b")
     cache = zoo.init_cache(cfg, 1, 4, device="cpu")
     tok = torch.ones((1, 1), dtype=torch.long)
     pos = torch.zeros(1, dtype=torch.long)
     zoo.serve_step(tp, cfg, cache, tok, pos, kv_spec=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*16"):
+    with pytest.raises(ValueError, match="mesh"):
         zoo.serve_step(tp, cfg, cache, tok, pos, kv_spec=("data", None))
+    with pytest.raises(ValueError, match="one layer"):
+        zoo._slot_split("model")
