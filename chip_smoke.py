@@ -325,6 +325,31 @@ with no final ``ok`` line):
                 NCCL world of one (the forked process): Zamba2-1.2B's
                 (1, 1) path (fp32 prefill and 32 decode steps) equal to
                 ``mesh=None`` bit for bit.
+     4m         the zoo's tensor parallelism for training (its ranks run
+                after 4l's on the lane, once 6c and the serving CLIs are
+                done; 6d waits for them): Zamba2-1.2B whole on two
+                spawned ranks sharing the card over gloo as (1, 2), each
+                holding only its ``state_specs`` blocks of the train state
+                (``zoo.init_train_state(mesh=)``), rank 0 first running
+                one device on its own (``"phase": "zoo_train_tp"``
+                lines): an fp32 B1 S256 ``loss_and_grads`` and two
+                ``train_step``s, the loss, each leaf's gradient (gathered)
+                and the second step's loss within 2e-3 of one device's
+                (else the run fails), a bf16 B1 S2048 step's ms (median of
+                2 after a warm-up), peak and launches on each rank against
+                one device's, each counted step launching 6
+                swa_attention_bwd (``tc``) and 38 ssd_intra_chunk_bwd on
+                its 16 and 32 local heads (else the run fails); on four
+                ranks as (2, 2), fp32 B4 S256: Gemma-2B at its widths cut
+                to 2 layers (the vocab-parallel cross-entropy over 256,000
+                rows) plain, with ZeRO-1 and with ZeRO-3, each within
+                2e-3 of one device and the two layouts' params equal to
+                the plain one's bit for bit; Granite-MoE-1B cut to 4
+                layers with its 32 experts over data × model (8 a rank),
+                within 2e-3. The losses equal on every rank (a digest).
+                In phase 4i-iv's NCCL world of one: a train step of
+                Zamba2-1.2B cut to 4 layers through the (1, 1) path equal
+                to ``mesh=None`` bit for bit.
   5. breakdown — where the time goes: the batched local solver (the
                 cold start's 100 clients, a round's 20) vs the EDC / MADC
                 measure on the same inputs; one more round under
@@ -483,10 +508,11 @@ with no final ``ok`` line):
      6e's two cold starts; edc_cosine_partial's phase 4j's ranks' cold
      starts;
      swa_attention's count Zamba2's and phase 6b's counted forwards,
-     phase 6c's counted MTP call and phase 4l's ranks' counted bf16
-     forwards (ssd_intra_chunk's too), not
-     phase 2's comparisons; the backward kernels' count phase 6d's
-     counted train steps), then the ``{"ok": true, ...}`` line.
+     phase 6c's counted MTP call, phase 4l's ranks' counted bf16
+     forwards and phase 4m's ranks' counted bf16 steps (ssd_intra_chunk's
+     too), not phase 2's comparisons; the backward kernels' count phase
+     6d's counted train steps and phase 4m's ranks'), then the
+     ``{"ok": true, ...}`` line.
 
 Order. Phase 1, then phase 2 with every kernel check (the zoo's forward
 and the backward kernels' too), 3, 4 and 5 run one after another in
@@ -495,7 +521,9 @@ this process, alone on the card: every kernel time and phase 4's and
 process's zoo phases 6, 6b, 6c and 6d: phases 4c to 4h with 4i-i /
 4i-iv's NCCL worlds of one in a forked process (``fed_phases``; its
 lines are printed here when it ends); the mesh phases' spawned ranks,
-one rank set after another (4j's, 4k's, 4l's, 4i-ii's, 4i-iv's); and the
+one rank set after another (4j's, 4k's, 4l's, 4m's, 4i-ii's, 4i-iv's;
+4m's, ~25 GB, start when 6c and the serving CLIs are done, and 6d's
+~42 GB wait for them); and the
 serving CLIs but the default one (~17 GB), one after another. 4j's Alg.
 3 holds ~24 GB a rank: the families and the serving CLIs start after
 it; 6d waits for the serving CLIs, 6e (~57 GB) for every lane, and the
@@ -640,6 +668,19 @@ ZOO_TP_S, ZOO_TP_STEPS, ZOO_TP_TOL = 256, 32, 2e-3
 ZOO_TP_GEMMA_LAYERS = 4        # Gemma-2B's depth cut (of 18): the phase
                                # runs beside the zoo phases' ~40 GB
 ZOO_TP_TIMEOUT_S = 300         # a spawned rank's whole run
+# phase 4m: the zoo's training over a model axis: Zamba2-1.2B whole on two
+# ranks as (1, ZOO_TP_MODEL), fp32 B1 steps of ZOO_TRAIN_S positions held
+# to one device within ZOO_TRAIN_TOL, a bf16 B1 step of ZOO_TRAIN_BF16_S
+# timed (the median of ZOO_TRAIN_TIMED after a warm-up); Gemma-2B and
+# Granite-MoE-1B at published widths cut in depth on four ranks as
+# (2, ZOO_TP_MODEL), fp32 B ZOO_TRAIN_B steps
+ZOO_TRAIN_S, ZOO_TRAIN_BF16_S, ZOO_TRAIN_TOL = 256, 2048, 2e-3
+ZOO_TRAIN_B, ZOO_TRAIN_TIMED = 4, 2
+ZOO_TRAIN_GEMMA_LAYERS = 2     # Gemma-2B's depth cut (of 18)
+ZOO_TRAIN_GRANITE_LAYERS = 4   # Granite-MoE-1B's (of 24)
+ZOO_TRAIN_NCCL1_LAYERS = 4     # the NCCL world of one's Zamba2 (of 38)
+ZOO_TRAIN_TIMEOUT_S = 400      # a spawned rank set's whole run
+ZOO_TRAIN_GO = threading.Event()   # set when 4m may run: 6d waits for it
 FED_CHILD_TIMEOUT_S = 900      # fed_phases' whole run, once 6d is over
 # phase 2: edc_cosine's partial-sum entry at a rank's d_w block of phase
 # 6e's ΔW (FED_DW over MESH2D_MODEL)
@@ -3398,7 +3439,7 @@ def join_child(torch, child, timeout: float, what: str):
 
 
 class Lane(threading.Thread):
-    """The mesh phases' spawned ranks (4j, 4k, 4l, 4i-ii, 4i-iv), one job
+    """The mesh phases' spawned ranks (4j, 4k, 4l, 4m, 4i-ii, 4i-iv), one job
     after another on a thread of this process, while this process goes on
     with the phases that need the card little beside them. A job's records
     stay in its directory under ``build/`` for its phase's checks, which
@@ -5050,7 +5091,380 @@ def zoo_nccl1(torch, mesh, smi: str) -> dict:
                                       and rec["decode_equal"]):
         raise AssertionError(f"phase 4l: the NCCL world of one differs from "
                              f"mesh=None: {rec}")
+    train = zoo_train_nccl1(torch, mesh, smi)
+    return {**rec, "train_equal": train["train_equal"]}
+
+
+def zoo_train_nccl1(torch, mesh, smi: str) -> dict:
+    """Phase 4m on the NCCL world of one (``mesh``, in ``svc_nccl1``): one
+    ``train_step`` of Zamba2-1.2B cut to ZOO_TRAIN_NCCL1_LAYERS layers
+    (bf16 activations, fp32 state, B1 S ZOO_TRAIN_S) through the (1, 1)
+    path against ``mesh=None`` from the same state: the loss, params and
+    moments equal bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import tree_leaves
+
+    cfg = registry.get("zamba2-1.2b").replace(
+        n_layers=ZOO_TRAIN_NCCL1_LAYERS)
+    batch = lm_batch(torch.Generator(device="cuda").manual_seed(6), cfg, 1,
+                     ZOO_TRAIN_S, "cuda")
+    out = {}
+    for label, m in (("none", None), ("mesh", mesh)):
+        st = zoo.init_train_state(torch.Generator(device="cuda")
+                                  .manual_seed(0), cfg, device="cuda",
+                                  mesh=m)
+        st, met = zoo.train_step(st, batch, cfg, mesh=m)
+        out[label] = (met["loss"], st)
+    equal = bool(torch.equal(out["mesh"][0], out["none"][0])) and all(
+        torch.equal(a, b) for key in ("params", "mu", "nu")
+        for a, b in zip(tree_leaves(out["mesh"][1][key]),
+                        tree_leaves(out["none"][1][key])))
+    rec = {"phase": "zoo_train_tp", "model": "zamba2", "world": 1,
+           "backend": mesh.backend, "nvidia_smi": smi,
+           "reduced": f"n_layers 38 -> {cfg.n_layers}",
+           "loss": float(out["none"][0]), "train_equal": equal}
+    emit(rec)
+    del out
+    torch.cuda.empty_cache()
+    if not equal:
+        raise AssertionError(f"phase 4m: the NCCL world of one's train step "
+                             f"differs from mesh=None: {rec}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 4m: the zoo's training over a model axis on two and four ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+def whole_leaf(t, spec, mesh):
+    """A rank's block of a leaf placed by ``spec`` gathered whole on every
+    rank: its model dims over the model group, then its "data" dims over
+    the data axis (an entry of both counts the data axis first)."""
+    for d, e in enumerate(spec):
+        axes = e if isinstance(e, tuple) else (e,)
+        if "model" in axes:
+            t = mesh.model_gather(t.contiguous(), d)
+        if "data" in axes:
+            t = mesh.fsdp_gather(t.contiguous(), d)
+    return t
+
+
+def zoo_train_ref(torch, cfg, batch) -> dict:
+    """One device's run from the state of seed 0: the loss, each leaf's
+    gradient (on the host) and two ``train_step``s' losses."""
+    import gc
+
+    from repro_torch.models import zoo
+
+    st = zoo.init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    loss, _, grads = zoo.loss_and_grads(st["params"], cfg, batch)
+    grads = [g.cpu() for g in grads]
+    losses = []
+    for _ in range(2):
+        st, m = zoo.train_step(st, batch, cfg)
+        losses.append(float(m["loss"]))
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "grads": grads, "losses": losses}
+
+
+def zoo_train_mesh(torch, cfg, batch, mesh, ref, flags: dict):
+    """The same run on the rank's blocks of the state of seed 0
+    (``init_train_state(mesh=)`` with ``flags``' layout) and its rows of
+    ``batch``: the loss and the steps' losses (equal on every rank), each
+    leaf's gradient gathered whole and held to ``ref``'s on rank 0 (max
+    |Δ| over the leaf's max |ref|). -> (record, the state after the
+    steps)."""
+    from repro_torch.models import zoo
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.sharding import specs as sh
+
+    layout = {k: flags.get(k, False) for k in ("zero", "fsdp", "moe_2d")}
+    bom = flags.get("batch_over_model", False)
+    st = zoo.init_train_state(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda", mesh=mesh, **layout)
+    mine = sh.tree_blocks(batch, sh.data_specs(batch, mesh,
+                                               include_model=bom), mesh)
+    kw = dict(fsdp=layout["fsdp"], moe_2d=layout["moe_2d"],
+              batch_over_model=bom)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = zoo.loss_and_grads(st["params"], cfg, mine, mesh, **kw)
+    torch.cuda.synchronize()
+    grad_ms = (time.perf_counter() - t0) * 1e3
+    specs = zoo._spec_leaves(zoo._state_specs(cfg, mesh, **layout)["params"])
+    worst = 0.0
+    for i, (g, spec) in enumerate(zip(grads, specs)):
+        w = whole_leaf(g, spec, mesh)
+        if ref is not None:
+            r = ref["grads"][i].to(w.device)
+            worst = max(worst, float((w.float() - r.float()).abs().max()
+                                     / r.float().abs().max().clamp_min(1e-30)))
+        grads[i] = w = None
+    losses = []
+    for _ in range(2):
+        st, m = zoo.train_step(st, mine, cfg, mesh=mesh, **flags)
+        losses.append(float(m["loss"]))
+    mesh.same_on_every_rank("the train losses", torch.tensor(
+        [float(loss)] + losses, dtype=torch.float64))
+    rec = {"flags": sorted(k for k, v in flags.items() if v), "loss":
+           float(loss), "losses": losses, "grad_ms": grad_ms,
+           "finite": all(math.isfinite(x) for x in [float(loss)] + losses),
+           "state_bytes": sum(t.nbytes for key in ("params", "mu", "nu")
+                              for t in tree_leaves(st[key]))}
+    if ref is not None:
+        rec.update(loss_rel_err=abs(float(loss) - ref["loss"])
+                   / max(abs(ref["loss"]), 1e-30), grad_rel_err=worst,
+                   step2_loss_rel_err=abs(losses[1] - ref["losses"][1])
+                   / max(abs(ref["losses"][1]), 1e-30),
+                   one_device_loss=ref["loss"],
+                   one_device_losses=ref["losses"])
+    return rec, st
+
+
+def zoo_train_bf16(torch, cfg, state, batch, mesh=None) -> dict:
+    """A bf16 step's ms (host clock, synchronised; the median of
+    ZOO_TRAIN_TIMED after a warm-up), the peak over them, and a counted
+    step's launches, on ``state`` (the rank's blocks on ``mesh``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import zoo
+    from repro_torch.sharding import specs as sh
+
+    mine = batch if mesh is None else sh.tree_blocks(
+        batch, sh.data_specs(batch, mesh), mesh)
+    state, _ = zoo.train_step(state, mine, cfg, mesh=mesh)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(ZOO_TRAIN_TIMED):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = zoo.train_step(state, mine, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"bf16_step_ms_each": ms, "bf16_step_ms": statistics.median(ms),
+            "bf16_loss": float(m["loss"]),
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k: v for k, v in ops.launch_counts().items() if v},
+            "backward": ops.backward_launch_counts(),
+            "backward_routes": ops.backward_route_counts()}
+
+
+def zoo_train_zamba2(torch, mesh) -> dict:
+    """Zamba2-1.2B whole on (1, 2): the fp32 B1 S ZOO_TRAIN_S run against
+    one device's (rank 0 alone first, the other rank waiting), then the
+    bf16 B1 S ZOO_TRAIN_BF16_S step's ms, peak and launches on each rank
+    against one device's."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import zoo
+
+    cfg = registry.get("zamba2-1.2b")
+    f32 = cfg.replace(dtype="float32")
+    g = torch.Generator(device="cuda")
+    b32 = lm_batch(g.manual_seed(7), f32, 1, ZOO_TRAIN_S, "cuda")
+    b16 = lm_batch(g.manual_seed(8), cfg, 1, ZOO_TRAIN_BF16_S, "cuda")
+    ref = one = None
+    if mesh.rank == 0:
+        ref = zoo_train_ref(torch, f32, b32)
+        st = zoo.init_train_state(torch.Generator(device="cuda")
+                                  .manual_seed(0), cfg, device="cuda")
+        one = zoo_train_bf16(torch, cfg, st, b16)
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    rec, st = zoo_train_mesh(torch, f32, b32, mesh, ref, {})
+    rec.update(zoo_train_bf16(torch, cfg, st, b16, mesh))
+    if one is not None:
+        rec["one_device"] = one
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def zoo_train_cut(torch, mesh, arch: str, layers: int, runs: tuple) -> dict:
+    """``arch`` at its published widths cut to ``layers`` layers, fp32, on
+    (2, 2): one device's run (rank 0 alone first), then each layout of
+    ``runs`` on the ranks' blocks; a layout's params after its steps equal
+    the plain layout's (cut to its blocks) bit for bit where the layout
+    only moves where the state lies."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models.modules import tree_leaves
+
+    published = registry.get(arch)
+    cfg = published.replace(dtype="float32", n_layers=layers)
+    batch = lm_batch(torch.Generator(device="cuda").manual_seed(9), cfg,
+                     ZOO_TRAIN_B, ZOO_TRAIN_S, "cuda")
+    ref = zoo_train_ref(torch, cfg, batch) if mesh.rank == 0 else None
+    mesh.barrier()
+    out, plain = {"reduced": f"n_layers {published.n_layers} -> {layers}"}, \
+        None
+    for flags in runs:
+        rec, st = zoo_train_mesh(torch, cfg, batch, mesh, ref, flags)
+        name = "_".join(rec["flags"]) or "plain"
+        if not flags:
+            plain = st["params"]
+        elif plain is not None and not flags.get("moe_2d"):
+            rec["params_equal_plain"] = all(
+                torch.equal(a, plain_cut(b, a, mesh.fsdp_index))
+                for a, b in zip(tree_leaves(st["params"]),
+                                tree_leaves(plain)))
+        if flags.get("moe_2d"):
+            rec["experts_a_rank"] = int(
+                st["params"]["blocks"]["moe"]["w_up"].shape[1])
+        out[name] = rec
+        del st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def plain_cut(t, like, index: int):
+    """A plain layout's param block ``t`` cut to ``like``'s shape along the
+    one dim ZeRO-3 splits over "data" (block ``index``, the rank's place
+    on the data axis): the same tensor where the shapes agree."""
+    for d, (a, b) in enumerate(zip(t.shape, like.shape)):
+        if a != b:
+            return t.narrow(d, index * b, b)
+    return t
+
+
+def zoo_train_rank_main(rank: int, world: int, store: str, out: str,
+                        which: str) -> int:
+    """A phase-4m rank (a process of its own) over gloo: ``"zamba2"`` on
+    (1, ZOO_TP_MODEL), ``"cut"`` (Gemma-2B plain, ZeRO-1 and ZeRO-3;
+    Granite-MoE-1B with 2-D experts) on (world / ZOO_TP_MODEL,
+    ZOO_TP_MODEL). Writes ``out``.json."""
+    import torch
+
+    import repro_torch  # noqa: F401  (sets the fp32 matmul policy)
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.init_process_group("cuda", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                local_rank=rank, local_world=world)
+    try:
+        mesh = mesh_lib.make_fed_mesh(world // ZOO_TP_MODEL, ZOO_TP_MODEL)
+        recs = {"backend": mesh.backend, "device": str(mesh.device),
+                "mesh": f"{world // ZOO_TP_MODEL}x{ZOO_TP_MODEL}"}
+        jobs = ((("zamba2", lambda: zoo_train_zamba2(torch, mesh)),)
+                if which == "zamba2" else
+                (("gemma", lambda: zoo_train_cut(
+                    torch, mesh, "gemma-2b", ZOO_TRAIN_GEMMA_LAYERS,
+                    ({}, {"zero": True}, {"fsdp": True}))),
+                 ("granite_moe", lambda: zoo_train_cut(
+                     torch, mesh, "granite-moe-1b-a400m",
+                     ZOO_TRAIN_GRANITE_LAYERS, ({"moe_2d": True},)))))
+        for name, fn in jobs:
+            t0 = time.perf_counter()
+            recs[name] = fn()
+            recs[name]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        Path(out + ".json").write_text(json.dumps(recs))
+    finally:
+        mesh_lib.destroy_process_group()
+    return 0
+
+
+def zoo_train_ranks() -> None:
+    """Phase 4m's rank sets in ``build/zoo_train``, once ``ZOO_TRAIN_GO``
+    is set (6d waits for them): two ranks as (1, 2), then four as (2, 2);
+    any rank's failure fails the phase (``run_ranks``)."""
+    ZOO_TRAIN_GO.wait()
+    d = ROOT / "build" / "zoo_train"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    run_ranks("zoo_train_rank_main", ZOO_TP_MODEL, d, "store2", ("zamba2",),
+              ZOO_TRAIN_TIMEOUT_S, 0, "phase 4m (1, 2)")
+    for r in range(ZOO_TP_MODEL):
+        (d / f"rank{r}.json").rename(d / f"zamba2_rank{r}.json")
+    run_ranks("zoo_train_rank_main", 2 * ZOO_TP_MODEL, d, "store4", ("cut",),
+              ZOO_TRAIN_TIMEOUT_S, 0, "phase 4m (2, 2)")
+
+
+def zoo_train_phase(torch, lane: Lane, smi: str) -> dict:
+    """Phase 4m: the ranks' records checked here: rank 0's loss, gathered
+    gradients and second step's loss within ZOO_TRAIN_TOL of one device's
+    (each leaf's max |Δ| over its max |ref|; the losses relative), every
+    loss finite, the gloo backend on one card, ZeRO-1 / ZeRO-3's params
+    equal to the plain layout's on every rank, each rank's counted bf16
+    Zamba2 step launching swa_attention_bwd (``tc``) once a shared-block
+    application and ssd_intra_chunk_bwd once a layer on its local heads.
+    Returns the launch counts of the ranks' counted steps."""
+    t_phase = time.perf_counter()
+    spawn_s = lane.wait("zoo_train_tp")
+    d = ROOT / "build" / "zoo_train"
+    z = [json.loads((d / f"zamba2_rank{r}.json").read_text())
+         for r in range(ZOO_TP_MODEL)]
+    cut = [json.loads((d / f"rank{r}.json").read_text())
+           for r in range(2 * ZOO_TP_MODEL)]
+    want_bwd = {"swa_attention_bwd": 6, "ssd_intra_chunk_bwd": 38}
+    want_routes = {"swa_attention_bwd.tc": 6, "swa_attention_bwd.fp32": 0}
+    failed, counts = [], {}
+    for r, rec in enumerate(z):
+        emit({"phase": "zoo_train_tp", "model": "zamba2", "rank": r,
+              "mesh": rec["mesh"], "backend": rec["backend"],
+              "device": rec["device"], "nvidia_smi": smi, **rec["zamba2"]})
+        zr = rec["zamba2"]
+        if zr["backward"] != want_bwd or zr["backward_routes"] != \
+                want_routes:
+            failed.append(f"zamba2 rank {r}: a bf16 step launched "
+                          f"{zr['backward']} {zr['backward_routes']}")
+        for k, v in {**zr["launches"], **zr["backward_routes"],
+                     **zr["backward"]}.items():
+            counts[k] = counts.get(k, 0) + v
+    for r, rec in enumerate(cut):
+        for name in ("gemma", "granite_moe"):
+            emit({"phase": "zoo_train_tp", "model": name, "rank": r,
+                  "mesh": rec["mesh"], "backend": rec["backend"],
+                  "device": rec["device"], "nvidia_smi": smi, **rec[name]})
+            for run, v in rec[name].items():
+                if isinstance(v, dict) and v.get("params_equal_plain") is \
+                        False:
+                    failed.append(f"{name} rank {r} {run}: params differ "
+                                  "from the plain layout's")
+    runs = [("zamba2", z[0]["zamba2"])] + [
+        (f"{name} {run}", v) for name in ("gemma", "granite_moe")
+        for run, v in cut[0][name].items() if isinstance(v, dict)]
+    for label, rec in runs:
+        keys = ["loss_rel_err", "grad_rel_err", "step2_loss_rel_err"]
+        for k in keys:
+            if not rec[k] <= ZOO_TRAIN_TOL:
+                failed.append(f"{label} {k} {rec[k]} > {ZOO_TRAIN_TOL}")
+        if not rec["finite"]:
+            failed.append(f"{label}: a loss is not finite")
+    from repro_torch.configs import registry
+    want_e = registry.get("granite-moe-1b-a400m").n_experts // len(cut)
+    for rec in z + cut:
+        if rec["backend"] != "gloo":
+            failed.append(f"backend {rec['backend']}")
+    for r, rec in enumerate(cut):
+        got_e = rec["granite_moe"]["moe_2d"]["experts_a_rank"]
+        if got_e != want_e:
+            failed.append(f"granite_moe rank {r}: {got_e} experts, not "
+                          f"{want_e}")
+    if z[0]["zamba2"]["one_device"]["backward"] != want_bwd:
+        failed.append("zamba2 one device's bf16 step launched "
+                      f"{z[0]['zamba2']['one_device']['backward']}")
+    emit({"phase": "zoo_train_phase", "launches": counts,
+          "spawn_s": spawn_s, "seconds": time.perf_counter() - t_phase,
+          "nvidia_smi": smi})
+    if failed:
+        raise AssertionError(f"phase 4m: {failed}")
+    return counts
 
 
 def population_run(torch, prefetch: int):
@@ -7061,7 +7475,7 @@ def main() -> int:
     # child process. 6e, whose Alg. 3 holds ~57 GB, waits for all three
     fed = start_child("fed_phases", "fed", smi)
     lane = Lane([("mesh2d", mesh2d_ranks), ("svc2d", svc2d_ranks),
-                 ("zoo_tp", zoo_tp_ranks),
+                 ("zoo_tp", zoo_tp_ranks), ("zoo_train_tp", zoo_train_ranks),
                  ("mesh_gloo2", lambda: mesh_ranks(2, 2, "gloo2")),
                  ("svc_gloo2", svc_ranks)])
     lane.start()
@@ -7089,6 +7503,10 @@ def main() -> int:
     counts_last = last_families_phase(torch)
     serve.wait("xlstm")
     serve.join()
+    # phase 4m's ranks (~25 GB) run now, alone beside the forked 4c-4h: 6d
+    # (~42 GB) waits for them
+    ZOO_TRAIN_GO.set()
+    lane.wait("zoo_train_tp")
     # phase 6d: LM training (every smoke variant, Zamba2-1.2B and Gemma-2B
     # at published widths)
     counts_train = training_phase(torch)
@@ -7122,6 +7540,8 @@ def main() -> int:
     counts_2k = services2d_phase(torch, lane, smi)
     # phase 4l: the zoo over a model axis on two ranks sharing the card
     counts_tp = zoo_tp_phase(torch, lane, smi)
+    # phase 4m: the zoo's training over a model axis on two and four ranks
+    counts_4m = zoo_train_phase(torch, lane, smi)
 
     # phase 7: the kernels line and the result. Launches: FedGroup's EDC
     # and MADC runs, the 20-group EDC cold start, the shift run, the
@@ -7148,17 +7568,21 @@ def main() -> int:
                 "swa_attention.tc": counts_zoo["swa_attention.tc"]
                 + counts_fam["swa_attention.tc"]
                 + counts_last["swa_attention.tc"]
-                + counts_tp["swa_attention.tc"],
+                + counts_tp["swa_attention.tc"]
+                + counts_4m.get("swa_attention.tc", 0),
                 "swa_attention.fp32": counts_f32["swa_attention.fp32"]
                 + counts_fam["swa_attention.fp32"]
                 + counts_last["swa_attention.fp32"],
                 "ssd_intra_chunk.tc": counts_zoo["ssd_intra_chunk.tc"]
-                + counts_tp["ssd_intra_chunk.tc"],
+                + counts_tp["ssd_intra_chunk.tc"]
+                + counts_4m.get("ssd_intra_chunk.tc", 0),
                 "ssd_intra_chunk.fp32": counts_f32["ssd_intra_chunk.fp32"],
-                "swa_attention_bwd.tc": counts_train["swa_attention_bwd.tc"],
+                "swa_attention_bwd.tc": counts_train["swa_attention_bwd.tc"]
+                + counts_4m["swa_attention_bwd.tc"],
                 "swa_attention_bwd.fp32":
                     counts_train["swa_attention_bwd.fp32"],
-                "ssd_intra_chunk_bwd": counts_train["ssd_intra_chunk_bwd"]}
+                "ssd_intra_chunk_bwd": counts_train["ssd_intra_chunk_bwd"]
+                + counts_4m["ssd_intra_chunk_bwd"]}
     src_of = {"edc_cosine": ("src/repro_torch/csrc/edc_cosine.cu",
                              "src/repro/kernels/edc_cosine.py:49"),
               # the partial-sum entry: edc_cosine on a d-block, its sums

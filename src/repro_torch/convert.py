@@ -7,7 +7,8 @@ and loads them here. Nested dicts are kept nested, lists (xLSTM's
 training state (``zoo.init_train_state``'s: params, ``mu``, ``nu``,
 ``step``) carries across the same way. On a mesh a rank keeps its blocks
 of the whole tree (``params_from_numpy`` with ``cfg`` and ``mesh``:
-``zoo.shard_params``).
+``zoo.shard_params``; ``train_state_from_numpy`` likewise:
+``zoo.shard_state``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,8 @@ def params_from_numpy(tree, device="cpu", *, cfg=None, mesh=None):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [params_from_numpy(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
     return torch.as_tensor(np.array(tree)).to(device)
 
 
@@ -43,13 +46,24 @@ def params_to_numpy(params):
 TRAIN_STATE_KEYS = ("mu", "nu", "params", "step")
 
 
-def train_state_from_numpy(state, device="cpu"):
+def train_state_from_numpy(state, device="cpu", *, cfg=None, mesh=None,
+                           zero: bool = False, fsdp: bool = False,
+                           moe_2d: bool = False):
     """A JAX ``zoo.init_train_state`` tree (params, fp32 ``mu`` and ``nu``
     of the params' shapes, an int32 ``step``), as numpy arrays or
-    array-likes -> the port's, tensors on device."""
+    array-likes -> the port's, tensors on device; with ``mesh`` (and the
+    zoo's ``cfg``) the rank's blocks of it by
+    ``sharding.specs.state_specs(zero=, fsdp=, moe_2d=)``
+    (``zoo.shard_state``), each leaf cut before it is copied to the
+    device."""
     if tuple(sorted(state)) != TRAIN_STATE_KEYS:
         raise ValueError(f"a train state has the keys {TRAIN_STATE_KEYS}, "
                          f"not {tuple(sorted(state))}")
+    if mesh is not None:
+        from repro_torch.models import zoo
+        return params_from_numpy(zoo.shard_state(
+            params_from_numpy(dict(state)), cfg, mesh, zero=zero, fsdp=fsdp,
+            moe_2d=moe_2d), device)
     return params_from_numpy(dict(state), device)
 
 

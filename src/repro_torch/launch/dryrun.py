@@ -15,20 +15,25 @@ runs once under ``torch.utils.flop_counter.FlopCounterMode``.
 
 By default the CLI makes a ``fake`` process group of 256 ranks (512 with
 ``--multi-pod``) in its own process, as ``launch/fed_dryrun.py`` does, and
-runs rank 0's program of a prefill or decode pair on the production mesh
+runs rank 0's program of a pair on the production mesh
 (``launch.mesh.make_production_mesh``: 16 × 16 as ("data", "model"), or 2 ×
 16 × 16 with a leading "pod"): its blocks of the params
-(``sharding.specs.param_specs``), its rows of the batch (``data_specs``)
-and its blocks of the cache (``cache_specs``, with ``--cache-seq-shard``
-the slot-split layout), through ``zoo.forward`` / ``zoo.serve_step`` with
-``mesh=``. A train pair on the mesh is a ``skip`` record: training under a
-model axis is ROADMAP.md item 16d-ii, and so are the flags that shard a
-train state or batch (``--zero``, ``--fsdp``, ``--batch-over-model``,
-``--moe-2d``), refused with ``NotImplementedError``. ``--mesh 1`` runs the
-step of one device, as before. A record keeps the reference's keys where
-the port can give them:
+(``sharding.specs.param_specs``, with ``--fsdp`` also over "data"), its
+rows of the batch (``data_specs``) and its blocks of the cache
+(``cache_specs``, with ``--cache-seq-shard`` the slot-split layout),
+through ``zoo.forward`` / ``zoo.serve_step`` with ``mesh=``; a train pair
+through ``zoo.train_step(mesh=)`` on its blocks of the train state
+(``state_specs(zero=, fsdp=, moe_2d=)``) and of the batch
+(``data_specs(include_model=--batch-over-model)``; ``--xlstm-opt`` turns
+it on, as the reference does), the forward, the backward (with each remat
+recompute) and the gradient's reduction. ``--mesh 1`` runs the step of one
+device, as before; the flags that shard over a mesh are a ``ValueError``
+there. A record keeps the reference's keys where the port can give
+them:
 
   mesh             "16x16", "2x16x16" (and ``axes``), or "1";
+  zero, fsdp, batch_over_model, moe_2d
+                   the layout flags (the reference's ``zero`` / ``fsdp``);
   trace_s          the meta run's seconds (for ``lower_s`` / ``compile_s``);
   memory_analysis  ``argument_size_in_bytes`` (the inputs with the params,
                    train state or cache: rank 0's blocks on a mesh),
@@ -67,7 +72,6 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import registry, shapes as shp
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.mesh import not_ported_16
 from repro_torch.models import zoo
 from repro_torch.sharding import specs as sh
 
@@ -101,7 +105,17 @@ MESH_DIFFERENCES = {
     "kv_spec": "with --cache-seq-shard an MLA cache takes the slot-split "
                "decode too (the reference passes kv_spec for an attention "
                "cache only and leaves MLA's to XLA)",
-    "train": "train pairs are skipped on a mesh: ROADMAP.md item 16d-ii",
+    "train": "the backward's collectives are the port's own (each forward "
+             "sum's, gather's and entry's autograd Function: an entry's "
+             "backward is a model-group sum, a ZeRO-3 gather's a data-group "
+             "sum then a cut), a remat recompute's forward collectives up "
+             "to the layer's last tensor the backward needs are counted "
+             "again, and the gradient is summed over the data "
+             "group one all_reduce a leaf (fp32 on the wire; gloo takes "
+             "only all_reduce and broadcast for CUDA tensors, so gathers, "
+             "reduce-scatters and the --moe-2d all-to-all are zero-filled "
+             "sums there); alias_size_in_bytes is the state's blocks, "
+             "updated in place",
 }
 
 # flags whose only effect is a sharding: (argparse dest, what it shards)
@@ -113,21 +127,19 @@ SHARDING_FLAGS = {
     "batch_over_model": "the train batch sharded over the model axis",
     "moe_2d": "experts sharded over data x model",
 }
-# those that shard a train state or a train batch: not ported (16d-ii);
-# --fsdp is ZeRO-3, so refused for prefill and decode too
-TRAIN_FLAGS = ("zero", "fsdp", "batch_over_model", "moe_2d")
-# those the production mesh runs; --mesh 1 has no mesh for them
-MESH_FLAGS = ("multi_pod", "cache_seq_shard")
+# every one runs on the production mesh (--fsdp shards the params of
+# prefill and decode too); --mesh 1 has no mesh for them
 
 
-def refuse_sharding(**flags):
-    """Raises ``NotImplementedError`` naming ROADMAP item 16d-ii for the
-    first flag set that shards a train state or batch; the mesh flags
-    (``MESH_FLAGS``) are ported and pass."""
-    for name in TRAIN_FLAGS:
-        if flags.get(name):
-            raise not_ported_16(f"--{name.replace('_', '-')} "
-                                f"({SHARDING_FLAGS[name]})")
+def check_flags(mesh: str, **flags):
+    """Raises ``ValueError`` for a flag that shards over a mesh given with
+    ``mesh="1"`` (no mesh)."""
+    if mesh == "1":
+        on = [f"--{k.replace('_', '-')}" for k in SHARDING_FLAGS
+              if flags.get(k)]
+        if on:
+            raise ValueError(f"{', '.join(on)} run on the production mesh, "
+                             "not --mesh 1")
 
 
 def arch_config(arch: str, *, smoke: bool = False, bf16_params: bool = False,
@@ -212,24 +224,41 @@ def build_step(cfg: zoo.ArchConfig, shape: shp.InputShape, device="meta",
 
 
 def mesh_step(cfg: zoo.ArchConfig, shape: shp.InputShape, mesh,
-              cache_seq_shard: bool = False):
-    """(fn, args) of a rank's prefill or decode step on ``mesh``, on
-    ``meta``: its blocks of the params (``param_specs`` at the mesh's model
-    axis), of the batch or tokens and positions (``data_specs``) and of
-    the cache (``cache_specs(seq_shard=cache_seq_shard)``; ``kv_spec``, one
-    layer's spec of the attention or MLA cache, when it is slot-split)."""
-    if shape.kind == "train":
-        raise not_ported_16("a train step on a mesh")
+              cache_seq_shard: bool = False, *, zero: bool = False,
+              fsdp: bool = False, batch_over_model: bool = False,
+              moe_2d: bool = False):
+    """(fn, args) of a rank's step on ``mesh``, on ``meta``: its blocks of
+    the params (``param_specs`` at the mesh's model axis; with ``fsdp``
+    also over "data"), of the batch or tokens and positions
+    (``data_specs``) and of the cache (``cache_specs(seq_shard=
+    cache_seq_shard)``; ``kv_spec``, one layer's spec of the attention or
+    MLA cache, when it is slot-split); a train pair's blocks of the train
+    state (``state_specs(zero=, fsdp=, moe_2d=)``) and of the batch
+    (``data_specs(include_model=batch_over_model)``) through
+    ``zoo.train_step(mesh=)``."""
     M, gb = mesh.model_shards, shape.global_batch
-    whole = zoo.init_params(None, cfg, device="meta")
-    params = sh.tree_blocks(whole, sh.param_specs(whole, cfg, mp=M), mesh)
     ins = input_specs(cfg, shape)
+    if shape.kind == "train":
+        whole = zoo.init_train_state(None, cfg, device="meta")
+        state = zoo.shard_state(whole, cfg, mesh, zero=zero, fsdp=fsdp,
+                                moe_2d=moe_2d)
+        batch = sh.tree_blocks(ins, sh.data_specs(
+            ins, mesh, include_model=batch_over_model), mesh)
+
+        def train(state, batch):
+            return zoo.train_step(state, batch, cfg, mesh=mesh,
+                                  global_batch=gb, zero=zero, fsdp=fsdp,
+                                  moe_2d=moe_2d,
+                                  batch_over_model=batch_over_model)
+        return train, (state, batch)
+    whole = zoo.init_params(None, cfg, device="meta")
+    params = zoo.shard_params(whole, cfg, mesh, fsdp=fsdp)
     if shape.kind == "prefill":
         batch = sh.tree_blocks(ins, sh.data_specs(ins, mesh), mesh)
 
         def prefill(params, batch):
             logits, _ = zoo.forward(params, cfg, batch, mesh=mesh,
-                                    global_batch=gb)
+                                    global_batch=gb, fsdp=fsdp)
             return logits
         return prefill, (params, batch)
     c_specs = sh.cache_specs(ins["cache"], cfg, mesh, mp=M,
@@ -245,7 +274,8 @@ def mesh_step(cfg: zoo.ArchConfig, shape: shp.InputShape, mesh,
 
     def decode(params, cache, tokens, pos):
         return zoo.serve_step(params, cfg, cache, tokens, pos,
-                              kv_spec=kv_spec, mesh=mesh, global_batch=gb)
+                              kv_spec=kv_spec, mesh=mesh, global_batch=gb,
+                              fsdp=fsdp)
     return decode, (params, cache, tp["tokens"], tp["pos"])
 
 
@@ -362,21 +392,19 @@ def run_one(arch: str, shape_name: str, *, shape: shp.InputShape | None = None,
     production mesh in a ``fake_world`` made here (the caller must hold no
     process group), or with ``mesh="1"`` the step of one device. ``shape``
     replaces ``SHAPES[shape_name]`` (a batch cut, or a small shape for a
-    smoke variant, ``smoke=True``)."""
-    refuse_sharding(zero=zero, fsdp=fsdp, batch_over_model=batch_over_model,
-                    moe_2d=moe_2d)
+    smoke variant, ``smoke=True``). ``xlstm_opt`` turns on
+    ``batch_over_model``, as the reference does."""
     on_mesh = mesh != "1"
-    if not on_mesh and (multi_pod or cache_seq_shard):
-        raise ValueError("--multi-pod and --cache-seq-shard run on the "
-                         "production mesh, not --mesh 1")
+    if xlstm_opt and on_mesh:
+        batch_over_model = True
+    check_flags(mesh, multi_pod=multi_pod, cache_seq_shard=cache_seq_shard,
+                zero=zero, fsdp=fsdp, batch_over_model=batch_over_model,
+                moe_2d=moe_2d)
     base = arch_config(arch, smoke=smoke, bf16_params=bf16_params,
                        moe_grouped=moe_grouped, attn_chunk=attn_chunk,
                        mlstm_chunkwise=mlstm_chunkwise, xlstm_opt=xlstm_opt)
     shape = shape or shp.SHAPES[shape_name]
     ok, why = shp.supported(base, shape)
-    if ok and on_mesh and shape.kind == "train":
-        ok, why = False, ("a train step on a mesh is not yet ported: "
-                          "ROADMAP.md queue 1, item 16d-ii")
     if not ok:
         if verbose:
             print(f"SKIP {arch} x {shape_name}: {why}")
@@ -389,10 +417,12 @@ def run_one(arch: str, shape_name: str, *, shape: shp.InputShape | None = None,
             "window": cfg.window}
     t0 = time.time()
     if on_mesh:
+        flags = dict(zero=zero, fsdp=fsdp, batch_over_model=batch_over_model,
+                     moe_2d=moe_2d)
         with fake_world(multi_pod) as m:
-            fn, args = mesh_step(cfg, shape, m, cache_seq_shard)
+            fn, args = mesh_step(cfg, shape, m, cache_seq_shard, **flags)
             rec = {**head, "multi_pod": multi_pod,
-                   "cache_seq_shard": cache_seq_shard,
+                   "cache_seq_shard": cache_seq_shard, **flags,
                    **measure_on_mesh(m, fn, args, alias=donated(shape, args),
                                      t0=t0)}
     else:
@@ -401,9 +431,6 @@ def run_one(arch: str, shape_name: str, *, shape: shp.InputShape | None = None,
         rec = {**head, "mesh": "1",
                **measure(fn, args, alias=donated(shape, args), t0=t0)}
     mem_d = rec["memory_analysis"]
-    if xlstm_opt:
-        rec["sharding_left_out"] = SHARDING_FLAGS["batch_over_model"] + \
-            " (--xlstm-opt): ROADMAP.md queue 1, item 16d-ii"
     if verbose:
         print(f"OK {arch} x {shape_name} mesh={rec['mesh']} "
               f"trace={rec['trace_s']:.1f}s")
@@ -418,6 +445,9 @@ def run_one(arch: str, shape_name: str, *, shape: shp.InputShape | None = None,
     if save:
         os.makedirs(OUT_DIR, exist_ok=True)
         tag = f"{arch}_{shape_name}_{rec['mesh']}" \
+            + ("_zero" if zero else "") + ("_fsdp" if fsdp else "") \
+            + ("_bom" if batch_over_model else "") \
+            + ("_moe2d" if moe_2d else "") \
             + ("_seqshard" if cache_seq_shard else "") \
             + ("_smoke" if smoke else "") \
             + ("_chunkwise" if mlstm_chunkwise else "") \
@@ -441,20 +471,19 @@ def main(argv=None) -> int:
                          "--multi-pod) in a fake world, or 1: no mesh")
     ap.add_argument("--multi-pod", action="store_true", dest="multi_pod")
     ap.add_argument("--zero", action="store_true",
-                    help="shard optimizer moments over the data axis (ZeRO-1)"
-                         "; item 16d-ii")
+                    help="shard optimizer moments over the data axis "
+                         "(ZeRO-1)")
     ap.add_argument("--fsdp", action="store_true",
-                    help="also shard params over the data axis (ZeRO-3); "
-                         "item 16d-ii")
+                    help="also shard params over the data axis (ZeRO-3; "
+                         "prefill and decode too)")
     ap.add_argument("--mlstm-chunkwise", action="store_true",
                     dest="mlstm_chunkwise",
                     help="chunkwise-parallel mLSTM instead of recurrent scan")
     ap.add_argument("--xlstm-opt", action="store_true", dest="xlstm_opt",
                     help="optimized xLSTM config: chunkwise Q=256 + unit "
-                         "scan (its batch-over-model sharding is item "
-                         "16d-ii)")
+                         "scan, and the train batch over the model axis")
     ap.add_argument("--moe-2d", action="store_true", dest="moe_2d",
-                    help="2-D expert parallelism; item 16d-ii")
+                    help="2-D expert parallelism (train pairs)")
     ap.add_argument("--attn-chunk", type=int, default=None, dest="attn_chunk",
                     help="query-chunked attention block size")
     ap.add_argument("--moe-grouped", action="store_true", dest="moe_grouped",
@@ -463,17 +492,16 @@ def main(argv=None) -> int:
                     help="bf16 parameter storage (fp32 moments)")
     ap.add_argument("--batch-over-model", action="store_true",
                     dest="batch_over_model",
-                    help="shard the train batch over the model axis; item "
-                         "16d-ii")
+                    help="shard the train batch over the model axis")
     ap.add_argument("--cache-seq-shard", action="store_true",
                     dest="cache_seq_shard",
                     help="shard decode caches over the slots where the kv "
                          "heads do not divide the model axis")
     args = ap.parse_args(argv)
-    refuse_sharding(**{k: getattr(args, k) for k in TRAIN_FLAGS})
-    if args.mesh == "1" and any(getattr(args, f) for f in MESH_FLAGS):
-        ap.error("--multi-pod and --cache-seq-shard run on the production "
-                 "mesh, not --mesh 1")
+    try:
+        check_flags(args.mesh, **{k: getattr(args, k) for k in SHARDING_FLAGS})
+    except ValueError as e:
+        ap.error(str(e))
 
     if args.all:
         pairs = [(a, s) for a in registry.ARCHS for s in shp.SHAPES]
@@ -488,6 +516,9 @@ def main(argv=None) -> int:
             results.append(run_one(a, s, mesh=args.mesh,
                                    multi_pod=args.multi_pod,
                                    cache_seq_shard=args.cache_seq_shard,
+                                   zero=args.zero, fsdp=args.fsdp,
+                                   batch_over_model=args.batch_over_model,
+                                   moe_2d=args.moe_2d,
                                    mlstm_chunkwise=args.mlstm_chunkwise,
                                    xlstm_opt=args.xlstm_opt,
                                    bf16_params=args.bf16_params,

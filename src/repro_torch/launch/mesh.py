@@ -49,11 +49,15 @@ over the world as on a 1-D mesh. The m-stacked group parameters are kept
 at rest as blocks of ``sharding.specs.group_param_pspec`` (``ParamLayout``)
 and gathered over the model group where they are used whole. The updates
 of a pre-training solve come to a rank as its d_w block of every row
-(``gather_cols``), never whole. The reference's TPU roofline constants
+(``gather_cols``), never whole. A zoo leaf split over "data" alone
+(ZeRO-3, ``sharding.specs.param_specs(fsdp_axis="data")``) is gathered
+over ``fsdp_group``: the data group, or on the multi-pod mesh the "data"
+axis within the rank's pod. The reference's TPU roofline constants
 have no counterpart here.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import math
 import os
@@ -75,15 +79,6 @@ _all_gather = getattr(dist, "all_gather_single", None) or \
 _RANK_DEVICE = None
 # the host group of the current default process group (``host_group``)
 _HOST_GROUP = None
-
-
-def not_ported_16(what: str):
-    """The ``NotImplementedError`` of a mesh feature left to ROADMAP.md
-    queue 1, item 16d-ii (the zoo's tensor parallelism for training: a
-    sharded train state and batch, collectives with gradients)."""
-    return NotImplementedError(
-        f"{what} is not yet ported to repro_torch: ROADMAP.md queue 1, item "
-        "16d-ii (the zoo's tensor parallelism for training)")
 
 
 @dataclass(eq=False)
@@ -110,6 +105,13 @@ class FedMesh:
     # when a list: (kind, group, bytes) of each compute collective (the
     # federated dry run's inventory)
     comm_log: list | None = None
+    # the ranks of this rank's pod and model index (the "data" axis alone:
+    # what a leaf split over "data" is gathered over); the data group when
+    # the mesh has no "pod" axis
+    fsdp_group: object = None
+    # (index, size) on the "data" axis when this view's shape does not
+    # give them (``flat``)
+    fsdp_coord: tuple | None = None
 
     @property
     def data_shards(self) -> int:
@@ -126,6 +128,42 @@ class FedMesh:
     @property
     def model_index(self) -> int:
         return self.rank % self.model_shards
+
+    def __post_init__(self):
+        if self.fsdp_group is None:
+            self.fsdp_group = self.data_group
+
+    @property
+    def fsdp_index(self) -> int:
+        """This rank's place on the "data" axis (its pod's slices)."""
+        if self.fsdp_coord is not None:
+            return self.fsdp_coord[0]
+        return (self.rank // self.model_shards) % int(self.shape[DATA_AXIS])
+
+    @property
+    def fsdp_shards(self) -> int:
+        """The "data" axis' size (a pod's data slices)."""
+        if self.fsdp_coord is not None:
+            return self.fsdp_coord[1]
+        return int(self.shape[DATA_AXIS])
+
+    @property
+    def first_pod(self) -> bool:
+        """Whether this rank is in pod 0 (every rank of a mesh of one
+        pod)."""
+        return self.rank < self.fsdp_shards * self.model_shards \
+            if self.fsdp_coord is None else True
+
+    def flat(self) -> "FedMesh":
+        """This world as a ``(world, 1)`` mesh: a batch split over every
+        rank (``data_specs(include_model=True)`` with no leaf split over
+        "model"), reduced over the world; a leaf split over "data" is still
+        gathered over this rank's ``fsdp_group``."""
+        return dataclasses.replace(
+            self, shape={DATA_AXIS: self.world, MP_AXIS: 1},
+            axis_names=(DATA_AXIS, MP_AXIS), data_group=self.group,
+            model_group=self.group,
+            fsdp_coord=(self.fsdp_index, self.fsdp_shards))
 
     def _rows_of(self, k: int, r: int):
         """Rank r's ``compute_rows(k)``."""
@@ -243,6 +281,26 @@ class FedMesh:
         buf = t.new_zeros((D,) + tuple(t.shape))
         buf[self.data_index] = t
         return self.data_sum(buf)
+
+    def fsdp_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The "data" axis' equal blocks of ``t`` concatenated along ``dim``
+        in slice order (a leaf split over "data": ZeRO-3); over gloo, a
+        zero-filled buffer with this rank's block written, summed over the
+        ``fsdp_group``."""
+        n = self.fsdp_shards
+        if n == 1:
+            return t
+        if self._gathers():
+            out = self._stack(t.movedim(dim, 0).contiguous(),
+                              self.fsdp_group, n, "fsdp")
+            return out.reshape((n * t.shape[dim],) + tuple(
+                out.shape[2:])).movedim(0, dim)
+        shape = list(t.shape)
+        b = shape[dim]
+        shape[dim] = b * n
+        buf = t.new_zeros(shape)
+        buf.narrow(dim, self.fsdp_index * b, b).copy_(t)
+        return self._sum(buf, self.fsdp_group, "fsdp")
 
     def model_cols(self, d: int) -> tuple:
         """This rank's ``(lo, hi)`` block of d columns sharded over the
@@ -515,10 +573,21 @@ def _make_mesh(shape: dict, device) -> FedMesh:
             g = dist.new_group(list(range(j * M, (j + 1) * M)))
             if rank // M == j:
                 model_group = g
+    fsdp_group = data_group
+    if POD_AXIS in shape and int(shape[POD_AXIS]) > 1:
+        # the "data" axis within a pod: a leaf split over "data" alone
+        per_pod = world // int(shape[POD_AXIS])
+        for p in range(int(shape[POD_AXIS])):
+            for i in range(M):
+                g = dist.new_group(list(range(p * per_pod + i,
+                                              (p + 1) * per_pod, M)))
+                if rank // per_pod == p and rank % M == i:
+                    fsdp_group = g
     return FedMesh(group=world_group, rank=rank, world=world,
                    shape=dict(shape), backend=backend, device=dev,
                    axis_names=tuple(shape), host=host_group(),
-                   data_group=data_group, model_group=model_group)
+                   data_group=data_group, model_group=model_group,
+                   fsdp_group=fsdp_group)
 
 
 def make_local_mesh(*, device=None) -> FedMesh:

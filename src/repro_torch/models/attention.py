@@ -23,8 +23,10 @@ axis divides the heads, else the whole layer with no collective. Its kv
 heads are its own when the axis divides them too; else the kv projection
 is whole and each q head reads the contiguous kv heads that cover the
 rank's (``_kv_for_heads``: local head j is global head h0 + j, which reads
-kv head (h0 + j) // (H / KV)). A decode cache whose slots are split over
-the axis (``seq_shard``, ``cache_specs(seq_shard=True)``) holds the rank's
+kv head (h0 + j) // (H / KV)). In training, what the group holds alike
+enters the rank's own heads through ``ModelAxis.enter``: x, the cut 1-D
+biases, whole k / v, and MLA's latent, rope key and summed q. A decode
+cache whose slots are split over the axis (``seq_shard``, ``cache_specs(seq_shard=True)``) holds the rank's
 S / M slots: the new token is written by the rank that owns its slot,
 every rank scores all q heads against its slots, and the ranks' softmax
 statistics merge by log-sum-exp (``_lse_merge``) before the row-parallel
@@ -105,20 +107,27 @@ def make_mask_bias(sq: int, sk: int, *, causal: bool, window: int | None,
 # ---------------------------------------------------------------------------
 
 def _project_qkv(params, x, n_heads, n_kv, head_dim, h0: int = 0,
-                 kv0: int = 0):
+                 kv0: int = 0, tp=None, kv_local: bool = False):
     """q (B, S, n_heads, hd), k and v (B, S, n_kv, hd) from the (local)
     projections; the replicated 1-D biases are cut to the heads from
-    ``h0`` and the kv heads from ``kv0``."""
+    ``h0`` and the kv heads from ``kv0``. With ``tp`` the q heads are the
+    rank's own: ``x`` and ``bq`` enter its computation (``ModelAxis.
+    enter``), and k / v too when ``kv_local`` (their heads split); whole
+    k / v the caller enters before it cuts them."""
     B, S, _ = x.shape
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, n_heads, head_dim)
-    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
-    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
+    ent = (lambda t: t) if tp is None else tp.enter
+    xl = ent(x)
+    xk = xl if kv_local else x
+    q = (xl @ params["wq"].to(x.dtype)).reshape(B, S, n_heads, head_dim)
+    k = (xk @ params["wk"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
+    v = (xk @ params["wv"].to(x.dtype)).reshape(B, S, n_kv, head_dim)
     if "bq" in params:
+        kent = ent if kv_local else (lambda t: t)
         qs = slice(h0 * head_dim, (h0 + n_heads) * head_dim)
         ks = slice(kv0 * head_dim, (kv0 + n_kv) * head_dim)
-        q = q + params["bq"][qs].to(x.dtype).reshape(n_heads, head_dim)
-        k = k + params["bk"][ks].to(x.dtype).reshape(n_kv, head_dim)
-        v = v + params["bv"][ks].to(x.dtype).reshape(n_kv, head_dim)
+        q = q + ent(params["bq"])[qs].to(x.dtype).reshape(n_heads, head_dim)
+        k = k + kent(params["bk"])[ks].to(x.dtype).reshape(n_kv, head_dim)
+        v = v + kent(params["bv"])[ks].to(x.dtype).reshape(n_kv, head_dim)
     return q, k, v
 
 
@@ -192,13 +201,6 @@ def _write_slot(cache_leaf, new, slot, lo=None):
     out[bidx, safe] = torch.where(
         mine.reshape((B,) + (1,) * (new.ndim - 1)), new, out[bidx, safe])
     return out
-    local = slot - lo
-    mine = (local >= 0) & (local < n)
-    safe = torch.clamp(local, 0, n - 1)
-    keep = out[bidx, safe]
-    out[bidx, safe] = torch.where(mine.reshape((B,) + (1,) * (new.ndim - 1)),
-                                  new, keep)
-    return out
 
 
 def attention_fwd(params, x, *, n_heads: int, n_kv: int, head_dim: int,
@@ -211,10 +213,13 @@ def attention_fwd(params, x, *, n_heads: int, n_kv: int, head_dim: int,
     product summed over the model group."""
     B, S, _ = x.shape
     H, h0, KV, kv0 = _local_heads(tp, n_heads, n_kv)
-    q, k, v = _project_qkv(params, x, H, KV, head_dim, h0, kv0)
-    if H < n_heads and KV == n_kv:
-        k = _kv_for_heads(k, h0, H, n_heads, n_kv)
-        v = _kv_for_heads(v, h0, H, n_heads, n_kv)
+    split = H < n_heads
+    q, k, v = _project_qkv(params, x, H, KV, head_dim, h0, kv0,
+                           tp if split else None, KV < n_kv)
+    if split and KV == n_kv:
+        # whole k / v read by the rank's heads only
+        k = _kv_for_heads(tp.enter(k), h0, H, n_heads, n_kv)
+        v = _kv_for_heads(tp.enter(v), h0, H, n_heads, n_kv)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if rope_theta is not None:
@@ -222,7 +227,7 @@ def attention_fwd(params, x, *, n_heads: int, n_kv: int, head_dim: int,
         k = apply_rope(k, positions, rope_theta)
     out = swa_attention(q, k, v, window=window, causal=causal).to(x.dtype)
     y = out.reshape(B, S, H * head_dim) @ params["wo"].to(x.dtype)
-    return tp.sum(y) if H < n_heads else y
+    return tp.sum(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -330,19 +335,22 @@ def _mla_qkv(params, x, positions, *, n_heads, qk_nope, qk_rope, kv_rank,
     squares summed over the group), then ``w_uq``'s rows (a sum: every
     head) or its columns (the rank's heads)."""
     B, S, _ = x.shape
-    dq = x @ params["w_dq"].to(x.dtype)
     if tp is not None and tp.split("w_dq"):
+        dq = tp.enter(x) @ params["w_dq"].to(x.dtype)
         cq = rmsnorm_split(params["q_norm"], dq, tp,
                            params["q_norm"]["scale"].shape[0])
     else:
-        cq = rmsnorm(params["q_norm"], dq)
+        cq = rmsnorm(params["q_norm"], x @ params["w_dq"].to(x.dtype))
+        if tp is not None and tp.split("w_uq", 1):
+            cq = tp.enter(cq)
     qf = cq @ params["w_uq"].to(x.dtype)
     if tp is not None and tp.split("w_uq", 0):
         qf = tp.sum(qf)
     H, h0 = _mla_heads(params, n_heads, qk_nope, tp)
     q = qf.reshape(B, S, -1, qk_nope + qk_rope)
     if q.shape[2] > H:
-        q = q[:, :, h0:h0 + H]
+        # every head, summed: the rank's heads enter its computation
+        q = tp.enter(q)[:, :, h0:h0 + H]
     q_nope = q[..., :qk_nope]
     q_pe = apply_rope(q[..., qk_nope:], positions, rope_theta)
     dkv = x @ params["w_dkv"].to(x.dtype)
@@ -372,6 +380,9 @@ def mla_fwd(params, x, *, n_heads: int, qk_nope: int, qk_rope: int,
         params, x, positions, n_heads=n_heads, qk_nope=qk_nope,
         qk_rope=qk_rope, kv_rank=kv_rank, rope_theta=rope_theta, tp=tp)
     H = q_nope.shape[2]
+    if H < n_heads:
+        # the whole latent and rope key read by the rank's heads
+        c_kv, k_pe = tp.enter(c_kv), tp.enter(k_pe)
     k_nope = (c_kv @ params["w_uk"].to(x.dtype)).reshape(B, S, H, qk_nope)
     v = (c_kv @ params["w_uv"].to(x.dtype)).reshape(B, S, H, v_dim)
     scale = 1.0 / (qk_nope + qk_rope) ** 0.5

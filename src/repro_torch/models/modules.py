@@ -18,6 +18,30 @@ the specs of the layer's leaves (``sharding.specs.param_specs``) and the
 model group's collectives. A leaf the specs shard is the rank's block;
 ``tp=None``, or an axis of one rank, is the path of one device.
 
+Training differentiates through the collectives: with grad enabled on a
+tensor that requires it, ``ModelAxis.sum`` / ``gather`` / ``enter`` and
+the data group's ``data_sum`` / ``data_stack`` / ``fsdp_gather`` are
+autograd Functions, out of place (without grad they are the serving
+path's collectives, unchanged). A sum feeds what every rank of the group
+computes alike, so its backward is the identity; a gather's is this
+rank's block of the gradient; ``enter`` marks where a tensor the group
+holds alike enters a rank's own computation (its columns, heads,
+experts or vocab block) and sums the gradient over the group there. So
+after the backward a leaf split over "model" holds its block's gradient
+and a replicated leaf the whole gradient, the same on every rank of the
+group: no leaf needs a model-group reduction. The data group's sum of a
+loss term every slice holds alike (the MoE aux losses, the cross-entropy
+shares summed whole) has the identity backward too, so the gradient's sum
+over the data group afterwards counts each slice's share once. A leaf
+split over "data" (ZeRO-3) is gathered where it is used
+(``ModelAxis.whole``); its gradient is summed over the data group and
+cut back to the block in the gather's backward (a sum then a cut: gloo
+on CUDA tensors takes only ``all_reduce`` and ``broadcast``).
+
+Under remat (``torch.utils.checkpoint``) a layer's forward collectives
+run again inside the backward. Every rank recomputes the same layers in
+the same order, so the ranks' sequences of collectives stay matched.
+
 Leaf order follows ``jax.tree_util.tree_leaves``, which sorts dict keys:
 the MLP's leaves go ``b1, b2, w1, w2``. That order fixes the columns of
 every ``(·, d_w)`` matrix on the FedGroup path (ΔW, ``group_delta_flat``,
@@ -36,19 +60,114 @@ import torch.nn.functional as F
 # The model axis (tensor parallelism over a FedMesh)
 # ---------------------------------------------------------------------------
 
+def _grad_on(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _ModelSum(torch.autograd.Function):
+    """The model group's sum of partial sums (fp32 on the wire, out of
+    place); the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh.model_sum(t.to(torch.float32, copy=True)).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelGather(torch.autograd.Function):
+    """The model group's equal blocks concatenated along ``dim``; the
+    backward is this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.dim, ctx.n = dim, t.shape[dim]
+        ctx.lo = mesh.model_index * ctx.n
+        return mesh.model_gather(t.float().contiguous(), dim).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+class _ModelEnter(torch.autograd.Function):
+    """The identity; the backward sums the gradient over the model group
+    (fp32 on the wire)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.model_sum(g.to(torch.float32, copy=True)).to(
+            g.dtype), None
+
+
+class _DataSum(torch.autograd.Function):
+    """The data group's sum of a term every slice's loss holds alike; the
+    backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh.data_sum(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _DataStack(torch.autograd.Function):
+    """(D, *t.shape) over the data group; the backward is this slice's
+    row of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.i = mesh.data_index
+        return mesh.data_stack(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.i], None
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A leaf split over "data" gathered along ``dim`` over the mesh's
+    ``fsdp_group`` (fp32 on the wire); the backward sums the gradient over
+    the data group when the batch is split over it (a sum, then the cut
+    of this rank's block)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, summed):
+        ctx.mesh, ctx.dim, ctx.summed, ctx.n = mesh, dim, summed, t.shape[dim]
+        ctx.lo = mesh.fsdp_index * ctx.n
+        return mesh.fsdp_gather(t.float().contiguous(), dim).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = ctx.mesh.data_sum(g.to(torch.float32, copy=True)).to(g.dtype)
+        return g.narrow(ctx.dim, ctx.lo, ctx.n).contiguous(), None, None, \
+            None
+
+
 class ModelAxis:
     """A rank's view of the model axis of a ``launch.mesh.FedMesh`` as the
     zoo's layers read it: ``size`` ranks, this one at ``index``; ``specs``,
     the spec dict of the leaves of the module at hand (``sub`` descends
     into a child module); ``data_split``, whether the batch this rank
     holds is its data slice's block (the MoE layer's routing then counts
-    the slices before it).
+    the slices before it, and the loss's terms are summed over them).
 
     The collectives are the port's own (``FedMesh.model_sum`` /
     ``model_gather`` over the model group), not a partitioner's: a
     row-parallel product's partial sums are summed in fp32 and cast back
     (exact for a sum with one nonzero term), a gather concatenates the
-    ranks' blocks in model-index order."""
+    ranks' blocks in model-index order. With grad they are the autograd
+    Functions of the module's docstring."""
 
     def __init__(self, mesh, specs=None, data_split: bool = False):
         self.mesh = mesh
@@ -85,10 +204,12 @@ class ModelAxis:
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """The model group's sum of the partial sums ``t`` (fp32 on the
-        wire, cast back to ``t``'s dtype); an fp32 ``t`` is summed in
-        place."""
+        wire, cast back to ``t``'s dtype); without grad an fp32 ``t`` is
+        summed in place."""
         if self.size == 1:
             return t
+        if _grad_on(t):
+            return _ModelSum.apply(t, self.mesh)
         return self.mesh.model_sum(t.float()).to(t.dtype)
 
     def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -96,8 +217,18 @@ class ModelAxis:
         ``dim`` (a non-fp32 float moves as fp32: exact)."""
         if self.size == 1:
             return t
+        if _grad_on(t):
+            return _ModelGather.apply(t, self.mesh, dim)
         wire = t.float() if t.is_floating_point() else t
         return self.mesh.model_gather(wire.contiguous(), dim).to(t.dtype)
+
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, which every rank of the model group holds alike, where it
+        enters this rank's own computation: the backward sums its gradient
+        over the group (nothing without grad, or on an axis of one)."""
+        if self.size == 1 or not _grad_on(t):
+            return t
+        return _ModelEnter.apply(t, self.mesh)
 
     def stack(self, t: torch.Tensor) -> torch.Tensor:
         """(size, *t.shape): every rank's ``t`` in model-index order."""
@@ -105,11 +236,48 @@ class ModelAxis:
 
     def data_stack(self, t: torch.Tensor) -> torch.Tensor:
         """(D, *t.shape): the data slices' ``t`` in slice order."""
+        if _grad_on(t):
+            return _DataStack.apply(t, self.mesh)
         return self.mesh.data_stack(t)
 
     def data_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The data slices' sum of ``t`` (one rank a slice), in place."""
+        """The data slices' sum of ``t`` (one rank a slice); without grad,
+        in place."""
+        if _grad_on(t):
+            return _DataSum.apply(t, self.mesh)
         return self.mesh.data_sum(t)
+
+    def fsdp_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """A leaf split over "data" along ``dim``, gathered whole over the
+        data axis (a non-fp32 float moves as fp32: exact)."""
+        if self.mesh.fsdp_shards == 1:
+            return t
+        if _grad_on(t):
+            return _FsdpGather.apply(t, self.mesh, dim, self.data_split)
+        wire = t.float() if t.is_floating_point() else t
+        return self.mesh.fsdp_gather(wire.contiguous(), dim).to(t.dtype)
+
+    def whole(self, tree, specs=None):
+        """``tree`` (the module at hand's, or ``specs``' leaves) with every
+        leaf its specs split over "data" alone (ZeRO-3) gathered over the
+        data axis: the model blocks the layers read."""
+        specs = self.specs if specs is None else specs
+        if isinstance(tree, dict):
+            return {k: self.whole(v, specs.get(k, ())) for k, v in
+                    tree.items()}
+        if isinstance(tree, list):
+            return [self.whole(v, s) for v, s in zip(tree, specs)]
+        dim = data_dim(specs)
+        return tree if dim is None else self.fsdp_gather(tree, dim)
+
+
+def data_dim(spec):
+    """The dim a leaf's spec splits over "data" alone (ZeRO-3), or None."""
+    if isinstance(spec, tuple):
+        for d, e in enumerate(spec):
+            if e == "data":
+                return d
+    return None
 
 
 def _has_model(entry) -> bool:
@@ -162,12 +330,14 @@ def rmsnorm_split(params, x: torch.Tensor, tp, full: int,
                   eps: float = 1e-6) -> torch.Tensor:
     """``rmsnorm`` over a dim of ``full`` channels of which ``x`` holds the
     rank's block (``tp.span(full)``): the squares summed over the model
-    group, the replicated ``scale`` cut to the block."""
+    group, the replicated ``scale`` cut to the block (both entering the
+    rank's own computation: ``ModelAxis.enter``)."""
     x32 = x.float()
-    ss = tp.sum(torch.sum(torch.square(x32), dim=-1, keepdim=True))
+    ss = tp.enter(tp.sum(torch.sum(torch.square(x32), dim=-1,
+                                   keepdim=True)))
     y = x32 * torch.rsqrt(ss / full + eps)
     lo, hi = tp.span(full)
-    return (y * params["scale"][lo:hi].float()).to(x.dtype)
+    return (y * tp.enter(params["scale"])[lo:hi].float()).to(x.dtype)
 
 
 def init_layernorm(dim: int, dtype=torch.float32, device="cpu"):
@@ -223,8 +393,9 @@ def mlp_apply(params, x: torch.Tensor, act: str, tp=None) -> torch.Tensor:
     With ``tp`` splitting d_ff: ``w_gate`` / ``w_up`` are the rank's
     columns, ``w_down`` its rows, and the partial products are summed
     over the model group."""
-    y = _mlp(params, x, act)
-    return tp.sum(y) if tp is not None and tp.split("w_down") else y
+    if tp is not None and tp.split("w_down"):
+        return tp.sum(_mlp(params, tp.enter(x), act))
+    return _mlp(params, x, act)
 
 
 def _mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
@@ -265,6 +436,32 @@ def vocab_logits(h: torch.Tensor, w: torch.Tensor, name: str,
     if tp is not None and tp.split(name):
         out = tp.gather(out, out.ndim - 1)
     return out
+
+
+def vocab_ce_sum(h: torch.Tensor, w: torch.Tensor, name: str,
+                 labels: torch.Tensor, tp) -> tuple:
+    """The vocab-parallel cross-entropy: (Σ over the labels >= 0 of
+    −log softmax(h @ W)[label] in fp32, their count), W the whole vocab's
+    head of which ``w`` is the rank's columns (``lm_head``) or rows (a
+    tied ``embed``); the logits are never gathered. The log-sum-exp takes
+    the group's largest row maximum (one gather of the rows' maxima) and
+    the group's sum of exp(logit − max); the label's logit comes from the
+    rank that owns its column, the others adding zero. Its backward, by
+    the Functions of ``ModelAxis``, is softmax − one-hot on the rank's
+    columns. ``h`` must have entered the rank's computation
+    (``tp.enter``)."""
+    logits = (h @ (w.to(h.dtype).T if name == "embed" else w.to(h.dtype))
+              ).float()
+    mask = labels >= 0
+    m = tp.stack(logits.detach().amax(-1)).amax(0)
+    se = tp.sum(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    local = labels - tp.index * logits.shape[-1]
+    mine = mask & (local >= 0) & (local < logits.shape[-1])
+    picked = torch.take_along_dim(logits, torch.where(mine, local, 0).long()
+                                  [..., None], dim=-1)[..., 0]
+    label_logit = tp.sum(torch.where(mine, picked, 0.0))
+    ce = m + torch.log(se) - label_logit
+    return torch.sum(ce * mask), torch.sum(mask)
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,13 @@ experts split d_ff as an MLP does. When the batch is split over data
 slices (``tp.data_split``) the routing is the whole batch's, as one
 device's: the capacity counts every slice's tokens, a slot's rank counts
 the slices before it (each slice's per-expert counts, gathered over the
-data group) and the aux losses are means over every slice.
+data group) and the aux losses are means over every slice. In training
+the tokens and the gates enter the rank's experts (``ModelAxis.enter``),
+so the router's gradient is whole on every rank.
+
+With the expert stacks over ("data", "model") (``moe_2d``, training) a
+rank holds E / (D·M) experts and runs them on every slice's tokens: the
+expert exchange below.
 """
 from __future__ import annotations
 
@@ -141,12 +147,25 @@ def _aux_split(logits, probs, expert_ids, E: int, tp) -> tuple:
     return E * torch.sum(me * ce), sums[3 * E] / n, load
 
 
+def _two_d(tp) -> bool:
+    """Whether the expert stacks are split over ("data", "model")
+    (``moe_2d``)."""
+    if tp is None or "w_up" not in tp.specs:
+        return False
+    e = tp.specs["w_up"][0]
+    return isinstance(e, tuple) and "data" in e
+
+
 def _local_experts(params, tp) -> tuple:
     """(the first expert this rank holds, how many): all of them unless
-    the model axis splits the expert stacks."""
+    the model axis splits the expert stacks; over ("data", "model") the
+    rank's place counts the data axis first."""
     El = params["w_up"].shape[0]
-    return (tp.index * El if tp is not None and tp.split("w_up") else 0,
-            El)
+    if tp is None or not tp.split("w_up"):
+        return 0, El
+    if _two_d(tp):
+        return (tp.mesh.fsdp_index * tp.size + tp.index) * El, El
+    return tp.index * El, El
 
 
 def _combine(params, x, y, experts_split: bool, act: str, tp):
@@ -157,12 +176,98 @@ def _combine(params, x, y, experts_split: bool, act: str, tp):
         return tp.sum(y) if experts_split else y
     sh_tp = tp.sub("shared") if tp is not None else None
     sh_split = sh_tp is not None and sh_tp.split("w_down")
-    sh = _shared(params, x, act)
+    sh = _shared(params, tp.enter(x) if sh_split else x, act)
     if experts_split and sh_split:
         return tp.sum(y + sh)
     if experts_split:
         return tp.sum(y) + sh
     return y + (tp.sum(sh) if sh_split else sh)
+
+
+# ---------------------------------------------------------------------------
+# Experts over ("data", "model") (``moe_2d``): the expert exchange
+# ---------------------------------------------------------------------------
+# The whole batch's dispatch buffer is (R, E, C, D): R = 1 for the scatter
+# dispatch, whose slices fill disjoint cells of one buffer (a slot's rank
+# counts the slices before it), so the slices' buffers SUM to it; R = the
+# groups for the grouped one, whose slices' groups STACK. A rank holds E /
+# (D·M) experts. In: the data group's sum or stack of the slices' buffers
+# (nothing when the batch is not split over the slices), cut to the rank's
+# experts. Out: every rank's experts' outputs written into a zero-filled
+# (R, E, C, D) buffer summed over the world (pod 0's ranks write: the other
+# pods hold replicas), cut back to the slice's groups. Each one's backward
+# is the other's forward, so both are an all-to-all over the world emulated
+# by the zero-filled sum (gloo on CUDA tensors takes only ``all_reduce`` and
+# ``broadcast``); every rank of a slice ends with the slice's whole output
+# and gradient, the same on its model group.
+
+def _slices_in(t, mesh, mode: str):
+    """The whole batch's rows of a slice's (R, ...) ``t``: ``"sum"``, its
+    data group's sum; ``"stack"``, their (D·R, ...) stack; ``"none"``, t."""
+    if mode == "sum":
+        return mesh.data_sum(t.to(torch.float32, copy=True)).to(t.dtype)
+    if mode == "stack":
+        return mesh.data_stack(t.float()).to(t.dtype).flatten(0, 1)
+    return t
+
+
+def _world_out(t, mesh, mode: str, e0: int, E: int):
+    """This rank's experts' (R', El, C, D) ``t`` written into a zero-filled
+    (R', E, C, D) buffer at ``e0``, summed over the world, cut to the
+    slice's rows (``"stack"``)."""
+    buf = t.new_zeros((t.shape[0], E) + tuple(t.shape[2:]),
+                      dtype=torch.float32)
+    if mesh.first_pod:          # the other pods hold replicas of its experts
+        buf[:, e0:e0 + t.shape[1]] = t
+    out = mesh.all_reduce(buf).to(t.dtype)
+    if mode == "stack":
+        R = out.shape[0] // mesh.data_shards
+        out = out[mesh.data_index * R:(mesh.data_index + 1) * R]
+    return out
+
+
+class _ExpertsIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, buf, mesh, mode, e0, El):
+        ctx.mesh, ctx.mode, ctx.e0, ctx.E = mesh, mode, e0, buf.shape[1]
+        return _slices_in(buf, mesh, mode)[:, e0:e0 + El].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _world_out(g, ctx.mesh, ctx.mode, ctx.e0, ctx.E), None, \
+            None, None, None
+
+
+class _ExpertsOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, mesh, mode, e0, E):
+        ctx.mesh, ctx.mode, ctx.e0, ctx.El = mesh, mode, e0, out.shape[1]
+        return _world_out(out, mesh, mode, e0, E)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _slices_in(g, ctx.mesh, ctx.mode)
+        return g[:, ctx.e0:ctx.e0 + ctx.El].contiguous(), None, None, \
+            None, None
+
+
+def _experts_2d(params, buf, act: str, tp, mode: str):
+    """The rank's experts of the whole batch's (R, E, C, D) buffer, their
+    outputs exchanged back: -> the slice's (R, E, C, D) expert outputs,
+    whole."""
+    mode = mode if tp.data_split else "none"
+    e0, El = _local_experts(params, tp)
+    E = buf.shape[1]
+    if torch.is_grad_enabled() and buf.requires_grad:
+        mine = _ExpertsIn.apply(buf, tp.mesh, mode, e0, El)
+    else:
+        mine = _slices_in(buf, tp.mesh, mode)[:, e0:e0 + El]
+    R, _, C, D = mine.shape
+    out = _experts(params, mine.transpose(0, 1).reshape(El, R * C, D),
+                   act).reshape(El, R, C, D).transpose(0, 1)
+    if torch.is_grad_enabled() and out.requires_grad:
+        return _ExpertsOut.apply(out.contiguous(), tp.mesh, mode, e0, E)
+    return _world_out(out, tp.mesh, mode, e0, E)
 
 
 def moe_apply(params, x: torch.Tensor, *, top_k: int,
@@ -195,29 +300,36 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int,
     keep = rank < capacity
     safe_rank = torch.where(keep, rank, capacity - 1)
 
-    # this rank's experts e0 .. e0 + El − 1 (all of them without a split)
-    e0, El = _local_experts(params, tp)
+    # this rank's experts e0 .. e0 + El − 1 (all of them without a split;
+    # over ("data", "model") every expert, exchanged: ``_experts_2d``)
+    two_d = _two_d(tp)
+    e0, El = (0, E) if two_d else _local_experts(params, tp)
     split = El < E
     if split:
         mine = (flat_e >= e0) & (flat_e < e0 + El)
         keep = keep & mine
         local_e = torch.where(mine, flat_e - e0, 0)
+        # the tokens and their gates enter the rank's experts
+        xd, gv = tp.enter(xt), tp.enter(gate_vals)
     else:
-        local_e = flat_e
+        local_e, xd, gv = flat_e, xt, gate_vals
 
     # scatter tokens into (E, C, D); a dropped slot adds zero to cell C-1
     tok_idx = torch.arange(N, device=x.device).repeat_interleave(top_k)
-    src = torch.where(keep[:, None], xt[tok_idx], 0)
+    src = torch.where(keep[:, None], xd[tok_idx], 0)
     buf = torch.zeros((El, capacity, D), dtype=xt.dtype, device=x.device)
     buf.index_put_((local_e, safe_rank), src, accumulate=True)
 
-    out_buf = _experts(params, buf, act)
+    if two_d:
+        out_buf = _experts_2d(params, buf[None], act, tp, "sum")[0]
+    else:
+        out_buf = _experts(params, buf, act)
 
     # combine back with the gate weights: a token's k slots are rows
     # t·k .. t·k + k − 1, so the combine is a sum over k in a fixed order
     # (an index_add_ adds them with atomics on the card, in any order)
     gathered = out_buf[local_e, safe_rank]                       # (N*k, D)
-    w = (gate_vals.reshape(-1) * keep).to(xt.dtype)
+    w = (gv.reshape(-1) * keep).to(xt.dtype)
     y = (gathered * w[:, None]).reshape(N, top_k, D).sum(1)
     y = _combine(params, xt, y, split, act, tp)
     return y.reshape(B, S, D), MoEAux(*_aux(logits, probs, expert_ids, E,
@@ -257,16 +369,23 @@ def moe_apply_grouped(params, x: torch.Tensor, *, top_k: int,
     cell_valid = cells < torch.clamp(counts, max=C)[:, :, None]
     slot_idx = torch.clamp(src_slot, 0, TK - 1).reshape(G, E * C)
     tok_for_buf = torch.gather(sorted_tok, 1, slot_idx)          # (G, E*C)
+    two_d = _two_d(tp)
+    e0, El = (0, E) if two_d else _local_experts(params, tp)
+    # the tokens (and below the gates) enter the rank's experts
+    xd = tp.enter(x) if El < E else x
     # advanced indexing, not torch.gather: a token fills up to k cells, and
     # gather's backward (scatter_add_) would sum their gradients with
     # atomics on the card; indexing's backward sums them in a fixed order
-    buf = x[torch.arange(G, device=dev)[:, None], tok_for_buf]
+    buf = xd[torch.arange(G, device=dev)[:, None], tok_for_buf]
     buf = buf * cell_valid.reshape(G, E * C, 1).to(buf.dtype)
 
-    e0, El = _local_experts(params, tp)
-    ebuf = buf.reshape(G, E, C, D)[:, e0:e0 + El].transpose(0, 1).reshape(
-        El, G * C, D)
-    out_e = _experts(params, ebuf, act).reshape(El, G, C, D).transpose(0, 1)
+    if two_d:
+        out_e = _experts_2d(params, buf.reshape(G, E, C, D), act, tp,
+                            "stack")
+    else:
+        ebuf = buf.reshape(G, E, C, D)[:, e0:e0 + El].transpose(0, 1)
+        out_e = _experts(params, ebuf.reshape(El, G * C, D),
+                         act).reshape(El, G, C, D).transpose(0, 1)
     if El < E:
         # the other ranks' experts read zeros here: their slots add zero
         out_e = torch.cat([out_e.new_zeros((G, e0, C, D)), out_e,
@@ -279,7 +398,8 @@ def moe_apply_grouped(params, x: torch.Tensor, *, top_k: int,
     vals_sorted = vals_sorted * keep_sorted[..., None].to(vals_sorted.dtype)
     inv = torch.argsort(order, dim=1, stable=True)
     vals = torch.gather(vals_sorted, 1, inv[..., None].expand(G, TK, D))
-    w = gate_vals.reshape(G, T, top_k).to(vals.dtype)
+    gv = tp.enter(gate_vals) if El < E else gate_vals
+    w = gv.reshape(G, T, top_k).to(vals.dtype)
     y = torch.sum(vals.reshape(G, T, top_k, D) * w[..., None], dim=2)
     y = _combine(params, x, y, El < E, act, tp)
     return y, MoEAux(*_aux(logits, probs, expert_ids, E, tp))

@@ -18,8 +18,11 @@ d_inner channels, which is its block of SSD heads: the kernel runs on the
 rank's heads, ``dt_bias`` / ``A_log`` / ``D`` and the norm's scale (1-D,
 replicated) are cut to them, ``wB`` / ``wC`` / ``wdt`` stay whole, the
 gated norm over the whole d_inner sums its squares over the group and
-``out_proj``'s partial product is summed. A split that would cut a head
-in two is refused (``local_heads``).
+``out_proj``'s partial product is summed. In training what the group holds
+alike enters the rank's heads through ``ModelAxis.enter`` (x at ``wz`` /
+``wx``, the B / C / dt streams, the cut 1-D params), so ``wB`` / ``wC``
+/ ``wdt`` and the conv's B / C weights get whole gradients. A split that
+would cut a head in two is refused (``local_heads``).
 """
 from __future__ import annotations
 
@@ -109,8 +112,8 @@ def _local(params, tp, di: int, H: int, P: int, n_groups: int):
     h0, c0 = tp.index * Hl, tp.index * Hl * P
     cut = dict(params)
     for k in ("dt_bias", "A_log", "D"):
-        cut[k] = params[k][h0:h0 + Hl]
-    cut["conv_x_b"] = params["conv_x_b"][c0:c0 + Hl * P]
+        cut[k] = tp.enter(params[k])[h0:h0 + Hl]
+    cut["conv_x_b"] = tp.enter(params["conv_x_b"])[c0:c0 + Hl * P]
     return Hl * P, c0, Hl, h0, cut
 
 
@@ -207,17 +210,22 @@ def mamba2_fwd(params, x, *, d_state: int, expand: int, head_dim: int,
                                      n_groups)
 
     dt_ = x.dtype
-    z = x @ params["wz"].to(dt_)
-    xs = F.silu(_causal_conv(x @ params["wx"].to(dt_),
+    # a split d_inner: x enters the rank's channels, and the whole B / C /
+    # dt streams its heads (the SSD kernels' dB / dC are the rank's heads'
+    # sums: the group's sum completes them)
+    ent = (lambda t: t) if di == di_all else tp.enter
+    xl = ent(x)
+    z = xl @ params["wz"].to(dt_)
+    xs = F.silu(_causal_conv(xl @ params["wx"].to(dt_),
                              params["conv_x"].to(dt_),
                              params["conv_x_b"].to(dt_)))
-    Bm = F.silu(_causal_conv(x @ params["wB"].to(dt_),
-                             params["conv_B"].to(dt_),
-                             params["conv_B_b"].to(dt_)))
-    Cm = F.silu(_causal_conv(x @ params["wC"].to(dt_),
-                             params["conv_C"].to(dt_),
-                             params["conv_C_b"].to(dt_)))
-    dt_raw = (x @ params["wdt"].to(dt_))[..., h0:h0 + H]
+    Bm = ent(F.silu(_causal_conv(x @ params["wB"].to(dt_),
+                                 params["conv_B"].to(dt_),
+                                 params["conv_B_b"].to(dt_))))
+    Cm = ent(F.silu(_causal_conv(x @ params["wC"].to(dt_),
+                                 params["conv_C"].to(dt_),
+                                 params["conv_C_b"].to(dt_))))
+    dt_raw = ent(x @ params["wdt"].to(dt_))[..., h0:h0 + H]
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])  # (B,S,H)
     A = -torch.exp(params["A_log"])                                     # (H,)

@@ -24,24 +24,36 @@ kernels (``SwaAttentionFn``, ``SsdIntraChunkFn``) on the card. With
 wraps it in ``jax.checkpoint``. ``train_step`` updates the state in place,
 leaf by leaf, so a step never holds two copies of params and moments.
 
-Tensor parallelism for serving (``mesh=``, a ``launch.mesh.FedMesh``): a
-rank holds its blocks of the parameters (``shard_params``, by
-``sharding.specs.param_specs``) and of the decode cache (``init_cache(...,
-mesh=)``, by ``cache_specs``) and its data slice's rows of the batch
-(``data_specs``); ``forward``, ``mtp_logits`` and ``serve_step`` run the
-rank's blocks, each layer summing or gathering over the model group where
-its specs split it (``modules.ModelAxis``), and return the whole logits
-of the rank's rows. ``serve_step``'s ``kv_spec`` (one layer's cache spec)
-with a slot dim over the model axis selects the slot-split decode. A
+Tensor parallelism (``mesh=``, a ``launch.mesh.FedMesh``): a rank holds
+its blocks of the parameters (``shard_params``, by
+``sharding.specs.param_specs``), of the decode cache (``init_cache(...,
+mesh=)``, by ``cache_specs``) or of a train state (``init_train_state(...,
+mesh=)``, ``shard_state``, by ``state_specs``) and its data slice's rows
+of the batch (``data_specs``); ``forward``, ``mtp_logits`` and
+``serve_step`` run the rank's blocks, each layer summing or gathering
+over the model group where its specs split it (``modules.ModelAxis``),
+and return the whole logits of the rank's rows. ``serve_step``'s
+``kv_spec`` (one layer's cache spec) with a slot dim over the model axis
+selects the slot-split decode. ``loss_fn`` and ``train_step`` run the
+backward through those collectives (their autograd Functions), with the
+vocab-parallel cross-entropy (``modules.vocab_ce_sum``: the logits are
+never gathered); ``train_step`` then sums each gradient over the data
+slices and updates the rank's blocks in place. The layouts of
+``state_specs``: ``zero`` (ZeRO-1: the moments' blocks over "data"; a
+rank updates its block of each parameter, which the data axis gathers
+back), ``fsdp`` (ZeRO-3, training and serving: the parameters over
+"data", gathered where a layer uses them, inside its remat, the
+gradient summed and cut in the gather's backward), ``moe_2d`` (training:
+the expert stacks over ("data", "model"), every slice's tokens exchanged
+with the experts' ranks, ``moe``) and ``batch_over_model`` (the batch
+over the model axis too: gathered over the model group at entry where a
+leaf is split over it, else a batch over every rank of the world). A
 mesh of one rank is the path of one device, bit for bit.
-
-Not yet ported (raises ``NotImplementedError`` naming its ROADMAP.md item,
-queue 1): training under a mesh (``loss_fn`` / ``train_step`` with
-``mesh=``; 16d-ii).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -54,23 +66,14 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.modules import (ModelAxis, dense_init, embed_init,
-                                        embed_lookup, init_mlp, init_rmsnorm,
-                                        mlp_apply, rmsnorm, tree_index,
-                                        tree_leaves, tree_map, tree_stack,
+from repro_torch.models.modules import (ModelAxis, data_dim, dense_init,
+                                        embed_init, embed_lookup, init_mlp,
+                                        init_rmsnorm, mlp_apply, rmsnorm,
+                                        tree_index, tree_leaves, tree_map,
+                                        tree_stack, vocab_ce_sum,
                                         vocab_logits)
 from repro_torch.optim.solvers import adamw_update
 from repro_torch.sharding import specs as sh
-
-
-_ROADMAP_ITEM = {"mesh": "16d-ii (the zoo's tensor parallelism for "
-                         "training)"}
-
-
-def _not_ported(what: str, kind: str):
-    return NotImplementedError(
-        f"{what} is not yet ported to repro_torch: ROADMAP.md queue 1, item "
-        f"{_ROADMAP_ITEM[kind]}")
 
 
 # ===========================================================================
@@ -410,9 +413,13 @@ def embed_inputs(params, cfg: ArchConfig, batch, tp=None):
 
 def _logits(params, cfg: ArchConfig, h, tp=None):
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    name = ("embed" if cfg.tie_embeddings and cfg.family != "audio"
-            else "lm_head")
+    name = _head_name(cfg)
     return vocab_logits(h, params[name], name, tp)
+
+
+def _head_name(cfg: ArchConfig) -> str:
+    return ("embed" if cfg.tie_embeddings and cfg.family != "audio"
+            else "lm_head")
 
 
 def _unstacked(specs):
@@ -422,19 +429,30 @@ def _unstacked(specs):
     return specs[1:]
 
 
-def _model_axis(params, cfg: ArchConfig, mesh, rows: int, global_batch):
+@functools.lru_cache(maxsize=64)
+def _layout_specs(cfg: ArchConfig, mp: int, fsdp: bool, moe_2d: bool):
+    """``param_specs`` of the whole tree (its shapes on ``meta``) at a
+    model axis of ``mp``: a layout that splits over "data" reads the
+    whole leaves' dims, which a rank's blocks do not show."""
+    return sh.param_specs(init_params(None, cfg, "meta"), cfg, mp=mp,
+                          fsdp_axis="data" if fsdp else None, moe_2d=moe_2d)
+
+
+def _model_axis(cfg: ArchConfig, mesh, rows: int, global_batch, *,
+                fsdp: bool = False, moe_2d: bool = False):
     """The top-level ``ModelAxis`` of a rank's params on ``mesh`` (None
     without one). ``rows``: the batch rows the rank holds; the batch is
     split over the data slices unless ``global_batch`` equals them (by
     default it is ``rows`` times the data slices: ``data_specs``'s split
-    of a batch they divide)."""
+    of a batch they divide). ``fsdp`` / ``moe_2d``: the params' layout."""
     if mesh is None:
         return None
     if getattr(mesh, "model_shards", None) is None:
         raise TypeError(f"mesh must be a launch.mesh.FedMesh, not "
                         f"{type(mesh).__name__}")
     gb = rows * mesh.data_shards if global_batch is None else global_batch
-    return ModelAxis(mesh, sh.param_specs(params, cfg, mp=mesh.model_shards),
+    return ModelAxis(mesh, _layout_specs(cfg, mesh.model_shards, fsdp,
+                                         moe_2d),
                      data_split=int(gb) != int(rows))
 
 
@@ -442,6 +460,30 @@ def _block_axis(tp):
     """The axis with the specs of one layer of ``params["blocks"]``."""
     return None if tp is None else tp.with_specs(
         _unstacked(tp.specs["blocks"]))
+
+
+def _top_whole(params, tp):
+    """``params`` with every leaf outside the layer stack that the specs
+    split over "data" (ZeRO-3) gathered whole over the data axis, once for
+    the call (a tied embedding is gathered once for its two uses)."""
+    if tp is None:
+        return params
+    return {k: v if k in ("blocks", "blocks_list") else
+            tp.whole(v, tp.specs[k]) for k, v in params.items()}
+
+
+def _stack_whole(blocks, specs, tp):
+    """The stacked layer leaves that the specs split over "data" on the
+    layer dim, gathered whole before the unbind (``_layers``); the others
+    are gathered a layer at a time where the layer runs."""
+    if isinstance(blocks, dict):
+        return {k: _stack_whole(v, specs[k], tp) for k, v in blocks.items()}
+    return tp.fsdp_gather(blocks, 0) if data_dim(specs) == 0 else blocks
+
+
+def _whole(tp, p):
+    """A layer's params with its leaves split over "data" gathered."""
+    return p if tp is None else tp.whole(p)
 
 
 def _remat(cfg: ArchConfig, fn, *args):
@@ -465,38 +507,32 @@ def _layers(blocks, n: int) -> list:
     return list(blocks.unbind(0))
 
 
-def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False, *,
-            mesh=None, global_batch: Optional[int] = None):
-    """-> (logits (B,S,V), aux dict). return_hidden adds aux['hidden'].
-    ``batch["tokens"]``: (B, S) integer tensor on the params' device (or
-    ``"frames"``, or ``"patch_embeds"`` with the text, as the family
-    reads them). The MoE family's aux losses are the layers' means. With
-    ``cfg.remat`` and grad enabled, each layer body is checkpointed.
-
-    With ``mesh`` (a ``FedMesh``): ``params`` are the rank's blocks
-    (``shard_params``) and ``batch`` its rows (the whole batch when the
-    data slices do not divide it: pass ``global_batch``, the batch's rows,
-    when it is not B times the data slices); the logits are the rank's
-    rows, whole over the vocab."""
-    first = next(iter(batch.values()))
-    tp = _model_axis(params, cfg, mesh, first.shape[0], global_batch)
+def _hidden(params, cfg: ArchConfig, batch, tp):
+    """The layer stack over the embedded inputs: -> (hidden (B, S, D)
+    before the final norm, aux: the MoE family's aux losses, the layers'
+    means). ``params``: ``_top_whole``'s. Each layer body is
+    checkpointed with ``cfg.remat`` and grad enabled; under ZeRO-3 it
+    gathers its params inside, so a recompute gathers them again."""
     x, _ = embed_inputs(params, cfg, batch, tp)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     aux = {"load_balance_loss": torch.zeros((), device=x.device),
            "router_z_loss": torch.zeros((), device=x.device)}
     bt = _block_axis(tp) if "blocks" in params else None
+    blocks = params.get("blocks")
+    if bt is not None:
+        blocks = _stack_whole(blocks, tp.specs["blocks"], tp)
     if cfg.family in ("dense", "vlm", "audio"):
         def body(h, p):
-            return _dense_block_fwd(cfg, p, h, positions, bt)
-        for p in _layers(params["blocks"], cfg.n_layers):
+            return _dense_block_fwd(cfg, _whole(bt, p), h, positions, bt)
+        for p in _layers(blocks, cfg.n_layers):
             x = _remat(cfg, body, x, p)
     elif cfg.family == "moe":
         def body(h, p):
-            h, a = _moe_block_fwd(cfg, p, h, positions, bt)
+            h, a = _moe_block_fwd(cfg, _whole(bt, p), h, positions, bt)
             return h, a.load_balance_loss, a.router_z_loss
         lb, zl = [], []
-        for p in _layers(params["blocks"], cfg.n_layers):
+        for p in _layers(blocks, cfg.n_layers):
             x, lb_i, zl_i = _remat(cfg, body, x, p)
             lb.append(lb_i)
             zl.append(zl_i)
@@ -508,18 +544,20 @@ def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False, *,
         period = cfg.shared_attn_period
 
         def body(h, p, shared_app: bool):
-            h = _mamba_block_fwd(cfg, p, h, bt)
+            h = _mamba_block_fwd(cfg, _whole(bt, p), h, bt)
             if shared_app:
                 h = _dense_block_fwd(cfg, shared, h, positions, st)
             return h
-        for i, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        for i, p in enumerate(_layers(blocks, cfg.n_layers)):
             x = _remat(cfg, body, x, p,
                        period > 0 and (i + 1) % period == 0)
     else:                                                   # ssm (xLSTM)
         pattern, blocks = cfg.xlstm_pattern, params["blocks_list"]
 
         def block(h, i):
-            return _xlstm_block_fwd(cfg, pattern[i], blocks[i], h)
+            p = blocks[i] if tp is None else tp.whole(
+                blocks[i], tp.specs["blocks_list"][i])
+            return _xlstm_block_fwd(cfg, pattern[i], p, h)
 
         # xlstm_scan_units: the JAX package scans n_layers / period units,
         # each checkpointed around its blocks' own checkpoints, to bound
@@ -536,94 +574,221 @@ def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False, *,
         else:
             for i in range(cfg.n_layers):
                 x = _remat(cfg, block, x, i)
+    return x, aux
+
+
+def forward(params, cfg: ArchConfig, batch, return_hidden: bool = False, *,
+            mesh=None, global_batch: Optional[int] = None,
+            fsdp: bool = False):
+    """-> (logits (B,S,V), aux dict). return_hidden adds aux['hidden'].
+    ``batch["tokens"]``: (B, S) integer tensor on the params' device (or
+    ``"frames"``, or ``"patch_embeds"`` with the text, as the family
+    reads them). The MoE family's aux losses are the layers' means. With
+    ``cfg.remat`` and grad enabled, each layer body is checkpointed.
+
+    With ``mesh`` (a ``FedMesh``): ``params`` are the rank's blocks
+    (``shard_params``; with ``fsdp`` also split over "data":
+    ``sharding.specs.param_specs(fsdp_axis="data")``) and ``batch`` its
+    rows (the whole batch when the data slices do not divide it: pass
+    ``global_batch``, the batch's rows, when it is not B times the data
+    slices); the logits are the rank's rows, whole over the vocab."""
+    first = next(iter(batch.values()))
+    tp = _model_axis(cfg, mesh, first.shape[0], global_batch,
+                     fsdp=fsdp)
+    params = _top_whole(params, tp)
+    x, aux = _hidden(params, cfg, batch, tp)
     if return_hidden:
         aux["hidden"] = x
     return _logits(params, cfg, x, tp), aux
 
 
-def mtp_logits(params, cfg: ArchConfig, hidden, tokens, *, mesh=None,
-               global_batch: Optional[int] = None):
-    """DeepSeek-V3's multi-token-prediction head (one extra depth):
-    position t joins its final hidden state (``forward(...,
-    return_hidden=True)``'s, before the final norm) with the embedding of
-    token t+1 (not scaled) to predict token t+2, through one dense block
-    at positions 0..S−2. hidden: (B, S, D); tokens: (B, S). Returns logits
-    (B, S−1, V). ``mesh`` / ``global_batch`` as ``forward``'s."""
-    tp = _model_axis(params, cfg, mesh, tokens.shape[0], global_batch)
+def _mtp_hidden(params, cfg: ArchConfig, hidden, tokens, tp):
+    """The MTP head's dense block's output (before the final norm)."""
     mtp = params["mtp"]
     h = rmsnorm(mtp["norm_h"], hidden[:, :-1], cfg.norm_eps)
     e = embed_lookup(params["embed"], tokens[:, 1:], hidden.dtype, tp)
     e = rmsnorm(mtp["norm_e"], e, cfg.norm_eps)
     x = torch.cat([h, e], dim=-1) @ mtp["proj"].to(hidden.dtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _dense_block_fwd(cfg.replace(mla=False), mtp["block"], x, positions,
-                         _sub(_sub(tp, "mtp"), "block"))
-    return _logits(params, cfg, x, tp)
+    return _dense_block_fwd(cfg.replace(mla=False), mtp["block"], x,
+                            positions, _sub(_sub(tp, "mtp"), "block"))
 
 
-def shard_params(params, cfg: ArchConfig, mesh):
+def mtp_logits(params, cfg: ArchConfig, hidden, tokens, *, mesh=None,
+               global_batch: Optional[int] = None, fsdp: bool = False):
+    """DeepSeek-V3's multi-token-prediction head (one extra depth):
+    position t joins its final hidden state (``forward(...,
+    return_hidden=True)``'s, before the final norm) with the embedding of
+    token t+1 (not scaled) to predict token t+2, through one dense block
+    at positions 0..S−2. hidden: (B, S, D); tokens: (B, S). Returns logits
+    (B, S−1, V). ``mesh`` / ``global_batch`` / ``fsdp`` as
+    ``forward``'s."""
+    tp = _model_axis(cfg, mesh, tokens.shape[0], global_batch,
+                     fsdp=fsdp)
+    params = _top_whole(params, tp)
+    return _logits(params, cfg, _mtp_hidden(params, cfg, hidden, tokens,
+                                            tp), tp)
+
+
+def shard_params(params, cfg: ArchConfig, mesh, *, fsdp: bool = False):
     """The rank's blocks of a whole param tree on ``mesh``: each leaf cut
     by ``sharding.specs.param_specs(params, cfg, mp=M)``, M the model
-    axis (a leaf the specs replicate stays whole, the same tensor).
-    Refuses a model axis that splits Mamba2's d_inner but not its heads."""
-    M = mesh.model_shards
-    di = cfg.ssm_expand * cfg.d_model
-    if cfg.family == "hybrid" and M > 1 and di % M == 0:
-        ssm_lib.local_heads(di, cfg.ssm_head_dim, M)
-    return sh.tree_blocks(params, sh.param_specs(params, cfg, mp=M), mesh)
+    axis (a leaf the specs replicate stays whole, the same tensor); with
+    ``fsdp`` also over "data" (``fsdp_axis="data"``). Refuses a model axis
+    that splits Mamba2's d_inner but not its heads."""
+    _check_heads(cfg, mesh)
+    return sh.tree_blocks(params, sh.param_specs(
+        params, cfg, mp=mesh.model_shards,
+        fsdp_axis="data" if fsdp else None), mesh)
 
 
 # ===========================================================================
 # Loss / train step
 # ===========================================================================
 
-def _ce(logits, labels):
-    """Mean cross-entropy in fp32 over the labels >= 0."""
+def _ce_sum(logits, labels):
+    """(the fp32 cross-entropy summed over the labels >= 0, their count)."""
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     ce = -torch.take_along_dim(torch.log_softmax(logits.float(), -1),
                                safe[..., None], dim=-1)[..., 0]
-    return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.sum(ce * mask), torch.sum(mask)
 
 
-def _no_train_mesh(mesh):
-    if mesh is not None:
-        raise _not_ported("training under a mesh (a sharded train state, "
-                          "collectives with gradients)", "mesh")
+def _ce(params, cfg: ArchConfig, x, labels, tp):
+    """Mean cross-entropy in fp32 of the head on hidden ``x`` (before the
+    final norm; its last ``labels.shape[1]`` positions) over the labels
+    >= 0. Under a mesh: vocab-parallel where the specs split the head (the
+    logits never gathered), the mean over the whole batch's labels where
+    the batch is split over the data slices (the count summed over them,
+    each rank's term its rows' sum over it, summed over them: a data sum
+    whose backward is the identity)."""
+    name = _head_name(cfg)
+    L = labels.shape[1]
+    if tp is not None and tp.split(name):
+        h = rmsnorm(params["final_norm"], x[:, -L:], cfg.norm_eps)
+        s, n = vocab_ce_sum(tp.enter(h), params[name], name, labels, tp)
+    else:
+        s, n = _ce_sum(_logits(params, cfg, x, tp)[:, -L:], labels)
+    if tp is None or not tp.data_split:
+        return s / torch.clamp(n, min=1)
+    n = tp.mesh.data_sum(n.clone())
+    return tp.data_sum(s / torch.clamp(n, min=1))
 
 
-def loss_fn(params, cfg: ArchConfig, batch, mesh=None):
-    """-> (total loss, metrics): the cross-entropy of ``batch["labels"]``
-    (B, S_text; < 0 masked; a VLM's on its last S_text positions, the
-    text), plus ``aux_loss_weight`` × load balance and ``z_loss_weight`` ×
-    router z-loss, and with ``cfg.mtp`` ``mtp_weight`` × the MTP head's
-    cross-entropy on ``labels[:, 1:]``. Metrics: ``ce`` (``mtp_ce``),
-    ``load_balance_loss``, ``router_z_loss``. Not under a ``mesh``
-    (ROADMAP.md item 16d-ii)."""
-    _no_train_mesh(mesh)
-    logits, aux = forward(params, cfg, batch, return_hidden=cfg.mtp)
+def _loss(params, cfg: ArchConfig, batch, tp):
+    """``loss_fn`` through ``tp`` (None: one device's whole params)."""
+    params = _top_whole(params, tp)
+    x, aux = _hidden(params, cfg, batch, tp)
     labels = batch["labels"]
-    if cfg.family == "vlm":
-        logits = logits[:, -labels.shape[1]:]
-    ce = _ce(logits, labels)
+    ce = _ce(params, cfg, x, labels, tp)
     total = (ce + cfg.aux_loss_weight * aux["load_balance_loss"]
              + cfg.z_loss_weight * aux["router_z_loss"])
     metrics = {"ce": ce}
-    hidden = aux.pop("hidden", None)
     if cfg.mtp:
-        mtp_ce = _ce(mtp_logits(params, cfg, hidden, batch["tokens"]),
-                     labels[:, 1:])
+        mtp_ce = _ce(params, cfg, _mtp_hidden(params, cfg, x,
+                                              batch["tokens"], tp),
+                     labels[:, 1:], tp)
         total = total + cfg.mtp_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     return total, {**metrics, **aux}
 
 
+def _splits_model(specs) -> bool:
+    return any(e == sh.MP_AXIS or (isinstance(e, tuple) and sh.MP_AXIS in e)
+               for _, spec in sh.spec_items(specs) for e in spec)
+
+
+def _train_axis(params, cfg: ArchConfig, mesh, batch, global_batch, *,
+                fsdp: bool, moe_2d: bool, batch_over_model: bool):
+    """(the top-level ``ModelAxis``, the batch the rank computes) of a
+    train step on ``mesh`` ((None, ``batch``) without one). With
+    ``batch_over_model`` the rank holds its rows of the batch split over
+    the data and model axes: where a leaf is split over "model" the model
+    group's rows are gathered (the slice's, then the plain path); where
+    none is, the world is a data mesh of every rank (``FedMesh.flat``). A
+    batch the axes do not divide is
+    whole on every rank (pass ``global_batch`` when it is not the rows
+    times the axes' ranks)."""
+    if mesh is None:
+        return None, batch
+    if getattr(mesh, "model_shards", None) is None:
+        raise TypeError(f"mesh must be a launch.mesh.FedMesh, not "
+                        f"{type(mesh).__name__}")
+    M = mesh.model_shards
+    specs = _layout_specs(cfg, M, fsdp, moe_2d)
+    rows = next(iter(batch.values())).shape[0]
+    over = mesh.data_shards * (M if batch_over_model else 1)
+    gb = rows * over if global_batch is None else int(global_batch)
+    if batch_over_model and gb != rows:
+        if M > 1 and _splits_model(specs):
+            batch = {k: mesh.model_gather(v.contiguous(), 0)
+                     for k, v in batch.items()}
+            rows *= M
+        else:
+            mesh = mesh.flat()
+    return ModelAxis(mesh, specs, data_split=gb != rows), batch
+
+
+def loss_fn(params, cfg: ArchConfig, batch, mesh=None, *,
+            global_batch: Optional[int] = None, fsdp: bool = False,
+            moe_2d: bool = False, batch_over_model: bool = False):
+    """-> (total loss, metrics): the cross-entropy of ``batch["labels"]``
+    (B, S_text; < 0 masked; a VLM's on its last S_text positions, the
+    text), plus ``aux_loss_weight`` × load balance and ``z_loss_weight`` ×
+    router z-loss, and with ``cfg.mtp`` ``mtp_weight`` × the MTP head's
+    cross-entropy on ``labels[:, 1:]``. Metrics: ``ce`` (``mtp_ce``),
+    ``load_balance_loss``, ``router_z_loss``.
+
+    With ``mesh``: ``params`` are the rank's blocks (with ``fsdp`` /
+    ``moe_2d`` in that layout), ``batch`` its rows (``data_specs``, with
+    ``batch_over_model`` over the model axis too); the loss and metrics
+    are the whole batch's, and the backward through them gives each leaf
+    its block's gradient, whole over the model group, to be summed over
+    the data slices (``train_step`` does)."""
+    tp, batch = _train_axis(params, cfg, mesh, batch, global_batch,
+                            fsdp=fsdp, moe_2d=moe_2d,
+                            batch_over_model=batch_over_model)
+    return _loss(params, cfg, batch, tp)
+
+
+def _state_specs(cfg: ArchConfig, mesh, zero: bool, fsdp: bool,
+                 moe_2d: bool) -> dict:
+    """``sharding.specs.state_specs`` at the mesh's model axis, read off
+    the whole tree's shapes."""
+    whole = init_params(None, cfg, "meta")
+    return sh.state_specs({"params": whole, "mu": whole}, cfg,
+                          mp=mesh.model_shards, zero=zero, fsdp=fsdp,
+                          moe_2d=moe_2d)
+
+
+def _check_heads(cfg: ArchConfig, mesh):
+    """Refuses a model axis that splits Mamba2's d_inner but not its
+    heads."""
+    M = mesh.model_shards
+    di = cfg.ssm_expand * cfg.d_model
+    if cfg.family == "hybrid" and M > 1 and di % M == 0:
+        ssm_lib.local_heads(di, cfg.ssm_head_dim, M)
+
+
 def init_train_state(gen: Optional[torch.Generator], cfg: ArchConfig,
-                     device="cuda"):
+                     device="cuda", *, mesh=None, zero: bool = False,
+                     fsdp: bool = False, moe_2d: bool = False):
     """{"params", "mu", "nu", "step"}: ``init_params``, fp32 zeros of the
-    params' shapes for both moments, and an int32 step of 0."""
+    params' shapes for both moments, and an int32 step of 0. With
+    ``mesh``: the rank's blocks by ``sharding.specs.state_specs(mp=M,
+    zero=, fsdp=, moe_2d=)`` (the whole params drawn, then cut; the
+    moments made as blocks)."""
     device = resolve_device(device)
     params = init_params(gen, cfg, device)
+    if mesh is not None:
+        _check_heads(cfg, mesh)
+        ss = _state_specs(cfg, mesh, zero, fsdp, moe_2d)
+        mom = _zero_blocks(tree_map(lambda p: p.float(), init_params(
+            None, cfg, "meta")), ss["mu"], mesh, device)
+        return {"params": sh.tree_blocks(params, ss["params"], mesh),
+                "mu": mom, "nu": tree_map(torch.zeros_like, mom),
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     def zeros():
         return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -632,11 +797,88 @@ def init_train_state(gen: Optional[torch.Generator], cfg: ArchConfig,
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def shard_state(state, cfg: ArchConfig, mesh, *, zero: bool = False,
+                fsdp: bool = False, moe_2d: bool = False):
+    """The rank's blocks of a whole train state on ``mesh`` by
+    ``sharding.specs.state_specs(mp=M, zero=, fsdp=, moe_2d=)`` (a leaf
+    the specs replicate stays the same tensor). A spec whose axes do not
+    divide its dim on the mesh raises ``ValueError``."""
+    _check_heads(cfg, mesh)
+    return sh.tree_blocks(state, _state_specs(cfg, mesh, zero, fsdp,
+                                              moe_2d), mesh)
+
+
 ADAM_SLICE = 1 << 24         # elements a slice of the in-place update
 
 
+def _spec_leaves(specs) -> list:
+    """A spec tree's specs in ``tree_leaves``' order (dict keys sorted)."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in _spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [s for v in specs for s in _spec_leaves(v)]
+    return [specs]
+
+
+def _has_data(spec) -> bool:
+    return any(e == "data" or (isinstance(e, tuple) and "data" in e)
+               for e in spec)
+
+
+def _adamw_(p, g, mu, nu, step, cfg: ArchConfig, b1, b2, eps):
+    """``adamw_update`` in place on ``p``, ``mu``, ``nu`` (same shapes,
+    contiguous), in slices of ``ADAM_SLICE`` elements (on ``meta``, one)."""
+    pf, gf, mf, nf = p.view(-1), g.reshape(-1), mu.view(-1), nu.view(-1)
+    n_sl = max(pf.numel(), 1) if pf.is_meta else ADAM_SLICE
+    for lo in range(0, pf.numel(), n_sl):
+        sl = slice(lo, lo + n_sl)
+        new_p, opt = adamw_update(
+            {"w": pf[sl]}, {"w": gf[sl]},
+            {"mu": {"w": mf[sl]}, "nu": {"w": nf[sl]}, "step": step},
+            cfg.lr, b1=b1, b2=b2, eps=eps, weight_decay=cfg.weight_decay)
+        pf[sl].copy_(new_p["w"])
+        mf[sl].copy_(opt["mu"]["w"])
+        nf[sl].copy_(opt["nu"]["w"])
+
+
+def loss_and_grads(params, cfg: ArchConfig, batch, mesh=None, *,
+                   global_batch: Optional[int] = None, fsdp: bool = False,
+                   moe_2d: bool = False, batch_over_model: bool = False):
+    """-> (loss, metrics, grads): ``loss_fn``'s, detached, and the gradient
+    of every leaf of ``params`` in ``tree_leaves`` order (zeros for an
+    unused one). With ``mesh`` (``loss_fn``'s arguments) each gradient is
+    the block's whole one: summed over the data slices (one
+    ``all_reduce`` a leaf, fp32 on the wire) where the batch is split over
+    them, but for a leaf split over "data", whose gather's backward summed
+    it."""
+    tp, batch = _train_axis(params, cfg, mesh, batch, global_batch,
+                            fsdp=fsdp, moe_2d=moe_2d,
+                            batch_over_model=batch_over_model)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss, metrics = _loss(params, cfg, batch, tp)
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                             materialize_grads=True))
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    if tp is not None and tp.data_split:
+        with torch.no_grad():
+            for i, spec in enumerate(_spec_leaves(tp.specs)):
+                if not _has_data(spec):
+                    g = grads[i]
+                    grads[i] = tp.mesh.data_sum(g.float()).to(g.dtype)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        grads
+
+
 def train_step(state, batch, cfg: ArchConfig, b1=0.9, b2=0.95, eps=1e-8,
-               mesh=None):
+               mesh=None, *, global_batch: Optional[int] = None,
+               zero: bool = False, fsdp: bool = False, moe_2d: bool = False,
+               batch_over_model: bool = False):
     """One AdamW step on the gradients of ``loss_fn``; returns (state,
     metrics: ``loss`` and ``loss_fn``'s). The update is
     ``optim.solvers.adamw_update`` (bias correction, eps outside the sqrt,
@@ -646,41 +888,41 @@ def train_step(state, batch, cfg: ArchConfig, b1=0.9, b2=0.95, eps=1e-8,
     elements, each gradient freed once used: a functional update would
     hold a second copy of params and moments (16 bytes a param; 40 GB for
     Gemma-2B). On ``meta`` (the dry run: no memory to bound) a leaf is
-    one slice. ``state["step"]`` becomes step + 1. Not under a ``mesh``
-    (ROADMAP.md item 16d-ii)."""
-    _no_train_mesh(mesh)
+    one slice. ``state["step"]`` becomes step + 1.
+
+    With ``mesh``: ``state`` is the rank's blocks (``init_train_state(...,
+    mesh=)`` / ``shard_state`` with the same ``zero`` / ``fsdp`` /
+    ``moe_2d``), ``batch`` its rows (``loss_fn``'s), the gradients
+    ``loss_and_grads``'. With ``zero`` a rank updates its block of each
+    parameter (the moments' block over "data") and the data axis gathers
+    the parameter back: AdamW is elementwise, so this is the plain step's
+    update exactly."""
+    loss, metrics, grads = loss_and_grads(
+        state["params"], cfg, batch, mesh, global_batch=global_batch,
+        fsdp=fsdp, moe_2d=moe_2d, batch_over_model=batch_over_model)
     leaves = tree_leaves(state["params"])
-    for p in leaves:
-        p.requires_grad_(True)
-    try:
-        with torch.enable_grad():
-            loss, metrics = loss_fn(state["params"], cfg, batch)
-            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                             materialize_grads=True))
-    finally:
-        for p in leaves:
-            p.requires_grad_(False)
+    m_specs = [None] * len(leaves)
+    if mesh is not None and zero and not fsdp:
+        m_specs = _spec_leaves(_layout_specs(cfg, mesh.model_shards, True,
+                                             moe_2d))
     step = state["step"]
     with torch.no_grad():
         for i, (p, mu, nu) in enumerate(zip(leaves, tree_leaves(state["mu"]),
                                             tree_leaves(state["nu"]))):
-            pf, gf, mf, nf = p.view(-1), grads[i].reshape(-1), mu.view(-1), \
-                nu.view(-1)
-            n_sl = max(pf.numel(), 1) if pf.is_meta else ADAM_SLICE
-            for lo in range(0, pf.numel(), n_sl):
-                sl = slice(lo, lo + n_sl)
-                new_p, opt = adamw_update(
-                    {"w": pf[sl]}, {"w": gf[sl]},
-                    {"mu": {"w": mf[sl]}, "nu": {"w": nf[sl]}, "step": step},
-                    cfg.lr, b1=b1, b2=b2, eps=eps,
-                    weight_decay=cfg.weight_decay)
-                pf[sl].copy_(new_p["w"])
-                mf[sl].copy_(opt["mu"]["w"])
-                nf[sl].copy_(opt["nu"]["w"])
-            grads[i] = None
+            g, grads[i] = grads[i], None
+            k = None if m_specs[i] is None else data_dim(m_specs[i])
+            if k is None or mu.shape == p.shape:
+                _adamw_(p, g, mu, nu, step, cfg, b1, b2, eps)
+                continue
+            # ZeRO-1: the rank's block of the parameter, then gathered
+            b = mu.shape[k]
+            lo = mesh.fsdp_index * b
+            blk = p.narrow(k, lo, b).contiguous()
+            _adamw_(blk, g.narrow(k, lo, b), mu, nu, step, cfg, b1, b2, eps)
+            wire = blk.float() if blk.dtype != torch.float32 else blk
+            p.copy_(mesh.fsdp_gather(wire, k))
     state["step"] = step + 1
-    return state, {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in metrics.items()}}
+    return state, {"loss": loss, **metrics}
 
 
 # ===========================================================================
@@ -748,10 +990,13 @@ def _cache_blocks(cfg: ArchConfig, batch: int, max_len: int, device, mesh,
 
 def _zero_blocks(whole, specs, mesh, device):
     """Zeros of the blocks' shapes (every cache but xLSTM's starts at
-    zero)."""
+    zero; a train state's moments)."""
     if isinstance(whole, dict):
         return {k: _zero_blocks(v, specs[k], mesh, device)
                 for k, v in whole.items()}
+    if isinstance(whole, list):
+        return [_zero_blocks(v, sp, mesh, device)
+                for v, sp in zip(whole, specs)]
     return torch.zeros(sh.shard_shape(whole.shape, specs, mesh),
                        dtype=whole.dtype, device=device)
 
@@ -767,7 +1012,8 @@ def _slot_split(kv_spec) -> bool:
 
 
 def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None, *,
-               mesh=None, global_batch: Optional[int] = None):
+               mesh=None, global_batch: Optional[int] = None,
+               fsdp: bool = False):
     """Decode ONE token. tokens: (B,1) integers; pos: (B,) absolute
     positions. Returns (logits (B, V), new_cache); ``cache`` is not
     changed. A VLM decodes text only.
@@ -778,7 +1024,8 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None, *,
     layer's attention cache (B, S, KV, hd) or MLA latent (B, S, r) as
     ``cache_specs`` places it, with its slot dim over the model axis
     selects the slot-split decode (the reference's sequence-sharded
-    cache); it places a cache on a mesh, so it needs ``mesh``."""
+    cache); it places a cache on a mesh, so it needs ``mesh``. ``fsdp``:
+    the params are also split over "data" (``forward``'s)."""
     _check_family(cfg)
     if kv_spec is not None and mesh is None:
         raise ValueError(f"kv_spec={kv_spec!r} places the cache on a mesh: "
@@ -788,12 +1035,16 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None, *,
         mesh.model_shards > 1
     if not cfg.decode_supported:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    tp = _model_axis(params, cfg, mesh, tokens.shape[0], global_batch)
+    tp = _model_axis(cfg, mesh, tokens.shape[0], global_batch,
+                     fsdp=fsdp)
+    params = _top_whole(params, tp)
     x = _embed_tokens(params, cfg, tokens, tp)
     if cfg.family == "ssm":
         new_list = []
-        for kind, p, c in zip(cfg.xlstm_pattern, params["blocks_list"],
-                              cache["xlstm"]):
+        blocks = params["blocks_list"]
+        if tp is not None:
+            blocks = tp.whole(blocks, tp.specs["blocks_list"])
+        for kind, p, c in zip(cfg.xlstm_pattern, blocks, cache["xlstm"]):
             if kind == "s":
                 x, c2 = xlstm_lib.slstm_block_step(p, c, x,
                                                    n_heads=cfg.n_heads)
@@ -805,12 +1056,14 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None, *,
         return _logits(params, cfg, x, tp)[:, 0], {"xlstm": new_list}
     blocks = params["blocks"]
     bt = _block_axis(tp)
+    if tp is not None:
+        blocks = _stack_whole(blocks, tp.specs["blocks"], tp)
     at = _sub(bt, "attn")
     akw = {} if tp is None else {"tp": at, "seq_shard": seq}
     if cfg.family in ("dense", "vlm", "moe"):
         new = []
         for i in range(cfg.n_layers):
-            p = tree_index(blocks, i)
+            p = _whole(bt, tree_index(blocks, i))
             xn = rmsnorm(p["ln1"], x, cfg.norm_eps)
             if cfg.mla:
                 y, c2 = attn.mla_decode(p["attn"], tree_index(cache, i), xn,
@@ -836,7 +1089,7 @@ def serve_step(params, cfg: ArchConfig, cache, tokens, pos, kv_spec=None, *,
     new_mamba, new_shared = [], []
     app = 0
     for i in range(cfg.n_layers):
-        p = tree_index(blocks, i)
+        p = _whole(bt, tree_index(blocks, i))
         c = tree_index(cache["mamba"], i)
         y, c2 = ssm_lib.mamba2_step(p["mixer"], c,
                                     rmsnorm(p["ln"], x, cfg.norm_eps),

@@ -206,27 +206,21 @@ def test_published_width_step_on_meta():
 
 
 @pytest.mark.parametrize("flag", list(dryrun.SHARDING_FLAGS))
-def test_sharding_flags_raise_naming_item_16(flag):
-    """The flags that shard a train state or batch still raise, naming
-    item 16d-ii, from ``run_one`` and the CLI. The mesh flags are ported
-    (tests/test_torch_zoo_dryrun_mesh.py runs them in a child process):
-    a train pair on the mesh is a skip naming 16d-ii (no process group is
-    made for it), and ``--mesh 1`` has no mesh for them."""
-    if flag in dryrun.TRAIN_FLAGS:
-        with pytest.raises(NotImplementedError, match="item 16d-ii"):
-            dryrun.run_one("gemma-2b", "train_4k", save=False,
-                           verbose=False, **{flag: True})
-        with pytest.raises(NotImplementedError, match="item 16d-ii"):
-            dryrun.main(["--all", "--" + flag.replace("_", "-")])
-        return
-    rec = dryrun.run_one("gemma-2b", "train_4k", save=False, verbose=False,
-                         **{flag: True})
-    assert rec["status"] == "skip" and "item 16d-ii" in rec["reason"]
-    assert dryrun.main(["--arch", "gemma-2b", "--shape", "train_4k",
-                        "--" + flag.replace("_", "-")]) == 0
+def test_sharding_flags_need_the_production_mesh(flag):
+    """Every flag that shards over a mesh (the multi-pod mesh, the
+    slot-split cache, and since 16d-ii those of a train state or batch)
+    runs on the production mesh (tests/test_torch_zoo_dryrun_mesh.py runs
+    them in a child process: no process group is made here) and is a
+    ValueError with ``--mesh 1``, from ``run_one`` and the CLI."""
+    dryrun.check_flags("production", **{flag: True})
+    with pytest.raises(ValueError, match="production mesh"):
+        dryrun.run_one("gemma-2b", "train_4k", mesh="1", save=False,
+                       verbose=False, **{flag: True})
     with pytest.raises(ValueError, match="production mesh"):
         dryrun.run_one("gemma-2b", "decode_32k", mesh="1", save=False,
                        verbose=False, **{flag: True})
+    with pytest.raises(SystemExit):
+        dryrun.main(["--all", "--mesh", "1", "--" + flag.replace("_", "-")])
 
 
 def test_config_flags_and_xlstm_opt_record():
@@ -243,7 +237,8 @@ def test_config_flags_and_xlstm_opt_record():
                          smoke=True, xlstm_opt=True, mesh="1", save=False,
                          verbose=False)
     assert rec["status"] == "ok"
-    assert "item 16" in rec["sharding_left_out"]
+    # its batch-over-model half runs on the production mesh (16d-ii)
+    assert "sharding_left_out" not in rec and "batch_over_model" not in rec
 
 
 def test_main_summary_and_records(tmp_path, monkeypatch, capsys):

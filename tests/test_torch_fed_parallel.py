@@ -271,17 +271,17 @@ def test_run_coldstart_small_on_the_cpu_finds_the_spectrum():
     assert int(assign.max()) < 3
 
 
-def test_multi_pod_raises_naming_item_16():
+def test_multi_pod_raises_without_a_mesh():
     """Ported (16c): ``fed_dryrun --multi-pod`` runs on the 2 × 16 × 16
     mesh (``tests/test_torch_mesh2d_dryrun.py``) and is refused only
     without a mesh. The zoo's dry run takes ``--multi-pod`` too (16d-i,
     ``tests/test_torch_zoo_dryrun_mesh.py``), refused likewise without a
-    mesh; what shards a train state still names item 16d-ii."""
+    mesh, and so are the flags that shard a train state (16d-ii)."""
     with pytest.raises(SystemExit):
         fed_dryrun.main(["--mesh", "1", "--multi-pod"])
     from repro_torch.launch import dryrun
-    dryrun.refuse_sharding(multi_pod=True)
+    dryrun.check_flags("production", multi_pod=True, zero=True)
     with pytest.raises(SystemExit):
         dryrun.main(["--mesh", "1", "--multi-pod", "--all"])
-    with pytest.raises(NotImplementedError, match="item 16d-ii"):
-        dryrun.refuse_sharding(multi_pod=True, zero=True)
+    with pytest.raises(ValueError, match="--zero"):
+        dryrun.check_flags("1", multi_pod=False, zero=True)

@@ -6,9 +6,9 @@ scripted faults, and a fleet of thread workers (a trainer or coordinator
 built here on ``FedMesh`` values without a process group, none of which
 makes a collective at construction; the run on a (1, 2) world of two gloo
 ranks of ``tests/_torch_mesh_driver.py``), and a process fleet builds
-under a 1-D mesh and a model axis. Still refused: the zoo's flags that
-shard a train state or batch (ROADMAP.md item 16d-ii), and a mesh that is
-not a ``FedMesh`` is a TypeError.
+under a 1-D mesh and a model axis. The zoo's flags that shard a train
+state or batch are ported (16d-ii) and refused only without a mesh; a
+mesh that is not a ``FedMesh`` is a TypeError.
 """
 import dataclasses
 import json
@@ -142,15 +142,14 @@ def test_process_fleet_builds_on_both_meshes():
 
 
 @pytest.mark.parametrize("flag", list(dryrun.SHARDING_FLAGS))
-def test_zoo_sharding_flags_still_raise_16d(flag):
-    """What shards a train state or batch names item 16d-ii; the mesh
-    flags (the multi-pod mesh, the slot-split cache) are ported (16d-i)
-    and pass."""
-    if flag in dryrun.MESH_FLAGS:
-        dryrun.refuse_sharding(**{flag: True})
-        return
-    with pytest.raises(NotImplementedError, match="item 16d-ii"):
-        dryrun.refuse_sharding(**{flag: True})
+def test_zoo_sharding_flags_need_a_mesh(flag):
+    """Every zoo flag that shards over a mesh is ported: the mesh flags
+    (the multi-pod mesh, the slot-split cache; 16d-i) and those of a train
+    state or batch (16d-ii) pass on the production mesh and are refused
+    without one."""
+    dryrun.check_flags("production", **{flag: True})
+    with pytest.raises(ValueError, match="--mesh 1"):
+        dryrun.check_flags("1", **{flag: True})
 
 
 def test_a_foreign_mesh_is_a_type_error():

@@ -288,23 +288,25 @@ def test_serve_step_leaves_its_cache_unchanged(zamba):
 
 def test_unported_archs_and_families_raise():
     """Every arch of the JAX package's registry resolves (DeepSeek-V3 and
-    xLSTM-350M too); what stays unported names its ROADMAP item: training
-    under a mesh (16d-ii). A sharded KV cache (``kv_spec``, 16d-i) is
-    ported: without a mesh to place it on it is a ValueError
-    (tests/test_torch_zoo_tp*.py run it on gloo worlds). The training step
-    (17f) is ported: it no longer raises (tests/test_torch_train_*.py hold
-    it to the reference)."""
+    xLSTM-350M too); an unknown arch or family raises. Nothing of the zoo
+    is left unported: a sharded KV cache (``kv_spec``, 16d-i) without a
+    mesh to place it on is a ValueError, and training under a mesh (16d-ii)
+    takes a ``FedMesh`` (another mesh is a TypeError) and a rank's
+    ``state_specs`` blocks (``zoo.shard_state``; tests/test_torch_zoo_tp*
+    and test_torch_zoo_train_tp* run both on gloo worlds). The training
+    step (17f) runs on one device (tests/test_torch_train_*.py)."""
     from repro_torch.launch.mesh import FedMesh
+    from repro_torch.sharding import specs as tspecs
     assert set(registry.ARCHS) == set(jreg.ARCHS)
     for arch in ("deepseek-v3-671b", "xlstm-350m"):
         assert registry.get(arch).__dict__ == jreg.get(arch).__dict__
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get("no-such-arch")
-    assert "17f" not in str(zoo._ROADMAP_ITEM)
+    assert not hasattr(zoo, "_ROADMAP_ITEM")
     state = zoo.init_train_state(torch.Generator().manual_seed(0), _cfg(),
                                  device="cpu")
     assert int(state["step"]) == 0
-    mesh = FedMesh(group=None, rank=0, world=2, shape={"data": 1,
+    mesh = FedMesh(group=None, rank=1, world=2, shape={"data": 1,
                                                        "model": 2},
                    backend="gloo", device=torch.device("cpu"))
     for arch in ("deepseek-v3-671b", "xlstm-350m"):
@@ -319,11 +321,21 @@ def test_unported_archs_and_families_raise():
                            kv_spec=("data", None))
         batch = {"tokens": torch.ones((1, 4), dtype=torch.long),
                  "labels": torch.ones((1, 4), dtype=torch.long)}
-        with pytest.raises(NotImplementedError, match="ROADMAP.*16d-ii"):
-            zoo.train_step(zoo.init_train_state(None, cfg, device="meta"),
-                           batch, cfg, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*16d-ii"):
-            zoo.loss_fn(tp, cfg, batch, mesh=mesh)
+        whole = zoo.init_train_state(None, cfg, device="meta")
+        blocks = zoo.shard_state(whole, cfg, mesh, zero=True)
+        specs = tspecs.state_specs(whole, cfg, mp=2, zero=True)
+        for key in ("params", "mu", "nu"):
+            for (_, w), (_, b), (_, sp) in zip(
+                    tspecs.spec_items(whole[key]),
+                    tspecs.spec_items(blocks[key]),
+                    tspecs.spec_items(specs[key])):
+                assert tuple(b.shape) == tspecs.shard_shape(w.shape, sp,
+                                                            mesh)
+        assert blocks["params"]["embed"].shape[0] == cfg.padded_vocab // 2
+        with pytest.raises(TypeError, match="FedMesh"):
+            zoo.train_step(blocks, batch, cfg, mesh=object())
+        with pytest.raises(TypeError, match="FedMesh"):
+            zoo.loss_fn(tp, cfg, batch, mesh=object())
     with pytest.raises(ValueError):
         zoo.init_params(None, _cfg().replace(family="rnn"), device="meta")
 

@@ -11,8 +11,10 @@ inventory of a dense pair (Gemma-2B prefill) and a hybrid pair (Zamba2
 decode) equals the count worked out from the specs (a sum for each split
 row-parallel product, an embedding sum, a head gather, and for Mamba2
 the gated norm's sum of squares), ``CommDebugMode`` agreeing with the
-mesh's log (``run_one`` raises otherwise); a train pair is a ``skip``
-naming item 16d-ii.
+mesh's log (``run_one`` raises otherwise); a train pair (Gemma-2B
+``train_4k``) is rank 0's ``zoo.train_step(mesh=)`` on its train state's
+blocks (``tests/test_torch_zoo_dryrun_mesh_train.py`` runs the train
+pairs with each flag and counts their collectives).
 """
 import json
 import os
@@ -161,10 +163,16 @@ def test_collectives_match_the_spec_count(records, pair):
                                         "c10d._allgather_base_": 1}
 
 
-def test_train_pair_is_a_skip_naming_16d_ii(records):
-    _, res, _ = records
+def test_train_pair_is_rank0_of_the_train_step(records):
+    multi_pod, res, _ = records
     rec = res["recs"][-1]
-    assert rec["status"] == "skip" and "16d-ii" in rec["reason"]
+    assert rec["status"] == "ok"
+    assert rec["mesh"] == ("2x16x16" if multi_pod else "16x16")
+    assert not any(rec[k] for k in ("zero", "fsdp", "batch_over_model",
+                                    "moe_2d"))
+    mem = rec["memory_analysis"]
+    assert 0 < mem["alias_size_in_bytes"] < mem["argument_size_in_bytes"]
+    assert "backward" in rec["differences"]["train"]
 
 
 def test_the_cli_writes_the_mesh_record(records):
